@@ -1,0 +1,714 @@
+#!/usr/bin/env python3
+"""On-card smoke test of yadcc_tpu_torch, the scheduler's grant path on CUDA.
+
+Run from the root of a checkout on a machine with one NVIDIA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero without printing the result line):
+
+1. card and build: the card's name and power limit, then the grouped
+   assignment kernel built from csrc/ with nvcc;
+2. kernel vs plain: the kernel and its four wrappers held against the
+   plain PyTorch version on the card, exactly (integer arithmetic, so
+   the tolerance is 0), on seeded and edge pools; the wrappers must
+   refuse tensors the kernel does not take; the kernel's time;
+3. main path, pipelined: the scheduler entry with its defaults (auto
+   policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
+   servants registered by Heartbeat, 24 delegates driving >= 200,000
+   grants with WaitForStartingTask(immediate_reqs=128) and FreeTask;
+   every grant checked against the servants' facts, no servant over its
+   capacity, no duplicate grant id, and kernel launches > 0 (the entry
+   sets its launch count to 0 after its warmup; the script reads 0 from
+   /inspect/vars just before driving and the phase's count just after);
+4. main path, synchronous: phase 3 with --dispatch-pipeline-depth 0.
+
+The second-to-last line is the kernels' JSON record, the last line
+{"ok": true, "device": {...}}.  Logs of the scheduler processes go to
+smoke_logs/.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import random
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+REPO = pathlib.Path(__file__).resolve().parent
+LOG_DIR = REPO / "smoke_logs"
+
+N_SERVANTS = 5000
+N_ENVS = 64
+N_DELEGATES = 24
+ENVS_PER_DELEGATE = 16
+IMMEDIATE = 128
+MIN_GRANTS = 200_000
+PHASE_LIMIT_S = 240.0
+HB_INTERVAL_MS = 4000          # servant lease = 10x this
+HB_REPEAT_S = 10.0             # re-beat well inside the lease
+MAIN_S, MAIN_G, MAIN_TASKS = 8192, 64, 2048   # the policy's largest chunk
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_OPS_PER_S = 67e12         # 32-bit non-tensor peak, H100 SXM data sheet
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, msg) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: card and build.
+# ---------------------------------------------------------------------------
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> dict:
+    from yadcc_tpu_torch.ops import _build, cuda_grouped
+
+    t0 = time.perf_counter()
+    path = _build.build(cuda_grouped.SOURCE)
+    _build.load(cuda_grouped.SOURCE)
+    return {"library": str(path.relative_to(REPO)),
+            "nvcc_s": _build.build_seconds[cuda_grouped.SOURCE],
+            "total_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernel vs plain.
+# ---------------------------------------------------------------------------
+
+
+def np_pool(rng, s, e_words=8, cap_lo=1, cap_hi=64, run_hi=32,
+            ded_frac=0.3):
+    import numpy as np
+
+    cap = rng.integers(cap_lo, cap_hi, s).astype(np.int32)
+    return dict(
+        alive=rng.random(s) < 0.9,
+        capacity=cap,
+        running=rng.integers(0, run_hi, s).astype(np.int32),
+        dedicated=rng.random(s) < ded_frac,
+        version=rng.integers(1, 4, s).astype(np.int32),
+        env_bitmap=rng.integers(0, 2**32, (s, e_words),
+                                dtype=np.uint64).astype(np.uint32),
+    )
+
+
+def seeded_groups(rng, g, total, s):
+    """g groups whose counts sum to ~total, env ids over all 256."""
+    import numpy as np
+
+    cuts = np.sort(rng.integers(0, total + 1, g - 1))
+    counts = np.diff(np.concatenate(([0], cuts, [total])))
+    return [(int(rng.integers(0, 256)), int(rng.integers(0, 4)),
+             int(rng.integers(-1, s)), int(c)) for c in counts]
+
+
+def edge_cases(rng):
+    """(name, numpy pool, groups) at the corners of the closed form."""
+    import numpy as np
+
+    s = MAIN_S
+    full = np.full((s, 8), 0xFFFFFFFF, np.uint32)
+
+    def base(**kw):
+        p = dict(alive=np.ones(s, bool), capacity=np.full(s, 8, np.int32),
+                 running=np.zeros(s, np.int32), dedicated=np.zeros(s, bool),
+                 version=np.ones(s, np.int32), env_bitmap=full.copy())
+        p.update(kw)
+        return p
+
+    out = [
+        ("all_ineligible", base(alive=np.zeros(s, bool)),
+         [(5, 1, -1, 400), (9, 1, -1, 3)]),
+        ("m_above_free",
+         base(capacity=rng.integers(0, 3, s).astype(np.int32),
+              running=rng.integers(0, 2, s).astype(np.int32)),
+         [(1, 1, -1, 100_000), (2, 1, -1, 7)]),
+        ("requestor_excluded", base(capacity=np.full(s, 2, np.int32)),
+         [(0, 1, 0, 5), (0, 1, 3, 3000), (0, 1, s - 1, 2)]),
+    ]
+    cap = rng.integers(2, 16, s).astype(np.int32)
+    out.append(("dedicated_around_half", base(
+        capacity=cap,
+        running=(cap // 2 + rng.integers(-1, 2, s)).clip(0).astype(np.int32),
+        dedicated=rng.random(s) < 0.5),
+        [(7, 1, -1, 900), (7, 1, 4, 500), (8, 1, -1, 2000)]))
+    out.append(("tiny_caps_idle_tau_below_zero", base(
+        capacity=rng.integers(1, 3, s).astype(np.int32),
+        dedicated=rng.random(s) < 0.5),
+        [(0, 1, -1, 1), (1, 1, -1, 0), (2, 1, -1, 37)]))
+    out.append(("capacity_zero", base(
+        capacity=np.where(rng.random(s) < 0.5, 0, 4).astype(np.int32),
+        running=np.where(rng.random(s) < 0.2, 1, 0).astype(np.int32)),
+        [(3, 1, -1, 1200)]))
+    bits = np.zeros((s, 8), np.uint32)
+    groups = []
+    for w in range(8):
+        env = w * 32 + int(rng.integers(0, 32))
+        holders = rng.choice(s, 300, replace=False)
+        bits[holders, w] |= np.uint32(1 << (env & 31))
+        groups.append((env, 1, -1, int(rng.integers(1, 700))))
+    out.append(("env_ids_in_every_word",
+                base(env_bitmap=bits, capacity=np.full(s, 3, np.int32)),
+                groups))
+    # Geometry: a partial last tile, a single slot, and a pool too large
+    # for shared memory (the kernel's global-scratch route).
+    for name, size in (("ragged_tile", 1000), ("one_slot", 1),
+                       ("beyond_shared_memory", 70_000)):
+        out.append((name, np_pool(rng, size),
+                    seeded_groups(rng, 4, min(3 * size, 2048), size)))
+    return out
+
+
+def compare_kernel(report: list) -> dict:
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    dev = torch.device("cuda")
+
+    def pools(p):
+        return (asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields),
+                                    dev),
+                asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields),
+                                    "cpu"))
+
+    def same(a, b, what):
+        check(torch.equal(a.cpu(), b.cpu()), f"kernel != plain: {what}")
+
+    rng = np.random.default_rng(2026)
+    cases = []
+    for g in (1, 8, 64):
+        for total in (g, 512, MAIN_TASKS):
+            cases.append((f"seeded_S{MAIN_S}_G{g}_m{total}",
+                          np_pool(rng, MAIN_S),
+                          seeded_groups(rng, g, total, MAIN_S)))
+    cases += edge_cases(rng)
+    for name, p, groups in cases:
+        gpu, cpu = pools(p)
+        pad = asg.group_pad(len(groups))
+        bg = asg.make_grouped_batch(groups, pad, dev)
+        kc, kr = kg.cuda_assign_grouped(gpu, bg)
+        pc, pr = asg.assign_grouped(gpu, bg)
+        same(kc, pc, f"{name} counts")
+        same(kr, pr, f"{name} running")
+        cc, cr = asg.assign_grouped(cpu, asg.make_grouped_batch(groups, pad))
+        same(kc, cc, f"{name} counts vs CPU")
+        same(kr, cr, f"{name} running vs CPU")
+        report.append(f"  {name}: S={len(p['alive'])} G={pad} "
+                      f"granted={int(kc.sum())} equal")
+
+    # The four wrappers against their plain twins.
+    p = np_pool(rng, MAIN_S)
+    gpu, _ = pools(p)
+    groups = seeded_groups(rng, 16, 1500, MAIN_S)
+    packed = asg.make_grouped_packed(groups, 16, dev)
+    batch = asg.unpack_grouped(packed)
+    t_max = asg.task_pad(1500)
+    for what, got, want in (
+            ("picks", kg.cuda_assign_grouped_picks(gpu, batch, t_max),
+             asg.assign_grouped_picks(gpu, batch, t_max)),
+            ("picks_packed",
+             kg.cuda_assign_grouped_picks_packed(gpu, packed, t_max),
+             asg.assign_grouped_picks_packed(gpu, packed, t_max))):
+        same(got[0], want[0], f"{what} picks")
+        same(got[1], want[1], f"{what} running")
+    s = MAIN_S
+    adj = torch.from_numpy(rng.integers(-3, 2, s).astype(np.int32)).to(dev)
+    rmask = torch.from_numpy(rng.random(s) < 0.05).to(dev)
+    rval = torch.from_numpy(rng.integers(0, 5, s).astype(np.int32)).to(dev)
+    got = kg.cuda_assign_grouped_picks_stream(gpu, packed, adj, rmask, rval,
+                                              t_max)
+    want = asg.assign_grouped_picks_stream(gpu, packed, adj, rmask, rval,
+                                           t_max)
+    same(got[0], want[0], "picks_stream picks")
+    same(got[1], want[1], "picks_stream running")
+    report.append("  wrappers picks/picks_packed/picks_stream: equal")
+
+    # Refusals: a non-contiguous tensor, a wrong dtype, a stray device.
+    bad = [
+        ("non-contiguous running",
+         gpu._replace(running=torch.zeros(2 * s, dtype=torch.int32,
+                                          device=dev)[::2]), batch),
+        ("int64 capacity",
+         gpu._replace(capacity=gpu.capacity.long()), batch),
+        ("uint8 alive", gpu._replace(alive=gpu.alive.to(torch.uint8)),
+         batch),
+        ("batch on the CPU", gpu,
+         asg.make_grouped_batch(groups, 16, "cpu")),
+    ]
+    for what, bp, bb in bad:
+        before = kg.launches
+        try:
+            kg.cuda_assign_grouped(bp, bb)
+        except (TypeError, ValueError):
+            check(kg.launches == before, f"{what}: counted a launch")
+            continue
+        raise SmokeFailure(f"wrapper accepted {what}")
+    report.append("  refusals (non-contiguous, dtype, device): raised")
+    torch.cuda.synchronize()
+    return time_kernel(report)
+
+
+def time_kernel(report: list) -> dict:
+    """The kernel and the plain version at the main path's largest chunk
+    (S=8192, G=64, 2048 tasks), with CUDA events."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    p = np_pool(rng, MAIN_S, cap_lo=8, cap_hi=65, run_hi=8, ded_frac=0.2)
+    pool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields), dev)
+    out = {}
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    for g in (8, MAIN_G):
+        batch = asg.make_grouped_batch(
+            seeded_groups(rng, g, MAIN_TASKS, MAIN_S), g, dev)
+        ms = timed(lambda: kg.cuda_assign_grouped(pool, batch), 50)
+        plain_ms = timed(lambda: asg.assign_grouped(pool, batch), 3)
+        e = pool.env_bitmap.shape[1]
+        moved = MAIN_S * (6 + e) * 4 + g * MAIN_S * 4 + MAIN_S * 4
+        bytes_ms = moved / H100_BYTES_PER_S * 1e3
+        # Integer operations this data needs: every bisect step and the
+        # two tie-split passes evaluate count_leq once per slot (about 10
+        # 32-bit-equivalent operations for one closed-form tier, 3 tiers
+        # plus 6 for a dedicated slot), plus the reductions' adds.
+        n_ded = int(p["dedicated"].sum())
+        per_pass = (MAIN_S - n_ded) * 10 + n_ded * 36 + MAIN_S
+        ops = g * (asg._SEARCH_ITERS + 3) * per_pass
+        ops_ms = ops / H100_OPS_PER_S * 1e3
+        reductions = g * (asg._SEARCH_ITERS + 1 + -(-MAIN_S // 1024))
+        out[g] = dict(ms=ms, plain_ms=plain_ms,
+                      bound_ms=max(bytes_ms, ops_ms),
+                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                      bytes_ms=bytes_ms, ops_ms=ops_ms,
+                      dependent_reductions=reductions,
+                      us_per_reduction=ms * 1e3 / reductions)
+        report.append(
+            f"  timing S={MAIN_S} G={g} tasks={MAIN_TASKS}: kernel "
+            f"{ms:.4f} ms (50 launches), plain {plain_ms:.2f} ms, bound "
+            f"{out[g]['bound_ms'] * 1e3:.3f} us ({out[g]['bound_by']}; "
+            f"bytes {bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us), "
+            f"{reductions} dependent block reductions = "
+            f"{out[g]['us_per_reduction']:.2f} us each")
+
+    # The two wrappers the main path calls (synchronous: picks_packed,
+    # pipelined: picks_stream) at the same chunk: K1 plus the expansion
+    # (and the stream's delta fold).  Their bound adds the picks written
+    # and the expansion's t_max x S compare to K1's.
+    packed = asg.make_grouped_packed(
+        seeded_groups(rng, MAIN_G, MAIN_TASKS, MAIN_S), MAIN_G, dev)
+    t_max = asg.task_pad(MAIN_TASKS)
+    adj = torch.zeros(MAIN_S, dtype=torch.int32, device=dev)
+    rmask = torch.zeros(MAIN_S, dtype=torch.bool, device=dev)
+    k1 = out[MAIN_G]
+    bytes_ms = (k1["bytes_ms"] + t_max * 4 / H100_BYTES_PER_S * 1e3)
+    ops_ms = k1["ops_ms"] + 2 * t_max * MAIN_S / H100_OPS_PER_S * 1e3
+    for name, kern, plain in (
+            ("picks_packed",
+             lambda: kg.cuda_assign_grouped_picks_packed(pool, packed, t_max),
+             lambda: asg.assign_grouped_picks_packed(pool, packed, t_max)),
+            ("picks_stream",
+             lambda: kg.cuda_assign_grouped_picks_stream(
+                 pool, packed, adj, rmask, adj, t_max),
+             lambda: asg.assign_grouped_picks_stream(
+                 pool, packed, adj, rmask, adj, t_max))):
+        w = dict(ms=timed(kern, 50), plain_ms=timed(plain, 3),
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[name] = w
+        report.append(
+            f"  timing {name} S={MAIN_S} G={MAIN_G} tasks={MAIN_TASKS} "
+            f"t_max={t_max}: wrapper {w['ms']:.4f} ms (50 calls), plain "
+            f"{w['plain_ms']:.2f} ms, bound {w['bound_ms'] * 1e3:.3f} us "
+            f"({w['bound_by']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 4: the scheduler entry on loopback.
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Fleet:
+    """5,000 synthetic servants: their facts, and the client-side count of
+    grants each holds right now (raised on grant, lowered BEFORE the
+    FreeTask leaves, so it never exceeds what the scheduler counts)."""
+
+    def __init__(self, seed: int):
+        rng = random.Random(seed)
+        self.envs = [f"compiler-digest-{i:03d}" for i in range(N_ENVS)]
+        self.servants = []
+        for i in range(N_SERVANTS):
+            cap = rng.randint(8, 64)
+            self.servants.append(dict(
+                location=f"127.0.0.1:{20000 + i}", capacity=cap,
+                dedicated=rng.random() < 0.2,
+                envs=frozenset(rng.sample(self.envs, rng.randint(8, 24)))))
+        self.by_loc = {s["location"]: s for s in self.servants}
+        self.lock = threading.Lock()
+        self.held = {s["location"]: 0 for s in self.servants}
+        self.violations: list = []
+
+    def heartbeat(self, api, s):
+        req = api.scheduler.HeartbeatRequest(
+            token="stok", next_heartbeat_in_ms=HB_INTERVAL_MS,
+            location=s["location"], version=1,
+            num_processors=s["capacity"], current_load=0,
+            capacity=s["capacity"], total_memory_in_bytes=64 << 30,
+            memory_available_in_bytes=32 << 30,
+            priority=(api.scheduler.SERVANT_PRIORITY_DEDICATED
+                      if s["dedicated"]
+                      else api.scheduler.SERVANT_PRIORITY_USER))
+        for e in sorted(s["envs"]):
+            req.env_descs.add(compiler_digest=e)
+        return req
+
+
+def inspect_vars(port: int) -> dict:
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/inspect/vars", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def run_main_path(name: str, extra_args: list, fleet: Fleet,
+                  report: list) -> dict:
+    """Start the scheduler entry, drive it, check it, stop it."""
+    port, iport = free_port(), free_port()
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = LOG_DIR / f"entry_{name}.log"
+    cmd = [sys.executable, "-m", "yadcc_tpu_torch.scheduler.entry",
+           "--port", str(port), "--inspect-port", str(iport),
+           "--acceptable-user-tokens", "utok",
+           "--acceptable-servant-tokens", "stok", *extra_args]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    stop = threading.Event()
+    threads: list = []
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+        try:
+            return _drive(name, proc, port, iport, fleet, report, stop,
+                          threads)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=30)
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def _drive(name, proc, port, iport, fleet, report, stop, threads) -> dict:
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel, RpcError
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    sch = api.scheduler
+    t_boot = time.perf_counter()
+    ch = Channel(f"grpc://127.0.0.1:{port}")
+    deadline = time.monotonic() + 300
+    while True:
+        check(proc.poll() is None, f"{name}: scheduler exited at boot "
+                                   f"(rc {proc.returncode})")
+        try:
+            ch.call(SERVICE_NAME, "GetConfig",
+                    sch.GetConfigRequest(token="utok"),
+                    sch.GetConfigResponse, timeout=2.0)
+            break
+        except RpcError:
+            check(time.monotonic() < deadline, f"{name}: boot timed out")
+            time.sleep(0.2)
+    boot_s = time.perf_counter() - t_boot
+
+    def beat_all(chan, servants):
+        for s in servants:
+            chan.call(SERVICE_NAME, "Heartbeat",
+                      fleet.heartbeat(api, s), sch.HeartbeatResponse,
+                      timeout=10.0)
+
+    # The first servant registers alone: it takes slot 0, the slot every
+    # loopback delegate's requestor address resolves to (self-avoidance).
+    beat_all(ch, fleet.servants[:1])
+    requestor_loc = fleet.servants[0]["location"]
+    chunks = [fleet.servants[1 + i::8] for i in range(8)]
+    t0 = time.perf_counter()
+    regs = [threading.Thread(target=beat_all, args=(Channel(
+        f"grpc://127.0.0.1:{port}"), c)) for c in chunks]
+    for t in regs:
+        t.start()
+    for t in regs:
+        t.join()
+    reg_s = time.perf_counter() - t0
+    state = inspect_vars(iport)["yadcc"]
+    check(len(state["task_dispatcher"]["servants"]) == N_SERVANTS,
+          f"{name}: {len(state['task_dispatcher']['servants'])} servants "
+          f"registered")
+    before = state["kernels"]["grouped_assign"]["launches"]
+    check(before == 0, f"{name}: launch count {before} before driving")
+
+    def rebeat():
+        chan = Channel(f"grpc://127.0.0.1:{port}")
+        while not stop.wait(HB_REPEAT_S):
+            beat_all(chan, fleet.servants)
+
+    hb_thread = threading.Thread(target=rebeat, daemon=True)
+    hb_thread.start()
+    threads.append(hb_thread)
+
+    lock = threading.Lock()
+    totals = {"grants": 0, "calls": 0, "empty": 0}
+    latencies: list = []
+    grant_ids: set = set()
+    errors: list = []
+    done = threading.Event()
+
+    def delegate(d: int):
+        rng = random.Random(1000 + d)
+        envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
+        chan = Channel(f"grpc://127.0.0.1:{port}")
+        k = 0
+        try:
+            while not done.is_set():
+                env = envs[k % len(envs)]
+                k += 1
+                req = sch.WaitForStartingTaskRequest(
+                    token="utok", milliseconds_to_wait=2000,
+                    next_keep_alive_in_ms=15000, immediate_reqs=IMMEDIATE,
+                    min_version=0)
+                req.env_desc.compiler_digest = env
+                t = time.perf_counter()
+                try:
+                    resp, _ = chan.call(SERVICE_NAME, "WaitForStartingTask",
+                                        req, sch.WaitForStartingTaskResponse,
+                                        timeout=30.0)
+                except RpcError as e:
+                    if e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE:
+                        with lock:
+                            totals["empty"] += 1
+                        continue
+                    raise
+                lat = time.perf_counter() - t
+                ids = [g.task_grant_id for g in resp.grants]
+                with fleet.lock:
+                    for g in resp.grants:
+                        s = fleet.by_loc.get(g.servant_location)
+                        if s is None:
+                            fleet.violations.append(
+                                f"grant on unknown servant "
+                                f"{g.servant_location}")
+                            continue
+                        if env not in s["envs"]:
+                            fleet.violations.append(
+                                f"{s['location']} lacks {env}")
+                        if s["location"] == requestor_loc:
+                            fleet.violations.append(
+                                "grant on the requestor's own servant")
+                        fleet.held[s["location"]] += 1
+                        held = fleet.held[s["location"]]
+                        if held > s["capacity"]:
+                            fleet.violations.append(
+                                f"{s['location']} over capacity "
+                                f"{held}/{s['capacity']}")
+                with lock:
+                    dup = grant_ids.intersection(ids)
+                    if dup or len(set(ids)) != len(ids):
+                        fleet.violations.append(f"duplicate ids {dup}")
+                    grant_ids.update(ids)
+                    totals["grants"] += len(ids)
+                    totals["calls"] += 1
+                    latencies.append(lat)
+                    if totals["grants"] >= MIN_GRANTS:
+                        done.set()
+                with fleet.lock:
+                    for g in resp.grants:
+                        fleet.held[g.servant_location] -= 1
+                if ids:
+                    chan.call(SERVICE_NAME, "FreeTask",
+                              sch.FreeTaskRequest(token="utok",
+                                                  task_grant_ids=ids),
+                              sch.FreeTaskResponse, timeout=30.0)
+        except Exception as e:  # reported by the main thread below
+            errors.append(f"delegate {d}: {e!r}")
+            done.set()
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=delegate, args=(d,))
+               for d in range(N_DELEGATES)]
+    for t in workers:
+        t.start()
+    while not done.wait(1.0):
+        check(proc.poll() is None, f"{name}: scheduler died "
+                                   f"(rc {proc.returncode})")
+        check(time.perf_counter() - t0 < PHASE_LIMIT_S,
+              f"{name}: {totals['grants']} grants in {PHASE_LIMIT_S}s")
+    for t in workers:
+        t.join(timeout=60)
+        check(not t.is_alive(), f"{name}: a delegate hung")
+    elapsed = time.perf_counter() - t0
+    check(not errors, f"{name}: {errors[:3]}")
+    check(not fleet.violations, f"{name}: {fleet.violations[:5]}")
+    check(totals["grants"] >= MIN_GRANTS,
+          f"{name}: only {totals['grants']} grants")
+
+    state = inspect_vars(iport)["yadcc"]
+    launches = state["kernels"]["grouped_assign"]["launches"]
+    td = state["task_dispatcher"]
+    check(td["failure"] is None, f"{name}: dispatcher failed: "
+                                 f"{td['failure']}")
+    check(td["grants_outstanding"] == 0,
+          f"{name}: {td['grants_outstanding']} grants still outstanding "
+          f"after every delegate freed its grants")
+    check(td["stats"]["granted"] == totals["grants"],
+          f"{name}: scheduler granted {td['stats']['granted']}, delegates "
+          f"saw {totals['grants']}")
+    check(launches > 0, f"{name}: the grouped kernel never launched")
+
+    lat = sorted(latencies)
+    res = dict(
+        grants=totals["grants"], calls=totals["calls"],
+        empty_calls=totals["empty"], seconds=elapsed,
+        grants_per_s=totals["grants"] / elapsed,
+        p50_ms=lat[len(lat) // 2] * 1e3,
+        p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+        launches=launches, boot_s=boot_s, register_s=reg_s)
+    report.append(
+        f"  {name}: {res['grants']} grants in {elapsed:.2f} s = "
+        f"{res['grants_per_s']:.1f} grants/s over {res['calls']} calls "
+        f"({res['empty_calls']} empty); WaitForStartingTask p50 "
+        f"{res['p50_ms']:.2f} ms p99 {res['p99_ms']:.2f} ms; kernel "
+        f"launches {launches}; boot {boot_s:.1f} s, {N_SERVANTS} servants "
+        f"registered in {reg_s:.1f} s; no violations")
+    report.append(f"  {name} dispatcher stages: "
+                  f"{json.dumps(td['latency_breakdown'])}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch unavailable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import yadcc_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from a checkout of the repository: {e}",
+              file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)   # as nvidia-smi prints it: name, power limit
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    built = build_kernels()
+    log(f"phase 1 build: grouped_assign.cu -> {built['library']} "
+        f"(nvcc {built['nvcc_s']:.2f} s, load {built['total_s']:.2f} s)")
+
+    report: list = []
+    timing = compare_kernel(report)
+    log("phase 2 kernel vs plain (tolerance 0):")
+    for line in report:
+        log(line)
+
+    fleet = Fleet(seed=1)
+    report = []
+    piped = run_main_path("pipelined", [], fleet, report)
+    synced = run_main_path("synchronous",
+                           ["--dispatch-pipeline-depth", "0"],
+                           Fleet(seed=2), report)
+    log("phases 3-4 main path:")
+    for line in report:
+        log(line)
+
+    main = timing[MAIN_G]
+    record = {"kernels": [{
+        "name": "grouped_assign",
+        "route": "cuda",
+        "source": "yadcc_tpu_torch/csrc/grouped_assign.cu",
+        "replaces": "yadcc_tpu/ops/pallas_grouped.py:201",
+        "launches": piped["launches"] + synced["launches"],
+        "max_abs_err": 0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": {"S": MAIN_S, "G": MAIN_G, "tasks": MAIN_TASKS, "E": 8},
+        "launches_by_phase": {"pipelined": piped["launches"],
+                              "synchronous": synced["launches"]},
+    }]}
+    log(f"main path: pipelined {piped['grants_per_s']:.1f} grants/s p99 "
+        f"{piped['p99_ms']:.2f} ms; synchronous "
+        f"{synced['grants_per_s']:.1f} grants/s p99 "
+        f"{synced['p99_ms']:.2f} ms ({card}); total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

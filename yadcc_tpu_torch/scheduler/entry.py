@@ -1,0 +1,164 @@
+"""Scheduler server main, on the card.
+
+Parity with reference yadcc/scheduler/entry.cc (server on :8336) plus
+the inspect endpoint.  Grants are computed on the CUDA device unless
+``--device cpu`` is passed; a missing card is an error, not a fallback.
+Run:
+
+    python -m yadcc_tpu_torch.scheduler.entry --port 8336
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+from ..common.parse_size import parse_size
+from ..common.token_verifier import make_token_verifier_from_flag
+from ..device import resolve_device
+from ..ops import cuda_grouped
+from ..rpc import GrpcServer
+from ..utils import exposed_vars
+from ..utils.inspect_server import InspectServer
+from ..utils.logging import get_logger
+from .policy import POLICY_NAMES, make_policy
+from .service import SchedulerService
+from .task_dispatcher import TaskDispatcher
+
+logger = get_logger("scheduler.entry")
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("yadcc-tpu-torch-scheduler")
+    p.add_argument("--port", type=int, default=8336)
+    p.add_argument("--inspect-port", type=int, default=9336)
+    p.add_argument("--inspect-credential", default="")
+    p.add_argument("--dispatch-policy", default="auto",
+                   choices=list(POLICY_NAMES),
+                   help="auto = host greedy for small backlogs, the "
+                        "grouped kernel above a crossover measured at "
+                        "startup")
+    p.add_argument("--max-servants", type=int, default=8192)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the grouped assignment runs; 'cuda' "
+                        "requires a card")
+    p.add_argument("--min-daemon-version", type=int, default=0)
+    p.add_argument("--acceptable-user-tokens", default="")
+    p.add_argument("--acceptable-servant-tokens", default="")
+    p.add_argument("--servant-min-memory-for-new-task",
+                   default="10G")
+    p.add_argument("--token-rollout-interval", type=float, default=3600.0,
+                   help="serving-daemon token rotation period, seconds "
+                        "(reference --serving_daemon_token_rollout_interval)")
+    p.add_argument("--allow-self-dispatch", action="store_true",
+                   help="let a machine compile its own submissions via "
+                        "the network path (single-machine rigs/tests; "
+                        "normally wasteful, hence off)")
+    p.add_argument("--dispatch-pipeline-depth", default="auto",
+                   help="in-flight policy launches (device-resident "
+                        "running chain).  'auto' = 16 on the card, 0 "
+                        "(synchronous) on the CPU; an integer forces a "
+                        "depth")
+    return p
+
+
+def resolve_pipeline_depth(flag: str, policy, device) -> int:
+    """'auto' = pipeline on the card (where a synchronous policy round
+    trip is the cycle bottleneck), synchronous on the CPU; integers
+    force.  Policies without the stream API always run synchronously."""
+    if not getattr(policy, "supports_stream", False):
+        return 0
+    if flag != "auto":
+        return max(0, int(flag))
+    return 16 if device.type == "cuda" else 0
+
+
+def build_dispatcher(args):
+    """Policy selection + warmup + dispatcher construction.  The policy's
+    kernels are built and run once for the serving shapes BEFORE the
+    server accepts requests."""
+    device = resolve_device(args.device)
+    policy = make_policy(args.dispatch_policy,
+                         avoid_self=not args.allow_self_dispatch,
+                         device=device)
+    depth = resolve_pipeline_depth(args.dispatch_pipeline_depth, policy,
+                                   device)
+    if depth > 0:
+        policy.stream_warmup(args.max_servants)
+    else:
+        policy.warmup(args.max_servants)
+    return TaskDispatcher(
+        policy,
+        max_servants=args.max_servants,
+        min_memory_for_new_task=parse_size(
+            args.servant_min_memory_for_new_task),
+        pipeline_depth=depth,
+    )
+
+
+def build_service(dispatcher, args) -> SchedulerService:
+    return SchedulerService(
+        dispatcher,
+        user_tokens=make_token_verifier_from_flag(
+            args.acceptable_user_tokens),
+        servant_tokens=make_token_verifier_from_flag(
+            args.acceptable_servant_tokens),
+        min_daemon_version=args.min_daemon_version,
+        token_rotation_s=args.token_rollout_interval,
+    )
+
+
+def scheduler_start(args, stop: "threading.Event | None" = None) -> int:
+    """Serve until ``stop`` is set (SIGINT/SIGTERM when run as a program)
+    or the dispatcher fails.  Returns the process exit code: 0 after a
+    clean stop, 1 after a dispatcher failure."""
+    dispatcher = build_dispatcher(args)
+    # Count the launches made while serving, not the warmup's.
+    cuda_grouped.launches = 0
+    service = build_service(dispatcher, args)
+    exposed_vars.expose("yadcc/task_dispatcher", dispatcher.inspect)
+    exposed_vars.expose("yadcc/kernels", lambda: {
+        "grouped_assign": {"launches": cuda_grouped.launches}})
+    exposed_vars.expose("yadcc/scheduler_rpc",
+                        service.stage_timer.percentiles)
+
+    server = GrpcServer(f"0.0.0.0:{args.port}")
+    server.add_service(service.spec())
+    server.start()
+    inspect = InspectServer(args.inspect_port, args.inspect_credential)
+    inspect.start()
+    logger.info("scheduler serving on :%d (policy=%s, device=%s), "
+                "inspect on :%d", server.port,
+                dispatcher.inspect()["policy"], args.device, inspect.port)
+
+    if stop is None:
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+    rc = 0
+    # 1s expiration sweep (reference task_dispatcher.cc:498-536).
+    while not stop.wait(1.0):
+        if dispatcher.failure is not None:
+            logger.error("dispatcher failed (%r); shutting down",
+                         dispatcher.failure)
+            rc = 1
+            break
+        dispatcher.on_expiration_timer()
+    logger.info("shutting down")
+    server.stop()
+    inspect.stop()
+    dispatcher.stop()
+    exposed_vars.unexpose("yadcc/task_dispatcher")
+    exposed_vars.unexpose("yadcc/scheduler_rpc")
+    exposed_vars.unexpose("yadcc/kernels")
+    return rc
+
+
+def main() -> None:
+    sys.exit(scheduler_start(build_arg_parser().parse_args()))
+
+
+if __name__ == "__main__":
+    main()

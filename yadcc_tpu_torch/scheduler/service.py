@@ -1,0 +1,256 @@
+"""SchedulerService RPC implementation.
+
+Parity with reference yadcc/scheduler/scheduler_service_impl.{h,cc}:
+token verification, NAT detection (observed vs reported endpoint forces
+capacity 0), serving-daemon token rotation (3-token rolling window,
+rotated hourly), version gating, the immediate+prefetch grant loop, and
+heartbeat-driven registry upkeep.  Single-tenant: every grant request
+takes the untenanted path.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List
+
+from .. import api
+from ..common.token_verifier import TokenVerifier, generate_token
+from ..rpc import RpcContext, RpcError, ServiceSpec
+from . import admission
+from ..utils.clock import REAL_CLOCK, Clock
+from ..utils.logging import get_logger
+from ..utils.stagetimer import StageTimer
+from .running_task_bookkeeper import RunningTaskBookkeeper, RunningTaskRecord
+from .task_dispatcher import ServantInfo, TaskDispatcher
+
+logger = get_logger("scheduler.service")
+
+SERVICE_NAME = "ytpu.SchedulerService"
+
+_MAX_WAIT_MS = 10_000
+_MAX_LEASE_MS = 30_000
+_TOKEN_ROTATION_S = 3600.0
+_TOKEN_WINDOW = 3  # live tokens (reference :46-51,320-333)
+
+
+class ServingDaemonTokenRoll:
+    """Rotating token delegates use to talk to servants.  A window of the
+    last N tokens stays acceptable so rotation never races in-flight
+    tasks."""
+
+    def __init__(self, clock: Clock = REAL_CLOCK,
+                 rotation_s: float = _TOKEN_ROTATION_S):
+        self._clock = clock
+        self._rotation_s = rotation_s
+        self._lock = threading.Lock()
+        self._tokens: List[str] = [
+            generate_token() for _ in range(_TOKEN_WINDOW)
+        ]  # guarded by: self._lock
+        self._last_rotation = clock.now()  # guarded by: self._lock
+
+    def _maybe_rotate_locked(self) -> None:
+        now = self._clock.now()
+        while now - self._last_rotation >= self._rotation_s:
+            self._tokens = [generate_token()] + self._tokens[: _TOKEN_WINDOW - 1]
+            self._last_rotation += self._rotation_s
+
+    def current(self) -> str:
+        with self._lock:
+            self._maybe_rotate_locked()
+            return self._tokens[0]
+
+    def acceptable(self) -> List[str]:
+        with self._lock:
+            self._maybe_rotate_locked()
+            return list(self._tokens)
+
+    def verify(self, token: str) -> bool:
+        return token in self.acceptable()
+
+
+class SchedulerService:
+    def __init__(
+        self,
+        dispatcher: TaskDispatcher,
+        *,
+        user_tokens: TokenVerifier = TokenVerifier(),
+        servant_tokens: TokenVerifier = TokenVerifier(),
+        min_daemon_version: int = 0,
+        clock: Clock = REAL_CLOCK,
+        token_rotation_s: float = _TOKEN_ROTATION_S,
+    ):
+        self.dispatcher = dispatcher
+        self.bookkeeper = RunningTaskBookkeeper()
+        self.daemon_tokens = ServingDaemonTokenRoll(clock, token_rotation_s)
+        self._user_tokens = user_tokens
+        self._servant_tokens = servant_tokens
+        self._min_version = min_daemon_version
+        # RPC-side stages of the grant path (<Method>:handler /
+        # <Method>:serialize, recorded by rpc.transport.dispatch_frame);
+        # the dispatcher's own stage_timer covers queue-wait -> apply.
+        self.stage_timer = StageTimer(maxlen=16384)
+
+    # -- wiring ------------------------------------------------------------
+
+    def spec(self) -> ServiceSpec:
+        s = ServiceSpec(SERVICE_NAME, stage_timer=self.stage_timer)
+        s.add("Heartbeat", api.scheduler.HeartbeatRequest, self.Heartbeat)
+        s.add("GetConfig", api.scheduler.GetConfigRequest, self.GetConfig)
+        s.add("WaitForStartingTask", api.scheduler.WaitForStartingTaskRequest,
+              self.WaitForStartingTask)
+        s.add("KeepTaskAlive", api.scheduler.KeepTaskAliveRequest,
+              self.KeepTaskAlive)
+        s.add("FreeTask", api.scheduler.FreeTaskRequest, self.FreeTask)
+        s.add("GetRunningTasks", api.scheduler.GetRunningTasksRequest,
+              self.GetRunningTasks)
+        return s
+
+    # -- handlers ----------------------------------------------------------
+
+    def Heartbeat(self, req, attachment: bytes, ctx: RpcContext):
+        if not self._servant_tokens.verify(req.token):
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "bad servant token")
+        if req.version < self._min_version:
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_VERSION_TOO_OLD,
+                           f"daemon version {req.version} < "
+                           f"{self._min_version}")
+
+        not_accepting = req.not_accepting_task_reason
+        observed_ip = ctx.peer.rsplit(":", 1)[0]
+        reported_ip = req.location.rsplit(":", 1)[0]
+        if observed_ip and reported_ip and observed_ip != reported_ip:
+            # NAT detection (reference scheduler_service_impl.cc:83-153):
+            # a servant whose observed address differs from what it
+            # reports is unreachable by peers; keep it registered but
+            # never schedule onto it.
+            not_accepting = (
+                api.scheduler.NOT_ACCEPTING_TASK_REASON_BEHIND_NAT
+            )
+
+        info = ServantInfo(
+            location=req.location,
+            version=req.version,
+            num_processors=req.num_processors,
+            current_load=req.current_load,
+            dedicated=(req.priority
+                       == api.scheduler.SERVANT_PRIORITY_DEDICATED),
+            not_accepting_reason=not_accepting,
+            capacity=req.capacity if not not_accepting else 0,
+            total_memory=req.total_memory_in_bytes,
+            memory_available=req.memory_available_in_bytes,
+            env_digests=tuple(e.compiler_digest for e in req.env_descs),
+        )
+        if req.next_heartbeat_in_ms == 0:
+            # Graceful leave (reference daemon_service_impl.cc:183-186).
+            self.dispatcher.keep_servant_alive(info, expires_in_s=0)
+            self.bookkeeper.drop_servant(req.location)
+            return api.scheduler.HeartbeatResponse()
+        # Lease = 10x the promised beat interval (reference: 1s beat,
+        # 10s lease — daemon_service_impl.cc:57-58).
+        if not self.dispatcher.keep_servant_alive(
+            info, expires_in_s=req.next_heartbeat_in_ms / 1000.0 * 10
+        ):
+            # Registry full: fail the beat loudly rather than answering
+            # success and then condemning every task the servant reported.
+            raise RpcError(
+                api.scheduler.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                "servant registry full")
+
+        self.bookkeeper.set_servant_running_tasks(
+            req.location,
+            [
+                RunningTaskRecord(
+                    servant_task_id=t.servant_task_id,
+                    task_grant_id=t.task_grant_id,
+                    servant_location=t.servant_location or req.location,
+                    task_digest=t.task_digest,
+                )
+                for t in req.running_tasks
+            ],
+        )
+        expired = self.dispatcher.notify_servant_running_tasks(
+            req.location, [t.task_grant_id for t in req.running_tasks]
+        )
+        resp = api.scheduler.HeartbeatResponse()
+        resp.acceptable_tokens.extend(self.daemon_tokens.acceptable())
+        resp.expired_tasks.extend(expired)
+        return resp
+
+    def GetConfig(self, req, attachment, ctx):
+        if not self._user_tokens.verify(req.token):
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "bad user token")
+        return api.scheduler.GetConfigResponse(
+            serving_daemon_token=self.daemon_tokens.current()
+        )
+
+    def WaitForStartingTask(self, req, attachment, ctx):
+        if not self._user_tokens.verify(req.token):
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "bad user token")
+        wait_ms = min(req.milliseconds_to_wait or 5000, _MAX_WAIT_MS)
+        lease_ms = min(req.next_keep_alive_in_ms or 15000, _MAX_LEASE_MS)
+        if not req.env_desc.compiler_digest:
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_INVALID_ARGUMENT,
+                           "missing env_desc")
+        # Overload ladder: rule BEFORE the request queues.  Shedding is
+        # never silent — LOCAL_ONLY and REJECT answer immediately with
+        # an explicit verdict (+ retry-after), SHED_OPTIONAL drops only
+        # the opportunistic prefetch.
+        decision = self.dispatcher.admission_check(
+            immediate=req.immediate_reqs or 1,
+            prefetch=req.prefetch_reqs)
+        if decision.flow != admission.FLOW_NONE:
+            return api.scheduler.WaitForStartingTaskResponse(
+                flow_control=decision.flow,
+                retry_after_ms=decision.retry_after_ms,
+                degradation_rung=decision.rung)
+        grants = self.dispatcher.wait_for_starting_new_task(
+            req.env_desc.compiler_digest,
+            min_version=max(req.min_version, self._min_version),
+            requestor=ctx.peer,
+            immediate=req.immediate_reqs or 1,
+            prefetch=req.prefetch_reqs if decision.prefetch_allowed else 0,
+            lease_s=lease_ms / 1000.0,
+            timeout_s=wait_ms / 1000.0,
+        )
+        if not grants:
+            raise RpcError(
+                api.scheduler.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                "no capacity for environment")
+        resp = api.scheduler.WaitForStartingTaskResponse(
+            degradation_rung=decision.rung)
+        for gid, location in grants:
+            resp.grants.add(task_grant_id=gid, servant_location=location)
+        return resp
+
+    def KeepTaskAlive(self, req, attachment, ctx):
+        if not self._user_tokens.verify(req.token):
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "bad user token")
+        statuses = self.dispatcher.keep_task_alive(
+            list(req.task_grant_ids),
+            (req.next_keep_alive_in_ms or 15000) / 1000.0,
+        )
+        resp = api.scheduler.KeepTaskAliveResponse()
+        resp.statuses.extend(statuses)
+        return resp
+
+    def FreeTask(self, req, attachment, ctx):
+        if not self._user_tokens.verify(req.token):
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "bad user token")
+        self.dispatcher.free_task(list(req.task_grant_ids))
+        return api.scheduler.FreeTaskResponse()
+
+    def GetRunningTasks(self, req, attachment, ctx):
+        resp = api.scheduler.GetRunningTasksResponse()
+        for t in self.bookkeeper.get_running_tasks():
+            resp.running_tasks.add(
+                servant_task_id=t.servant_task_id,
+                task_grant_id=t.task_grant_id,
+                servant_location=t.servant_location,
+                task_digest=t.task_digest,
+            )
+        return resp
