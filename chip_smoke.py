@@ -7,21 +7,28 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases (any failure exits non-zero without printing the result line):
 
-1. card and build: the card's name and power limit, then the grouped
-   assignment kernel built from csrc/ with nvcc;
-2. kernel vs plain: the kernel and its four wrappers held against the
-   plain PyTorch version on the card, exactly (integer arithmetic, so
-   the tolerance is 0), on seeded and edge pools; the wrappers must
-   refuse tensors the kernel does not take; the kernel's time;
+1. card and build: the card's name and power limit, then both kernels
+   built from csrc/ with nvcc, one nvcc per source, all started together:
+   the grouped assignment (K1) and the sequential scan (K2);
+2. kernels vs plain: K1 and its five wrappers (the resident step chained
+   over cycles with churn among them), and K2, held against the plain
+   PyTorch versions on the card, exactly (integer arithmetic, so the
+   tolerance is 0), on seeded and edge pools; the wrappers must refuse
+   tensors the kernels do not take; the kernels' times;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
    servants registered by Heartbeat, 24 delegates driving >= 200,000
    grants with WaitForStartingTask(immediate_reqs=128) and FreeTask;
    every grant checked against the servants' facts, no servant over its
    capacity, no duplicate grant id, and kernel launches > 0 (the entry
-   sets its launch count to 0 after its warmup; the script reads 0 from
-   /inspect/vars just before driving and the phase's count just after);
-4. main path, synchronous: phase 3 with --dispatch-pipeline-depth 0.
+   sets its launch counts to 0 after its warmup; the script reads 0 from
+   /inspect/vars just before driving and the phase's counts just after);
+4. main path, synchronous: phase 3 with --dispatch-pipeline-depth 0;
+5. the scan policy: phase 4's drive with --dispatch-policy torch_batched,
+   every grant through K2;
+6. the device-resident stream: phase 3's drive with --dispatch-policy
+   torch_resident_grouped, K1 inside the resident step, the resident
+   pool's statics oracle clean.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler processes go to
@@ -54,8 +61,10 @@ PHASE_LIMIT_S = 240.0
 HB_INTERVAL_MS = 4000          # servant lease = 10x this
 HB_REPEAT_S = 10.0             # re-beat well inside the lease
 MAIN_S, MAIN_G, MAIN_TASKS = 8192, 64, 2048   # the policy's largest chunk
+MAIN_T = 256                   # torch_batched's chunk (max_batch)
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = 67e12         # 32-bit non-tensor peak, H100 SXM data sheet
+KERNELS = ("grouped_assign", "assign_batch")   # /inspect/vars yadcc/kernels
 
 
 class SmokeFailure(AssertionError):
@@ -86,14 +95,23 @@ def card_line() -> str:
 
 
 def build_kernels() -> dict:
-    from yadcc_tpu_torch.ops import _build, cuda_grouped
+    """Both kernels' libraries, one nvcc per source started together;
+    {source: {library, nvcc_s}} plus the wall time of the whole phase."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from yadcc_tpu_torch.ops import _build, cuda_assign, cuda_grouped
+
+    sources = (cuda_grouped.SOURCE, cuda_assign.SOURCE)
     t0 = time.perf_counter()
-    path = _build.build(cuda_grouped.SOURCE)
-    _build.load(cuda_grouped.SOURCE)
-    return {"library": str(path.relative_to(REPO)),
-            "nvcc_s": _build.build_seconds[cuda_grouped.SOURCE],
-            "total_s": time.perf_counter() - t0}
+    with ThreadPoolExecutor(len(sources)) as ex:
+        paths = list(ex.map(_build.build, sources))
+    out = {}
+    for source, path in zip(sources, paths):
+        _build.load(source)
+        out[source] = {"library": str(path.relative_to(REPO)),
+                       "nvcc_s": _build.build_seconds[source]}
+    out["total_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +295,22 @@ def compare_kernel(report: list) -> dict:
     return time_kernel(report)
 
 
+def timed(fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls after one warm call, with
+    CUDA events on the current stream."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def time_kernel(report: list) -> dict:
     """The kernel and the plain version at the main path's largest chunk
     (S=8192, G=64, 2048 tasks), with CUDA events."""
@@ -292,17 +326,6 @@ def time_kernel(report: list) -> dict:
     p = np_pool(rng, MAIN_S, cap_lo=8, cap_hi=65, run_hi=8, ded_frac=0.2)
     pool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields), dev)
     out = {}
-
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
 
     for g in (8, MAIN_G):
         batch = asg.make_grouped_batch(
@@ -347,7 +370,11 @@ def time_kernel(report: list) -> dict:
     k1 = out[MAIN_G]
     bytes_ms = (k1["bytes_ms"] + t_max * 4 / H100_BYTES_PER_S * 1e3)
     ops_ms = k1["ops_ms"] + 2 * t_max * MAIN_S / H100_OPS_PER_S * 1e3
+    batch = asg.unpack_grouped(packed)
     for name, kern, plain in (
+            ("picks",
+             lambda: kg.cuda_assign_grouped_picks(pool, batch, t_max),
+             lambda: asg.assign_grouped_picks(pool, batch, t_max)),
             ("picks_packed",
              lambda: kg.cuda_assign_grouped_picks_packed(pool, packed, t_max),
              lambda: asg.assign_grouped_picks_packed(pool, packed, t_max)),
@@ -365,11 +392,250 @@ def time_kernel(report: list) -> dict:
             f"t_max={t_max}: wrapper {w['ms']:.4f} ms (50 calls), plain "
             f"{w['plain_ms']:.2f} ms, bound {w['bound_ms'] * 1e3:.3f} us "
             f"({w['bound_by']})")
+
+    # The resident step (phase 6's wrapper): a 64-row delta with 40 dirty
+    # slots, the fold resetting every slot to the same running (so each
+    # call does the same work on the in-place pool), K1, the expansion.
+    # Its bound adds the delta rows read and scattered and the fold's
+    # three S-vectors read.
+    rpool = asn.PoolArrays(*(x.clone() for x in pool))
+    ppool = asn.PoolArrays(*(x.clone() for x in pool))
+    dirty = np.sort(rng.choice(MAIN_S, 40, replace=False))
+    delta = asg.make_pool_delta(dirty, p, asg.delta_pad(40), MAIN_S, dev)
+    all_reset = torch.ones(MAIN_S, dtype=torch.bool, device=dev)
+    run0 = pool.running.clone()
+    e = pool.env_bitmap.shape[1]
+    r_bytes = (bytes_ms + (asg.delta_pad(40) * (6 + e) * 4 * 2
+                           + MAIN_S * 9) / H100_BYTES_PER_S * 1e3)
+    r_ops = ops_ms + 3 * MAIN_S / H100_OPS_PER_S * 1e3
+    w = dict(
+        ms=timed(lambda: kg.cuda_resident_grouped_step(
+            rpool, delta, packed, adj, all_reset, run0, t_max), 50),
+        plain_ms=timed(lambda: asg.resident_grouped_step(
+            ppool, delta, packed, adj, all_reset, run0, t_max), 3),
+        bound_ms=max(r_bytes, r_ops),
+        bound_by="bytes" if r_bytes >= r_ops else "operations")
+    out["resident_step"] = w
+    report.append(
+        f"  timing resident_step S={MAIN_S} G={MAIN_G} tasks={MAIN_TASKS} "
+        f"t_max={t_max} delta 40/{asg.delta_pad(40)}: wrapper "
+        f"{w['ms']:.4f} ms (50 calls), plain {w['plain_ms']:.2f} ms, bound "
+        f"{w['bound_ms'] * 1e3:.3f} us ({w['bound_by']})")
     return out
 
 
+def compare_resident_step(report: list) -> None:
+    """The resident step through K1 (in place on the card) against the
+    plain step (functional, on the card), chained over cycles with statics
+    churn, running corrections and resets: picks, running and every
+    static equal after every cycle."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    for s, cycles in ((MAIN_S, 5), (1000, 3)):
+        p = np_pool(rng, s, cap_lo=1, cap_hi=24, run_hi=8)
+        p["running"] = np.minimum(p["running"], p["capacity"])
+        kpool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields),
+                                    dev)
+        ppool = asn.PoolArrays(*(x.clone() for x in kpool))
+        granted = 0
+        for cycle in range(cycles):
+            dirty = np.sort(rng.choice(s, min(s // 10, 50), replace=False))
+            for i in dirty:
+                p["capacity"][i] = rng.integers(0, 24)
+                p["alive"][i] = rng.random() < 0.9
+                p["env_bitmap"][i, rng.integers(0, 8)] ^= np.uint32(
+                    rng.integers(0, 2**32))
+            delta = asg.make_pool_delta(dirty, p, asg.delta_pad(len(dirty)),
+                                        s, dev)
+            adj = torch.from_numpy(
+                rng.integers(-2, 2, s).astype(np.int32)).to(dev)
+            rmask = torch.from_numpy(rng.random(s) < 0.03).to(dev)
+            rval = torch.from_numpy(
+                rng.integers(0, 4, s).astype(np.int32)).to(dev)
+            groups = seeded_groups(rng, 16, min(1500, 3 * s), s)
+            packed = asg.make_grouped_packed(groups, 16, dev)
+            t_max = asg.task_pad(sum(g[3] for g in groups))
+            got, kpool = kg.cuda_resident_grouped_step(
+                kpool, delta, packed, adj, rmask, rval, t_max)
+            want, ppool = asg.resident_grouped_step(
+                ppool, delta, packed, adj, rmask, rval, t_max)
+            check(torch.equal(got.cpu(), want.cpu()),
+                  f"resident step S={s} cycle {cycle}: picks differ")
+            for f in asn.PoolArrays._fields:
+                check(torch.equal(getattr(kpool, f).cpu(),
+                                  getattr(ppool, f).cpu()),
+                      f"resident step S={s} cycle {cycle}: {f} differs")
+            granted += int((got != -1).sum())
+        report.append(f"  resident step S={s}: {cycles} chained cycles "
+                      f"with churn, {granted} grants, picks/running/statics "
+                      f"equal")
+
+
+def k2_cases(rng):
+    """(name, numpy pool, tasks, avoid_self) for K2 against its plain
+    version: seeded pools, the corners of the scan, and the geometries."""
+    import numpy as np
+
+    s, t = MAIN_S, MAIN_T
+
+    def base(**kw):
+        p = dict(alive=np.ones(s, bool), capacity=np.full(s, 8, np.int32),
+                 running=np.zeros(s, np.int32), dedicated=np.zeros(s, bool),
+                 version=np.ones(s, np.int32),
+                 env_bitmap=np.full((s, 8), 0xFFFFFFFF, np.uint32))
+        p.update(kw)
+        return p
+
+    def tasks(size, n=t, envs=256):
+        return [(int(rng.integers(0, envs)), int(rng.integers(0, 4)),
+                 int(rng.integers(-1, size))) for _ in range(n)]
+
+    out = [(f"seeded_S{s}_T{t}_{i}", np_pool(rng, s), tasks(s), True)
+           for i in range(3)]
+    # Contended: capacities 1-3, half the requested environments served
+    # by nobody — grants and denials in one batch.
+    bits = rng.random((s, 8, 32)) < 0.02
+    bits[:, 4:, :] = False
+    words = np.zeros((s, 8), np.uint32)
+    for b in range(32):
+        words |= bits[:, :, b].astype(np.uint32) << np.uint32(b)
+    cap = rng.integers(1, 4, s).astype(np.int32)
+    out.append(("contended", base(
+        alive=rng.random(s) < 0.9, capacity=cap,
+        running=np.minimum(rng.integers(0, 4, s), cap).astype(np.int32),
+        dedicated=rng.random(s) < 0.3, env_bitmap=words),
+        [(int(e), 1, -1) for e in rng.integers(0, 256, t)], True))
+    out.append(("all_infeasible", base(alive=np.zeros(s, bool)), tasks(s),
+                True))
+    out.append(("ties_identical_slots", base(), [(3, 1, -1)] * t, True))
+    capd = rng.integers(2, 16, s).astype(np.int32)
+    out.append(("negative_scores_dedicated", base(
+        capacity=capd, running=(capd // 2 + rng.integers(-1, 2, s)).clip(
+            0).astype(np.int32), dedicated=rng.random(s) < 0.5),
+        tasks(s), True))
+    for avoid in (True, False):
+        out.append((f"requestors_avoid_self_{avoid}",
+                    base(capacity=np.full(s, 2, np.int32)),
+                    [(0, 1, int(r)) for r in rng.integers(0, 8, t)], avoid))
+    for size in (1000, 5000, 1, 70_000):
+        out.append((f"S{size}", np_pool(rng, size), tasks(size, 64), True))
+    return out
+
+
+def compare_assign_batch(report: list) -> dict:
+    """K2 against assign_batch on the card, exactly; the wrapper's
+    refusals; K2's time at S=8192, T=256."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2027)
+
+    def up(p):
+        return asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields),
+                                   dev)
+
+    def batch_of(tasks, pad_to):
+        return asn.make_batch([x[0] for x in tasks], [x[1] for x in tasks],
+                              [x[2] for x in tasks], pad_to, dev)
+
+    for name, p, tasks, avoid in k2_cases(rng):
+        cm = replace(DEFAULT_COST_MODEL, avoid_self=avoid)
+        pool, batch = up(p), batch_of(tasks, len(tasks))
+        kp, kr = ka.cuda_assign_batch(pool, batch, cm)
+        pp, pr = asn.assign_batch(pool, batch, cm)
+        check(torch.equal(kp.cpu(), pp.cpu()), f"K2 != plain: {name} picks")
+        check(torch.equal(kr.cpu(), pr.cpu()), f"K2 != plain: {name} running")
+        granted = int((kp != -1).sum())
+        if name == "contended":
+            check(0 < granted < len(tasks), "contended: need grants and "
+                  f"denials, got {granted}/{len(tasks)}")
+        if name == "all_infeasible":
+            check(granted == 0, "all_infeasible granted")
+        if name == "ties_identical_slots":
+            check(kp.cpu().tolist() == list(range(len(tasks))),
+                  "ties: picks are not the lowest slots in order")
+        report.append(f"  K2 {name}: S={len(p['alive'])} T={len(tasks)} "
+                      f"granted={granted} equal")
+
+    # Padding rows are inert: the same tasks padded to 2x grant the same
+    # and pick nothing in the padding.
+    p = np_pool(rng, MAIN_S)
+    tasks = [(int(rng.integers(0, 256)), 1, -1) for _ in range(100)]
+    pool = up(p)
+    kp, kr = ka.cuda_assign_batch(pool, batch_of(tasks, 100))
+    kp2, kr2 = ka.cuda_assign_batch(pool, batch_of(tasks, 200))
+    check(torch.equal(kp2[:100].cpu(), kp.cpu())
+          and bool((kp2[100:] == -1).all()) and torch.equal(kr2, kr),
+          "K2 padding rows not inert")
+    report.append("  K2 padded rows (100 tasks padded to 200): inert")
+
+    batch = batch_of(tasks, 100)
+    bad = [
+        ("non-contiguous running",
+         pool._replace(running=torch.zeros(2 * MAIN_S, dtype=torch.int32,
+                                           device=dev)[::2]), batch),
+        ("int64 capacity", pool._replace(capacity=pool.capacity.long()),
+         batch),
+        ("int32 valid", pool, batch._replace(valid=batch.valid.int())),
+        ("batch on the CPU", pool, asn.make_batch([0], [0], [-1], 1)),
+    ]
+    for what, bp, bb in bad:
+        before = ka.launches
+        try:
+            ka.cuda_assign_batch(bp, bb)
+        except (TypeError, ValueError):
+            check(ka.launches == before, f"K2 {what}: counted a launch")
+            continue
+        raise SmokeFailure(f"K2 wrapper accepted {what}")
+    report.append("  K2 refusals (non-contiguous, dtype, device): raised")
+    torch.cuda.synchronize()
+
+    # Time at the policy's chunk: S=8192, T=256, the pool of K1's timing.
+    p = np_pool(np.random.default_rng(7), MAIN_S, cap_lo=8, cap_hi=65,
+                run_hi=8, ded_frac=0.2)
+    pool = up(p)
+    batch = batch_of([(int(rng.integers(0, 256)), 1, -1)
+                      for _ in range(MAIN_T)], MAIN_T)
+    ms = timed(lambda: ka.cuda_assign_batch(pool, batch), 50)
+    plain_ms = timed(lambda: asn.assign_batch(pool, batch), 3)
+    e = pool.env_bitmap.shape[1]
+    moved = (MAIN_S * (14 + 4 * e) + MAIN_T * 13 + MAIN_T * 4
+             + MAIN_S * 4)
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    # Every (task, slot) pair: the eligibility test, the int64 score and
+    # key, and the running minimum — about 20 32-bit-equivalent
+    # operations; plus the block reductions' T*S/32 shuffles.
+    ops = MAIN_T * MAIN_S * 20 + MAIN_T * MAIN_S // 32
+    ops_ms = ops / H100_OPS_PER_S * 1e3
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes_ms=bytes_ms, ops_ms=ops_ms, dependent_reductions=MAIN_T,
+               us_per_reduction=ms * 1e3 / MAIN_T)
+    report.append(
+        f"  K2 timing S={MAIN_S} T={MAIN_T}: kernel {ms:.4f} ms (50 "
+        f"launches), plain {plain_ms:.2f} ms, bound "
+        f"{res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}; bytes "
+        f"{bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us), {MAIN_T} "
+        f"dependent block argmins = {res['us_per_reduction']:.2f} us each")
+    return res
+
+
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the scheduler entry on loopback.
+# Phases 3 to 6: the scheduler entry on loopback.
 # ---------------------------------------------------------------------------
 
 
@@ -421,8 +687,9 @@ def inspect_vars(port: int) -> dict:
 
 
 def run_main_path(name: str, extra_args: list, fleet: Fleet,
-                  report: list) -> dict:
-    """Start the scheduler entry, drive it, check it, stop it."""
+                  report: list, kernel: str = "grouped_assign") -> dict:
+    """Start the scheduler entry, drive it, check it, stop it; ``kernel``
+    must have launched in the drive."""
     port, iport = free_port(), free_port()
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     log_path = LOG_DIR / f"entry_{name}.log"
@@ -438,7 +705,7 @@ def run_main_path(name: str, extra_args: list, fleet: Fleet,
                                 stderr=subprocess.STDOUT)
         try:
             return _drive(name, proc, port, iport, fleet, report, stop,
-                          threads)
+                          threads, kernel)
         finally:
             stop.set()
             for t in threads:
@@ -451,7 +718,8 @@ def run_main_path(name: str, extra_args: list, fleet: Fleet,
                 proc.wait(timeout=30)
 
 
-def _drive(name, proc, port, iport, fleet, report, stop, threads) -> dict:
+def _drive(name, proc, port, iport, fleet, report, stop, threads,
+           kernel) -> dict:
     from yadcc_tpu_torch import api
     from yadcc_tpu_torch.rpc import Channel, RpcError
     from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
@@ -496,8 +764,10 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads) -> dict:
     check(len(state["task_dispatcher"]["servants"]) == N_SERVANTS,
           f"{name}: {len(state['task_dispatcher']['servants'])} servants "
           f"registered")
-    before = state["kernels"]["grouped_assign"]["launches"]
-    check(before == 0, f"{name}: launch count {before} before driving")
+    before = {k: v["launches"] for k, v in state["kernels"].items()}
+    check(set(before) == set(KERNELS) and not any(before.values()),
+          f"{name}: launch counts {before} before driving")
+    stream_before = state["task_dispatcher"]["stream"]
 
     def rebeat():
         chan = Channel(f"grpc://127.0.0.1:{port}")
@@ -604,7 +874,7 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads) -> dict:
           f"{name}: only {totals['grants']} grants")
 
     state = inspect_vars(iport)["yadcc"]
-    launches = state["kernels"]["grouped_assign"]["launches"]
+    launches = {k: v["launches"] for k, v in state["kernels"].items()}
     td = state["task_dispatcher"]
     check(td["failure"] is None, f"{name}: dispatcher failed: "
                                  f"{td['failure']}")
@@ -614,7 +884,13 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads) -> dict:
     check(td["stats"]["granted"] == totals["grants"],
           f"{name}: scheduler granted {td['stats']['granted']}, delegates "
           f"saw {totals['grants']}")
-    check(launches > 0, f"{name}: the grouped kernel never launched")
+    check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    # The resident pool's counters over the drive (its warmup's are
+    # subtracted); absent for the other policies.
+    resident = {k: v - stream_before.get(k, 0)
+                for k, v in td["stream"].items()
+                if k in ("seeds", "delta_launches", "delta_slots",
+                         "full_syncs", "oracle_checks", "oracle_mismatches")}
 
     lat = sorted(latencies)
     res = dict(
@@ -623,14 +899,16 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads) -> dict:
         grants_per_s=totals["grants"] / elapsed,
         p50_ms=lat[len(lat) // 2] * 1e3,
         p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
-        launches=launches, boot_s=boot_s, register_s=reg_s)
+        launches=launches, boot_s=boot_s, register_s=reg_s,
+        resident=resident)
     report.append(
         f"  {name}: {res['grants']} grants in {elapsed:.2f} s = "
         f"{res['grants_per_s']:.1f} grants/s over {res['calls']} calls "
         f"({res['empty_calls']} empty); WaitForStartingTask p50 "
         f"{res['p50_ms']:.2f} ms p99 {res['p99_ms']:.2f} ms; kernel "
-        f"launches {launches}; boot {boot_s:.1f} s, {N_SERVANTS} servants "
-        f"registered in {reg_s:.1f} s; no violations")
+        f"launches {json.dumps(launches)}; boot {boot_s:.1f} s, "
+        f"{N_SERVANTS} servants registered in {reg_s:.1f} s; no "
+        f"violations")
     report.append(f"  {name} dispatcher stages: "
                   f"{json.dumps(td['latency_breakdown'])}")
     return res
@@ -662,24 +940,50 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     built = build_kernels()
-    log(f"phase 1 build: grouped_assign.cu -> {built['library']} "
-        f"(nvcc {built['nvcc_s']:.2f} s, load {built['total_s']:.2f} s)")
+    log(f"phase 1 build (wall {built.pop('total_s'):.2f} s): " + "; ".join(
+        f"{src} -> {b['library']} (nvcc {b['nvcc_s']:.2f} s)"
+        for src, b in built.items()))
 
     report: list = []
     timing = compare_kernel(report)
-    log("phase 2 kernel vs plain (tolerance 0):")
+    compare_resident_step(report)
+    k2 = compare_assign_batch(report)
+    log("phase 2 kernels vs plain (tolerance 0):")
     for line in report:
         log(line)
 
-    fleet = Fleet(seed=1)
     report = []
-    piped = run_main_path("pipelined", [], fleet, report)
-    synced = run_main_path("synchronous",
-                           ["--dispatch-pipeline-depth", "0"],
-                           Fleet(seed=2), report)
-    log("phases 3-4 main path:")
+    phases = {
+        "pipelined": run_main_path("pipelined", [], Fleet(seed=1), report),
+        "synchronous": run_main_path(
+            "synchronous", ["--dispatch-pipeline-depth", "0"], Fleet(seed=2),
+            report),
+        "batched": run_main_path(
+            "batched", ["--dispatch-policy", "torch_batched"], Fleet(seed=3),
+            report, kernel="assign_batch"),
+        "resident": run_main_path(
+            "resident", ["--dispatch-policy", "torch_resident_grouped",
+                         "--dispatch-pipeline-depth", "16"], Fleet(seed=4),
+            report),
+    }
+    rs = phases["resident"]["resident"]
+    check(rs["delta_launches"] + rs["full_syncs"] > 0,
+          "resident: no resident step ran")
+    check(rs["oracle_checks"] > 0, "resident: the statics oracle never ran")
+    check(rs["oracle_mismatches"] == 0,
+          f"resident: {rs['oracle_mismatches']} oracle mismatches")
+    report.append(
+        f"  resident pool over the drive: seeds {rs['seeds']} / "
+        f"delta_launches {rs['delta_launches']} / delta_slots "
+        f"{rs['delta_slots']} / full_syncs {rs['full_syncs']}; oracle "
+        f"checks {rs['oracle_checks']}, mismatches "
+        f"{rs['oracle_mismatches']}")
+    log("phases 3-6 main paths:")
     for line in report:
         log(line)
+
+    def by_phase(kernel):
+        return {name: r["launches"][kernel] for name, r in phases.items()}
 
     main = timing[MAIN_G]
     record = {"kernels": [{
@@ -687,7 +991,7 @@ def main() -> int:
         "route": "cuda",
         "source": "yadcc_tpu_torch/csrc/grouped_assign.cu",
         "replaces": "yadcc_tpu/ops/pallas_grouped.py:201",
-        "launches": piped["launches"] + synced["launches"],
+        "launches": sum(by_phase("grouped_assign").values()),
         "max_abs_err": 0,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -695,14 +999,29 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": None,
         "shape": {"S": MAIN_S, "G": MAIN_G, "tasks": MAIN_TASKS, "E": 8},
-        "launches_by_phase": {"pipelined": piped["launches"],
-                              "synchronous": synced["launches"]},
+        "launches_by_phase": by_phase("grouped_assign"),
+        "wrappers": {name: {k: timing[name][k] for k in
+                            ("ms", "plain_ms", "bound_ms", "bound_by")}
+                     for name in ("picks", "picks_packed", "picks_stream",
+                                  "resident_step")},
+    }, {
+        "name": "assign_batch",
+        "route": "cuda",
+        "source": "yadcc_tpu_torch/csrc/assign_batch.cu",
+        "replaces": "yadcc_tpu/ops/pallas_assign.py:118",
+        "launches": sum(by_phase("assign_batch").values()),
+        "max_abs_err": 0,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
+        "shape": {"S": MAIN_S, "T": MAIN_T, "E": 8},
+        "launches_by_phase": by_phase("assign_batch"),
     }]}
-    log(f"main path: pipelined {piped['grants_per_s']:.1f} grants/s p99 "
-        f"{piped['p99_ms']:.2f} ms; synchronous "
-        f"{synced['grants_per_s']:.1f} grants/s p99 "
-        f"{synced['p99_ms']:.2f} ms ({card}); total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log("main paths ({}): {}; total {:.1f} s".format(card, "; ".join(
+        f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} ms"
+        for name, r in phases.items()), time.perf_counter() - t_start))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

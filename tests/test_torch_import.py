@@ -53,6 +53,9 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
             names.append(info.name)
         for name in names:
             importlib.import_module(name)
+        for name in ("yadcc_tpu_torch.ops.cuda_assign",
+                     "yadcc_tpu_torch.scheduler.device_pool"):
+            assert name in names, name
         import chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
                         if n == "yadcc_tpu" or n.startswith("yadcc_tpu.")

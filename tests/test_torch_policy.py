@@ -1,9 +1,9 @@
 """The port's dispatch policies against the JAX package's, on the CPU.
 
-Same snapshots (numpy, from a seed) and request lists through
-JaxGroupedPolicy and TorchGroupedPolicy(device="cpu"), the greedy
-oracle of both packages, AutoPolicy routing, and an identical pipelined
-stream sequence."""
+Same snapshots (numpy, from a seed) and request lists through each JAX
+policy and its port on device="cpu": the grouped, batched-scan and
+resident-stream policies, the greedy oracle of both packages, AutoPolicy
+routing, and identical pipelined stream sequences."""
 
 from __future__ import annotations
 
@@ -165,6 +165,83 @@ def test_stream_sequence_matches_jax():
     js, ts = snaps(p, epoch=0)
     with pytest.raises(ValueError, match="moved backward"):
         tp.stream_launch(ts, [(0, 1, -1, 1)], np.zeros(s, np.int64), {})
+
+
+@pytest.mark.parametrize("seed,s,n_req", [(20, 200, 70), (21, 96, 40)])
+def test_batched_policy_matches_jax(seed, s, n_req):
+    """torch_batched against jax_batched (XLA scan) and jax_pallas (the
+    Pallas K2 in interpret mode), in chunks of 32 with running carried
+    between them: the same picks, request for request, which are also
+    the greedy oracle's."""
+    rng = np.random.default_rng(seed)
+    p = snapshot_np(rng, s, cap_hi=2)     # contended: grants and denials
+    reqs = request_mix(rng, s, 12, 12)[:n_req]
+    jr, tr = both(reqs)
+    got = tpol.TorchBatchedPolicy("cpu", max_batch=32).assign(snaps(p)[1],
+                                                              tr)
+    for jp in (jpol.JaxBatchedPolicy(s, max_batch=32),
+               jpol.JaxPallasPolicy(s, max_batch=32)):
+        assert got == jp.assign(snaps(p)[0], jr), jp.name
+    assert got == tpol.GreedyCpuPolicy().assign(snaps(p)[1], tr)
+    assert 0 < sum(x != tasn.NO_PICK for x in got) < len(got)
+
+
+def test_resident_stream_sequence_matches_jax():
+    """torch_resident_grouped against jax_resident_grouped: begin, then
+    launches with statics churn streamed as dirty deltas (one of them past
+    S/8, one with lost tracking), host corrections and resets — identical
+    picks per launch, an identical resident running array, and identical
+    stream counters, the oracle included."""
+    from .test_device_resident import churn_slots
+
+    rng = np.random.default_rng(13)
+    s = 128
+    p = snapshot_np(rng, s, cap_hi=20)
+    jp = jpol.JaxResidentGroupedPolicy(use_pallas=False, oracle_interval=2)
+    tp = tpol.TorchResidentGroupedPolicy("cpu", oracle_interval=2)
+    assert tp.supports_resident and tp.supports_stream
+    js, ts = snaps(p, epoch=1)
+    jp.stream_begin(js)
+    tp.stream_begin(ts)
+    for step in range(6):
+        dirty = churn_slots(rng, p, {3: s // 4}.get(step, 3))
+        if step == 4:
+            dirty = None
+        descr = [(int(rng.integers(0, 256)), 1, int(rng.integers(-1, s)),
+                  int(rng.integers(1, 40))) for _ in range(1 + step)]
+        adj = np.zeros(s, np.int64)
+        adj[rng.integers(0, s, 10)] -= 1
+        resets = {int(k): int(rng.integers(0, 3))
+                  for k in rng.integers(0, s, 2)}
+        js, ts = snaps(p, epoch=2 + step)
+        jt = jp.stream_launch(js, descr, adj, resets, dirty=dirty)
+        tt = tp.stream_launch(ts, descr, adj, resets, dirty=dirty)
+        assert tp.stream_ready(tt)
+        assert tt.launch_id == jt.launch_id == step
+        assert np.array_equal(tp.stream_collect(tt), jp.stream_collect(jt))
+        assert np.array_equal(tp.resident_pool.running.numpy(),
+                              np.asarray(jp.resident_pool.running))
+    stats = tp.stream_stats()
+    assert stats == jp.stream_stats()
+    assert stats["full_syncs"] == 2 and stats["oracle_checks"] == 3
+    assert stats["oracle_mismatches"] == 0
+
+
+def test_make_policy_port_names():
+    """Every --dispatch-policy name of the port builds its policy; each
+    stands for JAX policies of the same semantics."""
+    assert tpol.POLICY_NAMES == ("auto", "greedy_cpu", "torch_grouped",
+                                 "torch_batched", "torch_resident_grouped")
+    for name in tpol.POLICY_NAMES:
+        assert tpol.make_policy(name, device="cpu").name == name
+    assert isinstance(tpol.make_policy("torch_batched", device="cpu"),
+                      tpol.TorchBatchedPolicy)
+    res = tpol.make_policy("torch_resident_grouped", avoid_self=False,
+                           device="cpu")
+    assert res.supports_resident and not res.resident_pool._cm.avoid_self
+    for name in ("jax_batched", "jax_pallas", "jax_resident_grouped"):
+        with pytest.raises(ValueError):
+            tpol.make_policy(name, device="cpu")
 
 
 def test_auto_calibration_measures_a_crossover():

@@ -1,9 +1,11 @@
 """The port's scheduler against the JAX package's, on the CPU.
 
 One dispatch cycle of each package's TaskDispatcher over the same
-heartbeats and wait requests must issue identical grants; the pipelined
-loop and the failure path are exercised on the port alone; and one
-loopback gRPC drive runs the port's entry end to end with --device cpu.
+heartbeats and wait requests must issue identical grants (grouped and
+batched-scan policies); the pipelined loop, the resident pool's dirty-slot
+export under churn and the failure path are exercised on the port alone;
+and loopback gRPC drives run the port's entry end to end with --device
+cpu, synchronous and resident-pipelined.
 """
 
 from __future__ import annotations
@@ -117,6 +119,32 @@ def test_one_cycle_grants_match_jax(seed):
         td.stop()
 
 
+@pytest.mark.parametrize("jax_policy", ["jax_batched", "jax_pallas"])
+def test_batched_one_cycle_grants_match_jax(jax_policy):
+    """torch_batched's dispatch cycle against jax_batched's (XLA scan) and
+    jax_pallas's (the Pallas K2 in interpret mode)."""
+    rng = np.random.default_rng(5)
+    servants = fleet(rng, 64)
+    requests = wait_requests(rng, 10, 64)
+    jclock, tclock = JClock(100.0), TClock(100.0)
+    jd = jtd.TaskDispatcher(jpol.make_policy(jax_policy, 128),
+                            max_servants=128, clock=jclock,
+                            batch_window_s=0.0, start_dispatch_thread=False)
+    td = ttd.TaskDispatcher(tpol.make_policy("torch_batched", device="cpu"),
+                            max_servants=128, clock=tclock,
+                            batch_window_s=0.0, start_dispatch_thread=False)
+    try:
+        j_issued, j_grants = one_cycle(jd, jtd.ServantInfo, jclock,
+                                       servants, requests)
+        t_issued, t_grants = one_cycle(td, ttd.ServantInfo, tclock,
+                                       servants, requests)
+        assert t_issued == j_issued > 0
+        assert t_grants == j_grants
+    finally:
+        jd.stop()
+        td.stop()
+
+
 def _check_grants(servants, grants_by_req, requests):
     by_loc = {s["location"]: s for s in servants}
     held = {}
@@ -166,6 +194,83 @@ def test_pipelined_loop_issues_valid_grants():
         d.free_task([gid for r in results for gid, _ in r])
         assert d.inspect()["grants_outstanding"] == 0
         assert d.inspect()["failure"] is None
+    finally:
+        d.stop()
+
+
+def test_resident_pipelined_loop_exports_every_dirty_slot():
+    """The resident policy in the pipelined loop while servants churn
+    (capacity, version and env changes, leaves and joins) and grants are
+    issued and freed: with the statics oracle run at EVERY launch, a slot
+    whose snapshot row changed without being exported as dirty would
+    show as a mismatch.  Every grant stays valid."""
+    rng = np.random.default_rng(8)
+    servants = fleet(rng, 48)
+    for s in servants:
+        s.update(memory_available=64 << 30, current_load=0,
+                 num_processors=16, capacity=int(rng.integers(1, 5)))
+    policy = tpol.TorchResidentGroupedPolicy("cpu", max_groups=8,
+                                             oracle_interval=1)
+    d = ttd.TaskDispatcher(policy, max_servants=64, pipeline_depth=3)
+    try:
+        for info in servants:
+            assert d.keep_servant_alive(ttd.ServantInfo(**info), 60.0)
+        stop = threading.Event()
+        results, requests = [], []
+        lock = threading.Lock()
+
+        def delegate(i):
+            k = 0
+            while not stop.is_set():
+                req = dict(env_digest=ENVS[(i + k) % 6], immediate=2,
+                           timeout_s=0.5)
+                k += 1
+                got = d.wait_for_starting_new_task(**req)
+                with lock:
+                    results.append(got)
+                    requests.append(req)
+                d.free_task([gid for gid, _ in got])
+
+        def churn():
+            crng = np.random.default_rng(9)
+            while not stop.is_set():
+                i = int(crng.integers(0, len(servants)))
+                info = dict(servants[i])
+                kind = int(crng.integers(0, 4))
+                if kind == 0:
+                    info["capacity"] = int(crng.integers(1, 5))
+                elif kind == 1:
+                    info["version"] = int(crng.integers(1, 4))
+                elif kind == 2:
+                    info["env_digests"] = tuple(sorted(crng.choice(
+                        ENVS, 3, replace=False).tolist()))
+                else:           # leave, then join again
+                    d.keep_servant_alive(ttd.ServantInfo(**info), 0)
+                servants[i] = info
+                d.keep_servant_alive(ttd.ServantInfo(**info), 60.0)
+                threading.Event().wait(0.002)
+
+        threads = [threading.Thread(target=delegate, args=(i,), daemon=True)
+                   for i in range(6)]
+        threads.append(threading.Thread(target=churn, daemon=True))
+        for t in threads:
+            t.start()
+        threading.Event().wait(1.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=20)
+            assert not t.is_alive()
+        state = d.inspect()
+        assert state["failure"] is None
+        assert state["grants_outstanding"] == 0
+        stream = state["stream"]
+        assert stream["delta_launches"] > 0
+        assert stream["oracle_checks"] == stream["delta_launches"]
+        assert stream["oracle_mismatches"] == 0
+        assert stream["delta_slots"] + stream["full_syncs"] > 0
+        assert sum(len(r) for r in results) > 0
+        ids = [gid for r in results for gid, _ in r]
+        assert len(ids) == len(set(ids))
     finally:
         d.stop()
 
@@ -277,6 +382,122 @@ def test_entry_loopback_drive_on_cpu():
                            sch.GetRunningTasksRequest(),
                            sch.GetRunningTasksResponse, timeout=5.0)
         assert [t.servant_task_id for t in rresp.running_tasks] == [7]
+    finally:
+        ch.close()
+        stop.set()
+        server.join(timeout=15)
+    assert not server.is_alive()
+    assert rc == [0]
+
+
+def test_entry_serves_resident_pipelined_on_cpu():
+    """The port's entry with --dispatch-policy torch_resident_grouped
+    --dispatch-pipeline-depth 4 --device cpu serves grants over real
+    gRPC to concurrent delegates: every grant on a servant that has the
+    environment and room for it, no duplicate ids, every grant freed,
+    and the resident pool's oracle clean."""
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel, RpcError
+    from yadcc_tpu_torch.scheduler import entry
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+    from yadcc_tpu_torch.utils import exposed_vars
+
+    port = _free_port()
+    args = entry.build_arg_parser().parse_args([
+        "--port", str(port), "--inspect-port", "0", "--device", "cpu",
+        "--max-servants", "64", "--acceptable-user-tokens", "utok",
+        "--acceptable-servant-tokens", "stok", "--allow-self-dispatch",
+        "--dispatch-policy", "torch_resident_grouped",
+        "--dispatch-pipeline-depth", "4"])
+    stop = threading.Event()
+    rc = []
+    server = threading.Thread(
+        target=lambda: rc.append(entry.scheduler_start(args, stop)),
+        daemon=True)
+    server.start()
+    sch = api.scheduler
+    rng = np.random.default_rng(21)
+    servants = {f"127.0.0.1:{20001 + i}": dict(
+        capacity=int(rng.integers(1, 5)),
+        envs=set(rng.choice(ENVS[:4], 2, replace=False).tolist()))
+        for i in range(24)}
+    held = {loc: 0 for loc in servants}
+    violations, seen = [], []
+    lock = threading.Lock()
+    ch = Channel(f"grpc://127.0.0.1:{port}")
+    try:
+        for _ in range(300):
+            try:
+                ch.call(SERVICE_NAME, "GetConfig",
+                        sch.GetConfigRequest(token="utok"),
+                        sch.GetConfigResponse, timeout=1.0)
+                break
+            except RpcError:
+                threading.Event().wait(0.05)
+        for loc, s in servants.items():
+            hb = sch.HeartbeatRequest(
+                token="stok", next_heartbeat_in_ms=10_000, location=loc,
+                version=1, num_processors=s["capacity"],
+                capacity=s["capacity"], total_memory_in_bytes=64 << 30,
+                memory_available_in_bytes=64 << 30)
+            for e in sorted(s["envs"]):
+                hb.env_descs.add(compiler_digest=e)
+            ch.call(SERVICE_NAME, "Heartbeat", hb, sch.HeartbeatResponse,
+                    timeout=5.0)
+
+        def delegate(d):
+            chan = Channel(f"grpc://127.0.0.1:{port}")
+            try:
+                for k in range(6):
+                    env = ENVS[(d + k) % 4]
+                    req = sch.WaitForStartingTaskRequest(
+                        token="utok", milliseconds_to_wait=1000,
+                        immediate_reqs=3, next_keep_alive_in_ms=10_000)
+                    req.env_desc.compiler_digest = env
+                    try:
+                        resp, _ = chan.call(
+                            SERVICE_NAME, "WaitForStartingTask", req,
+                            sch.WaitForStartingTaskResponse, timeout=10.0)
+                    except RpcError as e:
+                        if e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE:
+                            continue
+                        raise
+                    with lock:
+                        for g in resp.grants:
+                            s = servants[g.servant_location]
+                            held[g.servant_location] += 1
+                            if env not in s["envs"]:
+                                violations.append(f"{env} not on server")
+                            if held[g.servant_location] > s["capacity"]:
+                                violations.append("over capacity")
+                            seen.append(g.task_grant_id)
+                        for g in resp.grants:
+                            held[g.servant_location] -= 1
+                    ids = [g.task_grant_id for g in resp.grants]
+                    if ids:
+                        chan.call(SERVICE_NAME, "FreeTask",
+                                  sch.FreeTaskRequest(token="utok",
+                                                      task_grant_ids=ids),
+                                  sch.FreeTaskResponse, timeout=5.0)
+            finally:
+                chan.close()
+
+        threads = [threading.Thread(target=delegate, args=(d,), daemon=True)
+                   for d in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert not violations, violations[:5]
+        assert seen and len(seen) == len(set(seen))
+        td = exposed_vars.collect("yadcc")["yadcc"]["task_dispatcher"]
+        assert td["policy"] == "torch_resident_grouped"
+        assert td["failure"] is None
+        assert td["grants_outstanding"] == 0
+        assert td["stats"]["granted"] == len(seen)
+        assert td["stream"]["delta_launches"] > 0
+        assert td["stream"]["oracle_mismatches"] == 0
     finally:
         ch.close()
         stop.set()

@@ -1,4 +1,5 @@
-"""Pool and batch layouts of the assignment kernels, plus the greedy oracle.
+"""Pool and batch layouts of the assignment kernels, the plain sequential
+scan (`assign_batch`, kernel K2's twin), and the greedy oracle.
 
 The servant registry travels as a struct of arrays (one slot per,
 possibly departed, servant; `alive` masks vacancies so shapes never
@@ -18,7 +19,7 @@ implementation is judged against; `greedy_assign` is its fast host twin.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +98,64 @@ def _scores(
     score = torch.where(preferred, util_q - cm.preference_bonus_q, util_q)
     return torch.where(feasible, score,
                        torch.full_like(score, cm.infeasible_score_q))
+
+
+def assign_batch(
+    pool: PoolArrays,
+    batch: TaskBatch,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Assign every task in the batch a servant slot (or NO_PICK), in
+    order, consuming capacity as it goes: (picks int32[T], running
+    int32[S]).
+
+    The plain version of the sequential scan (kernel K2, csrc/
+    assign_batch.cu): the exact greedy contract every other policy is
+    held to.  The pick is the lowest slot at the minimum score — the
+    argmin of the unique int64 key score*S + slot, as greedy_assign
+    orders its heap — granted only when that score is feasible and the
+    task is not padding.  State stays in device tensors, so a card never
+    syncs inside the loop."""
+    cm = cost_model
+    s = pool.alive.shape[0]
+    dev = pool.alive.device
+    slots = torch.arange(s, dtype=torch.int64, device=dev)
+    running = pool.running.to(torch.int32)
+    picks = []
+    for t in range(batch.env_id.shape[0]):
+        score = _scores(pool, running, batch.env_id[t],
+                        batch.min_version[t], batch.requestor[t], cm)
+        pick = torch.argmin(score * s + slots)
+        granted = (score[pick] < cm.infeasible_score_q) & batch.valid[t]
+        running = running.index_add(0, pick.reshape(1),
+                                    granted.reshape(1).to(torch.int32))
+        picks.append(torch.where(granted, pick, NO_PICK))
+    if not picks:
+        return torch.zeros(0, dtype=torch.int32, device=dev), running
+    return torch.stack(picks).to(torch.int32), running
+
+
+def make_batch(env_ids, min_versions, requestors, pad_to: int,
+               device="cpu") -> TaskBatch:
+    """A python request list padded to ``pad_to`` tasks on ``device``;
+    padding rows are env 0, requestor -1 and valid False (inert)."""
+    n = len(env_ids)
+    if n > pad_to:
+        raise ValueError(f"{n} tasks do not fit a pad of {pad_to}")
+
+    def pad(xs, fill):
+        a = np.full(pad_to, fill, np.int32)
+        a[:n] = np.asarray(xs, np.int32)
+        return torch.from_numpy(a).to(device)
+
+    valid = np.zeros(pad_to, bool)
+    valid[:n] = True
+    return TaskBatch(
+        env_id=pad(env_ids, 0),
+        min_version=pad(min_versions, 0),
+        requestor=pad(requestors, -1),
+        valid=torch.from_numpy(valid).to(device),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -323,3 +323,147 @@ def make_grouped_batch(groups, pad_to: int, device="cpu") -> GroupedBatch:
     """groups: [(env_id, min_version, requestor, count)], host-side; all
     four descriptor vectors ride one transfer."""
     return unpack_grouped(make_grouped_packed(groups, pad_to, device))
+
+
+# ----------------------------------------------------------------------
+# Device-resident pool: scatter-delta updates + the resident step.
+#
+# The stream step above still re-uploads capacity and the (epoch-cached)
+# statics every launch.  The resident protocol keeps the WHOLE PoolArrays
+# on the device across launches and streams only what changed: dirty-slot
+# indices plus their replacement rows.  Running corrections keep riding
+# the adj/reset fold (fold_stream_delta).
+# ----------------------------------------------------------------------
+
+
+class PoolDelta(NamedTuple):
+    """One launch's scatter-delta for the device-resident pool.
+
+    `idx` holds dirty slot indices; padding entries use idx == S (the
+    pool size), which the scatter drops (NOT -1, which negative indexing
+    would land on the last slot).  Values are the full replacement rows
+    for each dirty slot; `running` has no row here — it is chained device
+    state corrected via fold_stream_delta."""
+
+    idx: torch.Tensor        # int32[D] dirty slots; == S marks padding
+    alive: torch.Tensor      # int32[D] 0/1
+    capacity: torch.Tensor   # int32[D] effective capacity
+    dedicated: torch.Tensor  # int32[D] 0/1
+    version: torch.Tensor    # int32[D]
+    env_rows: torch.Tensor   # int32[D, E//32] uint32 words, bit pattern
+
+
+def delta_pad(n: int, floor: int = 64) -> int:
+    """Pad policy for the delta length: powers of two with a floor,
+    mirroring group_pad/task_pad."""
+    pad = floor
+    while pad < n:
+        pad *= 2
+    return pad
+
+
+def make_pool_delta(dirty_idx, snap_arrays: dict, pad_to: int,
+                    pool_size: int, device="cpu") -> PoolDelta:
+    """Host-side delta assembly: gather the dirty slots' current rows from
+    the (host-authoritative) snapshot arrays and pad with the idx == S
+    sentinel.  Each slot is sent at most once: a scatter with duplicate
+    indices has no defined winner on the card."""
+    idx = np.asarray(dirty_idx, np.int64)
+    d = idx.shape[0]
+    if d > pad_to:
+        raise ValueError(f"{d} dirty slots do not fit a pad of {pad_to}")
+    if np.unique(idx).shape[0] != d:
+        raise ValueError("a delta sends each dirty slot at most once")
+    pidx = np.full(pad_to, pool_size, np.int32)
+    pidx[:d] = idx
+
+    def up(a):
+        return torch.from_numpy(a).to(device)
+
+    def take(name):
+        a = np.zeros(pad_to, np.int32)
+        a[:d] = snap_arrays[name][idx]
+        return up(a)
+
+    env = np.zeros((pad_to, snap_arrays["env_bitmap"].shape[1]), np.uint32)
+    env[:d] = snap_arrays["env_bitmap"][idx]
+    return PoolDelta(
+        idx=up(pidx),
+        alive=take("alive"),
+        capacity=take("capacity"),
+        dedicated=take("dedicated"),
+        version=take("version"),
+        env_rows=up(env.view(np.int32)),
+    )
+
+
+def _scatter_rows(a: torch.Tensor, idx: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """A copy of ``a`` with rows ``idx`` replaced by ``rows``.  Index
+    len(a) marks padding: the copy carries one sink row past the end for
+    it to land on, and the result is the view without that row — the
+    `mode="drop"` of XLA's scatter, with no mask and so no sync with the
+    card."""
+    ext = torch.cat((a, a[:1]))
+    ext[idx.long()] = rows.to(a.dtype)
+    return ext[:-1]
+
+
+def apply_pool_delta(pool: PoolArrays, delta: PoolDelta) -> PoolArrays:
+    """Scatter the delta rows into the pool (running untouched); padding
+    indices (== S) are dropped.  Functional: the input pool is not
+    modified."""
+    i = delta.idx
+    if i.device.type == "cpu":
+        real = i[i < pool.alive.shape[0]]
+        if torch.unique(real).numel() != real.numel():
+            raise ValueError("a delta sends each dirty slot at most once")
+    return pool._replace(
+        alive=_scatter_rows(pool.alive, i, delta.alive != 0),
+        capacity=_scatter_rows(pool.capacity, i, delta.capacity),
+        dedicated=_scatter_rows(pool.dedicated, i, delta.dedicated != 0),
+        version=_scatter_rows(pool.version, i, delta.version),
+        env_bitmap=_scatter_rows(pool.env_bitmap, i, delta.env_rows),
+    )
+
+
+def resident_grouped_step(
+    pool: PoolArrays,
+    delta: PoolDelta,
+    packed: torch.Tensor,
+    adj: torch.Tensor,
+    reset_mask: torch.Tensor,
+    reset_val: torch.Tensor,
+    t_max: int,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, PoolArrays]:
+    """The device-resident dispatch step: scatter the statics delta, fold
+    the running corrections, run the grouped assignment (the device
+    updates its own `running` from its own picks), and expand to flat
+    picks.  Returns (picks int32[t_max], the advanced pool).
+
+    Invariant (shared with assign_grouped_picks_stream): device running =
+    host authoritative running + grants of in-flight launches; device
+    statics = host statics as of the last delta."""
+    counts, pool = resident_grouped_step_counts(
+        pool, delta, packed, adj, reset_mask, reset_val, cost_model)
+    return expand_counts(counts, packed[3], t_max), pool
+
+
+def resident_grouped_step_counts(
+    pool: PoolArrays,
+    delta: PoolDelta,
+    packed: torch.Tensor,
+    adj: torch.Tensor,
+    reset_mask: torch.Tensor,
+    reset_val: torch.Tensor,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, PoolArrays]:
+    """The counts twin of resident_grouped_step: the same scatter, fold
+    and grouped assignment, returning the per-(group, slot) grant counts
+    instead of the expanded picks (the host expands them for free)."""
+    pool = apply_pool_delta(pool, delta)
+    running = fold_stream_delta(pool.running, adj, reset_mask, reset_val)
+    counts, running = assign_grouped(pool._replace(running=running),
+                                     unpack_grouped(packed), cost_model)
+    return counts, pool._replace(running=running)

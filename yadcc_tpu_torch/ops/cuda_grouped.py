@@ -1,11 +1,12 @@
 """Wrappers of the grouped-assignment CUDA kernel (csrc/grouped_assign.cu).
 
-The counterparts of yadcc_tpu/ops/pallas_grouped.py's four entry points
-(pallas_assign_grouped, _picks, _picks_packed, _picks_stream).  Routing
-follows the tensors: CPU tensors go to the plain version in
-assignment_grouped.py; CUDA tensors launch the kernel, and anything the
-kernel does not take raises.  The expansion, the descriptor unpacking
-and the stream fold stay plain torch ops on the card around the launch.
+The counterparts of yadcc_tpu/ops/pallas_grouped.py's five entry points
+(pallas_assign_grouped, _picks, _picks_packed, _picks_stream and
+pallas_resident_grouped_step).  Routing follows the tensors: CPU tensors
+go to the plain version in assignment_grouped.py; CUDA tensors launch the
+kernel, and anything the kernel does not take raises.  The expansion, the
+descriptor unpacking, the stream fold and the resident delta scatter stay
+plain torch ops on the card around the launch.
 
 `launches` counts kernel launches (one per cuda_assign_grouped call on
 the card), so a run can show that its main path went through the kernel.
@@ -157,3 +158,37 @@ def cuda_assign_grouped_picks_stream(
                                     reset_val)
     return cuda_assign_grouped_picks_packed(
         pool._replace(running=running), packed, t_max, cost_model)
+
+
+def cuda_resident_grouped_step(
+    pool: PoolArrays,
+    delta: asg.PoolDelta,
+    packed: torch.Tensor,
+    adj: torch.Tensor,
+    reset_mask: torch.Tensor,
+    reset_val: torch.Tensor,
+    t_max: int,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, PoolArrays]:
+    """The device-resident step through the kernel, the counterpart of
+    pallas_grouped.pallas_resident_grouped_step: the delta scatter, the
+    running fold and the expansion are torch ops on the card around one
+    K1 launch (assignment_grouped.resident_grouped_step is the plain
+    twin).  The JAX step donates the pool; here the pool's own tensors are
+    updated in place on the current stream, and the returned pool holds
+    them.  CPU tensors take the plain (functional) step."""
+    if pool.alive.device.type == "cpu":
+        return asg.resident_grouped_step(pool, delta, packed, adj,
+                                         reset_mask, reset_val, t_max,
+                                         cost_model)
+    new = asg.apply_pool_delta(pool, delta)
+    running = asg.fold_stream_delta(pool.running, adj, reset_mask,
+                                    reset_val)
+    batch = asg.unpack_grouped(packed)
+    counts, running = cuda_assign_grouped(new._replace(running=running),
+                                          batch, cost_model)
+    picks = asg.expand_counts(counts, batch.count, t_max)
+    for name in PoolArrays._fields:
+        getattr(pool, name).copy_(
+            running if name == "running" else getattr(new, name))
+    return picks, pool

@@ -18,7 +18,7 @@ import threading
 from ..common.parse_size import parse_size
 from ..common.token_verifier import make_token_verifier_from_flag
 from ..device import resolve_device
-from ..ops import cuda_grouped
+from ..ops import cuda_assign, cuda_grouped
 from ..rpc import GrpcServer
 from ..utils import exposed_vars
 from ..utils.inspect_server import InspectServer
@@ -39,7 +39,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=list(POLICY_NAMES),
                    help="auto = host greedy for small backlogs, the "
                         "grouped kernel above a crossover measured at "
-                        "startup")
+                        "startup; torch_batched = the exact sequential "
+                        "scan; torch_resident_grouped = the grouped "
+                        "kernel on a device-resident pool (pipelined)")
     p.add_argument("--max-servants", type=int, default=8192)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the grouped assignment runs; 'cuda' "
@@ -117,10 +119,12 @@ def scheduler_start(args, stop: "threading.Event | None" = None) -> int:
     dispatcher = build_dispatcher(args)
     # Count the launches made while serving, not the warmup's.
     cuda_grouped.launches = 0
+    cuda_assign.launches = 0
     service = build_service(dispatcher, args)
     exposed_vars.expose("yadcc/task_dispatcher", dispatcher.inspect)
     exposed_vars.expose("yadcc/kernels", lambda: {
-        "grouped_assign": {"launches": cuda_grouped.launches}})
+        "grouped_assign": {"launches": cuda_grouped.launches},
+        "assign_batch": {"launches": cuda_assign.launches}})
     exposed_vars.expose("yadcc/scheduler_rpc",
                         service.stage_timer.percentiles)
 

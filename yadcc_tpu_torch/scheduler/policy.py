@@ -1,4 +1,4 @@
-"""DispatchPolicy SPI: greedy CPU oracle and the grouped torch policy.
+"""DispatchPolicy SPI: the greedy CPU oracle and the device policies.
 
 The scheduler's host code (task_dispatcher.py) owns all bookkeeping —
 leases, zombies, wakeups.  Worker *selection* is delegated to a policy
@@ -8,8 +8,9 @@ produces identical picks for identical inputs, so flipping
 throughput.
 
 Device policies run where they are told (`device`): on "cuda" every
-grouped assignment goes through the hand-written kernel
-(ops/cuda_grouped.py); on "cpu" through its plain version.  A device
+grouped assignment goes through the hand-written kernel K1
+(ops/cuda_grouped.py) and every sequential scan through K2
+(ops/cuda_assign.py); on "cpu" through their plain versions.  A device
 failure raises to the caller — no policy here degrades to another.
 """
 
@@ -25,6 +26,7 @@ import torch
 from ..models.cost import DEFAULT_COST_MODEL, DispatchCostModel
 from ..ops import assignment as asn
 from ..ops import assignment_grouped as asg
+from ..ops import cuda_assign as kassign
 from ..ops import cuda_grouped as kgrouped
 from ..utils.logging import get_logger
 
@@ -207,6 +209,60 @@ def _upload_pool(snap: PoolSnapshot, running, device: torch.device,
     )
 
 
+def _zero_snapshot(pool_size: int, env_words: int) -> PoolSnapshot:
+    """An empty pool of the serving width for warmups (epoch -1: never
+    cached as a real pool)."""
+    return PoolSnapshot(
+        alive=np.zeros(pool_size, bool),
+        capacity=np.zeros(pool_size, np.int32),
+        running=np.zeros(pool_size, np.int32),
+        dedicated=np.zeros(pool_size, bool),
+        version=np.zeros(pool_size, np.int32),
+        env_bitmap=np.zeros((pool_size, env_words), np.uint32))
+
+
+class TorchBatchedPolicy(DispatchPolicy):
+    """The exact sequential scan: every request is its own argmin over the
+    pool, in request order, through kernel K2 (ops/cuda_assign.py) on
+    "cuda" and its plain version on "cpu".  The counterpart of the JAX
+    package's jax_batched (XLA scan) and jax_pallas (Pallas K2) policies.
+
+    Requests go in chunks of at most max_batch, with `running` carried
+    from chunk to chunk on the device.  A chunk is padded only to its own
+    length: the kernel has no per-shape compile to amortize, and padding
+    rows would each cost a full argmin."""
+
+    name = "torch_batched"
+
+    def __init__(self, device="cuda", max_batch: int = 256,
+                 cost_model: DispatchCostModel = DEFAULT_COST_MODEL):
+        self._device = torch.device(device)
+        self._cm = cost_model
+        self._max_batch = max_batch
+        self._pool_cache = _DevicePoolCache()
+
+    def warmup(self, pool_size: int, env_words: int = 8) -> None:
+        """Build the kernel and run it once at the serving width."""
+        self.assign(_zero_snapshot(pool_size, env_words),
+                    [AssignRequest(0, 0, -1)])
+
+    def assign(self, snap, requests):
+        picks: List[int] = []
+        pool = _upload_pool(snap, snap.running, self._device,
+                            self._pool_cache)
+        for start in range(0, len(requests), self._max_batch):
+            chunk = requests[start:start + self._max_batch]
+            batch = asn.make_batch(
+                [r.env_id for r in chunk],
+                [r.min_version for r in chunk],
+                [r.requestor_slot for r in chunk],
+                pad_to=len(chunk), device=self._device)
+            got, running = kassign.cuda_assign_batch(pool, batch, self._cm)
+            pool = pool._replace(running=running)
+            picks.extend(got.tolist())
+        return picks
+
+
 class TorchGroupedPolicy(DispatchPolicy):
     """Grouped device policy: RUNS of consecutive identical descriptors
     are each resolved by one parallel threshold search
@@ -313,25 +369,31 @@ class TorchGroupedPolicy(DispatchPolicy):
             env_bitmap=torch.zeros((pool_size, env_words),
                                    dtype=torch.int32, device=self._device))
 
-    def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
-        """Run the stream step once per (group pad, task pad) of the
-        ladder — the pipelined twin of warmup(): builds the kernel and
-        sizes the allocator before the first live launch."""
-        pool = self._zero_pool(pool_size, env_words)
-        falses = pool.alive
+    def _ladder(self):
+        """Every (group pad, task pad) a launch can take — the chunk caps
+        keep it a small closed set — in the order the warmups run them."""
         pad = asg.group_pad(0)
         while True:
             t_pad = asg.task_pad(0)
             while True:
-                self._run_stream_kernel(
-                    pool, self._packed([], pad), pool.running, falses,
-                    pool.running, t_pad)
+                yield pad, t_pad
                 if t_pad >= self._TASK_CAP:
                     break
                 t_pad *= 2
             if pad >= self._max_groups:
                 break
             pad *= 2
+
+    def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
+        """Run the stream step once per (group pad, task pad) of the
+        ladder — the pipelined twin of warmup(): builds the kernel and
+        sizes the allocator before the first live launch."""
+        pool = self._zero_pool(pool_size, env_words)
+        falses = pool.alive
+        for pad, t_pad in self._ladder():
+            self._run_stream_kernel(
+                pool, self._packed([], pad), pool.running, falses,
+                pool.running, t_pad)
         self._sync()
 
     def _sync(self) -> None:
@@ -343,7 +405,8 @@ class TorchGroupedPolicy(DispatchPolicy):
         return kgrouped.cuda_assign_grouped_picks_stream(
             pool, packed, adj, rmask, rval, t_max, self._cm)
 
-    def stream_launch(self, snap, descr, adj, reset_slots) -> StreamTicket:
+    def stream_launch(self, snap, descr, adj, reset_slots,
+                      dirty=None) -> StreamTicket:
         """Launch one chunk without waiting for the result.
 
         snap: PoolSnapshot for statics + per-launch capacity (its
@@ -351,7 +414,10 @@ class TorchGroupedPolicy(DispatchPolicy):
         descr: [(env_id, min_version, requestor_slot, count)] runs, in
         work order; the flat picks positions map 1:1 to that order.
         adj: int[S] signed host corrections since the last launch.
-        reset_slots: {slot: absolute_running} overrides."""
+        reset_slots: {slot: absolute_running} overrides.
+        dirty: slots whose statics changed since the last launch — only
+        the device-RESIDENT subclass consumes it; this epoch-cached
+        upload path re-reads the snapshot."""
         self._stream_guard(snap)
         pool = self._prepare_grouped_pool(snap, self._stream_running)
         packed = self._packed(descr, asg.group_pad(len(descr)))
@@ -367,10 +433,14 @@ class TorchGroupedPolicy(DispatchPolicy):
             pool, packed, _upload(adj, np.int32, dev),
             _upload(rmask, np.bool_, dev), _upload(rval, np.int32, dev),
             t_pad)
+        return self._ticket(picks)
+
+    def _ticket(self, picks: torch.Tensor) -> StreamTicket:
+        """The next ticket for ``picks``; on the card the copy to the
+        host starts now, and the dispatcher collects it once `ready` has
+        passed, without blocking the launch loop."""
         ready = None
-        if dev.type == "cuda":
-            # Start the copy to the host now; the dispatcher collects it
-            # once `ready` has passed, without blocking the launch loop.
+        if picks.device.type == "cuda":
             host = torch.empty(picks.shape, dtype=picks.dtype,
                                pin_memory=True)
             host.copy_(picks, non_blocking=True)
@@ -421,23 +491,15 @@ class TorchGroupedPolicy(DispatchPolicy):
         if (pool_size, env_words) in self._warmed_pool_shapes:
             return
         pool = self._zero_pool(pool_size, env_words)
-        pad = asg.group_pad(0)
-        while True:
-            if self._decide_expand():
-                t_pad = asg.task_pad(0)
-                while True:
-                    kgrouped.cuda_assign_grouped_picks_packed(
-                        pool, self._packed([], pad), t_pad, self._cm)
-                    if t_pad >= self._TASK_CAP:
-                        break
-                    t_pad *= 2
-            else:
+        if self._decide_expand():
+            for pad, t_pad in self._ladder():
+                kgrouped.cuda_assign_grouped_picks_packed(
+                    pool, self._packed([], pad), t_pad, self._cm)
+        else:
+            for pad in sorted({pad for pad, _ in self._ladder()}):
                 kgrouped.cuda_assign_grouped(
                     pool, asg.unpack_grouped(self._packed([], pad)),
                     self._cm)
-            if pad >= self._max_groups:
-                break
-            pad *= 2
         self._sync()
         self._warmed_pool_shapes.add((pool_size, env_words))
 
@@ -491,6 +553,66 @@ class TorchGroupedPolicy(DispatchPolicy):
                         member_idx, expanded[offsets[ci]:offsets[ci + 1]]):
                     picks[req_idx] = int(s)
         return picks
+
+
+class TorchResidentGroupedPolicy(TorchGroupedPolicy):
+    """The device-resident stream policy: the FULL PoolArrays lives on the
+    device across cycles (scheduler/device_pool.py) and every stream
+    launch is one resident step — delta scatter, running fold, K1,
+    expansion — with the pool updated in place.  The host streams
+    dirty-slot deltas (the dispatcher's `dirty=` export); only picks come
+    back.  The counterpart of the JAX package's jax_resident_grouped and
+    jax_resident_pallas_grouped.  Synchronous assign() stays the inherited
+    upload path: residency is a property of the stream."""
+
+    name = "torch_resident_grouped"
+    # The dispatcher checks this to pass its dirty-slot export through
+    # stream_launch(dirty=...).
+    supports_resident = True
+
+    def __init__(self, device="cuda", max_groups: int = 64,
+                 cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+                 oracle_interval: int = 64):
+        super().__init__(device, max_groups, cost_model)
+        from .device_pool import DeviceResidentPool
+
+        self.resident_pool = DeviceResidentPool(
+            device, cost_model, oracle_interval=oracle_interval)
+
+    def stream_begin(self, snap) -> None:
+        self.resident_pool.seed(snap)
+        self._stream_next_id = 0
+        self._stream_epoch = snap.epoch
+
+    def _stream_seeded(self, snap) -> bool:
+        rp = self.resident_pool
+        return (rp.seeded
+                and rp.running.shape[0] == snap.running.shape[0])
+
+    def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
+        """Run the resident step over the (group pad, task pad) ladder at
+        the floor delta pad (bigger dirty sets escalate to a full re-sync,
+        which adds no step shape).  The zero pool seeded here is replaced
+        by the real stream_begin."""
+        snap = _zero_snapshot(pool_size, env_words)
+        self.resident_pool.seed(snap)
+        adj = np.zeros(pool_size, np.int32)
+        for pad, t_pad in self._ladder():
+            self.resident_pool.step(snap, (), [(0, 0, -1, 0)] * pad, adj,
+                                    {}, t_pad)
+        self._sync()
+
+    def stream_launch(self, snap, descr, adj, reset_slots,
+                      dirty=None) -> StreamTicket:
+        self._stream_guard(snap)
+        t_pad = asg.task_pad(sum(d[3] for d in descr))
+        return self._ticket(self.resident_pool.step(
+            snap, dirty, descr, adj, reset_slots, t_pad))
+
+    def stream_stats(self) -> dict:
+        stats = super().stream_stats()
+        stats.update(self.resident_pool.inspect())
+        return stats
 
 
 class AutoPolicy(DispatchPolicy):
@@ -589,8 +711,9 @@ class AutoPolicy(DispatchPolicy):
     def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
         self._grouped.stream_warmup(pool_size, env_words)
 
-    def stream_launch(self, snap, descr, adj, reset_slots):
-        return self._grouped.stream_launch(snap, descr, adj, reset_slots)
+    def stream_launch(self, snap, descr, adj, reset_slots, dirty=None):
+        return self._grouped.stream_launch(snap, descr, adj, reset_slots,
+                                           dirty=dirty)
 
     def stream_ready(self, ticket) -> bool:
         return self._grouped.stream_ready(ticket)
@@ -615,7 +738,13 @@ class AutoPolicy(DispatchPolicy):
         return self._grouped.assign(snap, requests)
 
 
-POLICY_NAMES = ("auto", "greedy_cpu", "torch_grouped")
+# The port's --dispatch-policy names.  Each stands for the JAX package's
+# policies of the same semantics: torch_grouped for jax_grouped and
+# jax_pallas_grouped, torch_batched for jax_batched and jax_pallas,
+# torch_resident_grouped for jax_resident_grouped and
+# jax_resident_pallas_grouped (the kernel follows the device, not a name).
+POLICY_NAMES = ("auto", "greedy_cpu", "torch_grouped", "torch_batched",
+                "torch_resident_grouped")
 
 
 def make_policy(name: str, avoid_self: bool = True,
@@ -629,6 +758,10 @@ def make_policy(name: str, avoid_self: bool = True,
         return GreedyCpuPolicy(cm)
     if name == "torch_grouped":
         return TorchGroupedPolicy(device, cost_model=cm)
+    if name == "torch_batched":
+        return TorchBatchedPolicy(device, cost_model=cm)
+    if name == "torch_resident_grouped":
+        return TorchResidentGroupedPolicy(device, cost_model=cm)
     if name == "auto":
         return AutoPolicy(device, cost_model=cm)
     raise ValueError(f"unknown dispatch policy {name!r}")

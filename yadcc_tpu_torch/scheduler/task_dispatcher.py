@@ -276,6 +276,12 @@ class TaskDispatcher:
         self._pipe_reset_barrier = np.full(
             max_servants, -1, np.int64)  # guarded by: self._lock
         self._pipe_launch_seq = 0  # guarded by: self._lock
+        # Slots whose snapshot row (statics or effective capacity) changed
+        # since the last launch, while the stream is live.  Taken in the
+        # same locked region that publishes the launch's snapshot, so the
+        # delta a resident policy gathers from that snapshot covers
+        # exactly these slots (policy.TorchResidentGroupedPolicy).
+        self._stream_dirty: Set[int] = set()  # guarded by: self._lock
         # Inline-leader dispatch: the first waiter of an idle backlog
         # runs the cycle on its own thread (two condvar handoffs and
         # the batch window fall off the lone-request latency path);
@@ -858,7 +864,10 @@ class TaskDispatcher:
                 self._pipe_active = True
                 self._pipe_adj[:] = 0
                 self._pipe_resets.clear()
+                # The full upload below covers every slot.
+                self._stream_dirty.clear()
             policy.stream_begin(snap)
+            resident = getattr(policy, "supports_resident", False)
             while True:
                 # Apply whatever has landed; never hold more than depth.
                 while tickets and (
@@ -897,13 +906,18 @@ class TaskDispatcher:
                     window_issued += self._drain_ticket(*tickets.popleft())
                     window_drains += 1
                     continue
-                work, descr, snap, gen, adj, resets, lid = launch
+                work, descr, snap, gen, adj, resets, lid, dirty = launch
                 # The host-side cost of the policy stage: delta assembly
                 # plus an asynchronous launch; the device round trip
                 # itself is pipelined away.
                 t_pol = self._clock.now()
                 try:
-                    ticket = policy.stream_launch(snap, descr, adj, resets)
+                    if resident:
+                        ticket = policy.stream_launch(snap, descr, adj,
+                                                      resets, dirty=dirty)
+                    else:
+                        ticket = policy.stream_launch(snap, descr, adj,
+                                                      resets)
                 except BaseException:
                     with self._lock:
                         self._release_snapshot_locked(snap)
@@ -994,8 +1008,10 @@ class TaskDispatcher:
         self._pipe_launch_seq += 1
         for slot in resets:
             self._pipe_reset_barrier[slot] = lid
+        dirty = sorted(self._stream_dirty)
+        self._stream_dirty.clear()
         return (work, [tuple(d) for d in descr], snap, gen, adj,
-                resets, lid)
+                resets, lid, dirty)
 
     def _drain_ticket(self, ticket, work, snap_generation, lid,
                       snap=None) -> int:
@@ -1172,6 +1188,8 @@ class TaskDispatcher:
     def _mark_slot_dirty_locked(self, slot: int) -> None:
         for buf in self._snap_buffers:
             buf.dirty.add(slot)
+        if self._pipe_active:
+            self._stream_dirty.add(slot)
 
     def _effective_capacity_at_locked(self, idx: np.ndarray) -> np.ndarray:
         """Vectorized _effective_capacity_locked over a slot index
