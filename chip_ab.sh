@@ -1,20 +1,24 @@
 #!/bin/bash
 # Phases 3-4 of chip_smoke.py (auto policy, pipelined and synchronous)
-# from a second checkout and from this one, in turns on one card:
-# parent, change, change, parent.  Prepare the second checkout first,
+# from other checkouts and from this one, in turns on one card.  With no
+# arguments the turns are parent, change, change, parent; arguments name
+# the turns instead: "change" is this checkout, any other name NAME the
+# checkout in .verify_scratch/NAME.  Prepare the other checkouts first,
 # inside a directory .gitignore lists (so a chip call copies it):
 #
 #     mkdir -p .verify_scratch/parent
 #     git archive <parent commit> | tar -x -C .verify_scratch/parent
-#     bash chip_ab.sh
+#     bash chip_ab.sh                      # or: bash chip_ab.sh parent change ...
 #
 # Each run prints the phases' report lines and one "AB {json}" line,
-# prefixed with [parent] or [change].
+# prefixed with the turn's name.
 set -e
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 ROOT=$(pwd)
-for which in parent change change parent; do
-  if [ $which = parent ]; then dir=$ROOT/.verify_scratch/parent; else dir=$ROOT; fi
+TURNS=("$@")
+[ ${#TURNS[@]} -gt 0 ] || TURNS=(parent change change parent)
+for which in "${TURNS[@]}"; do
+  if [ "$which" = change ]; then dir=$ROOT; else dir=$ROOT/.verify_scratch/$which; fi
   (cd $dir && python3 - <<'PY'
 import json, sys
 sys.path.insert(0, ".")

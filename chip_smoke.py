@@ -199,7 +199,53 @@ def edge_cases(rng):
                        ("beyond_shared_memory", 70_000)):
         out.append((name, np_pool(rng, size),
                     seeded_groups(rng, 4, min(3 * size, 2048), size)))
+    # Groups the kernel skips: every other count 0, then the padding that
+    # group_pad adds (56 groups padded to 64).
+    out.append(("zero_count_groups", np_pool(rng, s), [
+        (e, v, r, 0 if i % 2 else c) for i, (e, v, r, c) in
+        enumerate(seeded_groups(rng, 56, MAIN_TASKS, s))]))
+    out.append(("serving_like", serving_pool(rng),
+                serving_groups(rng, MAIN_G, MAIN_TASKS)))
+    out.append(("env_beyond_bitmap", np_pool(rng, s),
+                [(e, 1, -1, int(rng.integers(1, 300))) for e in ODD_ENVS]))
     return out
+
+
+# Environment ids whose bitmap word lies outside [0, E) for E = 8: the
+# kernels read them as the JAX device functions do (a word in [-E, 0)
+# wraps, one outside [-E, E) reads all ones).
+ODD_ENVS = (256, 261, 10**6, -1, -257, -256, -33)
+
+
+def serving_pool(rng):
+    """The serving path's pool: 5,000 of 8,192 slots alive, capacities
+    8-64, ~20% dedicated, a few grants held, each servant holding ~25% of
+    64 compiler digests (bitmap words 0-1; words 2-7 empty)."""
+    import numpy as np
+
+    s = MAIN_S
+    alive = np.zeros(s, bool)
+    alive[:N_SERVANTS] = True
+    cap = rng.integers(8, 65, s).astype(np.int32)
+    bits = rng.random((s, N_ENVS)) < 0.25
+    words = np.zeros((s, 8), np.uint32)
+    for b in range(N_ENVS):
+        words[:, b // 32] |= bits[:, b].astype(np.uint32) << np.uint32(b % 32)
+    return dict(alive=alive, capacity=cap,
+                running=rng.integers(0, 4, s).astype(np.int32),
+                dedicated=rng.random(s) < 0.2,
+                version=np.ones(s, np.int32), env_bitmap=words)
+
+
+def serving_groups(rng, g, total):
+    """g groups over the 64 digests, min_version 0, requestors among the
+    live servants, counts summing to total."""
+    import numpy as np
+
+    cuts = np.sort(rng.integers(0, total + 1, g - 1))
+    counts = np.diff(np.concatenate(([0], cuts, [total])))
+    return [(int(rng.integers(0, N_ENVS)), 0,
+             int(rng.integers(-1, N_SERVANTS)), int(c)) for c in counts]
 
 
 def compare_kernel(report: list) -> dict:
@@ -311,9 +357,106 @@ def timed(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+# Integer operations (32-bit equivalents) of K1's design, for its bound:
+# a slot's eligibility test and ballot in the compaction, an active slot's
+# compact entry and pref_total, one branch-free count_leq (two int64
+# closed forms of ~17 each: multiply, add, shift, subtract, clamp; ~12 to
+# combine them), and one block reduction's shuffles and adds.
+K1_OPS_SLOT, K1_OPS_ENTRY, K1_OPS_COUNT = 12, 24, 46
+K1_OPS_REDUCTION = 1024 * 12
+H100_SMS = 132
+
+
+def k1_work(p, groups, counts):
+    """What K1's design does on this data, derived on the host from the
+    kernel's counts: per group, its active (compacted) slots and the
+    bisect steps it runs (the kernel's rules in int64 numpy)."""
+    import numpy as np
+
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL as cm
+
+    run = p["running"].astype(np.int64)
+    cap1 = np.maximum(p["capacity"].astype(np.int64), 1)
+    pref_q = cm.dedicated_preference_utilization_q
+    bonus = cm.preference_bonus_q
+    lo0, hi0 = -bonus - 1, (1 << 16) + 1
+    skip = bool((run >= 0).all()) and bonus >= 0 and hi0 - lo0 < 1 << 22
+    active, steps = [], []
+    for g, (env, minv, req, m) in enumerate(groups):
+        n, it = 0, 0
+        if not (m <= 0 and skip):
+            e = p["env_bitmap"].shape[1]
+            w = env >> 5
+            has = (np.ones(len(run), bool) if not -e <= w < e else
+                   ((p["env_bitmap"][:, w % e] >> np.uint32(env & 31)) & 1)
+                   == 1)
+            ok = p["alive"] & has & (p["version"] >= minv)
+            ok &= np.arange(len(run)) != req
+            avail = np.where(ok, np.maximum(p["capacity"] - run, 0), 0)
+            idx = np.flatnonzero(avail > 0)
+            n = idx.size
+            c1, r, a = cap1[idx], run[idx], avail[idx]
+
+            def ks(x):
+                k = (((x + 1) * c1 - 1) >> 16) - r + 1
+                return np.minimum(np.maximum(k, 0), a)
+
+            pt = np.where(p["dedicated"][idx], ks(pref_q - 1), 0)
+            lo, hi, known = lo0, hi0, False
+            while n and it < 22 and not (hi == lo or (hi - lo == 1
+                                                       and known)):
+                mid = (lo + hi) >> 1
+                it += 1
+                cnt = (np.minimum(ks(min(mid + bonus, pref_q - 1)), pt)
+                       + np.maximum(ks(mid) - pt, 0)).sum()
+                if cnt >= m:
+                    hi = mid
+                else:
+                    lo, known = mid, True
+        active.append(n)
+        steps.append(it)
+        run = run + counts[g].astype(np.int64)
+    return active, steps
+
+
+def time_k1(p, pool, groups, pad, reps=50) -> dict:
+    """K1 and its plain version on one pool and batch, with CUDA events;
+    the bound from what this data needs."""
+    import numpy as np
+
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    batch = asg.make_grouped_batch(groups, pad, pool.alive.device)
+    ms = timed(lambda: kg.cuda_assign_grouped(pool, batch), reps)
+    plain_ms = timed(lambda: asg.assign_grouped(pool, batch), 3)
+    counts = kg.cuda_assign_grouped(pool, batch)[0].cpu().numpy()
+    padded = list(groups) + [(0, 0, -1, 0)] * (pad - len(groups))
+    active, steps = k1_work(p, padded, counts)
+    s = len(p["alive"])
+    e = pool.env_bitmap.shape[1]
+    moved = s * (6 + e) * 4 + pad * s * 4 + s * 4
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops = sum(s * K1_OPS_SLOT + n * K1_OPS_ENTRY
+              + n * (it + 4) * K1_OPS_COUNT + (it + 2) * K1_OPS_REDUCTION
+              for n, it in zip(active, steps) if n or it)
+    ops += s * sum(1 for n, it in zip(active, steps) if not (n or it))
+    ops_ms = ops / H100_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                one_sm_floor_ms=ops / (H100_OPS_PER_S / H100_SMS) * 1e3,
+                us_per_group=ms * 1e3 / pad, groups=pad,
+                searched_groups=sum(1 for n in active if n),
+                mean_active_slots=float(np.mean([n for n in active if n]
+                                                or [0])),
+                bisect_steps=sum(steps), max_steps=max(steps))
+
+
 def time_kernel(report: list) -> dict:
     """The kernel and the plain version at the main path's largest chunk
-    (S=8192, G=64, 2048 tasks), with CUDA events."""
+    (S=8192, G=64, 2048 tasks) and at G=8 on the timing pool, and at G=64
+    on the serving-like pool, with CUDA events."""
     import numpy as np
     import torch
 
@@ -326,37 +469,28 @@ def time_kernel(report: list) -> dict:
     p = np_pool(rng, MAIN_S, cap_lo=8, cap_hi=65, run_hi=8, ded_frac=0.2)
     pool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields), dev)
     out = {}
-
-    for g in (8, MAIN_G):
-        batch = asg.make_grouped_batch(
-            seeded_groups(rng, g, MAIN_TASKS, MAIN_S), g, dev)
-        ms = timed(lambda: kg.cuda_assign_grouped(pool, batch), 50)
-        plain_ms = timed(lambda: asg.assign_grouped(pool, batch), 3)
-        e = pool.env_bitmap.shape[1]
-        moved = MAIN_S * (6 + e) * 4 + g * MAIN_S * 4 + MAIN_S * 4
-        bytes_ms = moved / H100_BYTES_PER_S * 1e3
-        # Integer operations this data needs: every bisect step and the
-        # two tie-split passes evaluate count_leq once per slot (about 10
-        # 32-bit-equivalent operations for one closed-form tier, 3 tiers
-        # plus 6 for a dedicated slot), plus the reductions' adds.
-        n_ded = int(p["dedicated"].sum())
-        per_pass = (MAIN_S - n_ded) * 10 + n_ded * 36 + MAIN_S
-        ops = g * (asg._SEARCH_ITERS + 3) * per_pass
-        ops_ms = ops / H100_OPS_PER_S * 1e3
-        reductions = g * (asg._SEARCH_ITERS + 1 + -(-MAIN_S // 1024))
-        out[g] = dict(ms=ms, plain_ms=plain_ms,
-                      bound_ms=max(bytes_ms, ops_ms),
-                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                      bytes_ms=bytes_ms, ops_ms=ops_ms,
-                      dependent_reductions=reductions,
-                      us_per_reduction=ms * 1e3 / reductions)
+    sp = serving_pool(np.random.default_rng(8))
+    spool = asn.pool_from_numpy(*(sp[k] for k in asn.PoolArrays._fields),
+                                dev)
+    for key, pn, pt, groups, pad in (
+            (8, p, pool, seeded_groups(rng, 8, MAIN_TASKS, MAIN_S), 8),
+            (MAIN_G, p, pool, seeded_groups(rng, MAIN_G, MAIN_TASKS, MAIN_S),
+             MAIN_G),
+            ("serving_like", sp, spool,
+             serving_groups(np.random.default_rng(9), MAIN_G, MAIN_TASKS),
+             MAIN_G)):
+        t = out[key] = time_k1(pn, pt, groups, pad)
         report.append(
-            f"  timing S={MAIN_S} G={g} tasks={MAIN_TASKS}: kernel "
-            f"{ms:.4f} ms (50 launches), plain {plain_ms:.2f} ms, bound "
-            f"{out[g]['bound_ms'] * 1e3:.3f} us ({out[g]['bound_by']}; "
-            f"bytes {bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us), "
-            f"{reductions} dependent block reductions = "
-            f"{out[g]['us_per_reduction']:.2f} us each")
+            f"  timing {'serving-like' if key == 'serving_like' else 'timing'}"
+            f" pool S={MAIN_S} G={pad} tasks={MAIN_TASKS}: kernel "
+            f"{t['ms']:.4f} ms (50 launches) = {t['us_per_group']:.2f} us a "
+            f"group, plain {t['plain_ms']:.2f} ms, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}; bytes "
+            f"{t['bytes_ms'] * 1e3:.3f} us, ops {t['ops_ms'] * 1e3:.3f} us), "
+            f"one-SM floor {t['one_sm_floor_ms'] * 1e3:.2f} us; "
+            f"{t['searched_groups']} groups searched over "
+            f"{t['mean_active_slots']:.0f} active slots on average, "
+            f"{t['bisect_steps']} bisect steps (at most {t['max_steps']})")
 
     # The two wrappers the main path calls (synchronous: picks_packed,
     # pipelined: picks_stream) at the same chunk: K1 plus the expansion
@@ -524,6 +658,8 @@ def k2_cases(rng):
         out.append((f"requestors_avoid_self_{avoid}",
                     base(capacity=np.full(s, 2, np.int32)),
                     [(0, 1, int(r)) for r in rng.integers(0, 8, t)], avoid))
+    out.append(("env_beyond_bitmap", np_pool(rng, s),
+                [(int(e), 1, -1) for e in rng.choice(ODD_ENVS, t)], True))
     for size in (1000, 5000, 1, 70_000):
         out.append((f"S{size}", np_pool(rng, size), tasks(size, 64), True))
     return out
@@ -623,13 +759,16 @@ def compare_assign_batch(report: list) -> dict:
     ops_ms = ops / H100_OPS_PER_S * 1e3
     res = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes_ms=bytes_ms, ops_ms=ops_ms, dependent_reductions=MAIN_T,
+               bytes_ms=bytes_ms, ops_ms=ops_ms,
+               one_sm_floor_ms=ops / (H100_OPS_PER_S / H100_SMS) * 1e3,
+               dependent_reductions=MAIN_T,
                us_per_reduction=ms * 1e3 / MAIN_T)
     report.append(
         f"  K2 timing S={MAIN_S} T={MAIN_T}: kernel {ms:.4f} ms (50 "
         f"launches), plain {plain_ms:.2f} ms, bound "
         f"{res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}; bytes "
-        f"{bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us), {MAIN_T} "
+        f"{bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us), one-SM "
+        f"floor {res['one_sm_floor_ms'] * 1e3:.2f} us, {MAIN_T} "
         f"dependent block argmins = {res['us_per_reduction']:.2f} us each")
     return res
 
@@ -998,7 +1137,13 @@ def main() -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "one_sm_floor_ms": main["one_sm_floor_ms"],
+        "us_per_group": main["us_per_group"],
         "shape": {"S": MAIN_S, "G": MAIN_G, "tasks": MAIN_TASKS, "E": 8},
+        "at_G8": {k: timing[8][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "serving_like": {k: timing["serving_like"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "one_sm_floor_ms",
+                          "mean_active_slots", "bisect_steps")},
         "launches_by_phase": by_phase("grouped_assign"),
         "wrappers": {name: {k: timing[name][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1016,6 +1161,7 @@ def main() -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+        "one_sm_floor_ms": k2["one_sm_floor_ms"],
         "shape": {"S": MAIN_S, "T": MAIN_T, "E": 8},
         "launches_by_phase": by_phase("assign_batch"),
     }]}

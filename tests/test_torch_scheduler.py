@@ -325,7 +325,8 @@ def test_entry_loopback_drive_on_cpu():
     stop = threading.Event()
     rc = []
     server = threading.Thread(
-        target=lambda: rc.append(entry.scheduler_start(args, stop)),
+        target=lambda: rc.append(entry.scheduler_start(args, stop,
+                                                       gc_guard=False)),
         daemon=True)
     server.start()
     ch = Channel(f"grpc://127.0.0.1:{port}")
@@ -412,7 +413,8 @@ def test_entry_serves_resident_pipelined_on_cpu():
     stop = threading.Event()
     rc = []
     server = threading.Thread(
-        target=lambda: rc.append(entry.scheduler_start(args, stop)),
+        target=lambda: rc.append(entry.scheduler_start(args, stop,
+                                                       gc_guard=False)),
         daemon=True)
     server.start()
     sch = api.scheduler

@@ -37,7 +37,9 @@
 //     count folded below zero never reaches this kernel, but floor keeps the
 //     plain version's semantics for any input);
 //   * the bitmap arrives as the int32 bit pattern of the uint32 words; an
-//     arithmetic shift reads the same bit after `& 1`.
+//     arithmetic shift reads the same bit after `& 1`.  A word index in
+//     [-E, 0) wraps to word + E and one outside [-E, E) reads 0xFFFFFFFF,
+//     as the JAX device functions' `jnp.take` does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,16 +87,17 @@ __global__ void __launch_bounds__(kThreads, 1) assign_batch_kernel(
     const int env = t_env[t];
     const int word = env >> 5;
     const int bit = env & 31;
+    // A word index in [-E, 0) wraps; one outside [-E, E) reads all ones.
+    const bool word_inside = word >= -env_words && word < env_words;
+    const int word_col = word < 0 ? word + env_words : word;
     const int minv = t_minv[t];
     const int req = t_req[t];
 
     long long best = kNoKey;
     for (int s = tid; s < S; s += kThreads) {
-      bool has_env = false;
-      if (word >= 0 && word < env_words) {
-        const int32_t w = env_bitmap[(long long)s * env_words + word];
-        has_env = ((w >> bit) & 1) != 0;
-      }
+      const int32_t w = word_inside
+          ? env_bitmap[(long long)s * env_words + word_col] : -1;
+      const bool has_env = ((w >> bit) & 1) != 0;
       const long long r = run[s];
       const long long c = capacity[s];
       const bool feasible = alive[s] && has_env && version[s] >= minv &&

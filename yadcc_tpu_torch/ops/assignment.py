@@ -67,6 +67,21 @@ def pool_from_numpy(alive, capacity, running, dedicated, version,
     )
 
 
+def has_env_bits(env_bitmap: torch.Tensor, env_id) -> torch.Tensor:
+    """int32[S] 0/1: bit `env_id` of each slot's bitmap row, read as the
+    JAX device functions read it (`jnp.take`, fill mode): a word index in
+    [-E, 0) wraps to word + E, and one outside [-E, E) reads 0xFFFFFFFF,
+    so every slot has that environment.  No host sync: the index stays a
+    tensor."""
+    env = torch.as_tensor(env_id, dtype=torch.int32, device=env_bitmap.device)
+    e = env_bitmap.shape[1]
+    word_idx = env >> 5
+    col = (word_idx % e).reshape(1).long()     # word + E for [-E, 0)
+    word = torch.where((word_idx >= -e) & (word_idx < e),
+                       env_bitmap.index_select(1, col)[:, 0], -1)
+    return (word >> (env & 31)) & 1
+
+
 def _scores(
     pool: PoolArrays,
     running: torch.Tensor,
@@ -80,8 +95,7 @@ def _scores(
     s = pool.alive.shape[0]
     slots = torch.arange(s, dtype=torch.int32, device=pool.alive.device)
 
-    word = pool.env_bitmap[:, env_id >> 5]
-    has_env = (word >> (env_id & 31)) & 1
+    has_env = has_env_bits(pool.env_bitmap, env_id)
 
     eligible = pool.alive & (has_env == 1) & (pool.version >= min_version)
     if cm.avoid_self:

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..models.cost import DEFAULT_COST_MODEL, UTIL_SCALE, DispatchCostModel
-from .assignment import NO_PICK, PoolArrays
+from .assignment import NO_PICK, PoolArrays, has_env_bits
 
 # Score domain bounds for the binary search: scores are in
 # [-preference_bonus_q, UTIL_SCALE + preference_bonus_q).
@@ -73,8 +73,7 @@ def make_count_leq(
     s = pool.alive.shape[0]
     slots = torch.arange(s, dtype=torch.int32, device=pool.alive.device)
 
-    word = pool.env_bitmap[:, env_id >> 5]
-    has_env = (word >> (env_id & 31)) & 1
+    has_env = has_env_bits(pool.env_bitmap, env_id)
     eligible = pool.alive & (has_env == 1) & (pool.version >= min_version)
     if cm.avoid_self:
         eligible = eligible & (slots != requestor)

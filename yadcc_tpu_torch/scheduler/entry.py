@@ -21,6 +21,7 @@ from ..device import resolve_device
 from ..ops import cuda_assign, cuda_grouped
 from ..rpc import GrpcServer
 from ..utils import exposed_vars
+from ..utils.gctune import LatencyGcGuard
 from ..utils.inspect_server import InspectServer
 from ..utils.logging import get_logger
 from .policy import POLICY_NAMES, make_policy
@@ -112,10 +113,13 @@ def build_service(dispatcher, args) -> SchedulerService:
     )
 
 
-def scheduler_start(args, stop: "threading.Event | None" = None) -> int:
+def scheduler_start(args, stop: "threading.Event | None" = None,
+                    gc_guard: bool = True) -> int:
     """Serve until ``stop`` is set (SIGINT/SIGTERM when run as a program)
     or the dispatcher fails.  Returns the process exit code: 0 after a
-    clean stop, 1 after a dispatcher failure."""
+    clean stop, 1 after a dispatcher failure.  ``gc_guard=False`` leaves
+    the process's cyclic collector as it is (a caller that embeds the
+    server in a process it does not own)."""
     dispatcher = build_dispatcher(args)
     # Count the launches made while serving, not the warmup's.
     cuda_grouped.launches = 0
@@ -127,6 +131,13 @@ def scheduler_start(args, stop: "threading.Event | None" = None) -> int:
         "assign_batch": {"launches": cuda_assign.launches}})
     exposed_vars.expose("yadcc/scheduler_rpc",
                         service.stage_timer.percentiles)
+
+    # The heap is built (policy warmed, dispatcher constructed): freeze it
+    # and take the automatic cyclic collector off the grant path; the
+    # sweep below collects the young generations instead.
+    guard = LatencyGcGuard()
+    if gc_guard:
+        guard.start()
 
     server = GrpcServer(f"0.0.0.0:{args.port}")
     server.add_service(service.spec())
@@ -150,13 +161,16 @@ def scheduler_start(args, stop: "threading.Event | None" = None) -> int:
             rc = 1
             break
         dispatcher.on_expiration_timer()
+        guard.maintain()
     logger.info("shutting down")
+    guard.stop()
     server.stop()
     inspect.stop()
     dispatcher.stop()
     exposed_vars.unexpose("yadcc/task_dispatcher")
     exposed_vars.unexpose("yadcc/scheduler_rpc")
     exposed_vars.unexpose("yadcc/kernels")
+    exposed_vars.unexpose("yadcc/gc_guard")
     return rc
 
 
