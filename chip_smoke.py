@@ -357,66 +357,105 @@ def timed(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-# Integer operations (32-bit equivalents) of K1's design, for its bound:
-# a slot's eligibility test and ballot in the compaction, an active slot's
-# compact entry and pref_total, one branch-free count_leq (two int64
-# closed forms of ~17 each: multiply, add, shift, subtract, clamp; ~12 to
-# combine them), and one block reduction's shuffles and adds.
-K1_OPS_SLOT, K1_OPS_ENTRY, K1_OPS_COUNT = 12, 24, 46
-K1_OPS_REDUCTION = 1024 * 12
+# Integer operations (32-bit equivalents) that K1's function needs on
+# this data, for its bound: the eligibility test of every slot for each
+# group that grants (alive, env bit, version, requestor, room), and one
+# int64 closed form (multiply-add, shift, subtract, two clamps) for each
+# slot with room in each count_leq the exact search evaluates, two for a
+# dedicated slot (its tau-independent third once a group), with one add
+# to sum it.
+K1_OPS_TEST, K1_OPS_FORM = 8, 12
+K1_SEARCH_ITERS = 22
 H100_SMS = 132
 
 
-def k1_work(p, groups, counts):
-    """What K1's design does on this data, derived on the host from the
-    kernel's counts: per group, its active (compacted) slots and the
-    bisect steps it runs (the kernel's rules in int64 numpy)."""
+def k1_avail(p, run, env, minv, req, cm):
+    """A group's room per slot (0 where a slot is not eligible), reading
+    an environment word outside the bitmap as K1 does."""
     import numpy as np
 
-    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL as cm
+    s, e = p["env_bitmap"].shape
+    w = env >> 5
+    has = (np.ones(s, bool) if not -e <= w < e else
+           (p["env_bitmap"][:, w % e].astype(np.int64) >> (env & 31) & 1)
+           == 1)
+    ok = p["alive"] & has & (p["version"] >= minv)
+    if cm.avoid_self:
+        ok &= np.arange(s) != req
+    return np.where(ok, np.maximum(p["capacity"] - run, 0), 0)
 
+
+def k1_count(cap1, run, avail, dedicated, cm):
+    """K1's count_leq(tau) over compacted slots: branch-free, with
+    pref_total (0 for a plain slot) computed once, dividing by
+    UTIL_SCALE as ``>> 16``."""
+    import numpy as np
+
+    pref_q = int(cm.dedicated_preference_utilization_q)
+    bonus = int(cm.preference_bonus_q)
+
+    def ks(x):
+        k = (((x + 1) * cap1 - 1) >> 16) - run + 1
+        return np.minimum(np.maximum(k, 0), avail)
+
+    pref_total = np.where(dedicated, ks(pref_q - 1), 0)
+
+    def count(tau):
+        return (np.minimum(ks(min(tau + bonus, pref_q - 1)), pref_total)
+                + np.maximum(ks(tau) - pref_total, 0))
+
+    return count
+
+
+def k1_model(p, groups, cm=None):
+    """K1's design in int64 numpy, group by group: the m <= 0 skip, the
+    compaction of the slots that are eligible and have room (in slot
+    order), the branch-free count with pref_total (0 for a plain slot)
+    and ``>> 16``, the early-stopping bisect, and the tie split by an
+    exclusive scan over the compact list.  Returns (counts int32[G, S], running int32[S], work), where work
+    holds per group (active slots, active dedicated slots, bisect
+    steps)."""
+    import numpy as np
+
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL, UTIL_SCALE
+
+    cm = cm or DEFAULT_COST_MODEL
+    s = p["env_bitmap"].shape[0]
     run = p["running"].astype(np.int64)
     cap1 = np.maximum(p["capacity"].astype(np.int64), 1)
-    pref_q = cm.dedicated_preference_utilization_q
-    bonus = cm.preference_bonus_q
-    lo0, hi0 = -bonus - 1, (1 << 16) + 1
-    skip = bool((run >= 0).all()) and bonus >= 0 and hi0 - lo0 < 1 << 22
-    active, steps = [], []
+    bonus = int(cm.preference_bonus_q)
+    lo0, hi0 = -bonus - 1, UTIL_SCALE + 1
+    skip = (bool((run >= 0).all()) and bonus >= 0
+            and hi0 - lo0 < 1 << K1_SEARCH_ITERS)
+    counts = np.zeros((len(groups), s), np.int32)
+    work = []
     for g, (env, minv, req, m) in enumerate(groups):
-        n, it = 0, 0
-        if not (m <= 0 and skip):
-            e = p["env_bitmap"].shape[1]
-            w = env >> 5
-            has = (np.ones(len(run), bool) if not -e <= w < e else
-                   ((p["env_bitmap"][:, w % e] >> np.uint32(env & 31)) & 1)
-                   == 1)
-            ok = p["alive"] & has & (p["version"] >= minv)
-            ok &= np.arange(len(run)) != req
-            avail = np.where(ok, np.maximum(p["capacity"] - run, 0), 0)
-            idx = np.flatnonzero(avail > 0)
-            n = idx.size
-            c1, r, a = cap1[idx], run[idx], avail[idx]
-
-            def ks(x):
-                k = (((x + 1) * c1 - 1) >> 16) - r + 1
-                return np.minimum(np.maximum(k, 0), a)
-
-            pt = np.where(p["dedicated"][idx], ks(pref_q - 1), 0)
-            lo, hi, known = lo0, hi0, False
-            while n and it < 22 and not (hi == lo or (hi - lo == 1
-                                                       and known)):
-                mid = (lo + hi) >> 1
-                it += 1
-                cnt = (np.minimum(ks(min(mid + bonus, pref_q - 1)), pt)
-                       + np.maximum(ks(mid) - pt, 0)).sum()
-                if cnt >= m:
-                    hi = mid
-                else:
-                    lo, known = mid, True
-        active.append(n)
-        steps.append(it)
-        run = run + counts[g].astype(np.int64)
-    return active, steps
+        if m <= 0 and skip:
+            work.append((0, 0, 0))
+            continue
+        avail = k1_avail(p, run, env, minv, req, cm)
+        idx = np.flatnonzero(avail > 0)                     # compaction
+        ded = p["dedicated"][idx]
+        count = k1_count(cap1[idx], run[idx], avail[idx], ded, cm)
+        lo, hi, known, it = lo0, hi0, False, 0
+        while idx.size and it < K1_SEARCH_ITERS and not (
+                hi == lo or (hi - lo == 1 and known)):
+            mid = (lo + hi) >> 1
+            it += 1
+            if count(mid).sum() >= m:
+                hi = mid
+            else:
+                lo, known = mid, True
+        work.append((idx.size, int(ded.sum()), it))
+        if not idx.size:
+            continue
+        below = count(hi - 1)
+        at = count(hi) - below
+        before = np.cumsum(at) - at            # the compact list's scan
+        c = below + np.clip(m - below.sum() - before, 0, at)
+        counts[g, idx] = c
+        run[idx] += c
+    return counts, run.astype(np.int32), work
 
 
 def time_k1(p, pool, groups, pad, reps=50) -> dict:
@@ -432,15 +471,19 @@ def time_k1(p, pool, groups, pad, reps=50) -> dict:
     plain_ms = timed(lambda: asg.assign_grouped(pool, batch), 3)
     counts = kg.cuda_assign_grouped(pool, batch)[0].cpu().numpy()
     padded = list(groups) + [(0, 0, -1, 0)] * (pad - len(groups))
-    active, steps = k1_work(p, padded, counts)
+    model_counts, _, work = k1_model(p, padded)
+    check(np.array_equal(model_counts, counts),
+          "K1 timing: the host model's counts differ from the kernel's")
+    active = [n for n, _, _ in work]
+    steps = [it for _, _, it in work]
     s = len(p["alive"])
     e = pool.env_bitmap.shape[1]
     moved = s * (6 + e) * 4 + pad * s * 4 + s * 4
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    ops = sum(s * K1_OPS_SLOT + n * K1_OPS_ENTRY
-              + n * (it + 4) * K1_OPS_COUNT + (it + 2) * K1_OPS_REDUCTION
-              for n, it in zip(active, steps) if n or it)
-    ops += s * sum(1 for n, it in zip(active, steps) if not (n or it))
+    # The search's evaluations plus the tie split's two (tau - 1, tau).
+    ops = (s * K1_OPS_TEST * sum(1 for *_, m in padded if m > 0)
+           + sum((it + 2) * ((n + nd) * K1_OPS_FORM + n) + nd * K1_OPS_FORM
+                 for n, nd, it in work))
     ops_ms = ops / H100_OPS_PER_S * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",

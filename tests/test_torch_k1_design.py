@@ -1,7 +1,9 @@
-"""A CPU model of the grouped-assignment kernel's design (csrc/
-grouped_assign.cu), held equal to the plain version of both packages.
+"""The CPU model of the grouped-assignment kernel's design
+(`chip_smoke.k1_model`, which chip_smoke.py also uses for K1's bound),
+held equal to the plain version of both packages.
 
-`k1_model` does, in int64 numpy, what the kernel does for each group:
+The model does, in int64 numpy, what the kernel (csrc/grouped_assign.cu)
+does for each group:
 
 * skips a group with count <= 0 (a zero row, `running` as it was) when
   every `running` entry was >= 0 at the start of the call, the bonus is
@@ -12,11 +14,9 @@ grouped_assign.cu), held equal to the plain version of both packages.
   as `>> 16`;
 * stops the bisect once hi == lo, or hi - lo == 1 with lo known to count
   below m, with the plain version's 22 steps as the cap;
-* splits ties over the compact list, each thread walking a contiguous
-  run of entries after one block scan (here with `THREADS` threads, few
-  enough that a thread owns several entries);
+* splits ties by one exclusive scan over the compact list;
 
-and returns the bisect steps each group ran."""
+and reports the active slots and bisect steps of each group."""
 
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K1_SEARCH_ITERS, k1_avail, k1_count, k1_model
 from yadcc_tpu.models.cost import DEFAULT_COST_MODEL as JAX_CM
 from yadcc_tpu.ops import assignment_grouped as jasg
 from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL, UTIL_SCALE
@@ -34,102 +35,14 @@ from yadcc_tpu_torch.ops import assignment_grouped as tasg
 from .test_torch_assignment_grouped import (edge_pools, jax_pool,
                                             random_pool_np, torch_pool)
 
-SEARCH_ITERS = 22
-THREADS = 8
 assert UTIL_SCALE == 1 << 16
-
-
-def _has_env(bitmap: np.ndarray, env: int) -> np.ndarray:
-    e = bitmap.shape[1]
-    w = env >> 5
-    if not -e <= w < e:
-        return np.ones(bitmap.shape[0], bool)
-    return ((bitmap[:, w % e].astype(np.int64) >> (env & 31)) & 1) == 1
-
-
-def _eligible_avail(p, run, env, minv, req, cm):
-    s = p["alive"].shape[0]
-    eligible = p["alive"] & _has_env(p["env_bitmap"], env) & \
-        (p["version"] >= minv)
-    if cm.avoid_self:
-        eligible &= np.arange(s) != req
-    return np.where(eligible,
-                    np.maximum(p["capacity"].astype(np.int64) - run, 0), 0)
-
-
-def compact_count(cap1, run, avail, dedicated, cm):
-    """count_leq(tau) over compacted slots, branch-free, >> 16."""
-    pref_q = int(cm.dedicated_preference_utilization_q)
-    bonus = int(cm.preference_bonus_q)
-
-    def ks(x):
-        k = (((x + 1) * cap1 - 1) >> 16) - run + 1
-        return np.minimum(np.maximum(k, 0), avail)
-
-    pref_total = np.where(dedicated, ks(pref_q - 1), 0)   # once a group
-
-    def count(tau):
-        return (np.minimum(ks(min(tau + bonus, pref_q - 1)), pref_total)
-                + np.maximum(ks(tau) - pref_total, 0))
-
-    return count
-
-
-def k1_model(p: dict, groups, cm=DEFAULT_COST_MODEL):
-    """(counts int32[G, S], running int32[S], steps per group)."""
-    s = p["alive"].shape[0]
-    run = p["running"].astype(np.int64)
-    cap1 = np.maximum(p["capacity"].astype(np.int64), 1)
-    bonus = int(cm.preference_bonus_q)
-    lo0, hi0 = -bonus - 1, UTIL_SCALE + 1
-    skip_ok = bool((run >= 0).all()) and bonus >= 0 and \
-        hi0 - lo0 < (1 << SEARCH_ITERS)
-    counts = np.zeros((len(groups), s), np.int32)
-    steps = []
-    for g, (env, minv, req, m) in enumerate(groups):
-        if m <= 0 and skip_ok:
-            steps.append(0)
-            continue
-        avail = _eligible_avail(p, run, env, minv, req, cm)
-        idx = np.flatnonzero(avail > 0)                 # compaction
-        if idx.size == 0:
-            steps.append(0)
-            continue
-        count = compact_count(cap1[idx], run[idx], avail[idx],
-                              p["dedicated"][idx], cm)
-
-        lo, hi, lo_known, n = lo0, hi0, False, 0
-        while n < SEARCH_ITERS and not (
-                hi == lo or (hi - lo == 1 and lo_known)):
-            mid = (lo + hi) >> 1
-            n += 1
-            if count(mid).sum() >= m:
-                hi = mid
-            else:
-                lo, lo_known = mid, True
-        steps.append(n)
-
-        below = count(hi - 1)
-        at = count(hi) - below
-        need_at = m - int(below.sum())
-        per = -(-idx.size // THREADS)       # contiguous entries a thread
-        thread_at = [int(at[t * per:(t + 1) * per].sum())
-                     for t in range(THREADS)]
-        for t in range(THREADS):            # after one block scan
-            before = sum(thread_at[:t])
-            for i in range(t * per, min((t + 1) * per, idx.size)):
-                take = min(max(need_at - before, 0), int(at[i]))
-                before += int(at[i])
-                c = int(below[i]) + take
-                counts[g, idx[i]] = c
-                run[idx[i]] += c
-    return counts, run.astype(np.int32), steps
 
 
 def _check(p, groups, cm=DEFAULT_COST_MODEL, jax_cm=JAX_CM, with_jax=True):
     pad = tasg.group_pad(len(groups))
     padded = groups + [(0, 0, -1, 0)] * (pad - len(groups))
-    got_c, got_r, steps = k1_model(p, padded, cm)
+    got_c, got_r, work = k1_model(p, padded, cm)
+    steps = [it for *_, it in work]
     want_c, want_r = tasg.assign_grouped(
         torch_pool(p), tasg.make_grouped_batch(groups, pad), cm)
     assert np.array_equal(got_c, want_c.numpy())
@@ -139,7 +52,7 @@ def _check(p, groups, cm=DEFAULT_COST_MODEL, jax_cm=JAX_CM, with_jax=True):
             jax_pool(p), jasg.make_grouped_batch(groups, pad_to=pad), jax_cm)
         assert np.array_equal(got_c, np.asarray(jc))
         assert np.array_equal(got_r, np.asarray(jr))
-    assert max(steps) <= SEARCH_ITERS
+    assert max(steps) <= K1_SEARCH_ITERS
     if cm == DEFAULT_COST_MODEL:
         assert max(steps) <= 20
     return got_c, steps
@@ -209,7 +122,7 @@ def test_wide_domain_hits_the_step_cap():
     cm = replace(DEFAULT_COST_MODEL, preference_bonus_q=1 << 22)
     _, steps = _check(p, groups, cm, replace(JAX_CM,
                                              preference_bonus_q=1 << 22))
-    assert max(steps) == SEARCH_ITERS
+    assert max(steps) == K1_SEARCH_ITERS
 
 
 def test_branch_free_count_matches_count_leq():
@@ -223,9 +136,9 @@ def test_branch_free_count_matches_count_leq():
     run = p["running"].astype(np.int64)
     for env, req in ((17, -1), (200, 3)):
         f = tasg.make_count_leq(tp, tp.running, env, 1, req, cm)
-        avail = _eligible_avail(p, run, env, 1, req, cm)
+        avail = k1_avail(p, run, env, 1, req, cm)
         idx = np.flatnonzero(avail > 0)
-        count = compact_count(
+        count = k1_count(
             np.maximum(p["capacity"][idx].astype(np.int64), 1), run[idx],
             avail[idx], p["dedicated"][idx], cm)
         lo, hi = tasg.search_bounds(cm)
@@ -235,17 +148,23 @@ def test_branch_free_count_matches_count_leq():
             assert not want[avail == 0].any()
 
 
-def test_chip_smoke_work_count_matches_the_model():
-    """chip_smoke.py derives the active slots and bisect steps behind K1's
-    bound from the kernel's counts; on the CPU (the plain version's
-    counts) they match this model's."""
-    import chip_smoke
-
+def test_work_counts_the_active_slots():
+    """The work behind K1's bound: a searched group's active slots are the
+    eligible slots with room at its turn (dedicated ones among them), and
+    a skipped group has none."""
     rng = np.random.default_rng(12)
     p = random_pool_np(rng, 512)
+    p["dedicated"] = rng.random(512) < 0.3
     groups = [(int(rng.integers(0, 256)), 1, int(rng.integers(-1, 512)),
                int(m)) for m in (0, 40, 0, 300, 7)] + [(0, 0, -1, 0)] * 3
-    counts, _, steps = k1_model(p, groups)
-    active, work_steps = chip_smoke.k1_work(p, groups, counts)
-    assert work_steps == steps
-    assert active[0] == active[2] == 0 and min(active[1::2][:2]) > 0
+    counts, _, work = k1_model(p, groups)
+    run = p["running"].astype(np.int64)
+    for g, (env, minv, req, m) in enumerate(groups):
+        n, nd, it = work[g]
+        if m <= 0:
+            assert (n, nd, it) == (0, 0, 0)
+        else:
+            room = k1_avail(p, run, env, minv, req, DEFAULT_COST_MODEL) > 0
+            assert n == room.sum() > 0 and it > 0
+            assert nd == (room & p["dedicated"]).sum()
+        run += counts[g]

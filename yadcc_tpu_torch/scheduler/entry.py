@@ -117,9 +117,9 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
                     gc_guard: bool = True) -> int:
     """Serve until ``stop`` is set (SIGINT/SIGTERM when run as a program)
     or the dispatcher fails.  Returns the process exit code: 0 after a
-    clean stop, 1 after a dispatcher failure.  ``gc_guard=False`` leaves
-    the process's cyclic collector as it is (a caller that embeds the
-    server in a process it does not own)."""
+    clean stop, 1 after a dispatcher failure.  ``gc_guard=False`` builds
+    no guard and leaves the process's cyclic collector as it is (a caller
+    that embeds the server in a process it does not own)."""
     dispatcher = build_dispatcher(args)
     # Count the launches made while serving, not the warmup's.
     cuda_grouped.launches = 0
@@ -135,8 +135,8 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
     # The heap is built (policy warmed, dispatcher constructed): freeze it
     # and take the automatic cyclic collector off the grant path; the
     # sweep below collects the young generations instead.
-    guard = LatencyGcGuard()
-    if gc_guard:
+    guard = LatencyGcGuard() if gc_guard else None
+    if guard is not None:
         guard.start()
 
     server = GrpcServer(f"0.0.0.0:{args.port}")
@@ -161,16 +161,18 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
             rc = 1
             break
         dispatcher.on_expiration_timer()
-        guard.maintain()
+        if guard is not None:
+            guard.maintain()
     logger.info("shutting down")
-    guard.stop()
+    if guard is not None:
+        guard.stop()
+        exposed_vars.unexpose("yadcc/gc_guard")
     server.stop()
     inspect.stop()
     dispatcher.stop()
     exposed_vars.unexpose("yadcc/task_dispatcher")
     exposed_vars.unexpose("yadcc/scheduler_rpc")
     exposed_vars.unexpose("yadcc/kernels")
-    exposed_vars.unexpose("yadcc/gc_guard")
     return rc
 
 
