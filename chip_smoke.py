@@ -13,7 +13,9 @@ Phases (any failure exits non-zero without printing the result line):
 2. kernels vs plain: K1 and its five wrappers (the resident step chained
    over cycles with churn among them), and K2, held against the plain
    PyTorch versions on the card, exactly (integer arithmetic, so the
-   tolerance is 0), on seeded and edge pools; the wrappers must refuse
+   tolerance is 0), on seeded and edge pools; K1's counts and K2's
+   (descriptor changes, owner rescans, reductions) held against the host
+   models of their designs (k1_model, k2_model); the wrappers must refuse
    tensors the kernels do not take; the kernels' times;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
@@ -25,7 +27,7 @@ Phases (any failure exits non-zero without printing the result line):
    /inspect/vars just before driving and the phase's counts just after);
 4. main path, synchronous: phase 3 with --dispatch-pipeline-depth 0;
 5. the scan policy: phase 4's drive with --dispatch-policy torch_batched,
-   every grant through K2;
+   every grant through K2 (launches of 256 tasks, one collect a cycle);
 6. the device-resident stream: phase 3's drive with --dispatch-policy
    torch_resident_grouped, K1 inside the resident step, the resident
    pool's statics oracle clean.
@@ -458,6 +460,116 @@ def k1_model(p, groups, cm=None):
     return counts, run.astype(np.int32), work
 
 
+# K2's block (csrc/assign_batch.cu kThreads): slot s belongs to thread
+# s % K2_THREADS.
+K2_THREADS = 1024
+K2_NO_KEY = (1 << 63) - 1
+# Integer operations (32-bit equivalents) that K2's function needs on this
+# data, for its bound: for a task whose descriptor differs from the one
+# before, an eligibility test and a key compare of every slot; for every
+# grant, one int64 closed form (the granted slot's new key); for a task
+# that repeats the descriptor after a grant, log2(S) compares to find the
+# new minimum (a heap's update).  A repeat after a task that granted nothing
+# needs nothing: no key moved.
+K2_OPS_SLOT, K2_OPS_FORM = 10, 12
+
+
+def k2_model(p, tasks, cm=None):
+    """K2's design in int64 numpy, task by task: the per-slot keys
+    (score*S + slot, K2_NO_KEY for a dead or full slot) computed once and
+    only the granted slot's recomputed; each of K2_THREADS owners' least
+    eligible key, from a full scan when the descriptor (env, min_version,
+    requestor) changes, from the granted slot's owner alone when it repeats
+    after a grant, and kept as it was when it repeats after no grant (no
+    reduction then); a grant when the task is valid and the block minimum
+    is below infeasible_q*S, to the one owner holding it.  ``tasks`` holds
+    (env, min_version, requestor[, valid]).  Returns (picks int32[T],
+    running int32[S], work) where work counts descriptor_changes,
+    owner_rescans, reductions and grants."""
+    import numpy as np
+
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL, UTIL_SCALE
+
+    cm = cm or DEFAULT_COST_MODEL
+    s, e = p["env_bitmap"].shape
+    slots = np.arange(s)
+    run = p["running"].astype(np.int64)
+    cap = p["capacity"].astype(np.int64)
+    ded = p["dedicated"].astype(bool)
+    pref = int(cm.dedicated_preference_utilization_q)
+    bonus = int(cm.preference_bonus_q)
+
+    def live_keys(idx):
+        util = run[idx] * UTIL_SCALE // np.maximum(cap[idx], 1)
+        score = np.where(ded[idx] & (util < pref), util - bonus, util)
+        return np.where(run[idx] < cap[idx], score * s + idx, K2_NO_KEY)
+
+    key = np.where(p["alive"], live_keys(slots), K2_NO_KEY)
+    rows = -(-s // K2_THREADS)
+    grid_slots = np.arange(rows * K2_THREADS).reshape(rows, K2_THREADS)
+    lanes = np.arange(K2_THREADS)
+
+    def eligible(env, minv, req):
+        w = env >> 5
+        has = (np.ones(s, bool) if not -e <= w < e else
+               (p["env_bitmap"][:, w % e].astype(np.int64) >> (env & 31) & 1)
+               == 1)
+        ok = has & (p["version"] >= minv)
+        if cm.avoid_self:
+            ok &= slots != req
+        return ok
+
+    no_grant_from = int(cm.infeasible_score_q) * s
+    best = np.full(K2_THREADS, K2_NO_KEY, np.int64)
+    best_slot = np.full(K2_THREADS, -1)
+    picks = np.full(len(tasks), -1, np.int32)
+    work = dict(descriptor_changes=0, owner_rescans=0, reductions=0,
+                grants=0)
+    desc, elig, owner, granted, gmin = None, None, -1, False, K2_NO_KEY
+    for t, task in enumerate(tasks):
+        valid = bool(task[3]) if len(task) > 3 else True
+        reduce = True
+        if tuple(task[:3]) != desc:
+            desc = tuple(task[:3])
+            elig = eligible(*desc)
+            grid = np.full(rows * K2_THREADS, K2_NO_KEY, np.int64)
+            grid[:s] = np.where(elig, key, K2_NO_KEY)
+            grid = grid.reshape(rows, K2_THREADS)
+            i = grid.argmin(axis=0)
+            best, best_slot = grid[i, lanes], grid_slots[i, lanes]
+            work["descriptor_changes"] += 1
+        elif granted:
+            own = slots[owner::K2_THREADS]
+            mine = np.where(elig[own], key[own], K2_NO_KEY)
+            best[owner], best_slot[owner] = mine.min(), own[mine.argmin()]
+            work["owner_rescans"] += 1
+        else:
+            reduce = False      # nothing moved: the minimum stands
+        if reduce:
+            gmin = int(best.min())
+            work["reductions"] += 1
+        granted = valid and gmin < no_grant_from
+        if granted:
+            holders = np.flatnonzero(best == gmin)
+            assert holders.size == 1, "a grant needs exactly one owner"
+            owner = int(holders[0])
+            slot = int(best_slot[owner])
+            picks[t] = slot
+            run[slot] += 1
+            key[slot] = live_keys(np.array([slot]))[0]
+            work["grants"] += 1
+    return picks, run.astype(np.int32), work
+
+
+def k2_ops(s, work) -> int:
+    """K2's operations on the data ``work`` (k2_model's) describes."""
+    import math
+
+    return (work["descriptor_changes"] * s * K2_OPS_SLOT
+            + work["grants"] * K2_OPS_FORM
+            + work["owner_rescans"] * math.ceil(math.log2(max(s, 2))))
+
+
 def time_k1(p, pool, groups, pad, reps=50) -> dict:
     """K1 and its plain version on one pool and batch, with CUDA events;
     the bound from what this data needs."""
@@ -657,7 +769,8 @@ def compare_resident_step(report: list) -> None:
 
 def k2_cases(rng):
     """(name, numpy pool, tasks, avoid_self) for K2 against its plain
-    version: seeded pools, the corners of the scan, and the geometries."""
+    version: seeded pools, the corners of the scan, runs of identical
+    descriptors (the serving path's shape), and the geometries."""
     import numpy as np
 
     s, t = MAIN_S, MAIN_T
@@ -703,14 +816,100 @@ def k2_cases(rng):
                     [(0, 1, int(r)) for r in rng.integers(0, 8, t)], avoid))
     out.append(("env_beyond_bitmap", np_pool(rng, s),
                 [(int(e), 1, -1) for e in rng.choice(ODD_ENVS, t)], True))
+    # Runs of 128 identical descriptors over 40 holders each with
+    # capacities 1-5: slots fill to capacity inside a run (their owners
+    # rescan), dedicated ones cross the preference threshold, and each
+    # run's tail is denied.
+    envs = rng.choice(256, 2, replace=False)
+    bits = np.zeros((s, 8), np.uint32)
+    for env in envs:
+        bits[rng.choice(s, 40, replace=False), env >> 5] |= np.uint32(
+            1 << (env & 31))
+    cap = rng.integers(1, 6, s).astype(np.int32)
+    out.append(("descriptor_runs", base(
+        capacity=cap, running=np.minimum(rng.integers(0, 3, s), cap).astype(
+            np.int32), dedicated=rng.random(s) < 0.3, env_bitmap=bits),
+        [(int(envs[0]), 1, -1)] * 128 + [(int(envs[1]), 1, -1)] * 128,
+        True))
+    # Runs of 64 whose requestor is one of the least loaded slots.
+    run = np.ones(s, np.int32)
+    run[:8] = 0
+    out.append(("runs_avoid_self", base(capacity=np.full(s, 3, np.int32),
+                                        running=run),
+                [(0, 1, int(r)) for r in rng.integers(0, 8, t // 64)
+                 for _ in range(64)], True))
     for size in (1000, 5000, 1, 70_000):
         out.append((f"S{size}", np_pool(rng, size), tasks(size, 64), True))
     return out
 
 
+def k2_batch(tasks, pad_to, dev):
+    from yadcc_tpu_torch.ops import assignment as asn
+
+    return asn.make_batch([x[0] for x in tasks], [x[1] for x in tasks],
+                          [x[2] for x in tasks], pad_to, dev)
+
+
+def k2_run(p, pool, tasks, cm=None):
+    """K2 on the card against its plain version and k2_model, exactly:
+    picks, running, and the kernel's counts of descriptor changes, owner
+    rescans and reductions against the model's.  Returns (picks, model
+    work)."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+
+    cm = cm or DEFAULT_COST_MODEL
+    batch = k2_batch(tasks, len(tasks), pool.alive.device)
+    work = torch.zeros(len(ka.WORK_FIELDS), dtype=torch.int64,
+                       device=pool.alive.device)
+    kp, kr = ka.cuda_assign_batch(pool, batch, cm, work=work)
+    pp, pr = asn.assign_batch(pool, batch, cm)
+    mp, mr, mw = k2_model(p, tasks, cm)
+    kp, kr = kp.cpu(), kr.cpu()
+    check(torch.equal(kp, pp.cpu()) and np.array_equal(kp.numpy(), mp),
+          "K2 picks differ from the plain version's or the model's")
+    check(torch.equal(kr, pr.cpu()) and np.array_equal(kr.numpy(), mr),
+          "K2 running differs from the plain version's or the model's")
+    got = dict(zip(ka.WORK_FIELDS, work.cpu().tolist()))
+    want = {k: mw[k] for k in ka.WORK_FIELDS}
+    check(got == want, f"K2 counts {got} differ from the model's {want}")
+    return kp, mw
+
+
+def time_k2(p, pool, tasks, reps=50) -> dict:
+    """K2 and its plain version on one pool and batch, with CUDA events,
+    after the kernel's picks and counts are held against k2_model's; the
+    bound from what this data needs (k2_model's counts)."""
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+
+    _, work = k2_run(p, pool, tasks)
+    batch = k2_batch(tasks, len(tasks), pool.alive.device)
+    ms = timed(lambda: ka.cuda_assign_batch(pool, batch), reps)
+    plain_ms = timed(lambda: asn.assign_batch(pool, batch), 3)
+    s, t = len(p["alive"]), len(tasks)
+    e = pool.env_bitmap.shape[1]
+    # The pool read once (alive, capacity, running, dedicated, version,
+    # bitmap), the tasks read, the picks and running written.
+    moved = s * (14 + 4 * e) + t * 13 + t * 4 + s * 4
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops = k2_ops(s, work)
+    ops_ms = ops / H100_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                one_sm_floor_ms=ops / (H100_OPS_PER_S / H100_SMS) * 1e3,
+                us_per_task=ms * 1e3 / t, tasks=t, work=work)
+
+
 def compare_assign_batch(report: list) -> dict:
-    """K2 against assign_batch on the card, exactly; the wrapper's
-    refusals; K2's time at S=8192, T=256."""
+    """K2 against assign_batch and k2_model on the card, exactly; the
+    wrapper's refusals; K2's time at S=8192, T=256 on the timing pool and
+    on a batch of two runs of 128 on the serving-like pool."""
     from dataclasses import replace
 
     import numpy as np
@@ -727,17 +926,9 @@ def compare_assign_batch(report: list) -> dict:
         return asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields),
                                    dev)
 
-    def batch_of(tasks, pad_to):
-        return asn.make_batch([x[0] for x in tasks], [x[1] for x in tasks],
-                              [x[2] for x in tasks], pad_to, dev)
-
     for name, p, tasks, avoid in k2_cases(rng):
         cm = replace(DEFAULT_COST_MODEL, avoid_self=avoid)
-        pool, batch = up(p), batch_of(tasks, len(tasks))
-        kp, kr = ka.cuda_assign_batch(pool, batch, cm)
-        pp, pr = asn.assign_batch(pool, batch, cm)
-        check(torch.equal(kp.cpu(), pp.cpu()), f"K2 != plain: {name} picks")
-        check(torch.equal(kr.cpu(), pr.cpu()), f"K2 != plain: {name} running")
+        kp, work = k2_run(p, up(p), tasks, cm)
         granted = int((kp != -1).sum())
         if name == "contended":
             check(0 < granted < len(tasks), "contended: need grants and "
@@ -745,75 +936,80 @@ def compare_assign_batch(report: list) -> dict:
         if name == "all_infeasible":
             check(granted == 0, "all_infeasible granted")
         if name == "ties_identical_slots":
-            check(kp.cpu().tolist() == list(range(len(tasks))),
+            check(kp.tolist() == list(range(len(tasks))),
                   "ties: picks are not the lowest slots in order")
+        if name == "descriptor_runs":
+            check(0 < granted < len(tasks) and work["owner_rescans"] > 0,
+                  f"descriptor_runs: {granted} grants, {work}")
         report.append(f"  K2 {name}: S={len(p['alive'])} T={len(tasks)} "
-                      f"granted={granted} equal")
+                      f"granted={granted} equal; descriptor changes "
+                      f"{work['descriptor_changes']}, owner rescans "
+                      f"{work['owner_rescans']}, reductions "
+                      f"{work['reductions']} as the model's")
 
     # Padding rows are inert: the same tasks padded to 2x grant the same
     # and pick nothing in the padding.
     p = np_pool(rng, MAIN_S)
     tasks = [(int(rng.integers(0, 256)), 1, -1) for _ in range(100)]
     pool = up(p)
-    kp, kr = ka.cuda_assign_batch(pool, batch_of(tasks, 100))
-    kp2, kr2 = ka.cuda_assign_batch(pool, batch_of(tasks, 200))
+    kp, kr = ka.cuda_assign_batch(pool, k2_batch(tasks, 100, dev))
+    kp2, kr2 = ka.cuda_assign_batch(pool, k2_batch(tasks, 200, dev))
     check(torch.equal(kp2[:100].cpu(), kp.cpu())
           and bool((kp2[100:] == -1).all()) and torch.equal(kr2, kr),
           "K2 padding rows not inert")
     report.append("  K2 padded rows (100 tasks padded to 200): inert")
 
-    batch = batch_of(tasks, 100)
+    batch = k2_batch(tasks, 100, dev)
     bad = [
         ("non-contiguous running",
          pool._replace(running=torch.zeros(2 * MAIN_S, dtype=torch.int32,
-                                           device=dev)[::2]), batch),
+                                           device=dev)[::2]), batch, None),
         ("int64 capacity", pool._replace(capacity=pool.capacity.long()),
-         batch),
-        ("int32 valid", pool, batch._replace(valid=batch.valid.int())),
-        ("batch on the CPU", pool, asn.make_batch([0], [0], [-1], 1)),
+         batch, None),
+        ("int32 valid", pool, batch._replace(valid=batch.valid.int()), None),
+        ("batch on the CPU", pool, asn.make_batch([0], [0], [-1], 1), None),
+        ("int32 work", pool, batch,
+         torch.zeros(len(ka.WORK_FIELDS), dtype=torch.int32, device=dev)),
     ]
-    for what, bp, bb in bad:
+    for what, bp, bb, work in bad:
         before = ka.launches
         try:
-            ka.cuda_assign_batch(bp, bb)
+            ka.cuda_assign_batch(bp, bb, work=work)
         except (TypeError, ValueError):
             check(ka.launches == before, f"K2 {what}: counted a launch")
             continue
         raise SmokeFailure(f"K2 wrapper accepted {what}")
-    report.append("  K2 refusals (non-contiguous, dtype, device): raised")
+    report.append("  K2 refusals (non-contiguous, dtype, device, work "
+                  "dtype): raised")
     torch.cuda.synchronize()
 
-    # Time at the policy's chunk: S=8192, T=256, the pool of K1's timing.
+    # Time at the policy's chunk, S=8192, T=256: on the pool of K1's timing
+    # (a new descriptor every task), and on the serving-like pool with two
+    # runs of 128 identical descriptors (the serving path's requests).
     p = np_pool(np.random.default_rng(7), MAIN_S, cap_lo=8, cap_hi=65,
                 run_hi=8, ded_frac=0.2)
-    pool = up(p)
-    batch = batch_of([(int(rng.integers(0, 256)), 1, -1)
-                      for _ in range(MAIN_T)], MAIN_T)
-    ms = timed(lambda: ka.cuda_assign_batch(pool, batch), 50)
-    plain_ms = timed(lambda: asn.assign_batch(pool, batch), 3)
-    e = pool.env_bitmap.shape[1]
-    moved = (MAIN_S * (14 + 4 * e) + MAIN_T * 13 + MAIN_T * 4
-             + MAIN_S * 4)
-    bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    # Every (task, slot) pair: the eligibility test, the int64 score and
-    # key, and the running minimum — about 20 32-bit-equivalent
-    # operations; plus the block reductions' T*S/32 shuffles.
-    ops = MAIN_T * MAIN_S * 20 + MAIN_T * MAIN_S // 32
-    ops_ms = ops / H100_OPS_PER_S * 1e3
-    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes_ms=bytes_ms, ops_ms=ops_ms,
-               one_sm_floor_ms=ops / (H100_OPS_PER_S / H100_SMS) * 1e3,
-               dependent_reductions=MAIN_T,
-               us_per_reduction=ms * 1e3 / MAIN_T)
-    report.append(
-        f"  K2 timing S={MAIN_S} T={MAIN_T}: kernel {ms:.4f} ms (50 "
-        f"launches), plain {plain_ms:.2f} ms, bound "
-        f"{res['bound_ms'] * 1e3:.3f} us ({res['bound_by']}; bytes "
-        f"{bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us), one-SM "
-        f"floor {res['one_sm_floor_ms'] * 1e3:.2f} us, {MAIN_T} "
-        f"dependent block argmins = {res['us_per_reduction']:.2f} us each")
-    return res
+    out = {"timing": time_k2(p, up(p), [(int(rng.integers(0, 256)), 1, -1)
+                                        for _ in range(MAIN_T)])}
+    sp = serving_pool(np.random.default_rng(8))
+    srng = np.random.default_rng(10)
+    runs = [(int(srng.integers(0, N_ENVS)), 0,
+             int(srng.integers(0, N_SERVANTS))) for _ in range(2)]
+    out["runs"] = time_k2(sp, up(sp), [runs[0]] * 128 + [runs[1]] * 128)
+    for key, what in (("timing", "timing pool, a new descriptor a task"),
+                      ("runs", "serving-like pool, two runs of 128")):
+        r = out[key]
+        w = r["work"]
+        report.append(
+            f"  K2 timing S={MAIN_S} T={r['tasks']} on the {what}: kernel "
+            f"{r['ms']:.4f} ms (50 launches) = {r['us_per_task']:.3f} us a "
+            f"task, plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}; bytes "
+            f"{r['bytes_ms'] * 1e3:.3f} us, ops {r['ops_ms'] * 1e3:.3f} us),"
+            f" one-SM floor {r['one_sm_floor_ms'] * 1e3:.2f} us; "
+            f"{w['descriptor_changes']} descriptor changes, "
+            f"{w['owner_rescans']} owner rescans, {w['reductions']} "
+            f"reductions, {w['grants']} grants")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1199,13 +1395,18 @@ def main() -> int:
         "replaces": "yadcc_tpu/ops/pallas_assign.py:118",
         "launches": sum(by_phase("assign_batch").values()),
         "max_abs_err": 0,
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"],
+        "ms": k2["timing"]["ms"],
+        "plain_ms": k2["timing"]["plain_ms"],
+        "bound_ms": k2["timing"]["bound_ms"],
+        "bound_by": k2["timing"]["bound_by"],
         "library_ms": None,
-        "one_sm_floor_ms": k2["one_sm_floor_ms"],
+        "one_sm_floor_ms": k2["timing"]["one_sm_floor_ms"],
+        "us_per_task": k2["timing"]["us_per_task"],
+        "work": k2["timing"]["work"],
         "shape": {"S": MAIN_S, "T": MAIN_T, "E": 8},
+        "runs_batch": {k: k2["runs"][k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "one_sm_floor_ms", "us_per_task", "work")},
         "launches_by_phase": by_phase("assign_batch"),
     }]}
     log("main paths ({}): {}; total {:.1f} s".format(card, "; ".join(

@@ -125,7 +125,10 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     want = tasn.assign_batch(torch_pool(p), tb)
     assert ka.launches == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    meta = tasn.PoolArrays(*(x.to("meta") for x in torch_pool(p)))
+    with pytest.raises(ValueError, match="work counts come from the kernel"):
+        ka.cuda_assign_batch(torch_pool(p), tb,
+                             work=torch.zeros(3, dtype=torch.int64))
+    meta =tasn.PoolArrays(*(x.to("meta") for x in torch_pool(p)))
     with pytest.raises(ValueError, match="no assignment-scan kernel"):
         ka.cuda_assign_batch(meta, tb)
     with pytest.raises(ValueError, match="do not fit"):

@@ -21,7 +21,8 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "chip_k2_probe.py"]
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -56,7 +57,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool"):
             assert name in names, name
-        import chip_smoke  # noqa: F401
+        import chip_k2_probe, chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
                         if n == "yadcc_tpu" or n.startswith("yadcc_tpu.")
                         or (n.startswith("jax") and sys.modules[n]))

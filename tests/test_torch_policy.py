@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from yadcc_tpu.scheduler import policy as jpol
 from yadcc_tpu_torch.ops import assignment as tasn
@@ -184,6 +185,31 @@ def test_batched_policy_matches_jax(seed, s, n_req):
         assert got == jp.assign(snaps(p)[0], jr), jp.name
     assert got == tpol.GreedyCpuPolicy().assign(snaps(p)[1], tr)
     assert 0 < sum(x != tasn.NO_PICK for x in got) < len(got)
+
+
+def test_batched_policy_collects_once_per_cycle(monkeypatch):
+    """A cycle of 2.5 x max_batch requests: three launches with `running`
+    chained between them, one collect of all 80 picks at the end (the
+    cycle's only .tolist()), and jax_pallas's picks."""
+    rng = np.random.default_rng(22)
+    s = 128
+    p = snapshot_np(rng, s, cap_hi=3)
+    reqs = request_mix(rng, s, 40, 10)[:80]
+    jr, tr = both(reqs)
+    launches, collects = [], []
+    launch, tolist = tpol.kassign.cuda_assign_batch, torch.Tensor.tolist
+    monkeypatch.setattr(tpol.kassign, "cuda_assign_batch",
+                        lambda *a, **k: launches.append(1) or launch(*a, **k))
+    monkeypatch.setattr(torch.Tensor, "tolist",
+                        lambda t: collects.append(t.shape) or tolist(t))
+    got = tpol.TorchBatchedPolicy("cpu", max_batch=32).assign(snaps(p)[1],
+                                                              tr)
+    monkeypatch.undo()
+    assert len(launches) == 3 and collects == [torch.Size([80])]
+    assert got == jpol.JaxPallasPolicy(s, max_batch=32).assign(snaps(p)[0],
+                                                               jr)
+    assert 0 < sum(x != tasn.NO_PICK for x in got) < len(got)
+    assert tpol.TorchBatchedPolicy("cpu").assign(snaps(p)[1], []) == []
 
 
 def test_resident_stream_sequence_matches_jax():

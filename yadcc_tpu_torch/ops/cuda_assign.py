@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,6 +25,8 @@ SOURCE = "assign_batch.cu"
 # Compiled into the kernel; a cost model that moved it must not silently
 # disagree with it.
 _KERNEL_UTIL_SCALE = 65536
+# What the kernel counts into `work`, in this order.
+WORK_FIELDS = ("descriptor_changes", "owner_rescans", "reductions")
 
 launches = 0
 _count_lock = threading.Lock()
@@ -40,9 +42,9 @@ def _kernel():
         fn = lib.yadcc_assign_batch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, ll, ll, ll, i,
-                       p, p, p, p]
+                       p, p, p, p, p]
         fn.restype = ctypes.c_int
-        lib.yadcc_assign_batch_scratch_bytes.argtypes = [i]
+        lib.yadcc_assign_batch_scratch_bytes.argtypes = [i, i]
         lib.yadcc_assign_batch_scratch_bytes.restype = ll
         _fn = (fn, lib.yadcc_assign_batch_scratch_bytes)
     return _fn
@@ -52,11 +54,17 @@ def cuda_assign_batch(
     pool: asn.PoolArrays,
     batch: asn.TaskBatch,
     cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+    work: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(picks int32[T], running int32[S]); the drop-in counterpart of
-    assignment.assign_batch."""
+    assignment.assign_batch.  ``work`` (int64[3] on the card, optional)
+    receives what the kernel did, in WORK_FIELDS order; the plain version
+    has no such counts, so a CPU call refuses it."""
     dev = pool.alive.device
     if dev.type == "cpu":
+        if work is not None:
+            raise ValueError("work counts come from the kernel; the plain "
+                             "version has none")
         return asn.assign_batch(pool, batch, cost_model)
     if dev.type != "cuda":
         raise ValueError(f"no assignment-scan kernel for device {dev}")
@@ -76,11 +84,13 @@ def cuda_assign_batch(
     for name in ("env_id", "min_version", "requestor"):
         _check(name, getattr(batch, name), torch.int32, (t,), dev)
     _check("valid", batch.valid, torch.bool, (t,), dev)
+    if work is not None:
+        _check("work", work, torch.int64, (len(WORK_FIELDS),), dev)
 
     fn, scratch_bytes = _kernel()
     picks = torch.empty(t, dtype=torch.int32, device=dev)
     running = torch.empty(s, dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(1, scratch_bytes(s)), dtype=torch.uint8,
+    scratch = torch.empty(max(1, scratch_bytes(s, e)), dtype=torch.uint8,
                           device=dev)
     cm = cost_model
     with torch.cuda.device(dev):
@@ -93,7 +103,8 @@ def cuda_assign_batch(
                  int(cm.dedicated_preference_utilization_q),
                  int(cm.preference_bonus_q), int(cm.infeasible_score_q),
                  int(bool(cm.avoid_self)), picks.data_ptr(),
-                 running.data_ptr(), scratch.data_ptr(), stream)
+                 running.data_ptr(), scratch.data_ptr(),
+                 None if work is None else work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"assign_batch kernel launch failed: CUDA "
                            f"error {err}")

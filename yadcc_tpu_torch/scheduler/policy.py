@@ -227,10 +227,12 @@ class TorchBatchedPolicy(DispatchPolicy):
     "cuda" and its plain version on "cpu".  The counterpart of the JAX
     package's jax_batched (XLA scan) and jax_pallas (Pallas K2) policies.
 
-    Requests go in chunks of at most max_batch, with `running` carried
-    from chunk to chunk on the device.  A chunk is padded only to its own
-    length: the kernel has no per-shape compile to amortize, and padding
-    rows would each cost a full argmin."""
+    The cycle's requests go up as one batch, cut into launches of at most
+    max_batch tasks (1-D slices, so each stays contiguous), with `running`
+    carried from launch to launch on the device; every launch's picks come
+    back in one collect at the end of the cycle.  Nothing is padded: the
+    kernel has no per-shape compile to amortize, and padding rows would
+    each cost an argmin."""
 
     name = "torch_batched"
 
@@ -247,20 +249,25 @@ class TorchBatchedPolicy(DispatchPolicy):
                     [AssignRequest(0, 0, -1)])
 
     def assign(self, snap, requests):
-        picks: List[int] = []
+        n = len(requests)
+        if n == 0:
+            return []
         pool = _upload_pool(snap, snap.running, self._device,
                             self._pool_cache)
-        for start in range(0, len(requests), self._max_batch):
-            chunk = requests[start:start + self._max_batch]
-            batch = asn.make_batch(
-                [r.env_id for r in chunk],
-                [r.min_version for r in chunk],
-                [r.requestor_slot for r in chunk],
-                pad_to=len(chunk), device=self._device)
-            got, running = kassign.cuda_assign_batch(pool, batch, self._cm)
+        batch = asn.make_batch(
+            [r.env_id for r in requests],
+            [r.min_version for r in requests],
+            [r.requestor_slot for r in requests],
+            pad_to=n, device=self._device)
+        chunks = []
+        for start in range(0, n, self._max_batch):
+            cut = slice(start, start + self._max_batch)
+            got, running = kassign.cuda_assign_batch(
+                pool, asn.TaskBatch(*(x[cut] for x in batch)), self._cm)
             pool = pool._replace(running=running)
-            picks.extend(got.tolist())
-        return picks
+            chunks.append(got)
+        # The cycle's one blocking device-to-host point.
+        return torch.cat(chunks).tolist()
 
 
 class TorchGroupedPolicy(DispatchPolicy):
