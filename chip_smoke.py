@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 Phases (any failure exits non-zero without printing the result line):
 
-1. card and build: the card's name and power limit, then both kernels
-   built from csrc/ with nvcc, one nvcc per source, all started together:
-   the grouped assignment (K1) and the sequential scan (K2);
+1. card and build: the card's name and power limit, then every kernel
+   source built from csrc/ with nvcc, one nvcc per source, all started
+   together: the grouped assignment (K1), the sequential scan (K2) and
+   the Bloom kernels (bloom.cu);
 2. kernels vs plain: K1 and its five wrappers (the resident step chained
    over cycles with churn among them), and K2, held against the plain
    PyTorch versions on the card, exactly (integer arithmetic, so the
@@ -30,7 +31,18 @@ Phases (any failure exits non-zero without printing the result line):
    every grant through K2 (launches of 256 tasks, one collect a cycle);
 6. the device-resident stream: phase 3's drive with --dispatch-policy
    torch_resident_grouped, K1 inside the resident step, the resident
-   pool's statics oracle clean.
+   pool's statics oracle clean;
+7. the Bloom path: (a) the four Bloom kernels (membership, cascade,
+   probe, scatter-OR) held against their plain versions and the host
+   filter at tolerance 0 on an edge pool (every key length 0..34, 63-65,
+   80, 100, 200; 1, 257 and 1,000 keys; 64, 1,000 and 27,584,639 bits;
+   1, 7 and 10 hashes; salts 0, 17 and 2^63 + 5), the empty batch and the
+   refusals; (b, c) the same at the main path's shapes (1M
+   production-format keys of 80 bytes, the production geometry; the
+   membership also at 23-byte keys), each kernel's time beside its plain
+   version's and its bound; (d) the slice's entry point,
+   tools/bloom_bench.run(1M, 1M) on the card, with every Bloom launch
+   count set to 0 just before and each > 0 just after.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler processes go to
@@ -97,13 +109,15 @@ def card_line() -> str:
 
 
 def build_kernels() -> dict:
-    """Both kernels' libraries, one nvcc per source started together;
-    {source: {library, nvcc_s}} plus the wall time of the whole phase."""
+    """Every kernel source's library, one nvcc per source started
+    together; {source: {library, nvcc_s}} plus the wall time of the whole
+    phase."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from yadcc_tpu_torch.ops import _build, cuda_assign, cuda_grouped
+    from yadcc_tpu_torch.ops import (_build, cuda_assign, cuda_bloom,
+                                     cuda_grouped)
 
-    sources = (cuda_grouped.SOURCE, cuda_assign.SOURCE)
+    sources = (cuda_grouped.SOURCE, cuda_assign.SOURCE, cuda_bloom.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         paths = list(ex.map(_build.build, sources))
@@ -1293,6 +1307,386 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the Bloom path.
+# ---------------------------------------------------------------------------
+
+BLOOM_N = 1_000_000                   # the batch and the populated keys
+BLOOM_EDGE_LENGTHS = tuple(range(35)) + (63, 64, 65, 80, 100, 200)
+BLOOM_EDGE_BITS = (64, 1000, 27_584_639)
+BLOOM_EDGE_HASHES = (1, 7, 10)
+BLOOM_EDGE_SALTS = (0, 17, (1 << 63) + 5)
+BLOOM_EDGE_N = (1, 257, 1000)         # 257: not a multiple of the block
+# 32-bit operations charged to each 64-bit step of XXH64 (a 64-bit
+# multiply's low half is a wide 32x32 product and two cross products; an
+# add, xor, rotate or shift is two 32-bit operations), to each probe
+# evaluated (multiply-add, mod, word index, bit shift, test) and to each
+# probe bit set by the scatter (the same, with the atomic OR for the test).
+XXH_MUL, XXH_STEP = 4, 2
+BLOOM_PROBE_OPS = 5
+
+
+def xxh64_ops(length: int) -> int:
+    """32-bit operations XXH64 needs for one key of ``length`` bytes, step
+    by step as csrc/bloom.cu:xxh64_row takes them."""
+    m, s = XXH_MUL, XXH_STEP
+    rnd = 2 * m + 2 * s                  # acc + lane*P2, rotl, *P1
+    ops, pos = 0, 0
+    if length >= 32:
+        stripes = length // 32
+        ops += 3 * s + stripes * 4 * rnd + 4 * s + 3 * s
+        ops += 4 * (2 * m + s + s + m + s)   # four merge rounds
+        pos = stripes * 32
+    else:
+        ops += s
+    ops += s                             # h += length
+    while pos + 8 <= length:
+        ops += (2 * m + s) + s + s + m + s
+        pos += 8
+    if pos + 4 <= length:
+        ops += m + s + s + m + s
+        pos += 4
+    ops += (length - pos) * (m + s + s + m + 2)   # byte extract: 2
+    ops += 3 * 2 * s + 2 * m + 1         # avalanche, then the split's OR
+    return ops
+
+
+def probes_needed(words, fps, num_bits: int, num_hashes: int):
+    """Probes the early-exit test evaluates for each key on this data: up
+    to and including the first zero bit, all K for a member."""
+    import numpy as np
+
+    i = np.arange(num_hashes, dtype=np.uint32)[None, :]
+    idx = (fps[:, :1] + i * fps[:, 1:]) % np.uint32(num_bits)
+    bits = (words[idx >> 5] >> (idx & 31)) & 1
+    zero = bits == 0
+    first = np.where(zero.any(axis=1), zero.argmax(axis=1) + 1, num_hashes)
+    return first.astype(np.int64), ~zero.any(axis=1)
+
+
+def bloom_bound(nbytes: int, ops: int) -> dict:
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = ops / H100_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def _bloom_filter(rng, num_bits, num_hashes, salt, members, dense):
+    """A host filter of the given geometry whose words are random bits,
+    each set with probability 7/8 (``dense``) or 1/4, with ``members``
+    added on top."""
+    import numpy as np
+
+    from yadcc_tpu_torch.common import bloom
+
+    nw = (num_bits + 31) // 32
+    a, b, c = (rng.integers(0, 1 << 32, nw, dtype=np.uint32)
+               for _ in range(3))
+    words = ~(a & b & c) if dense else a & b
+    f = bloom.SaltedBloomFilter(num_bits, num_hashes, salt, words)
+    f.add_many(members)
+    return f
+
+
+def compare_bloom_edges(report: list) -> None:
+    """Phase 7 (a): every Bloom kernel against its plain version on the
+    card, and both against the host filter, at tolerance 0 on the edge
+    pool; the empty batch; the refusals."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.common import bloom
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import bloom_probe as bpr
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.ops.xxh64_torch import pack_keys
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(70)
+    nb3, nk3, ns3 = (len(BLOOM_EDGE_BITS), len(BLOOM_EDGE_HASHES),
+                     len(BLOOM_EDGE_SALTS))
+    cases = 0
+    for j, length in enumerate(BLOOM_EDGE_LENGTHS):
+        n = BLOOM_EDGE_N[(j // 2) % len(BLOOM_EDGE_N)]
+        nbits = BLOOM_EDGE_BITS[j % nb3]
+        k = BLOOM_EDGE_HASHES[(j // nb3) % nk3]
+        salt = BLOOM_EDGE_SALTS[(j // (nb3 * nk3)) % ns3]
+        fk = BLOOM_EDGE_HASHES[(j + 1) % nk3]
+        fsalt = BLOOM_EDGE_SALTS[(j + 1) % ns3]
+        keys = [rng.bytes(length) for _ in range(n)]
+        region = _bloom_filter(rng, nbits, k, salt, keys[::2], True)
+        fleet = _bloom_filter(rng, nbits, fk, fsalt, keys[1::3], True)
+        want = region.may_contain_batch(keys)
+        want_fleet = fleet.may_contain_batch(keys)
+        words = bpl.as_device_words(region.words, dev)
+        fwords = bpl.as_device_words(fleet.words, dev)
+        packed = bpl.as_device_words(pack_keys(keys, length), dev)
+        seed, fseed = bpl.seed_pair(salt), bpl.seed_pair(fsalt)
+        fps_host = bloom.key_fingerprints(keys, salt)
+        fps = bpl.as_device_words(fps_host, dev)
+        geo = dict(num_bits=nbits, num_hashes=k)
+        tag = f"length {length} n {n} bits {nbits} K {k} salt {salt}"
+
+        got = kb.bloom_membership(words, packed, length, seed, **geo)
+        plain = bpl.membership_plain(words, packed, length, seed, nbits, k)
+        check(torch.equal(got, plain), f"membership != plain: {tag}")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"membership != host: {tag}")
+        got = kb.bloom_cascade(words, fwords, packed, length, seed, fseed,
+                               num_bits=nbits, num_hashes_region=k,
+                               num_hashes_fleet=fk)
+        plain = bpl.cascade_plain(words, fwords, packed, length, seed,
+                                  fseed, nbits, k, fk)
+        check(torch.equal(got, plain), f"cascade != plain: {tag}")
+        check(np.array_equal(got.cpu().numpy(), want | want_fleet),
+              f"cascade != host OR: {tag}")
+        got = kb.bloom_probe(words, fps, **geo)
+        check(torch.equal(got, bpr.probe_body(words, fps, nbits, k)),
+              f"probe != plain: {tag}")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"probe != host: {tag}")
+        base = _bloom_filter(rng, nbits, k, salt, [], False)
+        base_words = base.words.copy()
+        bwords = bpl.as_device_words(base_words, dev)
+        got = kb.bloom_scatter_or(bwords, fps, **geo)
+        check(torch.equal(got, bpr.scatter_add_plain(bwords, fps, nbits, k)),
+              f"scatter_or != plain: {tag}")
+        base.add_many(keys)
+        check(np.array_equal(got.cpu().numpy().view(np.uint32), base.words),
+              f"scatter_or != add_many: {tag}")
+        check(np.array_equal(bwords.cpu().numpy().view(np.uint32),
+                             base_words),
+              f"scatter_or changed its input: {tag}")
+        cases += 1
+    torch.cuda.synchronize()
+
+    # The empty batch: an empty result, no launch.
+    before = dict(kb.launches)
+    geo = dict(num_bits=1000, num_hashes=7)
+    w = torch.zeros(32, dtype=torch.int32, device=dev)
+    e0 = torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    check(kb.bloom_membership(w, torch.zeros((0, 4), dtype=torch.int32,
+                                             device=dev), 9, (0, 0),
+                              **geo).shape == (0,), "empty membership")
+    check(kb.bloom_cascade(w, w, torch.zeros((0, 0), dtype=torch.int32,
+                                             device=dev), 0, (0, 0), (0, 1),
+                           num_bits=1000, num_hashes_region=7,
+                           num_hashes_fleet=3).shape == (0,),
+          "empty cascade")
+    check(kb.bloom_probe(w, e0, **geo).shape == (0,), "empty probe")
+    check(torch.equal(kb.bloom_scatter_or(w, e0, **geo), w), "empty scatter")
+    check(kb.launches == before, "an empty batch launched a kernel")
+
+    # Refusals: dtype, device, shape, contiguity, geometry.
+    packed = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    fps = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    bad = [
+        ("int64 words", lambda: kb.bloom_membership(
+            w.long(), packed, 5, (0, 0), **geo)),
+        ("packed keys on the CPU", lambda: kb.bloom_membership(
+            w, packed.cpu(), 5, (0, 0), **geo)),
+        ("packed width for another length", lambda: kb.bloom_membership(
+            w, packed, 9, (0, 0), **geo)),
+        ("int64 fingerprints", lambda: kb.bloom_probe(w, fps.long(), **geo)),
+        ("non-contiguous fingerprints", lambda: kb.bloom_probe(
+            w, torch.zeros((4, 4), dtype=torch.int32, device=dev)[:, ::2],
+            **geo)),
+        ("fleet words on the CPU", lambda: kb.bloom_cascade(
+            w, w.cpu(), packed, 5, (0, 0), (0, 0), num_bits=1000,
+            num_hashes_region=7, num_hashes_fleet=7)),
+        ("words shorter than num_bits", lambda: kb.bloom_scatter_or(
+            w, fps, num_bits=1025, num_hashes=7)),
+        ("[N, 3] fingerprints", lambda: kb.bloom_scatter_or(
+            w, torch.zeros((4, 3), dtype=torch.int32, device=dev), **geo)),
+    ]
+    for what, call in bad:
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure(f"bloom wrapper accepted {what}")
+    check(kb.launches == before, "a refused call launched a kernel")
+    report.append(f"  bloom edge pool: {cases} cases (lengths "
+                  f"{BLOOM_EDGE_LENGTHS[0]}..{BLOOM_EDGE_LENGTHS[-1]}, n "
+                  f"{BLOOM_EDGE_N}, bits {BLOOM_EDGE_BITS}, K "
+                  f"{BLOOM_EDGE_HASHES}, salts {BLOOM_EDGE_SALTS}): "
+                  f"membership, cascade, probe and scatter_or equal to "
+                  f"their plain versions and to the host filter; empty "
+                  f"batch and {len(bad)} refusals without a launch")
+
+
+def compare_bloom_main(report: list) -> dict:
+    """Phase 7 (b, c): every Bloom kernel against its plain version and
+    the host chain at the main path's shapes (1M production-format keys,
+    27,584,639 bits, 10 hashes; the cascade's fleet filter with 7 hashes
+    and another salt), then each kernel's time beside its plain version's
+    and its bound.  Membership also at the JAX bench's 23-byte keys."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.common import bloom
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import bloom_probe as bpr
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.tools.bloom_bench import (FLEET_HASHES, FLEET_SALT,
+                                                   SALT, production_keys)
+
+    dev = torch.device("cuda")
+    n = BLOOM_N
+    members = production_keys(n, seed=11)
+    region = bloom.SaltedBloomFilter(salt=SALT)
+    region.add_many(members)
+    fleet_only = production_keys(n // 4, seed=12)
+    fleet = bloom.SaltedBloomFilter(num_hashes=FLEET_HASHES,
+                                    salt=FLEET_SALT)
+    fleet.add_many(fleet_only + members[:n // 10])
+    nb, k = region.num_bits, region.num_hashes
+    nw = region.words.shape[0]
+    words = bpl.as_device_words(region.words, dev)
+    fwords = bpl.as_device_words(fleet.words, dev)
+    seed, fseed = bpl.seed_pair(SALT), bpl.seed_pair(FLEET_SALT)
+    # Half members, a tenth fleet keys, the rest absent from both.
+    batches = {
+        "production": (members[: n // 2] + fleet_only[: n // 10]
+                       + production_keys(n - n // 2 - n // 10, seed=13)),
+        "bench_23_bytes": [f"ytpu-cxx2-entry-{i:07d}" for i in range(n)],
+    }
+    out = {}
+    for name, keys in batches.items():
+        ((length, _, packed_np),) = bpl.pack_key_buckets(keys)
+        packed = bpl.as_device_words(packed_np, dev)
+        row_bytes = packed_np.shape[1] * 4
+        want = region.may_contain_batch(keys)
+        fps_np = bloom.key_fingerprints(keys, SALT)
+        per_key, member = probes_needed(region.words, fps_np, nb, k)
+        check(np.array_equal(member, want), f"{name}: probe model != host")
+        got = kb.bloom_membership(words, packed, length, seed, num_bits=nb,
+                                  num_hashes=k)
+        plain = bpl.membership_plain(words, packed, length, seed, nb, k)
+        check(torch.equal(got, plain), f"{name}: membership != plain")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"{name}: membership != host filter")
+        if name == "production":
+            check(bool(want[: n // 2].all()), "members must test positive")
+            check(not bool(want[n // 2:].all()), "absent keys all positive")
+        digest = xxh64_ops(length)
+        mem = {
+            "ms": timed(lambda: kb.bloom_membership(
+                words, packed, length, seed, num_bits=nb, num_hashes=k), 50),
+            "plain_ms": timed(lambda: bpl.membership_plain(
+                words, packed, length, seed, nb, k), 3),
+            "key_bytes": length, "positive_rate": float(want.mean()),
+            "probes_per_key": float(per_key.mean()),
+            **bloom_bound(n * row_bytes + nw * 4 + n,
+                          n * digest + int(per_key.sum()) * BLOOM_PROBE_OPS),
+        }
+        out[name] = mem
+        if name != "production":
+            continue
+        # The cascade: the fleet digest runs only for keys the region
+        # rejects.
+        fps_fleet = bloom.key_fingerprints(keys, FLEET_SALT)
+        per_key_f, _ = probes_needed(fleet.words, fps_fleet, nb,
+                                     FLEET_HASHES)
+        want_c = want | fleet.may_contain_batch(keys)
+        cas_args = (words, fwords, packed, length, seed, fseed)
+        cas_geo = dict(num_bits=nb, num_hashes_region=k,
+                       num_hashes_fleet=FLEET_HASHES)
+        got = kb.bloom_cascade(*cas_args, **cas_geo)
+        check(torch.equal(got, bpl.cascade_plain(
+            *cas_args, nb, k, FLEET_HASHES)), "cascade != plain")
+        check(np.array_equal(got.cpu().numpy(), want_c),
+              "cascade != the host OR")
+        rejected = ~want
+        out["cascade"] = {
+            "ms": timed(lambda: kb.bloom_cascade(*cas_args, **cas_geo), 50),
+            "plain_ms": timed(lambda: bpl.cascade_plain(
+                *cas_args, nb, k, FLEET_HASHES), 3),
+            "positive_rate": float(want_c.mean()),
+            **bloom_bound(
+                n * row_bytes + 2 * nw * 4 + n,
+                (n + int(rejected.sum())) * digest
+                + (int(per_key.sum()) + int(per_key_f[rejected].sum()))
+                * BLOOM_PROBE_OPS),
+        }
+        # The probe from host fingerprints.
+        fps = bpl.as_device_words(fps_np, dev)
+        got = kb.bloom_probe(words, fps, num_bits=nb, num_hashes=k)
+        check(torch.equal(got, bpr.probe_body(words, fps, nb, k)),
+              "probe != plain")
+        check(np.array_equal(got.cpu().numpy(), want), "probe != host")
+        out["probe"] = {
+            "ms": timed(lambda: kb.bloom_probe(words, fps, num_bits=nb,
+                                               num_hashes=k), 50),
+            "plain_ms": timed(lambda: bpr.probe_body(words, fps, nb, k), 3),
+            **bloom_bound(n * 8 + nw * 4 + n,
+                          int(per_key.sum()) * BLOOM_PROBE_OPS),
+        }
+        # The filter built on the card from the members' fingerprints.
+        mfps = bpl.as_device_words(bloom.key_fingerprints(members, SALT),
+                                   dev)
+        empty = torch.zeros_like(words)
+        got = kb.bloom_scatter_or(empty, mfps, num_bits=nb, num_hashes=k)
+        check(torch.equal(got, bpr.scatter_add_plain(empty, mfps, nb, k)),
+              "scatter_or != plain")
+        check(np.array_equal(got.cpu().numpy().view(np.uint32),
+                             region.words), "scatter_or != add_many")
+        out["scatter_or"] = {
+            "ms": timed(lambda: kb.bloom_scatter_or(
+                empty, mfps, num_bits=nb, num_hashes=k), 50),
+            "plain_ms": timed(lambda: bpr.scatter_add_plain(
+                empty, mfps, nb, k), 3),
+            **bloom_bound(n * 8 + 2 * nw * 4, n * k * BLOOM_PROBE_OPS),
+        }
+    torch.cuda.synchronize()
+    for name, r in out.items():
+        report.append(
+            f"  bloom {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}: {r['bytes']:,} B, {r['ops']:,} ops); equal "
+            f"to plain and host")
+    return out
+
+
+def run_bloom_main_path(report: list) -> dict:
+    """Phase 7 (d): the slice's entry point, tools/bloom_bench.run at 1M
+    production-format keys against a 1M-key filter on the card, with every
+    Bloom launch count set to 0 just before and read just after."""
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.tools import bloom_bench
+
+    for name in kb.launches:
+        kb.launches[name] = 0
+    t0 = time.perf_counter()
+    res = bloom_bench.run(BLOOM_N, BLOOM_N, device="cuda")
+    wall = time.perf_counter() - t0
+    launched = dict(kb.launches)
+    for name, count in launched.items():
+        check(count > 0, f"bloom main path: kernel {name} never launched")
+    report.append(f"  bloom_bench.run({BLOOM_N:,}, {BLOOM_N:,}) in "
+                  f"{wall:.1f} s, launches {launched}; device build "
+                  f"{res['device_build']['kernel_seconds'] * 1e3:.4f} ms")
+    for s in res["sweep"]:
+        hv, df, cs = s["host_vectorized"], s["device_fused"], s["cascade"]
+        report.append(
+            f"  hit rate {s['hit_rate']}: positive "
+            f"{s['observed_positive_rate']} (cascade "
+            f"{s['cascade_positive_rate']}); host-vectorized pack "
+            f"{hv['pack_seconds'] * 1e3:.2f} + digest "
+            f"{hv['fingerprint_seconds'] * 1e3:.2f} + upload "
+            f"{hv['upload_seconds'] * 1e3:.2f} + probe "
+            f"{hv['probe_seconds'] * 1e3:.4f} ms; device-fused pack "
+            f"{df['pack_seconds'] * 1e3:.2f} + upload "
+            f"{df['upload_seconds'] * 1e3:.2f} + kernel "
+            f"{df['kernel_seconds'] * 1e3:.4f} ms, end to end "
+            f"{df['end_to_end_seconds'] * 1e3:.2f} ms "
+            f"({df['keys_per_sec']:,.0f} keys/s); cascade kernel "
+            f"{cs['kernel_seconds'] * 1e3:.4f} ms, end to end "
+            f"{cs['end_to_end_seconds'] * 1e3:.2f} ms")
+    return {"launches": launched, "bench": res, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1360,6 +1754,16 @@ def main() -> int:
     for line in report:
         log(line)
 
+    report = []
+    t7 = time.perf_counter()
+    compare_bloom_edges(report)
+    bloom_timing = compare_bloom_main(report)
+    bloom_run = run_bloom_main_path(report)
+    log(f"phase 7 the Bloom path ({time.perf_counter() - t7:.1f} s; "
+        f"kernels vs plain at tolerance 0):")
+    for line in report:
+        log(line)
+
     def by_phase(kernel):
         return {name: r["launches"][kernel] for name, r in phases.items()}
 
@@ -1409,6 +1813,42 @@ def main() -> int:
                         "one_sm_floor_ms", "us_per_task", "work")},
         "launches_by_phase": by_phase("assign_batch"),
     }]}
+    bloom_shape = {"N": BLOOM_N, "key_bytes": 80, "num_bits": 27_584_639,
+                   "num_hashes": 10}
+    bloom_kernels = (
+        ("bloom", "membership", "production",
+         "yadcc_tpu/ops/bloom_pipeline.py:43"),
+        ("bloom_cascade", "cascade", "cascade",
+         "yadcc_tpu/parallel/mesh.py:478"),
+        ("bloom_probe", "probe", "probe", "yadcc_tpu/ops/bloom_probe.py:46"),
+        ("bloom_scatter_or", "scatter_or", "scatter_or",
+         "yadcc_tpu/ops/bloom_probe.py:58"),
+    )
+    for name, kernel, timing_key, replaces in bloom_kernels:
+        t = bloom_timing[timing_key]
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "yadcc_tpu_torch/csrc/bloom.cu",
+            "replaces": replaces,
+            "launches": bloom_run["launches"][kernel],
+            "max_abs_err": 0,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": bloom_shape,
+        })
+    record["kernels"][2]["at_23_bytes"] = {
+        k: bloom_timing["bench_23_bytes"][k]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    record["kernels"][2]["fused_split_ms"] = {
+        str(s["hit_rate"]): {
+            k.replace("_seconds", ""): s["device_fused"][k] * 1e3
+            for k in ("pack_seconds", "upload_seconds", "kernel_seconds",
+                      "end_to_end_seconds")}
+        for s in bloom_run["bench"]["sweep"]}
     log("main paths ({}): {}; total {:.1f} s".format(card, "; ".join(
         f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} ms"
         for name, r in phases.items()), time.perf_counter() - t_start))

@@ -1,6 +1,6 @@
-"""The port stands alone: yadcc_tpu_torch imports no jax and nothing of
-the JAX package, and its entry points refuse to run without a card
-unless the caller asks for the CPU."""
+"""The port stands alone: yadcc_tpu_torch imports no jax, nothing of the
+JAX package and no `xxhash` wheel, and its entry points refuse to run
+without a card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -17,7 +17,13 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "yadcc_tpu_torch"
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|yadcc_tpu)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|yadcc_tpu|xxhash)(?:\.|\s|$)",
+    re.M)
+# The Bloom slice's modules, each imported by name below.
+_BLOOM_MODULES = (
+    "common.bloom", "common.xxh64_np", "ops.xxh64_torch", "ops.bloom_probe",
+    "ops.bloom_pipeline", "ops.cuda_bloom", "cache.bloom_filter_generator",
+    "tools.bloom_bench")
 
 
 def _port_sources():
@@ -39,13 +45,15 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name in ("jax", "jaxlib") or name == "yadcc_tpu" \
+                if name in ("jax", "jaxlib", "xxhash") \
+                        or name == "yadcc_tpu" \
                         or name.startswith(("jax.", "jaxlib.",
-                                            "yadcc_tpu.")):
+                                            "yadcc_tpu.", "xxhash.")):
                     raise ImportError(f"blocked import of {name}")
                 return None
 
         sys.modules["jax"] = None
+        sys.modules["xxhash"] = None
         sys.meta_path.insert(0, Refuse())
         import yadcc_tpu_torch
         names = ["yadcc_tpu_torch"]
@@ -55,19 +63,23 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         for name in names:
             importlib.import_module(name)
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
-                     "yadcc_tpu_torch.scheduler.device_pool"):
+                     "yadcc_tpu_torch.scheduler.device_pool") + tuple(
+                "yadcc_tpu_torch." + m for m in BLOOM):
             assert name in names, name
+            importlib.import_module(name)
         import chip_k2_probe, chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
                         if n == "yadcc_tpu" or n.startswith("yadcc_tpu.")
-                        or (n.startswith("jax") and sys.modules[n]))
+                        or (n.startswith(("jax", "xxhash"))
+                            and sys.modules[n]))
         assert not leaked, leaked
         print(len(names))
     """)
+    script = f"BLOOM = {_BLOOM_MODULES!r}\n" + script
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+    assert int(out.stdout.strip().splitlines()[-1]) >= 40
 
 
 def test_resolve_device_refuses_missing_card():
