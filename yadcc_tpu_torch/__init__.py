@@ -4,6 +4,8 @@ A port of the `yadcc_tpu` control plane to one NVIDIA H100: the host
 modules (RPC front end, dispatcher, admission, bookkeeping) are kept as
 copies of their own, and the grouped threshold-search assignment runs
 as a hand-written CUDA kernel (csrc/grouped_assign.cu, bound through
-ops/cuda_grouped.py).  Entry points run on the card unless the caller
+ops/cuda_grouped.py).  The cache control plane's Bloom membership test
+runs as hand-written kernels too (csrc/bloom.cu, bound through
+ops/cuda_bloom.py).  Entry points run on the card unless the caller
 asks for the CPU (device.resolve_device).
 """
