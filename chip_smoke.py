@@ -35,12 +35,17 @@ Phases (any failure exits non-zero without printing the result line):
 7. the Bloom path: (a) the four Bloom kernels (membership, cascade,
    probe, scatter-OR) held against their plain versions and the host
    filter at tolerance 0 on an edge pool (every key length 0..34, 63-65,
-   80, 100, 200; 1, 257 and 1,000 keys; 64, 1,000 and 27,584,639 bits;
-   1, 7 and 10 hashes; salts 0, 17 and 2^63 + 5), the empty batch and the
-   refusals; (b, c) the same at the main path's shapes (1M
+   80, 100, 200, 4096; 1, 257 and 1,000 keys; 64, 1,000 and 27,584,639
+   bits; 1, 7 and 10 hashes; salts 0, 17 and 2^63 + 5), the empty batch
+   and the refusals; (a') the membership and cascade kernels around
+   their tile (tile - 1, tile, tile + 1 and 2 * tile + 1 keys; staged
+   and unstaged row widths; `packed` views 0-3 words past a 16-byte
+   boundary); (b, c) every kernel at the main path's shapes (1M
    production-format keys of 80 bytes, the production geometry; the
    membership also at 23-byte keys), each kernel's time beside its plain
-   version's and its bound; (d) the slice's entry point,
+   version's and its bound; (c') the membership and cascade kernels on
+   the bench's batches at 1%, 10% and 50% hits, each with its time and
+   the share of its bound; (d) the slice's entry point,
    tools/bloom_bench.run(1M, 1M) on the card, with every Bloom launch
    count set to 0 just before and each > 0 just after.
 
@@ -359,12 +364,21 @@ def compare_kernel(report: list) -> dict:
 
 def timed(fn, reps: int) -> float:
     """Mean ms of ``fn`` over ``reps`` calls after one warm call, with
-    CUDA events on the current stream."""
+    CUDA events on the current stream.  The calls are queued behind a
+    device-side spin twice as long as their host time (at most 0.25 s),
+    so that a kernel shorter than its wrapper's launch overhead is timed
+    back to back on the card, not at the host's pace."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+    # _sleep spins for a count of SM clock cycles; at most 2 GHz on an H100.
+    torch.cuda._sleep(int(min(0.25, 2 * reps * host_s) * 2e9))
     a.record()
     for _ in range(reps):
         fn()
@@ -1311,11 +1325,16 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
 # ---------------------------------------------------------------------------
 
 BLOOM_N = 1_000_000                   # the batch and the populated keys
-BLOOM_EDGE_LENGTHS = tuple(range(35)) + (63, 64, 65, 80, 100, 200)
+BLOOM_EDGE_LENGTHS = tuple(range(35)) + (63, 64, 65, 80, 100, 200, 4096)
 BLOOM_EDGE_BITS = (64, 1000, 27_584_639)
 BLOOM_EDGE_HASHES = (1, 7, 10)
 BLOOM_EDGE_SALTS = (0, 17, (1 << 63) + 5)
 BLOOM_EDGE_N = (1, 257, 1000)         # 257: not a multiple of the block
+# Phase 7 (a'): key lengths for the staged kernels' layouts (rows of 16n,
+# 16n + 8 and 0 bytes, a row past the staging width, 4,096 bytes), each
+# at counts around the tile (tile - 1, tile, tile + 1, two tiles + 1) and
+# with `packed` 0-3 words past a 16-byte boundary.
+BLOOM_LAYOUT_LENGTHS = (0, 5, 23, 64, 80, 100, 129, 4096)
 # 32-bit operations charged to each 64-bit step of XXH64 (a 64-bit
 # multiply's low half is a wide 32x32 product and two cross products; an
 # add, xor, rotate or shift is two 32-bit operations), to each probe
@@ -1369,6 +1388,27 @@ def bloom_bound(nbytes: int, ops: int) -> dict:
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "ops": ops}
+
+
+def membership_bound(n: int, row_bytes: int, nw: int, length: int,
+                     per_key) -> dict:
+    """The membership kernel's bound: each row, the filter's ``nw`` words
+    and each verdict moved once; each key's digest and the probes its
+    early exit evaluates (``per_key``)."""
+    return bloom_bound(n * row_bytes + nw * 4 + n,
+                       n * xxh64_ops(length)
+                       + int(per_key.sum()) * BLOOM_PROBE_OPS)
+
+
+def cascade_bound(n: int, row_bytes: int, nw: int, length: int, per_key,
+                  per_key_fleet, rejected) -> dict:
+    """The cascade kernel's bound: both filters read once; the fleet digest
+    and probes only for the keys the region ``rejected``."""
+    return bloom_bound(n * row_bytes + 2 * nw * 4 + n,
+                       (n + int(rejected.sum())) * xxh64_ops(length)
+                       + (int(per_key.sum())
+                          + int(per_key_fleet[rejected].sum()))
+                       * BLOOM_PROBE_OPS)
 
 
 def _bloom_filter(rng, num_bits, num_hashes, salt, members, dense):
@@ -1515,6 +1555,97 @@ def compare_bloom_edges(report: list) -> None:
                   f"batch and {len(bad)} refusals without a launch")
 
 
+def packed_view(packed, offset: int):
+    """``packed`` copied into a buffer ``offset`` words in: a contiguous
+    view whose base is 4 * offset bytes past the buffer's (16-byte
+    aligned) start."""
+    import torch
+
+    n, w = packed.shape
+    buf = torch.zeros(n * w + offset, dtype=torch.int32, device=packed.device)
+    view = buf[offset:].view(n, w)
+    view.copy_(packed)
+    return view
+
+
+def compare_bloom_layouts(report: list) -> None:
+    """Phase 7 (a'): the membership and cascade kernels against their plain
+    versions and the host filter at tolerance 0 around their tile: counts
+    of tile - 1, tile, tile + 1 and 2 * tile + 1 keys, `packed` views 0-3
+    words past a 16-byte boundary, staged and unstaged row widths."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.ops.xxh64_torch import pack_keys
+
+    dev = torch.device("cuda")
+    tile = kb.tile_keys()
+    counts = (tile - 1, tile, tile + 1, 2 * tile + 1)
+    rng = np.random.default_rng(71)
+    nbits, k, fk = 27_584_639, 10, 7
+    seed, fseed = bpl.seed_pair(17), bpl.seed_pair((1 << 63) + 5)
+    cases = 0
+    for length in BLOOM_LAYOUT_LENGTHS:
+        for j, n in enumerate(counts):
+            offsets = (j,) if length not in (23, 80) else (0, 1, 2, 3)
+            keys = [rng.bytes(length) for _ in range(n)]
+            region = _bloom_filter(rng, nbits, k, 17, keys[::2], True)
+            fleet = _bloom_filter(rng, nbits, fk, (1 << 63) + 5, keys[1::3],
+                                  True)
+            want = region.may_contain_batch(keys)
+            want_c = want | fleet.may_contain_batch(keys)
+            words = bpl.as_device_words(region.words, dev)
+            fwords = bpl.as_device_words(fleet.words, dev)
+            base = bpl.as_device_words(pack_keys(keys, length), dev)
+            plain = bpl.membership_plain(words, base, length, seed, nbits, k)
+            plain_c = bpl.cascade_plain(words, fwords, base, length, seed,
+                                        fseed, nbits, k, fk)
+            check(np.array_equal(plain.cpu().numpy(), want),
+                  f"layout plain != host: length {length} n {n}")
+            for off in offsets:
+                packed = packed_view(base, off)
+                check(packed.numel() == 0
+                      or packed.data_ptr() % 16 == 4 * off,
+                      f"view {off} words in: base {packed.data_ptr() % 16}"
+                      f" bytes past 16")
+                tag = f"length {length} n {n} view {off} words in"
+                got = kb.bloom_membership(words, packed, length, seed,
+                                          num_bits=nbits, num_hashes=k)
+                check(torch.equal(got, plain), f"membership != plain: {tag}")
+                got = kb.bloom_cascade(words, fwords, packed, length, seed,
+                                       fseed, num_bits=nbits,
+                                       num_hashes_region=k,
+                                       num_hashes_fleet=fk)
+                check(torch.equal(got, plain_c), f"cascade != plain: {tag}")
+                check(np.array_equal(got.cpu().numpy(), want_c),
+                      f"cascade != host OR: {tag}")
+                cases += 1
+    torch.cuda.synchronize()
+    report.append(f"  bloom layouts: {cases} cases (lengths "
+                  f"{BLOOM_LAYOUT_LENGTHS}, n {counts} around the "
+                  f"{tile}-key tile, packed 0-3 words past 16 bytes): "
+                  f"membership and cascade equal to their plain versions "
+                  f"and the host filter")
+
+
+def hit_batch(members, fleet_only, n: int, hit_rate: float, seed: int):
+    """tools/bloom_bench.py's batch at ``hit_rate``: that share of members,
+    a tenth of the rest fleet keys, the others absent from both filters."""
+    import numpy as np
+
+    from yadcc_tpu_torch.tools.bloom_bench import production_keys
+
+    rng = np.random.default_rng(seed)
+    n_hits = int(n * hit_rate)
+    n_fleet = (n - n_hits) // 10
+    keys = [members[i] for i in rng.integers(0, len(members), n_hits)]
+    keys += [fleet_only[i] for i in
+             rng.integers(0, len(fleet_only), n_fleet)]
+    return keys + production_keys(n - n_hits - n_fleet, seed=seed + 1)
+
+
 def compare_bloom_main(report: list) -> dict:
     """Phase 7 (b, c): every Bloom kernel against its plain version and
     the host chain at the main path's shapes (1M production-format keys,
@@ -1569,7 +1700,6 @@ def compare_bloom_main(report: list) -> dict:
         if name == "production":
             check(bool(want[: n // 2].all()), "members must test positive")
             check(not bool(want[n // 2:].all()), "absent keys all positive")
-        digest = xxh64_ops(length)
         mem = {
             "ms": timed(lambda: kb.bloom_membership(
                 words, packed, length, seed, num_bits=nb, num_hashes=k), 50),
@@ -1577,8 +1707,7 @@ def compare_bloom_main(report: list) -> dict:
                 words, packed, length, seed, nb, k), 3),
             "key_bytes": length, "positive_rate": float(want.mean()),
             "probes_per_key": float(per_key.mean()),
-            **bloom_bound(n * row_bytes + nw * 4 + n,
-                          n * digest + int(per_key.sum()) * BLOOM_PROBE_OPS),
+            **membership_bound(n, row_bytes, nw, length, per_key),
         }
         out[name] = mem
         if name != "production":
@@ -1597,17 +1726,13 @@ def compare_bloom_main(report: list) -> dict:
             *cas_args, nb, k, FLEET_HASHES)), "cascade != plain")
         check(np.array_equal(got.cpu().numpy(), want_c),
               "cascade != the host OR")
-        rejected = ~want
         out["cascade"] = {
             "ms": timed(lambda: kb.bloom_cascade(*cas_args, **cas_geo), 50),
             "plain_ms": timed(lambda: bpl.cascade_plain(
                 *cas_args, nb, k, FLEET_HASHES), 3),
             "positive_rate": float(want_c.mean()),
-            **bloom_bound(
-                n * row_bytes + 2 * nw * 4 + n,
-                (n + int(rejected.sum())) * digest
-                + (int(per_key.sum()) + int(per_key_f[rejected].sum()))
-                * BLOOM_PROBE_OPS),
+            **cascade_bound(n, row_bytes, nw, length, per_key, per_key_f,
+                            ~want),
         }
         # The probe from host fingerprints.
         fps = bpl.as_device_words(fps_np, dev)
@@ -1645,6 +1770,80 @@ def compare_bloom_main(report: list) -> dict:
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}: {r['bytes']:,} B, {r['ops']:,} ops); equal "
             f"to plain and host")
+    out["hits"] = compare_bloom_hits(report, members, fleet_only, region,
+                                     fleet)
+    return out
+
+
+def compare_bloom_hits(report: list, members, fleet_only, region,
+                       fleet) -> dict:
+    """Phase 7 (c'): the membership and cascade kernels on the bench's
+    batches (1M production keys at 1%, 10% and 50% hits), each held
+    against its plain version and the host filter, then timed beside its
+    bound."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.common import bloom
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.tools.bloom_bench import (FLEET_HASHES, FLEET_SALT,
+                                                   HIT_RATES, SALT)
+
+    dev = torch.device("cuda")
+    n, nb, k = BLOOM_N, region.num_bits, region.num_hashes
+    nw = region.words.shape[0]
+    words = bpl.as_device_words(region.words, dev)
+    fwords = bpl.as_device_words(fleet.words, dev)
+    seed, fseed = bpl.seed_pair(SALT), bpl.seed_pair(FLEET_SALT)
+    geo = dict(num_bits=nb, num_hashes=k)
+    cas_geo = dict(num_bits=nb, num_hashes_region=k,
+                   num_hashes_fleet=FLEET_HASHES)
+    out = {}
+    for ri, rate in enumerate(HIT_RATES):
+        keys = hit_batch(members, fleet_only, n, rate, seed=200 + 2 * ri)
+        ((length, _, packed_np),) = bpl.pack_key_buckets(keys)
+        packed = bpl.as_device_words(packed_np, dev)
+        row_bytes = packed_np.shape[1] * 4
+        want = region.may_contain_batch(keys)
+        want_c = want | fleet.may_contain_batch(keys)
+        per_key, _ = probes_needed(
+            region.words, bloom.key_fingerprints(keys, SALT), nb, k)
+        per_key_f, _ = probes_needed(
+            fleet.words, bloom.key_fingerprints(keys, FLEET_SALT), nb,
+            FLEET_HASHES)
+        got = kb.bloom_membership(words, packed, length, seed, **geo)
+        check(torch.equal(got, bpl.membership_plain(
+            words, packed, length, seed, nb, k)),
+            f"hits {rate}: membership != plain")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"hits {rate}: membership != host filter")
+        cas_args = (words, fwords, packed, length, seed, fseed)
+        got = kb.bloom_cascade(*cas_args, **cas_geo)
+        check(torch.equal(got, bpl.cascade_plain(
+            *cas_args, nb, k, FLEET_HASHES)), f"hits {rate}: cascade != plain")
+        check(np.array_equal(got.cpu().numpy(), want_c),
+              f"hits {rate}: cascade != host OR")
+        mem = {"ms": timed(lambda: kb.bloom_membership(
+                   words, packed, length, seed, **geo), 50),
+               "positive_rate": float(want.mean()),
+               "probes_per_key": float(per_key.mean()),
+               **membership_bound(n, row_bytes, nw, length, per_key)}
+        cas = {"ms": timed(lambda: kb.bloom_cascade(*cas_args, **cas_geo),
+                           50),
+               "positive_rate": float(want_c.mean()),
+               **cascade_bound(n, row_bytes, nw, length, per_key, per_key_f,
+                               ~want)}
+        for name, r in (("membership", mem), ("cascade", cas)):
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            report.append(
+                f"  bloom {name} at {rate:.0%} hits: kernel {r['ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                f"{r['share_of_bound']:.1%} of its bound; positive "
+                f"{r['positive_rate']:.4f}; equal to plain and host")
+        out[str(rate)] = {"membership": mem, "cascade": cas}
+        del packed
+    torch.cuda.synchronize()
     return out
 
 
@@ -1757,6 +1956,7 @@ def main() -> int:
     report = []
     t7 = time.perf_counter()
     compare_bloom_edges(report)
+    compare_bloom_layouts(report)
     bloom_timing = compare_bloom_main(report)
     bloom_run = run_bloom_main_path(report)
     log(f"phase 7 the Bloom path ({time.perf_counter() - t7:.1f} s; "
@@ -1843,6 +2043,11 @@ def main() -> int:
     record["kernels"][2]["at_23_bytes"] = {
         k: bloom_timing["bench_23_bytes"][k]
         for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    for i, kernel in ((2, "membership"), (3, "cascade")):
+        record["kernels"][i]["at_hit_rates"] = {
+            rate: {k: r[kernel][k] for k in
+                   ("ms", "bound_ms", "bound_by", "share_of_bound")}
+            for rate, r in bloom_timing["hits"].items()}
     record["kernels"][2]["fused_split_ms"] = {
         str(s["hit_rate"]): {
             k.replace("_seconds", ""): s["device_fused"][k] * 1e3

@@ -28,7 +28,8 @@ _BLOOM_MODULES = (
 
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                        REPO / "chip_k2_probe.py"]
+                                        REPO / "chip_k2_probe.py",
+                                        REPO / "chip_bloom_probe.py"]
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -67,7 +68,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                 "yadcc_tpu_torch." + m for m in BLOOM):
             assert name in names, name
             importlib.import_module(name)
-        import chip_k2_probe, chip_smoke  # noqa: F401
+        import chip_bloom_probe, chip_k2_probe, chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
                         if n == "yadcc_tpu" or n.startswith("yadcc_tpu.")
                         or (n.startswith(("jax", "xxhash"))

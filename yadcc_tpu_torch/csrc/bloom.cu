@@ -14,26 +14,59 @@
 // membership_plain and cascade_plain, ops/bloom_probe.py:probe_body and
 // scatter_add_plain); chip_smoke.py holds them equal on the card.
 //
-// What bounds it on this card: bytes.  At the production batch (1M keys of
-// 80 bytes against 27,584,639 bits) one membership call must read 80 MB of
-// key rows, the 3.4 MB filter once and write 1 MB of verdicts: ~25 us at
-// 3.35 TB/s.  The digest is ~280 32-bit operations a key and the probes ~5
-// each, ~5 us at the 67 T/s 32-bit peak.  The filter fits the 50 MB L2, so
-// the probes' random word reads are L2 hits after the first touch.
+// What bounds it on this card.  Counted as chip_smoke.py counts it, bytes:
+// at the production batch (1M keys of 80 bytes against 27,584,639 bits and
+// 10 hashes) one membership call must read 80 MB of key rows, the 3.4 MB
+// filter once and write 1 MB of verdicts, ~25 us at 3.35 TB/s; the digest
+// is ~250 32-bit operations a key.  What that bound does not see is that
+// every probe moves one 32-byte L2 sector to the SM for the one bit it
+// tests: 1.44 probes for an absent key, 10 for a member, 5.72 a key at the
+// production batch (183 MB).  Those sectors, not the rows, set the time
+// once the rows are staged: with every probe confined to an L1-resident
+// corner of the filter the kernel runs at ~0.031 ms at 1% and at 50% hits;
+// with the real probes, 0.037 and 0.062 (chip_bloom_probe.py, PERF.md).
 //
-// The design is the simple one: one thread per key, native uint64_t XXH64
-// straight from the spec (the 32-byte stripe loop, the 8- and 4-byte tails,
-// the byte tail) over the row's little-endian u32 words, then for i < K
-// idx = (h1 + i*h2) mod num_bits in uint32 arithmetic (it wraps as the
-// reference's does) and a test of that bit, stopping at the first zero bit
-// (the verdict is the same).  The key length is a run-time argument, so one
-// compiled kernel serves every length class.  Rows are read a word at a
-// time by one thread each, so a warp's loads are strided by the row width;
-// coalesced or 16-byte row loads are left for a later change.
+// The first version of these kernels (one thread a key, its row read
+// straight from global memory with a warp's loads strided by the row, the
+// filter at the rows' L2 priority, a `% num_bits` of ~20 instructions a
+// probe, the cascade reading each row twice and diverging inside warps)
+// measured 0.072 ms at 50% hits and 0.098 ms for the cascade.
 //
-// The scatter-OR runs one thread per (key, probe) and sets its bit with an
-// atomicOr into the word array the wrapper copied, so the call returns the
-// new words as the JAX function does.
+// This design, for the membership and cascade kernels:
+// * Rows of 32 to 128 bytes are staged.  A block owns a tile of kTile
+//   consecutive keys, whose rows are contiguous in `packed`; it copies the
+//   tile into shared memory with 16-byte cp.async (4-byte copies when
+//   `packed` is not 16-byte aligned, e.g. a view one word in), evict-first
+//   in L2, and each thread reads its row from there with 16-byte loads
+//   (8-byte when the row is not a multiple of 16 bytes; an 80-byte row is
+//   5 16-byte chunks, odd, so a quarter-warp's loads fall in 8 distinct
+//   bank groups).  One block a tile: a block's copy runs under the other
+//   resident blocks' digests.  A persistent grid walking the tiles with two
+//   buffers (kPersistent) measured slower, since its per-tile barriers hold
+//   every warp to the block's slowest probe chain.
+// * Shorter rows (no XXH64 stripe: too little work a block to hide the
+//   copy) and wider ones are read from global memory in the same kernel,
+//   4-byte loads through L1, where a warp's lanes share their neighbours'
+//   lines, evict-first in L2, at up to 32 registers so a full SM of threads
+//   fits (kMinBlocksDirect).
+// * The filter is held in L2: its words are loaded evict-last
+//   (createpolicy + ld.global.nc.L2::cache_hint); without the hints the
+//   kernel is ~1.3x slower at 50% hits.
+// * Probes are chained, stopping at the first zero bit (kProbeGroup = 1):
+//   they are bound by the L2's sector rate, not by latency, and issuing a
+//   group of loads together fetches sectors an absent key never needed
+//   (groups of 2, 4 and 8 measured no faster, most of them slower).
+//   idx = (h1 + i*h2) mod num_bits in uint32 arithmetic (it wraps as the
+//   reference's does), the mod by Lemire's multiply-shift remainder with a
+//   64-bit constant the launcher computes (exact for every uint32).
+// * The cascade digests each row once with the region's seed; the keys the
+//   region rejects are compacted into a shared list, and the block runs
+//   the fleet digest over that list alone, from the same copy of the rows.
+//
+// The probe and scatter-OR kernels keep the first version: one thread per
+// key (per key and probe for the scatter), the chained `probe` below, and
+// an atomicOr into the word array the wrapper copied, so the call returns
+// the new words as the JAX function does.
 //
 // Integer traps: words and keys arrive as the int32 bit pattern of uint32
 // arrays and are read as uint32_t; num_bits need not be a multiple of 32
@@ -45,12 +78,92 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = kThreads;             // keys a block stages at a time
+// Rows staged in shared memory: at least one XXH64 stripe and at most 128
+// bytes (two tiles of them fit a block's 64 KB); others are read from
+// global memory.
+constexpr int kMinStagedRowBytes = 32;
+constexpr int kMaxStagedRowBytes = 128;
+constexpr int kMaxStageBytes = 2 * kTile * kMaxStagedRowBytes;
+// The measured choices below are constants that chip_bloom_probe.py flips
+// to time the alternatives.
+constexpr int kProbeGroup = 1;              // probe loads issued together
+constexpr bool kL2Hints = true;             // evict-first rows, evict-last filter
+// One block a tile (false), or a persistent grid of as many blocks as fit,
+// each walking tiles with two staging buffers (true).
+constexpr bool kPersistent = false;
+// __launch_bounds__'s blocks an SM, for staged rows and for rows read from
+// global memory (8: at most 32 registers, a full SM of threads).
+constexpr int kMinBlocksStaged = 1;
+constexpr int kMinBlocksDirect = 8;
 
 constexpr uint64_t kP1 = 0x9E3779B185EBCA87ULL;
 constexpr uint64_t kP2 = 0xC2B2AE3D27D4EB4FULL;
 constexpr uint64_t kP3 = 0x165667B19E3779F9ULL;
 constexpr uint64_t kP4 = 0x85EBCA77C2B2AE63ULL;
 constexpr uint64_t kP5 = 0x27D4EB2F165667C5ULL;
+
+// ---------------------------------------------------------------------------
+// Cache policies, loads and asynchronous copies.
+
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  if (kL2Hints)
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+                 : "=l"(p));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
+                 : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  if (kL2Hints)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                 : "=l"(p));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
+                 : "=l"(p));
+  return p;
+}
+
+// A read-only 4-byte load through L1, with an L2 cache policy.
+__device__ __forceinline__ uint32_t load_word(const uint32_t* p,
+                                              uint64_t policy) {
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+      : "=r"(v)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ void copy16(uint32_t* dst, const uint32_t* src,
+                                       uint64_t policy) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
+               ::"r"(s), "l"(src), "l"(policy)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(uint32_t* dst, const uint32_t* src,
+                                      uint64_t policy) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;"
+               ::"r"(s), "l"(src), "l"(policy)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void copies_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// XXH64 over a key row, read through one of three row readers.
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
@@ -66,23 +179,75 @@ __device__ __forceinline__ uint64_t merge_round(uint64_t h, uint64_t acc) {
   return h * kP1 + kP4;
 }
 
-__device__ __forceinline__ uint64_t lane_at(const uint32_t* row, int pos) {
-  return (uint64_t)row[pos >> 2] | ((uint64_t)row[(pos >> 2) + 1] << 32);
+__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
+  return (uint64_t)lo | ((uint64_t)hi << 32);
 }
 
+// A row staged in shared memory at a 16-byte aligned address, its width a
+// multiple of 16 bytes: 16-byte loads for the stripes.
+struct SharedRow16 {
+  const uint32_t* p;
+  __device__ uint32_t word(int pos) const { return p[pos >> 2]; }
+  __device__ uint64_t lane(int pos) const {
+    const uint2 v = *reinterpret_cast<const uint2*>(p + (pos >> 2));
+    return join(v.x, v.y);
+  }
+  __device__ void stripe(int pos, uint64_t (&l)[4]) const {
+    const uint4 a = *reinterpret_cast<const uint4*>(p + (pos >> 2));
+    const uint4 b = *reinterpret_cast<const uint4*>(p + (pos >> 2) + 4);
+    l[0] = join(a.x, a.y);
+    l[1] = join(a.z, a.w);
+    l[2] = join(b.x, b.y);
+    l[3] = join(b.z, b.w);
+  }
+};
+
+// A staged row at an 8-byte aligned address (its width is 8 bytes past a
+// multiple of 16): 8-byte loads.
+struct SharedRow8 {
+  const uint32_t* p;
+  __device__ uint32_t word(int pos) const { return p[pos >> 2]; }
+  __device__ uint64_t lane(int pos) const {
+    const uint2 v = *reinterpret_cast<const uint2*>(p + (pos >> 2));
+    return join(v.x, v.y);
+  }
+  __device__ void stripe(int pos, uint64_t (&l)[4]) const {
+    for (int i = 0; i < 4; ++i) l[i] = lane(pos + 8 * i);
+  }
+};
+
+// A row read from global memory (the base may be only 4-byte aligned):
+// 4-byte loads through L1, where a warp's lanes share the lines of their
+// neighbouring rows, evict-first in L2.
+struct GlobalRow {
+  const uint32_t* p;
+  uint64_t policy;
+  __device__ uint32_t word(int pos) const {
+    return load_word(p + (pos >> 2), policy);
+  }
+  __device__ uint64_t lane(int pos) const {
+    return join(word(pos), word(pos + 4));
+  }
+  __device__ void stripe(int pos, uint64_t (&l)[4]) const {
+    for (int i = 0; i < 4; ++i) l[i] = lane(pos + 8 * i);
+  }
+};
+
 // XXH64 of the first `length` bytes of `row` (little-endian u32 words).
-__device__ uint64_t xxh64_row(const uint32_t* row, int length,
-                              uint64_t seed) {
+template <class Row>
+__device__ uint64_t xxh64_row(const Row& row, int length, uint64_t seed) {
   int pos = 0;
   uint64_t h;
   if (length >= 32) {
     uint64_t v1 = seed + kP1 + kP2, v2 = seed + kP2, v3 = seed,
              v4 = seed - kP1;
     for (; pos + 32 <= length; pos += 32) {
-      v1 = xxh_round(v1, lane_at(row, pos));
-      v2 = xxh_round(v2, lane_at(row, pos + 8));
-      v3 = xxh_round(v3, lane_at(row, pos + 16));
-      v4 = xxh_round(v4, lane_at(row, pos + 24));
+      uint64_t l[4];
+      row.stripe(pos, l);
+      v1 = xxh_round(v1, l[0]);
+      v2 = xxh_round(v2, l[1]);
+      v3 = xxh_round(v3, l[2]);
+      v4 = xxh_round(v4, l[3]);
     }
     h = rotl64(v1, 1) + rotl64(v2, 7) + rotl64(v3, 12) + rotl64(v4, 18);
     h = merge_round(h, v1);
@@ -94,18 +259,21 @@ __device__ uint64_t xxh64_row(const uint32_t* row, int length,
   }
   h += (uint64_t)length;
   for (; pos + 8 <= length; pos += 8) {
-    h ^= xxh_round(0, lane_at(row, pos));
+    h ^= xxh_round(0, row.lane(pos));
     h = rotl64(h, 27) * kP1 + kP4;
   }
   if (pos + 4 <= length) {
-    h ^= (uint64_t)row[pos >> 2] * kP1;
+    h ^= (uint64_t)row.word(pos) * kP1;
     h = rotl64(h, 23) * kP2 + kP3;
     pos += 4;
   }
-  for (; pos < length; ++pos) {
-    const uint64_t byte = (row[pos >> 2] >> (8 * (pos & 3))) & 0xFFu;
-    h ^= byte * kP5;
-    h = rotl64(h, 11) * kP1;
+  if (pos < length) {
+    const uint32_t w = row.word(pos);
+    for (; pos < length; ++pos) {
+      const uint64_t byte = (w >> (8 * (pos & 3))) & 0xFFu;
+      h ^= byte * kP5;
+      h = rotl64(h, 11) * kP1;
+    }
   }
   h ^= h >> 33;
   h *= kP2;
@@ -115,8 +283,12 @@ __device__ uint64_t xxh64_row(const uint32_t* row, int length,
   return h;
 }
 
+// ---------------------------------------------------------------------------
+// Probes.
+
 // All K probe bits of (h1, h2) set?  uint32 wrap-around, then mod num_bits
-// (common/bloom.py:probe_indices).
+// (common/bloom.py:probe_indices).  One dependent load a probe: the probe
+// kernel's design.
 __device__ __forceinline__ bool probe(const uint32_t* __restrict__ words,
                                       uint32_t num_bits, int num_hashes,
                                       uint32_t h1, uint32_t h2) {
@@ -127,40 +299,192 @@ __device__ __forceinline__ bool probe(const uint32_t* __restrict__ words,
   return true;
 }
 
-__device__ __forceinline__ bool member(const uint32_t* __restrict__ words,
-                                       uint32_t num_bits, int num_hashes,
-                                       uint64_t seed, const uint32_t* row,
-                                       int length) {
-  const uint64_t d = xxh64_row(row, length, seed);
-  return probe(words, num_bits, num_hashes, (uint32_t)d,
-               (uint32_t)(d >> 32) | 1u);
+// One filter as the membership and cascade kernels see it.  `magic` is
+// floor((2^64 - 1) / num_bits) + 1 (0 for num_bits = 1), for mod_bits.
+struct Filter {
+  const uint32_t* words;
+  uint32_t num_bits;
+  int num_hashes;
+  uint64_t magic;
+  uint64_t seed;
+};
+
+// x mod d for every uint32 x and 1 <= d < 2^32 (Lemire, Kaser and Kurz,
+// "Faster remainder by direct computation", 2019): the high 64 bits of
+// ((magic * x) mod 2^64) * d.
+__device__ __forceinline__ uint32_t mod_bits(uint32_t x, uint64_t magic,
+                                             uint32_t d) {
+  const uint64_t low = magic * x;
+  const uint64_t hi = (uint64_t)(uint32_t)(low >> 32) * d +
+                      __umulhi((uint32_t)low, d);
+  return (uint32_t)(hi >> 32);
 }
 
-__global__ void __launch_bounds__(kThreads)
-membership_kernel(const uint32_t* __restrict__ words, uint32_t num_bits,
-                  int num_hashes, uint64_t seed,
-                  const uint32_t* __restrict__ packed, int row_words,
-                  int length, int n, bool* __restrict__ out) {
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= n) return;
-  out[k] = member(words, num_bits, num_hashes, seed,
-                  packed + (size_t)k * row_words, length);
+// All K probe bits of the key with digest `d` set?  The kProbeGroup loads
+// of a group are independent (one L2 round trip a group); with a group of
+// one, each probe waits on the one before, as in `probe`.
+__device__ __forceinline__ bool probe_grouped(const Filter& f, uint64_t d,
+                                              uint64_t keep) {
+  const uint32_t h2 = (uint32_t)(d >> 32) | 1u;
+  uint32_t x = (uint32_t)d;  // h1 + i * h2, wrapping
+  for (int i = 0; i < f.num_hashes; i += kProbeGroup) {
+    uint32_t w[kProbeGroup], b[kProbeGroup];
+#pragma unroll
+    for (int j = 0; j < kProbeGroup; ++j) {
+      w[j] = 1u;
+      b[j] = 0u;
+      if (i + j < f.num_hashes) {
+        const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+        w[j] = load_word(f.words + (idx >> 5), keep);
+        b[j] = idx & 31u;
+      }
+      x += h2;
+    }
+    uint32_t all = 1u;
+#pragma unroll
+    for (int j = 0; j < kProbeGroup; ++j) all &= w[j] >> b[j];
+    if (!(all & 1u)) return false;
+  }
+  return true;
 }
 
-__global__ void __launch_bounds__(kThreads)
-cascade_kernel(const uint32_t* __restrict__ region, int region_hashes,
-               uint64_t region_seed, const uint32_t* __restrict__ fleet,
-               int fleet_hashes, uint64_t fleet_seed, uint32_t num_bits,
+template <class Row>
+__device__ __forceinline__ bool member(const Filter& f, const Row& row,
+                                       int length, uint64_t keep) {
+  return probe_grouped(f, xxh64_row(row, length, f.seed), keep);
+}
+
+// ---------------------------------------------------------------------------
+// The tile walk.  kVec is the staged rows' load width (16 or 8 bytes), or
+// 4 for rows read from global memory, unstaged.
+
+template <int kVec>
+struct RowOf {
+  using type = SharedRow16;
+};
+template <>
+struct RowOf<8> {
+  using type = SharedRow8;
+};
+template <>
+struct RowOf<4> {
+  using type = GlobalRow;
+};
+
+// Row t of the tile starting at key `first`: in the staged copy `rows`,
+// or in `packed`, read with the `stream` policy.
+template <int kVec>
+__device__ __forceinline__ typename RowOf<kVec>::type row_of(
+    const uint32_t* rows, const uint32_t* packed, int row_words, int first,
+    int t, uint64_t stream) {
+  if constexpr (kVec == 4)
+    return {packed + ((size_t)first + t) * row_words, stream};
+  else
+    return {rows + t * row_words};
+}
+
+// Start the asynchronous copy of tile `tile`'s rows into `dst`.
+__device__ __forceinline__ void stage_tile(const uint32_t* packed,
+                                           int row_words, int n, int tile,
+                                           uint32_t* dst, uint64_t stream) {
+  const int first = tile * kTile;
+  const int words = min(kTile, n - first) * row_words;
+  const uint32_t* src = packed + (size_t)first * row_words;
+  int w = threadIdx.x;
+  // A tile starts a multiple of 16 bytes past `packed` (kTile rows of a
+  // multiple of 8 bytes), so either every tile's source is 16-byte aligned
+  // or none is.
+  if ((reinterpret_cast<uintptr_t>(packed) & 15u) == 0) {
+    const int chunks = words >> 2;
+    for (int c = threadIdx.x; c < chunks; c += kThreads)
+      copy16(dst + 4 * c, src + 4 * c, stream);
+    w += 4 * chunks;
+  }
+  for (; w < words; w += kThreads) copy4(dst + w, src + w, stream);
+}
+
+// Calls body(tile, rows) for each tile this block owns, rows staged in
+// shared memory (double-buffered) unless kVec == 4.  Every thread of the
+// block calls body; body's own barriers are safe.
+template <int kVec, class Body>
+__device__ __forceinline__ void walk_tiles(const uint32_t* packed,
+                                           int row_words, int n,
+                                           uint32_t* stage, uint64_t stream,
+                                           Body body) {
+  const int tiles = (n + kTile - 1) / kTile;
+  if constexpr (kVec == 4) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      body(tile, (const uint32_t*)nullptr);
+    return;
+  }
+  const int buf_words = kTile * row_words;  // two buffers of one tile
+  int tile = blockIdx.x;
+  if (tile < tiles) stage_tile(packed, row_words, n, tile, stage, stream);
+  copies_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < tiles)
+      stage_tile(packed, row_words, n, next,
+                 stage + ((it + 1) & 1) * buf_words, stream);
+    copies_commit();
+    copies_wait_all_but_last();
+    __syncthreads();
+    body(tile, (const uint32_t*)stage + (it & 1) * buf_words);
+    __syncthreads();
+  }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, kVec == 4 ? kMinBlocksDirect
+                                                     : kMinBlocksStaged)
+membership_kernel(Filter f, const uint32_t* __restrict__ packed,
+                  int row_words, int length, int n, bool* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t stage[];
+  const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
+  walk_tiles<kVec>(packed, row_words, n, stage, stream,
+                   [&](int tile, const uint32_t* rows) {
+    const int first = tile * kTile, t = threadIdx.x;
+    if (first + t < n) {
+      const auto row = row_of<kVec>(rows, packed, row_words, first, t, stream);
+      out[first + t] = member(f, row, length, keep);
+    }
+  });
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, kVec == 4 ? kMinBlocksDirect
+                                                     : kMinBlocksStaged)
+cascade_kernel(Filter region, Filter fleet,
                const uint32_t* __restrict__ packed, int row_words,
                int length, int n, bool* __restrict__ out) {
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= n) return;
-  const uint32_t* row = packed + (size_t)k * row_words;
-  // The region's AND over its probes completes before the OR; a key the
-  // region admits needs no fleet digest.
-  out[k] = member(region, num_bits, region_hashes, region_seed, row,
-                  length) ||
-           member(fleet, num_bits, fleet_hashes, fleet_seed, row, length);
+  extern __shared__ __align__(16) uint32_t stage[];
+  __shared__ uint16_t rejected[kTile];
+  __shared__ int n_rejected;
+  const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
+  walk_tiles<kVec>(packed, row_words, n, stage, stream,
+                   [&](int tile, const uint32_t* rows) {
+    const int first = tile * kTile, t = threadIdx.x;
+    if (t == 0) n_rejected = 0;
+    __syncthreads();
+    // The region's AND over its probes completes before the OR; a key the
+    // region admits needs no fleet digest.
+    if (first + t < n) {
+      if (member(region,
+                 row_of<kVec>(rows, packed, row_words, first, t, stream),
+                 length, keep))
+        out[first + t] = true;
+      else
+        rejected[atomicAdd(&n_rejected, 1)] = (uint16_t)t;
+    }
+    __syncthreads();
+    const int m = n_rejected;
+    for (int j = t; j < m; j += kThreads) {
+      const int r = rejected[j];
+      out[first + r] = member(
+          fleet, row_of<kVec>(rows, packed, row_words, first, r, stream),
+          length, keep);
+    }
+  });
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -188,22 +512,131 @@ int blocks_for(long long threads) {
   return (int)((threads + kThreads - 1) / kThreads);
 }
 
+Filter filter(const void* words, unsigned int num_bits, int num_hashes,
+              unsigned long long seed) {
+  return {(const uint32_t*)words, num_bits, num_hashes,
+          ~0ULL / num_bits + 1, seed};
+}
+
+// The grid: persistent, as many blocks as fit on the card with two tiles
+// of `row_words`-word rows staged each (0 for unstaged rows), capped at the
+// tile count.  The SM count and the blocks an SM holds are asked once per
+// device and row width, so a launch makes no query after the first.
+struct PlanCache {
+  static constexpr int kDevices = 64, kWidths = kMaxStagedRowBytes / 4 + 1;
+  int sms[kDevices];                // 0: not asked yet
+  int per_sm[kDevices][kWidths];
+};
+
+template <class Kernel>
+cudaError_t plan(PlanCache& cache, Kernel* kernel, int row_words,
+                 size_t smem, int n, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const bool cached = err == cudaSuccess && dev < PlanCache::kDevices &&
+                      row_words < PlanCache::kWidths &&
+                      cache.per_sm[dev][row_words] > 0;
+  if (cached) {
+    sms = cache.sms[dev];
+    per_sm = cache.per_sm[dev][row_words];
+  } else {
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess && smem > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxStageBytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < PlanCache::kDevices && row_words < PlanCache::kWidths &&
+        per_sm > 0) {
+      cache.sms[dev] = sms;
+      cache.per_sm[dev][row_words] = per_sm;
+    }
+  }
+  const long long tiles = ((long long)n + kTile - 1) / kTile;
+  const long long fit = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  *grid = (int)(tiles < fit ? tiles : (fit > 0 ? fit : 1));
+  return err;
+}
+
+int vec_for(int row_words) {
+  const int row_bytes = row_words * 4;
+  if (row_bytes < kMinStagedRowBytes || row_bytes > kMaxStagedRowBytes)
+    return 4;
+  return row_bytes % 16 == 0 ? 16 : 8;
+}
+
+// The grid and the staging bytes a block needs: one tile's rows a block, or
+// (kPersistent) two a block on a grid planned for the card.
+template <int kVec, class Kernel>
+cudaError_t shape(PlanCache& cache, Kernel* kernel, int row_words, int n,
+                  int* grid, size_t* smem) {
+  const size_t tile_bytes = kVec == 4 ? 0 : (size_t)kTile * row_words * 4;
+  if (!kPersistent) {
+    *grid = (int)(((long long)n + kTile - 1) / kTile);
+    *smem = tile_bytes;
+    return cudaSuccess;
+  }
+  *smem = 2 * tile_bytes;
+  return plan(cache, kernel, kVec == 4 ? 0 : row_words, *smem, n, grid);
+}
+
+template <int kVec>
+int launch_membership(const Filter& f, const void* packed, int row_words,
+                      int length, int n, void* out, cudaStream_t stream) {
+  static PlanCache cache;
+  int grid = 1;
+  size_t smem = 0;
+  const cudaError_t err =
+      shape<kVec>(cache, membership_kernel<kVec>, row_words, n, &grid, &smem);
+  if (err != cudaSuccess) return (int)err;
+  membership_kernel<kVec><<<grid, kThreads, smem, stream>>>(
+      f, (const uint32_t*)packed, row_words, length, n, (bool*)out);
+  return (int)cudaGetLastError();
+}
+
+template <int kVec>
+int launch_cascade(const Filter& region, const Filter& fleet,
+                   const void* packed, int row_words, int length, int n,
+                   void* out, cudaStream_t stream) {
+  static PlanCache cache;
+  int grid = 1;
+  size_t smem = 0;
+  const cudaError_t err =
+      shape<kVec>(cache, cascade_kernel<kVec>, row_words, n, &grid, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cascade_kernel<kVec><<<grid, kThreads, smem, stream>>>(
+      region, fleet, (const uint32_t*)packed, row_words, length, n,
+      (bool*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point launches on `stream`, does not synchronise, and returns
 // the launch's CUDA error (0 when it was accepted).  The wrappers check
 // shapes, types and the words' length (>= ceil(num_bits / 32)) and never
-// call with n == 0.
+// call with n == 0.  `packed` need only be 4-byte aligned.
 extern "C" int yadcc_bloom_membership(const void* words,
                                       unsigned int num_bits, int num_hashes,
                                       unsigned long long seed,
                                       const void* packed, int row_words,
                                       int length, int n, void* out,
                                       void* stream) {
-  membership_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, num_bits, num_hashes, seed,
-      (const uint32_t*)packed, row_words, length, n, (bool*)out);
-  return (int)cudaGetLastError();
+  const Filter f = filter(words, num_bits, num_hashes, seed);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (vec_for(row_words)) {
+    case 16:
+      return launch_membership<16>(f, packed, row_words, length, n, out, s);
+    case 8:
+      return launch_membership<8>(f, packed, row_words, length, n, out, s);
+    default:
+      return launch_membership<4>(f, packed, row_words, length, n, out, s);
+  }
 }
 
 extern "C" int yadcc_bloom_cascade(const void* region_words,
@@ -214,12 +647,27 @@ extern "C" int yadcc_bloom_cascade(const void* region_words,
                                    unsigned int num_bits, const void* packed,
                                    int row_words, int length, int n,
                                    void* out, void* stream) {
-  cascade_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)region_words, region_hashes, region_seed,
-      (const uint32_t*)fleet_words, fleet_hashes, fleet_seed, num_bits,
-      (const uint32_t*)packed, row_words, length, n, (bool*)out);
-  return (int)cudaGetLastError();
+  const Filter region = filter(region_words, num_bits, region_hashes,
+                               region_seed);
+  const Filter fleet = filter(fleet_words, num_bits, fleet_hashes,
+                              fleet_seed);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (vec_for(row_words)) {
+    case 16:
+      return launch_cascade<16>(region, fleet, packed, row_words, length, n,
+                                out, s);
+    case 8:
+      return launch_cascade<8>(region, fleet, packed, row_words, length, n,
+                               out, s);
+    default:
+      return launch_cascade<4>(region, fleet, packed, row_words, length, n,
+                               out, s);
+  }
 }
+
+// The staged kernels' tile, in keys (chip_smoke.py sizes its edge batches
+// around it).
+extern "C" int yadcc_bloom_tile_keys() { return kTile; }
 
 extern "C" int yadcc_bloom_probe(const void* words, unsigned int num_bits,
                                  int num_hashes, const void* fingerprints,

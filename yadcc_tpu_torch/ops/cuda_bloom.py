@@ -12,7 +12,10 @@ Routing follows the tensors: CPU tensors go to the plain versions
 kernel, and anything the kernel does not take raises, on either route.
 Filter words, packed keys and fingerprints are int32 tensors holding the
 bit pattern of the host's uint32 arrays; seeds are (hi, lo) uint32 pairs
-(bloom_pipeline.seed_pair).
+(bloom_pipeline.seed_pair).  Packed keys may be any contiguous view (its
+base only 4-byte aligned, e.g. one word into a buffer) and of any key
+length: the kernels stage rows of up to 128 bytes and read wider ones from
+device memory.
 
 `launches` counts kernel launches by kernel name (one per call on the
 card with a non-empty batch), so a run can show that its main path went
@@ -62,8 +65,17 @@ def _kernels():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
+        lib.yadcc_bloom_tile_keys.argtypes = []
+        lib.yadcc_bloom_tile_keys.restype = ctypes.c_int
+        fns["tile_keys"] = lib.yadcc_bloom_tile_keys
         _fns = fns
     return _fns
+
+
+def tile_keys() -> int:
+    """Keys a block of the membership and cascade kernels stages at a time
+    (builds the kernels on first use)."""
+    return int(_kernels()["tile_keys"]())
 
 
 def _seed64(seed) -> int:
