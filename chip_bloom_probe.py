@@ -19,21 +19,16 @@ and times each build's membership kernel on the bench's batches at 1% and
 * probe_l1      the full kernel with every probe confined to the filter's
                 first 4 KB (wrong on purpose): what the probes would cost
                 if they hit in L1;
-* persistent    the full kernel on a persistent grid (as many blocks as
-                fit, each walking tiles with two staging buffers) instead
-                of one block a tile;
 * min_blocks8   the full kernel with staged rows compiled for 8 blocks
                 an SM (at most 32 registers a thread);
 * direct_min1   the full kernel with rows read from global memory
                 compiled without a minimum of blocks an SM;
-* staged_short  the full kernel staging rows shorter than one XXH64
-                stripe too (the 23-byte keys' 24-byte rows);
 * unstaged      the full kernel with every row read from global memory,
-                as rows shorter than a stripe or wider than the staging
-                buffer are (no shared memory);
-* group1, group2, group4, group8 (but the kernel's own kProbeGroup)
+                as rows the kernel does not stage are (no shared memory);
+* group2, group4, group8
                 the full kernel with that many probe loads issued
-                together.
+                together (independent loads, their bits ANDed) in place of
+                the chained probe.
 
 OTHER.cu, when given, is another version of bloom.cu with the same C
 interface (e.g. the parent commit's, unpacked with `git archive`), built
@@ -58,54 +53,73 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = pathlib.Path(__file__).resolve().parent
 OUT = REPO / "yadcc_tpu_torch" / "_build" / "bloom_probe"
-EXACT = ("kernel", "no_hints", "persistent", "min_blocks8", "direct_min1",
-         "staged_short", "unstaged", "group1", "group2", "group4", "group8",
-         "other")
-CASCADE = ("kernel", "no_hints", "persistent", "min_blocks8", "direct_min1",
-           "staged_short", "unstaged", "other")
+EXACT = ("kernel", "no_hints", "min_blocks8", "direct_min1", "unstaged",
+         "group2", "group4", "group8", "other")
+CASCADE = ("kernel", "no_hints", "min_blocks8", "direct_min1", "unstaged",
+           "other")
+# The chained probe loop of bloom.cu:probe_chained, and the same probes
+# issued in groups of G independent loads whose bits are ANDed.
+CHAINED = """\
+  for (int i = 0; i < f.num_hashes; ++i, x += h2) {
+    const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+    if (!((load_word(f.words + (idx >> 5), keep) >> (idx & 31u)) & 1u))
+      return false;
+  }
+"""
+GROUPED = """\
+  for (int i = 0; i < f.num_hashes; i += GROUP) {
+    uint32_t w[GROUP], b[GROUP];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j, x += h2) {
+      w[j] = 1u;
+      b[j] = 0u;
+      if (i + j < f.num_hashes) {
+        const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+        w[j] = load_word(f.words + (idx >> 5), keep);
+        b[j] = idx & 31u;
+      }
+    }
+    uint32_t all = 1u;
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) all &= w[j] >> b[j];
+    if (!(all & 1u)) return false;
+  }
+"""
 
 
 def variants(src: str) -> dict:
-    def cut(s, old, new):
-        if s.count(old) != 1:
-            raise RuntimeError(f"probe anchor not found once: {old!r}")
+    def cut(s, old, new, times=1):
+        if s.count(old) != times:
+            raise RuntimeError(f"probe anchor not found {times}x: {old!r}")
         return s.replace(old, new)
 
-    verdict = "      out[first + t] = member(f, row, length, keep);\n"
-    fold = ("      out[first + t] = [&] {\n"
-            "        uint64_t x = 0, l[4];\n"
-            "        int pos = 0;\n"
-            "        for (; pos + 32 <= length; pos += 32) {\n"
-            "          row.stripe(pos, l);\n"
-            "          x ^= l[0] ^ l[1] ^ l[2] ^ l[3];\n"
-            "        }\n"
-            "        for (; pos + 8 <= length; pos += 8) x ^= row.lane(pos);\n"
-            "        return (x & 1u) != 0;\n"
-            "      }();\n")
-    group = re.search(r"constexpr int kProbeGroup = \d+;", src).group(0)
-    own = int(re.search(r"\d+", group).group(0))
+    verdict = "    out[first + t] = member(f, row, length, keep);\n"
+    fold = ("    out[first + t] = [&] {\n"
+            "      uint64_t x = 0, l[4];\n"
+            "      int pos = 0;\n"
+            "      for (; pos + 32 <= length; pos += 32) {\n"
+            "        row.stripe(pos, l);\n"
+            "        x ^= l[0] ^ l[1] ^ l[2] ^ l[3];\n"
+            "      }\n"
+            "      for (; pos + 8 <= length; pos += 8) x ^= row.lane(pos);\n"
+            "      return (x & 1u) != 0;\n"
+            "    }();\n")
+    bounds = "kStaged ? 1 : 8"
     return {
         "kernel": src,
         "staging_only": cut(src, verdict, fold),
-        "digest_only": cut(src, verdict, "      out[first + t] = "
+        "digest_only": cut(src, verdict, "    out[first + t] = "
                            "(xxh64_row(row, length, f.seed) & 1u) != 0;\n"),
         "no_hints": cut(src, "constexpr bool kL2Hints = true;",
                         "constexpr bool kL2Hints = false;"),
         "probe_l1": cut(src, "load_word(f.words + (idx >> 5), keep)",
                         "load_word(f.words + ((idx >> 5) & 1023), keep)"),
-        "persistent": cut(src, "constexpr bool kPersistent = false;",
-                          "constexpr bool kPersistent = true;"),
-        "min_blocks8": cut(src, "constexpr int kMinBlocksStaged = 1;",
-                           "constexpr int kMinBlocksStaged = 8;"),
-        "direct_min1": cut(src, "constexpr int kMinBlocksDirect = 8;",
-                           "constexpr int kMinBlocksDirect = 1;"),
-        "staged_short": cut(src, "constexpr int kMinStagedRowBytes = 32;",
-                            "constexpr int kMinStagedRowBytes = 8;"),
-        "unstaged": cut(src, "  if (row_bytes < kMinStagedRowBytes || "
-                        "row_bytes > kMaxStagedRowBytes)\n    return 4;",
-                        "  return 4;"),
-        **{f"group{g}": cut(src, group, f"constexpr int kProbeGroup = {g};")
-           for g in (1, 2, 4, 8) if g != own},
+        "min_blocks8": cut(src, bounds, "kStaged ? 8 : 8", 2),
+        "direct_min1": cut(src, bounds, "kStaged ? 1 : 1", 2),
+        "unstaged": cut(src, "bool staged(int row_words) {\n",
+                        "bool staged(int row_words) {\n  return false;\n"),
+        **{f"group{g}": cut(src, CHAINED, GROUPED.replace("GROUP", str(g)))
+           for g in (2, 4, 8)},
     }
 
 
@@ -120,9 +134,10 @@ def ptxas_lines(stderr: str) -> list:
             continue
         if fn and ("membership_kernel" in fn or "cascade_kernel" in fn) \
                 and ("registers" in line or "spill" in line):
-            vec = re.search(r"ILi(\d+)E", fn)
+            staged = re.search(r"ILb([01])E", fn)
             name = ("membership" if "membership" in fn else "cascade") + \
-                (f"<{vec.group(1)}>" if vec else "")
+                ({"1": "<staged>", "0": "<global>"}[staged.group(1)]
+                 if staged else "")
             out.append(f"{name}: {line.strip()}")
     return out
 
@@ -164,7 +179,7 @@ def main(argv: list) -> int:
         for name, info in ex.map(lambda kv: build(*kv), srcs.items()):
             for line in info:
                 if name in ("kernel", "other") or line.startswith(
-                        ("membership<16>", "membership<4>")):
+                        "membership<"):
                     print(name, line, flush=True)
 
     dev = torch.device("cuda")

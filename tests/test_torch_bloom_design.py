@@ -1,26 +1,28 @@
 """CPU models of the staged Bloom kernels' arithmetic (csrc/bloom.cu),
-held against `%` and the JAX package's probe, and the wrappers' handling of
-the layouts those kernels take.
+held against `%` and the JAX package's probe, and the wrappers' results on
+the layouts those kernels take, held against the JAX package.
 
 The membership and cascade kernels compute each probe index as
 (h1 + i*h2) mod num_bits with x += h2 in wrapping uint32 arithmetic and
 the mod by a multiply-shift remainder (`mod_bits`, with the 64-bit
-constant the launcher computes), and test the probes in groups of
-kProbeGroup.  The models below repeat that arithmetic in numpy, step by
-step; chip_smoke.py phase 7 holds the kernels themselves equal to their
-plain versions on the card.
+constant the launcher computes), and chain the probes; chip_bloom_probe.py
+also builds them with the probes issued in groups.  The models below
+repeat that arithmetic in numpy, step by step; chip_smoke.py phase 7
+holds the kernels themselves equal to their plain versions on the card.
 """
 
 from __future__ import annotations
 
-import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from yadcc_tpu.common import bloom as jbloom
+from yadcc_tpu.ops import bloom_pipeline as jpipe
 from yadcc_tpu.ops import bloom_probe as jprobe
 from yadcc_tpu_torch.common import bloom as tbloom
 from yadcc_tpu_torch.ops import bloom_pipeline as tpipe
@@ -52,8 +54,9 @@ def mod_bits(x: np.ndarray, d: int) -> np.ndarray:
 
 
 def probe_grouped(words, fps, num_bits: int, num_hashes: int, group: int):
-    """csrc/bloom.cu:probe_grouped for each [h1, h2] row of ``fps``: the
-    groups' bits ANDed, x stepping by h2 with uint32 wrap-around."""
+    """The kernels' probe for each [h1, h2] row of ``fps``: with group 1
+    csrc/bloom.cu:probe_chained, else chip_bloom_probe.py's grouped build;
+    the groups' bits ANDed, x stepping by h2 with uint32 wrap-around."""
     words = np.asarray(words, np.uint32)
     fps = np.asarray(fps, np.uint32)
     x, h2 = fps[:, 0].copy(), fps[:, 1]
@@ -109,42 +112,57 @@ def test_grouped_probe_matches_jax(num_bits, num_hashes, group):
 
 @pytest.mark.parametrize("length", (23, 80, 129))
 def test_wrappers_take_offset_views_and_wide_rows(length):
-    """A contiguous `packed` view one word into a buffer (4-byte aligned on
-    the card) and rows past the staging width are taken, not refused, and
-    give the host filter's verdicts."""
+    """A contiguous `packed` view one word into its buffer, and rows past
+    the staging width, are taken, not refused, and give the JAX package's
+    verdicts (its fused membership; the cascade as the OR of the two
+    filters' memberships, what its sharded cascade computes on one card).
+    On the CPU the wrappers run their plain versions; the kernels' own
+    handling of such views is held on the card by
+    chip_smoke.compare_bloom_layouts."""
     rng = np.random.default_rng(length)
-    keys = [rng.bytes(length) for _ in range(37)]
-    region = tbloom.SaltedBloomFilter(1000, 7, 17)
-    region.add_many(keys[::2])
-    fleet = tbloom.SaltedBloomFilter(1000, 3, (1 << 63) + 5)
-    fleet.add_many(keys[1::3])
-    packed = pack_keys(keys, length).view(np.int32)
+    keys = ["".join(map(chr, rng.integers(32, 127, length)))
+            for _ in range(64)]
+    fleet_salt = (1 << 63) + 5
+    region, fleet = tbloom.SaltedBloomFilter(1000, 7, 17), \
+        tbloom.SaltedBloomFilter(1000, 3, fleet_salt)
+    jregion, jfleet = jbloom.SaltedBloomFilter(1000, 7, 17), \
+        jbloom.SaltedBloomFilter(1000, 3, fleet_salt)
+    for f in (region, jregion):
+        f.add_many(keys[::2])
+    for f in (fleet, jfleet):
+        f.add_many(keys[1::3])
+    packed = pack_keys([k.encode() for k in keys], length).view(np.int32)
     buf = torch.zeros(packed.size + 1, dtype=torch.int32)
     view = buf[1:].view(packed.shape)
     view.copy_(torch.from_numpy(packed))
     assert view.is_contiguous() and view.storage_offset() == 1
     words = tpipe.as_device_words(region.words, "cpu")
     fwords = tpipe.as_device_words(fleet.words, "cpu")
-    seed, fseed = tpipe.seed_pair(17), tpipe.seed_pair((1 << 63) + 5)
-    want = region.may_contain_batch(keys)
+    seed, fseed = tpipe.seed_pair(17), tpipe.seed_pair(fleet_salt)
+    with jax.disable_jit():
+        want, want_fleet = (np.asarray(jpipe.bloom_membership_from_keys(
+            jnp.asarray(f.words), jnp.asarray(packed.view(np.uint32)),
+            length, jpipe.seed_pair(f.salt), num_bits=1000,
+            num_hashes=f.num_hashes)) for f in (jregion, jfleet))
+    np.testing.assert_array_equal(want, jregion.may_contain_batch(keys))
+    assert 0 < want.sum() < len(keys)
     got = cuda_bloom.bloom_membership(words, view, length, seed,
                                       num_bits=1000, num_hashes=7)
     np.testing.assert_array_equal(got.numpy(), want)
     got = cuda_bloom.bloom_cascade(words, fwords, view, length, seed, fseed,
                                    num_bits=1000, num_hashes_region=7,
                                    num_hashes_fleet=3)
-    np.testing.assert_array_equal(got.numpy(),
-                                  want | fleet.may_contain_batch(keys))
+    np.testing.assert_array_equal(got.numpy(), want | want_fleet)
+    assert (want_fleet & ~want).any()
 
 
 def test_probe_script_variants_cut_the_source():
-    """chip_bloom_probe.py's anchors are each in the kernel source once,
-    and its probe-group variants stay in step with kProbeGroup."""
+    """chip_bloom_probe.py's anchors are each in the kernel source as often
+    as it expects, and every variant changes the source."""
     src = SOURCE.read_text()
     variants = chip_bloom_probe.variants(src)
     assert variants["kernel"] == src
     for name, v in variants.items():
         assert name == "kernel" or v != src
-    group = int(re.search(r"constexpr int kProbeGroup = (\d+);",
-                          src).group(1))
-    assert f"group{group}" not in variants
+    assert {"group2", "group4", "group8", "no_hints", "staging_only",
+            "digest_only"} <= set(variants)

@@ -33,29 +33,29 @@
 // measured 0.072 ms at 50% hits and 0.098 ms for the cascade.
 //
 // This design, for the membership and cascade kernels:
-// * Rows of 32 to 128 bytes are staged.  A block owns a tile of kTile
+// * Rows whose width is a multiple of 16 bytes from 32 to 128 (an 80-byte
+//   key's row among them) are staged.  A block owns a tile of kTile
 //   consecutive keys, whose rows are contiguous in `packed`; it copies the
 //   tile into shared memory with 16-byte cp.async (4-byte copies when
 //   `packed` is not 16-byte aligned, e.g. a view one word in), evict-first
-//   in L2, and each thread reads its row from there with 16-byte loads
-//   (8-byte when the row is not a multiple of 16 bytes; an 80-byte row is
-//   5 16-byte chunks, odd, so a quarter-warp's loads fall in 8 distinct
-//   bank groups).  One block a tile: a block's copy runs under the other
-//   resident blocks' digests.  A persistent grid walking the tiles with two
-//   buffers (kPersistent) measured slower, since its per-tile barriers hold
-//   every warp to the block's slowest probe chain.
-// * Shorter rows (no XXH64 stripe: too little work a block to hide the
-//   copy) and wider ones are read from global memory in the same kernel,
-//   4-byte loads through L1, where a warp's lanes share their neighbours'
-//   lines, evict-first in L2, at up to 32 registers so a full SM of threads
-//   fits (kMinBlocksDirect).
+//   in L2, and each thread reads its row from there with 16-byte loads (an
+//   80-byte row is 5 16-byte chunks, odd, so a quarter-warp's loads fall
+//   in 8 distinct bank groups).  One block a tile: a block's copy runs
+//   under the other resident blocks' digests.  A persistent grid walking
+//   the tiles with two buffers measured slower (its per-tile barriers
+//   hold every warp to the block's slowest probe chain; PERF.md).
+// * Other rows (shorter than an XXH64 stripe: too little work a block to
+//   hide the copy; wider than the buffer; or 8 bytes past a multiple of
+//   16) are read from global memory in the same kernel, 4-byte loads
+//   through L1, where a warp's lanes share their neighbours' lines,
+//   evict-first in L2, at up to 32 registers so a full SM of threads fits.
 // * The filter is held in L2: its words are loaded evict-last
 //   (createpolicy + ld.global.nc.L2::cache_hint); without the hints the
 //   kernel is ~1.3x slower at 50% hits.
-// * Probes are chained, stopping at the first zero bit (kProbeGroup = 1):
-//   they are bound by the L2's sector rate, not by latency, and issuing a
-//   group of loads together fetches sectors an absent key never needed
-//   (groups of 2, 4 and 8 measured no faster, most of them slower).
+// * Probes are chained, stopping at the first zero bit: they are bound by
+//   the L2's sector rate, not by latency, and issuing a group of loads
+//   together fetches sectors an absent key never needed (groups of 2, 4
+//   and 8 measured no faster, most of them slower; chip_bloom_probe.py).
 //   idx = (h1 + i*h2) mod num_bits in uint32 arithmetic (it wraps as the
 //   reference's does), the mod by Lemire's multiply-shift remainder with a
 //   64-bit constant the launcher computes (exact for every uint32).
@@ -75,27 +75,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads;             // keys a block stages at a time
-// Rows staged in shared memory: at least one XXH64 stripe and at most 128
-// bytes (two tiles of them fit a block's 64 KB); others are read from
-// global memory.
-constexpr int kMinStagedRowBytes = 32;
-constexpr int kMaxStagedRowBytes = 128;
-constexpr int kMaxStageBytes = 2 * kTile * kMaxStagedRowBytes;
-// The measured choices below are constants that chip_bloom_probe.py flips
-// to time the alternatives.
-constexpr int kProbeGroup = 1;              // probe loads issued together
-constexpr bool kL2Hints = true;             // evict-first rows, evict-last filter
-// One block a tile (false), or a persistent grid of as many blocks as fit,
-// each walking tiles with two staging buffers (true).
-constexpr bool kPersistent = false;
-// __launch_bounds__'s blocks an SM, for staged rows and for rows read from
-// global memory (8: at most 32 registers, a full SM of threads).
-constexpr int kMinBlocksStaged = 1;
-constexpr int kMinBlocksDirect = 8;
+constexpr int kTile = kThreads;             // keys a block stages
+constexpr int kMaxStagedRowBytes = 128;     // a tile of them is 32 KB
+// Rows evict-first and filter words evict-last in L2; both evict-normal
+// when false (chip_bloom_probe.py times that build).
+constexpr bool kL2Hints = true;
 
 constexpr uint64_t kP1 = 0x9E3779B185EBCA87ULL;
 constexpr uint64_t kP2 = 0xC2B2AE3D27D4EB4FULL;
@@ -154,16 +143,12 @@ __device__ __forceinline__ void copy4(uint32_t* dst, const uint32_t* src,
                : "memory");
 }
 
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void copies_wait_all_but_last() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
+__device__ __forceinline__ void copies_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
-// XXH64 over a key row, read through one of three row readers.
+// XXH64 over a key row, read through one of two row readers.
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
@@ -199,20 +184,6 @@ struct SharedRow16 {
     l[1] = join(a.z, a.w);
     l[2] = join(b.x, b.y);
     l[3] = join(b.z, b.w);
-  }
-};
-
-// A staged row at an 8-byte aligned address (its width is 8 bytes past a
-// multiple of 16): 8-byte loads.
-struct SharedRow8 {
-  const uint32_t* p;
-  __device__ uint32_t word(int pos) const { return p[pos >> 2]; }
-  __device__ uint64_t lane(int pos) const {
-    const uint2 v = *reinterpret_cast<const uint2*>(p + (pos >> 2));
-    return join(v.x, v.y);
-  }
-  __device__ void stripe(int pos, uint64_t (&l)[4]) const {
-    for (int i = 0; i < 4; ++i) l[i] = lane(pos + 8 * i);
   }
 };
 
@@ -320,30 +291,16 @@ __device__ __forceinline__ uint32_t mod_bits(uint32_t x, uint64_t magic,
   return (uint32_t)(hi >> 32);
 }
 
-// All K probe bits of the key with digest `d` set?  The kProbeGroup loads
-// of a group are independent (one L2 round trip a group); with a group of
-// one, each probe waits on the one before, as in `probe`.
-__device__ __forceinline__ bool probe_grouped(const Filter& f, uint64_t d,
-                                              uint64_t keep) {
+// All K probe bits of the key with digest `d` set?  Chained: each probe
+// waits on the one before and the walk stops at the first zero bit.
+__device__ __forceinline__ bool probe_chained(const Filter& f, uint64_t d,
+                                             uint64_t keep) {
   const uint32_t h2 = (uint32_t)(d >> 32) | 1u;
   uint32_t x = (uint32_t)d;  // h1 + i * h2, wrapping
-  for (int i = 0; i < f.num_hashes; i += kProbeGroup) {
-    uint32_t w[kProbeGroup], b[kProbeGroup];
-#pragma unroll
-    for (int j = 0; j < kProbeGroup; ++j) {
-      w[j] = 1u;
-      b[j] = 0u;
-      if (i + j < f.num_hashes) {
-        const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
-        w[j] = load_word(f.words + (idx >> 5), keep);
-        b[j] = idx & 31u;
-      }
-      x += h2;
-    }
-    uint32_t all = 1u;
-#pragma unroll
-    for (int j = 0; j < kProbeGroup; ++j) all &= w[j] >> b[j];
-    if (!(all & 1u)) return false;
+  for (int i = 0; i < f.num_hashes; ++i, x += h2) {
+    const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+    if (!((load_word(f.words + (idx >> 5), keep) >> (idx & 31u)) & 1u))
+      return false;
   }
   return true;
 }
@@ -351,43 +308,32 @@ __device__ __forceinline__ bool probe_grouped(const Filter& f, uint64_t d,
 template <class Row>
 __device__ __forceinline__ bool member(const Filter& f, const Row& row,
                                        int length, uint64_t keep) {
-  return probe_grouped(f, xxh64_row(row, length, f.seed), keep);
+  return probe_chained(f, xxh64_row(row, length, f.seed), keep);
 }
 
 // ---------------------------------------------------------------------------
-// The tile walk.  kVec is the staged rows' load width (16 or 8 bytes), or
-// 4 for rows read from global memory, unstaged.
-
-template <int kVec>
-struct RowOf {
-  using type = SharedRow16;
-};
-template <>
-struct RowOf<8> {
-  using type = SharedRow8;
-};
-template <>
-struct RowOf<4> {
-  using type = GlobalRow;
-};
+// The tile.  Block b owns keys [b * kTile, b * kTile + kTile); kStaged says
+// whether their rows are staged in shared memory or read from `packed`.
 
 // Row t of the tile starting at key `first`: in the staged copy `rows`,
 // or in `packed`, read with the `stream` policy.
-template <int kVec>
-__device__ __forceinline__ typename RowOf<kVec>::type row_of(
-    const uint32_t* rows, const uint32_t* packed, int row_words, int first,
-    int t, uint64_t stream) {
-  if constexpr (kVec == 4)
-    return {packed + ((size_t)first + t) * row_words, stream};
-  else
+template <bool kStaged>
+__device__ __forceinline__
+    typename std::conditional<kStaged, SharedRow16, GlobalRow>::type
+    row_of(const uint32_t* rows, const uint32_t* packed, int row_words,
+           int first, int t, uint64_t stream) {
+  if constexpr (kStaged)
     return {rows + t * row_words};
+  else
+    return {packed + ((size_t)first + t) * row_words, stream};
 }
 
-// Start the asynchronous copy of tile `tile`'s rows into `dst`.
+// Copy this block's tile of rows into `dst` and wait for it, the block
+// included.
 __device__ __forceinline__ void stage_tile(const uint32_t* packed,
-                                           int row_words, int n, int tile,
+                                           int row_words, int n,
                                            uint32_t* dst, uint64_t stream) {
-  const int first = tile * kTile;
+  const int first = blockIdx.x * kTile;
   const int words = min(kTile, n - first) * row_words;
   const uint32_t* src = packed + (size_t)first * row_words;
   int w = threadIdx.x;
@@ -401,59 +347,29 @@ __device__ __forceinline__ void stage_tile(const uint32_t* packed,
     w += 4 * chunks;
   }
   for (; w < words; w += kThreads) copy4(dst + w, src + w, stream);
+  copies_wait_all();
+  __syncthreads();
 }
 
-// Calls body(tile, rows) for each tile this block owns, rows staged in
-// shared memory (double-buffered) unless kVec == 4.  Every thread of the
-// block calls body; body's own barriers are safe.
-template <int kVec, class Body>
-__device__ __forceinline__ void walk_tiles(const uint32_t* packed,
-                                           int row_words, int n,
-                                           uint32_t* stage, uint64_t stream,
-                                           Body body) {
-  const int tiles = (n + kTile - 1) / kTile;
-  if constexpr (kVec == 4) {
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-      body(tile, (const uint32_t*)nullptr);
-    return;
-  }
-  const int buf_words = kTile * row_words;  // two buffers of one tile
-  int tile = blockIdx.x;
-  if (tile < tiles) stage_tile(packed, row_words, n, tile, stage, stream);
-  copies_commit();
-  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
-    const int next = tile + gridDim.x;
-    if (next < tiles)
-      stage_tile(packed, row_words, n, next,
-                 stage + ((it + 1) & 1) * buf_words, stream);
-    copies_commit();
-    copies_wait_all_but_last();
-    __syncthreads();
-    body(tile, (const uint32_t*)stage + (it & 1) * buf_words);
-    __syncthreads();
-  }
-}
-
-template <int kVec>
-__global__ void __launch_bounds__(kThreads, kVec == 4 ? kMinBlocksDirect
-                                                     : kMinBlocksStaged)
+// __launch_bounds__'s second argument: 8 blocks an SM (at most 32
+// registers) for rows read from global memory, none asked for staged ones.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, kStaged ? 1 : 8)
 membership_kernel(Filter f, const uint32_t* __restrict__ packed,
                   int row_words, int length, int n, bool* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t stage[];
   const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
-  walk_tiles<kVec>(packed, row_words, n, stage, stream,
-                   [&](int tile, const uint32_t* rows) {
-    const int first = tile * kTile, t = threadIdx.x;
-    if (first + t < n) {
-      const auto row = row_of<kVec>(rows, packed, row_words, first, t, stream);
-      out[first + t] = member(f, row, length, keep);
-    }
-  });
+  const int first = blockIdx.x * kTile, t = threadIdx.x;
+  if constexpr (kStaged) stage_tile(packed, row_words, n, stage, stream);
+  if (first + t < n) {
+    const auto row = row_of<kStaged>(stage, packed, row_words, first, t,
+                                     stream);
+    out[first + t] = member(f, row, length, keep);
+  }
 }
 
-template <int kVec>
-__global__ void __launch_bounds__(kThreads, kVec == 4 ? kMinBlocksDirect
-                                                     : kMinBlocksStaged)
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads, kStaged ? 1 : 8)
 cascade_kernel(Filter region, Filter fleet,
                const uint32_t* __restrict__ packed, int row_words,
                int length, int n, bool* __restrict__ out) {
@@ -461,30 +377,29 @@ cascade_kernel(Filter region, Filter fleet,
   __shared__ uint16_t rejected[kTile];
   __shared__ int n_rejected;
   const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
-  walk_tiles<kVec>(packed, row_words, n, stage, stream,
-                   [&](int tile, const uint32_t* rows) {
-    const int first = tile * kTile, t = threadIdx.x;
-    if (t == 0) n_rejected = 0;
+  const int first = blockIdx.x * kTile, t = threadIdx.x;
+  if (t == 0) n_rejected = 0;
+  if constexpr (kStaged)
+    stage_tile(packed, row_words, n, stage, stream);
+  else
     __syncthreads();
-    // The region's AND over its probes completes before the OR; a key the
-    // region admits needs no fleet digest.
-    if (first + t < n) {
-      if (member(region,
-                 row_of<kVec>(rows, packed, row_words, first, t, stream),
-                 length, keep))
-        out[first + t] = true;
-      else
-        rejected[atomicAdd(&n_rejected, 1)] = (uint16_t)t;
-    }
-    __syncthreads();
-    const int m = n_rejected;
-    for (int j = t; j < m; j += kThreads) {
-      const int r = rejected[j];
-      out[first + r] = member(
-          fleet, row_of<kVec>(rows, packed, row_words, first, r, stream),
-          length, keep);
-    }
-  });
+  // The region's AND over its probes completes before the OR; a key the
+  // region admits needs no fleet digest.
+  if (first + t < n) {
+    if (member(region,
+               row_of<kStaged>(stage, packed, row_words, first, t, stream),
+               length, keep))
+      out[first + t] = true;
+    else
+      rejected[atomicAdd(&n_rejected, 1)] = (uint16_t)t;
+  }
+  __syncthreads();
+  if (t < n_rejected) {
+    const int r = rejected[t];
+    out[first + r] = member(
+        fleet, row_of<kStaged>(stage, packed, row_words, first, r, stream),
+        length, keep);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -518,98 +433,31 @@ Filter filter(const void* words, unsigned int num_bits, int num_hashes,
           ~0ULL / num_bits + 1, seed};
 }
 
-// The grid: persistent, as many blocks as fit on the card with two tiles
-// of `row_words`-word rows staged each (0 for unstaged rows), capped at the
-// tile count.  The SM count and the blocks an SM holds are asked once per
-// device and row width, so a launch makes no query after the first.
-struct PlanCache {
-  static constexpr int kDevices = 64, kWidths = kMaxStagedRowBytes / 4 + 1;
-  int sms[kDevices];                // 0: not asked yet
-  int per_sm[kDevices][kWidths];
-};
-
-template <class Kernel>
-cudaError_t plan(PlanCache& cache, Kernel* kernel, int row_words,
-                 size_t smem, int n, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  const bool cached = err == cudaSuccess && dev < PlanCache::kDevices &&
-                      row_words < PlanCache::kWidths &&
-                      cache.per_sm[dev][row_words] > 0;
-  if (cached) {
-    sms = cache.sms[dev];
-    per_sm = cache.per_sm[dev][row_words];
-  } else {
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err == cudaSuccess && smem > 48 * 1024)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kMaxStageBytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < PlanCache::kDevices && row_words < PlanCache::kWidths &&
-        per_sm > 0) {
-      cache.sms[dev] = sms;
-      cache.per_sm[dev][row_words] = per_sm;
-    }
-  }
-  const long long tiles = ((long long)n + kTile - 1) / kTile;
-  const long long fit = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  *grid = (int)(tiles < fit ? tiles : (fit > 0 ? fit : 1));
-  return err;
-}
-
-int vec_for(int row_words) {
+// Rows staged in shared memory: a multiple of 16 bytes, at least one XXH64
+// stripe and at most kMaxStagedRowBytes.
+bool staged(int row_words) {
   const int row_bytes = row_words * 4;
-  if (row_bytes < kMinStagedRowBytes || row_bytes > kMaxStagedRowBytes)
-    return 4;
-  return row_bytes % 16 == 0 ? 16 : 8;
+  return row_bytes % 16 == 0 && row_bytes >= 32 &&
+         row_bytes <= kMaxStagedRowBytes;
 }
 
-// The grid and the staging bytes a block needs: one tile's rows a block, or
-// (kPersistent) two a block on a grid planned for the card.
-template <int kVec, class Kernel>
-cudaError_t shape(PlanCache& cache, Kernel* kernel, int row_words, int n,
-                  int* grid, size_t* smem) {
-  const size_t tile_bytes = kVec == 4 ? 0 : (size_t)kTile * row_words * 4;
-  if (!kPersistent) {
-    *grid = (int)(((long long)n + kTile - 1) / kTile);
-    *smem = tile_bytes;
-    return cudaSuccess;
-  }
-  *smem = 2 * tile_bytes;
-  return plan(cache, kernel, kVec == 4 ? 0 : row_words, *smem, n, grid);
-}
+int tiles_for(int n) { return (n + kTile - 1) / kTile; }
 
-template <int kVec>
+template <bool kStaged>
 int launch_membership(const Filter& f, const void* packed, int row_words,
                       int length, int n, void* out, cudaStream_t stream) {
-  static PlanCache cache;
-  int grid = 1;
-  size_t smem = 0;
-  const cudaError_t err =
-      shape<kVec>(cache, membership_kernel<kVec>, row_words, n, &grid, &smem);
-  if (err != cudaSuccess) return (int)err;
-  membership_kernel<kVec><<<grid, kThreads, smem, stream>>>(
+  const size_t smem = kStaged ? (size_t)kTile * row_words * 4 : 0;
+  membership_kernel<kStaged><<<tiles_for(n), kThreads, smem, stream>>>(
       f, (const uint32_t*)packed, row_words, length, n, (bool*)out);
   return (int)cudaGetLastError();
 }
 
-template <int kVec>
+template <bool kStaged>
 int launch_cascade(const Filter& region, const Filter& fleet,
                    const void* packed, int row_words, int length, int n,
                    void* out, cudaStream_t stream) {
-  static PlanCache cache;
-  int grid = 1;
-  size_t smem = 0;
-  const cudaError_t err =
-      shape<kVec>(cache, cascade_kernel<kVec>, row_words, n, &grid, &smem);
-  if (err != cudaSuccess) return (int)err;
-  cascade_kernel<kVec><<<grid, kThreads, smem, stream>>>(
+  const size_t smem = kStaged ? (size_t)kTile * row_words * 4 : 0;
+  cascade_kernel<kStaged><<<tiles_for(n), kThreads, smem, stream>>>(
       region, fleet, (const uint32_t*)packed, row_words, length, n,
       (bool*)out);
   return (int)cudaGetLastError();
@@ -629,14 +477,10 @@ extern "C" int yadcc_bloom_membership(const void* words,
                                       void* stream) {
   const Filter f = filter(words, num_bits, num_hashes, seed);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (vec_for(row_words)) {
-    case 16:
-      return launch_membership<16>(f, packed, row_words, length, n, out, s);
-    case 8:
-      return launch_membership<8>(f, packed, row_words, length, n, out, s);
-    default:
-      return launch_membership<4>(f, packed, row_words, length, n, out, s);
-  }
+  return staged(row_words)
+             ? launch_membership<true>(f, packed, row_words, length, n, out, s)
+             : launch_membership<false>(f, packed, row_words, length, n, out,
+                                        s);
 }
 
 extern "C" int yadcc_bloom_cascade(const void* region_words,
@@ -652,17 +496,11 @@ extern "C" int yadcc_bloom_cascade(const void* region_words,
   const Filter fleet = filter(fleet_words, num_bits, fleet_hashes,
                               fleet_seed);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (vec_for(row_words)) {
-    case 16:
-      return launch_cascade<16>(region, fleet, packed, row_words, length, n,
-                                out, s);
-    case 8:
-      return launch_cascade<8>(region, fleet, packed, row_words, length, n,
-                               out, s);
-    default:
-      return launch_cascade<4>(region, fleet, packed, row_words, length, n,
-                               out, s);
-  }
+  return staged(row_words) ? launch_cascade<true>(region, fleet, packed,
+                                                  row_words, length, n, out, s)
+                           : launch_cascade<false>(region, fleet, packed,
+                                                   row_words, length, n, out,
+                                                   s);
 }
 
 // The staged kernels' tile, in keys (chip_smoke.py sizes its edge batches

@@ -14,8 +14,8 @@ Filter words, packed keys and fingerprints are int32 tensors holding the
 bit pattern of the host's uint32 arrays; seeds are (hi, lo) uint32 pairs
 (bloom_pipeline.seed_pair).  Packed keys may be any contiguous view (its
 base only 4-byte aligned, e.g. one word into a buffer) and of any key
-length: the kernels stage rows of up to 128 bytes and read wider ones from
-device memory.
+length: the kernels stage rows of 32 to 128 bytes whose width is a multiple
+of 16 bytes and read the others from device memory.
 
 `launches` counts kernel launches by kernel name (one per call on the
 card with a non-empty batch), so a run can show that its main path went
