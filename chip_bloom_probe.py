@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Where the Bloom membership kernel's time goes (yadcc_tpu_torch/csrc/
-bloom.cu), on one NVIDIA card.
+"""Where the Bloom kernels' time goes (yadcc_tpu_torch/csrc/bloom.cu), on
+one NVIDIA card.
 
     python3 chip_bloom_probe.py [OTHER.cu]
 
 Builds the source as it is and probes of it, each with one part changed,
-and times each build's membership kernel on the bench's batches at 1% and
-50% hits (1M production-format keys of 80 bytes against a 1M-key filter of
-27,584,639 bits and 10 hashes, as tools/bloom_bench.py makes them) and on
-1M of the JAX bench's 23-byte keys:
+and times them on the bench's batches at 1% and 50% hits (1M
+production-format keys of 80 bytes against a 1M-key filter of 27,584,639
+bits and 10 hashes, as tools/bloom_bench.py makes them) and on 1M of the
+JAX bench's 23-byte keys: the membership and cascade kernels from the
+keys, the probe kernel from their fingerprints; and the scatter-OR build
+of the filter from its 1M members' fingerprints.
 
 * kernel        the source as it is;
 * staging_only  rows staged and read as the digest reads them, folded by
                 XOR, no digest and no probe (its verdicts are wrong on
                 purpose): the row stream's own cost;
 * digest_only   staged rows and XXH64, no probe (wrong on purpose);
-* no_hints      the full kernel with both L2 policies evict-normal;
+* no_hints      the full kernels with both L2 policies evict-normal;
 * probe_l1      the full kernel with every probe confined to the filter's
                 first 4 KB (wrong on purpose): what the probes would cost
                 if they hit in L1;
@@ -28,17 +30,41 @@ and times each build's membership kernel on the bench's batches at 1% and
 * group2, group4, group8
                 the full kernel with that many probe loads issued
                 together (independent loads, their bits ANDed) in place of
-                the chained probe.
+                the chained probe;
+* probe_mod     the probe loop with `% num_bits` in place of mod_bits;
+* probe_min1    the probe kernel compiled without a minimum of blocks an
+                SM (no 32-register cap);
+* probe_cg, probe_l1na
+                the filter's words loaded past L1 (ld.global.cg) or without
+                allocating in L1 (.L1::no_allocate), both evict-last in L2;
+* scatter_atomic
+                the scatter-OR's alternative design: the words copied to
+                the output, then one thread a key ORing its probe bits in
+                with fire-and-forget global reductions (red.global.or);
+* scatter_bin_only, scatter_own_only
+                the binned scatter-OR's pass (a) alone (its result wrong on
+                purpose), and pass (b) alone on the scratch and table the
+                kernel build left.
 
-OTHER.cu, when given, is another version of bloom.cu with the same C
-interface (e.g. the parent commit's, unpacked with `git archive`), built
-and timed beside these as "other", so two designs compare on one card.
-The exact builds (all but staging_only, digest_only and probe_l1) are held
-against the host filter before they are timed.  The cascade kernel of the
-builds in CASCADE is timed too.  Prints ptxas's registers, shared memory
-and spills for the membership and cascade kernels, then one JSON line a
-build and batch with ms and the share of the bytes bound.  Needs nvcc and
-a card; exits 2 otherwise.
+The binned scatter-OR of the kernel build is also timed with slices half
+and twice the plan's size (the plan is the wrapper's argument, no other
+build), and on a batch whose every probe falls in one slice.
+
+OTHER.cu, when given, is another version of bloom.cu (e.g. the parent
+commit's, unpacked with `git archive`), built and timed beside these as
+"other", so two designs compare on one card.  Its scatter-OR may take the
+first version's arguments (the words ORed in place): it is then timed
+with the copy of the words its wrapper made.  Every build whose verdicts
+are meant to be right is held against the host filter before it is
+timed.  A small kernel measures the card's rate of random 32-byte L2
+sector reads (one 4-byte load a sector of the filter's 3.4 MB, evict-last,
+16 independent loads a thread; through L1 as the kernels load, and past
+it); each batch's probes evaluated over the first rate are the "L2 floor"
+of the membership, cascade and probe kernels.
+Prints ptxas's registers, shared memory and spills for every kernel of
+the kernel and other builds (for the variants, the kernels they change),
+then one JSON line a build and batch.  Needs nvcc and a card; exits 2
+otherwise.
 """
 
 from __future__ import annotations
@@ -53,12 +79,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = pathlib.Path(__file__).resolve().parent
 OUT = REPO / "yadcc_tpu_torch" / "_build" / "bloom_probe"
-EXACT = ("kernel", "no_hints", "min_blocks8", "direct_min1", "unstaged",
-         "group2", "group4", "group8", "other")
+# Builds whose membership and cascade kernels are timed (the probe-only
+# and scatter-only variants leave them as in "kernel").
+PROBE_ONLY = ("probe_mod", "probe_min1", "probe_cg", "probe_l1na")
+SCATTER_ONLY = ("scatter_atomic", "scatter_bin_only", "scatter_own_only")
+INEXACT = ("staging_only", "digest_only", "probe_l1", "scatter_bin_only")
 CASCADE = ("kernel", "no_hints", "min_blocks8", "direct_min1", "unstaged",
            "other")
-# The chained probe loop of bloom.cu:probe_chained, and the same probes
-# issued in groups of G independent loads whose bits are ANDed.
+PROBE = ("kernel", "no_hints", *PROBE_ONLY, "other")
+SCATTER = ("kernel", *SCATTER_ONLY, "other")
+# The chained probe loop of bloom.cu:probe_h, and the same probes issued
+# in groups of G independent loads whose bits are ANDed.
 CHAINED = """\
   for (int i = 0; i < f.num_hashes; ++i, x += h2) {
     const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
@@ -85,6 +116,84 @@ GROUPED = """\
     if (!(all & 1u)) return false;
   }
 """
+# The scatter-OR's alternative: copy, then one thread a key with global
+# reductions.  Inserted before the end of bloom.cu's anonymous namespace.
+SCATTER_ATOMIC = """\
+__global__ void __launch_bounds__(kThreads)
+scatter_atomic_kernel(Filter f, const uint32_t* __restrict__ fps, bool pairs,
+                      int n, uint32_t* __restrict__ out) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n) return;
+  const uint2 fp = load_fingerprint(fps, k, pairs, policy_evict_first());
+  uint32_t x = fp.x;
+  for (int i = 0; i < f.num_hashes; ++i, x += fp.y) {
+    const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+    asm volatile("red.global.or.b32 [%0], %1;"
+                 ::"l"(out + (idx >> 5)), "r"(1u << (idx & 31u))
+                 : "memory");
+  }
+}
+
+int launch_scatter_atomic(const void* words, void* out,
+                          unsigned int num_bits, int num_hashes,
+                          const void* fingerprints, int n, void*, void*, int,
+                          int, int, int, cudaStream_t stream) {
+  const size_t bytes = (((unsigned long long)num_bits + 31) / 32) * 4;
+  int err = (int)cudaMemcpyAsync(out, words, bytes,
+                                 cudaMemcpyDeviceToDevice, stream);
+  if (err != 0) return err;
+  scatter_atomic_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+      filter(nullptr, num_bits, num_hashes, 0),
+      (const uint32_t*)fingerprints, eight_byte_aligned(fingerprints), n,
+      (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+"""
+# The card's random-sector L2 read rate, by load instruction.
+L2_LOADS = 16
+LOAD_NC = "ld.global.nc.L2::cache_hint.u32"
+L2_LOADS_BY = {"l2_nc": LOAD_NC, "l2_cg": "ld.global.cg.L2::cache_hint.u32",
+               "l2_l1na": "ld.global.nc.L1::no_allocate.L2::cache_hint.u32"}
+L2_SOURCE = f"""\
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// {L2_LOADS} loads a thread, each one 4-byte load of a random 32-byte
+// sector of `buf` (evict-last, through L1 as the Bloom kernels load), all
+// independent: the addresses come from a xorshift chain, not from loads.
+__global__ void __launch_bounds__(256)
+l2_sectors(const uint32_t* buf, uint32_t sectors, uint32_t* out,
+           uint32_t seed) {{
+  uint64_t keep;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(keep));
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t h = (t + 1) * 0x9E3779B9u ^ seed, acc = 0;
+#pragma unroll
+  for (int i = 0; i < {L2_LOADS}; ++i) {{
+    h ^= h << 13;
+    h ^= h >> 17;
+    h ^= h << 5;
+    uint32_t v;
+    asm volatile("LOAD %0, [%1], %2;"
+                 : "=r"(v)
+                 : "l"(buf + 8ull * __umulhi(h, sectors)), "l"(keep));
+    acc ^= v;
+  }}
+  if (acc == seed) out[t] = acc;
+}}
+
+extern "C" int l2_sector_reads(const void* buf, unsigned int sectors,
+                               void* out, int threads, unsigned int seed,
+                               void* stream) {{
+  l2_sectors<<<threads / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)buf, sectors, (uint32_t*)out, seed);
+  return (int)cudaGetLastError();
+}}
+"""
+L2_THREADS = 1 << 20
 
 
 def variants(src: str) -> dict:
@@ -105,6 +214,7 @@ def variants(src: str) -> dict:
             "      return (x & 1u) != 0;\n"
             "    }();\n")
     bounds = "kStaged ? 1 : 8"
+    probe_bounds = "__launch_bounds__(kThreads, 8)\nprobe_kernel"
     return {
         "kernel": src,
         "staging_only": cut(src, verdict, fold),
@@ -120,11 +230,29 @@ def variants(src: str) -> dict:
                         "bool staged(int row_words) {\n  return false;\n"),
         **{f"group{g}": cut(src, CHAINED, GROUPED.replace("GROUP", str(g)))
            for g in (2, 4, 8)},
+        "probe_mod": cut(src, "mod_bits(x, f.magic, f.num_bits);\n    if",
+                         "x % f.num_bits;\n    if"),
+        "probe_min1": cut(src, probe_bounds,
+                          "__launch_bounds__(kThreads)\nprobe_kernel"),
+        **{f"probe_{k[3:]}": cut(src, LOAD_NC, L2_LOADS_BY[k])
+           for k in ("l2_cg", "l2_l1na")},
+        "scatter_atomic": cut(
+            cut(src, "}  // namespace\n", SCATTER_ATOMIC),
+            "  return launch_scatter(", "  return launch_scatter_atomic("),
+        "scatter_bin_only": cut(src, "    scatter_own_kernel<Entry><<<",
+                                "    if (false) scatter_own_kernel<Entry><<<"),
+        "scatter_own_only": cut(src, "    scatter_bin_kernel<Entry><<<",
+                                "    if (false) scatter_bin_kernel<Entry><<<"),
     }
 
 
+KERNEL_NAMES = ("membership_kernel", "cascade_kernel", "probe_kernel",
+                "scatter_bin_kernel", "scatter_own_kernel",
+                "scatter_atomic_kernel")
+
+
 def ptxas_lines(stderr: str) -> list:
-    """(kernel, resource line) for the membership and cascade kernels."""
+    """(kernel, resource line) for the Bloom kernels."""
     out, fn = [], None
     for line in stderr.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -132,12 +260,15 @@ def ptxas_lines(stderr: str) -> list:
         if m:
             fn = m.group(1)
             continue
-        if fn and ("membership_kernel" in fn or "cascade_kernel" in fn) \
-                and ("registers" in line or "spill" in line):
+        name = next((k for k in KERNEL_NAMES if fn and k in fn), None)
+        if name and ("registers" in line or "spill" in line):
+            name = name.replace("_kernel", "")
             staged = re.search(r"ILb([01])E", fn)
-            name = ("membership" if "membership" in fn else "cascade") + \
-                ({"1": "<staged>", "0": "<global>"}[staged.group(1)]
-                 if staged else "")
+            if staged:
+                name += {"1": "<staged>", "0": "<global>"}[staged.group(1)]
+            entry = re.search(r"scatter_\w+_kernelI([tj])E", fn)
+            if entry:
+                name += {"t": "<u16>", "j": "<u32>"}[entry.group(1)]
             out.append(f"{name}: {line.strip()}")
     return out
 
@@ -154,6 +285,33 @@ def build(name: str, src: str) -> tuple:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
     return name, ptxas_lines(proc.stderr)
+
+
+def l2_sector_rate(words, name: str) -> dict:
+    """Random 32-byte sector reads a second from the L2-resident ``words``
+    (the filter) by build ``name`` of L2_SOURCE, best of five timed runs
+    after a warm one."""
+    import torch
+
+    import chip_smoke as c
+
+    lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    fn = lib.l2_sector_reads
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+    sectors = words.numel() // 8
+    sink = torch.empty(L2_THREADS, dtype=torch.int32, device=words.device)
+
+    def call():
+        err = fn(words.data_ptr(), sectors, sink.data_ptr(), L2_THREADS, 7,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"l2_sectors: CUDA error {err}")
+
+    ms = min(c.timed(call, 20) for _ in range(5))
+    loads = L2_THREADS * L2_LOADS
+    return {"ms": ms, "loads": loads, "sectors_in_buffer": sectors,
+            "sectors_per_s": loads / (ms * 1e-3)}
 
 
 def main(argv: list) -> int:
@@ -175,11 +333,13 @@ def main(argv: list) -> int:
                     .read_text())
     if argv:
         srcs["other"] = pathlib.Path(argv[0]).read_text()
-    with ThreadPoolExecutor(len(srcs)) as ex:
-        for name, info in ex.map(lambda kv: build(*kv), srcs.items()):
+    jobs = {**srcs, **{k: L2_SOURCE.replace("LOAD", v)
+                       for k, v in L2_LOADS_BY.items()}}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for name, info in ex.map(lambda kv: build(*kv), jobs.items()):
             for line in info:
                 if name in ("kernel", "other") or line.startswith(
-                        "membership<"):
+                        ("membership<", "probe", "scatter_atomic")):
                     print(name, line, flush=True)
 
     dev = torch.device("cuda")
@@ -197,71 +357,204 @@ def main(argv: list) -> int:
     fwords = bpl.as_device_words(fleet.words, dev)
     seed = kb._seed64(bpl.seed_pair(SALT))
     fseed = kb._seed64(bpl.seed_pair(FLEET_SALT))
-    batches = {}
-    for rate, bseed in ((0.01, 300), (0.5, 302)):
-        keys = c.hit_batch(members, fleet_only, n, rate, bseed)
+    for name in L2_LOADS_BY:
+        rate = l2_sector_rate(words, name)
+        print("l2 random sector reads", name, json.dumps(rate), flush=True)
+        if name == "l2_nc":
+            l2 = rate
+
+    def batch(keys):
         ((length, _, packed_np),) = bpl.pack_key_buckets(keys)
         want = region.may_contain_batch(keys)
-        per_key, _ = c.probes_needed(
-            region.words, bloom.key_fingerprints(keys, SALT), nb, k)
-        batches[f"hits {rate}"] = (
-            length, bpl.as_device_words(packed_np, dev), want,
-            want | fleet.may_contain_batch(keys),
-            c.membership_bound(n, packed_np.shape[1] * 4, nw, length,
-                               per_key))
-        del keys
+        fps = bloom.key_fingerprints(keys, SALT)
+        per_key, _ = c.probes_needed(region.words, fps, nb, k)
+        per_key_f, _ = c.probes_needed(
+            fleet.words, bloom.key_fingerprints(keys, FLEET_SALT), nb,
+            FLEET_HASHES)
+        probes = int(per_key.sum())
+        cascade_probes = probes + int(per_key_f[~want].sum())
+        floor = {"probes": probes, "cascade_probes": cascade_probes,
+                 "l2_floor_ms": probes / l2["sectors_per_s"] * 1e3,
+                 "cascade_l2_floor_ms":
+                     cascade_probes / l2["sectors_per_s"] * 1e3}
+        return (length, bpl.as_device_words(packed_np, dev), want,
+                want | fleet.may_contain_batch(keys),
+                bpl.as_device_words(fps, dev),
+                c.membership_bound(n, packed_np.shape[1] * 4, nw, length,
+                                   per_key), floor)
+
+    batches = {f"hits {rate}": batch(c.hit_batch(members, fleet_only, n,
+                                                 rate, bseed))
+               for rate, bseed in ((0.01, 300), (0.5, 302))}
     # The JAX bench's 23-byte keys (no stripe loop), nearly all absent.
-    keys = [f"ytpu-cxx2-entry-{i:07d}" for i in range(n)]
-    ((length, _, packed_np),) = bpl.pack_key_buckets(keys)
-    want = region.may_contain_batch(keys)
-    per_key, _ = c.probes_needed(
-        region.words, bloom.key_fingerprints(keys, SALT), nb, k)
-    batches["23 bytes"] = (
-        length, bpl.as_device_words(packed_np, dev), want,
-        want | fleet.may_contain_batch(keys),
-        c.membership_bound(n, packed_np.shape[1] * 4, nw, length, per_key))
+    batches["23 bytes"] = batch([f"ytpu-cxx2-entry-{i:07d}"
+                                 for i in range(n)])
+    for name, b in batches.items():
+        print("l2 floor", name, json.dumps(b[-1]), flush=True)
+
+    # The build: the members' fingerprints into a zero filter, and a batch
+    # whose every probe falls in one slice of the plan.
+    mfps = bpl.as_device_words(bloom.key_fingerprints(members, SALT), dev)
+    zeros = torch.zeros_like(words)
+    plan = kb.scatter_plan(nb, k, n)
+    rng = np.random.default_rng(73)
+    slice_bits = 32 << plan.slice_shift
+    step = slice_bits // (4 * k)
+    one_slice = bpl.as_device_words(np.stack([
+        (plan.slices // 2) * slice_bits
+        + rng.integers(0, slice_bits - k * step, n, dtype=np.uint64),
+        rng.integers(0, step, n, dtype=np.uint64)], axis=1)
+        .astype(np.uint32), dev)
+    scatter_bound = c.bloom_bound(n * 8 + 2 * nw * 4,
+                                  n * k * c.BLOOM_PROBE_OPS)
 
     P, I, U, ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_ulonglong)
-    for name in srcs:
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, src in srcs.items():
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
         mem = lib.yadcc_bloom_membership
         mem.argtypes = [P, U, I, ULL, P, I, I, I, P, P]
         cas = lib.yadcc_bloom_cascade
         cas.argtypes = [P, I, ULL, P, I, ULL, U, P, I, I, I, P, P]
-        for batch, (length, packed, want, want_c, bound) in batches.items():
+        prb = lib.yadcc_bloom_probe
+        prb.argtypes = [P, U, I, P, I, P, P]
+        for batch_name, (length, packed, want, want_c, fps, bound,
+                         floor) in batches.items():
             out = torch.empty(n, dtype=torch.bool, device=dev)
 
-            def call(fn, *args):
-                err = fn(*args, packed.data_ptr(), packed.shape[1], length,
-                         n, out.data_ptr(),
-                         torch.cuda.current_stream().cuda_stream)
+            def run(fn, *args):
+                err = fn(*args)
                 if err != 0:
                     raise RuntimeError(f"{name}: CUDA error {err}")
 
             def call_mem():
-                call(mem, words.data_ptr(), nb, k, seed)
+                run(mem, words.data_ptr(), nb, k, seed, packed.data_ptr(),
+                    packed.shape[1], length, n, out.data_ptr(), stream)
 
             def call_cas():
-                call(cas, words.data_ptr(), k, seed, fwords.data_ptr(),
-                     FLEET_HASHES, fseed, nb)
+                run(cas, words.data_ptr(), k, seed, fwords.data_ptr(),
+                    FLEET_HASHES, fseed, nb, packed.data_ptr(),
+                    packed.shape[1], length, n, out.data_ptr(), stream)
 
-            call_mem()
-            if name in EXACT:
-                c.check(np.array_equal(out.cpu().numpy(), want),
-                        f"{name}: membership differs from the host filter "
-                        f"on {batch}")
-            ms = c.timed(call_mem, 50)
-            rec = {"ms": ms, "share_of_bound": bound["bound_ms"] / ms,
-                   "bound_ms": bound["bound_ms"]}
+            def call_prb():
+                run(prb, words.data_ptr(), nb, k, fps.data_ptr(), n,
+                    out.data_ptr(), stream)
+
+            rec = {}
+            if name not in PROBE_ONLY + SCATTER_ONLY:
+                call_mem()
+                if name not in INEXACT:
+                    c.check(np.array_equal(out.cpu().numpy(), want),
+                            f"{name}: membership differs from the host "
+                            f"filter on {batch_name}")
+                rec["ms"] = c.timed(call_mem, 50)
+                rec["share_of_bound"] = bound["bound_ms"] / rec["ms"]
+                rec["bound_ms"] = bound["bound_ms"]
             if name in CASCADE:
                 call_cas()
                 c.check(np.array_equal(out.cpu().numpy(), want_c),
                         f"{name}: cascade differs from the host OR on "
-                        f"{batch}")
+                        f"{batch_name}")
                 rec["cascade_ms"] = c.timed(call_cas, 50)
-            print(name, batch, json.dumps(rec), flush=True)
+            if name in PROBE:
+                call_prb()
+                c.check(np.array_equal(out.cpu().numpy(), want),
+                        f"{name}: probe differs from the host filter on "
+                        f"{batch_name}")
+                rec["probe_ms"] = c.timed(call_prb, 50)
+            if rec:
+                rec.update(floor)
+                print(name, batch_name, json.dumps(rec), flush=True)
+        if name in SCATTER:
+            for line in time_scatter(name, src, words, zeros, mfps,
+                                     one_slice, plan, region.words,
+                                     scatter_bound):
+                print(name, line, flush=True)
     return 0
+
+
+def time_scatter(name, src, words, zeros, mfps, one_slice, plan,
+                 want, bound) -> list:
+    """The build's scatter-OR on the members' fingerprints into zeros,
+    held against the host filter and timed (for the binned design also
+    with other slice sizes and on the one-slice batch)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as c
+    from yadcc_tpu_torch.ops import bloom_probe as bpr
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    nb, k, n = 27_584_639, 10, mfps.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(words)
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"{name}: scatter CUDA error {err}")
+
+    if "void* scratch" not in src:
+        # The first version: ORs into the words in place; its wrapper
+        # copied them first.
+        fn = ctypes.CDLL(str(OUT / f"lib{name}.so")).yadcc_bloom_scatter_or
+        fn.argtypes = [P, U, I, P, I, P]
+
+        def call():
+            out.copy_(zeros)
+            check(fn(out.data_ptr(), nb, k, mfps.data_ptr(), n, stream))
+
+        plans = {"as wrapped (copy + kernel)": (call, mfps)}
+    else:
+        def caller(build, p, fps):
+            lib = ctypes.CDLL(str(OUT / f"lib{build}.so"))
+            fn = lib.yadcc_bloom_scatter_or
+            fn.argtypes = [P, P, U, I, P, I, P, P, I, I, I, I, P]
+            # One scratch and table a plan, shared by the builds.
+            scratch, table = _BUFFERS.setdefault(p, (
+                torch.empty(p.segments * kb.BIN_PROBES, dtype=torch.int32,
+                            device=words.device),
+                torch.empty((p.slices + 1) * p.segments, dtype=torch.int32,
+                            device=words.device)))
+            return lambda: check(fn(
+                zeros.data_ptr(), out.data_ptr(), nb, k, fps.data_ptr(), n,
+                scratch.data_ptr(), table.data_ptr(), p.slice_shift,
+                p.keys_per_thread, p.hash_chunk, p.segments, stream))
+
+        if name == "scatter_own_only":
+            # Pass (b) on the scratch and table of the members' pass (a).
+            caller("kernel", plan, mfps)()
+        plans = {f"slices {plan.slices}": (caller(name, plan, mfps), mfps)}
+        if name == "kernel":
+            nw = -(-nb // 32)
+            for shift in (plan.slice_shift - 1, plan.slice_shift + 1):
+                p = plan._replace(slice_shift=shift,
+                                  slices=-(-nw // (1 << shift)))
+                plans[f"slices {p.slices}"] = (caller(name, p, mfps), mfps)
+            plans["one-slice batch"] = (caller(name, plan, one_slice),
+                                        one_slice)
+    lines = []
+    for what, (call, fps) in plans.items():
+        call()
+        got = out.cpu().numpy().view(np.uint32)
+        if name in INEXACT:
+            pass
+        elif fps is mfps:
+            c.check(np.array_equal(got, want),
+                    f"{name}: scatter ({what}) differs from add_many")
+        else:
+            c.check(np.array_equal(got, bpr.scatter_add_plain(
+                zeros, fps, nb, k).cpu().numpy().view(np.uint32)),
+                f"{name}: scatter ({what}) differs from its plain version")
+        ms = c.timed(call, 50 if fps is mfps else 3)
+        lines.append(f"scatter_or {what} " + json.dumps(
+            {"ms": ms, "bound_ms": bound["bound_ms"],
+             "share_of_bound": bound["bound_ms"] / ms}))
+    return lines
+
+
+_BUFFERS: dict = {}
 
 
 if __name__ == "__main__":

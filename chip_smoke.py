@@ -37,10 +37,17 @@ Phases (any failure exits non-zero without printing the result line):
    filter at tolerance 0 on an edge pool (every key length 0..34, 63-65,
    80, 100, 200, 4096; 1, 257 and 1,000 keys; 64, 1,000 and 27,584,639
    bits; 1, 7 and 10 hashes; salts 0, 17 and 2^63 + 5), the empty batch
-   and the refusals; (a') the membership and cascade kernels around
-   their tile (tile - 1, tile, tile + 1 and 2 * tile + 1 keys; staged
-   and unstaged row widths; `packed` views 0-3 words past a 16-byte
-   boundary); (b, c) every kernel at the main path's shapes (1M
+   and the refusals; (a'') the probe and scatter-OR kernels on
+   fingerprints drawn from a seed, not from a digest (even h2, h2 = 0,
+   h2 = 2^32 - 1, h1 + i*h2 wrapping; 1, 33, 1,000, 27,584,639 and
+   2^31 + 11 bits; 0, 1, 7 and 10 hashes; 1, 255, 257 and 1M keys; a
+   batch whose every probe falls in one slice of the scatter; a build in
+   two passes; fingerprints only 4-byte aligned; words longer than the
+   filter's), against their plain versions and the host arithmetic,
+   the scatter's input and extra words unchanged; (a') the membership
+   and cascade kernels around their tile (tile - 1, tile, tile + 1 and
+   2 * tile + 1 keys; staged and unstaged row widths; `packed` views 0-3
+   words past a 16-byte boundary); (b, c) every kernel at the main path's shapes (1M
    production-format keys of 80 bytes, the production geometry; the
    membership also at 23-byte keys), each kernel's time beside its plain
    version's and its bound; (c') the membership and cascade kernels on
@@ -1335,6 +1342,12 @@ BLOOM_EDGE_N = (1, 257, 1000)         # 257: not a multiple of the block
 # at counts around the tile (tile - 1, tile, tile + 1, two tiles + 1) and
 # with `packed` 0-3 words past a 16-byte boundary.
 BLOOM_LAYOUT_LENGTHS = (0, 5, 23, 64, 80, 100, 129, 4096)
+# Phase 7 (a''): geometries of the raw-fingerprint pools (2^31 + 11 bits:
+# a 256 MB filter, 2,049 slices of the scatter), each with every hash
+# count and the small counts, and 1M keys at 10 hashes.
+BLOOM_RAW_BITS = (1, 33, 1000, 27_584_639, (1 << 31) + 11)
+BLOOM_RAW_HASHES = (0, 1, 7, 10)
+BLOOM_RAW_N = (1, 255, 257)
 # 32-bit operations charged to each 64-bit step of XXH64 (a 64-bit
 # multiply's low half is a wide 32x32 product and two cross products; an
 # add, xor, rotate or shift is two 32-bit operations), to each probe
@@ -1553,6 +1566,133 @@ def compare_bloom_edges(report: list) -> None:
                   f"membership, cascade, probe and scatter_or equal to "
                   f"their plain versions and to the host filter; empty "
                   f"batch and {len(bad)} refusals without a launch")
+
+
+def raw_fingerprints(rng, n: int, num_hashes: int, num_bits: int):
+    """[n, 2] uint32 (h1, h2) drawn from a seed, every h2 even, the first
+    rows set to cases a digest's split never gives: h2 = 0, h2 = 2^32 - 1,
+    h1 within K * h2 of 2^32 (h1 + i*h2 wraps), h1 = num_bits - 1 with
+    h2 = 2, and h1 = 2^32 - 1 with h2 = 2^32 - 2."""
+    import numpy as np
+
+    fps = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    fps[:, 1] &= ~np.uint32(1)
+    h2 = (1 << 32) // max(1, 2 * num_hashes)
+    special = [(int(fps[0, 0]), 0), (int(fps[0, 0]), 0xFFFFFFFF),
+               ((1 << 32) - max(1, num_hashes // 2) * h2, h2),
+               (num_bits - 1, 2), ((1 << 32) - 1, 0xFFFFFFFE)]
+    for r, (a, b) in enumerate(special[:n]):
+        fps[r] = (a & 0xFFFFFFFF, b & 0xFFFFFFFF)
+    return fps
+
+
+def host_probe_or(words, fps, num_bits: int, num_hashes: int):
+    """The host's arithmetic on uint32 words (common/bloom.py:
+    probe_indices_batch): (the verdict of each fingerprint, the words with
+    every probe bit set)."""
+    import numpy as np
+
+    from yadcc_tpu_torch.common import bloom
+
+    idx = bloom.probe_indices_batch(fps, num_hashes, num_bits)
+    member = ((words[idx >> 5] >> (idx & 31)) & 1).astype(bool).all(axis=1)
+    out = words.copy()
+    idx = idx.ravel()
+    np.bitwise_or.at(out, idx >> 5, np.uint32(1) << (idx & 31).astype(
+        np.uint32))
+    return member, out
+
+
+def compare_bloom_raw(report: list) -> None:
+    """Phase 7 (a''): the probe and scatter-OR kernels on fingerprints
+    drawn from a seed, each result held at tolerance 0 against its plain
+    version on the card and the host arithmetic; the scatter's input and
+    the words past the filter's unchanged."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import bloom_probe as bpr
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(72)
+    cases = [(bits, k, n, "raw") for bits in BLOOM_RAW_BITS
+             for k in BLOOM_RAW_HASHES for n in BLOOM_RAW_N]
+    cases += [(bits, 10, BLOOM_N, "raw") for bits in BLOOM_RAW_BITS]
+    cases += [(27_584_639, 10, BLOOM_N, "one slice"),
+              (1000, 10, 257, "one bit"), (27_584_639, 10, 20_000, "passes")]
+    pool = {}   # the last geometry's random words, a quarter of bits set
+    for j, (nbits, k, n, kind) in enumerate(cases):
+        nw, extra = -(-nbits // 32), j % 3
+        if nbits not in pool:
+            pool = {nbits: rng.integers(0, 1 << 32, nw + 2, dtype=np.uint32)
+                    & rng.integers(0, 1 << 32, nw + 2, dtype=np.uint32)}
+        base = pool[nbits][:nw + extra]
+        if kind in ("raw", "passes"):
+            fps = raw_fingerprints(rng, n, k, nbits)
+        elif kind == "one bit":
+            fps = np.tile(np.array([[nbits // 3, 0]], np.uint32), (n, 1))
+        else:
+            # Every probe inside one slice of the scatter's plan.
+            plan = kb.scatter_plan(nbits, k, n)
+            slice_bits = 32 << plan.slice_shift
+            step = slice_bits // (4 * k)
+            h1 = (plan.slices // 2) * slice_bits + rng.integers(
+                0, slice_bits - k * step, n, dtype=np.uint64)
+            fps = np.stack([h1, rng.integers(0, step, n, dtype=np.uint64)],
+                           axis=1).astype(np.uint32)
+        tag = f"{kind} bits {nbits} K {k} n {n} +{extra} words"
+        fps_d = bpl.as_device_words(fps, dev)
+        if j % 4 == 3:
+            # A view one word in: 4-byte aligned, not 8.
+            fps_d = packed_view(fps_d, 1)
+            tag += ", fingerprints 4 bytes past 8"
+        geo = dict(num_bits=nbits, num_hashes=k)
+
+        bwords = bpl.as_device_words(base, dev)
+        max_segments = kb.MAX_SEGMENTS
+        if kind == "passes":
+            # A scratch of 8 bin blocks: the build runs in 2 passes, the
+            # second reading the first's output.
+            kb.MAX_SEGMENTS = 8
+            check(kb.scatter_plan(nbits, k, n).passes == 2, tag)
+        try:
+            got = kb.bloom_scatter_or(bwords, fps_d, **geo)
+        finally:
+            kb.MAX_SEGMENTS = max_segments
+        check(torch.equal(got, bpr.scatter_add_plain(bwords, fps_d, nbits,
+                                                     k)),
+              f"scatter_or != plain: {tag}")
+        _, want_words = host_probe_or(base, fps, nbits, k)
+        got_np = got.cpu().numpy().view(np.uint32)
+        check(np.array_equal(got_np, want_words),
+              f"scatter_or != host: {tag}")
+        check(np.array_equal(got_np[nw:], base[nw:]),
+              f"scatter_or changed the words past the filter's: {tag}")
+        check(np.array_equal(bwords.cpu().numpy().view(np.uint32), base),
+              f"scatter_or changed its input: {tag}")
+
+        # The probe against a dense filter holding every other fingerprint.
+        _, words = host_probe_or(~base, fps[::2], nbits, k)
+        want, _ = host_probe_or(words, fps, nbits, k)
+        pwords = bpl.as_device_words(words, dev)
+        got = kb.bloom_probe(pwords, fps_d, **geo)
+        check(torch.equal(got, bpr.probe_body(pwords, fps_d, nbits, k)),
+              f"probe != plain: {tag}")
+        check(np.array_equal(got.cpu().numpy(), want), f"probe != host: {tag}")
+        check(bool(want[::2].all()), f"a member tested absent: {tag}")
+        del bwords, pwords, got
+    torch.cuda.synchronize()
+    report.append(f"  bloom raw fingerprints: {len(cases)} cases (bits "
+                  f"{BLOOM_RAW_BITS}, K {BLOOM_RAW_HASHES}, n "
+                  f"{BLOOM_RAW_N} and {BLOOM_N:,} at K 10, a {BLOOM_N:,}-key "
+                  f"batch in one slice, 257 keys on one bit, a build in 2 "
+                  f"passes; even h2, h2 0 and 2^32 - 1, wrapping h1; "
+                  f"fingerprints 8- and 4-byte aligned; 0-2 words past the "
+                  f"filter's): "
+                  f"probe and scatter_or equal to their plain versions and "
+                  f"the host, the scatter's input unchanged")
 
 
 def packed_view(packed, offset: int):
@@ -1956,6 +2096,7 @@ def main() -> int:
     report = []
     t7 = time.perf_counter()
     compare_bloom_edges(report)
+    compare_bloom_raw(report)
     compare_bloom_layouts(report)
     bloom_timing = compare_bloom_main(report)
     bloom_run = run_bloom_main_path(report)

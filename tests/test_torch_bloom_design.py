@@ -55,7 +55,7 @@ def mod_bits(x: np.ndarray, d: int) -> np.ndarray:
 
 def probe_grouped(words, fps, num_bits: int, num_hashes: int, group: int):
     """The kernels' probe for each [h1, h2] row of ``fps``: with group 1
-    csrc/bloom.cu:probe_chained, else chip_bloom_probe.py's grouped build;
+    csrc/bloom.cu:probe_h, else chip_bloom_probe.py's grouped build;
     the groups' bits ANDed, x stepping by h2 with uint32 wrap-around."""
     words = np.asarray(words, np.uint32)
     fps = np.asarray(fps, np.uint32)
@@ -165,4 +165,5 @@ def test_probe_script_variants_cut_the_source():
     for name, v in variants.items():
         assert name == "kernel" or v != src
     assert {"group2", "group4", "group8", "no_hints", "staging_only",
-            "digest_only"} <= set(variants)
+            "digest_only", "probe_mod", "probe_min1",
+            "scatter_atomic"} <= set(variants)

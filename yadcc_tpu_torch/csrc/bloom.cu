@@ -63,10 +63,43 @@
 //   region rejects are compacted into a shared list, and the block runs
 //   the fleet digest over that list alone, from the same copy of the rows.
 //
-// The probe and scatter-OR kernels keep the first version: one thread per
-// key (per key and probe for the scatter), the chained `probe` below, and
-// an atomicOr into the word array the wrapper copied, so the call returns
-// the new words as the JAX function does.
+// The probe kernel (given fingerprints, no digest) is bound by the same
+// sectors: at the production batch 8 MB of fingerprints are ~2.4 us of
+// bytes, its 5.72M probe sectors ~0.042 ms at the ~135G random 32-byte
+// L2 sector reads a second an H100 80GB HBM3 at 700 W sustains
+// (chip_bloom_probe.py).  Its
+// design is the membership kernel's probe loop without the rows: one
+// thread a key (8 blocks an SM), its fingerprint one 8-byte load
+// evict-first, the filter evict-last, the mod by mod_bits, chained
+// probes.  h2 is the fingerprint's own (even or 0 included); only a
+// digest's split forces it odd (probe_digest).  It runs within ~8% of
+// that floor, as the first version did: loads past L1, `%` in place of
+// mod_bits and no register cap measured no faster.
+//
+// The scatter-OR build (1M keys x 10 probes into 862,020 words at the
+// production build) is bound by where its 10M bit-sets land.  The first
+// version made them as global atomicOrs, ~11.6 to a word from every SM,
+// each a read-modify-write at an L2 slice (0.12 ms on that card; one
+// thread a key with mod_bits and red.global.or is no faster).  This
+// design has no global atomic: two launches a pass, the filter read once
+// and written once.
+// * Bin: a block takes up to kBinProbes (key, probe) pairs (keys_per_thread
+//   keys a thread, hash_chunk of their probes), counts them by filter
+//   slice with shared-memory atomics, scans the counts, writes its column
+//   of the [slices + 1] x [segments] offsets table, recomputes the probes
+//   to place each at its slice's cursor, and copies the sorted list to its
+//   own segment of the scratch in 16-byte chunks.  An entry is the bit's
+//   offset within its slice, 2 bytes for slices of up to 2^11 words, so
+//   the production build's scratch (21 MB) stays in L2.
+// * Own: block s owns the 2^slice_shift words of slice s.  It loads them
+//   from `words` into shared memory, ORs in slice s's run of every segment
+//   with shared-memory atomicOrs (two lanes a run, 16-byte chunks, so a
+//   warp's load covers 16 runs), and stores the slice to `out` once.
+// Nothing is sized from an assumed spread: a batch whose probes all land
+// in one slice is one block's work, slow but exact.  The wrapper plans the
+// geometry (ops/cuda_bloom.py:scatter_plan) and allocates the output, the
+// scratch and the table; a batch larger than the scratch runs in several
+// passes, each reading the last one's output.
 //
 // Integer traps: words and keys arrive as the int32 bit pattern of uint32
 // arrays and are read as uint32_t; num_bits need not be a multiple of 32
@@ -257,21 +290,8 @@ __device__ uint64_t xxh64_row(const Row& row, int length, uint64_t seed) {
 // ---------------------------------------------------------------------------
 // Probes.
 
-// All K probe bits of (h1, h2) set?  uint32 wrap-around, then mod num_bits
-// (common/bloom.py:probe_indices).  One dependent load a probe: the probe
-// kernel's design.
-__device__ __forceinline__ bool probe(const uint32_t* __restrict__ words,
-                                      uint32_t num_bits, int num_hashes,
-                                      uint32_t h1, uint32_t h2) {
-  for (int i = 0; i < num_hashes; ++i) {
-    const uint32_t idx = (h1 + (uint32_t)i * h2) % num_bits;
-    if (!((words[idx >> 5] >> (idx & 31)) & 1u)) return false;
-  }
-  return true;
-}
-
-// One filter as the membership and cascade kernels see it.  `magic` is
-// floor((2^64 - 1) / num_bits) + 1 (0 for num_bits = 1), for mod_bits.
+// One filter as the kernels see it.  `magic` is floor((2^64 - 1) /
+// num_bits) + 1 (0 for num_bits = 1), for mod_bits.
 struct Filter {
   const uint32_t* words;
   uint32_t num_bits;
@@ -291,12 +311,13 @@ __device__ __forceinline__ uint32_t mod_bits(uint32_t x, uint64_t magic,
   return (uint32_t)(hi >> 32);
 }
 
-// All K probe bits of the key with digest `d` set?  Chained: each probe
-// waits on the one before and the walk stops at the first zero bit.
-__device__ __forceinline__ bool probe_chained(const Filter& f, uint64_t d,
-                                             uint64_t keep) {
-  const uint32_t h2 = (uint32_t)(d >> 32) | 1u;
-  uint32_t x = (uint32_t)d;  // h1 + i * h2, wrapping
+// All K probe bits of the fingerprint (h1, h2) set, h2 as given?  idx =
+// (h1 + i*h2) mod num_bits in uint32 arithmetic (common/bloom.py:
+// probe_indices).  Chained: each probe waits on the one before and the
+// walk stops at the first zero bit.
+__device__ __forceinline__ bool probe_h(const Filter& f, uint32_t h1,
+                                        uint32_t h2, uint64_t keep) {
+  uint32_t x = h1;  // h1 + i * h2, wrapping
   for (int i = 0; i < f.num_hashes; ++i, x += h2) {
     const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
     if (!((load_word(f.words + (idx >> 5), keep) >> (idx & 31u)) & 1u))
@@ -305,10 +326,33 @@ __device__ __forceinline__ bool probe_chained(const Filter& f, uint64_t d,
   return true;
 }
 
+// The key with digest `d`: its fingerprint is the digest's split, h2
+// forced odd (common/bloom.py:_split_digests).
+__device__ __forceinline__ bool probe_digest(const Filter& f, uint64_t d,
+                                             uint64_t keep) {
+  return probe_h(f, (uint32_t)d, (uint32_t)(d >> 32) | 1u, keep);
+}
+
 template <class Row>
 __device__ __forceinline__ bool member(const Filter& f, const Row& row,
                                        int length, uint64_t keep) {
-  return probe_chained(f, xxh64_row(row, length, f.seed), keep);
+  return probe_digest(f, xxh64_row(row, length, f.seed), keep);
+}
+
+// Fingerprint k of an [N, 2] uint32 array: one 8-byte load when the array
+// is 8-byte aligned (`pairs`), else two 4-byte loads.
+__device__ __forceinline__ uint2 load_fingerprint(const uint32_t* fps,
+                                                  long long k, bool pairs,
+                                                  uint64_t policy) {
+  const uint32_t* p = fps + 2 * k;
+  uint2 v;
+  if (pairs)
+    asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+        : "=r"(v.x), "=r"(v.y)
+        : "l"(p), "l"(policy));
+  else
+    v = make_uint2(load_word(p, policy), load_word(p + 1, policy));
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -402,25 +446,189 @@ cascade_kernel(Filter region, Filter fleet,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-probe_kernel(const uint32_t* __restrict__ words, uint32_t num_bits,
-             int num_hashes, const uint32_t* __restrict__ fps, int n,
+__global__ void __launch_bounds__(kThreads, 8)
+probe_kernel(Filter f, const uint32_t* __restrict__ fps, bool pairs, int n,
              bool* __restrict__ out) {
+  const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= n) return;
-  out[k] = probe(words, num_bits, num_hashes, fps[2 * k], fps[2 * k + 1]);
+  const uint2 fp = load_fingerprint(fps, k, pairs, stream);
+  out[k] = probe_h(f, fp.x, fp.y, keep);
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_or_kernel(uint32_t* __restrict__ words, uint32_t num_bits,
-                  int num_hashes, const uint32_t* __restrict__ fps,
-                  long long total) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const long long k = t / num_hashes;
-  const uint32_t i = (uint32_t)(t - k * num_hashes);
-  const uint32_t idx = (fps[2 * k] + i * fps[2 * k + 1]) % num_bits;
-  atomicOr(&words[idx >> 5], 1u << (idx & 31));
+// ---------------------------------------------------------------------------
+// The scatter-OR build, binned by filter slice (see the note at the top).
+
+constexpr int kBinThreads = 512;
+constexpr int kBinProbes = 16384;  // (key, probe) pairs a bin block sorts
+constexpr int kOwnThreads = 512;
+
+// Exclusive prefix sum of a[0, len) in place, by a bin block (each thread
+// sums a contiguous part; warps scan the parts' sums).
+__device__ void block_exclusive_scan(int* a, int len) {
+  constexpr int kBlock = kBinThreads;
+  __shared__ int warp_sums[kBlock / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (len + kBlock - 1) / kBlock;
+  const int lo = min(len, t * per), hi = min(len, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  int incl = sum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(~0u, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kBlock / 32 ? warp_sums[lane] : 0;
+    int wi = w;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(~0u, wi, d);
+      if (lane >= d) wi += v;
+    }
+    if (lane < kBlock / 32) warp_sums[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  __syncthreads();
+}
+
+// Calls fn(idx) for each probe index of this bin block's pairs: keys
+// first + j * kBinThreads + threadIdx.x (j < keys_per_thread, key < m),
+// probes [i0, i0 + hk).
+template <class Fn>
+__device__ __forceinline__ void for_each_probe(
+    const Filter& f, const uint32_t* fps, bool pairs, int m, int first,
+    int keys_per_thread, uint32_t i0, int hk, uint64_t stream, Fn fn) {
+  for (int j = 0; j < keys_per_thread; ++j) {
+    const int key = first + j * kBinThreads + threadIdx.x;
+    if (key >= m) break;
+    const uint2 fp = load_fingerprint(fps, key, pairs, stream);
+    uint32_t x = fp.x + i0 * fp.y;  // wrapping
+#pragma unroll 2
+    for (int i = 0; i < hk; ++i, x += fp.y)
+      fn(mod_bits(x, f.magic, f.num_bits));
+  }
+}
+
+// A scratch entry is a probe's bit offset within its slice: uint16 for
+// slices of at most 2^kNarrowShift words (65,536 bits; the production
+// filter's 2^11-word slices among them), uint32 for larger ones.
+constexpr int kNarrowShift = 11;
+
+// 16 bytes of entries, read-only, with an L2 policy.
+__device__ __forceinline__ uint4 load_chunk(const void* p, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// OR into `bits` (a slice) the entries of chunk v, entries [c, c + 16 /
+// sizeof(Entry)) of a run, that lie in [a, b).
+template <class Entry>
+__device__ __forceinline__ void or_chunk(uint32_t* bits, const uint4& v,
+                                         int c, int a, int b) {
+  constexpr int kPerWord = 4 / sizeof(Entry);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4 * kPerWord; ++j) {
+    const uint32_t e = kPerWord == 1 ? w[j]
+                                     : (w[j / kPerWord] >> (16 * (j & 1))) &
+                                           0xFFFFu;
+    if (c + j >= a && c + j < b) atomicOr(&bits[e >> 5], 1u << (e & 31u));
+  }
+}
+
+// Pass (a).  Block (x, y) is segment y * gridDim.x + x: keys [x *
+// kBinThreads * keys_per_thread, ...) of this pass's m, probes [y *
+// hash_chunk, ...).  Writes its entries sorted by slice to its kBinProbes
+// entries of `scratch` and slice s's start among them to table[s *
+// segments + segment], s in [0, slices] (the last is the count).
+template <class Entry>
+__global__ void __launch_bounds__(kBinThreads)
+scatter_bin_kernel(Filter f, const uint32_t* __restrict__ fps, bool pairs,
+                   int m, int keys_per_thread, int hash_chunk,
+                   int slice_shift, int slices, Entry* __restrict__ scratch,
+                   int* __restrict__ table) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  Entry* sorted = reinterpret_cast<Entry*>(smem);  // 16-byte aligned
+  int* cursor = reinterpret_cast<int*>(sorted + kBinProbes);  // slices + 1
+  const int segments = gridDim.x * gridDim.y;
+  const int seg = blockIdx.y * gridDim.x + blockIdx.x;
+  const int i0 = blockIdx.y * hash_chunk;
+  const int hk = min(hash_chunk, f.num_hashes - i0);
+  const int first = blockIdx.x * kBinThreads * keys_per_thread;
+  const int shift = slice_shift + 5;  // bit index -> slice
+  const uint32_t offset = (32u << slice_shift) - 1;
+  const uint64_t stream = policy_evict_first();
+  for (int s = threadIdx.x; s <= slices; s += kBinThreads) cursor[s] = 0;
+  __syncthreads();
+  for_each_probe(f, fps, pairs, m, first, keys_per_thread, i0, hk, stream,
+                 [&](uint32_t idx) { atomicAdd(&cursor[idx >> shift], 1); });
+  __syncthreads();
+  block_exclusive_scan(cursor, slices + 1);
+  for (int s = threadIdx.x; s <= slices; s += kBinThreads)
+    table[(size_t)s * segments + seg] = cursor[s];
+  __syncthreads();
+  for_each_probe(f, fps, pairs, m, first, keys_per_thread, i0, hk, stream,
+                 [&](uint32_t idx) {
+                   sorted[atomicAdd(&cursor[idx >> shift], 1)] =
+                       (Entry)(idx & offset);
+                 });
+  __syncthreads();
+  // The sorted list out in 16-byte chunks (the last one's tail is stale
+  // entries past the count, which pass (b) never reads).
+  constexpr int kPerChunk = 16 / sizeof(Entry);
+  const int chunks = (cursor[slices] + kPerChunk - 1) / kPerChunk;
+  uint4* dst = reinterpret_cast<uint4*>(scratch + (size_t)seg * kBinProbes);
+  const uint4* src = reinterpret_cast<const uint4*>(sorted);
+  for (int c = threadIdx.x; c < chunks; c += kBinThreads) dst[c] = src[c];
+}
+
+// Pass (b).  Block s ORs slice s's runs of every segment into words [s <<
+// slice_shift, ...) of `in` and stores them to `out` (`in` may be `out`:
+// the block reads its words before it writes them).  Two lanes take a
+// run, each a 16-byte chunk of it at a time, so a warp reads 16 runs with
+// each load.
+template <class Entry>
+__global__ void __launch_bounds__(kOwnThreads)
+scatter_own_kernel(const uint32_t* in, uint32_t* out, int nw,
+                   int slice_shift, const Entry* __restrict__ scratch,
+                   const int* __restrict__ table, int segments) {
+  constexpr int kPerChunk = 16 / sizeof(Entry);
+  constexpr int kLanes = 2;  // lanes a run
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int t = threadIdx.x;
+  const int s = blockIdx.x;
+  const int w0 = s << slice_shift;
+  const int len = min(1 << slice_shift, nw - w0);
+  uint32_t* bits = smem;                                     // the slice
+  int* lo = reinterpret_cast<int*>(smem + (1 << slice_shift));  // run starts
+  int* hi = lo + segments;                                      // run ends
+  const uint64_t stream = policy_evict_first();
+  for (int w = t; w < len; w += kOwnThreads) bits[w] = in[w0 + w];
+  for (int g = t; g < segments; g += kOwnThreads) {
+    lo[g] = table[(size_t)s * segments + g];
+    hi[g] = table[(size_t)(s + 1) * segments + g];
+  }
+  __syncthreads();
+  for (int g = t / kLanes; g < segments; g += kOwnThreads / kLanes) {
+    const int a = lo[g], b = hi[g];
+    const Entry* run = scratch + (size_t)g * kBinProbes;
+    for (int c = (a & -kPerChunk) + (t % kLanes) * kPerChunk; c < b;
+         c += kLanes * kPerChunk)
+      or_chunk<Entry>(bits, load_chunk(run + c, stream), c, a, b);
+  }
+  __syncthreads();
+  for (int w = t; w < len; w += kOwnThreads) out[w0 + w] = bits[w];
 }
 
 int blocks_for(long long threads) {
@@ -461,6 +669,78 @@ int launch_cascade(const Filter& region, const Filter& fleet,
       region, fleet, (const uint32_t*)packed, row_words, length, n,
       (bool*)out);
   return (int)cudaGetLastError();
+}
+
+bool eight_byte_aligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7u) == 0;
+}
+
+// Dynamic shared memory past 48 KB must be asked for, kernel by kernel.
+template <class Kernel>
+int launchable(Kernel kernel, size_t smem) {
+  constexpr size_t kDefault = 48 * 1024, kMax = 227 * 1024;
+  if (smem > kMax) return (int)cudaErrorInvalidValue;
+  if (smem <= kDefault) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// One pass after another of the binned scatter, entries of type Entry.
+template <class Entry>
+int scatter_passes(const uint32_t* words, uint32_t* out, const Filter& f,
+                   const uint32_t* fps, int n, Entry* scratch, int* table,
+                   int slice_shift, int keys_per_thread, int hash_chunk,
+                   int key_blocks, cudaStream_t stream) {
+  const int nw = (int)(((unsigned long long)f.num_bits + 31) / 32);
+  const int slices = (nw + (1 << slice_shift) - 1) >> slice_shift;
+  const int hash_blocks = (f.num_hashes + hash_chunk - 1) / hash_chunk;
+  const size_t bin_smem = (size_t)(slices + 1) * 4 +
+                          (size_t)kBinProbes * sizeof(Entry);
+  const bool pairs = eight_byte_aligned(fps);
+  const long long block_keys = (long long)kBinThreads * keys_per_thread;
+  const long long pass_keys = block_keys * key_blocks;
+  for (long long k0 = 0; k0 < n; k0 += pass_keys) {
+    const int m = (int)(n - k0 < pass_keys ? n - k0 : pass_keys);
+    const int gx = (int)((m + block_keys - 1) / block_keys);
+    const int used = gx * hash_blocks;
+    const size_t own_smem = ((size_t)(1 << slice_shift) + 2 * used) * 4;
+    int err = launchable(scatter_bin_kernel<Entry>, bin_smem);
+    if (err == 0) err = launchable(scatter_own_kernel<Entry>, own_smem);
+    if (err != 0) return err;
+    scatter_bin_kernel<Entry><<<dim3(gx, hash_blocks), kBinThreads,
+                                bin_smem, stream>>>(
+        f, fps + 2 * k0, pairs, m, keys_per_thread, hash_chunk, slice_shift,
+        slices, scratch, table);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    scatter_own_kernel<Entry><<<slices, kOwnThreads, own_smem, stream>>>(
+        k0 == 0 ? words : out, out, nw, slice_shift, scratch, table, used);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  return 0;
+}
+
+int launch_scatter(const void* words, void* out, unsigned int num_bits,
+                   int num_hashes, const void* fingerprints, int n,
+                   void* scratch, void* table, int slice_shift,
+                   int keys_per_thread, int hash_chunk, int segments,
+                   cudaStream_t stream) {
+  if (num_bits < 1 || num_hashes < 1 || n < 1 || slice_shift < 0 ||
+      slice_shift > 20 || keys_per_thread < 1 || hash_chunk < 1 ||
+      (long long)keys_per_thread * hash_chunk * kBinThreads > kBinProbes)
+    return (int)cudaErrorInvalidValue;
+  const int key_blocks =
+      segments / ((num_hashes + hash_chunk - 1) / hash_chunk);
+  if (key_blocks < 1) return (int)cudaErrorInvalidValue;
+  const Filter f = filter(nullptr, num_bits, num_hashes, 0);
+  const uint32_t* w = (const uint32_t*)words;
+  const uint32_t* fps = (const uint32_t*)fingerprints;
+  if (slice_shift <= kNarrowShift)
+    return scatter_passes(w, (uint32_t*)out, f, fps, n, (uint16_t*)scratch,
+                          (int*)table, slice_shift, keys_per_thread,
+                          hash_chunk, key_blocks, stream);
+  return scatter_passes(w, (uint32_t*)out, f, fps, n, (uint32_t*)scratch,
+                        (int*)table, slice_shift, keys_per_thread,
+                        hash_chunk, key_blocks, stream);
 }
 
 }  // namespace
@@ -511,19 +791,32 @@ extern "C" int yadcc_bloom_probe(const void* words, unsigned int num_bits,
                                  int num_hashes, const void* fingerprints,
                                  int n, void* out, void* stream) {
   probe_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, num_bits, num_hashes,
-      (const uint32_t*)fingerprints, n, (bool*)out);
+      filter(words, num_bits, num_hashes, 0), (const uint32_t*)fingerprints,
+      eight_byte_aligned(fingerprints), n, (bool*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int yadcc_bloom_scatter_or(void* words, unsigned int num_bits,
-                                      int num_hashes,
+// The binned scatter-OR: `out` = `words` with every probe bit of the n
+// fingerprints set, for num_hashes >= 1 and n >= 1.  The geometry is the
+// wrapper's plan (ops/cuda_bloom.py:scatter_plan): slices of 2^slice_shift
+// words, keys_per_thread keys and hash_chunk probes a bin block, at most
+// `segments` bin blocks a pass.  `scratch` holds segments * kBinProbes
+// uint32, `table` (slices + 1) * segments int32, slices = ceil(ceil(
+// num_bits / 32) / 2^slice_shift).  Two launches a pass; returns the first
+// launch error, or cudaErrorInvalidValue for a plan the kernels cannot
+// take.
+extern "C" int yadcc_bloom_scatter_or(const void* words, void* out,
+                                      unsigned int num_bits, int num_hashes,
                                       const void* fingerprints, int n,
+                                      void* scratch, void* table,
+                                      int slice_shift, int keys_per_thread,
+                                      int hash_chunk, int segments,
                                       void* stream) {
-  const long long total = (long long)n * num_hashes;
-  scatter_or_kernel<<<blocks_for(total), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (uint32_t*)words, num_bits, num_hashes,
-      (const uint32_t*)fingerprints, total);
-  return (int)cudaGetLastError();
+  return launch_scatter(words, out, num_bits, num_hashes, fingerprints, n,
+                        scratch, table, slice_shift, keys_per_thread,
+                        hash_chunk, segments, (cudaStream_t)stream);
 }
+
+// The binned scatter's constants, for the wrapper's plan.
+extern "C" int yadcc_bloom_scatter_bin_threads() { return kBinThreads; }
+extern "C" int yadcc_bloom_scatter_bin_probes() { return kBinProbes; }

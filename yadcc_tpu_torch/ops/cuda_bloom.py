@@ -17,16 +17,18 @@ base only 4-byte aligned, e.g. one word into a buffer) and of any key
 length: the kernels stage rows of 32 to 128 bytes whose width is a multiple
 of 16 bytes and read the others from device memory.
 
-`launches` counts kernel launches by kernel name (one per call on the
-card with a non-empty batch), so a run can show that its main path went
-through the kernels.
+`launches` counts, by kernel name, the calls on the card that launched
+the kernel (one a call with a non-empty batch; a scatter-OR call is two
+launches, its bin and own passes, or two a pass when the batch outgrows
+the scratch), so a run can show that its main path went through the
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -36,8 +38,19 @@ from . import bloom_probe as bpr
 SOURCE = "bloom.cu"
 KERNELS = ("membership", "cascade", "probe", "scatter_or")
 # Bound on the hash count: far above any filter's (the reference uses
-# 10), low enough that N*K threads of the scatter stay countable.
+# 10), low enough that one pass of the scatter holds every probe of a key.
 MAX_HASHES = 1 << 16
+# The binned scatter-OR's geometry (csrc/bloom.cu: kBinThreads,
+# kBinProbes; _kernels checks that the library agrees).  A bin block sorts
+# up to BIN_PROBES (key, probe) pairs, at most 32 a thread; a pass has at
+# most MAX_SEGMENTS bin blocks (a scratch of 128 MB at most); slices are
+# 2^8 to 2^15 words, as large as leaves at least MIN_SLICES (two blocks an
+# SM of the H100's 132) when the filter is large enough.
+BIN_THREADS = 512
+BIN_PROBES = 16384
+MAX_SEGMENTS = 2048
+MIN_SLICES = 264
+SLICE_SHIFTS = (8, 15)
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
@@ -58,16 +71,24 @@ def _kernels():
             "cascade": (lib.yadcc_bloom_cascade,
                         [p, i, ull, p, i, ull, u, p, i, i, i, p, p]),
             "probe": (lib.yadcc_bloom_probe, [p, u, i, p, i, p, p]),
-            "scatter_or": (lib.yadcc_bloom_scatter_or, [p, u, i, p, i, p]),
+            "scatter_or": (lib.yadcc_bloom_scatter_or,
+                           [p, p, u, i, p, i, p, p, i, i, i, i, p]),
         }
         fns = {}
         for name, (fn, argtypes) in sigs.items():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
-        lib.yadcc_bloom_tile_keys.argtypes = []
-        lib.yadcc_bloom_tile_keys.restype = ctypes.c_int
-        fns["tile_keys"] = lib.yadcc_bloom_tile_keys
+        for name in ("tile_keys", "scatter_bin_threads",
+                     "scatter_bin_probes"):
+            fn = getattr(lib, f"yadcc_bloom_{name}")
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        got = (fns["scatter_bin_threads"](), fns["scatter_bin_probes"]())
+        if got != (BIN_THREADS, BIN_PROBES):
+            raise RuntimeError(f"{SOURCE} bins {got} (threads, probes), the "
+                               f"plan assumes {(BIN_THREADS, BIN_PROBES)}")
         _fns = fns
     return _fns
 
@@ -76,6 +97,48 @@ def tile_keys() -> int:
     """Keys a block of the membership and cascade kernels stages at a time
     (builds the kernels on first use)."""
     return int(_kernels()["tile_keys"]())
+
+
+class ScatterPlan(NamedTuple):
+    """The binned scatter-OR's geometry for one call (csrc/bloom.cu)."""
+    slice_shift: int      # a slice is 2^slice_shift filter words
+    slices: int           # own blocks
+    keys_per_thread: int  # keys a bin thread takes
+    hash_chunk: int       # probes of each key a bin block takes
+    hash_blocks: int      # bin blocks along the probes
+    key_blocks: int       # bin blocks along the keys, a pass
+    passes: int
+
+    @property
+    def segments(self) -> int:
+        """Bin blocks a pass: the scratch's segments, the table's columns."""
+        return self.key_blocks * self.hash_blocks
+
+    @property
+    def block_keys(self) -> int:
+        return BIN_THREADS * self.keys_per_thread
+
+
+def scatter_plan(num_bits: int, num_hashes: int, n: int) -> ScatterPlan:
+    """The geometry of bloom_scatter_or for n >= 1 keys and num_hashes >=
+    1.  A bin thread takes min(K, 32) probes of each of its 32 // min(K,
+    32) keys (3 keys of 10 probes at K = 10); a key's probes past 32 go to
+    further bin blocks.  A slice is the largest power of two words in
+    [2^8, 2^15] that leaves MIN_SLICES slices or more (2^8 words for a
+    smaller filter, 2^15 for a larger one)."""
+    nw = -(-num_bits // 32)
+    per_thread = BIN_PROBES // BIN_THREADS
+    hash_chunk = min(num_hashes, per_thread)
+    keys_per_thread = per_thread // hash_chunk
+    hash_blocks = -(-num_hashes // hash_chunk)
+    lo, hi = SLICE_SHIFTS
+    shift = max(lo, min(hi, (max(1, nw // MIN_SLICES)).bit_length() - 1))
+    block_keys = BIN_THREADS * keys_per_thread
+    key_blocks_all = -(-n // block_keys)
+    key_blocks = min(key_blocks_all, MAX_SEGMENTS // hash_blocks)
+    return ScatterPlan(shift, -(-nw // (1 << shift)), keys_per_thread,
+                       hash_chunk, hash_blocks, key_blocks,
+                       -(-key_blocks_all // key_blocks))
 
 
 def _seed64(seed) -> int:
@@ -139,6 +202,9 @@ def _device(words: torch.Tensor, what: str) -> torch.device:
 
 
 def _launched(name: str, err: int) -> None:
+    """Raise on a launch error, else count the call once (a scatter-OR
+    call is two launches a pass; its entry point returns the first error
+    of either)."""
     if err != 0:
         raise RuntimeError(f"bloom {name} kernel launch failed: CUDA "
                            f"error {err}")
@@ -229,7 +295,9 @@ def bloom_scatter_or(words: torch.Tensor, fingerprints: torch.Tensor, *,
                      num_bits: int, num_hashes: int) -> torch.Tensor:
     """The new int32 word array with every probe bit of every key set
     (``words`` is not changed); the drop-in counterpart of
-    bloom_probe.scatter_add_plain."""
+    bloom_probe.scatter_add_plain (on the card, the binned build of
+    csrc/bloom.cu: two launches a pass over a scratch this call
+    allocates)."""
     dev = _device(words, "scatter-or")
     _check_geometry(num_bits, num_hashes)
     _check_words("words", words, num_bits, dev)
@@ -237,12 +305,23 @@ def bloom_scatter_or(words: torch.Tensor, fingerprints: torch.Tensor, *,
     if dev.type == "cpu":
         return bpr.scatter_add_plain(words, fingerprints, num_bits,
                                      num_hashes)
-    out = words.clone()
     if n == 0 or num_hashes == 0:
-        return out
+        return words.clone()
     fn = _kernels()["scatter_or"]
+    plan = scatter_plan(num_bits, num_hashes, n)
+    nw = -(-num_bits // 32)
+    out = torch.empty_like(words)
+    # Words past the filter's come back as they were.
+    out[nw:].copy_(words[nw:])
+    # 4 bytes an entry; the kernel's uint16 entries use half of it.
+    scratch = torch.empty(plan.segments * BIN_PROBES, dtype=torch.int32,
+                          device=dev)
+    table = torch.empty((plan.slices + 1) * plan.segments,
+                        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = fn(out.data_ptr(), num_bits, num_hashes,
-                 fingerprints.data_ptr(), n, _stream(dev))
+        err = fn(words.data_ptr(), out.data_ptr(), num_bits, num_hashes,
+                 fingerprints.data_ptr(), n, scratch.data_ptr(),
+                 table.data_ptr(), plan.slice_shift, plan.keys_per_thread,
+                 plan.hash_chunk, plan.segments, _stream(dev))
     _launched("scatter_or", err)
     return out
