@@ -17,7 +17,12 @@ Phases (any failure exits non-zero without printing the result line):
    tolerance is 0), on seeded and edge pools; K1's counts and K2's
    (descriptor changes, owner rescans, reductions) held against the host
    models of their designs (k1_model, k2_model); the wrappers must refuse
-   tensors the kernels do not take; the kernels' times;
+   tensors the kernels do not take; K1 over a grid of shards (the fused
+   control-plane step, one block a shard) against the plain fused step,
+   chained, at N = 1, 2 and 8 shards with uneven loads, an idle shard,
+   padding beside the next shard's slot 0 and shards beyond shared
+   memory; the kernels' times, the grid at 8 shards x 8,192 slots beside
+   one and eight single-shard launches;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
    servants registered by Heartbeat, 24 delegates driving >= 200,000
@@ -54,7 +59,19 @@ Phases (any failure exits non-zero without printing the result line):
    the bench's batches at 1%, 10% and 50% hits, each with its time and
    the share of its bound; (d) the slice's entry point,
    tools/bloom_bench.run(1M, 1M) on the card, with every Bloom launch
-   count set to 0 just before and each > 0 just after.
+   count set to 0 just before and each > 0 just after;
+8. the sharded scheduler: phase 3's drive with --shards 4 (four shard
+   dispatchers behind the consistent-hash router, each policy on a CUDA
+   stream of its own), >= 100,000 grants, phase 3's checks plus: every
+   grant id routes to the shard that issued it and is freed there; then
+   the same scheduler built in process and driven without RPC under
+   torch.profiler: how many K1 launches overlap, the card's busy share;
+9. the fused control plane, in process: a ShardRouter of 8 shards x
+   8,192 slots, 40,000 servants, two tenants with budgets, delegate
+   threads ruled by admission and granted through >= 1,000 fused cycles
+   (each one launch of K1 over the grid of 8 shards); no tenant's ledger
+   above its budget, every ledger 0 at the end, the fused oracle clean,
+   the load summary equal to the host's; the routing hash's cost a call.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler processes go to
@@ -88,6 +105,9 @@ HB_INTERVAL_MS = 4000          # servant lease = 10x this
 HB_REPEAT_S = 10.0             # re-beat well inside the lease
 MAIN_S, MAIN_G, MAIN_TASKS = 8192, 64, 2048   # the policy's largest chunk
 MAIN_T = 256                   # torch_batched's chunk (max_batch)
+SHARDS = 4                     # phase 8's --shards
+SHARDED_MIN_GRANTS = 100_000
+OVERLAP_WINDOW_S = 3.0         # phase 8's in-process profile
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = 67e12         # 32-bit non-tensor peak, H100 SXM data sheet
 KERNELS = ("grouped_assign", "assign_batch")   # /inspect/vars yadcc/kernels
@@ -605,6 +625,22 @@ def k2_ops(s, work) -> int:
             + work["owner_rescans"] * math.ceil(math.log2(max(s, 2))))
 
 
+def k1_cost(p, groups, pad) -> dict:
+    """What K1's function needs on one pool and batch (``groups`` padded
+    to ``pad`` with count-0 groups): k1_model's counts and per-group work,
+    the operations, and the bytes (each input read once, each output
+    written once)."""
+    padded = list(groups) + [(0, 0, -1, 0)] * (pad - len(groups))
+    counts, _, work = k1_model(p, padded)
+    s, e = p["env_bitmap"].shape
+    # The search's evaluations plus the tie split's two (tau - 1, tau).
+    ops = (s * K1_OPS_TEST * sum(1 for *_, m in padded if m > 0)
+           + sum((it + 2) * ((n + nd) * K1_OPS_FORM + n) + nd * K1_OPS_FORM
+                 for n, nd, it in work))
+    return dict(counts=counts, work=work, ops=ops,
+                bytes=s * (6 + e) * 4 + pad * s * 4 + s * 4)
+
+
 def time_k1(p, pool, groups, pad, reps=50) -> dict:
     """K1 and its plain version on one pool and batch, with CUDA events;
     the bound from what this data needs."""
@@ -617,20 +653,13 @@ def time_k1(p, pool, groups, pad, reps=50) -> dict:
     ms = timed(lambda: kg.cuda_assign_grouped(pool, batch), reps)
     plain_ms = timed(lambda: asg.assign_grouped(pool, batch), 3)
     counts = kg.cuda_assign_grouped(pool, batch)[0].cpu().numpy()
-    padded = list(groups) + [(0, 0, -1, 0)] * (pad - len(groups))
-    model_counts, _, work = k1_model(p, padded)
-    check(np.array_equal(model_counts, counts),
+    cost = k1_cost(p, groups, pad)
+    check(np.array_equal(cost["counts"], counts),
           "K1 timing: the host model's counts differ from the kernel's")
+    work, ops = cost["work"], cost["ops"]
     active = [n for n, _, _ in work]
     steps = [it for _, _, it in work]
-    s = len(p["alive"])
-    e = pool.env_bitmap.shape[1]
-    moved = s * (6 + e) * 4 + pad * s * 4 + s * 4
-    bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    # The search's evaluations plus the tie split's two (tau - 1, tau).
-    ops = (s * K1_OPS_TEST * sum(1 for *_, m in padded if m > 0)
-           + sum((it + 2) * ((n + nd) * K1_OPS_FORM + n) + nd * K1_OPS_FORM
-                 for n, nd, it in work))
+    bytes_ms = cost["bytes"] / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_OPS_PER_S * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -800,6 +829,279 @@ def compare_resident_step(report: list) -> None:
         report.append(f"  resident step S={s}: {cycles} chained cycles "
                       f"with churn, {granted} grants, picks/running/statics "
                       f"equal")
+
+
+# The fused step's shard grid (the sharded control plane, phase 9's K1):
+# N shard pools of `per` slots in one launch, one block a shard.
+GRID_N = 8
+
+
+def fused_cycle_inputs(rng, hosts, loads, dev):
+    """One cycle of the fused step's stacked inputs for the shard pools
+    ``hosts`` (numpy, mutated by the cycle's statics churn): ``loads[k]``
+    is (groups, tasks) for shard k or None for a shard with no work (zero
+    descriptors, an all-padding delta).  Every working shard after the
+    first also sends its slot 0, so in the flattened delta a padding entry
+    sits right before a real row for the next shard's slot 0.  G and the
+    delta are padded to the cycle's maxima, as the router pads them."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+
+    n, per = len(hosts), len(hosts[0]["alive"])
+    groups, dirties = [], []
+    for k, load in enumerate(loads):
+        if load is None:
+            groups.append([])
+            dirties.append([])
+            continue
+        g, total = load
+        groups.append(seeded_groups(rng, g, total, per))
+        dirty = set(rng.choice(per, min(per, 40), replace=False).tolist())
+        if k:
+            dirty.add(0)
+        dirty = sorted(dirty)
+        h = hosts[k]
+        for i in dirty:
+            h["capacity"][i] = rng.integers(1, 24)
+            h["alive"][i] = i == 0 or rng.random() < 0.9
+            h["version"][i] = rng.integers(1, 4)
+            h["env_bitmap"][i, rng.integers(0, h["env_bitmap"].shape[1])] \
+                ^= np.uint32(rng.integers(0, 2**32))
+        dirties.append(dirty)
+    g_pad = max(asg.group_pad(len(g)) for g in groups)
+    d_pad = max(asg.delta_pad(len(d)) for d in dirties)
+    t_max = max(asg.task_pad(sum(x[3] for x in g)) for g in groups)
+    packed = np.zeros((n, 4, g_pad), np.int32)
+    idx = np.full((n, d_pad), per, np.int32)
+    rows = {f: np.zeros((n, d_pad), np.int32)
+            for f in ("alive", "capacity", "dedicated", "version")}
+    env = np.zeros((n, d_pad, hosts[0]["env_bitmap"].shape[1]), np.uint32)
+    for k, (g, d) in enumerate(zip(groups, dirties)):
+        if loads[k] is None:
+            continue
+        packed[k] = asg.make_grouped_packed_host(g, g_pad)
+        di = np.asarray(d, np.int64)
+        idx[k, :len(di)] = di
+        for f, a in rows.items():
+            a[k, :len(di)] = hosts[k][f][di]
+        env[k, :len(di)] = hosts[k]["env_bitmap"][di]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    delta = asg.PoolDelta(idx=up(idx), alive=up(rows["alive"]),
+                          capacity=up(rows["capacity"]),
+                          dedicated=up(rows["dedicated"]),
+                          version=up(rows["version"]),
+                          env_rows=up(env.view(np.int32)))
+    s = n * per
+    return dict(delta=delta, packed=up(packed),
+                adj=up(rng.integers(-2, 2, s).astype(np.int32)),
+                rmask=up(rng.random(s) < 0.03),
+                rval=up(rng.integers(0, 4, s).astype(np.int32)),
+                t_max=t_max, g_pad=g_pad)
+
+
+def compare_shard_grid(report: list) -> None:
+    """K1 over a grid of shards, through the fused step's wrapper
+    (cuda_resident_control_plane_step, in place), against the plain fused
+    step (functional) on the card, chained over cycles: picks or counts,
+    and every pool field, equal after every cycle.  N = 1, 2 and 8;
+    uneven loads, a shard with no work, G padded to the cycle's maximum,
+    padding beside the next shard's slot 0, and shards too wide for
+    shared memory (the global-scratch path)."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    cases = (
+        ("N1", MAIN_S, [(16, 1500)]),
+        ("N2_uneven", MAIN_S, [(16, 2000), (3, 40)]),
+        ("N8_uneven_one_idle", 2048,
+         [(8, 600), (2, 10), None, (16, 2000), (1, 1), (4, 300), (64, 2048),
+          (3, 90)]),
+        ("N8_main_width", MAIN_S, [(MAIN_G // (1 + k % 4), 256 * (k + 1))
+                                   for k in range(GRID_N)]),
+        ("N2_beyond_shared_memory", 70_000, [(4, 3000), (2, 500)]),
+    )
+    for name, per, loads in cases:
+        hosts = []
+        for _ in loads:
+            h = np_pool(rng, per, cap_lo=1, cap_hi=24, run_hi=8)
+            h["running"] = np.minimum(h["running"], h["capacity"])
+            hosts.append(h)
+        kpool = asn.pool_from_numpy(*(np.concatenate([h[f] for h in hosts])
+                                      for f in asn.PoolArrays._fields), dev)
+        ppool = asn.PoolArrays(*(x.clone() for x in kpool))
+        granted = 0
+        for cycle in range(3):
+            c = fused_cycle_inputs(rng, hosts, loads, dev)
+            picks = cycle != 1        # the counts route on the middle cycle
+            args = (c["delta"], c["packed"], c["adj"], c["rmask"],
+                    c["rval"], c["t_max"])
+            before = kg.launches
+            got, kpool = kg.cuda_resident_control_plane_step(
+                kpool, *args, return_picks=picks)
+            check(kg.launches == before + 1,
+                  f"grid {name}: {kg.launches - before} launches, not 1")
+            want, ppool = asg.resident_control_plane_step(
+                ppool, *args, return_picks=picks)
+            check(torch.equal(got.cpu(), want.cpu()),
+                  f"grid {name} cycle {cycle}: "
+                  f"{'picks' if picks else 'counts'} differ")
+            for f in asn.PoolArrays._fields:
+                check(torch.equal(getattr(kpool, f).cpu(),
+                                  getattr(ppool, f).cpu()),
+                      f"grid {name} cycle {cycle}: {f} differs")
+            granted += (int((got != -1).sum()) if picks
+                        else int(got.sum()))
+        report.append(f"  shard grid {name}: N={len(loads)} per={per} "
+                      f"G up to {c['g_pad']}, 3 chained cycles (picks, "
+                      f"counts, picks), {granted} grants, picks/counts/pool "
+                      f"equal to the plain fused step")
+
+    # Refusals (on the last case's two shards): a pool that does not
+    # split into N shards, a non-int32 descriptor block, the delta on the
+    # CPU.
+    c = fused_cycle_inputs(rng, hosts, [(2, 10), (2, 10)], dev)
+    two = asn.pool_from_numpy(*(np.concatenate([h[f] for h in hosts])
+                                for f in asn.PoolArrays._fields), dev)
+    args = [c["delta"], c["packed"], c["adj"], c["rmask"], c["rval"],
+            c["t_max"]]
+    bad = [
+        ("a pool that does not split",
+         two._replace(**{f: getattr(two, f)[:-1]
+                         for f in asn.PoolArrays._fields}), args),
+        ("int64 descriptors", two,
+         [args[0], args[1].long()] + args[2:]),
+        ("delta on the CPU", two,
+         [asg.PoolDelta(*(x.cpu() for x in args[0]))] + args[1:]),
+    ]
+    for what, bp, ba in bad:
+        before = kg.launches
+        try:
+            kg.cuda_resident_control_plane_step(bp, *ba)
+        except (TypeError, ValueError):
+            check(kg.launches == before, f"grid {what}: counted a launch")
+            continue
+        raise SmokeFailure(f"grid wrapper accepted {what}")
+    report.append("  shard grid refusals (split, dtype, device): raised")
+    torch.cuda.synchronize()
+
+
+def time_shard_grid(report: list) -> dict:
+    """The fused launch at N = 8 shards x 8,192 slots, G = 64, 2,048 tasks
+    a shard, on the timing pool (each shard a copy of it, with its own
+    groups): K1 over the grid of 8 blocks, beside one single-shard launch,
+    eight single-shard launches in a row on one stream, and eight on
+    eight streams; the whole fused step (delta scatter, fold, K1, eight
+    expansions) beside its plain version.  Exactness: each shard's
+    counts from the grid equal its single launch's and k1_model's.  The
+    bound: the blocks run on separate SMs, so the largest one-SM floor
+    over the shards."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    dev = torch.device("cuda")
+    n, s = GRID_N, MAIN_S
+    p = np_pool(np.random.default_rng(7), s, cap_lo=8, cap_hi=65, run_hi=8,
+                ded_frac=0.2)
+    grng = np.random.default_rng(12)
+    groups = [seeded_groups(grng, MAIN_G, MAIN_TASKS, s) for _ in range(n)]
+    pool = asn.pool_from_numpy(*(np.concatenate([p[f]] * n)
+                                 for f in asn.PoolArrays._fields), dev)
+    packed = torch.from_numpy(np.stack([
+        asg.make_grouped_packed_host(g, MAIN_G) for g in groups])).to(dev)
+    fields = list(packed.permute(1, 0, 2).contiguous())
+    views = [asn.PoolArrays(*(a[k * s:(k + 1) * s] for a in pool))
+             for k in range(n)]
+    batches = [asg.unpack_grouped(packed[k]) for k in range(n)]
+    cm = DEFAULT_COST_MODEL
+
+    grid_counts = kg._launch(pool, fields, n, cm)[0].cpu().numpy()
+    costs = []
+    for k in range(n):
+        single = kg.cuda_assign_grouped(views[k], batches[k])[0]
+        check(np.array_equal(grid_counts[k], single.cpu().numpy()),
+              f"grid timing: shard {k} differs from its single launch")
+        costs.append(k1_cost(p, groups[k], MAIN_G))
+        check(np.array_equal(grid_counts[k], costs[-1]["counts"]),
+              f"grid timing: shard {k} differs from k1_model")
+
+    def eight_in_a_row():
+        for v, b in zip(views, batches):
+            kg.cuda_assign_grouped(v, b)
+
+    streams = [torch.cuda.Stream(dev) for _ in range(n)]
+
+    def eight_on_eight_streams():
+        cur = torch.cuda.current_stream(dev)
+        for st, v, b in zip(streams, views, batches):
+            st.wait_stream(cur)
+            with torch.cuda.stream(st):
+                kg.cuda_assign_grouped(v, b)
+        for st in streams:
+            cur.wait_stream(st)
+
+    grid_ms = timed(lambda: kg._launch(pool, fields, n, cm), 20)
+    one_ms = timed(lambda: kg.cuda_assign_grouped(views[0], batches[0]), 20)
+    row_ms = timed(eight_in_a_row, 5)
+    streams_ms = timed(eight_on_eight_streams, 5)
+
+    # The whole fused step, each call doing the same work on the in-place
+    # pool: 40 dirty slots a shard, every slot's running reset to the
+    # same value by the fold.
+    drng = np.random.default_rng(13)
+    d_pad = asg.delta_pad(40)
+    idx = np.stack([np.sort(drng.choice(s, 40, replace=False))
+                    for _ in range(n)])
+    per_shard = [asg.make_pool_delta(idx[k], p, d_pad, s, dev)
+                 for k in range(n)]
+    delta = asg.PoolDelta(*(torch.stack([getattr(d, f) for d in per_shard])
+                            for f in asg.PoolDelta._fields))
+    zeros = torch.zeros(n * s, dtype=torch.int32, device=dev)
+    all_reset = torch.ones(n * s, dtype=torch.bool, device=dev)
+    run0 = pool.running.clone()
+    t_max = asg.task_pad(MAIN_TASKS)
+    kpool = asn.PoolArrays(*(x.clone() for x in pool))
+    ppool = asn.PoolArrays(*(x.clone() for x in pool))
+    step_ms = timed(lambda: kg.cuda_resident_control_plane_step(
+        kpool, delta, packed, zeros, all_reset, run0, t_max), 20)
+    plain_ms = timed(lambda: asg.resident_control_plane_step(
+        ppool, delta, packed, zeros, all_reset, run0, t_max), 1)
+
+    floors = [c["ops"] / (H100_OPS_PER_S / H100_SMS) * 1e3 for c in costs]
+    bytes_ms = sum(c["bytes"] for c in costs) / H100_BYTES_PER_S * 1e3
+    ops_ms = sum(c["ops"] for c in costs) / H100_OPS_PER_S * 1e3
+    out = dict(ms=grid_ms, one_shard_ms=one_ms, eight_in_a_row_ms=row_ms,
+               eight_on_eight_streams_ms=streams_ms, fused_step_ms=step_ms,
+               plain_ms=plain_ms, bound_ms=max(floors),
+               bound_by="one-SM operations", card_bound_ms=max(bytes_ms,
+                                                               ops_ms),
+               N=n, S=s, G=MAIN_G, tasks=MAIN_TASKS)
+    report.append(
+        f"  timing shard grid N={n} x S={s}, G={MAIN_G}, {MAIN_TASKS} tasks "
+        f"a shard: one launch of {n} blocks {grid_ms:.4f} ms; one shard "
+        f"alone {one_ms:.4f} ms; {n} single launches in a row "
+        f"{row_ms:.4f} ms, on {n} streams {streams_ms:.4f} ms; the fused "
+        f"step (scatter, fold, K1 grid, {n} expansions) {step_ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms; bound {max(floors) * 1e3:.2f} us (the "
+        f"largest one-SM floor of the {n} shards; the whole card's "
+        f"{out['card_bound_ms'] * 1e3:.3f} us); counts equal to each "
+        f"shard's single launch and k1_model")
+    return out
 
 
 def k2_cases(rng):
@@ -1100,9 +1402,11 @@ def inspect_vars(port: int) -> dict:
 
 
 def run_main_path(name: str, extra_args: list, fleet: Fleet,
-                  report: list, kernel: str = "grouped_assign") -> dict:
+                  report: list, kernel: str = "grouped_assign",
+                  shards: int = 1, min_grants: int = MIN_GRANTS) -> dict:
     """Start the scheduler entry, drive it, check it, stop it; ``kernel``
-    must have launched in the drive."""
+    must have launched in the drive.  With ``shards`` > 1 the entry runs
+    --shards and every grant id must route to the shard that issued it."""
     port, iport = free_port(), free_port()
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     log_path = LOG_DIR / f"entry_{name}.log"
@@ -1118,7 +1422,7 @@ def run_main_path(name: str, extra_args: list, fleet: Fleet,
                                 stderr=subprocess.STDOUT)
         try:
             return _drive(name, proc, port, iport, fleet, report, stop,
-                          threads, kernel)
+                          threads, kernel, shards, min_grants)
         finally:
             stop.set()
             for t in threads:
@@ -1132,7 +1436,7 @@ def run_main_path(name: str, extra_args: list, fleet: Fleet,
 
 
 def _drive(name, proc, port, iport, fleet, report, stop, threads,
-           kernel) -> dict:
+           kernel, shards, min_grants) -> dict:
     from yadcc_tpu_torch import api
     from yadcc_tpu_torch.rpc import Channel, RpcError
     from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
@@ -1174,13 +1478,17 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
         t.join()
     reg_s = time.perf_counter() - t0
     state = inspect_vars(iport)["yadcc"]
-    check(len(state["task_dispatcher"]["servants"]) == N_SERVANTS,
-          f"{name}: {len(state['task_dispatcher']['servants'])} servants "
-          f"registered")
+    td = state["task_dispatcher"]
+    # A router reports the count of servants over its shards.
+    registered = (td["servants"] if shards > 1 else len(td["servants"]))
+    check(registered == N_SERVANTS,
+          f"{name}: {registered} servants registered")
+    check(td.get("n_shards", 1) == shards,
+          f"{name}: {td.get('n_shards', 1)} shards, expected {shards}")
     before = {k: v["launches"] for k, v in state["kernels"].items()}
     check(set(before) == set(KERNELS) and not any(before.values()),
           f"{name}: launch counts {before} before driving")
-    stream_before = state["task_dispatcher"]["stream"]
+    stream_before = td.get("stream", {})
 
     def rebeat():
         chan = Channel(f"grpc://127.0.0.1:{port}")
@@ -1201,7 +1509,13 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
     def delegate(d: int):
         rng = random.Random(1000 + d)
         envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
-        chan = Channel(f"grpc://127.0.0.1:{port}")
+        # Channels to one address share one connection, so every delegate
+        # would reach the scheduler from one peer address and home on one
+        # shard.  With --shards each delegate dials its own loopback
+        # address (the connection still comes from 127.0.0.1, on a port
+        # of its own), as delegates on separate machines would.
+        host = f"127.0.0.{2 + d}" if shards > 1 else "127.0.0.1"
+        chan = Channel(f"grpc://{host}:{port}")
         k = 0
         try:
             while not done.is_set():
@@ -1245,6 +1559,13 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
                             fleet.violations.append(
                                 f"{s['location']} over capacity "
                                 f"{held}/{s['capacity']}")
+                if shards > 1:
+                    for g in resp.grants:
+                        if (g.task_grant_id - 1) % shards != g.shard_id:
+                            fleet.violations.append(
+                                f"grant {g.task_grant_id} issued by shard "
+                                f"{g.shard_id} routes to shard "
+                                f"{(g.task_grant_id - 1) % shards}")
                 with lock:
                     dup = grant_ids.intersection(ids)
                     if dup or len(set(ids)) != len(ids):
@@ -1253,7 +1574,9 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
                     totals["grants"] += len(ids)
                     totals["calls"] += 1
                     latencies.append(lat)
-                    if totals["grants"] >= MIN_GRANTS:
+                    totals["stolen"] = (totals.get("stolen", 0)
+                                        + resp.stolen_grants)
+                    if totals["grants"] >= min_grants:
                         done.set()
                 with fleet.lock:
                     for g in resp.grants:
@@ -1283,7 +1606,7 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
     elapsed = time.perf_counter() - t0
     check(not errors, f"{name}: {errors[:3]}")
     check(not fleet.violations, f"{name}: {fleet.violations[:5]}")
-    check(totals["grants"] >= MIN_GRANTS,
+    check(totals["grants"] >= min_grants,
           f"{name}: only {totals['grants']} grants")
 
     state = inspect_vars(iport)["yadcc"]
@@ -1298,10 +1621,17 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
           f"{name}: scheduler granted {td['stats']['granted']}, delegates "
           f"saw {totals['grants']}")
     check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    if shards > 1:
+        # Every grant was freed through the shard its id routes to.
+        left = [p["grants_outstanding"] for p in td["per_shard"]]
+        check(left == [0] * shards,
+              f"{name}: grants outstanding per shard {left}")
+        check(sum(p["stats"]["granted"] for p in td["per_shard"])
+              == totals["grants"], f"{name}: per-shard grants do not sum")
     # The resident pool's counters over the drive (its warmup's are
     # subtracted); absent for the other policies.
     resident = {k: v - stream_before.get(k, 0)
-                for k, v in td["stream"].items()
+                for k, v in td.get("stream", {}).items()
                 if k in ("seeds", "delta_launches", "delta_slots",
                          "full_syncs", "oracle_checks", "oracle_mismatches")}
 
@@ -1313,7 +1643,10 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
         p50_ms=lat[len(lat) // 2] * 1e3,
         p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
         launches=launches, boot_s=boot_s, register_s=reg_s,
-        resident=resident)
+        resident=resident, stolen=totals.get("stolen", 0),
+        stages=td["latency_breakdown"],
+        per_shard_granted=[p["stats"]["granted"]
+                           for p in td.get("per_shard", [])])
     report.append(
         f"  {name}: {res['grants']} grants in {elapsed:.2f} s = "
         f"{res['grants_per_s']:.1f} grants/s over {res['calls']} calls "
@@ -1322,8 +1655,385 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
         f"launches {json.dumps(launches)}; boot {boot_s:.1f} s, "
         f"{N_SERVANTS} servants registered in {reg_s:.1f} s; no "
         f"violations")
+    if shards > 1:
+        report.append(f"  {name}: {shards} shards granted "
+                      f"{res['per_shard_granted']}, {res['stolen']} grants "
+                      f"stolen; every grant id routes to its issuing shard "
+                      f"and was freed there")
     report.append(f"  {name} dispatcher stages: "
                   f"{json.dumps(td['latency_breakdown'])}")
+    return res
+
+
+def interval_stats(spans):
+    """(union length, sum of lengths, count of spans overlapping another)
+    for [(start, end)] intervals."""
+    spans = sorted(spans)
+    union, total, overlapping = 0.0, 0.0, set()
+    cur_s = cur_e = None
+    open_end, open_i = float("-inf"), -1
+    for i, (s, e) in enumerate(spans):
+        total += e - s
+        if s < open_end:
+            overlapping.update((i, open_i))
+        if e > open_end:
+            open_end, open_i = e, i
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                union += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        union += cur_e - cur_s
+    return union, total, len(overlapping)
+
+
+def measure_shard_overlap(report: list) -> dict:
+    """Phase 8's scheduler built in process (the entry's build_dispatcher
+    with --shards 4 and its other defaults: four pipelined shard
+    policies, each on its own CUDA stream), 5,000 servants, 24 delegate
+    threads calling the router directly (no RPC front end), profiled
+    with torch.profiler for OVERLAP_WINDOW_S: how many K1 launches ran
+    at the same time as another, and the card's busy share of the
+    window.  Reports "not measured" when the profiler returns no device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from yadcc_tpu_torch.scheduler import entry
+    from yadcc_tpu_torch.scheduler.task_dispatcher import ServantInfo
+
+    args = entry.build_arg_parser().parse_args(["--shards", str(SHARDS)])
+    router = entry.build_dispatcher(args)
+    fleet = Fleet(seed=6)
+    stop = threading.Event()
+    lock = threading.Lock()
+    errors, totals = [], {"grants": 0}
+
+    def delegate(d: int):
+        rng = random.Random(2000 + d)
+        envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
+        who = f"127.0.0.1:{30000 + d}"
+        k = 0
+        try:
+            while not stop.is_set():
+                got = router.wait_for_starting_new_task(
+                    envs[k % len(envs)], requestor=who,
+                    immediate=IMMEDIATE, timeout_s=2.0)
+                k += 1
+                with lock:
+                    totals["grants"] += len(got)
+                if got:
+                    router.free_task([g for g, _ in got])
+        except Exception as e:  # reported below
+            errors.append(f"delegate {d}: {e!r}")
+
+    threads = [threading.Thread(target=delegate, args=(d,), daemon=True)
+               for d in range(N_DELEGATES)]
+    try:
+        for s in fleet.servants:
+            check(router.keep_servant_alive(ServantInfo(
+                location=s["location"], version=1,
+                num_processors=s["capacity"], dedicated=s["dedicated"],
+                capacity=s["capacity"], total_memory=64 << 30,
+                memory_available=32 << 30,
+                env_digests=tuple(sorted(s["envs"]))), 600.0),
+                "overlap: a servant was refused")
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g0, t0 = totals["grants"], time.perf_counter()
+            time.sleep(OVERLAP_WINDOW_S)
+            window_s = time.perf_counter() - t0
+            granted = totals["grants"] - g0
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+            check(not t.is_alive(), "overlap: a delegate hung")
+        check(not errors, f"overlap: {errors[:3]}")
+        check(router.failure is None, f"overlap: {router.failure!r}")
+    finally:
+        stop.set()
+        router.stop()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k1 = [(e.time_range.start, e.time_range.end) for e in device
+          if "grouped_assign_kernel" in e.name]
+    res = dict(window_s=window_s, grants=granted, k1_launches=len(k1))
+    if not k1:
+        report.append(f"  overlap: {granted} grants in {window_s:.2f} s; "
+                      f"the profiler returned {len(device)} device events, "
+                      f"no K1 kernel: overlap not measured")
+        return res
+    k1_union, k1_sum, k1_overlapping = interval_stats(k1)
+    busy, _, _ = interval_stats([(e.time_range.start, e.time_range.end)
+                                 for e in device])
+    res.update(k1_overlapping=k1_overlapping, k1_busy_us=k1_union,
+               k1_sum_us=k1_sum, device_busy_us=busy,
+               device_busy_share=busy / (window_s * 1e6))
+    report.append(
+        f"  overlap (phase 8's scheduler in process, no RPC, torch.profiler "
+        f"over {window_s:.2f} s): {granted} grants, {len(k1)} K1 launches, "
+        f"{k1_overlapping} of them running beside another; K1 time "
+        f"{k1_sum / 1e3:.2f} ms over {k1_union / 1e3:.2f} ms of wall "
+        f"({k1_sum / max(k1_union, 1e-9):.2f} launches at a time on "
+        f"average); the card busy {busy / 1e3:.2f} ms, "
+        f"{res['device_busy_share'] * 100:.1f}% of the window")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the fused control plane, in process.
+# ---------------------------------------------------------------------------
+
+FUSED_SHARDS = 8
+FUSED_SLOTS = 8192
+FUSED_SERVANTS = 40_000
+FUSED_CYCLES = 1000
+# tenant: (tier, max_outstanding); a budget binds per shard, on the ledger
+# of the home shard that rules on the tenant's admission.
+FUSED_TENANTS = {"acme": ("interactive", 48), "ci": ("batch", 32)}
+FUSED_ASK = 16
+
+
+def run_fused_path(report: list) -> dict:
+    """A ShardRouter of 8 shards x 8,192 slots on the card with fused
+    dispatch: 40,000 servants, two tenants with max_outstanding budgets,
+    one delegate thread per (tenant, shard) calling admission_check and
+    then wait_for_starting_new_task with its tenant, a churn thread
+    re-beating servants with new capacities, and this thread driving
+    run_fused_cycle (one launch of K1 over the grid of 8 shards a cycle)
+    for >= 1,000 cycles.  The router steals nothing here, so each grant is
+    charged to the home shard whose ledger ruled on its admission.
+    Checks: no tenant's ledger ever above its budget, every ledger at 0
+    at the end, the fused oracle clean, every cycle one K1 launch, the
+    load summary equal to the host's truth; the routing hash's cost a
+    call and the load summary's time on the card."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+    from yadcc_tpu_torch.parallel import mesh
+    from yadcc_tpu_torch.scheduler.admission import FLOW_NONE, FLOW_REJECT
+    from yadcc_tpu_torch.scheduler.policy import make_policy
+    from yadcc_tpu_torch.scheduler.shard_router import (ShardRouter,
+                                                        StealConfig)
+    from yadcc_tpu_torch.scheduler.task_dispatcher import ServantInfo
+    from yadcc_tpu_torch.tenancy import TenantDirectory, TenantSpec
+
+    dev = torch.device("cuda")
+    n = FUSED_SHARDS
+    router = ShardRouter.build(
+        lambda k: make_policy("torch_grouped", device=dev), n,
+        max_servants_per_shard=FUSED_SLOTS, device=dev,
+        steal=StealConfig(enabled=False), start_dispatch_thread=False,
+        min_memory_for_new_task=1 << 30,
+        tenant_directory=TenantDirectory([
+            TenantSpec(t, tier=tier, max_outstanding=b)
+            for t, (tier, b) in FUSED_TENANTS.items()]))
+    rng = random.Random(9)
+    envs = [f"compiler-digest-{i:03d}" for i in range(N_ENVS)]
+    fleet = {}
+    for i in range(FUSED_SERVANTS):
+        cap = rng.randint(8, 64)
+        fleet[f"10.{i >> 16 & 255}.{i >> 8 & 255}.{i & 255}:8335"] = dict(
+            capacity=cap, dedicated=rng.random() < 0.2,
+            envs=tuple(sorted(rng.sample(envs, rng.randint(8, 24)))))
+
+    def beat(loc, s):
+        return router.keep_servant_alive(ServantInfo(
+            location=loc, version=1, num_processors=s["capacity"],
+            dedicated=s["dedicated"], capacity=s["capacity"],
+            total_memory=64 << 30, memory_available=32 << 30,
+            env_digests=s["envs"]), 600.0)
+
+    locs = list(fleet)
+    sample = locs[:10_000]
+    t0 = time.perf_counter()
+    for loc in sample:
+        router.shard_for_location(loc)
+    hash_us = (time.perf_counter() - t0) / len(sample) * 1e6
+    t0 = time.perf_counter()
+    for loc in locs:
+        check(beat(loc, fleet[loc]), f"fused: {loc} refused")
+    reg_s = time.perf_counter() - t0
+    homes = [router.shard_for_location(loc) for loc in locs]
+    by_shard = [homes.count(k) for k in range(n)]
+    check([len(d.inspect()["servants"]) for d in router.shards] == by_shard,
+          "fused: servants not on their ring shards")
+    router.enable_fused_dispatch(oracle_interval=16)
+
+    done = threading.Event()
+    lock = threading.Lock()
+    violations, seen = [], set()
+    peak = {}                       # (tenant, shard) -> highest ledger seen
+    totals = {"grants": 0, "rejected": 0, "calls": 0}
+
+    def delegate(tenant, shard):
+        tier, budget = FUSED_TENANTS[tenant]
+        who = next(w for w in (f"{tenant}-delegate-{shard}-{j}"
+                               for j in range(10_000))
+                   if router.resolve_home(w) == shard)
+        ledger = router.shards[shard].tenant_ledger
+        drng = random.Random(f"{tenant}-{shard}")
+        held = []
+        try:
+            while not done.is_set():
+                dec = router.admission_check(
+                    immediate=FUSED_ASK, requestor=who, tenant=tenant,
+                    tier=tier, home=shard)
+                if dec.flow == FLOW_REJECT:
+                    with lock:
+                        totals["rejected"] += 1
+                    if held:
+                        router.free_task(held.pop(0))
+                    continue
+                if dec.flow != FLOW_NONE:
+                    violations.append(f"{who}: ladder verdict {dec}")
+                    return
+                env = drng.choice(envs)
+                got = router.wait_for_starting_new_task(
+                    env, requestor=who, immediate=FUSED_ASK, tenant=tenant,
+                    timeout_s=10.0)
+                ids = [g for g, _ in got]
+                out = ledger.outstanding(tenant)
+                with lock:
+                    totals["calls"] += 1
+                    totals["grants"] += len(ids)
+                    peak[(tenant, shard)] = max(
+                        peak.get((tenant, shard), 0), out)
+                    if out > budget:
+                        violations.append(f"{tenant} on shard {shard}: "
+                                          f"{out} > budget {budget}")
+                    if seen.intersection(ids):
+                        violations.append("duplicate grant ids")
+                    seen.update(ids)
+                for gid, loc in got:
+                    if (gid - 1) % n != shard:
+                        violations.append(f"grant {gid} not from shard "
+                                          f"{shard}")
+                    if env not in fleet[loc]["envs"]:
+                        violations.append(f"{loc} lacks {env}")
+                if ids:
+                    held.append(ids)
+                if held and drng.random() < 0.3:
+                    router.free_task(held.pop(0))
+        except Exception as e:  # reported by the phase below
+            violations.append(f"{who}: {e!r}")
+        finally:
+            for ids in held:
+                router.free_task(ids)
+
+    def churn():
+        crng = random.Random(10)
+        while not done.wait(0.005):
+            for loc in crng.sample(locs, 16):
+                s = fleet[loc]
+                s["capacity"] = crng.randint(8, 64)
+                if crng.random() < 0.1:
+                    s["dedicated"] = not s["dedicated"]
+                beat(loc, s)
+
+    threads = [threading.Thread(target=delegate, args=(t, k), daemon=True)
+               for t in FUSED_TENANTS for k in range(n)]
+    threads.append(threading.Thread(target=churn, daemon=True))
+    kg.launches = 0
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    cycle_s = []
+    while True:
+        stats = router.fused_stats()
+        if stats["fused_cycles"] >= FUSED_CYCLES or violations:
+            break
+        check(time.perf_counter() - t0 < PHASE_LIMIT_S,
+              f"fused: {stats['fused_cycles']} cycles in {PHASE_LIMIT_S} s")
+        tc = time.perf_counter()
+        router.run_fused_cycle()
+        if router.fused_stats()["fused_cycles"] > stats["fused_cycles"]:
+            cycle_s.append(time.perf_counter() - tc)
+        else:
+            time.sleep(0.0002)
+    elapsed = time.perf_counter() - t0
+    launched = kg.launches
+    done.set()
+    # Drain: requests still waiting get their last cycles.
+    while any(t.is_alive() for t in threads):
+        router.run_fused_cycle()
+        time.sleep(0.001)
+        check(time.perf_counter() - t0 < PHASE_LIMIT_S + 30,
+              "fused: a delegate hung")
+    check(not violations, f"fused: {violations[:5]}")
+    stats = router.fused_stats()
+    check(stats["fused_cycles"] >= FUSED_CYCLES,
+          f"fused: {stats['fused_cycles']} cycles")
+    check(stats["fused_shard_launches"] > 0, "fused: no shard launched")
+    check(stats["oracle_checks"] > 0 and stats["oracle_mismatches"] == 0,
+          f"fused: oracle {stats}")
+    check(launched > 0 and launched == len(cycle_s),
+          f"fused: {launched} K1 launches over {len(cycle_s)} cycles")
+    check(totals["rejected"] > 0, "fused: no budget ever bound")
+
+    # The load summary against the host's truth (every grant freed, the
+    # churned capacities in place).
+    slices = [d.pool_load_arrays() for d in router.shards]
+    truth = np.array([[a.sum(), np.where(a, np.maximum(c - r, 0), 0).sum(),
+                       np.where(a, r, 0).sum()] for a, c, r in slices],
+                     np.int64)
+    t1 = time.perf_counter()
+    rows = router.refresh_load_summary()
+    refresh_ms = (time.perf_counter() - t1) * 1e3
+    check(np.array_equal(rows, truth), f"fused: load summary {rows} "
+                                       f"!= host {truth}")
+    a, c, r = (torch.from_numpy(np.concatenate([s[i] for s in slices])).to(
+        dev) for i in range(3))
+    summary_ms = timed(lambda: mesh.shard_load_summary(a, c, r, n), 50)
+    ins = router.inspect()
+    check(ins["grants_outstanding"] == 0,
+          f"fused: {ins['grants_outstanding']} grants outstanding")
+    for k, d in enumerate(router.shards):
+        left = d.tenant_ledger.inspect()["outstanding"]
+        check(not left, f"fused: shard {k} ledger ends at {left}")
+    by_tenant = {t: {key: sum(p["stats_by_tenant"].get(t, {}).get(key, 0)
+                              for p in ins["per_shard"])
+                     for key in ("granted", "rejected_over_budget")}
+                 for t in FUSED_TENANTS}
+    router.stop()
+    cyc = np.array(cycle_s) * 1e3
+    res = dict(cycles=stats["fused_cycles"], launches=launched,
+               shard_launches=stats["fused_shard_launches"],
+               oracle_checks=stats["oracle_checks"],
+               grants=totals["grants"], seconds=elapsed,
+               cycle_ms_p50=float(np.percentile(cyc, 50)),
+               cycle_ms_p99=float(np.percentile(cyc, 99)),
+               hash_us_per_call=hash_us, register_s=reg_s,
+               servants_by_shard=by_shard, load_summary_ms=summary_ms,
+               load_refresh_ms=refresh_ms, by_tenant=by_tenant,
+               peak_ledger={f"{t}@{k}": v for (t, k), v in peak.items()},
+               stages=ins["latency_breakdown"],
+               fused_stages=ins["fused_stages"])
+    report.append(
+        f"  fused: {res['cycles']} cycles ({launched} K1 launches, one a "
+        f"cycle; {res['shard_launches']} shard launches) in {elapsed:.2f} "
+        f"s, cycle p50 {res['cycle_ms_p50']:.3f} ms p99 "
+        f"{res['cycle_ms_p99']:.3f} ms; {res['grants']} grants over "
+        f"{totals['calls']} calls, {totals['rejected']} over-budget "
+        f"refusals; per tenant {json.dumps(by_tenant)}; peak ledger "
+        f"{json.dumps(res['peak_ledger'])} within "
+        f"{json.dumps({t: b for t, (_, b) in FUSED_TENANTS.items()})}; "
+        f"every ledger 0 at the end; oracle {stats['oracle_checks']} checks "
+        f"clean")
+    report.append(
+        f"  fused: {FUSED_SERVANTS} servants registered in {reg_s:.1f} s, "
+        f"{by_shard} a shard; routing hash {hash_us:.2f} us a call "
+        f"(shard_for_location, host); load summary {rows.tolist()} equal to "
+        f"the host's, {summary_ms:.4f} ms on the card (50 calls), refresh "
+        f"(gather, upload, reduce, download) {refresh_ms:.2f} ms")
+    report.append(f"  fused cycle stages: "
+                  f"{json.dumps(ins['fused_stages'])}; dispatcher stages: "
+                  f"{json.dumps(ins['latency_breakdown'])}")
     return res
 
 
@@ -2058,6 +2768,8 @@ def main() -> int:
     report: list = []
     timing = compare_kernel(report)
     compare_resident_step(report)
+    compare_shard_grid(report)
+    grid = time_shard_grid(report)
     k2 = compare_assign_batch(report)
     log("phase 2 kernels vs plain (tolerance 0):")
     for line in report:
@@ -2105,6 +2817,18 @@ def main() -> int:
     for line in report:
         log(line)
 
+    report = []
+    phases["sharded"] = run_main_path(
+        "sharded", ["--shards", str(SHARDS)], Fleet(seed=5), report,
+        shards=SHARDS, min_grants=SHARDED_MIN_GRANTS)
+    overlap = measure_shard_overlap(report)
+    fused = run_fused_path(report)
+    phases["fused"] = {"launches": {"grouped_assign": fused["launches"],
+                                    "assign_batch": 0}}
+    log("phases 8-9 the sharded scheduler:")
+    for line in report:
+        log(line)
+
     def by_phase(kernel):
         return {name: r["launches"][kernel] for name, r in phases.items()}
 
@@ -2129,6 +2853,12 @@ def main() -> int:
                          ("ms", "plain_ms", "bound_ms", "one_sm_floor_ms",
                           "mean_active_slots", "bisect_steps")},
         "launches_by_phase": by_phase("grouped_assign"),
+        "shard_grid": {k: grid[k] for k in
+                       ("ms", "bound_ms", "bound_by", "card_bound_ms", "N",
+                        "S", "G", "tasks", "one_shard_ms",
+                        "eight_in_a_row_ms", "eight_on_eight_streams_ms",
+                        "fused_step_ms", "plain_ms")},
+        "sharded_overlap": overlap,
         "wrappers": {name: {k: timing[name][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by")}
                      for name in ("picks", "picks_packed", "picks_stream",
@@ -2195,9 +2925,11 @@ def main() -> int:
             for k in ("pack_seconds", "upload_seconds", "kernel_seconds",
                       "end_to_end_seconds")}
         for s in bloom_run["bench"]["sweep"]}
-    log("main paths ({}): {}; total {:.1f} s".format(card, "; ".join(
-        f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} ms"
-        for name, r in phases.items()), time.perf_counter() - t_start))
+    log("main paths ({}): {}; fused {} cycles in {:.2f} s; total {:.1f} "
+        "s".format(card, "; ".join(
+            f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} "
+            f"ms" for name, r in phases.items() if name != "fused"),
+            fused["cycles"], fused["seconds"], time.perf_counter() - t_start))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

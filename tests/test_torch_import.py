@@ -24,6 +24,11 @@ _BLOOM_MODULES = (
     "common.bloom", "common.xxh64_np", "ops.xxh64_torch", "ops.bloom_probe",
     "ops.bloom_pipeline", "ops.cuda_bloom", "cache.bloom_filter_generator",
     "tools.bloom_bench")
+# The sharded, multi-tenant scheduler's modules, each imported by name.
+_SHARD_MODULES = (
+    "common.hashing", "common.backoff", "common.consistent_hash",
+    "tenancy", "tenancy.identity", "tenancy.tiers", "tenancy.budgets",
+    "parallel.mesh", "scheduler.shard_router")
 
 
 def _port_sources():
@@ -65,7 +70,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
             importlib.import_module(name)
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
-                "yadcc_tpu_torch." + m for m in BLOOM):
+                "yadcc_tpu_torch." + m for m in BLOOM + SHARD):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_k2_probe, chip_smoke  # noqa: F401
@@ -76,11 +81,12 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         assert not leaked, leaked
         print(len(names))
     """)
-    script = f"BLOOM = {_BLOOM_MODULES!r}\n" + script
+    script = (f"BLOOM = {_BLOOM_MODULES!r}\n"
+              f"SHARD = {_SHARD_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 40
+    assert int(out.stdout.strip().splitlines()[-1]) >= 50
 
 
 def test_resolve_device_refuses_missing_card():

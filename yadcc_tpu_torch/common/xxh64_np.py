@@ -261,3 +261,65 @@ def xxh64_grouped(mat: np.ndarray, lengths: np.ndarray,
             np.zeros((len(idxs), 0), np.uint8)
         out[idxs] = xxh64_batch(sub, seed, length)
     return out
+
+
+# -- one short key at a time ------------------------------------------------
+#
+# The batch path above pays numpy's per-call overhead (tens of
+# microseconds) however short the batch; the scheduler's routing ring
+# (common/consistent_hash.py) hashes ONE short string per heartbeat and
+# per grant request, so it takes this scalar twin: the same spec in
+# Python integers, masked to 64 bits.
+
+_M = 0xFFFFFFFFFFFFFFFF
+_Q1, _Q2, _Q3, _Q4, _Q5 = (int(p) for p in (_P1, _P2, _P3, _P4, _P5))
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M
+
+
+def _round(acc: int, lane: int) -> int:
+    return (_rotl((acc + lane * _Q2) & _M, 31) * _Q1) & _M
+
+
+def xxh64_int(data: bytes, seed: int = 0) -> int:
+    """XXH64 of ``data`` as an int, bit-identical to xxh64_batch."""
+    n = len(data)
+    i = 0
+    if n >= 32:
+        v1 = (seed + _Q1 + _Q2) & _M
+        v2 = (seed + _Q2) & _M
+        v3 = seed & _M
+        v4 = (seed - _Q1) & _M
+        frm = int.from_bytes
+        while i + 32 <= n:
+            v1 = _round(v1, frm(data[i:i + 8], "little"))
+            v2 = _round(v2, frm(data[i + 8:i + 16], "little"))
+            v3 = _round(v3, frm(data[i + 16:i + 24], "little"))
+            v4 = _round(v4, frm(data[i + 24:i + 32], "little"))
+            i += 32
+        h = (_rotl(v1, 1) + _rotl(v2, 7) + _rotl(v3, 12)
+             + _rotl(v4, 18)) & _M
+        for v in (v1, v2, v3, v4):
+            h = ((h ^ _round(0, v)) * _Q1 + _Q4) & _M
+    else:
+        h = (seed + _Q5) & _M
+    h = (h + n) & _M
+    while i + 8 <= n:
+        h ^= _round(0, int.from_bytes(data[i:i + 8], "little"))
+        h = (_rotl(h, 27) * _Q1 + _Q4) & _M
+        i += 8
+    if i + 4 <= n:
+        h ^= (int.from_bytes(data[i:i + 4], "little") * _Q1) & _M
+        h = (_rotl(h, 23) * _Q2 + _Q3) & _M
+        i += 4
+    while i < n:
+        h ^= (data[i] * _Q5) & _M
+        h = (_rotl(h, 11) * _Q1) & _M
+        i += 1
+    h ^= h >> 33
+    h = (h * _Q2) & _M
+    h ^= h >> 29
+    h = (h * _Q3) & _M
+    return h ^ (h >> 32)

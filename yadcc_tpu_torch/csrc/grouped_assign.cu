@@ -13,7 +13,7 @@
 // per step; the work is a SERIAL chain of block-wide reductions (about 20 a
 // group), each of which must finish before the next bisect step can choose
 // its midpoint.  So the design is latency-first, and every step is short:
-//   * one launch, one thread block of 1024 threads: the groups are serial,
+//   * one thread block of 1024 threads a pool: the groups are serial,
 //     and a single block keeps every reduction inside one SM;
 //   * a group first COMPACTS its active slots (eligible, with room) in slot
 //     order: each warp owns a contiguous run of slots, a ballot gives each
@@ -45,6 +45,14 @@
 // memory up to about 9,590 slots; a larger pool keeps the same arrays in a
 // global scratch buffer the wrapper allocates (same code through a generic
 // pointer), so any S is served.
+//
+// A grid of shards (the sharded control plane's fused step, the counterpart
+// of yadcc_tpu/parallel/mesh.py:resident_control_plane_step_fn): the
+// shards are independent pools, so the launch takes gridDim.x = n_shards
+// blocks, one a shard, each on an SM of its own.  Block k reads and writes
+// shard k's slice: every per-slot array at k*S (the environment bitmap at
+// k*S*env_words), the group arrays at k*G, counts at k*G*S, the global
+// scratch at k*scratch_bytes(S).  A single pool is the grid of one.
 //
 // Integer traps, all mirrored from the plain version:
 //   * floor, not truncation: ((x+1)*cap-1) // UTIL_SCALE has a negative
@@ -171,7 +179,22 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ long long red_buf[2][2 * kWarps];
 
-  uint8_t* base = use_shared ? smem : global_scratch;
+  // This block's shard: offset every array to its slice.
+  const long long shard = blockIdx.x;
+  alive += shard * S;
+  capacity += shard * S;
+  running_in += shard * S;
+  dedicated += shard * S;
+  version += shard * S;
+  env_bitmap += shard * S * env_words;
+  g_env += shard * G;
+  g_minv += shard * G;
+  g_req += shard * G;
+  g_count += shard * G;
+  counts_out += shard * G * S;
+  running_out += shard * S;
+
+  uint8_t* base = use_shared ? smem : global_scratch + shard * scratch_bytes(S);
   SlotState st;
   st.run = reinterpret_cast<int32_t*>(base);
   st.c_slot = st.run + S;
@@ -331,21 +354,25 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
 
 extern "C" {
 
-// Bytes of per-slot state; the wrapper sizes the global scratch with it.
+// Bytes of per-slot state of one shard; the wrapper sizes the global
+// scratch as n_shards times this.
 long long yadcc_grouped_assign_scratch_bytes(int S) {
   return scratch_bytes(S);
 }
 
-// Launches K1 on `stream`.  Returns cudaGetLastError() after the launch
-// (0 = launched); the caller raises on anything else.
+// Launches K1 on `stream` over n_shards pools of S slots and G groups each,
+// laid out shard after shard (one block a shard).  Returns
+// cudaGetLastError() after the launch (0 = launched); the caller raises on
+// anything else.
 int yadcc_grouped_assign(const void* alive, const void* capacity,
                          const void* running_in, const void* dedicated,
                          const void* version, const void* env_bitmap,
                          int env_words, const void* g_env, const void* g_minv,
                          const void* g_req, const void* g_count, int S, int G,
-                         long long pref_thresh_q, long long bonus_q,
-                         int avoid_self, void* counts_out, void* running_out,
-                         void* global_scratch, void* stream) {
+                         int n_shards, long long pref_thresh_q,
+                         long long bonus_q, int avoid_self, void* counts_out,
+                         void* running_out, void* global_scratch,
+                         void* stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -362,7 +389,7 @@ int yadcc_grouped_assign(const void* alive, const void* capacity,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return (int)err;
   Params p{pref_thresh_q, bonus_q};
-  grouped_assign_kernel<<<1, kThreads, dyn, (cudaStream_t)stream>>>(
+  grouped_assign_kernel<<<n_shards, kThreads, dyn, (cudaStream_t)stream>>>(
       (const uint8_t*)alive, (const int32_t*)capacity,
       (const int32_t*)running_in, (const uint8_t*)dedicated,
       (const int32_t*)version, (const int32_t*)env_bitmap, env_words,

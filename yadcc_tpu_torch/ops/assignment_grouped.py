@@ -466,3 +466,42 @@ def resident_grouped_step_counts(
     counts, running = assign_grouped(pool._replace(running=running),
                                      unpack_grouped(packed), cost_model)
     return counts, pool._replace(running=running)
+
+
+def resident_control_plane_step(
+    pool: PoolArrays,
+    delta: PoolDelta,
+    packed: torch.Tensor,
+    adj: torch.Tensor,
+    reset_mask: torch.Tensor,
+    reset_val: torch.Tensor,
+    t_max: int,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+    *,
+    return_picks: bool = True,
+) -> Tuple[torch.Tensor, PoolArrays]:
+    """The sharded control plane's fused step, plain: N independent shard
+    pools, each advanced by the resident step over its own view.  The
+    counterpart of yadcc_tpu/parallel/mesh.py:
+    resident_control_plane_step_fn, with its layout: the pool over
+    [N*per]; ``delta`` stacked [N, D] (env_rows [N, D, E]) with shard-
+    local slot numbers, idx == per marking padding; ``packed`` [N, 4, G];
+    adj/reset_mask/reset_val [N*per].  Returns (picks int32[N, t_max], or
+    counts int32[N, G, per] when ``return_picks`` is False, and the
+    advanced pool).  Functional, like resident_grouped_step."""
+    n = packed.shape[0]
+    per = pool.alive.shape[0] // n
+    outs, parts = [], []
+    for k in range(n):
+        view = slice(k * per, (k + 1) * per)
+        args = (PoolArrays(*(a[view] for a in pool)),
+                PoolDelta(*(a[k] for a in delta)), packed[k], adj[view],
+                reset_mask[view], reset_val[view])
+        if return_picks:
+            out, shard = resident_grouped_step(*args, t_max, cost_model)
+        else:
+            out, shard = resident_grouped_step_counts(*args, cost_model)
+        outs.append(out)
+        parts.append(shard)
+    return torch.stack(outs), PoolArrays(
+        *(torch.cat(fields) for fields in zip(*parts)))

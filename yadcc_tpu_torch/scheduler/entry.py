@@ -6,6 +6,11 @@ the inspect endpoint.  Grants are computed on the CUDA device unless
 Run:
 
     python -m yadcc_tpu_torch.scheduler.entry --port 8336
+
+With ``--shards N`` (N > 1) the servant pool is split over N shard
+dispatchers behind a ShardRouter (consistent-hash routing, cross-shard
+steal), each with its own policy, warmed before serving, launching on a
+CUDA stream of its own.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from ..common.parse_size import parse_size
 from ..common.token_verifier import make_token_verifier_from_flag
 from ..device import resolve_device
 from ..ops import cuda_assign, cuda_grouped
+from ..parallel.mesh import control_plane_shard_slices
 from ..rpc import GrpcServer
 from ..utils import exposed_vars
 from ..utils.gctune import LatencyGcGuard
@@ -26,6 +32,7 @@ from ..utils.inspect_server import InspectServer
 from ..utils.logging import get_logger
 from .policy import POLICY_NAMES, make_policy
 from .service import SchedulerService
+from .shard_router import ShardRouter
 from .task_dispatcher import TaskDispatcher
 
 logger = get_logger("scheduler.entry")
@@ -44,6 +51,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "scan; torch_resident_grouped = the grouped "
                         "kernel on a device-resident pool (pipelined)")
     p.add_argument("--max-servants", type=int, default=8192)
+    p.add_argument("--shards", type=int, default=1,
+                   help="scheduler control-plane shards: N>1 partitions "
+                        "the servant pool over N dispatchers routed by "
+                        "consistent hash, with cross-shard work stealing; "
+                        "--max-servants is the WHOLE fleet's pool, split "
+                        "per shard")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the grouped assignment runs; 'cuda' "
                         "requires a card")
@@ -78,27 +91,48 @@ def resolve_pipeline_depth(flag: str, policy, device) -> int:
     return 16 if device.type == "cuda" else 0
 
 
+def sharded_registry_size(max_servants: int, n_shards: int) -> int:
+    """Per-shard registry/pool size for the sharded control plane: the
+    ceil-split of the fleet plus headroom (+25%, join slack, rounded up
+    to 256 slots).  Consistent-hash routing is not an even split — the
+    ring's measured max/min key share is ~1.14x — so a registry sized to
+    the exact split overflows whenever a shard draws its expected
+    above-mean share, and keep-alives fail with "servant registry full"
+    while the fleet still fits --max-servants."""
+    slices = control_plane_shard_slices(max_servants, n_shards)
+    base = max(hi - lo for lo, hi in slices)
+    return max(256, (base * 10 // 8 + 64 + 255) // 256 * 256)
+
+
 def build_dispatcher(args):
-    """Policy selection + warmup + dispatcher construction.  The policy's
+    """Policy selection + warmup + dispatcher construction.  The policies'
     kernels are built and run once for the serving shapes BEFORE the
-    server accepts requests."""
+    server accepts requests.  With --shards N > 1: N policies (each
+    shard owns its policy and its CUDA stream; device kernels are not
+    shared across dispatch threads) behind a ShardRouter."""
     device = resolve_device(args.device)
-    policy = make_policy(args.dispatch_policy,
-                         avoid_self=not args.allow_self_dispatch,
-                         device=device)
-    depth = resolve_pipeline_depth(args.dispatch_pipeline_depth, policy,
-                                   device)
-    if depth > 0:
-        policy.stream_warmup(args.max_servants)
-    else:
-        policy.warmup(args.max_servants)
-    return TaskDispatcher(
-        policy,
-        max_servants=args.max_servants,
-        min_memory_for_new_task=parse_size(
-            args.servant_min_memory_for_new_task),
-        pipeline_depth=depth,
-    )
+    n = args.shards
+    if n < 1:
+        raise ValueError(f"--shards must be >= 1, got {n}")
+    width = (sharded_registry_size(args.max_servants, n) if n > 1
+             else args.max_servants)
+    policies = [make_policy(args.dispatch_policy,
+                            avoid_self=not args.allow_self_dispatch,
+                            device=device) for _ in range(n)]
+    depth = resolve_pipeline_depth(args.dispatch_pipeline_depth,
+                                   policies[0], device)
+    for policy in policies:
+        if depth > 0:
+            policy.stream_warmup(width)
+        else:
+            policy.warmup(width)
+    kwargs = dict(min_memory_for_new_task=parse_size(
+                      args.servant_min_memory_for_new_task),
+                  pipeline_depth=depth)
+    if n > 1:
+        return ShardRouter.build(lambda k: policies[k], n,
+                                 max_servants_per_shard=width, **kwargs)
+    return TaskDispatcher(policies[0], max_servants=width, **kwargs)
 
 
 def build_service(dispatcher, args) -> SchedulerService:
@@ -144,9 +178,10 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
     server.start()
     inspect = InspectServer(args.inspect_port, args.inspect_credential)
     inspect.start()
-    logger.info("scheduler serving on :%d (policy=%s, device=%s), "
-                "inspect on :%d", server.port,
-                dispatcher.inspect()["policy"], args.device, inspect.port)
+    logger.info("scheduler serving on :%d (policy=%s, device=%s, "
+                "shards=%d), inspect on :%d", server.port,
+                dispatcher.inspect()["policy"], args.device, args.shards,
+                inspect.port)
 
     if stop is None:
         stop = threading.Event()

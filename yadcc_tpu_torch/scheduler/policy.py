@@ -12,10 +12,18 @@ grouped assignment goes through the hand-written kernel K1
 (ops/cuda_grouped.py) and every sequential scan through K2
 (ops/cuda_assign.py); on "cpu" through their plain versions.  A device
 failure raises to the caller — no policy here degrades to another.
+
+On the card each device policy launches, uploads and records its events
+on a CUDA stream of its own, so the N policies of a sharded scheduler
+(one a shard, each driven by its shard's dispatch thread) neither queue
+behind each other's kernels nor wait for them before an upload from
+pageable memory.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -209,6 +217,24 @@ def _upload_pool(snap: PoolSnapshot, running, device: torch.device,
     )
 
 
+def _own_stream(device: torch.device) -> "torch.cuda.Stream | None":
+    """A CUDA stream for one policy's device work (None on the CPU)."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def _on_own_stream(method):
+    """Run a policy method with the policy's own stream current, so every
+    launch, upload and event inside it goes there."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        ctx = (torch.cuda.stream(self._cuda_stream)
+               if self._cuda_stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            return method(self, *args, **kwargs)
+    return run
+
+
 def _zero_snapshot(pool_size: int, env_words: int) -> PoolSnapshot:
     """An empty pool of the serving width for warmups (epoch -1: never
     cached as a real pool)."""
@@ -239,6 +265,7 @@ class TorchBatchedPolicy(DispatchPolicy):
     def __init__(self, device="cuda", max_batch: int = 256,
                  cost_model: DispatchCostModel = DEFAULT_COST_MODEL):
         self._device = torch.device(device)
+        self._cuda_stream = _own_stream(self._device)
         self._cm = cost_model
         self._max_batch = max_batch
         self._pool_cache = _DevicePoolCache()
@@ -248,6 +275,7 @@ class TorchBatchedPolicy(DispatchPolicy):
         self.assign(_zero_snapshot(pool_size, env_words),
                     [AssignRequest(0, 0, -1)])
 
+    @_on_own_stream
     def assign(self, snap, requests):
         n = len(requests)
         if n == 0:
@@ -288,6 +316,7 @@ class TorchGroupedPolicy(DispatchPolicy):
     def __init__(self, device="cuda", max_groups: int = 64,
                  cost_model: DispatchCostModel = DEFAULT_COST_MODEL):
         self._device = torch.device(device)
+        self._cuda_stream = _own_stream(self._device)
         self._cm = cost_model
         self._max_groups = max_groups
         self._pool_cache = _DevicePoolCache()
@@ -321,6 +350,7 @@ class TorchGroupedPolicy(DispatchPolicy):
 
     supports_stream = True
 
+    @_on_own_stream
     def stream_begin(self, snap) -> None:
         """Absolute sync point: seed the device running chain from the
         host-authoritative snapshot.  Call with no launches in flight."""
@@ -391,6 +421,7 @@ class TorchGroupedPolicy(DispatchPolicy):
                 break
             pad *= 2
 
+    @_on_own_stream
     def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
         """Run the stream step once per (group pad, task pad) of the
         ladder — the pipelined twin of warmup(): builds the kernel and
@@ -412,6 +443,7 @@ class TorchGroupedPolicy(DispatchPolicy):
         return kgrouped.cuda_assign_grouped_picks_stream(
             pool, packed, adj, rmask, rval, t_max, self._cm)
 
+    @_on_own_stream
     def stream_launch(self, snap, descr, adj, reset_slots,
                       dirty=None) -> StreamTicket:
         """Launch one chunk without waiting for the result.
@@ -490,6 +522,7 @@ class TorchGroupedPolicy(DispatchPolicy):
             chunks.append(cur)
         return chunks
 
+    @_on_own_stream
     def warmup(self, pool_size: int, env_words: int = 8) -> None:
         """Run every pad shape for this pool size once before serving:
         builds the kernel (the first call compiles it) and sizes the
@@ -510,6 +543,7 @@ class TorchGroupedPolicy(DispatchPolicy):
         self._sync()
         self._warmed_pool_shapes.add((pool_size, env_words))
 
+    @_on_own_stream
     def assign(self, snap, requests):
         # Runs of consecutive identical descriptors, in request order.
         runs: List[Tuple[tuple, List[int]]] = []
@@ -586,6 +620,7 @@ class TorchResidentGroupedPolicy(TorchGroupedPolicy):
         self.resident_pool = DeviceResidentPool(
             device, cost_model, oracle_interval=oracle_interval)
 
+    @_on_own_stream
     def stream_begin(self, snap) -> None:
         self.resident_pool.seed(snap)
         self._stream_next_id = 0
@@ -596,6 +631,7 @@ class TorchResidentGroupedPolicy(TorchGroupedPolicy):
         return (rp.seeded
                 and rp.running.shape[0] == snap.running.shape[0])
 
+    @_on_own_stream
     def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
         """Run the resident step over the (group pad, task pad) ladder at
         the floor delta pad (bigger dirty sets escalate to a full re-sync,
@@ -609,6 +645,7 @@ class TorchResidentGroupedPolicy(TorchGroupedPolicy):
                                     {}, t_pad)
         self._sync()
 
+    @_on_own_stream
     def stream_launch(self, snap, descr, adj, reset_slots,
                       dirty=None) -> StreamTicket:
         self._stream_guard(snap)

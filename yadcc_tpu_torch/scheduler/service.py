@@ -4,8 +4,11 @@ Parity with reference yadcc/scheduler/scheduler_service_impl.{h,cc}:
 token verification, NAT detection (observed vs reported endpoint forces
 capacity 0), serving-daemon token rotation (3-token rolling window,
 rotated hourly), version gating, the immediate+prefetch grant loop, and
-heartbeat-driven registry upkeep.  Single-tenant: every grant request
-takes the untenanted path.
+heartbeat-driven registry upkeep.  Given a ``tenancy=`` control, a grant
+request must carry a verifiable tenant credential, and the verified
+tenant rides admission and the grant path (tenancy/).  In front of a
+ShardRouter, the home shard is resolved once a request, and the reply
+carries each grant's shard and whether it was stolen.
 """
 
 from __future__ import annotations
@@ -78,6 +81,11 @@ class SchedulerService:
         min_daemon_version: int = 0,
         clock: Clock = REAL_CLOCK,
         token_rotation_s: float = _TOKEN_ROTATION_S,
+        # Multi-tenant QoS: a tenancy.TenancyControl.  When set,
+        # WaitForStartingTask requires a verifiable tenant credential —
+        # fail-closed: missing or invalid credentials are ACCESS_DENIED,
+        # never silently downgraded to anonymous.
+        tenancy=None,
     ):
         self.dispatcher = dispatcher
         self.bookkeeper = RunningTaskBookkeeper()
@@ -85,6 +93,7 @@ class SchedulerService:
         self._user_tokens = user_tokens
         self._servant_tokens = servant_tokens
         self._min_version = min_daemon_version
+        self.tenancy = tenancy
         # RPC-side stages of the grant path (<Method>:handler /
         # <Method>:serialize, recorded by rpc.transport.dispatch_frame);
         # the dispatcher's own stage_timer covers queue-wait -> apply.
@@ -106,6 +115,21 @@ class SchedulerService:
         return s
 
     # -- handlers ----------------------------------------------------------
+
+    def _resolve_tenant(self, req):
+        """(tenant_id, tier) for a grant request, or raise.
+
+        Tenancy disabled -> ("", "") — the legacy untenanted path.
+        Tenancy enabled  -> the credential must verify against the
+        serving-token window (fail-closed: absent and invalid are the
+        same ACCESS_DENIED; an attacker must not learn which)."""
+        if self.tenancy is None:
+            return "", ""
+        binding = self.tenancy.authenticate(req.tenant_credential)
+        if binding is None:
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "valid tenant credential required")
+        return binding.tenant_id, binding.tier
 
     def Heartbeat(self, req, attachment: bytes, ctx: RpcContext):
         if not self._servant_tokens.verify(req.token):
@@ -194,27 +218,62 @@ class SchedulerService:
         if not req.env_desc.compiler_digest:
             raise RpcError(api.scheduler.SCHEDULER_STATUS_INVALID_ARGUMENT,
                            "missing env_desc")
+        # Sharded control plane: resolve the home shard ONCE for the
+        # whole request so the admission ruling and the grant path land
+        # on the same shard's ladder (an anonymous peer is routed
+        # round-robin — two separate resolutions would rule on one
+        # shard and queue on another).  A plain dispatcher has no
+        # resolve_home.
+        resolve_home = getattr(self.dispatcher, "resolve_home", None)
+        home = (resolve_home(ctx.peer, req.env_desc.compiler_digest)
+                if resolve_home is not None else None)
+        # Tenancy: resolve the verified tenant BEFORE admission — the
+        # per-tenant budget and tier shed ride the admission ruling.
+        tenant, tier = self._resolve_tenant(req)
         # Overload ladder: rule BEFORE the request queues.  Shedding is
         # never silent — LOCAL_ONLY and REJECT answer immediately with
         # an explicit verdict (+ retry-after), SHED_OPTIONAL drops only
         # the opportunistic prefetch.
         decision = self.dispatcher.admission_check(
             immediate=req.immediate_reqs or 1,
-            prefetch=req.prefetch_reqs)
+            prefetch=req.prefetch_reqs,
+            requestor=ctx.peer,
+            tenant=tenant, tier=tier,
+            **({} if home is None else {"home": home}))
         if decision.flow != admission.FLOW_NONE:
             return api.scheduler.WaitForStartingTaskResponse(
                 flow_control=decision.flow,
                 retry_after_ms=decision.retry_after_ms,
                 degradation_rung=decision.rung)
-        grants = self.dispatcher.wait_for_starting_new_task(
-            req.env_desc.compiler_digest,
+        wait_kw = dict(
             min_version=max(req.min_version, self._min_version),
             requestor=ctx.peer,
             immediate=req.immediate_reqs or 1,
             prefetch=req.prefetch_reqs if decision.prefetch_allowed else 0,
             lease_s=lease_ms / 1000.0,
             timeout_s=wait_ms / 1000.0,
+            tenant=tenant,
         )
+        if home is not None:
+            # The router may pull grants from donor shards; the
+            # provenance rides the response.
+            routed = self.dispatcher.wait_for_starting_new_task_routed(
+                req.env_desc.compiler_digest, home=home, **wait_kw)
+            if not routed.grants:
+                raise RpcError(
+                    api.scheduler.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                    "no capacity for environment")
+            resp = api.scheduler.WaitForStartingTaskResponse(
+                degradation_rung=decision.rung,
+                shard_id=routed.shard_id,
+                stolen_grants=routed.stolen_count)
+            for g in routed.grants:
+                resp.grants.add(task_grant_id=g.grant_id,
+                                servant_location=g.servant_location,
+                                shard_id=g.shard_id, stolen=g.stolen)
+            return resp
+        grants = self.dispatcher.wait_for_starting_new_task(
+            req.env_desc.compiler_digest, **wait_kw)
         if not grants:
             raise RpcError(
                 api.scheduler.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,

@@ -11,6 +11,13 @@ resolves the whole backlog per cycle through the DispatchPolicy SPI
 Bookkeeping (leases, zombies, wakeups) stays host-side: it's I/O-shaped
 state, not math.
 
+Multi-tenant QoS: given a tenant directory, every grant is charged to its
+verified tenant's ledger at issue and released on every exit path, and
+admission rules on the tenant's budget before the overload ladder
+(tenancy/).  The sharded control plane (shard_router.py) builds N of
+these with namespaced grant ids and, for its fused cycle, drives their
+stream machinery from outside (begin_external_stream and friends).
+
 Lifecycle parity notes:
 * Servants live by heartbeat lease (reference: 1s beat / 10s lease); an
   expired servant is dropped and its grants orphan-swept
@@ -41,7 +48,9 @@ from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from ..ops.assignment import NO_PICK
-from .admission import AdmissionConfig, AdmissionDecision, OverloadLadder
+from ..tenancy import TenantDirectory, TenantLedger, apply_tier
+from .admission import (FLOW_REJECT, AdmissionConfig, AdmissionDecision,
+                        OverloadLadder)
 from .policy import AssignRequest, DispatchPolicy, EnvRegistry, PoolSnapshot
 
 logger = get_logger("scheduler.dispatcher")
@@ -98,6 +107,10 @@ class _Grant:
     expires_at: float
     zombie_since: Optional[float] = None
     requestor: str = ""
+    # Verified tenant the grant is charged to ("" = untenanted); every
+    # release path credits the tenant ledger through this field, so
+    # per-tenant outstanding counts are exact.
+    tenant: str = ""
 
 
 class _SnapBuffer:
@@ -124,6 +137,17 @@ class _SnapBuffer:
 
 
 @dataclass
+class LoadSignal:
+    """One shard's load, as the steal path sees it (load_signal())."""
+
+    capacity: int
+    outstanding: int
+    queued_immediate: int
+    utilization: float
+    free: int
+
+
+@dataclass
 class _Pending:
     env_id: int
     env_digest: str
@@ -134,6 +158,9 @@ class _Pending:
     immediate_left: int
     prefetch_left: int
     deadline: float
+    # Verified tenant this demand is attributed to ("" = untenanted):
+    # queued-demand budgeting and minted-grant attribution key on it.
+    tenant: str = ""
     enqueued_at: float = 0.0
     queue_wait_recorded: bool = False
     first_cycle_done: bool = False
@@ -161,6 +188,12 @@ class TaskDispatcher:
         start_dispatch_thread: bool = True,
         pipeline_depth: int = 0,
         admission_config: Optional[AdmissionConfig] = None,
+        grant_id_start: int = 1,
+        grant_id_stride: int = 1,
+        # Multi-tenant QoS: the directory carries per-tenant budgets and
+        # tiers; None = untenanted deployment (every tenant-typed surface
+        # degenerates to the legacy path).
+        tenant_directory: Optional[TenantDirectory] = None,
     ):
         self._policy = policy
         self._clock = clock
@@ -215,7 +248,17 @@ class TaskDispatcher:
             max_servants, np.int64)  # guarded by: self._lock
 
         self._grants: Dict[int, _Grant] = {}  # guarded by: self._lock
-        self._next_grant_id = 1  # guarded by: self._lock
+        # Sharded control plane (shard_router.py): shard k of N issues
+        # ids k+1, k+1+N, k+1+2N, ... — disjoint by construction, so a
+        # grant id alone routes its renewal/free back to the owning
+        # shard and a stolen grant can never collide with (or be
+        # re-issued by) another shard.
+        if not (1 <= grant_id_start <= grant_id_stride):
+            raise ValueError(
+                f"grant_id_start must be in [1, stride]: "
+                f"{grant_id_start=} {grant_id_stride=}")
+        self._next_grant_id = grant_id_start  # guarded by: self._lock
+        self._grant_id_stride = grant_id_stride
 
         self._pending: List[_Pending] = []  # guarded by: self._lock
         self._stopping = False  # guarded by: self._lock
@@ -223,6 +266,13 @@ class TaskDispatcher:
         self.failure: Optional[BaseException] = None  # guarded by: self._lock
         self._stats = {"granted": 0, "expired_grants": 0,
                        "zombies_killed": 0}  # guarded by: self._lock
+        # Per-tenant grant provenance ("" entries never created).
+        self._stats_by_tenant: Dict[str, Dict[str, int]] = \
+            {}  # guarded by: self._lock
+        self._tenant_directory = tenant_directory
+        # Outstanding-grant ledger: charged at issue, released on EVERY
+        # grant exit path (free, zombie kill, servant drop).
+        self.tenant_ledger = TenantLedger(tenant_directory)
         # Per-stage grant-path latency (admission -> queue-wait ->
         # snapshot -> policy -> apply), timed with the injectable
         # clock; surfaces in inspect().
@@ -440,11 +490,14 @@ class TaskDispatcher:
         prefetch: int = 0,
         lease_s: float = 15.0,
         timeout_s: float = 5.0,
+        tenant: str = "",
     ) -> List[Tuple[int, str]]:
         """Blocking allocation; returns [(grant_id, servant_location)].
 
         May return fewer grants than requested (reference semantics).
         Returns [] when no eligible servant frees up within timeout_s.
+        ``tenant`` attributes minted grants to a verified tenant for
+        budget/provenance accounting ("" = untenanted legacy path).
         Raises DispatcherFailed once a policy failure stopped the
         dispatcher.
         """
@@ -460,6 +513,7 @@ class TaskDispatcher:
                 min_version=min_version,
                 requestor_slot=self._requestor_slot_locked(requestor),
                 requestor=requestor,
+                tenant=tenant,
                 lease_s=lease_s,
                 immediate_left=max(0, immediate),
                 prefetch_left=max(0, prefetch),
@@ -559,19 +613,104 @@ class TaskDispatcher:
     # ------------------------------------------------------------------
 
     def admission_check(self, immediate: int = 1,
-                        prefetch: int = 0) -> AdmissionDecision:
+                        prefetch: int = 0,
+                        requestor: str = "",
+                        tenant: str = "",
+                        tier: str = "") -> AdmissionDecision:
         """Rule on one grant request BEFORE it queues.  Called by
         SchedulerService.WaitForStartingTask; cheap enough for the
         grant hot path (one cached-capacity read + a pending-list sum
-        under the lock, ladder bookkeeping under its leaf lock)."""
+        under the lock, ladder bookkeeping under its leaf lock).
+        ``requestor`` exists for surface parity with the shard router
+        (which routes the check to the requestor's home shard); a
+        single dispatcher has one ladder and ignores it.
+
+        Tenancy order matters: the per-tenant budget is ruled on FIRST
+        and answers with a native FLOW_REJECT that never touches the
+        ladder — an over-budget tenant's refused demand must not press
+        the global signal and degrade everyone else.  The ladder rules
+        second, and the tenant's TIER then only ever *escalates* the
+        verdict (apply_tier)."""
+        del requestor
         clock = self._clock
         t0 = clock.now()
         with self._lock:
             util, cap = self._utilization_locked(t0)
+            over = (tenant != ""
+                    and self._tenant_over_budget_locked(tenant, immediate))
+        if over:
+            with self._lock:
+                self._bump_tenant_locked(tenant, "rejected_over_budget")
+            decision = AdmissionDecision(
+                rung=self.admission.rung(), flow=FLOW_REJECT,
+                retry_after_ms=500, prefetch_allowed=False, signal=util)
+            self.stage_timer.record("admission", clock.now() - t0)
+            return decision
         decision = self.admission.decide(util, cap, immediate, prefetch,
                                          clock.now())
+        if tenant != "" or tier != "":
+            shaped = apply_tier(decision, tier)
+            if shaped.flow != decision.flow and tenant != "":
+                with self._lock:
+                    self._bump_tenant_locked(tenant, "shed_by_tier")
+            decision = shaped
         self.stage_timer.record("admission", clock.now() - t0)
         return decision
+
+    def _tenant_over_budget_locked(self, tenant: str,
+                                   immediate: int) -> bool:
+        """Budget verdict under the dispatcher lock: outstanding comes
+        from the ledger (exact), queued demand is summed live from the
+        pending table — no shadow counter that could leak on one of the
+        many pending-exit paths."""
+        spec = (self._tenant_directory.get(tenant)
+                if self._tenant_directory is not None else None)
+        if spec is None:
+            return False
+        if spec.max_outstanding and (
+                self.tenant_ledger.outstanding(tenant) + immediate
+                > spec.max_outstanding):
+            return True
+        if spec.max_queued and sum(
+                r.immediate_left for r in self._pending
+                if r.tenant == tenant and not r.abandoned
+                ) >= spec.max_queued:
+            return True
+        return False
+
+    def _bump_tenant_locked(self, tenant: str, counter: str) -> None:
+        per = self._stats_by_tenant.setdefault(
+            tenant, {"granted": 0, "rejected_over_budget": 0,
+                     "shed_by_tier": 0})
+        per[counter] += 1
+
+    def load_signal(self) -> LoadSignal:
+        """The admission load signal, exported for the shard router's
+        steal decision: demand = outstanding grants + queued immediate;
+        free capacity is what a donor shard could give away right now.
+        Same definitions as _utilization_locked — one signal, two
+        consumers (ladder and steal), so they can never disagree about
+        what "overloaded" means."""
+        with self._lock:
+            now = self._clock.now()
+            cap = self._capacity_total_locked(now)
+            outstanding = len(self._grants)
+            queued = sum(r.immediate_left for r in self._pending)
+        util = (outstanding + queued) / cap if cap > 0 else 0.0
+        return LoadSignal(
+            capacity=cap, outstanding=outstanding,
+            queued_immediate=queued, utilization=util,
+            free=max(0, cap - outstanding))
+
+    def pool_load_arrays(self):
+        """(alive, effective_capacity, running) copies for the shard
+        router's cross-shard load summary (parallel/mesh.py:
+        shard_load_summary).  One O(S) vectorized copy under the lock;
+        callers own the result."""
+        with self._lock:
+            return (self._arr_alive.copy(),
+                    self._effective_capacity_at_locked(slice(None)),
+                    self._arr_running.copy())
 
     def _utilization_locked(self, now: float) -> Tuple[float, int]:
         """(demand / capacity, capacity).  Demand counts every
@@ -814,8 +953,9 @@ class TaskDispatcher:
             env_digest=req.env_digest,
             expires_at=now + req.lease_s,
             requestor=req.requestor,
+            tenant=req.tenant,
         )
-        self._next_grant_id += 1
+        self._next_grant_id += self._grant_id_stride
         self._grants[g.grant_id] = g
         servant.running_grants.add(g.grant_id)
         self._arr_running[pick] += 1
@@ -828,6 +968,9 @@ class TaskDispatcher:
         else:
             req.immediate_left -= 1
         self._stats["granted"] += 1
+        if g.tenant:
+            self.tenant_ledger.charge(g.tenant)
+            self._bump_tenant_locked(g.tenant, "granted")
         return True
 
     # ------------------------------------------------------------------
@@ -1019,6 +1162,53 @@ class TaskDispatcher:
         return self.apply_stream_picks(
             self._policy.stream_collect(ticket), work, snap_generation,
             lid, snap)
+
+    # -- external stream driving (the fused shard router) -----------------
+    #
+    # The router's one-launch-for-N-shards cycle drives each shard's
+    # stream machinery from ITS thread: it prepares every shard's
+    # launch, runs ONE fused device step, and routes each shard's picks
+    # back through apply_stream_picks — the SAME validation/issue/
+    # correction path the in-process pipelined loop uses, so grant
+    # bookkeeping semantics cannot fork.  Requires
+    # start_dispatch_thread=False (exactly one caller drives a
+    # dispatcher's stream).
+
+    def begin_external_stream(self) -> PoolSnapshot:
+        """Arm the stream delta machinery (adj/reset/dirty tracking)
+        and return a full snapshot to seed the device chain from."""
+        with self._lock:
+            if self._thread is not None:
+                raise RuntimeError(
+                    "external stream driving needs "
+                    "start_dispatch_thread=False: the dispatch thread "
+                    "already drives this dispatcher's stream")
+            self._pipe_active = True
+            self._pipe_adj[:] = 0
+            self._pipe_resets.clear()
+            self._stream_dirty.clear()
+            return self._snapshot_full_locked()
+
+    def prepare_stream_launch(self):
+        """One locked launch preparation: (work, descr, snap, gen, adj,
+        resets, lid, dirty) or None when nothing is launchable.  The
+        snapshot lease rides the tuple until apply_stream_picks (pass
+        it as `snap=`) or release_stream_launch."""
+        with self._lock:
+            return self._select_stream_work_locked()
+
+    def release_stream_launch(self, launch) -> None:
+        """Roll back a prepared launch that never reached the device
+        (mirror of the pipelined loop's error path)."""
+        with self._lock:
+            work, _, snap, _, _, _, _, _ = launch
+            self._release_snapshot_locked(snap)
+            for req, is_prefetch in work:
+                if is_prefetch:
+                    req.inflight_pre -= 1
+                    req.prefetch_launched = False
+                else:
+                    req.inflight_imm -= 1
 
     def apply_stream_picks(self, picks, work, snap_generation, lid,
                            snap=None) -> int:
@@ -1281,8 +1471,11 @@ class TaskDispatcher:
             return
         # Orphan sweep: grants on a dead servant are unrecoverable.
         for gid in list(servant.running_grants):
-            if self._grants.pop(gid, None) is not None:
+            g = self._grants.pop(gid, None)
+            if g is not None:
                 servant.running_grants.discard(gid)
+                if g.tenant:
+                    self.tenant_ledger.release(g.tenant)
         del self._by_location[servant.info.location]
         ip = servant.info.location.rsplit(":", 1)[0]
         slots = self._by_ip.get(ip)
@@ -1302,7 +1495,8 @@ class TaskDispatcher:
             self._pipe_adj[slot] = 0
 
     def _release_grant_locked(self, g: _Grant) -> None:
-        self._grants.pop(g.grant_id, None)
+        if self._grants.pop(g.grant_id, None) is not None and g.tenant:
+            self.tenant_ledger.release(g.tenant)
         servant = self._slots[g.slot] if g.slot < len(self._slots) else None
         if servant is not None and servant.info.location == g.servant_location:
             if g.grant_id in servant.running_grants:
@@ -1357,6 +1551,11 @@ class TaskDispatcher:
                                if g.zombie_since is not None),
                 "pending_requests": len(self._pending),
                 "stats": dict(self._stats),
+                # Per-tenant grant/budget provenance; outstanding and
+                # queued live in the ledger snapshot.
+                "stats_by_tenant": {k: dict(v) for k, v
+                                    in self._stats_by_tenant.items()},
+                "tenant_budgets": self.tenant_ledger.inspect(),
                 "failure": (None if self.failure is None
                             else repr(self.failure)),
                 "envs_interned": len(self._envs),

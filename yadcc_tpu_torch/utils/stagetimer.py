@@ -75,6 +75,14 @@ class StageTimer:
                 r.n = r.count = 0
                 r.total = 0.0
 
+    def samples(self) -> Dict[str, tuple]:
+        """{stage: (retained samples in seconds, lifetime count)} for
+        every stage that recorded — what a caller pooling several timers
+        (the shard router's aggregate breakdown) needs."""
+        with self._lock:
+            return {name: (r.buf[: r.n].copy(), r.count)
+                    for name, r in self._stages.items() if r.n > 0}
+
     def percentiles(self) -> Dict[str, Dict[str, float]]:
         """{stage: {count, mean_ms, p50_ms, p99_ms}} over the retained
         window (the last `maxlen` samples per stage)."""
