@@ -1814,6 +1814,7 @@ def run_fused_path(report: list) -> dict:
     import numpy as np
     import torch
 
+    from yadcc_tpu_torch.ops import cuda_assign as ka
     from yadcc_tpu_torch.ops import cuda_grouped as kg
     from yadcc_tpu_torch.parallel import mesh
     from yadcc_tpu_torch.scheduler.admission import FLOW_NONE, FLOW_REJECT
@@ -1940,6 +1941,7 @@ def run_fused_path(report: list) -> dict:
                for t in FUSED_TENANTS for k in range(n)]
     threads.append(threading.Thread(target=churn, daemon=True))
     kg.launches = 0
+    ka.launches = 0
     for t in threads:
         t.start()
     t0 = time.perf_counter()
@@ -1958,6 +1960,7 @@ def run_fused_path(report: list) -> dict:
             time.sleep(0.0002)
     elapsed = time.perf_counter() - t0
     launched = kg.launches
+    launched_k2 = ka.launches
     done.set()
     # Drain: requests still waiting get their last cycles.
     while any(t.is_alive() for t in threads):
@@ -1974,6 +1977,8 @@ def run_fused_path(report: list) -> dict:
           f"fused: oracle {stats}")
     check(launched > 0 and launched == len(cycle_s),
           f"fused: {launched} K1 launches over {len(cycle_s)} cycles")
+    check(launched_k2 == 0, f"fused: {launched_k2} K2 launches on a path "
+                            f"that runs only K1")
     check(totals["rejected"] > 0, "fused: no budget ever bound")
 
     # The load summary against the host's truth (every grant freed, the
@@ -2003,6 +2008,7 @@ def run_fused_path(report: list) -> dict:
     router.stop()
     cyc = np.array(cycle_s) * 1e3
     res = dict(cycles=stats["fused_cycles"], launches=launched,
+               k2_launches=launched_k2,
                shard_launches=stats["fused_shard_launches"],
                oracle_checks=stats["oracle_checks"],
                grants=totals["grants"], seconds=elapsed,
@@ -2824,7 +2830,7 @@ def main() -> int:
     overlap = measure_shard_overlap(report)
     fused = run_fused_path(report)
     phases["fused"] = {"launches": {"grouped_assign": fused["launches"],
-                                    "assign_batch": 0}}
+                                    "assign_batch": fused["k2_launches"]}}
     log("phases 8-9 the sharded scheduler:")
     for line in report:
         log(line)

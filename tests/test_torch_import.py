@@ -33,6 +33,7 @@ _SHARD_MODULES = (
 
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "chip_k1_ab.py",
                                         REPO / "chip_k2_probe.py",
                                         REPO / "chip_bloom_probe.py"]
 
@@ -73,7 +74,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                 "yadcc_tpu_torch." + m for m in BLOOM + SHARD):
             assert name in names, name
             importlib.import_module(name)
-        import chip_bloom_probe, chip_k2_probe, chip_smoke  # noqa: F401
+        import chip_bloom_probe, chip_k1_ab, chip_k2_probe  # noqa: F401
+        import chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
                         if n == "yadcc_tpu" or n.startswith("yadcc_tpu.")
                         or (n.startswith(("jax", "xxhash"))

@@ -50,9 +50,10 @@
 // of yadcc_tpu/parallel/mesh.py:resident_control_plane_step_fn): the
 // shards are independent pools, so the launch takes gridDim.x = n_shards
 // blocks, one a shard, each on an SM of its own.  Block k reads and writes
-// shard k's slice: every per-slot array at k*S (the environment bitmap at
-// k*S*env_words), the group arrays at k*G, counts at k*G*S, the global
-// scratch at k*scratch_bytes(S).  A single pool is the grid of one.
+// shard k's slice: every per-slot array from slot k*S (the environment
+// bitmap from row k*S), the group arrays from k*G, counts from row k*G, the
+// global scratch from k*scratch_bytes(S).  A single pool is the grid of
+// one.
 //
 // Integer traps, all mirrored from the plain version:
 //   * floor, not truncation: ((x+1)*cap-1) // UTIL_SCALE has a negative
@@ -179,22 +180,14 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ long long red_buf[2][2 * kWarps];
 
-  // This block's shard: offset every array to its slice.
-  const long long shard = blockIdx.x;
-  alive += shard * S;
-  capacity += shard * S;
-  running_in += shard * S;
-  dedicated += shard * S;
-  version += shard * S;
-  env_bitmap += shard * S * env_words;
-  g_env += shard * G;
-  g_minv += shard * G;
-  g_req += shard * G;
-  g_count += shard * G;
-  counts_out += shard * G * S;
-  running_out += shard * S;
+  // This block's shard: its slots start at `so` and its groups at `go` in
+  // every array.  The offsets enter each index, not the pointers, so the
+  // pointers stay kernel parameters (no registers held across the loops).
+  const int so = blockIdx.x * S;
+  const int go = blockIdx.x * G;
 
-  uint8_t* base = use_shared ? smem : global_scratch + shard * scratch_bytes(S);
+  uint8_t* base = use_shared
+      ? smem : global_scratch + blockIdx.x * scratch_bytes(S);
   SlotState st;
   st.run = reinterpret_cast<int32_t*>(base);
   st.c_slot = st.run + S;
@@ -214,7 +207,7 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
 
   bool nonneg = true;
   for (int s = tid; s < S; s += kThreads) {
-    const int32_t r = running_in[s];
+    const int32_t r = running_in[so + s];
     st.run[s] = r;
     nonneg = nonneg && r >= 0;
   }
@@ -229,19 +222,19 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
   int half = 0;  // which half of red_buf the next reduction uses
 
   for (int g = 0; g < G; ++g) {
-    const long long m = g_count[g];
-    int32_t* row = counts_out + (long long)g * S;
+    const long long m = g_count[go + g];
+    int32_t* row = counts_out + (long long)(go + g) * S;
     if (m <= 0 && skip_empty) {
       for (int s = tid; s < S; s += kThreads) row[s] = 0;
       continue;
     }
-    const int env = g_env[g];
+    const int env = g_env[go + g];
     const int word = env >> 5;
     const int bit = env & 31;
     const bool word_inside = word >= -env_words && word < env_words;
     const int word_col = word < 0 ? word + env_words : word;
-    const int minv = g_minv[g];
-    const int req = g_req[g];
+    const int minv = g_minv[go + g];
+    const int req = g_req[go + g];
 
     // Compaction, pass 1: which slots are active; inactive ones count 0.
     int w_active = 0;
@@ -251,10 +244,11 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
       bool active = false;
       if (s < w_hi) {
         const int32_t w = word_inside
-            ? env_bitmap[(long long)s * env_words + word_col] : -1;
-        const bool eligible = alive[s] && ((w >> bit) & 1) != 0 &&
-                              version[s] >= minv && !(avoid_self && s == req);
-        active = eligible && (long long)capacity[s] - st.run[s] > 0;
+            ? env_bitmap[(long long)(so + s) * env_words + word_col] : -1;
+        const bool eligible = alive[so + s] && ((w >> bit) & 1) != 0 &&
+                              version[so + s] >= minv &&
+                              !(avoid_self && s == req);
+        active = eligible && (long long)capacity[so + s] - st.run[s] > 0;
         if (!active) row[s] = 0;
       }
       const uint32_t mask = __ballot_sync(kFull, active);
@@ -277,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
       if ((mask >> lane) & 1u) {
         const int s = b + lane;
         const int i = pos + __popc(mask & ((1u << lane) - 1u));
-        const int32_t c = capacity[s];
+        const int32_t c = capacity[so + s];
         const int32_t r = st.run[s];
         const int32_t a = (int32_t)((long long)c - r);
         const int32_t c1 = c > 1 ? c : 1;
@@ -285,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
         st.c_cap1[i] = c1;
         st.c_run[i] = r;
         st.c_avail[i] = a;
-        st.c_pref[i] = dedicated[s]
+        st.c_pref[i] = dedicated[so + s]
             ? (int32_t)ks_with_u_leq(p.pref_thresh_q - 1, c1, r, a) : 0;
       }
       pos += __popc(mask);
@@ -347,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
     __syncthreads();
   }
 
-  for (int s = tid; s < S; s += kThreads) running_out[s] = st.run[s];
+  for (int s = tid; s < S; s += kThreads) running_out[so + s] = st.run[s];
 }
 
 }  // namespace
@@ -362,8 +356,9 @@ long long yadcc_grouped_assign_scratch_bytes(int S) {
 
 // Launches K1 on `stream` over n_shards pools of S slots and G groups each,
 // laid out shard after shard (one block a shard).  Returns
-// cudaGetLastError() after the launch (0 = launched); the caller raises on
-// anything else.
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue when n_shards * S or n_shards * G does not fit the
+// kernel's int32 indices; the caller raises on anything but 0.
 int yadcc_grouped_assign(const void* alive, const void* capacity,
                          const void* running_in, const void* dedicated,
                          const void* version, const void* env_bitmap,
@@ -373,6 +368,9 @@ int yadcc_grouped_assign(const void* alive, const void* capacity,
                          long long bonus_q, int avoid_self, void* counts_out,
                          void* running_out, void* global_scratch,
                          void* stream) {
+  if (n_shards < 1 || (long long)n_shards * S > 0x7fffffffLL ||
+      (long long)n_shards * G > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;

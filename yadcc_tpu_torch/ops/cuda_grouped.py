@@ -187,9 +187,8 @@ def cuda_resident_grouped_step(
     cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
 ) -> Tuple[torch.Tensor, PoolArrays]:
     """The device-resident step through the kernel, the counterpart of
-    pallas_grouped.pallas_resident_grouped_step: the delta scatter, the
-    running fold and the expansion are torch ops on the card around one
-    K1 launch (assignment_grouped.resident_grouped_step is the plain
+    pallas_grouped.pallas_resident_grouped_step: the fused step below with
+    one shard (assignment_grouped.resident_grouped_step is the plain
     twin).  The JAX step donates the pool; here the pool's own tensors are
     updated in place on the current stream, and the returned pool holds
     them.  CPU tensors take the plain (functional) step."""
@@ -197,17 +196,10 @@ def cuda_resident_grouped_step(
         return asg.resident_grouped_step(pool, delta, packed, adj,
                                          reset_mask, reset_val, t_max,
                                          cost_model)
-    new = asg.apply_pool_delta(pool, delta)
-    running = asg.fold_stream_delta(pool.running, adj, reset_mask,
-                                    reset_val)
-    batch = asg.unpack_grouped(packed)
-    counts, running = cuda_assign_grouped(new._replace(running=running),
-                                          batch, cost_model)
-    picks = asg.expand_counts(counts, batch.count, t_max)
-    for name in PoolArrays._fields:
-        getattr(pool, name).copy_(
-            running if name == "running" else getattr(new, name))
-    return picks, pool
+    picks, pool = cuda_resident_control_plane_step(
+        pool, asg.PoolDelta(*(a.unsqueeze(0) for a in delta)),
+        packed.unsqueeze(0), adj, reset_mask, reset_val, t_max, cost_model)
+    return picks[0], pool
 
 
 def cuda_resident_control_plane_step(
@@ -235,7 +227,7 @@ def cuda_resident_control_plane_step(
     every padding entry to one sink past the whole pool (padding must
     never land on the next shard's slot 0); the running fold and the
     per-shard expansion are torch ops around the launch.  The pool's own
-    tensors are updated in place, as in cuda_resident_grouped_step.
+    tensors are updated in place.
     Returns (picks int32[N, t_max], or counts int32[N, G, per] when
     ``return_picks`` is False, and the pool)."""
     if pool.alive.device.type == "cpu":
