@@ -10,7 +10,7 @@ Phases (any failure exits non-zero without printing the result line):
 1. card and build: the card's name and power limit, then every kernel
    source built from csrc/ with nvcc, one nvcc per source, all started
    together: the grouped assignment (K1), the sequential scan (K2) and
-   the Bloom kernels (bloom.cu);
+   the Bloom and placement kernels (bloom.cu);
 2. kernels vs plain: K1 and its five wrappers (the resident step chained
    over cycles with churn among them), and K2, held against the plain
    PyTorch versions on the card, exactly (integer arithmetic, so the
@@ -22,7 +22,13 @@ Phases (any failure exits non-zero without printing the result line):
    chained, at N = 1, 2 and 8 shards with uneven loads, an idle shard,
    padding beside the next shard's slot 0 and shards beyond shared
    memory; the kernels' times, the grid at 8 shards x 8,192 slots beside
-   one and eight single-shard launches;
+   one and eight single-shard launches; the spill-placement kernel
+   (csrc/bloom.cu: the cells x tasks score, then its argmin) against
+   placement_score_plain and the host oracle at 1, 3, 7 and 8 cells, 1
+   and 8 tasks, 1, 32 and 256 keys of 23 and 80 bytes, three salts, two
+   geometries, with filterless, ineligible and all-ineligible cells, a
+   tie, padding keys and a mixed batch, its refusals, and its time at a
+   spill decision's shape and at 8 cells x 256 keys x 8 tasks;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
    servants registered by Heartbeat, 24 delegates driving >= 200,000
@@ -71,7 +77,25 @@ Phases (any failure exits non-zero without printing the result line):
    threads ruled by admission and granted through >= 1,000 fused cycles
    (each one launch of K1 over the grid of 8 shards); no tenant's ledger
    above its budget, every ledger 0 at the end, the fused oracle clean,
-   the load summary equal to the host's; the routing hash's cost a call.
+   the load summary equal to the host's; the routing hash's cost a call;
+10. the warm-standby takeover: a --standby entry (its policy warmed on
+   the card at boot) behind an active entry with phase 3's defaults and
+   --replicate-to; 5,000 servants; 24 delegates drive >= 50,000 grants,
+   each holding its first 8 (renewed); SIGKILL of the active mid-drive,
+   the grants of its last 0.1 s held as well (the journal's gap); before
+   the promotion the standby refuses (REJECT with a retry-after,
+   NOT_SERVING with the hint); after it the fleet re-heartbeats with what
+   it runs, every held grant renews once, >= 100,000 more grants go
+   through the standby's K1; phase 3's checks across the kill (adopted
+   grants counted), no id issued twice, the standby's outstanding grants
+   0 at the end, its K1 launches 0 before the promotion and > 0 after;
+11. the federation plane, in process: 8 cells of 1,024 slots (auto on
+   the card, each on its own stream), phase 3's servants split by cell,
+   cell 0 held at the spillover rung, each peer's production-geometry
+   filter built on the card by the scatter-OR; >= 2,000 scored spill
+   decisions, every pick and score row equal to the host oracle's, the
+   kernel's launches equal to the scored decisions, spilled grants'
+   renewals and frees routed home, no id in two cells.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler processes go to
@@ -2071,6 +2095,8 @@ BLOOM_RAW_N = (1, 255, 257)
 # probe bit set by the scatter (the same, with the atomic OR for the test).
 XXH_MUL, XXH_STEP = 4, 2
 BLOOM_PROBE_OPS = 5
+# The Bloom path's kernels (bloom_bench.run launches each of them).
+BLOOM_PATH_KERNELS = ("membership", "cascade", "probe", "scatter_or")
 
 
 def xxh64_ops(length: int) -> int:
@@ -2715,7 +2741,7 @@ def run_bloom_main_path(report: list) -> dict:
     t0 = time.perf_counter()
     res = bloom_bench.run(BLOOM_N, BLOOM_N, device="cuda")
     wall = time.perf_counter() - t0
-    launched = dict(kb.launches)
+    launched = {name: kb.launches[name] for name in BLOOM_PATH_KERNELS}
     for name, count in launched.items():
         check(count > 0, f"bloom main path: kernel {name} never launched")
     report.append(f"  bloom_bench.run({BLOOM_N:,}, {BLOOM_N:,}) in "
@@ -2742,6 +2768,1108 @@ def run_bloom_main_path(report: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 (placement): the cells x tasks spill-placement kernel.
+# ---------------------------------------------------------------------------
+
+PLACE_CELLS = (1, 3, 7, 8)
+PLACE_TASKS = (1, 8)
+PLACE_N = (1, 32, 256)
+PLACE_LENGTHS = (23, 80)
+PLACE_SALTS = (0, 17, (1 << 63) + 5)
+PLACE_GEOMETRIES = ((27_584_639, 10), (1000, 7))
+PLACE_PATH = (7, 32, 1)        # a spill decision: 7 peers, 32 keys, T = 1
+PLACE_WIDE = (8, 256, 8)
+
+
+def placement_kw(length: int, num_bits: int, num_hashes: int) -> dict:
+    from yadcc_tpu_torch.scheduler import placement as pl
+
+    return dict(length=length, num_bits=num_bits, num_hashes=num_hashes,
+                warm_scale=pl.WARM_SCALE, w_warm=pl.W_WARM,
+                w_load=pl.W_LOAD, w_topo=pl.W_TOPO)
+
+
+def placement_case(rng, c_n, t_n, n, length, num_bits, num_hashes, dev, *,
+                   pad=0, salt0=0, no_filter=(), ineligible=(),
+                   tie=False, hit=0.5):
+    """One placement call's inputs from a seed: ``n`` keys of ``length``
+    bytes owned by tasks 0..t_n-2 (the last task owns none when t_n > 1),
+    ``pad`` padding keys with task -1, one host filter a cell holding a
+    ``hit`` share of the keys (with ``tie``, every cell the same filter,
+    salt and terms).  Returns (the wrapper's arguments with the words on
+    ``dev``, its keywords, the host oracle's three results, the host
+    filters and the keys)."""
+    import numpy as np
+
+    from yadcc_tpu_torch.common import bloom
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.scheduler import placement as pl
+
+    keys = [bytes(rng.integers(97, 123, length, dtype=np.uint8)).decode()
+            for _ in range(n + pad)]
+    owner = np.concatenate([rng.integers(0, max(1, t_n - 1), n),
+                            np.full(pad, -1)]).astype(np.int32)
+    filters = []
+    for c in range(c_n):
+        if c in no_filter:
+            filters.append(None)
+        elif tie and filters and filters[0] is not None:
+            filters.append(filters[0])
+        else:
+            salt = PLACE_SALTS[(salt0 + c) % len(PLACE_SALTS)]
+            f = bloom.SaltedBloomFilter(num_bits, num_hashes, salt)
+            members = [k for k in keys if rng.random() < hit]
+            f.add_many(members + [f"other-{c}-{i}" for i in range(64)])
+            filters.append(f)
+    (_, idx, packed), = bpl.pack_key_buckets(keys)
+    counts = np.bincount(owner[owner >= 0], minlength=t_n).astype(np.int32)
+    terms = np.stack([rng.integers(0, 4096, c_n), rng.integers(0, 5, c_n),
+                      [c not in ineligible for c in range(c_n)],
+                      [f is not None for f in filters]]).astype(np.int32)
+    if tie:
+        terms[:2] = terms[:2, :1]
+    hits = np.zeros((c_n, t_n), np.int32)
+    for c, f in enumerate(filters):
+        if f is not None:
+            ok = f.may_contain_batch(keys)
+            np.add.at(hits[c], owner[ok & (owner >= 0)], 1)
+    want = pl.reference_scores(hits, counts, terms[0], terms[1], terms[2],
+                               terms[3])
+    words = [None if f is None else bpl.as_device_words(f.words, dev)
+             for f in filters]
+    seeds = np.stack([bpl.seed_pair(f.salt if f is not None else 0)
+                      for f in filters])
+    return ((words, seeds, terms, packed, owner, counts),
+            placement_kw(length, num_bits, num_hashes), want, filters, keys)
+
+
+def compare_placement_call(args, kw, want, tag) -> None:
+    """The kernel against its plain version on the card and the host."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    got = kb.placement_score(*args, **kw)
+    plain = bpl.placement_score_plain(*args, device=torch.device("cuda"),
+                                      **kw)
+    for name, g, p, w in zip(("scores", "best_cell", "best_score"), got,
+                             plain, want):
+        check(torch.equal(g, p), f"placement {name} != plain: {tag}")
+        check(np.array_equal(g.cpu().numpy(), w),
+              f"placement {name} != host: {tag}")
+
+
+def compare_placement(report: list) -> None:
+    """Phase 2: the placement kernel against placement_score_plain on the
+    card and the host oracle, at tolerance 0: 1, 3, 7 and 8 cells, 1 and 8
+    tasks, 1, 32 and 256 keys of 23 and 80 bytes, salts 0, 17 and 2^63 +
+    5, the production geometry and a 1,000-bit filter, with a cell
+    without a filter, an ineligible cell, padding keys and a task without
+    keys; every cell ineligible; a tie across cells; a mixed batch through
+    prepare_probe_batch; the refusals."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.common import bloom
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.scheduler import placement as pl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(110)
+    cases = 0
+    for i, (c_n, t_n, n, length) in enumerate(itertools.product(
+            PLACE_CELLS, PLACE_TASKS, PLACE_N, PLACE_LENGTHS)):
+        bits, k = PLACE_GEOMETRIES[i % 2]
+        extra = dict(salt0=i, pad=3 if t_n > 1 else 0,
+                     no_filter=(1,) if c_n >= 3 else (),
+                     ineligible=(c_n - 1,) if c_n >= 3 else ())
+        args, kw, want, _, _ = placement_case(rng, c_n, t_n, n, length, bits,
+                                              k, dev, **extra)
+        compare_placement_call(args, kw, want, f"C {c_n} T {t_n} N {n} "
+                               f"length {length} bits {bits}")
+        cases += 1
+    # Every cell ineligible: each best score is 2^30, the best cell 0.
+    args, kw, want, _, _ = placement_case(
+        rng, 7, 8, 32, 80, *PLACE_GEOMETRIES[0], dev,
+        ineligible=tuple(range(7)))
+    compare_placement_call(args, kw, want, "all ineligible")
+    check((want[2] == pl.BIG).all() and (want[1] == 0).all(),
+          "all ineligible: the host oracle's best is not 2^30 at cell 0")
+    # A tie across cells: the lowest cell wins.
+    args, kw, want, _, _ = placement_case(
+        rng, 8, 8, 256, 23, *PLACE_GEOMETRIES[1], dev, tie=True)
+    compare_placement_call(args, kw, want, "tie")
+    check((want[1] == 0).all() and (want[0] == want[0][:1]).all(),
+          "tie: the cells' scores differ")
+    # A mixed batch: prepare_probe_batch keeps the dominant length class.
+    mixed = [[f"k{i:022d}" for i in range(12)] + ["short", "mid-len-key"],
+             [f"v{i:078d}" for i in range(5)] + ["x" * 23] * 3, []]
+    batch = pl.prepare_probe_batch(mixed)
+    check(batch.length == 23 and batch.dropped == 7, "mixed batch classes")
+    cells = []
+    for c, salt in enumerate(PLACE_SALTS):
+        f = bloom.SaltedBloomFilter(*PLACE_GEOMETRIES[0], salt)
+        f.add_many(mixed[0][c::2])
+        cells.append(pl.CellCandidate(c, 0.25 * c, c, True, f))
+    want = pl.host_reference_placement(cells, mixed)
+    got = pl.DevicePlacementScorer().score(cells, mixed)
+    for f in ("scores", "best_cell", "best_score"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)),
+              f"mixed batch {f}: scorer != host")
+    cases += 3
+
+    # Refusals, before any launch.
+    before = dict(kb.launches)
+    args, kw, _, _, _ = placement_case(rng, 2, 2, 8, 23, 1000, 7, dev)
+    words, seeds, terms, packed, owner, counts = args
+    bad = [
+        ("4,097 tasks", (words, seeds, terms, packed, owner,
+                         np.zeros(kb.PLACE_MAX_TASKS + 1, np.int32))),
+        ("a count above 2^21", (words, seeds, terms, packed, owner,
+                                np.array([kb.PLACE_MAX_COUNT + 1, 0],
+                                         np.int32))),
+        ("filters of differing geometry", ([words[0], words[1][:-1]],
+                                           seeds, terms, packed, owner,
+                                           counts)),
+        ("words on the CPU and the card", ([words[0], words[1].cpu()],
+                                           seeds, terms, packed, owner,
+                                           counts)),
+        ("int64 words", ([words[0].long(), words[1]], seeds, terms, packed,
+                         owner, counts)),
+        ("non-contiguous words", ([torch.stack([words[0], words[0]], 1)[:, 0],
+                                   words[1]], seeds, terms, packed, owner,
+                                  counts)),
+        ("no cell", ([], seeds[:0], terms[:, :0], packed, owner, counts)),
+        ("packed rows for another length", (words, seeds, terms,
+                                            packed[:, :2], owner, counts)),
+    ]
+    for what, call in bad:
+        try:
+            kb.placement_score(*call, **kw)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure(f"placement wrapper accepted {what}")
+    check(kb.launches == before, "a refused placement call launched")
+    torch.cuda.synchronize()
+    report.append(f"  placement: {cases} cases (C {PLACE_CELLS}, T "
+                  f"{PLACE_TASKS}, N {PLACE_N}, lengths {PLACE_LENGTHS}, "
+                  f"salts {PLACE_SALTS}, geometries {PLACE_GEOMETRIES}; a "
+                  f"cell without a filter, an ineligible cell, padding keys, "
+                  f"a task without keys, every cell ineligible, a tie, a "
+                  f"mixed batch) equal to the plain version and the host "
+                  f"oracle; {len(bad)} refusals without a launch")
+
+
+def placement_bound(filters, keys, counts_shape, length, num_bits,
+                    num_hashes) -> dict:
+    """The placement call's bound on this data: each key row, the cells'
+    terms and seeds, the counts and each key's task read once, each filter
+    word a probe needs read once (the early exit's probes, per cell),
+    the scores and picks written once; each cell's digest of every key and
+    the probes its early exit evaluates."""
+    import numpy as np
+
+    from yadcc_tpu_torch.common import bloom
+
+    c_n, (t_n,) = len(filters), counts_shape
+    n = len(keys)
+    row_bytes = -(-length // 8) * 8
+    words_needed, probes = 0, 0
+    for f in filters:
+        if f is None:
+            continue
+        fps = bloom.key_fingerprints(keys, f.salt)
+        per_key, _ = probes_needed(f.words, fps, num_bits, num_hashes)
+        i = np.arange(num_hashes, dtype=np.uint32)[None, :]
+        idx = (fps[:, :1] + i * fps[:, 1:]) % np.uint32(num_bits)
+        used = i < per_key[:, None]
+        words_needed += len(np.unique(idx[used] >> 5))
+        probes += int(per_key.sum())
+    nbytes = (n * row_bytes + n * 4 + c_n * (16 + 16) + t_n * 4
+              + words_needed * 4 + (c_n * t_n + 2 * t_n) * 4)
+    ops = (c_n * n * xxh64_ops(length) + probes * BLOOM_PROBE_OPS
+           + c_n * t_n * 8)
+    return bloom_bound(nbytes, ops)
+
+
+def time_placement(report: list) -> dict:
+    """The placement kernel's time (CUDA events over 50 warm launches of
+    the score and argmin on a staged buffer), the plain version's and the
+    whole wrapper call's (host staging, one copy up, the launches, one copy
+    back), at a spill decision's shape (7 peers, 32 keys of 80 bytes,
+    T = 1, the production geometry, half the keys warm) and at 8 cells,
+    256 keys, T = 8; each beside its bound."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(111)
+    out = {}
+    for name, (c_n, n, t_n) in (("path", PLACE_PATH), ("wide", PLACE_WIDE)):
+        args, kw, want, filters, keys = placement_case(
+            rng, c_n, t_n, n, 80, *PLACE_GEOMETRIES[0], dev)
+        words, seeds, terms, packed, owner, counts = args
+        staged, offsets = kb.placement_stage(dev, words, seeds, terms,
+                                             packed, owner, counts)
+        res = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32,
+                          device=dev)
+
+        def run():
+            kb.placement_run(staged, offsets, c_n, t_n, n, packed.shape[1],
+                             res, **kw)
+
+        ms = timed(run, 50)
+        check(np.array_equal(res[:c_n * t_n].cpu().numpy(),
+                             want[0].reshape(-1)), f"timed {name} placement")
+        plain_ms = timed(lambda: bpl.placement_score_plain(
+            *args, device=dev, **kw), 10)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            kb.placement_score(*args, out=res, **kw)
+            res.cpu()
+        call_ms = (time.perf_counter() - t0) / 50 * 1e3
+        bound = placement_bound(filters, keys, counts.shape, 80,
+                                *PLACE_GEOMETRIES[0])
+        out[name] = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
+                         C=c_n, N=n, T=t_n, **bound)
+        report.append(
+            f"  placement at C {c_n} N {n} T {t_n} (80-byte keys, "
+            f"production geometry): kernel {ms:.4f} ms (score + argmin), "
+            f"plain {plain_ms:.4f} ms, whole call {call_ms:.4f} ms (host "
+            f"clock); bound {bound['bound_ms'] * 1e3:.4f} us by "
+            f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['ops']} "
+            f"ops)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the warm-standby takeover.
+# ---------------------------------------------------------------------------
+
+TAKEOVER_PRE_GRANTS = 50_000      # through the active, before the kill
+TAKEOVER_POST_GRANTS = 100_000    # through the promoted standby
+TAKEOVER_HELD = 8                 # grants a delegate holds across the kill
+TAKEOVER_SILENCE_S = 1.0
+TAKEOVER_RENEW_S = 3.0
+TAKEOVER_SETTLE_S = 60.0          # for stale adoptions to be released
+
+
+def start_entry(name: str, port: int, iport: int, extra: list):
+    """The scheduler entry as a process on loopback, its log in
+    smoke_logs/entry_<name>.log."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    log_file = open(LOG_DIR / f"entry_{name}.log", "w")
+    cmd = [sys.executable, "-m", "yadcc_tpu_torch.scheduler.entry",
+           "--port", str(port), "--inspect-port", str(iport),
+           "--acceptable-user-tokens", "utok",
+           "--acceptable-servant-tokens", "stok", *extra]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(
+        os.environ, PYTHONPATH=str(REPO)), stdout=log_file,
+        stderr=subprocess.STDOUT)
+    proc.log_file = log_file
+    return proc
+
+
+def stop_entry(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    proc.log_file.close()
+
+
+class Failover:
+    """A client of an active scheduler with a warm standby behind it: its
+    calls go to the active until ``killed`` is set, then to the standby,
+    whose refusals before the takeover (NOT_SERVING with a retry-after
+    hint in the message) it counts in ``stats`` and retries after the
+    hint."""
+
+    def __init__(self, pa: int, ps: int, killed, stats, lock):
+        from yadcc_tpu_torch.rpc import Channel
+
+        self.chans = (Channel(f"grpc://127.0.0.1:{pa}"),
+                      Channel(f"grpc://127.0.0.1:{ps}"))
+        self.killed, self.stats, self.lock = killed, stats, lock
+
+    def call(self, method, req, resp_cls, timeout=30.0, switch=True):
+        """(response, True when the standby answered); (None, False) when
+        the active died under a call made with ``switch=False``."""
+        from yadcc_tpu_torch.rpc import (STATUS_NOT_SERVING, RpcError,
+                                         retry_after_ms_from_error)
+        from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+        while True:
+            standby = self.killed.is_set()
+            try:
+                resp, _ = self.chans[standby].call(
+                    SERVICE_NAME, method, req, resp_cls, timeout=timeout)
+                return resp, standby
+            except RpcError as e:
+                if not standby and self.killed.is_set():
+                    if not switch:
+                        return None, False
+                    continue        # the active died under the call
+                if not (standby and e.status == STATUS_NOT_SERVING):
+                    raise
+                hint = retry_after_ms_from_error(e, default_ms=-1)
+                with self.lock:
+                    self.stats[f"not_serving:{method}"] = \
+                        self.stats.get(f"not_serving:{method}", 0) + 1
+                    if hint <= 0:
+                        self.stats["not_serving_without_hint"] = \
+                            self.stats.get("not_serving_without_hint", 0) + 1
+                time.sleep(max(hint, 50) / 1000.0)
+
+    def close(self) -> None:
+        for c in self.chans:
+            c.close()
+
+
+def run_takeover_path(report: list) -> dict:
+    """Phase 10: a standby entry (--standby, policy warmed on the card at
+    boot) behind an active entry with phase 3's defaults and
+    --replicate-to; 5,000 servants; 24 delegates drive >=
+    TAKEOVER_PRE_GRANTS grants, each holding its first TAKEOVER_HELD
+    grants (renewed by KeepTaskAlive); the active is killed (SIGKILL)
+    mid-drive, the grants of responses that arrive in its last 0.1 s held
+    too (some never shipped: the journal's gap).  Before the promotion the
+    standby must refuse: WaitForStartingTask with FLOW_CONTROL_REJECT and
+    a retry-after, the other methods with NOT_SERVING and the in-band
+    hint.  After it: every servant re-heartbeats with the grants it runs,
+    every held grant renews exactly once, the delegates drive >=
+    TAKEOVER_POST_GRANTS grants through the standby's K1, and everything
+    is freed.  Every grant checked against the servants' facts, no servant
+    over its capacity (held and adopted grants counted), no grant id
+    issued twice across the kill, the standby's outstanding grants 0 at
+    the end (stale adoptions, grants freed on the active after its last
+    shipped batch, released after their lease), its K1 launches 0 before
+    the promotion and > 0 after."""
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel, RpcError
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    sch = api.scheduler
+    fleet = Fleet(seed=7)
+    ids_at = {s["location"]: set() for s in fleet.servants}
+    pa, ia, ps, is_ = free_port(), free_port(), free_port(), free_port()
+    t_boot = time.perf_counter()
+    standby = start_entry("standby", ps, is_, [
+        "--standby", "--standby-takeover-silence", str(TAKEOVER_SILENCE_S),
+        "--replication-token", "rtok"])
+    active = start_entry("active", pa, ia, [
+        "--replicate-to", f"grpc://127.0.0.1:{ps}",
+        "--replication-token", "rtok"])
+    lock = threading.Lock()
+    stats: dict = {}
+    killed, freeze, resume, done = (threading.Event() for _ in range(4))
+    renew_on = threading.Event()
+    threads: list = []
+    early_held: list = []       # (gid, loc): each delegate's first grants
+    kill_held: list = []        # grants of responses in the active's end
+    grant_ids: set = set()
+    totals = {"pre": 0, "post": 0, "calls": 0, "empty": 0}
+    errors: list = []
+    first_standby_grant = []
+
+    def standby_vars():
+        return inspect_vars(is_)["yadcc"]
+
+    try:
+        # Boot: the active serves; the standby answers its inspect port
+        # (its dispatcher built and warmed on the card).
+        deadline = time.monotonic() + 300
+        ch = Channel(f"grpc://127.0.0.1:{pa}")
+        while True:
+            check(active.poll() is None and standby.poll() is None,
+                  "takeover: an entry exited at boot")
+            check(time.monotonic() < deadline, "takeover: boot timed out")
+            try:
+                ch.call(SERVICE_NAME, "GetConfig",
+                        sch.GetConfigRequest(token="utok"),
+                        sch.GetConfigResponse, timeout=2.0)
+                sv = standby_vars()
+                if "standby" in sv:
+                    break
+            except (RpcError, OSError):
+                pass
+            time.sleep(0.2)
+        boot_s = time.perf_counter() - t_boot
+        check(not sv["standby"]["promoted"], "takeover: promoted at boot")
+        check(sv["kernels"]["grouped_assign"]["launches"] == 0,
+              "takeover: the standby launched before its promotion")
+
+        def heartbeat(s):
+            req = fleet.heartbeat(api, s)
+            with fleet.lock:
+                held_here = sorted(ids_at[s["location"]])
+            for gid in held_here:
+                req.running_tasks.add(servant_task_id=gid,
+                                      task_grant_id=gid)
+            return req
+
+        def beat_all(fo, servants):
+            try:
+                for s in servants:
+                    resp, _ = fo.call("Heartbeat", heartbeat(s),
+                                      sch.HeartbeatResponse, timeout=10.0)
+                    killed_ids = set(resp.expired_tasks)
+                    with fleet.lock:
+                        lost = killed_ids & held_set
+                    if lost:
+                        fleet.violations.append(
+                            f"held grants {sorted(lost)[:5]} killed on "
+                            f"{s['location']}")
+            except Exception as e:  # reported by the main thread
+                errors.append(f"heartbeat: {e!r}")
+
+        held_set: set = set()
+        clients = [Failover(pa, ps, killed, stats, lock) for _ in range(8)]
+        beat_all(clients[0], fleet.servants[:1])
+        requestor_loc = fleet.servants[0]["location"]
+        chunks = [fleet.servants[1 + i::8] for i in range(8)]
+
+        def beat_round(first=False):
+            regs = [threading.Thread(target=beat_all, args=(clients[i], c))
+                    for i, c in enumerate(chunks)]
+            if first:
+                regs.append(threading.Thread(
+                    target=beat_all, args=(clients[0], fleet.servants[:1])))
+            for t in regs:
+                t.start()
+            for t in regs:
+                t.join()
+
+        beat_round()
+        td = inspect_vars(ia)["yadcc"]["task_dispatcher"]
+        check(len(td["servants"]) == N_SERVANTS,
+              f"takeover: {len(td['servants'])} servants registered")
+
+        def rebeat():
+            while not done.wait(HB_REPEAT_S):
+                if not killed.is_set() or resume.is_set():
+                    beat_round()
+
+        def renewer():
+            fo = Failover(pa, ps, killed, stats, lock)
+            try:
+                while not done.wait(TAKEOVER_RENEW_S):
+                    if not renew_on.is_set():
+                        continue
+                    with fleet.lock:
+                        ids = [g for g, _ in early_held]
+                    if not ids:
+                        continue
+                    resp, _ = fo.call("KeepTaskAlive",
+                                      sch.KeepTaskAliveRequest(
+                                          token="utok", task_grant_ids=ids,
+                                          next_keep_alive_in_ms=15000),
+                                      sch.KeepTaskAliveResponse)
+                    if renew_on.is_set() and not all(resp.statuses):
+                        fleet.violations.append("a held grant's renewal "
+                                                "failed")
+            except Exception as e:
+                errors.append(f"renewer: {e!r}")
+            finally:
+                fo.close()
+
+        def validate(resp, env):
+            """Phase 3's checks on one response; the grants counted as held
+            by their servants."""
+            ids = [g.task_grant_id for g in resp.grants]
+            with fleet.lock:
+                for g in resp.grants:
+                    s = fleet.by_loc.get(g.servant_location)
+                    if s is None:
+                        fleet.violations.append(
+                            f"grant on unknown servant {g.servant_location}")
+                        continue
+                    if env not in s["envs"]:
+                        fleet.violations.append(f"{s['location']} lacks {env}")
+                    if s["location"] == requestor_loc:
+                        fleet.violations.append(
+                            "grant on the requestor's own servant")
+                    fleet.held[s["location"]] += 1
+                    ids_at[s["location"]].add(g.task_grant_id)
+                    if fleet.held[s["location"]] > s["capacity"]:
+                        fleet.violations.append(
+                            f"{s['location']} over capacity "
+                            f"{fleet.held[s['location']]}/{s['capacity']}")
+            with lock:
+                dup = grant_ids.intersection(ids)
+                if dup or len(set(ids)) != len(ids):
+                    fleet.violations.append(f"duplicate ids {sorted(dup)[:5]}")
+                grant_ids.update(ids)
+
+        def release(pairs):
+            with fleet.lock:
+                for gid, loc in pairs:
+                    fleet.held[loc] -= 1
+                    ids_at[loc].discard(gid)
+
+        def delegate(d: int):
+            rng = random.Random(3000 + d)
+            envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
+            fo = Failover(pa, ps, killed, stats, lock)
+            k = 0
+            try:
+                while not done.is_set():
+                    if killed.is_set() and not resume.is_set():
+                        resume.wait(1.0)
+                        continue
+                    env = envs[k % len(envs)]
+                    k += 1
+                    req = sch.WaitForStartingTaskRequest(
+                        token="utok", milliseconds_to_wait=2000,
+                        next_keep_alive_in_ms=15000,
+                        immediate_reqs=IMMEDIATE)
+                    req.env_desc.compiler_digest = env
+                    try:
+                        # A request the active died under is not sent
+                        # again: the delegates wait for the standby.
+                        resp, on_standby = fo.call(
+                            "WaitForStartingTask", req,
+                            sch.WaitForStartingTaskResponse, switch=False)
+                    except RpcError as e:
+                        if e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE:
+                            with lock:
+                                totals["empty"] += 1
+                            continue
+                        raise
+                    if resp is None:
+                        continue
+                    validate(resp, env)
+                    pairs = [(g.task_grant_id, g.servant_location)
+                             for g in resp.grants]
+                    with lock:
+                        totals["post" if on_standby else "pre"] += len(pairs)
+                        totals["calls"] += 1
+                        if on_standby and not first_standby_grant and pairs:
+                            first_standby_grant.append(time.perf_counter())
+                        if totals["pre"] >= TAKEOVER_PRE_GRANTS and \
+                                not freeze.is_set():
+                            freeze.set()
+                        if totals["post"] >= TAKEOVER_POST_GRANTS:
+                            done.set()
+                    if not on_standby and len(early_held) < \
+                            TAKEOVER_HELD * N_DELEGATES and k == 1:
+                        keep, pairs = pairs[:TAKEOVER_HELD], \
+                            pairs[TAKEOVER_HELD:]
+                        with fleet.lock:
+                            early_held.extend(keep)
+                            held_set.update(g for g, _ in keep)
+                    elif not on_standby and freeze.is_set():
+                        with fleet.lock:
+                            kill_held.extend(pairs)
+                            held_set.update(g for g, _ in pairs)
+                        continue
+                    release(pairs)
+                    if pairs:
+                        fo.call("FreeTask", sch.FreeTaskRequest(
+                            token="utok", task_grant_ids=[g for g, _ in pairs]),
+                            sch.FreeTaskResponse)
+            except Exception as e:  # reported by the main thread below
+                errors.append(f"delegate {d}: {e!r}")
+                done.set()
+            finally:
+                fo.close()
+
+        for target in (rebeat, renewer):
+            t = threading.Thread(target=target, daemon=True)
+            t.start()
+            threads.append(t)
+        renew_on.set()
+        workers = [threading.Thread(target=delegate, args=(d,))
+                   for d in range(N_DELEGATES)]
+        t0 = time.perf_counter()
+        for t in workers:
+            t.start()
+        while not freeze.wait(1.0):
+            check(active.poll() is None, "takeover: the active died")
+            check(not errors, f"takeover: {errors[:3]}")
+            check(time.perf_counter() - t0 < PHASE_LIMIT_S,
+                  f"takeover: {totals['pre']} grants before the kill")
+        pre_s = time.perf_counter() - t0
+        active_td = inspect_vars(ia)["yadcc"]
+        time.sleep(0.1)
+        renew_on.clear()
+        journal_seq = standby_vars()["standby"]["journal_seq"]
+        killed.set()
+        active.kill()
+        t_kill = time.perf_counter()
+        active.wait(timeout=30)
+        # The fleet redials the standby at once, its heartbeats refused
+        # (NOT_SERVING with the hint) until the promotion; they carry the
+        # grants each servant runs, so the journal gap's are adopted.
+        rebeat_thread = threading.Thread(target=beat_round, args=(True,))
+        rebeat_thread.start()
+
+        # Before the promotion: the gate's refusals, probed without side
+        # effects (an environment no servant has, no grant ids).
+        probe = Channel(f"grpc://127.0.0.1:{ps}")
+        probes = {"reject": 0, "not_serving": 0, "hint_ms": set()}
+        promoted = None
+        from yadcc_tpu_torch.rpc import (STATUS_NOT_SERVING,
+                                         retry_after_ms_from_error)
+        while promoted is None:
+            check(time.perf_counter() - t_kill < 60,
+                  "takeover: no promotion within 60 s of the kill")
+            sv = standby_vars()
+            if sv["standby"]["promoted"]:
+                promoted = time.perf_counter()
+                break
+            req = sch.WaitForStartingTaskRequest(
+                token="utok", milliseconds_to_wait=50, immediate_reqs=1)
+            req.env_desc.compiler_digest = "no-such-environment"
+            try:
+                resp, _ = probe.call(SERVICE_NAME, "WaitForStartingTask",
+                                     req, sch.WaitForStartingTaskResponse,
+                                     timeout=5.0)
+                if resp.flow_control == sch.FLOW_CONTROL_REJECT:
+                    check(resp.retry_after_ms > 0 and not resp.grants,
+                          "takeover: a REJECT without retry_after_ms")
+                    probes["reject"] += 1
+                else:
+                    check(standby_vars()["standby"]["promoted"],
+                          "takeover: the standby served before promotion")
+            except RpcError as e:
+                check(e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE
+                      and standby_vars()["standby"]["promoted"],
+                      f"takeover: WaitForStartingTask before promotion "
+                      f"answered {e.status}")
+            for method, preq, pcls in (
+                    ("KeepTaskAlive", sch.KeepTaskAliveRequest(token="utok"),
+                     sch.KeepTaskAliveResponse),
+                    ("FreeTask", sch.FreeTaskRequest(token="utok"),
+                     sch.FreeTaskResponse)):
+                try:
+                    probe.call(SERVICE_NAME, method, preq, pcls, timeout=5.0)
+                except RpcError as e:
+                    check(e.status == STATUS_NOT_SERVING,
+                          f"takeover: {method} answered {e.status}")
+                    probes["not_serving"] += 1
+                    probes["hint_ms"].add(retry_after_ms_from_error(e, -1))
+            time.sleep(0.05)
+        probe.close()
+        check(probes["reject"] > 0 and probes["not_serving"] > 0,
+              f"takeover: the gate was never probed before promotion "
+              f"({probes})")
+        check(-1 not in probes["hint_ms"],
+              "takeover: a NOT_SERVING without its retry-after hint")
+        sv = standby_vars()
+        takeover = sv["standby"]["report"]
+        check(sv["kernels"]["grouped_assign"]["launches"] == 0,
+              "takeover: K1 launched on the standby before its promotion")
+
+        # After it: the fleet's re-heartbeat lands (the journal gap's
+        # grants adopted off the reports), then every held grant renews
+        # exactly once, then the kill-time grants are freed.
+        rebeat_thread.join(timeout=120)
+        check(not rebeat_thread.is_alive(), "takeover: the re-beat hung")
+        check(not errors, f"takeover: {errors[:3]}")
+        rebeat_s = time.perf_counter() - promoted
+        with fleet.lock:
+            held_ids = [g for g, _ in early_held + kill_held]
+        renew = Channel(f"grpc://127.0.0.1:{ps}")
+        resp, _ = renew.call(SERVICE_NAME, "KeepTaskAlive",
+                             sch.KeepTaskAliveRequest(
+                                 token="utok", task_grant_ids=held_ids,
+                                 next_keep_alive_in_ms=15000),
+                             sch.KeepTaskAliveResponse, timeout=30.0)
+        renewed = sum(resp.statuses)
+        check(renewed == len(held_ids) == len(set(held_ids)),
+              f"takeover: {renewed} of {len(held_ids)} held grants renewed "
+              f"once after the promotion")
+        adopted_now = standby_vars()["task_dispatcher"]["stats"][
+            "adopted_grants"]
+        release(kill_held)
+        renew.call(SERVICE_NAME, "FreeTask", sch.FreeTaskRequest(
+            token="utok", task_grant_ids=[g for g, _ in kill_held]),
+            sch.FreeTaskResponse, timeout=30.0)
+        with fleet.lock:
+            held_set.difference_update(g for g, _ in kill_held)
+        renew_on.set()
+        t_resume = time.perf_counter()
+        resume.set()
+        while not done.wait(1.0):
+            check(standby.poll() is None, "takeover: the standby died")
+            check(time.perf_counter() - t_resume < PHASE_LIMIT_S,
+                  f"takeover: {totals['post']} grants after the promotion")
+        for t in workers:
+            t.join(timeout=60)
+            check(not t.is_alive(), "takeover: a delegate hung")
+        post_s = time.perf_counter() - t_resume
+        check(not errors, f"takeover: {errors[:3]}")
+        check(not fleet.violations, f"takeover: {fleet.violations[:5]}")
+
+        # Free the held grants; stale adoptions zombie after their lease
+        # and go at their servant's next report.
+        release(early_held)
+        renew.call(SERVICE_NAME, "FreeTask", sch.FreeTaskRequest(
+            token="utok", task_grant_ids=[g for g, _ in early_held]),
+            sch.FreeTaskResponse, timeout=30.0)
+        with fleet.lock:
+            held_set.clear()
+        t_settle = time.perf_counter()
+        while True:
+            td = standby_vars()["task_dispatcher"]
+            if td["grants_outstanding"] == 0:
+                break
+            check(time.perf_counter() - t_settle < TAKEOVER_SETTLE_S,
+                  f"takeover: {td['grants_outstanding']} grants outstanding "
+                  f"on the standby {TAKEOVER_SETTLE_S} s after the drive")
+            beat_round()
+            time.sleep(1.0)
+        settle_s = time.perf_counter() - t_settle
+        renew.close()
+        sv = standby_vars()
+        td = sv["task_dispatcher"]
+        check(td["failure"] is None, f"takeover: {td['failure']}")
+        launches = {k: v["launches"] for k, v in sv["kernels"].items()}
+        check(launches["grouped_assign"] > 0,
+              "takeover: K1 never launched on the standby")
+        check(active.returncode == -9, f"takeover: the active exited "
+                                       f"{active.returncode}")
+    finally:
+        done.set()
+        resume.set()
+        for t in threads:
+            t.join(timeout=30)
+        stop_entry(active)
+        stop_entry(standby)
+    check(standby.returncode == 0, f"takeover: the standby exited "
+                                   f"{standby.returncode}")
+    res = dict(
+        boot_s=boot_s, pre_grants=totals["pre"], pre_s=pre_s,
+        pre_grants_per_s=totals["pre"] / pre_s,
+        post_grants=totals["post"], post_s=post_s,
+        post_grants_per_s=totals["post"] / post_s,
+        kill_to_promotion_ms=(promoted - t_kill) * 1e3,
+        kill_to_first_grant_ms=(first_standby_grant[0] - t_kill) * 1e3,
+        promotion_to_first_grant_ms=(first_standby_grant[0] - promoted)
+        * 1e3, rebeat_s=rebeat_s, settle_s=settle_s,
+        takeover=takeover, journal_seq_at_kill=journal_seq,
+        held=len(held_ids), renewed=renewed,
+        kill_held=len(kill_held), adopted_after_reports=adopted_now,
+        gap_adopted=adopted_now - takeover["grants_adopted"],
+        gate_probes={k: (sorted(v) if isinstance(v, set) else v)
+                     for k, v in probes.items()},
+        refused=dict(stats), launches=launches,
+        active_launches={k: v["launches"] for k, v
+                         in active_td["kernels"].items()},
+        stats=td["stats"], stages=td["latency_breakdown"])
+    report.append(
+        f"  takeover: boot {boot_s:.1f} s; {totals['pre']} grants through "
+        f"the active in {pre_s:.2f} s; SIGKILL; promotion "
+        f"{res['kill_to_promotion_ms']:.1f} ms after it (takeover "
+        f"{takeover['takeover_ms']:.2f} ms: {takeover['servants_replayed']} "
+        f"servants replayed, {takeover['grants_adopted']} grants adopted of "
+        f"{takeover['grants_journaled']} journaled, seq "
+        f"{takeover['replayed_seq']}); before it {probes['reject']} "
+        f"REJECTs and {probes['not_serving']} NOT_SERVINGs with hints "
+        f"{sorted(probes['hint_ms'])} ms")
+    report.append(
+        f"  takeover: the fleet's re-beat done {rebeat_s:.2f} s after the "
+        f"promotion; "
+        f"{len(held_ids)} held grants ({len(kill_held)} of the active's last "
+        f"0.1 s) each renewed once; adopted {adopted_now} in all "
+        f"({res['gap_adopted']} off the servants' reports: the journal's "
+        f"gap); first "
+        f"grant {res['kill_to_first_grant_ms']:.1f} ms after the kill "
+        f"({res['promotion_to_first_grant_ms']:.1f} ms after the promotion, "
+        f"the delegates held until the fleet re-beat); {totals['post']} "
+        f"grants in {post_s:.2f} s = {res['post_grants_per_s']:.1f} grants/s "
+        f"after it ({res['pre_grants_per_s']:.1f} before); K1 launches on "
+        f"the standby {launches['grouped_assign']}; outstanding 0 "
+        f"{settle_s:.1f} s after the drive (stats {json.dumps(td['stats'])})"
+        f"; no violations, no id issued twice")
+    report.append(f"  takeover refusals seen by the fleet: "
+                  f"{json.dumps(dict(stats))}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the federation plane, in process.
+# ---------------------------------------------------------------------------
+
+FED_CELLS = 8
+FED_SLOTS = 1024
+FED_DECISIONS = 2000
+FED_DELEGATES = 8
+FED_MEMBERS = 200_000           # each peer's region filter: its members
+FED_WARM_ENVS = 16              # envs whose candidate keys a peer holds
+FED_TOPOLOGY = (0, 1, 1, 2, 2, 3, 3, 4)
+FED_BITS, FED_HASHES = 27_584_639, 10   # the production geometry
+
+
+def fed_key(env: str, i: int) -> str:
+    """A production-format 80-byte cache key of an environment."""
+    return f"{env}/obj/{i:08d}".ljust(80, ".")
+
+
+def run_federation_path(report: list, place_timing: dict) -> dict:
+    """Phase 11: eight cells, each a TaskDispatcher with the auto policy on
+    the card (pipelined, its own CUDA stream), 1,024 slots a cell, phase
+    3's 5,000 servants split by cell; a FederationRouter for cell 0, whose
+    ladder is held at RUNG_SPILLOVER; each peer's production-geometry
+    region filter (its own salt and members, the candidate keys of
+    FED_WARM_ENVS environments among them) built on the card by the
+    scatter-OR and installed as its snapshot.  Delegate threads drive >=
+    FED_DECISIONS scored spill decisions of up to 8 grants, renewing and
+    freeing through the router.  Every scored pick and score row must
+    equal host_reference_placement's on the host; spilled grants' renewals
+    and frees route home by cell_of_grant; no grant id is shared by two
+    cells; the kernel's launches equal the scored decisions."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.common import bloom
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.ops import cuda_grouped
+    from yadcc_tpu_torch.scheduler import placement as pl
+    from yadcc_tpu_torch.scheduler.admission import RUNG_SPILLOVER
+    from yadcc_tpu_torch.scheduler.entry import resolve_pipeline_depth
+    from yadcc_tpu_torch.scheduler.federation import (
+        CellHandle, FederationRouter, cell_of_grant,
+        grant_namespace_for_cell)
+    from yadcc_tpu_torch.scheduler.policy import make_policy
+    from yadcc_tpu_torch.scheduler.task_dispatcher import (ServantInfo,
+                                                           TaskDispatcher)
+
+    dev = torch.device("cuda")
+    t_build = time.perf_counter()
+    cells = []
+    for c in range(FED_CELLS):
+        policy = make_policy("auto", device=dev)
+        depth = resolve_pipeline_depth("auto", policy, dev)
+        policy.stream_warmup(FED_SLOTS)
+        start, stride = grant_namespace_for_cell(c, FED_CELLS)
+        cells.append(TaskDispatcher(policy, max_servants=FED_SLOTS,
+                                    pipeline_depth=depth,
+                                    grant_id_start=start,
+                                    grant_id_stride=stride))
+    fleet = Fleet(seed=8)
+    cell_of_servant = {}
+    for i, s in enumerate(fleet.servants):
+        cell_of_servant[s["location"]] = i % FED_CELLS
+        check(cells[i % FED_CELLS].keep_servant_alive(ServantInfo(
+            location=s["location"], version=1,
+            num_processors=s["capacity"], dedicated=s["dedicated"],
+            capacity=s["capacity"], total_memory=64 << 30,
+            memory_available=32 << 30,
+            env_digests=tuple(sorted(s["envs"]))), 600.0),
+            "federation: a servant was refused")
+
+    class RecordingScorer(pl.DevicePlacementScorer):
+        """The production scorer, its inputs and results kept for the host
+        oracle."""
+
+        def __init__(self):
+            super().__init__("cuda")
+            self.calls = []
+            self.calls_lock = threading.Lock()
+
+        def score(self, cands, keys_per_task):
+            res = super().score(cands, keys_per_task)
+            with self.calls_lock:
+                self.calls.append((list(cands),
+                                   [list(k) for k in keys_per_task], res))
+            return res
+
+    scorer = RecordingScorer()
+    router = FederationRouter(
+        [CellHandle(c, d) for c, d in enumerate(cells)], 0,
+        topology_distance=FED_TOPOLOGY, placement_scorer=scorer,
+        device="cuda")
+    rng = np.random.default_rng(112)
+    warm = {}
+    t_filters = time.perf_counter()
+    for c in range(1, FED_CELLS):
+        salt = int(rng.integers(0, 1 << 63))
+        warm[c] = set(rng.choice(fleet.envs, FED_WARM_ENVS,
+                                 replace=False).tolist())
+        members = [fed_key(e, i) for e in sorted(warm[c]) for i in range(32)]
+        members += [f"cell{c}/member/{i:010d}".ljust(80, ".")
+                    for i in range(FED_MEMBERS - len(members))]
+        fps = bpl.as_device_words(bloom.key_fingerprints(members, salt), dev)
+        zero = torch.zeros(-(-FED_BITS // 32), dtype=torch.int32,
+                           device=dev)
+        words = kb.bloom_scatter_or(zero, fps, num_bits=FED_BITS,
+                                    num_hashes=FED_HASHES)
+        snap = bloom.SaltedBloomFilter(FED_BITS, FED_HASHES, salt,
+                                       words.cpu().numpy().view(np.uint32))
+        check(snap.may_contain_batch(members[:1000]).all(),
+              f"federation: cell {c}'s card-built filter misses a member")
+        router.update_cell_filter(c, snap)
+    filters_s = time.perf_counter() - t_filters
+    check(scorer.resident_cells() == list(range(1, FED_CELLS)),
+          "federation: the snapshots are not resident on the card")
+    for e in fleet.envs:
+        router.note_candidate_keys(e, [fed_key(e, i) for i in range(32)])
+    cells[0].restore_admission_rung(RUNG_SPILLOVER)
+    build_s = time.perf_counter() - t_build
+
+    lock = threading.Lock()
+    errors: list = []
+    seen: dict = {}
+    totals = {"calls": 0, "grants": 0, "spilled": 0, "renewed": 0}
+    done = threading.Event()
+
+    def delegate(d: int):
+        drng = random.Random(4000 + d)
+        who = f"10.99.0.{d + 1}:40000"
+        try:
+            while not done.is_set():
+                env = drng.choice(fleet.envs)
+                routed = router.wait_for_starting_new_task_routed(
+                    env, requestor=who, immediate=drng.randint(1, 8),
+                    timeout_s=2.0)
+                pairs = [(g.grant_id, g.servant_location)
+                         for g in routed.grants]
+                with fleet.lock:
+                    for g in routed.grants:
+                        s = fleet.by_loc.get(g.servant_location)
+                        c = cell_of_servant.get(g.servant_location)
+                        if s is None or env not in s["envs"]:
+                            fleet.violations.append(
+                                f"grant {g.grant_id} on {g.servant_location}"
+                                f" for {env}")
+                            continue
+                        if c != g.cell_id or c != cell_of_grant(
+                                g.grant_id, FED_CELLS):
+                            fleet.violations.append(
+                                f"grant {g.grant_id} of cell {g.cell_id} on "
+                                f"a servant of cell {c}")
+                        if g.spilled != (g.cell_id != 0):
+                            fleet.violations.append(
+                                f"grant {g.grant_id} spilled={g.spilled} "
+                                f"from cell {g.cell_id}")
+                        fleet.held[s["location"]] += 1
+                        if fleet.held[s["location"]] > s["capacity"]:
+                            fleet.violations.append(
+                                f"{s['location']} over capacity")
+                with lock:
+                    for gid, _ in pairs:
+                        if gid in seen:
+                            fleet.violations.append(f"id {gid} twice")
+                        seen[gid] = cell_of_grant(gid, FED_CELLS)
+                    totals["calls"] += 1
+                    totals["grants"] += len(pairs)
+                    totals["spilled"] += routed.spilled_count
+                if pairs:
+                    ok = router.keep_task_alive([g for g, _ in pairs], 15.0)
+                    if not all(ok):
+                        fleet.violations.append("a renewal routed home "
+                                                "failed")
+                    with lock:
+                        totals["renewed"] += len(ok)
+                    with fleet.lock:
+                        for _, loc in pairs:
+                            fleet.held[loc] -= 1
+                    router.free_task([g for g, _ in pairs])
+                if router.stats()["placement_scored"] >= FED_DECISIONS:
+                    done.set()
+        except Exception as e:  # reported below
+            errors.append(f"delegate {d}: {e!r}")
+            done.set()
+
+    for name in kb.launches:
+        kb.launches[name] = 0
+    cuda_grouped.launches = 0
+    threads = [threading.Thread(target=delegate, args=(d,))
+               for d in range(FED_DELEGATES)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        while not done.wait(1.0):
+            check(time.perf_counter() - t0 < PHASE_LIMIT_S,
+                  f"federation: {router.stats()} in {PHASE_LIMIT_S} s")
+        for t in threads:
+            t.join(timeout=60)
+            check(not t.is_alive(), "federation: a delegate hung")
+        drive_s = time.perf_counter() - t0
+        launches = dict(kb.launches)
+        k1 = cuda_grouped.launches
+        check(not errors, f"federation: {errors[:3]}")
+        check(not fleet.violations, f"federation: {fleet.violations[:5]}")
+        stats = router.stats()
+        for c, d in enumerate(cells):
+            out = d.inspect()
+            check(out["failure"] is None, f"federation: cell {c} failed: "
+                                          f"{out['failure']}")
+            check(out["grants_outstanding"] == 0,
+                  f"federation: cell {c} holds {out['grants_outstanding']} "
+                  f"grants after every free")
+    finally:
+        done.set()
+        for d in cells:
+            d.stop()
+
+    # Every scored decision against the host oracle.
+    t_oracle = time.perf_counter()
+    scored = warm_picks = 0
+    for cands, keys, res in scorer.calls:
+        want = pl.host_reference_placement(cands, keys)
+        check(res is not None and want is not None,
+              "federation: a scored call without a result")
+        for f in ("scores", "best_cell", "best_score"):
+            check(np.array_equal(getattr(res, f), getattr(want, f)),
+                  f"federation: the scorer's {f} != the host oracle's")
+        if int(res.best_score[0]) < pl.BIG:
+            scored += 1
+            env = keys[0][0].split("/obj/")[0]
+            warm_picks += env in warm[cands[int(res.best_cell[0])].cell_id]
+    oracle_s = time.perf_counter() - t_oracle
+    check(stats["placement_scored"] > 0, "federation: nothing scored")
+    check(launches["placement_score"] == len(scorer.calls) == scored
+          == stats["placement_scored"],
+          f"federation: {launches['placement_score']} kernel launches, "
+          f"{len(scorer.calls)} scorer calls, {scored} scored picks, "
+          f"{stats['placement_scored']} counted")
+    check(stats["placement_failures"] == 0, "federation: scorer failures")
+    check(stats["foreign_renewals"] > 0 and stats["foreign_frees"] > 0,
+          "federation: no spilled grant was renewed or freed home")
+    stage = router.stage_timer.percentiles()["placement"]
+    share = place_timing["path"]["ms"] / stage["p50_ms"]
+    res = dict(cells=FED_CELLS, slots=FED_SLOTS, build_s=build_s,
+               filters_s=filters_s, drive_s=drive_s, oracle_s=oracle_s,
+               decisions=scored, warm_picks=warm_picks, stats=stats,
+               totals=totals, placement_stage=stage,
+               kernel_share_of_p50=share, launches=launches, k1_launches=k1)
+    report.append(
+        f"  federation: {FED_CELLS} cells x {FED_SLOTS} slots built and "
+        f"warmed, {FED_CELLS - 1} card-built filters installed, in "
+        f"{build_s:.1f} s (filters {filters_s:.1f} s); {scored} scored spill "
+        f"decisions ({warm_picks} onto a peer warm for the environment) in "
+        f"{drive_s:.2f} s, {totals['grants']} grants ({totals['spilled']} "
+        f"spilled) over {totals['calls']} calls, {totals['renewed']} renewed "
+        f"and all freed through the router (foreign renewals "
+        f"{stats['foreign_renewals']}, frees {stats['foreign_frees']}); "
+        f"every pick and score row equal to the host oracle's (checked in "
+        f"{oracle_s:.1f} s); no id in two cells; kernel launches "
+        f"{launches['placement_score']} = scored decisions; K1 launches "
+        f"{k1}")
+    report.append(
+        f"  federation placement stage: p50 {stage['p50_ms']:.4f} ms, p99 "
+        f"{stage['p99_ms']:.4f} ms over {stage['count']} decisions; the "
+        f"kernel's {place_timing['path']['ms']:.4f} ms (phase 2) is "
+        f"{share * 100:.1f}% of the p50")
+    return res
 
 
 def main() -> int:
@@ -2777,6 +3905,8 @@ def main() -> int:
     compare_shard_grid(report)
     grid = time_shard_grid(report)
     k2 = compare_assign_batch(report)
+    compare_placement(report)
+    place = time_placement(report)
     log("phase 2 kernels vs plain (tolerance 0):")
     for line in report:
         log(line)
@@ -2832,6 +3962,16 @@ def main() -> int:
     phases["fused"] = {"launches": {"grouped_assign": fused["launches"],
                                     "assign_batch": fused["k2_launches"]}}
     log("phases 8-9 the sharded scheduler:")
+    for line in report:
+        log(line)
+
+    report = []
+    takeover = run_takeover_path(report)
+    phases["takeover"] = {"launches": takeover["launches"]}
+    federation = run_federation_path(report, place)
+    phases["federation"] = {"launches": {
+        "grouped_assign": federation["k1_launches"], "assign_batch": 0}}
+    log("phases 10-11 warm standby and federation:")
     for line in report:
         log(line)
 
@@ -2931,10 +4071,29 @@ def main() -> int:
             for k in ("pack_seconds", "upload_seconds", "kernel_seconds",
                       "end_to_end_seconds")}
         for s in bloom_run["bench"]["sweep"]}
+    record["kernels"].append({
+        "name": "placement_score",
+        "route": "cuda",
+        "source": "yadcc_tpu_torch/csrc/bloom.cu",
+        "replaces": "yadcc_tpu/parallel/mesh.py:698",
+        "launches": federation["launches"]["placement_score"],
+        "max_abs_err": 0,
+        "ms": place["path"]["ms"],
+        "plain_ms": place["path"]["plain_ms"],
+        "bound_ms": place["path"]["bound_ms"],
+        "bound_by": place["path"]["bound_by"],
+        "library_ms": None,
+        "shape": {k: place["path"][k] for k in ("C", "N", "T")},
+        "call_ms": place["path"]["call_ms"],
+        "at_C8_N256_T8": {k: place["wide"][k] for k in
+                          ("ms", "plain_ms", "call_ms", "bound_ms",
+                           "bound_by")},
+        "placement_stage": federation["placement_stage"],
+    })
     log("main paths ({}): {}; fused {} cycles in {:.2f} s; total {:.1f} "
         "s".format(card, "; ".join(
             f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} "
-            f"ms" for name, r in phases.items() if name != "fused"),
+            f"ms" for name, r in phases.items() if "p99_ms" in r),
             fused["cycles"], fused["seconds"], time.perf_counter() - t_start))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,10 @@ _SHARD_MODULES = (
     "common.hashing", "common.backoff", "common.consistent_hash",
     "tenancy", "tenancy.identity", "tenancy.tiers", "tenancy.budgets",
     "parallel.mesh", "scheduler.shard_router")
+# Replication, standby, federation and scored placement, each by name.
+_REPLICATION_MODULES = (
+    "rpc.transport", "scheduler.replication", "scheduler.placement",
+    "scheduler.federation", "scheduler.entry")
 
 
 def _port_sources():
@@ -71,7 +75,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
             importlib.import_module(name)
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
-                "yadcc_tpu_torch." + m for m in BLOOM + SHARD):
+                "yadcc_tpu_torch." + m for m in BLOOM + SHARD + REPL):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_k1_ab, chip_k2_probe  # noqa: F401
@@ -84,7 +88,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         print(len(names))
     """)
     script = (f"BLOOM = {_BLOOM_MODULES!r}\n"
-              f"SHARD = {_SHARD_MODULES!r}\n" + script)
+              f"SHARD = {_SHARD_MODULES!r}\n"
+              f"REPL = {_REPLICATION_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]

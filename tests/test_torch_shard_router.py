@@ -270,8 +270,11 @@ def test_grant_namespacing_is_checked():
             for d in router.shards] == [0, 1]
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         router.submit_wait_for_starting_new_task("e", on_done=print)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        router.adopt_grants("loc", [])
+    # Lease adoption is ported: an empty replay adopts nothing, and a
+    # grant outside the cell's namespace is refused by its shard.
+    assert router.adopt_grants("loc", []) == 0
+    with pytest.raises(ValueError, match="namespace"):
+        router.adopt_grants("loc", [(1, "e", "r")])
     router.stop()
 
 

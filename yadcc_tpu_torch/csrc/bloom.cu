@@ -10,6 +10,8 @@
 //                              sharded_bloom_cascade_fn, on one card
 //   yadcc_bloom_probe       <- yadcc_tpu/ops/bloom_probe.py:bloom_may_contain
 //   yadcc_bloom_scatter_or  <- yadcc_tpu/ops/bloom_probe.py:bloom_scatter_add
+//   yadcc_placement_score   <- yadcc_tpu/parallel/mesh.py:placement_score_fn,
+//                              the cells x tasks spill-placement score
 // What each computes is its plain version's result (ops/bloom_pipeline.py:
 // membership_plain and cascade_plain, ops/bloom_probe.py:probe_body and
 // scatter_add_plain); chip_smoke.py holds them equal on the card.
@@ -100,6 +102,15 @@
 // geometry (ops/cuda_bloom.py:scatter_plan) and allocates the output, the
 // scratch and the table; a batch larger than the scratch runs in several
 // passes, each reading the last one's output.
+//
+// The placement score (one spill decision: C peer cells, N <= 32 candidate
+// keys, T = 1 task on the federation path) needs C x N digests and the
+// probes their early exits evaluate, ~7 x 32 x 10 L2 sectors: far below
+// one launch's cost.  Its design is the simplest that is exact: one block
+// a cell, a thread a key with its row read from global memory, shared-
+// memory atomics for the hit counts, and a one-block argmin launch.  The
+// cells' filters are whatever resident copies the caller points the table
+// at (scheduler/placement.py uploads each snapshot once).
 //
 // Integer traps: words and keys arrive as the int32 bit pattern of uint32
 // arrays and are read as uint32_t; num_bits need not be a multiple of 32
@@ -631,6 +642,92 @@ scatter_own_kernel(const uint32_t* in, uint32_t* out, int nw,
   for (int w = t; w < len; w += kOwnThreads) out[w0 + w] = bits[w];
 }
 
+// ---------------------------------------------------------------------------
+// Scored spill placement: the cells x tasks cost matrix (yadcc_tpu/parallel/
+// mesh.py:placement_score_fn; plain version ops/bloom_pipeline.py:
+// placement_score_plain).  Block c scores cell c: its threads stride over
+// the N keys, digest each row with the cell's seed and probe the cell's
+// filter (xxh64_row and probe_h, the membership kernel's own), and count
+// the hits a task in shared memory; then threads t < T write the cell's
+// score row with the JAX package's int32 arithmetic, wrapping as it wraps.
+// A second one-block launch takes each task's argmin over the cells.
+
+constexpr int kPlaceThreads = 256;
+constexpr int kPlaceMaxTasks = 4096;   // the shared hit counts, 16 KB
+constexpr int kPlaceBig = 1 << 30;     // an ineligible cell's score
+
+struct PlaceWeights {
+  int warm_scale, warm, load, topo;
+};
+
+// floor(a / b) for b >= 1, as jnp's // rounds.
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// `table` holds C word pointers (0: the cell has no filter) and then C
+// 64-bit seeds; `terms` the int32 rows util_q, topo_q, eligible and
+// has_filter of C entries each.
+__global__ void __launch_bounds__(kPlaceThreads)
+placement_score_kernel(Filter f, const unsigned long long* __restrict__ table,
+                       int C, const int* __restrict__ terms,
+                       const int* __restrict__ counts, int T,
+                       const int* __restrict__ task_of_key,
+                       const uint32_t* __restrict__ packed, int row_words,
+                       int length, int n, PlaceWeights w,
+                       int* __restrict__ scores) {
+  __shared__ int hits[kPlaceMaxTasks];
+  const int c = blockIdx.x;
+  for (int t = threadIdx.x; t < T; t += kPlaceThreads) hits[t] = 0;
+  __syncthreads();
+  f.words = reinterpret_cast<const uint32_t*>(table[c]);
+  f.seed = table[C + c];
+  if (f.words != nullptr) {
+    const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
+    for (int i = threadIdx.x; i < n; i += kPlaceThreads) {
+      const int task = task_of_key[i];
+      if (task < 0 || task >= T) continue;  // padding keys carry -1
+      const GlobalRow row{packed + (size_t)i * row_words, stream};
+      if (member(f, row, length, keep)) atomicAdd(&hits[task], 1);
+    }
+  }
+  __syncthreads();
+  const uint32_t load = (uint32_t)w.load * (uint32_t)terms[c] +
+                        (uint32_t)w.topo * (uint32_t)terms[C + c];
+  const bool eligible = terms[2 * C + c] > 0, has = terms[3 * C + c] > 0;
+  for (int t = threadIdx.x; t < T; t += kPlaceThreads) {
+    int miss = w.warm_scale;
+    if (has)
+      miss = floor_div(
+          (int)(((uint32_t)counts[t] - (uint32_t)hits[t]) *
+                (uint32_t)w.warm_scale),
+          max(counts[t], 1));
+    const uint32_t score = (uint32_t)w.warm * (uint32_t)miss + load;
+    scores[(size_t)c * T + t] = eligible ? (int)score : kPlaceBig;
+  }
+}
+
+// One thread a task walks the cells with a strict <: the lowest cell wins
+// a tie, as jnp.argmin's first occurrence does.
+__global__ void __launch_bounds__(kPlaceThreads)
+placement_argmin_kernel(const int* __restrict__ scores, int C, int T,
+                        int* __restrict__ best_cell,
+                        int* __restrict__ best_score) {
+  for (int t = threadIdx.x; t < T; t += kPlaceThreads) {
+    int bc = 0, bs = scores[t];
+    for (int c = 1; c < C; ++c) {
+      const int s = scores[(size_t)c * T + t];
+      if (s < bs) {
+        bs = s;
+        bc = c;
+      }
+    }
+    best_cell[t] = bc;
+    best_score[t] = bs;
+  }
+}
+
 int blocks_for(long long threads) {
   return (int)((threads + kThreads - 1) / kThreads);
 }
@@ -820,3 +917,33 @@ extern "C" int yadcc_bloom_scatter_or(const void* words, void* out,
 // The binned scatter's constants, for the wrapper's plan.
 extern "C" int yadcc_bloom_scatter_bin_threads() { return kBinThreads; }
 extern "C" int yadcc_bloom_scatter_bin_probes() { return kBinProbes; }
+
+// The cells x tasks placement score: `scores` [C, T] and each task's best
+// cell and score, two launches on `stream`.  `table`, `terms`, `counts`,
+// `task_of_key` and `packed` as placement_score_kernel takes them.
+// Returns the first launch error, or cudaErrorInvalidValue for C < 1 or T
+// outside [1, kPlaceMaxTasks].
+extern "C" int yadcc_placement_score(
+    const void* table, int cells, unsigned int num_bits, int num_hashes,
+    const void* terms, const void* counts, int tasks, const void* task_of_key,
+    const void* packed, int row_words, int length, int n, int warm_scale,
+    int w_warm, int w_load, int w_topo, void* scores, void* best_cell,
+    void* best_score, void* stream) {
+  if (cells < 1 || tasks < 1 || tasks > kPlaceMaxTasks || n < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  placement_score_kernel<<<cells, kPlaceThreads, 0, s>>>(
+      filter(nullptr, num_bits, num_hashes, 0),
+      (const unsigned long long*)table, cells, (const int*)terms,
+      (const int*)counts, tasks, (const int*)task_of_key,
+      (const uint32_t*)packed, row_words, length, n,
+      PlaceWeights{warm_scale, w_warm, w_load, w_topo}, (int*)scores);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  placement_argmin_kernel<<<1, kPlaceThreads, 0, s>>>(
+      (const int*)scores, cells, tasks, (int*)best_cell, (int*)best_score);
+  return (int)cudaGetLastError();
+}
+
+// The most tasks one placement call takes.
+extern "C" int yadcc_placement_max_tasks() { return kPlaceMaxTasks; }

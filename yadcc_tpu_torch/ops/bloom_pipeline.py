@@ -67,6 +67,58 @@ def cascade_plain(region_words, fleet_words, packed_keys, length,
                                num_bits, num_hashes_fleet))
 
 
+def placement_score_plain(words, seeds, terms, packed, task_of_key, counts,
+                          *, length, num_bits, num_hashes, warm_scale,
+                          w_warm, w_load, w_topo, device):
+    """The plain version of the cells x tasks placement score
+    (yadcc_tpu/parallel/mesh.py:placement_score_fn; ops/cuda_bloom.py:
+    placement_score takes the same arguments).  ``words`` holds one
+    int32 filter word tensor per cell, or None for a cell without a
+    filter; ``seeds`` uint32 [C, 2] (hi, lo); ``terms`` int32 [4, C] rows
+    util_q, topo_q, eligible, has_filter; ``packed`` uint32 [N,
+    ceil(length/8)*2]; ``task_of_key`` int32 [N] (-1 for padding keys);
+    ``counts`` int32 [T].  Host arrays go to ``device`` first.  Returns
+    (scores int32 [C, T], best cell int32 [T], best score int32 [T]):
+
+        miss_q = (counts - hits) * warm_scale // max(counts, 1)
+                 (warm_scale for a cell without a filter)
+        score  = w_warm * miss_q + w_load * util_q + w_topo * topo_q
+                 (2^30 for an ineligible cell)
+
+    in int32, wrapping as jnp wraps; the best cell is the first minimum."""
+    dev = torch.device(device)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    packed_t = as_device_words(packed, dev)
+    tok = up(task_of_key)
+    counts_t = up(counts)
+    terms_t = up(terms)
+    t_n = counts_t.shape[0]
+    onehot = tok[:, None] == torch.arange(t_n, dtype=torch.int32,
+                                          device=dev)[None, :]
+    hits = torch.zeros((len(words), t_n), dtype=torch.int32, device=dev)
+    for c, w in enumerate(words):
+        if w is None:
+            continue
+        ok = membership_plain(w, packed_t, length, seeds[c], num_bits,
+                              num_hashes)
+        hits[c] = (ok[:, None] & onehot).sum(0, dtype=torch.int32)
+    miss = torch.div((counts_t[None, :] - hits) * warm_scale,
+                     torch.clamp(counts_t, min=1)[None, :],
+                     rounding_mode="floor")
+    miss = torch.where(terms_t[3][:, None] > 0, miss,
+                       torch.full_like(miss, warm_scale))
+    score = (w_warm * miss
+             + (w_load * terms_t[0] + w_topo * terms_t[1])[:, None])
+    score = torch.where(terms_t[2][:, None] > 0, score,
+                        torch.full_like(score, 2 ** 30))
+    best_cell = torch.argmin(score, dim=0).to(torch.int32)
+    best_score = torch.gather(score, 0, best_cell.long()[None, :])[0]
+    return score, best_cell, best_score
+
+
 def bloom_membership_from_keys(
     words: torch.Tensor,        # int32[W] filter bit-array
     packed_keys: torch.Tensor,  # int32[N, ceil(length/8)*2] (pack_keys)

@@ -6,6 +6,7 @@ The counterparts of the JAX package's Bloom device functions:
   bloom_cascade     <- parallel/mesh.py:sharded_bloom_cascade_fn, one card
   bloom_probe       <- ops/bloom_probe.py:bloom_may_contain
   bloom_scatter_or  <- ops/bloom_probe.py:bloom_scatter_add
+  placement_score   <- parallel/mesh.py:placement_score_fn, one card
 
 Routing follows the tensors: CPU tensors go to the plain versions
 (ops/bloom_pipeline.py, ops/bloom_probe.py); CUDA tensors launch the
@@ -17,11 +18,16 @@ base only 4-byte aligned, e.g. one word into a buffer) and of any key
 length: the kernels stage rows of 32 to 128 bytes whose width is a multiple
 of 16 bytes and read the others from device memory.
 
+The placement score takes its small per-decision inputs (seeds, the
+cells' terms, counts, the task of each key, the packed keys) as host
+arrays and sends them up in one copy; its cells' filter words are
+tensors already resident on the card.
+
 `launches` counts, by kernel name, the calls on the card that launched
 the kernel (one a call with a non-empty batch; a scatter-OR call is two
 launches, its bin and own passes, or two a pass when the batch outgrows
-the scratch), so a run can show that its main path went through the
-kernels.
+the scratch; a placement call is two, the score and its argmin), so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from . import bloom_pipeline as bpl
 from . import bloom_probe as bpr
 
 SOURCE = "bloom.cu"
-KERNELS = ("membership", "cascade", "probe", "scatter_or")
+KERNELS = ("membership", "cascade", "probe", "scatter_or",
+           "placement_score")
 # Bound on the hash count: far above any filter's (the reference uses
 # 10), low enough that one pass of the scatter holds every probe of a key.
 MAX_HASHES = 1 << 16
@@ -51,6 +58,11 @@ BIN_PROBES = 16384
 MAX_SEGMENTS = 2048
 MIN_SLICES = 264
 SLICE_SHIFTS = (8, 15)
+# The placement score's shared hit counts (csrc/bloom.cu: kPlaceMaxTasks;
+# _kernels checks that the library agrees), and the largest task count it
+# takes: above it, (counts - hits) * 1024 could wrap in int32.
+PLACE_MAX_TASKS = 4096
+PLACE_MAX_COUNT = 1 << 21
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
@@ -73,22 +85,29 @@ def _kernels():
             "probe": (lib.yadcc_bloom_probe, [p, u, i, p, i, p, p]),
             "scatter_or": (lib.yadcc_bloom_scatter_or,
                            [p, p, u, i, p, i, p, p, i, i, i, i, p]),
+            "placement_score": (lib.yadcc_placement_score,
+                                [p, i, u, i, p, p, i, p, p, i, i, i, i, i,
+                                 i, i, p, p, p, p]),
         }
         fns = {}
         for name, (fn, argtypes) in sigs.items():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
-        for name in ("tile_keys", "scatter_bin_threads",
-                     "scatter_bin_probes"):
-            fn = getattr(lib, f"yadcc_bloom_{name}")
+        for name in ("bloom_tile_keys", "bloom_scatter_bin_threads",
+                     "bloom_scatter_bin_probes", "placement_max_tasks"):
+            fn = getattr(lib, f"yadcc_{name}")
             fn.argtypes = []
             fn.restype = ctypes.c_int
-            fns[name] = fn
+            fns[name.removeprefix("bloom_")] = fn
         got = (fns["scatter_bin_threads"](), fns["scatter_bin_probes"]())
         if got != (BIN_THREADS, BIN_PROBES):
             raise RuntimeError(f"{SOURCE} bins {got} (threads, probes), the "
                                f"plan assumes {(BIN_THREADS, BIN_PROBES)}")
+        if fns["placement_max_tasks"]() != PLACE_MAX_TASKS:
+            raise RuntimeError(f"{SOURCE} places up to "
+                               f"{fns['placement_max_tasks']()} tasks, the "
+                               f"wrapper assumes {PLACE_MAX_TASKS}")
         _fns = fns
     return _fns
 
@@ -324,4 +343,147 @@ def bloom_scatter_or(words: torch.Tensor, fingerprints: torch.Tensor, *,
                  table.data_ptr(), plan.slice_shift, plan.keys_per_thread,
                  plan.hash_chunk, plan.segments, _stream(dev))
     _launched("scatter_or", err)
+    return out
+
+
+def _placement_inputs(words, seeds, terms, packed, task_of_key, counts,
+                      length: int, num_bits: int, num_hashes: int):
+    """Check placement_score's inputs; returns (device, seeds, terms,
+    packed, task_of_key, counts) with the host arrays as numpy."""
+    import numpy as np
+
+    c_n = len(words)
+    if c_n < 1:
+        raise ValueError("placement needs at least one cell")
+    def norm(d) -> torch.device:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    devs = {norm(w.device) for w in words if w is not None}
+    if len(devs) != 1:
+        raise ValueError(f"placement cells' words on {sorted(map(str, devs))}"
+                         f": the cells' filters must lie on one device")
+    dev = next(iter(devs))
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no placement kernel for device {dev}")
+    _check_geometry(num_bits, num_hashes)
+    nw = -(-num_bits // 32)
+    for c, w in enumerate(words):
+        if w is not None:
+            _check(f"words[{c}]", w, (nw,), dev)
+    seeds = np.ascontiguousarray(seeds, np.uint32)
+    terms = np.ascontiguousarray(terms, np.int32)
+    counts = np.ascontiguousarray(counts, np.int32)
+    task_of_key = np.ascontiguousarray(task_of_key, np.int32)
+    packed = np.ascontiguousarray(packed, np.uint32)
+    if seeds.shape != (c_n, 2) or terms.shape != (4, c_n):
+        raise ValueError(f"seeds {seeds.shape} and terms {terms.shape} for "
+                         f"{c_n} cells: expected ({c_n}, 2) and (4, {c_n})")
+    t_n = counts.shape[0] if counts.ndim == 1 else -1
+    if not 1 <= t_n <= PLACE_MAX_TASKS:
+        raise ValueError(f"{t_n} tasks outside [1, {PLACE_MAX_TASKS}]")
+    if int(counts.max()) > PLACE_MAX_COUNT:
+        raise ValueError(f"a task counts {int(counts.max())} keys, above "
+                         f"{PLACE_MAX_COUNT}: (counts - hits) * warm_scale "
+                         f"could wrap in int32")
+    if length < 0:
+        raise ValueError(f"key length {length} < 0")
+    n = task_of_key.shape[0] if task_of_key.ndim == 1 else -1
+    if packed.shape != (n, -(-length // 8) * 2):
+        raise ValueError(f"packed {packed.shape} for {n} keys of {length} "
+                         f"bytes")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} keys: the kernel counts keys in int32")
+    return dev, seeds, terms, packed, task_of_key, counts
+
+
+def placement_score(words, seeds, terms, packed, task_of_key, counts, *,
+                    length: int, num_bits: int, num_hashes: int,
+                    warm_scale: int, w_warm: int, w_load: int, w_topo: int,
+                    out: "torch.Tensor | None" = None):
+    """(scores int32 [C, T], best cell int32 [T], best score int32 [T]) on
+    the cells' device; the drop-in counterpart of
+    bloom_pipeline.placement_score_plain, whose docstring gives the
+    arguments and the arithmetic.  Every filter shares (num_bits,
+    num_hashes): a word tensor of another length is refused, as the JAX
+    scorer refuses filters of differing geometry, and so is a call in
+    which no cell has a filter (it has no device).  On the card the host
+    arrays go up
+    in one copy and the score and argmin are two launches.  Given ``out``
+    (int32 [C*T + 2*T] on the device), the three results are views of it,
+    so one copy brings them back."""
+    dev, seeds, terms, packed, task_of_key, counts = _placement_inputs(
+        words, seeds, terms, packed, task_of_key, counts, length, num_bits,
+        num_hashes)
+    kw = dict(length=length, num_bits=num_bits, num_hashes=num_hashes,
+              warm_scale=warm_scale, w_warm=w_warm, w_load=w_load,
+              w_topo=w_topo)
+    c_n, t_n, n = len(words), counts.shape[0], task_of_key.shape[0]
+    if out is not None:
+        _check("out", out, (c_n * t_n + 2 * t_n,), dev)
+    if dev.type == "cpu":
+        res = bpl.placement_score_plain(words, seeds, terms, packed,
+                                        task_of_key, counts, device=dev,
+                                        **kw)
+        if out is None:
+            return res
+        out.copy_(torch.cat([r.reshape(-1) for r in res]))
+    else:
+        out = _placement_launch(dev, words, seeds, terms, packed,
+                                task_of_key, counts, out, **kw)
+    return (out[:c_n * t_n].view(c_n, t_n),
+            out[c_n * t_n:c_n * t_n + t_n], out[c_n * t_n + t_n:])
+
+
+def placement_stage(dev, words, seeds, terms, packed, task_of_key,
+                    counts) -> "tuple[torch.Tensor, list]":
+    """The placement call's host arrays in one device buffer: (the buffer,
+    the byte offsets of its table, terms, counts, task_of_key and packed
+    rows).  The int64 table (word pointers, then seeds) comes first, so
+    it is 8-byte aligned."""
+    import numpy as np
+
+    c_n = len(words)
+    table = np.zeros((2, c_n), np.uint64)
+    for c, w in enumerate(words):
+        if w is not None:
+            table[0, c] = w.data_ptr()
+        table[1, c] = _seed64(seeds[c])
+    parts = [table.view(np.int32).ravel(), terms.ravel(), counts,
+             task_of_key, packed.view(np.int32).ravel()]
+    offsets = [int(o) * 4 for o in np.cumsum([0] + [p.size for p in parts])]
+    return torch.from_numpy(np.concatenate(parts)).to(dev), offsets[:5]
+
+
+def placement_run(staged: torch.Tensor, offsets, c_n: int, t_n: int,
+                  n: int, row_words: int, out: torch.Tensor, *,
+                  length, num_bits, num_hashes, warm_scale, w_warm, w_load,
+                  w_topo) -> None:
+    """Launch the score and argmin kernels on a staged buffer into
+    ``out`` (int32 [C*T + 2*T]); raises on a launch error, counts the
+    call."""
+    base, obase = staged.data_ptr(), out.data_ptr()
+    fn = _kernels()["placement_score"]
+    dev = staged.device
+    with torch.cuda.device(dev):
+        err = fn(base + offsets[0], c_n, num_bits, num_hashes,
+                 base + offsets[1], base + offsets[2], t_n,
+                 base + offsets[3], base + offsets[4], row_words, length, n,
+                 warm_scale, w_warm, w_load, w_topo, obase,
+                 obase + 4 * c_n * t_n, obase + 4 * (c_n * t_n + t_n),
+                 _stream(dev))
+    _launched("placement_score", err)
+
+
+def _placement_launch(dev, words, seeds, terms, packed, task_of_key, counts,
+                      out, **kw) -> torch.Tensor:
+    c_n, t_n = len(words), counts.shape[0]
+    staged, offsets = placement_stage(dev, words, seeds, terms, packed,
+                                      task_of_key, counts)
+    if out is None:
+        out = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32, device=dev)
+    placement_run(staged, offsets, c_n, t_n, task_of_key.shape[0],
+                  packed.shape[1], out, **kw)
     return out

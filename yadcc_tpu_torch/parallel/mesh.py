@@ -1,5 +1,5 @@
 """One-card counterparts of the sharded control plane's device functions
-(yadcc_tpu/parallel/mesh.py:562-695).
+(yadcc_tpu/parallel/mesh.py:562-784).
 
 The JAX package lays an N-shard control plane over a device mesh, one
 shard slice a device.  On one H100 every shard slice lives on the same
@@ -26,6 +26,13 @@ import torch
 from ..ops.cuda_grouped import (  # noqa: F401
     cuda_resident_control_plane_step as resident_control_plane_step)
 from ..ops.bloom_probe import partitioned_shard_bounds
+# The one-card counterpart of placement_score_fn (mesh.py:698), the cells x
+# tasks spill-placement score: its plain version on the CPU, the
+# hand-written kernel of csrc/bloom.cu on the card.  The JAX function shards
+# the cell axis over the mesh and reduces the argmin with a pmin per axis;
+# on one card every cell is a block of one launch and a second launch takes
+# the argmin.
+from ..ops.cuda_bloom import placement_score  # noqa: F401
 
 
 def control_plane_shard_slices(

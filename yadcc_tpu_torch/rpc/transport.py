@@ -14,6 +14,7 @@ comment on TryGetEntry).
 from __future__ import annotations
 
 import struct
+import threading
 import time as _time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple, Union
@@ -40,6 +41,29 @@ class RpcError(Exception):
 STATUS_TRANSPORT_FAILURE = 1
 STATUS_METHOD_NOT_FOUND = 2
 STATUS_TIMEOUT = 3
+# A live endpoint that is deliberately not serving yet — a warm standby
+# awaiting takeover (scheduler/replication.py).  The wire's 503: the
+# error message carries a machine-readable "retry-after-ms=N" hint
+# (parse with retry_after_ms_from_error).
+STATUS_NOT_SERVING = 4
+
+
+def retry_after_ms_from_error(err: "RpcError",
+                              default_ms: int = 250) -> int:
+    """Extract the "retry-after-ms=N" hint a NOT_SERVING standby embeds
+    in its error message.  Error frames carry only (status, message),
+    so the hint travels in-band."""
+    marker = "retry-after-ms="
+    msg = err.message or ""
+    at = msg.find(marker)
+    if at < 0:
+        return default_ms
+    digits = []
+    for ch in msg[at + len(marker):]:
+        if not ch.isdigit():
+            break
+        digits.append(ch)
+    return int("".join(digits)) if digits else default_ms
 @dataclass
 class RpcContext:
     """Per-call server-side context."""
@@ -151,11 +175,30 @@ def dispatch_frame(spec: ServiceSpec, name: str, data: bytes, peer: str) -> byte
     return dispatch_frame_payload(spec, name, data, peer).join()
 
 
+# --------------------------------------------------------------------------
+# mock:// transport — in-process server registry for tests.
+# --------------------------------------------------------------------------
+
+_mock_servers: Dict[str, Dict[str, ServiceSpec]] = {}
+_mock_lock = threading.Lock()
+
+
+def register_mock_server(name: str, *services: ServiceSpec) -> None:
+    with _mock_lock:
+        _mock_servers[name] = {s.service_name: s for s in services}
+
+
+def unregister_mock_server(name: str) -> None:
+    with _mock_lock:
+        _mock_servers.pop(name, None)
+
+
 class Channel:
     """Client-side channel; scheme-dispatched factory.
 
-    ``Channel("grpc://10.0.0.1:8336")``; a bare "host:port" is treated
-    as grpc.
+    ``Channel("grpc://10.0.0.1:8336")`` or ``Channel("mock://scheduler")``
+    (an in-process server registered with register_mock_server); a bare
+    "host:port" is treated as grpc.
     """
 
     def __new__(cls, uri: str):
@@ -163,6 +206,8 @@ class Channel:
             return super().__new__(cls)
         # Return the concrete subclass instance; Python's call protocol
         # then runs its __init__ exactly once (do NOT call it here).
+        if uri.startswith("mock://"):
+            return object.__new__(_MockChannel)
         from .grpc_transport import GrpcChannel
 
         return object.__new__(GrpcChannel)
@@ -180,3 +225,28 @@ class Channel:
 
     def close(self) -> None:
         pass
+
+
+class _MockChannel(Channel):
+    """``mock://name`` — optionally ``mock://name@ip:port`` to control the
+    peer address the server-side context observes."""
+
+    def __init__(self, uri: str):
+        rest = uri[len("mock://") :]
+        self._name, _, peer = rest.partition("@")
+        self._peer = peer or "127.0.0.1:0"
+
+    def call(self, service, method_name, request, response_cls,
+             attachment=b"", timeout=None):
+        with _mock_lock:
+            services = _mock_servers.get(self._name)
+        if services is None or service not in services:
+            raise RpcError(STATUS_TRANSPORT_FAILURE,
+                           f"no mock server for {self._name}/{service}")
+        frame = encode_frame(0, request.SerializeToString(), attachment)
+        reply = dispatch_frame(services[service], method_name, frame,
+                               peer=self._peer)
+        status, meta, att = decode_frame_views(reply)
+        if status != 0:
+            raise RpcError(status, bytes(meta).decode(errors="replace"))
+        return response_cls.FromString(meta), att

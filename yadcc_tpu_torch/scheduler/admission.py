@@ -180,6 +180,17 @@ class OverloadLadder:
             self._advance_locked(utilization, capacity, now)
             return self._rung
 
+    def restore_rung(self, rung: int, now: float) -> None:
+        """Warm-standby takeover (scheduler/replication.py): seed the
+        ladder with the rung the dead active last journaled, so the new
+        scheduler does not greet a mid-storm fleet from NORMAL.  The
+        dwell clock restarts — recovery is proven from takeover, not
+        inherited."""
+        rung = max(RUNG_NORMAL, min(int(rung), RUNG_REJECT))
+        with self._lock:
+            if rung != self._rung:
+                self._step_locked(rung, now)
+
     # -- read side -----------------------------------------------------------
 
     def rung(self) -> int:

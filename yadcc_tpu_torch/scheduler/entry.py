@@ -11,6 +11,18 @@ With ``--shards N`` (N > 1) the servant pool is split over N shard
 dispatchers behind a ShardRouter (consistent-hash routing, cross-shard
 steal), each with its own policy, warmed before serving, launching on a
 CUDA stream of its own.
+
+Warm standby (scheduler/replication.py): an active started with
+``--replicate-to grpc://STANDBY`` streams its lease journal to a
+scheduler started with ``--standby``.  The standby builds and warms its
+dispatcher on the card at boot, refuses scheduler RPCs until the stream
+falls silent for ``--standby-takeover-silence`` seconds, then replays
+the journal into that dispatcher and serves:
+
+    python -m yadcc_tpu_torch.scheduler.entry --port 8337 --standby \
+        --replication-token SECRET
+    python -m yadcc_tpu_torch.scheduler.entry --port 8336 \
+        --replicate-to grpc://127.0.0.1:8337 --replication-token SECRET
 """
 
 from __future__ import annotations
@@ -31,6 +43,9 @@ from ..utils.gctune import LatencyGcGuard
 from ..utils.inspect_server import InspectServer
 from ..utils.logging import get_logger
 from .policy import POLICY_NAMES, make_policy
+from .replication import (JournalStreamer, LeaseJournal,
+                          ReplicatingDispatcher, StandbyMonitor,
+                          StandbyScheduler)
 from .service import SchedulerService
 from .shard_router import ShardRouter
 from .task_dispatcher import TaskDispatcher
@@ -77,6 +92,24 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "running chain).  'auto' = 16 on the card, 0 "
                         "(synchronous) on the CPU; an integer forces a "
                         "depth")
+    p.add_argument("--replicate-to", default="",
+                   help="warm-standby replication: stream the lease "
+                        "journal to this standby URI; on our death the "
+                        "standby replays it and takes over within one "
+                        "keep-alive interval")
+    p.add_argument("--standby", action="store_true",
+                   help="boot as the warm standby: refuse scheduler "
+                        "RPCs fast (REJECT verdict / NOT_SERVING + "
+                        "retry-after), apply the active's journal "
+                        "stream, and take over when it falls silent; "
+                        "the dispatch policy is warmed at BOOT so "
+                        "takeover replays into a ready dispatcher")
+    p.add_argument("--standby-takeover-silence", type=float, default=1.0,
+                   help="seconds of journal-stream silence before the "
+                        "standby declares the active dead")
+    p.add_argument("--replication-token", default="",
+                   help="shared secret on the journal stream (empty = "
+                        "unauthenticated, test rigs only)")
     return p
 
 
@@ -105,11 +138,14 @@ def sharded_registry_size(max_servants: int, n_shards: int) -> int:
 
 
 def build_dispatcher(args):
-    """Policy selection + warmup + dispatcher construction.  The policies'
-    kernels are built and run once for the serving shapes BEFORE the
-    server accepts requests.  With --shards N > 1: N policies (each
-    shard owns its policy and its CUDA stream; device kernels are not
-    shared across dispatch threads) behind a ShardRouter."""
+    """Policy selection + warmup + dispatcher construction, shared by the
+    active path and the standby's boot (the "warm" in warm standby: the
+    takeover replays into a dispatcher whose kernels are already built and
+    launched once).  The policies' kernels are built and run once for the
+    serving shapes BEFORE the server accepts requests.  With --shards N >
+    1: N policies (each shard owns its policy and its CUDA stream; device
+    kernels are not shared across dispatch threads) behind a
+    ShardRouter."""
     device = resolve_device(args.device)
     n = args.shards
     if n < 1:
@@ -147,42 +183,35 @@ def build_service(dispatcher, args) -> SchedulerService:
     )
 
 
-def scheduler_start(args, stop: "threading.Event | None" = None,
-                    gc_guard: bool = True) -> int:
-    """Serve until ``stop`` is set (SIGINT/SIGTERM when run as a program)
-    or the dispatcher fails.  Returns the process exit code: 0 after a
-    clean stop, 1 after a dispatcher failure.  ``gc_guard=False`` builds
-    no guard and leaves the process's cyclic collector as it is (a caller
-    that embeds the server in a process it does not own)."""
-    dispatcher = build_dispatcher(args)
-    # Count the launches made while serving, not the warmup's.
+def _reset_kernel_counts() -> None:
+    """Count the launches made while serving, not the warmup's."""
     cuda_grouped.launches = 0
     cuda_assign.launches = 0
-    service = build_service(dispatcher, args)
-    exposed_vars.expose("yadcc/task_dispatcher", dispatcher.inspect)
     exposed_vars.expose("yadcc/kernels", lambda: {
         "grouped_assign": {"launches": cuda_grouped.launches},
         "assign_batch": {"launches": cuda_assign.launches}})
-    exposed_vars.expose("yadcc/scheduler_rpc",
-                        service.stage_timer.percentiles)
 
+
+def _serve(args, services, stop, gc_guard: bool, tick) -> int:
+    """Mount ``services`` on the gRPC port and the inspect endpoint, then
+    run ``tick()`` once a second until ``stop`` is set (SIGINT/SIGTERM
+    when None) or ``tick`` returns False (a dispatcher failure: rc 1)."""
     # The heap is built (policy warmed, dispatcher constructed): freeze it
     # and take the automatic cyclic collector off the grant path; the
     # sweep below collects the young generations instead.
     guard = LatencyGcGuard() if gc_guard else None
     if guard is not None:
         guard.start()
-
     server = GrpcServer(f"0.0.0.0:{args.port}")
-    server.add_service(service.spec())
+    for spec in services:
+        server.add_service(spec)
     server.start()
     inspect = InspectServer(args.inspect_port, args.inspect_credential)
     inspect.start()
-    logger.info("scheduler serving on :%d (policy=%s, device=%s, "
-                "shards=%d), inspect on :%d", server.port,
-                dispatcher.inspect()["policy"], args.device, args.shards,
+    logger.info("%s on :%d (policy=%s, device=%s, shards=%d), inspect on "
+                ":%d", "standby" if args.standby else "scheduler serving",
+                server.port, args.dispatch_policy, args.device, args.shards,
                 inspect.port)
-
     if stop is None:
         stop = threading.Event()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -190,12 +219,9 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
     rc = 0
     # 1s expiration sweep (reference task_dispatcher.cc:498-536).
     while not stop.wait(1.0):
-        if dispatcher.failure is not None:
-            logger.error("dispatcher failed (%r); shutting down",
-                         dispatcher.failure)
+        if not tick():
             rc = 1
             break
-        dispatcher.on_expiration_timer()
         if guard is not None:
             guard.maintain()
     logger.info("shutting down")
@@ -204,11 +230,112 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
         exposed_vars.unexpose("yadcc/gc_guard")
     server.stop()
     inspect.stop()
-    dispatcher.stop()
-    exposed_vars.unexpose("yadcc/task_dispatcher")
-    exposed_vars.unexpose("yadcc/scheduler_rpc")
-    exposed_vars.unexpose("yadcc/kernels")
     return rc
+
+
+def _sweep(dispatcher) -> bool:
+    """One expiration sweep; False once the dispatcher has failed."""
+    if dispatcher.failure is not None:
+        logger.error("dispatcher failed (%r); shutting down",
+                     dispatcher.failure)
+        return False
+    dispatcher.on_expiration_timer()
+    return True
+
+
+def scheduler_standby_start(args, stop: "threading.Event | None" = None,
+                            gc_guard: bool = True) -> int:
+    """The warm-standby role: build and warm the dispatcher on the card
+    NOW, mount the replication receiver and the refusing gate, and
+    promote when the journal stream falls silent.  ``yadcc/standby``
+    exposes the last journal sequence applied and, once promoted, the
+    takeover's report.  Returns the exit code, as scheduler_start does; a
+    takeover that raises ends the process with 1."""
+    dispatcher = build_dispatcher(args)  # warmed NOW, replayed at takeover
+    _reset_kernel_counts()
+    standby = StandbyScheduler(token=args.replication_token)
+    promoted, failed = threading.Event(), threading.Event()
+    state = {"promoted": False, "report": None}
+    exposed_vars.expose("yadcc/standby", lambda: dict(
+        state, journal_seq=standby.receiver.state_seq()))
+
+    def promoted_service(d) -> SchedulerService:
+        service = build_service(d, args)
+        exposed_vars.expose("yadcc/scheduler_rpc",
+                            service.stage_timer.percentiles)
+        return service
+
+    def on_dead():
+        try:
+            report = standby.takeover(lambda: dispatcher,
+                                      service_factory=promoted_service)
+        except BaseException:
+            failed.set()
+            raise
+        exposed_vars.expose("yadcc/task_dispatcher", dispatcher.inspect)
+        state.update(promoted=True, report=report)
+        logger.info("promoted to active: %s", report)
+        promoted.set()
+
+    monitor = StandbyMonitor(standby.receiver, on_dead,
+                             silence_s=args.standby_takeover_silence)
+    monitor.start()
+
+    def tick() -> bool:
+        if failed.is_set():
+            logger.error("takeover failed; shutting down")
+            return False
+        if dispatcher.failure is not None or promoted.is_set():
+            return _sweep(dispatcher)
+        return True
+
+    try:
+        return _serve(args, [standby.receiver.spec(), standby.gate.spec()],
+                      stop, gc_guard, tick)
+    finally:
+        monitor.stop()
+        dispatcher.stop()
+        for name in ("yadcc/standby", "yadcc/task_dispatcher",
+                     "yadcc/scheduler_rpc", "yadcc/kernels"):
+            exposed_vars.unexpose(name)
+
+
+def scheduler_start(args, stop: "threading.Event | None" = None,
+                    gc_guard: bool = True) -> int:
+    """Serve until ``stop`` is set (SIGINT/SIGTERM when run as a program)
+    or the dispatcher fails.  Returns the process exit code: 0 after a
+    clean stop, 1 after a dispatcher failure.  ``gc_guard=False`` builds
+    no guard and leaves the process's cyclic collector as it is (a caller
+    that embeds the server in a process it does not own).  With
+    ``--standby`` the process is a warm standby
+    (scheduler_standby_start); with ``--replicate-to`` every lease
+    mutation is journaled at the call boundary and shipped there."""
+    if args.standby:
+        return scheduler_standby_start(args, stop, gc_guard)
+    dispatcher = build_dispatcher(args)
+    _reset_kernel_counts()
+    streamer = None
+    if args.replicate_to:
+        journal = LeaseJournal()
+        dispatcher = ReplicatingDispatcher(dispatcher, journal)
+        streamer = JournalStreamer(journal, args.replicate_to,
+                                   token=args.replication_token)
+        streamer.start()
+        logger.info("replicating lease journal to %s", args.replicate_to)
+    service = build_service(dispatcher, args)
+    exposed_vars.expose("yadcc/task_dispatcher", dispatcher.inspect)
+    exposed_vars.expose("yadcc/scheduler_rpc",
+                        service.stage_timer.percentiles)
+    try:
+        return _serve(args, [service.spec()], stop, gc_guard,
+                      lambda: _sweep(dispatcher))
+    finally:
+        if streamer is not None:
+            streamer.stop()
+        dispatcher.stop()
+        for name in ("yadcc/task_dispatcher", "yadcc/scheduler_rpc",
+                     "yadcc/kernels"):
+            exposed_vars.unexpose(name)
 
 
 def main() -> None:

@@ -8,7 +8,8 @@ heartbeat-driven registry upkeep.  Given a ``tenancy=`` control, a grant
 request must carry a verifiable tenant credential, and the verified
 tenant rides admission and the grant path (tenancy/).  In front of a
 ShardRouter, the home shard is resolved once a request, and the reply
-carries each grant's shard and whether it was stolen.
+carries each grant's shard and whether it was stolen (behind a
+FederationRouter also its cell and whether it was spilled there).
 """
 
 from __future__ import annotations
@@ -266,11 +267,14 @@ class SchedulerService:
             resp = api.scheduler.WaitForStartingTaskResponse(
                 degradation_rung=decision.rung,
                 shard_id=routed.shard_id,
-                stolen_grants=routed.stolen_count)
+                stolen_grants=routed.stolen_count,
+                cell_id=routed.cell_id,
+                spilled_grants=routed.spilled_count)
             for g in routed.grants:
                 resp.grants.add(task_grant_id=g.grant_id,
                                 servant_location=g.servant_location,
-                                shard_id=g.shard_id, stolen=g.stolen)
+                                shard_id=g.shard_id, stolen=g.stolen,
+                                cell_id=g.cell_id, spilled=g.spilled)
             return resp
         grants = self.dispatcher.wait_for_starting_new_task(
             req.env_desc.compiler_digest, **wait_kw)

@@ -34,9 +34,11 @@ card (the port of yadcc_tpu/scheduler/shard_router.py).
 rung is the max over shards, stage percentiles pool every shard's
 samples — with the per-shard detail under ``per_shard``.
 
-Not ported yet: the asynchronous steal, which rides the dispatcher's
-parked wait (ROADMAP Queue 1 item 5), and the warm-standby adoption calls
-(item 4); they raise NotImplementedError.
+Warm-standby adoption (``adopt_grants``, ``set_adoption_window``) routes
+each journaled grant to its owning shard by id and opens every shard's
+window.  Not ported yet: the asynchronous steal, which rides the
+dispatcher's parked wait (ROADMAP Queue 1 item 5); it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from .admission import RUNG_NAMES, AdmissionDecision
-from .task_dispatcher import ServantInfo, TaskDispatcher
+from .task_dispatcher import LoadSignal, ServantInfo, TaskDispatcher
 
 logger = get_logger("scheduler.shard_router")
 
@@ -103,6 +105,12 @@ class RoutedGrant:
     servant_location: str
     shard_id: int          # shard whose dispatcher issued (owns) it
     stolen: bool           # True when shard_id != the serving shard
+    # Federation provenance (scheduler/federation.py): the cell whose
+    # dispatcher issued the grant, and whether it was spilled there
+    # from an overloaded home cell.  Single-cell planes leave the
+    # defaults — cell 0, nothing spilled.
+    cell_id: int = 0
+    spilled: bool = False
 
 
 @dataclass
@@ -111,6 +119,7 @@ class RoutedGrants:
 
     shard_id: int                  # home (serving) shard
     grants: List[RoutedGrant] = field(default_factory=list)
+    cell_id: int = 0               # home (serving) cell
 
     def pairs(self) -> List[Tuple[int, str]]:
         return [(g.grant_id, g.servant_location) for g in self.grants]
@@ -118,6 +127,10 @@ class RoutedGrants:
     @property
     def stolen_count(self) -> int:
         return sum(1 for g in self.grants if g.stolen)
+
+    @property
+    def spilled_count(self) -> int:
+        return sum(1 for g in self.grants if g.spilled)
 
 
 class ShardRouter:
@@ -333,6 +346,34 @@ class ShardRouter:
         return self._shards[home].admission_check(
             immediate, prefetch, tenant=tenant, tier=tier)
 
+    def admission_rung(self) -> int:
+        """Max rung over shards — the replication journal and the
+        federation spillover check treat the hottest shard as the
+        cell's degradation level (same convention as inspect())."""
+        return max(d.admission_rung() for d in self._shards)
+
+    def restore_admission_rung(self, rung: int) -> None:
+        """Warm-standby takeover: restart every shard's ladder at the
+        journaled rung (the journal records the max; restoring it on
+        all shards errs toward shedding for one update interval)."""
+        for d in self._shards:
+            d.restore_admission_rung(rung)
+
+    def load_signal(self) -> LoadSignal:
+        """Aggregate pool load across shards — the federation router's
+        peer-ranking signal (least-loaded cell for spillover)."""
+        sigs = [d.load_signal() for d in self._shards]
+        cap = sum(s.capacity for s in sigs)
+        outstanding = sum(s.outstanding for s in sigs)
+        queued = sum(s.queued_immediate for s in sigs)
+        return LoadSignal(
+            capacity=cap,
+            outstanding=outstanding,
+            queued_immediate=queued,
+            utilization=((outstanding + queued) / cap) if cap > 0 else 0.0,
+            free=sum(s.free for s in sigs),
+        )
+
     def wait_for_starting_new_task(self, env_digest: str, *,
                                    min_version: int = 0,
                                    requestor: str = "",
@@ -409,12 +450,25 @@ class ShardRouter:
     submit_wait_for_starting_new_task_routed = \
         submit_wait_for_starting_new_task
 
-    def adopt_grants(self, *args, **kwargs):
-        raise NotImplementedError(
-            "lease adoption (warm-standby takeover) is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
+    def adopt_grants(self, location: str,
+                     grants: Sequence[Tuple[int, str, str]],
+                     lease_s: float = 15.0) -> int:
+        """Warm-standby replay (scheduler/replication.py): route each
+        journaled grant to its owning shard by id."""
+        by_shard: Dict[int, List[Tuple[int, str, str]]] = defaultdict(list)
+        for item in grants:
+            by_shard[self.shard_of_grant(item[0])].append(item)
+        return sum(self._shards[s].adopt_grants(location, items, lease_s)
+                   for s, items in by_shard.items())
 
-    set_adoption_window = adopt_grants
+    def set_adoption_window(self, floor_grant_id: int,
+                            grace_s: float, *,
+                            gap_slack: int = 1024) -> None:
+        """Open every shard's takeover grace window: any of them may be
+        the owner of a journal-gap grant a servant reports."""
+        for d in self._shards:
+            d.set_adoption_window(floor_grant_id, grace_s,
+                                  gap_slack=gap_slack)
 
     def keep_task_alive(self, grant_ids: Sequence[int],
                         next_keep_alive_s: float) -> List[bool]:

@@ -69,6 +69,12 @@ _ZOMBIE_TIMEOUT_S = 60.0
 # cycle runs (a 5k/s fleet flushes every ~13ms).
 _HB_FLUSH_THRESHOLD = 64
 
+# Lease granted to a journal-gap grant adopted off a servant's report
+# during the takeover grace window (scheduler/replication.py): long
+# enough for its delegate's next keep-alive to land, short enough that
+# a grant whose delegate died with the old active expires promptly.
+_ADOPTED_LEASE_S = 15.0
+
 # A snapshot buffer whose dirty set covers more than this fraction of
 # the pool rebuilds vectorized instead of via fancy-index updates.
 _SNAP_FULL_REBUILD_FRAC = 8  # 1/8 of slots
@@ -265,7 +271,8 @@ class TaskDispatcher:
         # The policy error that stopped the dispatcher (None: healthy).
         self.failure: Optional[BaseException] = None  # guarded by: self._lock
         self._stats = {"granted": 0, "expired_grants": 0,
-                       "zombies_killed": 0}  # guarded by: self._lock
+                       "zombies_killed": 0,
+                       "adopted_grants": 0}  # guarded by: self._lock
         # Per-tenant grant provenance ("" entries never created).
         self._stats_by_tenant: Dict[str, Dict[str, int]] = \
             {}  # guarded by: self._lock
@@ -273,6 +280,17 @@ class TaskDispatcher:
         # Outstanding-grant ledger: charged at issue, released on EVERY
         # grant exit path (free, zombie kill, servant drop).
         self.tenant_ledger = TenantLedger(tenant_directory)
+
+        # Lease adoption (warm-standby takeover, scheduler/
+        # replication.py): journal-replayed grants for servants that
+        # have not heartbeated into THIS dispatcher yet are parked here
+        # and attached when the servant joins; set_adoption_window()
+        # additionally lets a reporting servant claim ids the journal
+        # never carried (issued after the last shipped batch).
+        self._pending_adoptions: Dict[str, List[Tuple[int, str, str]]] = \
+            {}  # guarded by: self._lock
+        self._adopt_floor = 0  # guarded by: self._lock
+        self._adopt_until = -1.0  # guarded by: self._lock
         # Per-stage grant-path latency (admission -> queue-wait ->
         # snapshot -> policy -> apply), timed with the injectable
         # clock; surfaces in inspect().
@@ -426,6 +444,11 @@ class TaskDispatcher:
         for digest in info.env_digests:
             self._envs.intern(digest)
         self._refresh_slot_arrays_locked(slot, envs_too=True)
+        parked = self._pending_adoptions.pop(info.location, None)
+        if parked:
+            for gid, env_digest, requestor in parked:
+                self._attach_adopted_locked(
+                    servant, gid, env_digest, requestor, expires_at)
         return True
 
     def _flush_heartbeats_locked(self) -> int:
@@ -460,8 +483,18 @@ class TaskDispatcher:
                 return list(reported_grant_ids)
             servant = self._slots[slot]
             reported = set(reported_grant_ids)
+            now = self._clock.now()
             for gid in reported:
                 g = self._grants.get(gid)
+                if g is None and self._adoptable_locked(gid, now):
+                    # Journal-gap grant (issued by the dead active
+                    # after its last shipped batch): the servant is
+                    # running it, so believe the servant instead of
+                    # killing real work.  Env/requestor are lost with
+                    # the journal tail; the lease restarts now.
+                    self._attach_adopted_locked(
+                        servant, gid, "", "", now + _ADOPTED_LEASE_S)
+                    continue
                 if g is None or g.zombie_since is not None or g.slot != slot:
                     kill.append(gid)
             # A zombie this servant no longer reports is truly gone.
@@ -475,6 +508,119 @@ class TaskDispatcher:
             if kill:
                 self._work.notify_all()
         return kill
+
+    # ------------------------------------------------------------------
+    # Lease adoption (warm-standby takeover, scheduler/replication.py).
+    # ------------------------------------------------------------------
+
+    def adopt_grants(self, location: str,
+                     grants: Sequence[Tuple[int, str, str]],
+                     lease_s: float = 15.0) -> int:
+        """Attach journal-replayed grants (id, env_digest, requestor)
+        to ``location`` with a FRESH full lease — adoption never starts
+        a run, so re-arming cannot double-run, and the grace keeps live
+        compiles alive until their delegates re-heartbeat renewals.
+
+        Grants for a servant that has not registered with THIS
+        dispatcher yet (standby replayed the journal before the fleet
+        re-heartbeated) are parked and attached on its join.  Ids must
+        belong to this dispatcher's grant-id namespace; already-known
+        ids are idempotently skipped.  Returns how many attached
+        immediately."""
+        attached = 0
+        with self._lock:
+            now = self._clock.now()
+            for gid, env_digest, requestor in grants:
+                if gid <= 0 or (gid % self._grant_id_stride
+                                != self._next_grant_id
+                                % self._grant_id_stride):
+                    raise ValueError(
+                        f"grant {gid} is outside this dispatcher's id "
+                        f"namespace (stride {self._grant_id_stride}, "
+                        f"residue {self._next_grant_id % self._grant_id_stride})")
+                if gid in self._grants:
+                    continue
+                slot = self._by_location.get(location)
+                if slot is None:
+                    self._pending_adoptions.setdefault(location, []) \
+                        .append((gid, env_digest, requestor))
+                    # Parked entries live until the grace window closes
+                    # (at least one lease, even with no window set).
+                    self._adopt_until = max(self._adopt_until,
+                                            now + lease_s)
+                    self._advance_grant_id_locked(gid)
+                    continue
+                self._attach_adopted_locked(
+                    self._slots[slot], gid, env_digest, requestor,
+                    now + lease_s)
+                attached += 1
+        return attached
+
+    def set_adoption_window(self, floor_grant_id: int,
+                            grace_s: float, *,
+                            gap_slack: int = 1024) -> None:
+        """Open the takeover grace window.
+
+        ``floor_grant_id`` is the highest id the replica SAW; the dead
+        active may have issued up to ``gap_slack`` more ids in this
+        namespace after its last acked batch (the journal tail dies
+        with it).  For ``grace_s`` a reporting servant may claim any
+        unknown id up to ``floor + gap_slack*stride`` —
+        notify_servant_running_tasks adopts them instead of killing
+        real work.  Our own issue counter starts ABOVE the whole
+        claimed range, so a gap id can never be double-issued.  After
+        the window closes, unknown ids go back to being killed."""
+        with self._lock:
+            ceiling = (int(floor_grant_id)
+                       + max(0, gap_slack) * self._grant_id_stride)
+            self._adopt_floor = max(self._adopt_floor, ceiling)
+            # max(): adopt_grants may already have parked entries whose
+            # lease extends past grace_s; a later window-open must never
+            # SHRINK the deadline under them or the purge at the window
+            # close kills work the journal proved was running.
+            self._adopt_until = max(self._adopt_until,
+                                    self._clock.now() + max(0.0, grace_s))
+            self._advance_grant_id_locked(self._adopt_floor)
+
+    def _adoptable_locked(self, gid: int, now: float) -> bool:
+        return (now < self._adopt_until
+                and 0 < gid <= self._adopt_floor
+                and gid % self._grant_id_stride
+                == self._next_grant_id % self._grant_id_stride)
+
+    def _attach_adopted_locked(self, servant: _Servant, gid: int,
+                               env_digest: str, requestor: str,
+                               expires_at: float) -> None:
+        if gid in self._grants:
+            return
+        g = _Grant(
+            grant_id=gid,
+            slot=servant.slot,
+            servant_location=servant.info.location,
+            env_digest=env_digest,
+            expires_at=expires_at,
+            requestor=requestor,
+        )
+        self._grants[gid] = g
+        servant.running_grants.add(gid)
+        self._arr_running[servant.slot] += 1
+        # Both device views must learn of a grant no launch made: the
+        # dirty mark sends the slot's new running in a resident pool's
+        # next delta, and the stream's device running chain takes the
+        # +1 with its next launch.  Without either, K1 on the card
+        # over-grants the adopted servant.
+        self._mark_slot_dirty_locked(servant.slot)
+        if self._pipe_active:
+            self._pipe_adj[servant.slot] += 1
+        self._advance_grant_id_locked(gid)
+        self._stats["adopted_grants"] += 1
+
+    def _advance_grant_id_locked(self, gid: int) -> None:
+        """Future issues must never collide with an adopted id."""
+        if self._next_grant_id <= gid:
+            stride = self._grant_id_stride
+            self._next_grant_id += (
+                (gid - self._next_grant_id) // stride + 1) * stride
 
     # ------------------------------------------------------------------
     # Grant allocation (delegate side).
@@ -684,6 +830,18 @@ class TaskDispatcher:
                      "shed_by_tier": 0})
         per[counter] += 1
 
+    def admission_rung(self) -> int:
+        """Current overload-ladder rung, exported for the replication
+        journal and the federation spillover check (same accessor on
+        ShardRouter, where it is the max over shards)."""
+        return self.admission.rung()
+
+    def restore_admission_rung(self, rung: int) -> None:
+        """Warm-standby takeover: restart the ladder at the journaled
+        rung so the promoted scheduler does not greet the backlog that
+        killed its predecessor at RUNG_NORMAL."""
+        self.admission.restore_rung(rung, self._clock.now())
+
     def load_signal(self) -> LoadSignal:
         """The admission load signal, exported for the shard router's
         steal decision: demand = outstanding grants + queued immediate;
@@ -758,6 +916,10 @@ class TaskDispatcher:
                     now - g.zombie_since > _ZOMBIE_TIMEOUT_S
                 ):
                     self._release_grant_locked(g)
+            # Parked adoptions whose servant never re-heartbeated by
+            # the time the takeover grace closed are dead leases.
+            if self._pending_adoptions and now >= self._adopt_until:
+                self._pending_adoptions.clear()
             self._work.notify_all()
             util, cap = self._utilization_locked(now)
         # Outside the lock (the ladder's leaf lock must never nest
