@@ -104,6 +104,7 @@ smoke_logs/.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pathlib
@@ -3062,6 +3063,12 @@ TAKEOVER_HELD = 8                 # grants a delegate holds across the kill
 TAKEOVER_SILENCE_S = 1.0
 TAKEOVER_RENEW_S = 3.0
 TAKEOVER_SETTLE_S = 60.0          # for stale adoptions to be released
+# A delegate's pause between requests the promoted standby serves before
+# the fleet's re-beat has landed.  The rig beats 5,000 servants through 8
+# client threads; unpaced, 24 delegates slow that re-beat past the 10 s
+# lease the takeover gives replayed servants, and a servant whose lease
+# lapses first loses the grants it reports (PERF.md §7).
+TAKEOVER_GAP_PACE_S = 0.5
 
 
 def start_entry(name: str, port: int, iport: int, extra: list):
@@ -3146,18 +3153,24 @@ def run_takeover_path(report: list) -> dict:
     TAKEOVER_PRE_GRANTS grants, each holding its first TAKEOVER_HELD
     grants (renewed by KeepTaskAlive); the active is killed (SIGKILL)
     mid-drive, the grants of responses that arrive in its last 0.1 s held
-    too (some never shipped: the journal's gap).  Before the promotion the
-    standby must refuse: WaitForStartingTask with FLOW_CONTROL_REJECT and
-    a retry-after, the other methods with NOT_SERVING and the in-band
-    hint.  After it: every servant re-heartbeats with the grants it runs,
-    every held grant renews exactly once, the delegates drive >=
-    TAKEOVER_POST_GRANTS grants through the standby's K1, and everything
-    is freed.  Every grant checked against the servants' facts, no servant
-    over its capacity (held and adopted grants counted), no grant id
-    issued twice across the kill, the standby's outstanding grants 0 at
-    the end (stale adoptions, grants freed on the active after its last
-    shipped batch, released after their lease), its K1 launches 0 before
-    the promotion and > 0 after."""
+    too (some never shipped: the journal's gap).  The delegates and the
+    fleet redial the standby at once and keep calling it: before the
+    promotion it must refuse, WaitForStartingTask with FLOW_CONTROL_REJECT
+    and a retry-after (the delegates count them), the other methods with
+    NOT_SERVING and the in-band hint.  After it the delegates are served
+    at once (paced by TAKEOVER_GAP_PACE_S) while every servant
+    re-heartbeats with the grants it runs; then every held grant renews exactly once, the delegates drive >=
+    TAKEOVER_POST_GRANTS more grants through the standby's K1, and
+    everything is freed.  Every grant checked against the servants' facts,
+    no grant id issued twice across the kill, the standby's outstanding
+    grants 0 at the end (stale adoptions, grants freed on the active after
+    its last shipped batch, released after their lease), its K1 launches 0
+    before the promotion and > 0 after.  No servant over its capacity
+    (held and adopted grants counted), with one exception the design
+    shares with the reference (ROADMAP Queue 3): a grant requested before
+    its servant's re-heartbeat reached the promoted standby, on a servant
+    that holds grants of the active's last 0.1 s, by no more than their
+    number, is counted as a gap fault and reported, not failed."""
     from yadcc_tpu_torch import api
     from yadcc_tpu_torch.rpc import Channel, RpcError
     from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
@@ -3181,9 +3194,13 @@ def run_takeover_path(report: list) -> dict:
     early_held: list = []       # (gid, loc): each delegate's first grants
     kill_held: list = []        # grants of responses in the active's end
     grant_ids: set = set()
-    totals = {"pre": 0, "post": 0, "calls": 0, "empty": 0}
+    totals = {"pre": 0, "gap": 0, "post": 0, "calls": 0, "empty": 0,
+              "reject": 0}
     errors: list = []
     first_standby_grant = []
+    kill_at: dict = collections.Counter()   # kill-time grants a servant holds
+    beat_at: dict = {}          # servant -> its first beat the promoted
+    gap_faults: list = []       # standby answered; (servant, excess)
 
     def standby_vars():
         return inspect_vars(is_)["yadcc"]
@@ -3224,10 +3241,14 @@ def run_takeover_path(report: list) -> dict:
         def beat_all(fo, servants):
             try:
                 for s in servants:
-                    resp, _ = fo.call("Heartbeat", heartbeat(s),
-                                      sch.HeartbeatResponse, timeout=10.0)
+                    resp, on_standby = fo.call("Heartbeat", heartbeat(s),
+                                               sch.HeartbeatResponse,
+                                               timeout=10.0)
                     killed_ids = set(resp.expired_tasks)
                     with fleet.lock:
+                        if on_standby:
+                            beat_at.setdefault(s["location"],
+                                               time.perf_counter())
                         lost = killed_ids & held_set
                     if lost:
                         fleet.violations.append(
@@ -3286,9 +3307,11 @@ def run_takeover_path(report: list) -> dict:
             finally:
                 fo.close()
 
-        def validate(resp, env):
+        def validate(resp, env, on_standby, t_req):
             """Phase 3's checks on one response; the grants counted as held
-            by their servants."""
+            by their servants.  An over-capacity grant of the standby's,
+            requested before its servant's re-beat landed there, by no more
+            than the kill-time grants the servant holds, is a gap fault."""
             ids = [g.task_grant_id for g in resp.grants]
             with fleet.lock:
                 for g in resp.grants:
@@ -3304,7 +3327,14 @@ def run_takeover_path(report: list) -> dict:
                             "grant on the requestor's own servant")
                     fleet.held[s["location"]] += 1
                     ids_at[s["location"]].add(g.task_grant_id)
-                    if fleet.held[s["location"]] > s["capacity"]:
+                    excess = fleet.held[s["location"]] - s["capacity"]
+                    if excess <= 0:
+                        continue
+                    landed = beat_at.get(s["location"])
+                    if on_standby and (landed is None or t_req < landed) \
+                            and excess <= kill_at[s["location"]]:
+                        gap_faults.append((s["location"], excess))
+                    else:
                         fleet.violations.append(
                             f"{s['location']} over capacity "
                             f"{fleet.held[s['location']]}/{s['capacity']}")
@@ -3327,9 +3357,6 @@ def run_takeover_path(report: list) -> dict:
             k = 0
             try:
                 while not done.is_set():
-                    if killed.is_set() and not resume.is_set():
-                        resume.wait(1.0)
-                        continue
                     env = envs[k % len(envs)]
                     k += 1
                     req = sch.WaitForStartingTaskRequest(
@@ -3337,9 +3364,10 @@ def run_takeover_path(report: list) -> dict:
                         next_keep_alive_in_ms=15000,
                         immediate_reqs=IMMEDIATE)
                     req.env_desc.compiler_digest = env
+                    t_req = time.perf_counter()
                     try:
                         # A request the active died under is not sent
-                        # again: the delegates wait for the standby.
+                        # again: the delegate asks the standby anew.
                         resp, on_standby = fo.call(
                             "WaitForStartingTask", req,
                             sch.WaitForStartingTaskResponse, switch=False)
@@ -3351,14 +3379,28 @@ def run_takeover_path(report: list) -> dict:
                         raise
                     if resp is None:
                         continue
-                    validate(resp, env)
+                    if resp.flow_control == sch.FLOW_CONTROL_REJECT:
+                        # The standby's gate before its promotion: no
+                        # grants, and a retry-after the delegate honours.
+                        with lock:
+                            totals["reject"] += on_standby
+                            if resp.grants or resp.retry_after_ms <= 0:
+                                fleet.violations.append(
+                                    f"a REJECT with {len(resp.grants)} "
+                                    f"grants, retry_after_ms "
+                                    f"{resp.retry_after_ms}")
+                        time.sleep(max(resp.retry_after_ms, 50) / 1000.0)
+                        continue
+                    validate(resp, env, on_standby, t_req)
                     pairs = [(g.task_grant_id, g.servant_location)
                              for g in resp.grants]
                     with lock:
-                        totals["post" if on_standby else "pre"] += len(pairs)
+                        totals["pre" if not on_standby else
+                               "post" if resume.is_set() else "gap"] += \
+                            len(pairs)
                         totals["calls"] += 1
                         if on_standby and not first_standby_grant and pairs:
-                            first_standby_grant.append(time.perf_counter())
+                            first_standby_grant.append(time.time())
                         if totals["pre"] >= TAKEOVER_PRE_GRANTS and \
                                 not freeze.is_set():
                             freeze.set()
@@ -3375,12 +3417,15 @@ def run_takeover_path(report: list) -> dict:
                         with fleet.lock:
                             kill_held.extend(pairs)
                             held_set.update(g for g, _ in pairs)
+                            kill_at.update(loc for _, loc in pairs)
                         continue
                     release(pairs)
                     if pairs:
                         fo.call("FreeTask", sch.FreeTaskRequest(
                             token="utok", task_grant_ids=[g for g, _ in pairs]),
                             sch.FreeTaskResponse)
+                    if on_standby and not resume.is_set():
+                        done.wait(TAKEOVER_GAP_PACE_S)
             except Exception as e:  # reported by the main thread below
                 errors.append(f"delegate {d}: {e!r}")
                 done.set()
@@ -3410,6 +3455,7 @@ def run_takeover_path(report: list) -> dict:
         killed.set()
         active.kill()
         t_kill = time.perf_counter()
+        t_kill_wall = time.time()   # beside the standby's promoted_at
         active.wait(timeout=30)
         # The fleet redials the standby at once, its heartbeats refused
         # (NOT_SERVING with the hint) until the promotion; they carry the
@@ -3421,6 +3467,17 @@ def run_takeover_path(report: list) -> dict:
         # effects (an environment no servant has, no grant ids).
         probe = Channel(f"grpc://127.0.0.1:{ps}")
         probes = {"reject": 0, "not_serving": 0, "hint_ms": set()}
+
+        def promoted_soon():
+            """The gate forwards once the takeover has promoted it; the
+            entry publishes the promotion right after the takeover
+            returns."""
+            deadline = time.monotonic() + 2.0
+            while not standby_vars()["standby"]["promoted"]:
+                if time.monotonic() > deadline:
+                    return False
+                time.sleep(0.01)
+            return True
         promoted = None
         from yadcc_tpu_torch.rpc import (STATUS_NOT_SERVING,
                                          retry_after_ms_from_error)
@@ -3431,6 +3488,9 @@ def run_takeover_path(report: list) -> dict:
             if sv["standby"]["promoted"]:
                 promoted = time.perf_counter()
                 break
+            # Read before the probe: if the gate then still refuses, the
+            # count is one from before the promotion.
+            k1_before = sv["kernels"]["grouped_assign"]["launches"]
             req = sch.WaitForStartingTaskRequest(
                 token="utok", milliseconds_to_wait=50, immediate_reqs=1)
             req.env_desc.compiler_digest = "no-such-environment"
@@ -3441,13 +3501,15 @@ def run_takeover_path(report: list) -> dict:
                 if resp.flow_control == sch.FLOW_CONTROL_REJECT:
                     check(resp.retry_after_ms > 0 and not resp.grants,
                           "takeover: a REJECT without retry_after_ms")
+                    check(k1_before == 0, "takeover: K1 launched on the "
+                                          "standby before its promotion")
                     probes["reject"] += 1
                 else:
-                    check(standby_vars()["standby"]["promoted"],
+                    check(promoted_soon(),
                           "takeover: the standby served before promotion")
             except RpcError as e:
                 check(e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE
-                      and standby_vars()["standby"]["promoted"],
+                      and promoted_soon(),
                       f"takeover: WaitForStartingTask before promotion "
                       f"answered {e.status}")
             for method, preq, pcls in (
@@ -3469,10 +3531,8 @@ def run_takeover_path(report: list) -> dict:
               f"({probes})")
         check(-1 not in probes["hint_ms"],
               "takeover: a NOT_SERVING without its retry-after hint")
-        sv = standby_vars()
         takeover = sv["standby"]["report"]
-        check(sv["kernels"]["grouped_assign"]["launches"] == 0,
-              "takeover: K1 launched on the standby before its promotion")
+        promoted_at = sv["standby"]["promoted_at"]
 
         # After it: the fleet's re-heartbeat lands (the journal gap's
         # grants adopted off the reports), then every held grant renews
@@ -3480,7 +3540,7 @@ def run_takeover_path(report: list) -> dict:
         rebeat_thread.join(timeout=120)
         check(not rebeat_thread.is_alive(), "takeover: the re-beat hung")
         check(not errors, f"takeover: {errors[:3]}")
-        rebeat_s = time.perf_counter() - promoted
+        rebeat_s = time.time() - sv["standby"]["promoted_at"]
         with fleet.lock:
             held_ids = [g for g, _ in early_held + kill_held]
         renew = Channel(f"grpc://127.0.0.1:{ps}")
@@ -3492,7 +3552,8 @@ def run_takeover_path(report: list) -> dict:
         renewed = sum(resp.statuses)
         check(renewed == len(held_ids) == len(set(held_ids)),
               f"takeover: {renewed} of {len(held_ids)} held grants renewed "
-              f"once after the promotion")
+              f"once after the promotion (re-beat {rebeat_s:.2f} s; "
+              f"{fleet.violations[:3]})")
         adopted_now = standby_vars()["task_dispatcher"]["stats"][
             "adopted_grants"]
         release(kill_held)
@@ -3501,6 +3562,7 @@ def run_takeover_path(report: list) -> dict:
             sch.FreeTaskResponse, timeout=30.0)
         with fleet.lock:
             held_set.difference_update(g for g, _ in kill_held)
+            kill_at.clear()
         renew_on.set()
         t_resume = time.perf_counter()
         resume.set()
@@ -3514,6 +3576,8 @@ def run_takeover_path(report: list) -> dict:
         post_s = time.perf_counter() - t_resume
         check(not errors, f"takeover: {errors[:3]}")
         check(not fleet.violations, f"takeover: {fleet.violations[:5]}")
+        check(totals["reject"] > 0, "takeover: no delegate saw the "
+                                    "standby's REJECT before the promotion")
 
         # Free the held grants; stale adoptions zombie after their lease
         # and go at their servant's next report.
@@ -3557,9 +3621,9 @@ def run_takeover_path(report: list) -> dict:
         pre_grants_per_s=totals["pre"] / pre_s,
         post_grants=totals["post"], post_s=post_s,
         post_grants_per_s=totals["post"] / post_s,
-        kill_to_promotion_ms=(promoted - t_kill) * 1e3,
-        kill_to_first_grant_ms=(first_standby_grant[0] - t_kill) * 1e3,
-        promotion_to_first_grant_ms=(first_standby_grant[0] - promoted)
+        kill_to_promotion_ms=(promoted_at - t_kill_wall) * 1e3,
+        kill_to_first_grant_ms=(first_standby_grant[0] - t_kill_wall) * 1e3,
+        promotion_to_first_grant_ms=(first_standby_grant[0] - promoted_at)
         * 1e3, rebeat_s=rebeat_s, settle_s=settle_s,
         takeover=takeover, journal_seq_at_kill=journal_seq,
         held=len(held_ids), renewed=renewed,
@@ -3567,6 +3631,10 @@ def run_takeover_path(report: list) -> dict:
         gap_adopted=adopted_now - takeover["grants_adopted"],
         gate_probes={k: (sorted(v) if isinstance(v, set) else v)
                      for k, v in probes.items()},
+        delegate_rejects=totals["reject"], gap_grants=totals["gap"],
+        gap_faults=len(gap_faults),
+        gap_fault_servants=len({loc for loc, _ in gap_faults}),
+        gap_fault_max_excess=max((e for _, e in gap_faults), default=0),
         refused=dict(stats), launches=launches,
         active_launches={k: v["launches"] for k, v
                          in active_td["kernels"].items()},
@@ -3580,7 +3648,8 @@ def run_takeover_path(report: list) -> dict:
         f"{takeover['grants_journaled']} journaled, seq "
         f"{takeover['replayed_seq']}); before it {probes['reject']} "
         f"REJECTs and {probes['not_serving']} NOT_SERVINGs with hints "
-        f"{sorted(probes['hint_ms'])} ms")
+        f"{sorted(probes['hint_ms'])} ms to the probe, "
+        f"{totals['reject']} REJECTs to the delegates")
     report.append(
         f"  takeover: the fleet's re-beat done {rebeat_s:.2f} s after the "
         f"promotion; "
@@ -3589,13 +3658,18 @@ def run_takeover_path(report: list) -> dict:
         f"({res['gap_adopted']} off the servants' reports: the journal's "
         f"gap); first "
         f"grant {res['kill_to_first_grant_ms']:.1f} ms after the kill "
-        f"({res['promotion_to_first_grant_ms']:.1f} ms after the promotion, "
-        f"the delegates held until the fleet re-beat); {totals['post']} "
+        f"({res['promotion_to_first_grant_ms']:.1f} ms after the promotion);"
+        f" {totals['gap']} grants while the fleet re-beat, "
+        f"{len(gap_faults)} of them over capacity on "
+        f"{res['gap_fault_servants']} servants that ran grants unknown to "
+        f"the standby (gap faults, at most "
+        f"{res['gap_fault_max_excess']} over); then {totals['post']} "
         f"grants in {post_s:.2f} s = {res['post_grants_per_s']:.1f} grants/s "
-        f"after it ({res['pre_grants_per_s']:.1f} before); K1 launches on "
+        f"({res['pre_grants_per_s']:.1f} before the kill); K1 launches on "
         f"the standby {launches['grouped_assign']}; outstanding 0 "
         f"{settle_s:.1f} s after the drive (stats {json.dumps(td['stats'])})"
-        f"; no violations, no id issued twice")
+        f"; no other grant over capacity, no violations, no id issued "
+        f"twice")
     report.append(f"  takeover refusals seen by the fleet: "
                   f"{json.dumps(dict(stats))}")
     return res
@@ -3613,6 +3687,8 @@ FED_MEMBERS = 200_000           # each peer's region filter: its members
 FED_WARM_ENVS = 16              # envs whose candidate keys a peer holds
 FED_TOPOLOGY = (0, 1, 1, 2, 2, 3, 3, 4)
 FED_BITS, FED_HASHES = 27_584_639, 10   # the production geometry
+FED_REPLAY = 500                # scorer calls replayed with the cells idle
+FED_SPIN_REPLAY = 200           # and beside threads spinning in Python
 
 
 def fed_key(env: str, i: int) -> str:
@@ -3638,8 +3714,8 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
 
     from yadcc_tpu_torch.common import bloom
     from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_assign, cuda_grouped
     from yadcc_tpu_torch.ops import cuda_bloom as kb
-    from yadcc_tpu_torch.ops import cuda_grouped
     from yadcc_tpu_torch.scheduler import placement as pl
     from yadcc_tpu_torch.scheduler.admission import RUNG_SPILLOVER
     from yadcc_tpu_torch.scheduler.entry import resolve_pipeline_depth
@@ -3790,6 +3866,7 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
     for name in kb.launches:
         kb.launches[name] = 0
     cuda_grouped.launches = 0
+    cuda_assign.launches = 0
     threads = [threading.Thread(target=delegate, args=(d,))
                for d in range(FED_DELEGATES)]
     t0 = time.perf_counter()
@@ -3804,7 +3881,7 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
             check(not t.is_alive(), "federation: a delegate hung")
         drive_s = time.perf_counter() - t0
         launches = dict(kb.launches)
-        k1 = cuda_grouped.launches
+        k1, k2 = cuda_grouped.launches, cuda_assign.launches
         check(not errors, f"federation: {errors[:3]}")
         check(not fleet.violations, f"federation: {fleet.violations[:5]}")
         stats = router.stats()
@@ -3844,13 +3921,55 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
     check(stats["placement_failures"] == 0, "federation: scorer failures")
     check(stats["foreign_renewals"] > 0 and stats["foreign_frees"] > 0,
           "federation: no spilled grant was renewed or freed home")
-    stage = router.stage_timer.percentiles()["placement"]
+    check(k2 == 0, f"federation: K2 launched {k2} times under the auto "
+                   f"policy")
+    # The placement stage split: the peer signals and the scorer's call
+    # (its pack, launch and readback) under the drive's 8 delegates and 8
+    # cells' dispatch threads, then the same scorer calls replayed from
+    # one thread with the cells stopped.
+    split = router.inspect()["federation"]["latency_breakdown"]
+    stage = split["placement"]
     share = place_timing["path"]["ms"] / stage["p50_ms"]
+    scorer.stage_timer.reset()
+    t_replay = time.perf_counter()
+    for cands, keys, _ in scorer.calls[:FED_REPLAY]:
+        t0 = time.perf_counter()
+        pl.DevicePlacementScorer.score(scorer, cands, keys)
+        scorer.stage_timer.record("call", time.perf_counter() - t0)
+    replay_s = time.perf_counter() - t_replay
+    idle = scorer.stage_timer.percentiles()
+    # The same calls beside FED_CELLS threads that spin in Python and call
+    # no CUDA: what contention for the interpreter alone costs them.
+    stop_spin = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop_spin.is_set():
+            n += 1
+
+    spinners = [threading.Thread(target=spin) for _ in range(FED_CELLS)]
+    for t in spinners:
+        t.start()
+    scorer.stage_timer.reset()
+    try:
+        for cands, keys, _ in scorer.calls[:FED_SPIN_REPLAY]:
+            t0 = time.perf_counter()
+            pl.DevicePlacementScorer.score(scorer, cands, keys)
+            scorer.stage_timer.record("call", time.perf_counter() - t0)
+    finally:
+        stop_spin.set()
+        for t in spinners:
+            t.join()
+    spun = scorer.stage_timer.percentiles()
     res = dict(cells=FED_CELLS, slots=FED_SLOTS, build_s=build_s,
                filters_s=filters_s, drive_s=drive_s, oracle_s=oracle_s,
                decisions=scored, warm_picks=warm_picks, stats=stats,
                totals=totals, placement_stage=stage,
-               kernel_share_of_p50=share, launches=launches, k1_launches=k1)
+               placement_split={k: v for k, v in split.items()
+                                if k.startswith("placement")},
+               idle_replay=idle, replay_s=replay_s, spin_replay=spun,
+               kernel_share_of_p50=share, launches=launches, k1_launches=k1,
+               k2_launches=k2)
     report.append(
         f"  federation: {FED_CELLS} cells x {FED_SLOTS} slots built and "
         f"warmed, {FED_CELLS - 1} card-built filters installed, in "
@@ -3863,12 +3982,31 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
         f"every pick and score row equal to the host oracle's (checked in "
         f"{oracle_s:.1f} s); no id in two cells; kernel launches "
         f"{launches['placement_score']} = scored decisions; K1 launches "
-        f"{k1}")
+        f"{k1}, K2 {k2}")
     report.append(
         f"  federation placement stage: p50 {stage['p50_ms']:.4f} ms, p99 "
         f"{stage['p99_ms']:.4f} ms over {stage['count']} decisions; the "
         f"kernel's {place_timing['path']['ms']:.4f} ms (phase 2) is "
         f"{share * 100:.1f}% of the p50")
+
+    def p50_99(d, k):
+        return f"{k} {d[k]['p50_ms']:.4f} / {d[k]['p99_ms']:.4f}"
+
+    report.append(
+        "  federation placement split under the drive (p50 / p99 ms): "
+        + "; ".join(p50_99(split, k) for k in (
+            "placement_signals", "placement_score", "placement_pack",
+            "placement_device_call", "placement_stage", "placement_launch",
+            "placement_readback")))
+    parts = ("call", "pack", "device_call", "stage", "launch", "readback")
+    report.append(
+        f"  the same {min(FED_REPLAY, len(scorer.calls))} scorer calls "
+        f"replayed from one thread, the cells stopped, in {replay_s:.2f} s "
+        f"(p50 / p99 ms): " + "; ".join(p50_99(idle, k) for k in parts))
+    report.append(
+        f"  {min(FED_SPIN_REPLAY, len(scorer.calls))} of them beside "
+        f"{FED_CELLS} threads spinning in Python (no CUDA call; p50 / p99 "
+        f"ms): " + "; ".join(p50_99(spun, k) for k in parts))
     return res
 
 
@@ -3970,7 +4108,8 @@ def main() -> int:
     phases["takeover"] = {"launches": takeover["launches"]}
     federation = run_federation_path(report, place)
     phases["federation"] = {"launches": {
-        "grouped_assign": federation["k1_launches"], "assign_batch": 0}}
+        "grouped_assign": federation["k1_launches"],
+        "assign_batch": federation["k2_launches"]}}
     log("phases 10-11 warm standby and federation:")
     for line in report:
         log(line)

@@ -557,6 +557,8 @@ class TestScoredSpillover:
 
     def test_inspect_surfaces_federation_block(self, plane3):
         ds, router, _ = plane3
+        router.note_candidate_keys(ENV, SPILL_KEYS[:8])
+        router.update_cell_filter(1, _region_filter(SPILL_KEYS[:8]))
         ds[0].restore_admission_rung(RUNG_SPILLOVER)
         routed = router.wait_for_starting_new_task_routed(
             ENV, timeout_s=1.0)
@@ -567,6 +569,16 @@ class TestScoredSpillover:
         placement = fed["latency_breakdown"]["placement"]
         assert placement["count"] >= 1
         assert placement["p99_ms"] >= 0.0
+        # The split: the peer signals on every decision; the scorer's
+        # call, pack, device call and readback on every scored one (the
+        # stage and launch inside the device call only on the card).
+        parts = {k: v["count"] for k, v in fed["latency_breakdown"].items()
+                 if k.startswith("placement_")}
+        assert parts["placement_signals"] == placement["count"]
+        scored = fed["stats"]["placement_scored"]
+        assert scored == 1
+        for k in ("score", "pack", "device_call", "readback"):
+            assert parts.get(f"placement_{k}", 0) == scored
 
 
 class TestScoredCellHoming:

@@ -308,7 +308,7 @@ def pipelined_adoption(pkg, policy, depth):
         attached = d.adopt_grants(s0.location, [(1001, "env-a", "r1"),
                                                 (1002, "env-a", "r2")], 60.0)
         parked = d.adopt_grants(s1.location, [(1003, "env-a", "r3")], 60.0)
-        d.set_adoption_window(1003, 60.0)
+        d.set_adoption_window(1003, 60.0, gap_slack=1024)
         assert d.keep_servant_alive(s1, 60.0)
         kill = d.notify_servant_running_tasks(s1.location, [1003, 1500])
         # Every prepared snapshot buffer publishes the adopted slots'
@@ -625,3 +625,49 @@ def test_takeover_after_a_gap_of_2048_ids_issues_no_id_twice():
     gap, new, kills = gap_takeover(PORT, tapi, 16)
     assert len(gap) == 2048 and len(new) == 2048
     assert kills == [] and not gap & new
+
+
+def gap_over_capacity(pkg, api_mod):
+    """An active grants one task on a servant of capacity 2 and ships its
+    journal, then grants a second that never ships (the journal's gap) and
+    dies.  The standby takes over and serves a request before the servant
+    re-reports; then the servant reports all it runs.  Returns (the grant
+    served before the report, the report's kill list, the servant's
+    running count after it, the grant served after it)."""
+    td, _, rep, clock_cls = pkg
+    clock = clock_cls(100.0)
+    journal = rep.LeaseJournal()
+    active = manual(pkg, clock)
+    fresh = manual(pkg, clock)
+    r = rep.ReplicatingDispatcher(active, journal)
+    sb = rep.StandbyScheduler(clock=clock)
+    s = td.ServantInfo(location="10.7.0.1:8335", num_processors=8,
+                       capacity=2, total_memory=64 << 30,
+                       memory_available=64 << 30, env_digests=("env-a",))
+    try:
+        assert r.keep_servant_alive(s, 60.0)
+        shipped = grant(r, clock, "env-a", 1)
+        sb.receiver.Replicate(_wire(api_mod, api_mod, journal, 0), b"",
+                              None)
+        gap = grant(r, clock, "env-a", 1)
+        sb.takeover(lambda: fresh)
+        before = grant(fresh, clock, "env-a", 1)
+        kill = fresh.notify_servant_running_tasks(
+            s.location, [g for g, _ in shipped + gap + before])
+        running = int(fresh._arr_running[fresh._by_location[s.location]])
+        after = grant(fresh, clock, "env-a", 1)
+        return len(shipped), len(gap), len(before), kill, running, after
+    finally:
+        active.stop()
+        fresh.stop()
+
+
+def test_gap_grant_puts_a_servant_over_capacity_as_in_the_reference():
+    """A fault the port shares with the reference (ROADMAP Queue 3): until
+    a servant re-reports, the promoted standby does not know the journal
+    gap's grants on it, so a request served in between can take the room
+    they hold.  Here the servant of capacity 2 ends up running 3; once it
+    has reported, nothing more is granted on it."""
+    want = gap_over_capacity(JAX, japi)
+    assert gap_over_capacity(PORT, tapi) == want
+    assert want == (1, 1, 1, [], 3, [])

@@ -402,7 +402,7 @@ def _placement_inputs(words, seeds, terms, packed, task_of_key, counts,
 def placement_score(words, seeds, terms, packed, task_of_key, counts, *,
                     length: int, num_bits: int, num_hashes: int,
                     warm_scale: int, w_warm: int, w_load: int, w_topo: int,
-                    out: "torch.Tensor | None" = None):
+                    out: "torch.Tensor | None" = None, timer=None):
     """(scores int32 [C, T], best cell int32 [T], best score int32 [T]) on
     the cells' device; the drop-in counterpart of
     bloom_pipeline.placement_score_plain, whose docstring gives the
@@ -413,7 +413,9 @@ def placement_score(words, seeds, terms, packed, task_of_key, counts, *,
     arrays go up
     in one copy and the score and argmin are two launches.  Given ``out``
     (int32 [C*T + 2*T] on the device), the three results are views of it,
-    so one copy brings them back."""
+    so one copy brings them back.  Given ``timer`` (a StageTimer), a call
+    on the card records the host time of its ``stage`` (the one upload)
+    and its ``launch`` (the two launches)."""
     dev, seeds, terms, packed, task_of_key, counts = _placement_inputs(
         words, seeds, terms, packed, task_of_key, counts, length, num_bits,
         num_hashes)
@@ -432,7 +434,7 @@ def placement_score(words, seeds, terms, packed, task_of_key, counts, *,
         out.copy_(torch.cat([r.reshape(-1) for r in res]))
     else:
         out = _placement_launch(dev, words, seeds, terms, packed,
-                                task_of_key, counts, out, **kw)
+                                task_of_key, counts, out, timer, **kw)
     return (out[:c_n * t_n].view(c_n, t_n),
             out[c_n * t_n:c_n * t_n + t_n], out[c_n * t_n + t_n:])
 
@@ -478,12 +480,19 @@ def placement_run(staged: torch.Tensor, offsets, c_n: int, t_n: int,
 
 
 def _placement_launch(dev, words, seeds, terms, packed, task_of_key, counts,
-                      out, **kw) -> torch.Tensor:
+                      out, timer, **kw) -> torch.Tensor:
+    import time
+
     c_n, t_n = len(words), counts.shape[0]
+    t0 = time.perf_counter()
     staged, offsets = placement_stage(dev, words, seeds, terms, packed,
                                       task_of_key, counts)
     if out is None:
         out = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32, device=dev)
+    t1 = time.perf_counter()
     placement_run(staged, offsets, c_n, t_n, task_of_key.shape[0],
                   packed.shape[1], out, **kw)
+    if timer is not None:
+        timer.record("stage", t1 - t0)
+        timer.record("launch", time.perf_counter() - t1)
     return out

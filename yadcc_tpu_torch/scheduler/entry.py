@@ -31,6 +31,7 @@ import argparse
 import signal
 import sys
 import threading
+import time
 
 from ..common.parse_size import parse_size
 from ..common.token_verifier import make_token_verifier_from_flag
@@ -255,7 +256,7 @@ def scheduler_standby_start(args, stop: "threading.Event | None" = None,
     _reset_kernel_counts()
     standby = StandbyScheduler(token=args.replication_token)
     promoted, failed = threading.Event(), threading.Event()
-    state = {"promoted": False, "report": None}
+    state = {"promoted": False, "report": None, "promoted_at": None}
     exposed_vars.expose("yadcc/standby", lambda: dict(
         state, journal_seq=standby.receiver.state_seq()))
 
@@ -273,7 +274,7 @@ def scheduler_standby_start(args, stop: "threading.Event | None" = None,
             failed.set()
             raise
         exposed_vars.expose("yadcc/task_dispatcher", dispatcher.inspect)
-        state.update(promoted=True, report=report)
+        state.update(promoted=True, report=report, promoted_at=time.time())
         logger.info("promoted to active: %s", report)
         promoted.set()
 

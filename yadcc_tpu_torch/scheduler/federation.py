@@ -273,13 +273,21 @@ class FederationRouter:
         """Local-cell inspect() plus the federation block (the /inspect
         surface rides this): spill counters with per-peer provenance
         and the placement-stage latency budget, so an A/B can attribute
-        post-spill hit rate to placement decisions."""
+        post-spill hit rate to placement decisions.  The breakdown splits
+        ``placement`` into the peer signals, the scorer call and, for a
+        scorer that times them, its pack, launch and readback."""
         out = dict(self._local().inspect())
+        breakdown = self.stage_timer.percentiles()
+        with self._affinity_lock:
+            timer = getattr(self._scorer, "stage_timer", None)
+        if timer is not None:
+            breakdown.update({f"placement_{k}": v
+                              for k, v in timer.percentiles().items()})
         out["federation"] = {
             "cell_id": self._my_cell,
             "n_cells": len(self._cells),
             "stats": self.stats(),
-            "latency_breakdown": self.stage_timer.percentiles(),
+            "latency_breakdown": breakdown,
         }
         return out
 
@@ -483,7 +491,10 @@ class FederationRouter:
     def _pick_spill_peer_inner(self, env_digest: str
                                ) -> Optional[CellHandle]:
         peers = [c for c in self._cells if c.cell_id != self._my_cell]
+        t0 = time.perf_counter()
         states = [self._peer_state(c) for c in peers]
+        self.stage_timer.record("placement_signals",
+                                time.perf_counter() - t0)
         eligible = [s is not None and s[0] < RUNG_SPILLOVER
                     and s[1].free > 0 for s in states]
         if not any(eligible):
@@ -503,11 +514,14 @@ class FederationRouter:
                              eligible=ok,
                              filter=filters.get(p.cell_id))
                          for p, s, ok in zip(peers, states, eligible)]
+                t0 = time.perf_counter()
                 try:
                     res = self._scorer_obj().score(cands, [keys])
                 except Exception:
                     self._bump("placement_failures")
                     raise
+                self.stage_timer.record("placement_score",
+                                        time.perf_counter() - t0)
                 if (res is not None
                         and int(res.best_score[0]) < _SCORE_BIG):
                     self._bump("placement_scored")

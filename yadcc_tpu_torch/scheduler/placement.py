@@ -50,6 +50,7 @@ placeable cell" and the caller walks down the fallback ladder.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -60,6 +61,7 @@ from ..common.bloom import SaltedBloomFilter
 from ..device import resolve_device
 from ..ops.bloom_pipeline import as_device_words, pack_key_buckets, seed_pair
 from ..parallel import mesh
+from ..utils.stagetimer import StageTimer
 
 # Warmth quantization scale: miss ratios land in [0, WARM_SCALE].  With
 # W_WARM = 4 a fully-cold cell pays 4096 score points — the load term
@@ -235,6 +237,12 @@ class DevicePlacementScorer:
     def __init__(self, device="cuda"):
         self._device = resolve_device(device)
         self._lock = threading.Lock()
+        # A scored call's host time: pack (the probe batch, the cells'
+        # arrays and snapshot lookups), device_call (the placement call:
+        # its input checks, then stage, the one upload, and launch, the
+        # two launches, which it records itself on the card) and readback
+        # (the one copy back, which waits for the kernels).
+        self.stage_timer = StageTimer(("pack", "device_call", "readback"))
         # cell_id -> (snapshot, its words on the device)
         self._resident: Dict[int, Tuple[SaltedBloomFilter,
                                         torch.Tensor]] = \
@@ -277,6 +285,7 @@ class DevicePlacementScorer:
         Returns None when there are no candidate keys or no cell has a
         filter snapshot (no warmth signal: the scored path has nothing
         to add over least-loaded)."""
+        t0 = time.perf_counter()
         filters = [c.filter for c in cells if c.filter is not None]
         if not cells or not filters:
             return None
@@ -300,14 +309,20 @@ class DevicePlacementScorer:
         c_n, t_n = len(cells), len(batch.kept)
         out = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32,
                           device=self._device)
+        t1 = time.perf_counter()
         mesh.placement_score(
             words, seeds, terms, batch.packed, batch.task_of_key,
             batch.counts, length=batch.length, num_bits=num_bits,
             num_hashes=num_hashes, warm_scale=WARM_SCALE, w_warm=W_WARM,
-            w_load=W_LOAD, w_topo=W_TOPO, out=out)
+            w_load=W_LOAD, w_topo=W_TOPO, out=out, timer=self.stage_timer)
+        t2 = time.perf_counter()
         # The decision readback IS the call's product: one copy of the
         # [C*T + 2*T] result (scores, best cell, best score).
         got = out.cpu().numpy()
+        t3 = time.perf_counter()
+        self.stage_timer.record("pack", t1 - t0)
+        self.stage_timer.record("device_call", t2 - t1)
+        self.stage_timer.record("readback", t3 - t2)
         return PlacementResult(got[:c_n * t_n].reshape(c_n, t_n),
                                got[c_n * t_n:c_n * t_n + t_n],
                                got[c_n * t_n + t_n:],

@@ -60,7 +60,7 @@ from ..rpc import STATUS_NOT_SERVING, Channel, RpcError, ServiceSpec
 from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from . import admission
-from .task_dispatcher import ServantInfo
+from .task_dispatcher import TAKEOVER_GAP_SLACK, ServantInfo
 
 logger = get_logger("scheduler.replication")
 
@@ -71,14 +71,6 @@ REPLICATION_SERVICE_NAME = "ytpu.ReplicationService"
 # KeepTaskAlive beat, short enough that stale adoptions die fast.
 _TAKEOVER_GRANT_LEASE_S = 15.0
 _TAKEOVER_SERVANT_LEASE_S = 10.0
-# Ids (in the dispatcher's namespace) above the journaled maximum that the
-# takeover lets reporting servants claim, and above which it starts issuing.
-# It must exceed every id the dead active issued after its last acked
-# batch: at tens of thousands of grants a second that is far more than the
-# JAX package's 1,024 (which then kills reported gap grants and issues
-# their ids again; tests/test_torch_replication.py).  Grant ids are uint64
-# on the wire, so 2^32 ids a takeover costs nothing.
-_TAKEOVER_GAP_SLACK = 1 << 32
 
 
 class ReplicaState:
@@ -537,7 +529,7 @@ class StandbyScheduler:
         3. adopt journaled grants onto their servants (idempotent;
            renewal RPCs landing mid-takeover succeed exactly once),
         4. open the adoption grace window at the journaled
-           ``max_grant_id`` (plus _TAKEOVER_GAP_SLACK ids) so servants
+           ``max_grant_id`` (plus TAKEOVER_GAP_SLACK ids) so servants
            re-reporting journal-gap grants via heartbeat keep them
            instead of being killed, and new ids start above it,
         5. restore the overload-ladder rung,
@@ -560,7 +552,7 @@ class StandbyScheduler:
             dispatcher.adopt_grants(loc, items, grant_lease_s)
             for loc, items in by_loc.items())
         dispatcher.set_adoption_window(state.max_grant_id, grace_s,
-                                       gap_slack=_TAKEOVER_GAP_SLACK)
+                                       gap_slack=TAKEOVER_GAP_SLACK)
         dispatcher.restore_admission_rung(state.rung)
         self.dispatcher = dispatcher
         if service_factory is not None:

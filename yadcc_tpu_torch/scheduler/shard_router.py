@@ -63,7 +63,8 @@ from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from .admission import RUNG_NAMES, AdmissionDecision
-from .task_dispatcher import LoadSignal, ServantInfo, TaskDispatcher
+from .task_dispatcher import (TAKEOVER_GAP_SLACK, LoadSignal, ServantInfo,
+                              TaskDispatcher)
 
 logger = get_logger("scheduler.shard_router")
 
@@ -463,7 +464,7 @@ class ShardRouter:
 
     def set_adoption_window(self, floor_grant_id: int,
                             grace_s: float, *,
-                            gap_slack: int = 1024) -> None:
+                            gap_slack: int = TAKEOVER_GAP_SLACK) -> None:
         """Open every shard's takeover grace window: any of them may be
         the owner of a journal-gap grant a servant reports."""
         for d in self._shards:

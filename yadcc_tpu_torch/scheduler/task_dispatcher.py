@@ -75,6 +75,16 @@ _HB_FLUSH_THRESHOLD = 64
 # a grant whose delegate died with the old active expires promptly.
 _ADOPTED_LEASE_S = 15.0
 
+# Ids (in the dispatcher's namespace) above the journaled maximum that a
+# takeover's adoption window lets reporting servants claim, and above
+# which the promoted dispatcher starts issuing.  It must exceed every id
+# the dead active issued after its last acked batch: at tens of thousands
+# of grants a second that is far more than the JAX package's 1,024 (which
+# then kills reported gap grants and issues their ids again;
+# tests/test_torch_replication.py).  Grant ids are uint64 on the wire, so
+# 2^32 ids a takeover costs nothing.
+TAKEOVER_GAP_SLACK = 1 << 32
+
 # A snapshot buffer whose dirty set covers more than this fraction of
 # the pool rebuilds vectorized instead of via fancy-index updates.
 _SNAP_FULL_REBUILD_FRAC = 8  # 1/8 of slots
@@ -558,7 +568,7 @@ class TaskDispatcher:
 
     def set_adoption_window(self, floor_grant_id: int,
                             grace_s: float, *,
-                            gap_slack: int = 1024) -> None:
+                            gap_slack: int = TAKEOVER_GAP_SLACK) -> None:
         """Open the takeover grace window.
 
         ``floor_grant_id`` is the highest id the replica SAW; the dead
