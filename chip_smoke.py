@@ -3688,7 +3688,7 @@ FED_WARM_ENVS = 16              # envs whose candidate keys a peer holds
 FED_TOPOLOGY = (0, 1, 1, 2, 2, 3, 3, 4)
 FED_BITS, FED_HASHES = 27_584_639, 10   # the production geometry
 FED_REPLAY = 500                # scorer calls replayed with the cells idle
-FED_SPIN_REPLAY = 200           # and beside threads spinning in Python
+FED_SPIN_REPLAY = 20            # and beside threads spinning in Python
 
 
 def fed_key(env: str, i: int) -> str:
