@@ -44,7 +44,23 @@ of the filter from its 1M members' fingerprints.
 * scatter_bin_only, scatter_own_only
                 the binned scatter-OR's pass (a) alone (its result wrong on
                 purpose), and pass (b) alone on the scratch and table the
-                kernel build left.
+                kernel build left;
+* place_chained the placement kernel with each key's probes chained
+                (probe_h, stopping at the first zero bit) in place of its
+                loads issued together;
+* place_no_probe, place_no_digest, place_no_ticket
+                the placement kernel without its probes (a digest bit for
+                the verdict), with a one-word mix in place of the digest,
+                and without the fence and ticket (every block scores):
+                all wrong on purpose, what each part costs.
+
+The placement kernel of the kernel, place_chained and other builds is
+timed (CUDA events over 50 warm launches on one staged input, each
+build's result held against the host oracle) at chip_smoke.py's two
+shapes, a spill decision (7 cells, 32 keys of 80 bytes, T = 1, the
+production geometry) and 8 cells x 256 keys x 8 tasks, beside an empty
+one-block launch; a first-version OTHER (two launches, the score then its
+argmin, from device pointers) is fed the same staged bytes.
 
 The binned scatter-OR of the kernel build is also timed with slices half
 and twice the plan's size (the plan is the wrapper's argument, no other
@@ -83,6 +99,20 @@ OUT = REPO / "yadcc_tpu_torch" / "_build" / "bloom_probe"
 # and scatter-only variants leave them as in "kernel").
 PROBE_ONLY = ("probe_mod", "probe_min1", "probe_cg", "probe_l1na")
 SCATTER_ONLY = ("scatter_atomic", "scatter_bin_only", "scatter_own_only")
+PLACE_ONLY = ("place_chained", "place_no_probe", "place_no_digest",
+              "place_no_ticket")
+INEXACT_PLACE = ("place_no_probe", "place_no_digest", "place_no_ticket")
+# The placement kernel's probe call, its fence and ticket, and the same with
+# every block taken for the last (right only for a one-block grid, and
+# only when the block's adds happen to have landed: timing alone).
+PLACE_PROBE = "        probe_together(f, "
+PLACE_PROBE_ARGS = ("(uint32_t)d, (uint32_t)(d >> 32) | 1u,\n"
+                    "                       policy_evict_last()))")
+PLACE_TICKET = ("    __threadfence();\n"
+                "    last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;\n"
+                "    __threadfence();\n")
+PLACE_NO_TICKET = "    last = true;\n"
+PLACE = ("kernel", *PLACE_ONLY, "other")
 INEXACT = ("staging_only", "digest_only", "probe_l1", "scatter_bin_only")
 CASCADE = ("kernel", "no_hints", "min_blocks8", "direct_min1", "unstaged",
            "other")
@@ -243,12 +273,21 @@ def variants(src: str) -> dict:
                                 "    if (false) scatter_own_kernel<Entry><<<"),
         "scatter_own_only": cut(src, "    scatter_bin_kernel<Entry><<<",
                                 "    if (false) scatter_bin_kernel<Entry><<<"),
+        "place_chained": cut(src, PLACE_PROBE, "        probe_h(f, "),
+        "place_no_probe": cut(src, PLACE_PROBE + PLACE_PROBE_ARGS,
+                              "        ((d & 1u) != 0))"),
+        "place_no_digest": cut(src, "    const uint64_t d = xxh64_row(row, "
+                               "a.length, f.seed);",
+                               "    const uint64_t d = f.seed ^ (uint64_t)"
+                               "row.word(0) * kP1;"),
+        "place_no_ticket": cut(src, PLACE_TICKET, PLACE_NO_TICKET),
     }
 
 
 KERNEL_NAMES = ("membership_kernel", "cascade_kernel", "probe_kernel",
                 "scatter_bin_kernel", "scatter_own_kernel",
-                "scatter_atomic_kernel")
+                "scatter_atomic_kernel", "placement_score_kernel",
+                "placement_argmin_kernel", "placement_kernel")
 
 
 def ptxas_lines(stderr: str) -> list:
@@ -339,8 +378,13 @@ def main(argv: list) -> int:
         for name, info in ex.map(lambda kv: build(*kv), jobs.items()):
             for line in info:
                 if name in ("kernel", "other") or line.startswith(
-                        ("membership<", "probe", "scatter_atomic")):
+                        ("membership<", "probe", "scatter_atomic")) or (
+                        name in PLACE_ONLY and line.startswith("placement")):
                     print(name, line, flush=True)
+    for name in PLACE:
+        if name in srcs:
+            for line in time_placement(name, srcs[name]):
+                print(name, line, flush=True)
 
     dev = torch.device("cuda")
     n = c.BLOOM_N
@@ -442,7 +486,7 @@ def main(argv: list) -> int:
                     out.data_ptr(), stream)
 
             rec = {}
-            if name not in PROBE_ONLY + SCATTER_ONLY:
+            if name not in PROBE_ONLY + SCATTER_ONLY + PLACE_ONLY:
                 call_mem()
                 if name not in INEXACT:
                     c.check(np.array_equal(out.cpu().numpy(), want),
@@ -555,6 +599,82 @@ def time_scatter(name, src, words, zeros, mfps, one_slice, plan,
 
 
 _BUFFERS: dict = {}
+
+
+def time_placement(name: str, src: str) -> list:
+    """Build ``name``'s placement kernel on chip_smoke.time_placement's
+    two inputs (the same seed), staged once into a slot's device input:
+    its result against the host oracle, then its time and an empty
+    launch's (the kernel build's), CUDA events over 50 warm launches."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as c
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    one_launch = "yadcc_placement_launch" in src
+    if one_launch:
+        fn = lib.yadcc_placement_launch
+        fn.argtypes = [P, P, P, P, P, I, P]
+    else:
+        fn = lib.yadcc_placement_score
+        fn.argtypes = [P, I, U, I, P, P, I, P, P, I, I, I, I, I, I, I, P, P,
+                       P, P]
+    empty = ctypes.CDLL(str(OUT / "libkernel.so")).yadcc_empty_launch
+    empty.argtypes = [P]
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(111)
+    lines = []
+    for shape, (c_n, n, t_n) in (("path", c.PLACE_PATH),
+                                 ("wide", c.PLACE_WIDE)):
+        args, kw, want, _, _ = c.placement_case(
+            rng, c_n, t_n, n, 80, *c.PLACE_GEOMETRIES[0], dev)
+        want = np.concatenate([w.reshape(-1) for w in want])
+        slot = kb.PlacementSlot(dev)
+        lay = kb.placement_pack(slot, [0 if w is None else w.data_ptr()
+                                       for w in args[0]], *args[1:], **kw)
+        slot.dev_in[:lay.in_bytes].copy_(slot.host_in[:lay.in_bytes])
+        slot.dev_out.zero_()
+        host_in, dev_in, _, dev_out, scratch, ticket = slot._ptrs
+
+        def at(off):
+            return dev_in + off
+
+        def call():
+            if one_launch:
+                err = fn(host_in, dev_in, dev_out, scratch, ticket,
+                         slot.device.index, stream)
+            else:
+                err = fn(at(kb.PLACE_TABLE), c_n, kw["num_bits"],
+                         kw["num_hashes"], at(lay.off_terms),
+                         at(lay.off_counts), t_n, at(lay.off_task),
+                         at(lay.off_packed), lay.row_words, kw["length"],
+                         lay.n, kw["warm_scale"], kw["w_warm"],
+                         kw["w_load"], kw["w_topo"], dev_out,
+                         dev_out + 4 * c_n * t_n,
+                         dev_out + 4 * (c_n * t_n + t_n), stream)
+            if err != 0:
+                raise RuntimeError(f"{name} placement: CUDA error {err}")
+
+        exact = name not in INEXACT_PLACE
+        call()
+        torch.cuda.synchronize()
+        c.check(not exact or np.array_equal(
+            slot.dev_out[:want.size].cpu().numpy(), want),
+                f"{name}: placement differs from the host oracle ({shape})")
+        ms = c.timed(call, 50)
+        torch.cuda.synchronize()
+        c.check(not exact or np.array_equal(
+            slot.dev_out[:want.size].cpu().numpy(), want),
+                f"{name}: placement after 50 launches ({shape})")
+        floor = c.timed(lambda: empty(stream), 50)
+        lines.append(f"placement {shape} C {c_n} N {n} T {t_n} " + json.dumps(
+            {"ms": ms, "launch_floor_ms": floor,
+             "launches_a_call": 1 if one_launch else 2}))
+    return lines
 
 
 if __name__ == "__main__":

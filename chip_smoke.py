@@ -23,12 +23,17 @@ Phases (any failure exits non-zero without printing the result line):
    padding beside the next shard's slot 0 and shards beyond shared
    memory; the kernels' times, the grid at 8 shards x 8,192 slots beside
    one and eight single-shard launches; the spill-placement kernel
-   (csrc/bloom.cu: the cells x tasks score, then its argmin) against
-   placement_score_plain and the host oracle at 1, 3, 7 and 8 cells, 1
-   and 8 tasks, 1, 32 and 256 keys of 23 and 80 bytes, three salts, two
-   geometries, with filterless, ineligible and all-ineligible cells, a
-   tie, padding keys and a mixed batch, its refusals, and its time at a
-   spill decision's shape and at 8 cells x 256 keys x 8 tasks;
+   (csrc/bloom.cu: the cells x tasks score and its argmin in one launch,
+   through one native call from the staged input to the readback)
+   against placement_score_plain and the host oracle at 1, 3, 7 and 8
+   cells, 1 and 8 tasks, 1, 32 and 256 keys of 23 and 80 bytes, three
+   salts, two geometries, with filterless, ineligible and all-ineligible
+   cells, a tie, padding keys and a mixed batch; on grids of several
+   blocks (C x N of 264 to 9,000 pairs, most not a multiple of 256, 300
+   cells, 4,096 tasks); one slot reused 100 times across three shapes and
+   8 threads calling at once on their own slots, every result against
+   the host oracle; its refusals; and its time at a spill decision's
+   shape and at 8 cells x 256 keys x 8 tasks beside an empty launch's;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
    servants registered by Heartbeat, 24 delegates driving >= 200,000
@@ -2783,6 +2788,12 @@ PLACE_SALTS = (0, 17, (1 << 63) + 5)
 PLACE_GEOMETRIES = ((27_584_639, 10), (1000, 7))
 PLACE_PATH = (7, 32, 1)        # a spill decision: 7 peers, 32 keys, T = 1
 PLACE_WIDE = (8, 256, 8)
+# (C, T, N, key length, geometry): C x N pairs over several blocks of 256,
+# so the last block's ticket takes the score; most not a multiple of 256.
+PLACE_GRIDS = ((5, 3, 100, 23, 0), (9, 8, 1000, 80, 0), (33, 1, 8, 80, 0),
+               (300, 2, 1, 80, 1), (2, 4096, 64, 23, 1), (4, 8, 512, 80, 0))
+PLACE_REUSE = 100              # calls on one slot, back to back
+PLACE_THREADS = 8              # threads calling at once, a slot each
 
 
 def placement_kw(length: int, num_bits: int, num_hashes: int) -> dict:
@@ -2909,6 +2920,15 @@ def compare_placement(report: list) -> None:
     compare_placement_call(args, kw, want, "tie")
     check((want[1] == 0).all() and (want[0] == want[0][:1]).all(),
           "tie: the cells' scores differ")
+    # Grids of several blocks: the ticket's last block scores.
+    for c_n, t_n, n, length, g in PLACE_GRIDS:
+        args, kw, want, _, _ = placement_case(
+            rng, c_n, t_n, n, length, *PLACE_GEOMETRIES[g], dev, pad=2,
+            no_filter=(1,), ineligible=(c_n - 1,))
+        compare_placement_call(args, kw, want, f"grid C {c_n} T {t_n} N "
+                               f"{n}")
+        cases += 1
+    reuse_s, threaded = compare_placement_slots(rng, dev)
     # A mixed batch: prepare_probe_batch keeps the dominant length class.
     mixed = [[f"k{i:022d}" for i in range(12)] + ["short", "mid-len-key"],
              [f"v{i:078d}" for i in range(5)] + ["x" * 23] * 3, []]
@@ -2964,8 +2984,79 @@ def compare_placement(report: list) -> None:
                   f"salts {PLACE_SALTS}, geometries {PLACE_GEOMETRIES}; a "
                   f"cell without a filter, an ineligible cell, padding keys, "
                   f"a task without keys, every cell ineligible, a tie, a "
-                  f"mixed batch) equal to the plain version and the host "
-                  f"oracle; {len(bad)} refusals without a launch")
+                  f"mixed batch; grids (C, T, N) "
+                  f"{[g[:3] for g in PLACE_GRIDS]}) equal to the plain "
+                  f"version and the host oracle; one slot reused "
+                  f"{PLACE_REUSE} times across three shapes ({reuse_s:.2f} "
+                  f"s) and {PLACE_THREADS} threads x {threaded} calls at "
+                  f"once on their own slots, every result equal to the host "
+                  f"oracle's; {len(bad)} refusals without a launch")
+
+
+def placement_slot_call(slot, args, kw):
+    """One decision through ``slot`` as the scorer makes it: the pack,
+    then the one native call; the int32 [C*T + 2*T] result, copied."""
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    words = args[0]
+    lay = kb.placement_pack(slot, [0 if w is None else w.data_ptr()
+                                   for w in words], *args[1:], **kw)
+    return kb.placement_call(slot, lay, words).copy()
+
+
+def compare_placement_slots(rng, dev) -> tuple:
+    """One slot reused PLACE_REUSE times back to back across three shapes
+    (a stale scratch or ticket would add hits or score early), then
+    PLACE_THREADS threads calling at once, each on its own slot of one
+    pool; every result against the host oracle.  Returns (the reuse's
+    seconds, calls a thread)."""
+    import numpy as np
+
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+
+    shapes = ((7, 1, 32, 80, 0), (9, 8, 1000, 80, 0), (3, 8, 32, 23, 1))
+    cases = []
+    for c_n, t_n, n, length, g in shapes:
+        args, kw, want, _, _ = placement_case(
+            rng, c_n, t_n, n, length, *PLACE_GEOMETRIES[g], dev, pad=1)
+        cases.append((args, kw, np.concatenate([w.reshape(-1)
+                                                for w in want])))
+    slot = kb.PlacementSlot(dev)
+    t0 = time.perf_counter()
+    for i in range(PLACE_REUSE):
+        args, kw, want = cases[i % len(cases)]
+        check(np.array_equal(placement_slot_call(slot, args, kw), want),
+              f"placement slot reused: call {i} != host")
+    reuse_s = time.perf_counter() - t0
+    pool = kb.PlacementSlots(dev)
+    calls = 25
+    errors: list = []
+    start = threading.Barrier(PLACE_THREADS)
+
+    def worker(k):
+        try:
+            mine = pool.take()
+            start.wait(timeout=60)
+            for i in range(calls):
+                args, kw, want = cases[(k + i) % len(cases)]
+                if not np.array_equal(placement_slot_call(mine, args, kw),
+                                      want):
+                    errors.append(f"thread {k} call {i} != host")
+            pool.give(mine)
+        except Exception as e:  # reported below
+            errors.append(f"thread {k}: {e!r}")
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(PLACE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), "placement: a calling thread hung")
+    check(not errors, f"placement threads: {errors[:3]}")
+    check(pool.created == PLACE_THREADS,
+          f"placement threads: {pool.created} slots for {PLACE_THREADS}")
+    return reuse_s, calls
 
 
 def placement_bound(filters, keys, counts_shape, length, num_bits,
@@ -3001,12 +3092,14 @@ def placement_bound(filters, keys, counts_shape, length, num_bits,
 
 
 def time_placement(report: list) -> dict:
-    """The placement kernel's time (CUDA events over 50 warm launches of
-    the score and argmin on a staged buffer), the plain version's and the
-    whole wrapper call's (host staging, one copy up, the launches, one copy
-    back), at a spill decision's shape (7 peers, 32 keys of 80 bytes,
-    T = 1, the production geometry, half the keys warm) and at 8 cells,
-    256 keys, T = 8; each beside its bound."""
+    """The placement kernel's time (CUDA events over 50 warm launches on
+    an input a call staged), an empty one-block launch's timed the same
+    way (the floor of a one-launch call), the plain version's, and on the
+    host clock the whole call as the scorer makes it (the pack into a
+    slot, then the one native call: copy up, launch, copy back, wait) and
+    the native call alone; at a spill decision's shape (7 peers, 32 keys
+    of 80 bytes, T = 1, the production geometry, half the keys warm) and
+    at 8 cells, 256 keys, T = 8; each beside its bound."""
     import numpy as np
     import torch
 
@@ -3019,37 +3112,42 @@ def time_placement(report: list) -> dict:
     for name, (c_n, n, t_n) in (("path", PLACE_PATH), ("wide", PLACE_WIDE)):
         args, kw, want, filters, keys = placement_case(
             rng, c_n, t_n, n, 80, *PLACE_GEOMETRIES[0], dev)
-        words, seeds, terms, packed, owner, counts = args
-        staged, offsets = kb.placement_stage(dev, words, seeds, terms,
-                                             packed, owner, counts)
-        res = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32,
-                          device=dev)
-
-        def run():
-            kb.placement_run(staged, offsets, c_n, t_n, n, packed.shape[1],
-                             res, **kw)
-
-        ms = timed(run, 50)
-        check(np.array_equal(res[:c_n * t_n].cpu().numpy(),
-                             want[0].reshape(-1)), f"timed {name} placement")
+        want = np.concatenate([w.reshape(-1) for w in want])
+        words = args[0]
+        slot = kb.PlacementSlot(dev)
+        check(np.array_equal(placement_slot_call(slot, args, kw), want),
+              f"{name} placement call")
+        ms = timed(lambda: kb.placement_launch(slot), 50)
+        torch.cuda.synchronize()
+        check(np.array_equal(slot.dev_out[:want.size].cpu().numpy(), want),
+              f"timed {name} placement")
+        floor_ms = timed(lambda: kb.empty_launch(dev), 50)
         plain_ms = timed(lambda: bpl.placement_score_plain(
             *args, device=dev, **kw), 10)
+        reps = 200
         t0 = time.perf_counter()
-        for _ in range(50):
-            kb.placement_score(*args, out=res, **kw)
-            res.cpu()
-        call_ms = (time.perf_counter() - t0) / 50 * 1e3
-        bound = placement_bound(filters, keys, counts.shape, 80,
+        for _ in range(reps):
+            placement_slot_call(slot, args, kw)
+        call_ms = (time.perf_counter() - t0) / reps * 1e3
+        lay = kb.placement_pack(slot, [0 if w is None else w.data_ptr()
+                                       for w in words], *args[1:], **kw)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            kb.placement_call(slot, lay, words)
+        native_ms = (time.perf_counter() - t0) / reps * 1e3
+        bound = placement_bound(filters, keys, (t_n,), 80,
                                 *PLACE_GEOMETRIES[0])
-        out[name] = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
-                         C=c_n, N=n, T=t_n, **bound)
+        out[name] = dict(ms=ms, launch_floor_ms=floor_ms, plain_ms=plain_ms,
+                         call_ms=call_ms, native_call_ms=native_ms, C=c_n,
+                         N=n, T=t_n, **bound)
         report.append(
             f"  placement at C {c_n} N {n} T {t_n} (80-byte keys, "
-            f"production geometry): kernel {ms:.4f} ms (score + argmin), "
-            f"plain {plain_ms:.4f} ms, whole call {call_ms:.4f} ms (host "
-            f"clock); bound {bound['bound_ms'] * 1e3:.4f} us by "
-            f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['ops']} "
-            f"ops)")
+            f"production geometry): kernel {ms:.4f} ms (one launch), an "
+            f"empty launch {floor_ms:.4f} ms, plain {plain_ms:.4f} ms; the "
+            f"whole call {call_ms:.4f} ms, the native call alone "
+            f"{native_ms:.4f} ms (host clock); bound "
+            f"{bound['bound_ms'] * 1e3:.4f} us by {bound['bound_by']} "
+            f"({bound['bytes']} bytes, {bound['ops']} ops)")
     return out
 
 
@@ -3924,8 +4022,8 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
     check(k2 == 0, f"federation: K2 launched {k2} times under the auto "
                    f"policy")
     # The placement stage split: the peer signals and the scorer's call
-    # (its pack, launch and readback) under the drive's 8 delegates and 8
-    # cells' dispatch threads, then the same scorer calls replayed from
+    # (its pack and its one native call) under the drive's 8 delegates and
+    # 8 cells' dispatch threads, then the same scorer calls replayed from
     # one thread with the cells stopped.
     split = router.inspect()["federation"]["latency_breakdown"]
     stage = split["placement"]
@@ -3935,7 +4033,7 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
     for cands, keys, _ in scorer.calls[:FED_REPLAY]:
         t0 = time.perf_counter()
         pl.DevicePlacementScorer.score(scorer, cands, keys)
-        scorer.stage_timer.record("call", time.perf_counter() - t0)
+        scorer.stage_timer.record("score", time.perf_counter() - t0)
     replay_s = time.perf_counter() - t_replay
     idle = scorer.stage_timer.percentiles()
     # The same calls beside FED_CELLS threads that spin in Python and call
@@ -3955,7 +4053,7 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
         for cands, keys, _ in scorer.calls[:FED_SPIN_REPLAY]:
             t0 = time.perf_counter()
             pl.DevicePlacementScorer.score(scorer, cands, keys)
-            scorer.stage_timer.record("call", time.perf_counter() - t0)
+            scorer.stage_timer.record("score", time.perf_counter() - t0)
     finally:
         stop_spin.set()
         for t in spinners:
@@ -3996,9 +4094,8 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
         "  federation placement split under the drive (p50 / p99 ms): "
         + "; ".join(p50_99(split, k) for k in (
             "placement_signals", "placement_score", "placement_pack",
-            "placement_device_call", "placement_stage", "placement_launch",
-            "placement_readback")))
-    parts = ("call", "pack", "device_call", "stage", "launch", "readback")
+            "placement_call")))
+    parts = ("score", "pack", "call")
     report.append(
         f"  the same {min(FED_REPLAY, len(scorer.calls))} scorer calls "
         f"replayed from one thread, the cells stopped, in {replay_s:.2f} s "
@@ -4223,10 +4320,12 @@ def main() -> int:
         "bound_by": place["path"]["bound_by"],
         "library_ms": None,
         "shape": {k: place["path"][k] for k in ("C", "N", "T")},
+        "launch_floor_ms": place["path"]["launch_floor_ms"],
         "call_ms": place["path"]["call_ms"],
+        "native_call_ms": place["path"]["native_call_ms"],
         "at_C8_N256_T8": {k: place["wide"][k] for k in
-                          ("ms", "plain_ms", "call_ms", "bound_ms",
-                           "bound_by")},
+                          ("ms", "launch_floor_ms", "plain_ms", "call_ms",
+                           "native_call_ms", "bound_ms", "bound_by")},
         "placement_stage": federation["placement_stage"],
     })
     log("main paths ({}): {}; fused {} cycles in {:.2f} s; total {:.1f} "

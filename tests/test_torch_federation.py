@@ -570,15 +570,16 @@ class TestScoredSpillover:
         assert placement["count"] >= 1
         assert placement["p99_ms"] >= 0.0
         # The split: the peer signals on every decision; the scorer's
-        # call, pack, device call and readback on every scored one (the
-        # stage and launch inside the device call only on the card).
+        # call, its pack and its one native call on every scored one.
         parts = {k: v["count"] for k, v in fed["latency_breakdown"].items()
                  if k.startswith("placement_")}
         assert parts["placement_signals"] == placement["count"]
         scored = fed["stats"]["placement_scored"]
         assert scored == 1
-        for k in ("score", "pack", "device_call", "readback"):
+        for k in ("score", "pack", "call"):
             assert parts.get(f"placement_{k}", 0) == scored
+        assert set(parts) == {"placement_signals", "placement_score",
+                              "placement_pack", "placement_call"}
 
 
 class TestScoredCellHoming:

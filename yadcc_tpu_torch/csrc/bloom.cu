@@ -10,11 +10,12 @@
 //                              sharded_bloom_cascade_fn, on one card
 //   yadcc_bloom_probe       <- yadcc_tpu/ops/bloom_probe.py:bloom_may_contain
 //   yadcc_bloom_scatter_or  <- yadcc_tpu/ops/bloom_probe.py:bloom_scatter_add
-//   yadcc_placement_score   <- yadcc_tpu/parallel/mesh.py:placement_score_fn,
+//   yadcc_placement_call    <- yadcc_tpu/parallel/mesh.py:placement_score_fn,
 //                              the cells x tasks spill-placement score
 // What each computes is its plain version's result (ops/bloom_pipeline.py:
-// membership_plain and cascade_plain, ops/bloom_probe.py:probe_body and
-// scatter_add_plain); chip_smoke.py holds them equal on the card.
+// membership_plain, cascade_plain and placement_score_plain,
+// ops/bloom_probe.py:probe_body and scatter_add_plain); chip_smoke.py holds
+// them equal on the card.
 //
 // What bounds it on this card.  Counted as chip_smoke.py counts it, bytes:
 // at the production batch (1M keys of 80 bytes against 27,584,639 bits and
@@ -104,13 +105,19 @@
 // passes, each reading the last one's output.
 //
 // The placement score (one spill decision: C peer cells, N <= 32 candidate
-// keys, T = 1 task on the federation path) needs C x N digests and the
-// probes their early exits evaluate, ~7 x 32 x 10 L2 sectors: far below
-// one launch's cost.  Its design is the simplest that is exact: one block
-// a cell, a thread a key with its row read from global memory, shared-
-// memory atomics for the hit counts, and a one-block argmin launch.  The
-// cells' filters are whatever resident copies the caller points the table
-// at (scheduler/placement.py uploads each snapshot once).
+// keys, T = 1 task on the federation path) needs C x N digests and their
+// probes, ~7 x 32 x 10 L2 sectors: far below one launch's cost, so what
+// the card can save is launches and latency, not bytes.  One launch a
+// decision: a thread a (cell, key) pair (7 x 32 = 224 pairs, one block),
+// the key's K probe loads issued together, a warp's hits to one (cell,
+// task) added into a per-call scratch as one atomic, and the last block
+// to finish (a ticket taken after a fence) writes the score rows and each
+// task's argmin and zeroes the scratch and ticket for the next call on
+// them.  The host side is one native call (yadcc_placement_call): the
+// staged inputs up from pinned memory, the launch, the results back into
+// pinned memory, one wait.  The cells' filters are whatever resident
+// copies the caller points the table at (scheduler/placement.py uploads
+// each snapshot once).
 //
 // Integer traps: words and keys arrive as the int32 bit pattern of uint32
 // arrays and are read as uint32_t; num_bits need not be a multiple of 32
@@ -645,19 +652,59 @@ scatter_own_kernel(const uint32_t* in, uint32_t* out, int nw,
 // ---------------------------------------------------------------------------
 // Scored spill placement: the cells x tasks cost matrix (yadcc_tpu/parallel/
 // mesh.py:placement_score_fn; plain version ops/bloom_pipeline.py:
-// placement_score_plain).  Block c scores cell c: its threads stride over
-// the N keys, digest each row with the cell's seed and probe the cell's
-// filter (xxh64_row and probe_h, the membership kernel's own), and count
-// the hits a task in shared memory; then threads t < T write the cell's
-// score row with the JAX package's int32 arithmetic, wrapping as it wraps.
-// A second one-block launch takes each task's argmin over the cells.
+// placement_score_plain), one launch a call.
+// * Thread p of the grid takes pair p: cell p / N, key p % N (a block holds
+//   256 consecutive pairs, however many cells they span, so a spill
+//   decision's 224 pairs are one block).  It digests the key's row, read
+//   from global memory, with the cell's seed and probes the cell's filter
+//   (xxh64_row, as the membership kernel), its K loads issued together and
+//   ANDed: a member waits for one L2 round trip, not ten chained ones.
+// * A warp's hits to one (cell, task) are one atomicAdd into `scratch`
+//   ([C, T] int32, zero on entry): __match_any_sync groups the lanes, the
+//   lowest lane adds their count.  A block's 256 pairs can span 256 cells
+//   (N = 1), so a shared [cells, T] tally has no fixed size; the warp's
+//   group does, and the scratch takes every shape.
+// * After a block barrier thread 0 fences the block's adds and takes a
+//   ticket (atomicAdd on `ticket`, zero on entry); the block that takes
+//   the last one fences again and reads the
+//   hits from L2, writes the score rows with the JAX package's int32
+//   arithmetic, wrapping as it wraps, zeroes the scratch and the ticket, and
+//   takes each task's argmin as it goes, a shared-memory atomicMin of
+//   (score, cell) a task ([T] 64-bit, at most 32 KB), so the lowest cell
+//   wins a tie as jnp.argmin's first occurrence does.  No memset and no
+//   second launch; with one block the ticket is trivially the last, on the
+//   same code path.
+// * No thread-block cluster: it would cap C at 8 (16 non-portable).
 
 constexpr int kPlaceThreads = 256;
-constexpr int kPlaceMaxTasks = 4096;   // the shared hit counts, 16 KB
+constexpr int kPlaceMaxTasks = 4096;   // the most tasks a call takes
 constexpr int kPlaceBig = 1 << 30;     // an ineligible cell's score
+constexpr int kPlaceProbes = 16;       // probe loads issued together
 
-struct PlaceWeights {
-  int warm_scale, warm, load, topo;
+// The call's header, the first 64 bytes of its staged input (written by
+// ops/cuda_bloom.py:placement_pack).  Offsets are bytes from the input's
+// start; the table (C word pointers, 0 for a cell without a filter, then C
+// 64-bit seeds) sits at byte 64, so it is 8-byte aligned.
+struct PlaceHeader {
+  int cells, tasks, n, row_words, length;
+  unsigned int num_bits;
+  int num_hashes, warm_scale, w_warm, w_load, w_topo;
+  int in_bytes, off_terms, off_counts, off_task, off_packed;
+};
+static_assert(sizeof(PlaceHeader) == 64, "the wrapper writes 16 int32");
+constexpr int kPlaceTable = 64;
+
+struct PlaceArgs {
+  const unsigned long long* table;
+  const int* terms;   // rows util_q, topo_q, eligible, has_filter; C each
+  const int* counts;
+  const int* task_of_key;
+  const uint32_t* packed;
+  int cells, tasks, n, row_words, length;
+  int warm_scale, w_warm, w_load, w_topo;
+  int* out;           // scores [C, T], then best cell [T], best score [T]
+  int* scratch;       // [C, T] hit counts, zero between calls
+  unsigned int* ticket;
 };
 
 // floor(a / b) for b >= 1, as jnp's // rounds.
@@ -666,67 +713,95 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// `table` holds C word pointers (0: the cell has no filter) and then C
-// 64-bit seeds; `terms` the int32 rows util_q, topo_q, eligible and
-// has_filter of C entries each.
-__global__ void __launch_bounds__(kPlaceThreads)
-placement_score_kernel(Filter f, const unsigned long long* __restrict__ table,
-                       int C, const int* __restrict__ terms,
-                       const int* __restrict__ counts, int T,
-                       const int* __restrict__ task_of_key,
-                       const uint32_t* __restrict__ packed, int row_words,
-                       int length, int n, PlaceWeights w,
-                       int* __restrict__ scores) {
-  __shared__ int hits[kPlaceMaxTasks];
-  const int c = blockIdx.x;
-  for (int t = threadIdx.x; t < T; t += kPlaceThreads) hits[t] = 0;
-  __syncthreads();
-  f.words = reinterpret_cast<const uint32_t*>(table[c]);
-  f.seed = table[C + c];
-  if (f.words != nullptr) {
-    const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
-    for (int i = threadIdx.x; i < n; i += kPlaceThreads) {
-      const int task = task_of_key[i];
-      if (task < 0 || task >= T) continue;  // padding keys carry -1
-      const GlobalRow row{packed + (size_t)i * row_words, stream};
-      if (member(f, row, length, keep)) atomicAdd(&hits[task], 1);
+// All K probe bits of (h1, h2) set?  The probe_h indices, their loads
+// issued kPlaceProbes at a time and ANDed (the verdict is probe_h's).
+__device__ __forceinline__ bool probe_together(const Filter& f, uint32_t h1,
+                                               uint32_t h2, uint64_t keep) {
+  uint32_t x = h1;  // h1 + i * h2, wrapping
+  for (int i = 0; i < f.num_hashes; i += kPlaceProbes) {
+    uint32_t all = 1u;
+#pragma unroll
+    for (int j = 0; j < kPlaceProbes; ++j, x += h2) {
+      if (i + j < f.num_hashes) {
+        const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+        all &= load_word(&f.words[idx >> 5], keep) >> (idx & 31u);
+      }
     }
+    if (!(all & 1u)) return false;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(kPlaceThreads)
+placement_kernel(Filter f, PlaceArgs a) {
+  extern __shared__ unsigned long long best[];  // [T] (score, cell) minima
+  __shared__ bool last;
+  const uint32_t pair = blockIdx.x * kPlaceThreads + threadIdx.x;
+  int slot = -1;  // c * T + task when this pair's key hits
+  if (pair < (uint32_t)a.cells * (uint32_t)a.n) {
+    const int c = (int)(pair / a.n), i = (int)(pair % a.n);
+    const int task = a.task_of_key[i];
+    f.words = reinterpret_cast<const uint32_t*>(a.table[c]);
+    f.seed = a.table[a.cells + c];
+    // Every pair's row is digested, so its loads go out beside the task's
+    // and the table's; padding keys (task -1) and cells without a filter
+    // probe nothing.
+    const GlobalRow row{a.packed + (size_t)i * a.row_words,
+                        policy_evict_first()};
+    const uint64_t d = xxh64_row(row, a.length, f.seed);
+    if (task >= 0 && task < a.tasks && f.words != nullptr &&
+        probe_together(f, (uint32_t)d, (uint32_t)(d >> 32) | 1u,
+                       policy_evict_last()))
+      slot = c * a.tasks + task;
+  }
+  const unsigned peers = __match_any_sync(~0u, slot);
+  if (slot >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(&a.scratch[slot], __popc(peers));
+  // The block's adds are ordered before its ticket, and every block's
+  // before the last block's reads, by thread 0's fences on either side of
+  // the ticket after a block barrier (as cooperative groups' grid sync).
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+    __threadfence();
   }
   __syncthreads();
-  const uint32_t load = (uint32_t)w.load * (uint32_t)terms[c] +
-                        (uint32_t)w.topo * (uint32_t)terms[C + c];
-  const bool eligible = terms[2 * C + c] > 0, has = terms[3 * C + c] > 0;
+  if (!last) return;
+  const int C = a.cells, T = a.tasks;
+  for (int t = threadIdx.x; t < T; t += kPlaceThreads) best[t] = ~0ULL;
+  __syncthreads();
+  for (int k = threadIdx.x; k < C * T; k += kPlaceThreads) {
+    const int c = k / T, t = k % T;
+    const int hits = __ldcg(&a.scratch[k]);  // the adds landed in L2
+    a.scratch[k] = 0;
+    const uint32_t load = (uint32_t)a.w_load * (uint32_t)a.terms[c] +
+                          (uint32_t)a.w_topo * (uint32_t)a.terms[C + c];
+    int miss = a.warm_scale;
+    if (a.terms[3 * C + c] > 0)
+      miss = floor_div((int)(((uint32_t)a.counts[t] - (uint32_t)hits) *
+                             (uint32_t)a.warm_scale),
+                       max(a.counts[t], 1));
+    const int score = a.terms[2 * C + c] > 0
+                          ? (int)((uint32_t)a.w_warm * (uint32_t)miss + load)
+                          : kPlaceBig;
+    a.out[k] = score;
+    // (score, cell) as one unsigned key: the sign bit flipped so the int32
+    // order holds, the cell below it so the lowest cell wins a tie.
+    atomicMin(&best[t], ((unsigned long long)((uint32_t)score ^ 0x80000000u)
+                         << 32) | (uint32_t)c);
+  }
+  if (threadIdx.x == 0) *a.ticket = 0;
+  __syncthreads();
   for (int t = threadIdx.x; t < T; t += kPlaceThreads) {
-    int miss = w.warm_scale;
-    if (has)
-      miss = floor_div(
-          (int)(((uint32_t)counts[t] - (uint32_t)hits[t]) *
-                (uint32_t)w.warm_scale),
-          max(counts[t], 1));
-    const uint32_t score = (uint32_t)w.warm * (uint32_t)miss + load;
-    scores[(size_t)c * T + t] = eligible ? (int)score : kPlaceBig;
+    a.out[(size_t)C * T + t] = (int)(uint32_t)best[t];
+    a.out[(size_t)C * T + T + t] =
+        (int)((uint32_t)(best[t] >> 32) ^ 0x80000000u);
   }
 }
 
-// One thread a task walks the cells with a strict <: the lowest cell wins
-// a tie, as jnp.argmin's first occurrence does.
-__global__ void __launch_bounds__(kPlaceThreads)
-placement_argmin_kernel(const int* __restrict__ scores, int C, int T,
-                        int* __restrict__ best_cell,
-                        int* __restrict__ best_score) {
-  for (int t = threadIdx.x; t < T; t += kPlaceThreads) {
-    int bc = 0, bs = scores[t];
-    for (int c = 1; c < C; ++c) {
-      const int s = scores[(size_t)c * T + t];
-      if (s < bs) {
-        bs = s;
-        bc = c;
-      }
-    }
-    best_cell[t] = bc;
-    best_score[t] = bs;
-  }
-}
+// The launch floor: an empty kernel of one placement block.
+__global__ void __launch_bounds__(kPlaceThreads) empty_kernel() {}
 
 int blocks_for(long long threads) {
   return (int)((threads + kThreads - 1) / kThreads);
@@ -840,10 +915,74 @@ int launch_scatter(const void* words, void* out, unsigned int num_bits,
                         hash_chunk, key_blocks, stream);
 }
 
+// The header's refusals: C >= 1, T in [1, kPlaceMaxTasks], N >= 0,
+// num_bits >= 1, parts that lie after the table and inside the staged
+// input, scores and picks of fewer than 2^29 ints (their bytes an int),
+// fewer than 2^31 (cell, key) pairs (the kernel counts them in 32 bits).
+// (The wrapper also refuses counts above PLACE_MAX_COUNT and filters of
+// differing geometry: every cell's words hold ceil(num_bits / 32) words.)
+bool placement_shape_ok(const PlaceHeader& h) {
+  const long long c = h.cells, t = h.tasks, n = h.n;
+  return c >= 1 && t >= 1 && t <= kPlaceMaxTasks && n >= 0 &&
+         h.row_words >= 0 && h.num_bits >= 1 && h.num_hashes >= 0 &&
+         h.off_terms >= kPlaceTable + 16 * c &&
+         h.off_packed + 4 * n * h.row_words <= h.in_bytes &&
+         c * t + 2 * t < (1LL << 29) && c * n < (1LL << 31);
+}
+
+int placement_out_bytes(const PlaceHeader& h) {
+  return (h.cells * h.tasks + 2 * h.tasks) * 4;
+}
+
+int launch_placement(const PlaceHeader& h, const void* dev_in, void* dev_out,
+                     void* scratch, void* ticket, cudaStream_t stream) {
+  const char* in = (const char*)dev_in;
+  PlaceArgs a;
+  a.table = (const unsigned long long*)(in + kPlaceTable);
+  a.terms = (const int*)(in + h.off_terms);
+  a.counts = (const int*)(in + h.off_counts);
+  a.task_of_key = (const int*)(in + h.off_task);
+  a.packed = (const uint32_t*)(in + h.off_packed);
+  a.cells = h.cells;
+  a.tasks = h.tasks;
+  a.n = h.n;
+  a.row_words = h.row_words;
+  a.length = h.length;
+  a.warm_scale = h.warm_scale;
+  a.w_warm = h.w_warm;
+  a.w_load = h.w_load;
+  a.w_topo = h.w_topo;
+  a.out = (int*)dev_out;
+  a.scratch = (int*)scratch;
+  a.ticket = (unsigned int*)ticket;
+  const long long pairs = (long long)h.cells * h.n;
+  const int blocks =
+      pairs == 0 ? 1 : (int)((pairs + kPlaceThreads - 1) / kPlaceThreads);
+  placement_kernel<<<blocks, kPlaceThreads, sizeof(unsigned long long) *
+                                                h.tasks, stream>>>(
+      filter(nullptr, h.num_bits, h.num_hashes, 0), a);
+  return (int)cudaGetLastError();
+}
+
+// Makes `device` current for the call's thread; restores it on scope exit.
+struct OnDevice {
+  int prev = -1;
+  int err = 0;
+  explicit OnDevice(int device) {
+    err = (int)cudaGetDevice(&prev);
+    if (err == 0 && prev != device) err = (int)cudaSetDevice(device);
+  }
+  ~OnDevice() {
+    int now = -1;
+    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev)
+      cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
-// Every entry point launches on `stream`, does not synchronise, and returns
-// the launch's CUDA error (0 when it was accepted).  The wrappers check
+// Every entry point but yadcc_placement_call launches on `stream`, does not
+// synchronise, and returns the launch's CUDA error (0 when it was accepted).  The wrappers check
 // shapes, types and the words' length (>= ceil(num_bits / 32)) and never
 // call with n == 0.  `packed` need only be 4-byte aligned.
 extern "C" int yadcc_bloom_membership(const void* words,
@@ -918,30 +1057,52 @@ extern "C" int yadcc_bloom_scatter_or(const void* words, void* out,
 extern "C" int yadcc_bloom_scatter_bin_threads() { return kBinThreads; }
 extern "C" int yadcc_bloom_scatter_bin_probes() { return kBinProbes; }
 
-// The cells x tasks placement score: `scores` [C, T] and each task's best
-// cell and score, two launches on `stream`.  `table`, `terms`, `counts`,
-// `task_of_key` and `packed` as placement_score_kernel takes them.
-// Returns the first launch error, or cudaErrorInvalidValue for C < 1 or T
-// outside [1, kPlaceMaxTasks].
-extern "C" int yadcc_placement_score(
-    const void* table, int cells, unsigned int num_bits, int num_hashes,
-    const void* terms, const void* counts, int tasks, const void* task_of_key,
-    const void* packed, int row_words, int length, int n, int warm_scale,
-    int w_warm, int w_load, int w_topo, void* scores, void* best_cell,
-    void* best_score, void* stream) {
-  if (cells < 1 || tasks < 1 || tasks > kPlaceMaxTasks || n < 0)
-    return (int)cudaErrorInvalidValue;
+// One placement decision, on `device` and `stream`, from the pinned staged
+// input `host_in` (PlaceHeader, then its parts) into the pinned `host_out`
+// (scores [C, T], best cell [T], best score [T]): the input copied up to
+// `dev_in`, one launch of placement_kernel into `dev_out` with `scratch`
+// ([C, T] int32) and `ticket` (one uint32), both zero on entry and left
+// zero, the results copied back, and a wait for the stream.  The wait runs
+// whatever failed before it, so no copy is in flight on return.  Returns
+// the first CUDA error, or cudaErrorInvalidValue for a header the kernel
+// does not take (placement_shape_ok).  The GIL is not held across it.
+extern "C" int yadcc_placement_call(const void* host_in, void* dev_in,
+                                    void* host_out, void* dev_out,
+                                    void* scratch, void* ticket, int device,
+                                    void* stream) {
+  const PlaceHeader& h = *(const PlaceHeader*)host_in;
+  if (!placement_shape_ok(h)) return (int)cudaErrorInvalidValue;
+  const OnDevice on(device);
+  if (on.err != 0) return on.err;
   const cudaStream_t s = (cudaStream_t)stream;
-  placement_score_kernel<<<cells, kPlaceThreads, 0, s>>>(
-      filter(nullptr, num_bits, num_hashes, 0),
-      (const unsigned long long*)table, cells, (const int*)terms,
-      (const int*)counts, tasks, (const int*)task_of_key,
-      (const uint32_t*)packed, row_words, length, n,
-      PlaceWeights{warm_scale, w_warm, w_load, w_topo}, (int*)scores);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  placement_argmin_kernel<<<1, kPlaceThreads, 0, s>>>(
-      (const int*)scores, cells, tasks, (int*)best_cell, (int*)best_score);
+  int err = (int)cudaMemcpyAsync(dev_in, host_in, h.in_bytes,
+                                 cudaMemcpyHostToDevice, s);
+  if (err == 0) err = launch_placement(h, dev_in, dev_out, scratch, ticket, s);
+  if (err == 0)
+    err = (int)cudaMemcpyAsync(host_out, dev_out, placement_out_bytes(h),
+                               cudaMemcpyDeviceToHost, s);
+  const int waited = (int)cudaStreamSynchronize(s);
+  return err != 0 ? err : waited;
+}
+
+// The kernel alone, on an input a call already staged on the card (the
+// header read from `host_in`): one launch on `stream`, no copy, no wait.
+// For timing the kernel; returns the launch's error.
+extern "C" int yadcc_placement_launch(const void* host_in, const void* dev_in,
+                                      void* dev_out, void* scratch,
+                                      void* ticket, int device, void* stream) {
+  const PlaceHeader& h = *(const PlaceHeader*)host_in;
+  if (!placement_shape_ok(h)) return (int)cudaErrorInvalidValue;
+  const OnDevice on(device);
+  if (on.err != 0) return on.err;
+  return launch_placement(h, dev_in, dev_out, scratch, ticket,
+                          (cudaStream_t)stream);
+}
+
+// An empty one-block launch on `stream`: the floor under any one-launch
+// call (chip_smoke.py times it beside the placement kernel).
+extern "C" int yadcc_empty_launch(void* stream) {
+  empty_kernel<<<1, kPlaceThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

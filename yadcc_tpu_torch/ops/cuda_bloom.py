@@ -20,14 +20,17 @@ of 16 bytes and read the others from device memory.
 
 The placement score takes its small per-decision inputs (seeds, the
 cells' terms, counts, the task of each key, the packed keys) as host
-arrays and sends them up in one copy; its cells' filter words are
-tensors already resident on the card.
+arrays, written into a slot's pinned staging buffer (placement_pack);
+its cells' filter words are tensors already resident on the card, which
+the staged table points at.  One native call (placement_call) copies
+the input up, launches the kernel once, copies the results back and
+waits, with the GIL released.
 
 `launches` counts, by kernel name, the calls on the card that launched
 the kernel (one a call with a non-empty batch; a scatter-OR call is two
 launches, its bin and own passes, or two a pass when the batch outgrows
-the scratch; a placement call is two, the score and its argmin), so a
-run can show that its main path went through the kernels.
+the scratch; a placement call is one), so a run can show that its main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -58,9 +61,9 @@ BIN_PROBES = 16384
 MAX_SEGMENTS = 2048
 MIN_SLICES = 264
 SLICE_SHIFTS = (8, 15)
-# The placement score's shared hit counts (csrc/bloom.cu: kPlaceMaxTasks;
-# _kernels checks that the library agrees), and the largest task count it
-# takes: above it, (counts - hits) * 1024 could wrap in int32.
+# The most tasks a placement call takes (csrc/bloom.cu: kPlaceMaxTasks;
+# _kernels checks that the library agrees), and the largest count of keys
+# a task may have: above it, (counts - hits) * 1024 could wrap in int32.
 PLACE_MAX_TASKS = 4096
 PLACE_MAX_COUNT = 1 << 21
 
@@ -85,9 +88,11 @@ def _kernels():
             "probe": (lib.yadcc_bloom_probe, [p, u, i, p, i, p, p]),
             "scatter_or": (lib.yadcc_bloom_scatter_or,
                            [p, p, u, i, p, i, p, p, i, i, i, i, p]),
-            "placement_score": (lib.yadcc_placement_score,
-                                [p, i, u, i, p, p, i, p, p, i, i, i, i, i,
-                                 i, i, p, p, p, p]),
+            "placement_call": (lib.yadcc_placement_call,
+                               [p, p, p, p, p, p, i, p]),
+            "placement_launch": (lib.yadcc_placement_launch,
+                                 [p, p, p, p, p, i, p]),
+            "empty_launch": (lib.yadcc_empty_launch, [p]),
         }
         fns = {}
         for name, (fn, argtypes) in sigs.items():
@@ -346,38 +351,151 @@ def bloom_scatter_or(words: torch.Tensor, fingerprints: torch.Tensor, *,
     return out
 
 
-def _placement_inputs(words, seeds, terms, packed, task_of_key, counts,
-                      length: int, num_bits: int, num_hashes: int):
-    """Check placement_score's inputs; returns (device, seeds, terms,
-    packed, task_of_key, counts) with the host arrays as numpy."""
+
+
+# The placement call's staged input (csrc/bloom.cu: PlaceHeader): 16 int32
+# of header; at byte PLACE_TABLE the table, C word pointers (0 for a cell
+# without a filter) then C 64-bit seeds; then terms [4, C], counts [T],
+# task_of_key [N] and the packed rows [N, row_words], all int32.
+PLACE_HEADER = ("cells", "tasks", "n", "row_words", "length", "num_bits",
+                "num_hashes", "warm_scale", "w_warm", "w_load", "w_topo",
+                "in_bytes", "off_terms", "off_counts", "off_task",
+                "off_packed")
+PLACE_TABLE = 64
+# Scores and picks of fewer than 2^29 int32, staged inputs below 2^31
+# bytes: both sizes are C ints in the entry point.
+PLACE_MAX_OUT = 1 << 29
+PLACE_MAX_IN = 1 << 31
+
+
+class PlacementLayout(NamedTuple):
+    """Where a placement call's parts lie in its staged input (bytes)."""
+    cells: int
+    tasks: int
+    n: int
+    row_words: int
+    off_terms: int
+    off_counts: int
+    off_task: int
+    off_packed: int
+    in_bytes: int
+
+    @property
+    def out_ints(self) -> int:
+        """Scores [C, T], best cell [T], best score [T]."""
+        return self.cells * self.tasks + 2 * self.tasks
+
+
+def placement_layout(c_n: int, t_n: int, n: int,
+                     row_words: int) -> PlacementLayout:
+    off_terms = PLACE_TABLE + 16 * c_n
+    off_counts = off_terms + 16 * c_n
+    off_task = off_counts + 4 * t_n
+    off_packed = off_task + 4 * n
+    return PlacementLayout(c_n, t_n, n, row_words, off_terms, off_counts,
+                           off_task, off_packed,
+                           off_packed + 4 * n * row_words)
+
+
+def _grown(need: int) -> int:
+    return 1 << max(6, (need - 1).bit_length())
+
+
+class PlacementSlot:
+    """One placement call's buffers on ``device``: the staged input and
+    the results in host memory (pinned for the card), their twins on the
+    card, the kernel's [C, T] hit scratch and its ticket (zero between
+    calls: the kernel leaves them so).  ``fit`` grows a buffer, to the
+    next power of two, only when a call's C, N or T outgrow it.  A
+    slot serves one call at a time (PlacementSlots hands it out)."""
+
+    def __init__(self, device):
+        dev = _indexed(device)
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"no placement kernel for device {dev}")
+        self.device = dev
+        self.in_bytes = self.out_ints = self.scratch_ints = 0
+        self.host_in = self.host_out = None
+        self.dev_in = self.dev_out = self.scratch = self.ticket = None
+        if dev.type == "cuda":
+            self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._ptrs = ()
+
+    def fit(self, layout: PlacementLayout) -> None:
+        cuda = self.device.type == "cuda"
+        grew = False
+        if layout.in_bytes > self.in_bytes:
+            self.in_bytes = _grown(layout.in_bytes)
+            self.host_in = torch.empty(self.in_bytes, dtype=torch.uint8,
+                                       pin_memory=cuda)
+            if cuda:
+                self.dev_in = torch.empty(self.in_bytes, dtype=torch.uint8,
+                                          device=self.device)
+            grew = True
+        if layout.out_ints > self.out_ints:
+            self.out_ints = _grown(layout.out_ints)
+            self.host_out = torch.empty(self.out_ints, dtype=torch.int32,
+                                        pin_memory=cuda)
+            if cuda:
+                self.dev_out = torch.empty(self.out_ints, dtype=torch.int32,
+                                           device=self.device)
+            grew = True
+        if cuda and layout.cells * layout.tasks > self.scratch_ints:
+            self.scratch_ints = _grown(layout.cells * layout.tasks)
+            self.scratch = torch.zeros(self.scratch_ints, dtype=torch.int32,
+                                       device=self.device)
+            grew = True
+        if grew:
+            self.in_np = self.host_in.numpy()
+            self.out_np = self.host_out.numpy()
+            if cuda:
+                # The scratch's zeros land before any stream's kernel.
+                torch.cuda.current_stream(self.device).synchronize()
+                self._ptrs = tuple(t.data_ptr() for t in (
+                    self.host_in, self.dev_in, self.host_out, self.dev_out,
+                    self.scratch, self.ticket))
+
+
+class PlacementSlots:
+    """A pool of PlacementSlots on one device.  ``take`` hands each slot
+    to one caller at a time (a new slot when none is free), ``give``
+    returns it; a slot whose call raised is not given back, so a call
+    that failed part-way never shares its scratch or ticket."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._lock = threading.Lock()
+        self._free: list = []  # guarded by: self._lock
+        self.created = 0  # guarded by: self._lock
+
+    def take(self) -> PlacementSlot:
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+            self.created += 1
+        return PlacementSlot(self.device)
+
+    def give(self, slot: PlacementSlot) -> None:
+        with self._lock:
+            self._free.append(slot)
+
+
+def _placement_host(seeds, terms, packed, task_of_key, counts, length: int,
+                    num_bits: int, num_hashes: int):
+    """The checks every placement call makes (shapes and bounds, no
+    tensor); returns (seeds, terms, packed, task_of_key, counts) as
+    numpy."""
     import numpy as np
 
-    c_n = len(words)
-    if c_n < 1:
-        raise ValueError("placement needs at least one cell")
-    def norm(d) -> torch.device:
-        d = torch.device(d)
-        if d.type == "cuda" and d.index is None:
-            d = torch.device("cuda", torch.cuda.current_device())
-        return d
-
-    devs = {norm(w.device) for w in words if w is not None}
-    if len(devs) != 1:
-        raise ValueError(f"placement cells' words on {sorted(map(str, devs))}"
-                         f": the cells' filters must lie on one device")
-    dev = next(iter(devs))
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no placement kernel for device {dev}")
     _check_geometry(num_bits, num_hashes)
-    nw = -(-num_bits // 32)
-    for c, w in enumerate(words):
-        if w is not None:
-            _check(f"words[{c}]", w, (nw,), dev)
     seeds = np.ascontiguousarray(seeds, np.uint32)
     terms = np.ascontiguousarray(terms, np.int32)
     counts = np.ascontiguousarray(counts, np.int32)
     task_of_key = np.ascontiguousarray(task_of_key, np.int32)
     packed = np.ascontiguousarray(packed, np.uint32)
+    c_n = seeds.shape[0] if seeds.ndim == 2 else -1
+    if c_n < 1:
+        raise ValueError("placement needs at least one cell")
     if seeds.shape != (c_n, 2) or terms.shape != (4, c_n):
         raise ValueError(f"seeds {seeds.shape} and terms {terms.shape} for "
                          f"{c_n} cells: expected ({c_n}, 2) and (4, {c_n})")
@@ -394,105 +512,197 @@ def _placement_inputs(words, seeds, terms, packed, task_of_key, counts,
     if packed.shape != (n, -(-length // 8) * 2):
         raise ValueError(f"packed {packed.shape} for {n} keys of {length} "
                          f"bytes")
-    if n >= 2 ** 31:
-        raise ValueError(f"{n} keys: the kernel counts keys in int32")
-    return dev, seeds, terms, packed, task_of_key, counts
+    if c_n * n >= 2 ** 31:
+        raise ValueError(f"{c_n} cells x {n} keys: the kernel counts "
+                         f"(cell, key) pairs in int32")
+    return seeds, terms, packed, task_of_key, counts
+
+
+def placement_pack(slot: PlacementSlot, ptrs, seeds, terms, packed,
+                   task_of_key, counts, *, length: int, num_bits: int,
+                   num_hashes: int, warm_scale: int, w_warm: int,
+                   w_load: int, w_topo: int) -> PlacementLayout:
+    """Check one decision's host arrays (placement_score's, see there)
+    and write them, with ``ptrs`` (each cell's word pointer, 0 for a cell
+    without a filter), into ``slot``'s staged input, growing it if they
+    outgrow it.  The cells' word tensors are checked by the caller, once:
+    placement_score checks them every call, DevicePlacementScorer when it
+    installs a snapshot."""
+    import numpy as np
+
+    seeds, terms, packed, task_of_key, counts = _placement_host(
+        seeds, terms, packed, task_of_key, counts, length, num_bits,
+        num_hashes)
+    c_n, t_n, n = seeds.shape[0], counts.shape[0], task_of_key.shape[0]
+    if len(ptrs) != c_n:
+        raise ValueError(f"{len(ptrs)} word pointers for {c_n} cells")
+    lay = placement_layout(c_n, t_n, n, packed.shape[1])
+    if lay.in_bytes >= PLACE_MAX_IN or lay.out_ints >= PLACE_MAX_OUT:
+        raise ValueError(f"a placement call of {lay.in_bytes} bytes in, "
+                         f"{lay.out_ints} ints out: the entry point takes "
+                         f"< {PLACE_MAX_IN} and < {PLACE_MAX_OUT}")
+    slot.fit(lay)
+    buf = slot.in_np
+    buf[:PLACE_TABLE].view(np.uint32)[:] = np.array(
+        [c_n, t_n, n, lay.row_words, length, num_bits, num_hashes,
+         warm_scale, w_warm, w_load, w_topo, lay.in_bytes, lay.off_terms,
+         lay.off_counts, lay.off_task, lay.off_packed],
+        np.int64).astype(np.uint32)
+    table = buf[PLACE_TABLE:lay.off_terms].view(np.uint64)
+    table[:c_n] = ptrs
+    s64 = seeds.astype(np.uint64)
+    table[c_n:] = (s64[:, 0] << np.uint64(32)) | s64[:, 1]
+    buf[lay.off_terms:lay.off_counts].view(np.int32)[:] = terms.ravel()
+    buf[lay.off_counts:lay.off_task].view(np.int32)[:] = counts
+    buf[lay.off_task:lay.off_packed].view(np.int32)[:] = task_of_key
+    buf[lay.off_packed:lay.in_bytes].view(np.uint32)[:] = packed.ravel()
+    return lay
+
+
+def placement_unpack(slot: PlacementSlot, lay: PlacementLayout) -> dict:
+    """The parts of ``slot``'s staged input, read back at ``lay``'s
+    offsets as the kernel reads them: the header's fields by name, and
+    ``ptrs``, ``seeds`` ((hi, lo) uint32 [C, 2]), ``terms``, ``counts``,
+    ``task_of_key`` and ``packed``."""
+    import numpy as np
+
+    buf = slot.in_np
+    got = {k: int(v) for k, v in
+           zip(PLACE_HEADER, buf[:PLACE_TABLE].view(np.int32))}
+    got["num_bits"] = int(buf[:PLACE_TABLE].view(np.uint32)[5])
+    c_n, t_n = lay.cells, lay.tasks
+    table = buf[PLACE_TABLE:lay.off_terms].view(np.uint64)
+    got["ptrs"] = table[:c_n].copy()
+    got["seeds"] = np.stack([(table[c_n:] >> np.uint64(32)),
+                             table[c_n:] & np.uint64(bpl.M32)],
+                            1).astype(np.uint32)
+    got["terms"] = buf[lay.off_terms:lay.off_counts].view(
+        np.int32).reshape(4, c_n).copy()
+    got["counts"] = buf[lay.off_counts:lay.off_task].view(np.int32).copy()
+    got["task_of_key"] = buf[lay.off_task:lay.off_packed].view(
+        np.int32).copy()
+    got["packed"] = buf[lay.off_packed:lay.in_bytes].view(np.uint32).reshape(
+        lay.n, lay.row_words).copy()
+    return got
+
+
+def placement_call(slot: PlacementSlot, lay: PlacementLayout, words):
+    """One placement decision on the input placement_pack staged in
+    ``slot``: int32 [C*T + 2*T] (scores, best cell, best score), a view of
+    the slot's output, valid until its next call.  On the card, one
+    native call (csrc/bloom.cu: yadcc_placement_call) copies the input up,
+    launches the kernel once, copies the results back and waits, with the
+    GIL released; it raises on a CUDA error and counts one launch.  On
+    the CPU, the plain version on the parts read back from the slot.
+    ``words`` are the tensors the table points at: held here until the
+    call returns, so no snapshot installed meanwhile frees memory the
+    kernel reads."""
+    if slot.device.type == "cpu":
+        return _placement_plain(slot, lay, words)
+    err = _kernels()["placement_call"](*slot._ptrs, slot.device.index,
+                                       _stream(slot.device))
+    _launched("placement_score", err)
+    return slot.out_np[:lay.out_ints]
+
+
+def _placement_plain(slot: PlacementSlot, lay: PlacementLayout, words):
+    import numpy as np
+
+    got = placement_unpack(slot, lay)
+    want = [0 if w is None else w.data_ptr() for w in words]
+    if got["ptrs"].tolist() != want:
+        raise ValueError("the staged table points at other word tensors "
+                         "than the call's")
+    res = bpl.placement_score_plain(
+        words, got["seeds"], got["terms"], got["packed"],
+        got["task_of_key"], got["counts"], length=got["length"],
+        num_bits=got["num_bits"], num_hashes=got["num_hashes"],
+        warm_scale=got["warm_scale"], w_warm=got["w_warm"],
+        w_load=got["w_load"], w_topo=got["w_topo"], device=slot.device)
+    out = slot.out_np[:lay.out_ints]
+    out[:] = np.concatenate([r.reshape(-1).numpy() for r in res])
+    return out
+
+
+def placement_launch(slot: PlacementSlot) -> None:
+    """The kernel alone on the input ``slot``'s last call staged on the
+    card (one launch, no copy, no wait): for timing it.  Counts the
+    launch."""
+    host_in, dev_in, _, dev_out, scratch, ticket = slot._ptrs
+    err = _kernels()["placement_launch"](host_in, dev_in, dev_out, scratch,
+                                         ticket, slot.device.index,
+                                         _stream(slot.device))
+    _launched("placement_score", err)
+
+
+def empty_launch(dev: torch.device) -> None:
+    """One launch of an empty one-block kernel on the current stream: the
+    floor under a one-launch call."""
+    err = _kernels()["empty_launch"](_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+
+def _indexed(dev) -> torch.device:
+    """``dev`` with its index (the current card for a bare "cuda")."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _placement_device(words) -> torch.device:
+    """The one device of the cells' word tensors."""
+    if len(words) < 1:
+        raise ValueError("placement needs at least one cell")
+    devs = {_indexed(w.device) for w in words if w is not None}
+    if len(devs) != 1:
+        raise ValueError(f"placement cells' words on {sorted(map(str, devs))}"
+                         f": the cells' filters must lie on one device")
+    dev = next(iter(devs))
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no placement kernel for device {dev}")
+    return dev
+
+
+def check_placement_words(words: torch.Tensor, num_bits: int,
+                          num_hashes: int, dev: torch.device) -> None:
+    """A cell's filter words as the placement kernel reads them: int32,
+    contiguous, ceil(num_bits / 32) of them, on ``dev``; the geometry in
+    range."""
+    _check_geometry(num_bits, num_hashes)
+    _check("words", words, (-(-num_bits // 32),), _indexed(dev))
 
 
 def placement_score(words, seeds, terms, packed, task_of_key, counts, *,
                     length: int, num_bits: int, num_hashes: int,
                     warm_scale: int, w_warm: int, w_load: int, w_topo: int,
-                    out: "torch.Tensor | None" = None, timer=None):
+                    out: "torch.Tensor | None" = None):
     """(scores int32 [C, T], best cell int32 [T], best score int32 [T]) on
     the cells' device; the drop-in counterpart of
     bloom_pipeline.placement_score_plain, whose docstring gives the
     arguments and the arithmetic.  Every filter shares (num_bits,
     num_hashes): a word tensor of another length is refused, as the JAX
     scorer refuses filters of differing geometry, and so is a call in
-    which no cell has a filter (it has no device).  On the card the host
-    arrays go up
-    in one copy and the score and argmin are two launches.  Given ``out``
-    (int32 [C*T + 2*T] on the device), the three results are views of it,
-    so one copy brings them back.  Given ``timer`` (a StageTimer), a call
-    on the card records the host time of its ``stage`` (the one upload)
-    and its ``launch`` (the two launches)."""
-    dev, seeds, terms, packed, task_of_key, counts = _placement_inputs(
-        words, seeds, terms, packed, task_of_key, counts, length, num_bits,
-        num_hashes)
-    kw = dict(length=length, num_bits=num_bits, num_hashes=num_hashes,
-              warm_scale=warm_scale, w_warm=w_warm, w_load=w_load,
-              w_topo=w_topo)
-    c_n, t_n, n = len(words), counts.shape[0], task_of_key.shape[0]
+    which no cell has a filter (it has no device).  The call goes through
+    a slot of its own (placement_pack, then placement_call: on the card
+    one native call and one launch).  Given ``out`` (int32 [C*T + 2*T] on
+    the device), the three results are views of it."""
+    dev = _placement_device(words)
+    for w in words:
+        if w is not None:
+            check_placement_words(w, num_bits, num_hashes, dev)
+    slot = PlacementSlot(dev)
+    lay = placement_pack(
+        slot, [0 if w is None else w.data_ptr() for w in words], seeds,
+        terms, packed, task_of_key, counts, length=length,
+        num_bits=num_bits, num_hashes=num_hashes, warm_scale=warm_scale,
+        w_warm=w_warm, w_load=w_load, w_topo=w_topo)
+    c_n, t_n = lay.cells, lay.tasks
     if out is not None:
-        _check("out", out, (c_n * t_n + 2 * t_n,), dev)
-    if dev.type == "cpu":
-        res = bpl.placement_score_plain(words, seeds, terms, packed,
-                                        task_of_key, counts, device=dev,
-                                        **kw)
-        if out is None:
-            return res
-        out.copy_(torch.cat([r.reshape(-1) for r in res]))
+        _check("out", out, (lay.out_ints,), dev)
     else:
-        out = _placement_launch(dev, words, seeds, terms, packed,
-                                task_of_key, counts, out, timer, **kw)
+        out = torch.empty(lay.out_ints, dtype=torch.int32, device=dev)
+    out.copy_(torch.from_numpy(placement_call(slot, lay, words)))
     return (out[:c_n * t_n].view(c_n, t_n),
             out[c_n * t_n:c_n * t_n + t_n], out[c_n * t_n + t_n:])
-
-
-def placement_stage(dev, words, seeds, terms, packed, task_of_key,
-                    counts) -> "tuple[torch.Tensor, list]":
-    """The placement call's host arrays in one device buffer: (the buffer,
-    the byte offsets of its table, terms, counts, task_of_key and packed
-    rows).  The int64 table (word pointers, then seeds) comes first, so
-    it is 8-byte aligned."""
-    import numpy as np
-
-    c_n = len(words)
-    table = np.zeros((2, c_n), np.uint64)
-    for c, w in enumerate(words):
-        if w is not None:
-            table[0, c] = w.data_ptr()
-        table[1, c] = _seed64(seeds[c])
-    parts = [table.view(np.int32).ravel(), terms.ravel(), counts,
-             task_of_key, packed.view(np.int32).ravel()]
-    offsets = [int(o) * 4 for o in np.cumsum([0] + [p.size for p in parts])]
-    return torch.from_numpy(np.concatenate(parts)).to(dev), offsets[:5]
-
-
-def placement_run(staged: torch.Tensor, offsets, c_n: int, t_n: int,
-                  n: int, row_words: int, out: torch.Tensor, *,
-                  length, num_bits, num_hashes, warm_scale, w_warm, w_load,
-                  w_topo) -> None:
-    """Launch the score and argmin kernels on a staged buffer into
-    ``out`` (int32 [C*T + 2*T]); raises on a launch error, counts the
-    call."""
-    base, obase = staged.data_ptr(), out.data_ptr()
-    fn = _kernels()["placement_score"]
-    dev = staged.device
-    with torch.cuda.device(dev):
-        err = fn(base + offsets[0], c_n, num_bits, num_hashes,
-                 base + offsets[1], base + offsets[2], t_n,
-                 base + offsets[3], base + offsets[4], row_words, length, n,
-                 warm_scale, w_warm, w_load, w_topo, obase,
-                 obase + 4 * c_n * t_n, obase + 4 * (c_n * t_n + t_n),
-                 _stream(dev))
-    _launched("placement_score", err)
-
-
-def _placement_launch(dev, words, seeds, terms, packed, task_of_key, counts,
-                      out, timer, **kw) -> torch.Tensor:
-    import time
-
-    c_n, t_n = len(words), counts.shape[0]
-    t0 = time.perf_counter()
-    staged, offsets = placement_stage(dev, words, seeds, terms, packed,
-                                      task_of_key, counts)
-    if out is None:
-        out = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32, device=dev)
-    t1 = time.perf_counter()
-    placement_run(staged, offsets, c_n, t_n, task_of_key.shape[0],
-                  packed.shape[1], out, **kw)
-    if timer is not None:
-        timer.record("stage", t1 - t0)
-        timer.record("launch", time.perf_counter() - t1)
-    return out

@@ -275,7 +275,7 @@ class FederationRouter:
         and the placement-stage latency budget, so an A/B can attribute
         post-spill hit rate to placement decisions.  The breakdown splits
         ``placement`` into the peer signals, the scorer call and, for a
-        scorer that times them, its pack, launch and readback."""
+        scorer that times them, its pack and its one native call."""
         out = dict(self._local().inspect())
         breakdown = self.stage_timer.percentiles()
         with self._affinity_lock:

@@ -2,17 +2,18 @@
 
 The port of yadcc_tpu/scheduler/placement.py.  The device scorer runs
 the hand-written kernel of csrc/bloom.cu (ops/cuda_bloom.py:
-placement_score, through parallel/mesh.py:placement_score) on the card,
-its plain version on the CPU; both equal the host oracle bit for bit
-(tests/test_torch_placement.py, chip_smoke.py phases 2 and 11).
+placement_pack, then placement_call: one native call a decision) on the
+card, its plain version on the CPU; both equal the host oracle bit for
+bit (tests/test_torch_placement.py, chip_smoke.py phases 2 and 11).
 
 Spillover used to pick the least-loaded peer by one scalar utilization
 read, landing spilled tasks on cells whose cache tiers had never seen
 their keys.  This module makes placement a *scored* decision over three
 fused signals — cache warmth (each cell's region Bloom filter probed
 for the candidate keys), load (the peer signal the router already
-reads), and topology distance — evaluated as ONE batched device call (two launches: the score, then
-the per-task argmin).
+reads), and topology distance — evaluated as ONE batched device call:
+one native call that stages the inputs, launches the kernel once (the
+score and the per-task argmin) and reads the picks back.
 
 Two scorers, one arithmetic:
 
@@ -22,11 +23,11 @@ Two scorers, one arithmetic:
   argmin = lowest-cell tie-break).  The tests hold the device output
   against it bit-for-bit.
 * :class:`DevicePlacementScorer` — the production path: packs the
-  candidate keys, runs the device call over every cell at once, reads
-  back the picks.  Each cell's filter snapshot lives on the card,
-  uploaded once when it is installed (the JAX scorer uploads a padded
-  words matrix every decision: ~24 MB at the production geometry and 7
-  peers).  No per-peer host loop anywhere.
+  candidate keys into a pinned staging slot, runs the device call over
+  every cell at once, reads back the picks.  Each cell's filter snapshot
+  lives on the card, uploaded and checked once when it is installed (the
+  JAX scorer uploads a padded words matrix every decision: ~24 MB at the
+  production geometry and 7 peers).  No per-peer host loop anywhere.
 
 The warmth term is *sampled*, not exact: mixed-byte-length key batches
 keep only the dominant length class (:func:`prepare_probe_batch`), so
@@ -59,8 +60,8 @@ import torch
 
 from ..common.bloom import SaltedBloomFilter
 from ..device import resolve_device
+from ..ops import cuda_bloom
 from ..ops.bloom_pipeline import as_device_words, pack_key_buckets, seed_pair
-from ..parallel import mesh
 from ..utils.stagetimer import StageTimer
 
 # Warmth quantization scale: miss ratios land in [0, WARM_SCALE].  With
@@ -225,27 +226,29 @@ def host_reference_placement(
 class DevicePlacementScorer:
     """Production scorer: ONE device call per placement decision, on
     ``device`` (the card unless the caller asks for the CPU, where the
-    call runs the plain version).
+    call runs the plain version on the same staged input).
 
     Each cell's filter snapshot has one copy on the device, keyed by the
     snapshot object: :meth:`install` (FederationRouter.update_cell_filter)
-    uploads it once, and :meth:`score` uploads a snapshot it has not seen
-    for that cell, replacing the old copy.  A snapshot is a point-in-time
-    copy (cache/bloom_filter_generator.py:snapshot) and is not mutated
-    after it is installed; a new sync installs a new object."""
+    uploads and checks it once, and :meth:`score` uploads a snapshot it
+    has not seen for that cell, replacing the old copy.  A snapshot is a
+    point-in-time copy (cache/bloom_filter_generator.py:snapshot) and is
+    not mutated after it is installed; a new sync installs a new object.
+    Concurrent calls each take their own staging slot from the scorer's
+    pool (ops/cuda_bloom.py:PlacementSlots)."""
 
     def __init__(self, device="cuda"):
         self._device = resolve_device(device)
         self._lock = threading.Lock()
+        self._slots = cuda_bloom.PlacementSlots(self._device)
         # A scored call's host time: pack (the probe batch, the cells'
-        # arrays and snapshot lookups), device_call (the placement call:
-        # its input checks, then stage, the one upload, and launch, the
-        # two launches, which it records itself on the card) and readback
-        # (the one copy back, which waits for the kernels).
-        self.stage_timer = StageTimer(("pack", "device_call", "readback"))
-        # cell_id -> (snapshot, its words on the device)
-        self._resident: Dict[int, Tuple[SaltedBloomFilter,
-                                        torch.Tensor]] = \
+        # arrays and snapshot lookups, the write into a staging slot) and
+        # call (the one native call: copy up, launch, copy back, wait;
+        # on the CPU the plain version).
+        self.stage_timer = StageTimer(("pack", "call"))
+        # cell_id -> (snapshot, its words on the device, their address)
+        self._resident: Dict[int, Tuple[SaltedBloomFilter, torch.Tensor,
+                                        int]] = \
             {}  # guarded by: self._lock
 
     @property
@@ -255,7 +258,7 @@ class DevicePlacementScorer:
     def install(self, cell_id: int,
                 snapshot: Optional[SaltedBloomFilter]) -> None:
         """Upload ``snapshot``'s words for ``cell_id`` (None drops the
-        cell's copy)."""
+        cell's copy); raises for words the kernel cannot take."""
         if snapshot is None:
             with self._lock:
                 self._resident.pop(cell_id, None)
@@ -266,16 +269,22 @@ class DevicePlacementScorer:
         with self._lock:
             return sorted(self._resident)
 
-    def _words(self, cell_id: int,
-               snapshot: SaltedBloomFilter) -> torch.Tensor:
+    def _words(self, cell_id: int, snapshot: SaltedBloomFilter
+               ) -> Tuple[SaltedBloomFilter, torch.Tensor, int]:
         with self._lock:
             hit = self._resident.get(cell_id)
         if hit is not None and hit[0] is snapshot:
-            return hit[1]
+            return hit
         words = as_device_words(snapshot.words, self._device)
+        cuda_bloom.check_placement_words(words, snapshot.num_bits,
+                                         snapshot.num_hashes, self._device)
+        if self._device.type == "cuda":
+            # The upload lands before any stream's kernel reads it.
+            torch.cuda.current_stream(self._device).synchronize()
+        entry = (snapshot, words, words.data_ptr())
         with self._lock:
-            self._resident[cell_id] = (snapshot, words)
-        return words
+            self._resident[cell_id] = entry
+        return entry
 
     def score(self, cells: Sequence[CellCandidate],
               keys_per_task: Sequence[Sequence[str]]
@@ -301,28 +310,31 @@ class DevicePlacementScorer:
                     f"({f.num_bits}, {f.num_hashes}) != "
                     f"({num_bits}, {num_hashes})")
 
-        words = [self._words(c.cell_id, c.filter)
-                 if c.filter is not None else None for c in cells]
+        resident = [self._words(c.cell_id, c.filter)
+                    if c.filter is not None else None for c in cells]
+        # Held until the call returns: an install that replaces a
+        # snapshot meanwhile cannot free words the kernel reads.
+        words = [None if r is None else r[1] for r in resident]
         seeds = np.stack([seed_pair(c.filter.salt if c.filter is not None
                                     else 0) for c in cells])
         terms = np.stack(_candidate_arrays(cells))
-        c_n, t_n = len(cells), len(batch.kept)
-        out = torch.empty(c_n * t_n + 2 * t_n, dtype=torch.int32,
-                          device=self._device)
+        slot = self._slots.take()
+        lay = cuda_bloom.placement_pack(
+            slot, [0 if r is None else r[2] for r in resident], seeds,
+            terms, batch.packed, batch.task_of_key, batch.counts,
+            length=batch.length, num_bits=num_bits, num_hashes=num_hashes,
+            warm_scale=WARM_SCALE, w_warm=W_WARM, w_load=W_LOAD,
+            w_topo=W_TOPO)
         t1 = time.perf_counter()
-        mesh.placement_score(
-            words, seeds, terms, batch.packed, batch.task_of_key,
-            batch.counts, length=batch.length, num_bits=num_bits,
-            num_hashes=num_hashes, warm_scale=WARM_SCALE, w_warm=W_WARM,
-            w_load=W_LOAD, w_topo=W_TOPO, out=out, timer=self.stage_timer)
+        # The decision readback IS the call's product: [C*T + 2*T]
+        # (scores, best cell, best score).  A call that raises drops its
+        # slot.
+        got = cuda_bloom.placement_call(slot, lay, words).copy()
+        self._slots.give(slot)
         t2 = time.perf_counter()
-        # The decision readback IS the call's product: one copy of the
-        # [C*T + 2*T] result (scores, best cell, best score).
-        got = out.cpu().numpy()
-        t3 = time.perf_counter()
         self.stage_timer.record("pack", t1 - t0)
-        self.stage_timer.record("device_call", t2 - t1)
-        self.stage_timer.record("readback", t3 - t2)
+        self.stage_timer.record("call", t2 - t1)
+        c_n, t_n = lay.cells, lay.tasks
         return PlacementResult(got[:c_n * t_n].reshape(c_n, t_n),
                                got[c_n * t_n:c_n * t_n + t_n],
                                got[c_n * t_n + t_n:],
