@@ -100,7 +100,27 @@ Phases (any failure exits non-zero without printing the result line):
    filter built on the card by the scatter-OR; >= 2,000 scored spill
    decisions, every pick and score row equal to the host oracle's, the
    kernel's launches equal to the scored decisions, spilled grants'
-   renewals and frees routed home, no id in two cells.
+   renewals and frees routed home, no id in two cells;
+12. the aio front end: phase 3's drive through --rpc-frontend aio (the
+   event-loop server; WaitForStartingTask parked as a continuation in
+   the dispatcher's pending table, fired by the pipelined dispatch
+   thread), every client dialling aio://, phase 3's checks plus no
+   refused second reply (`yadcc/rpc_server` double_replies 0); then
+   phase 4's synchronous drive on it (>= 100,000 grants: the inline
+   leader runs each cycle on the event loop, one request deep, so K1's
+   launches there are reported, not required), with the loop's lag; then a
+   parked burst on the pipelined entry: 2,000 AsyncAioChannel delegates
+   on one client loop each park one wait on an env whose slots are all
+   held, 1,500 answered with one grant each once the slots are freed,
+   500 with NO_QUOTA at their deadline, the entry's RSS and threads read
+   before the burst and with every wait parked; each beside its
+   threaded twin of the same call;
+13. the sharded scheduler on aio: phase 8's drive through --rpc-frontend
+   aio --accept-loops 4 --shards 4 (>= 100,000 grants), phase 8's checks;
+   then on the same entry a hot delegate asks for more grants than its
+   home shard's whole capacity: the router's asynchronous steal must pull
+   grants from the other shards (stolen > 0 in the reply and in
+   task_dispatcher.steal), every grant valid and freed.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler processes go to
@@ -1433,10 +1453,15 @@ def inspect_vars(port: int) -> dict:
 
 def run_main_path(name: str, extra_args: list, fleet: Fleet,
                   report: list, kernel: str = "grouped_assign",
-                  shards: int = 1, min_grants: int = MIN_GRANTS) -> dict:
+                  shards: int = 1, min_grants: int = MIN_GRANTS,
+                  post=None) -> dict:
     """Start the scheduler entry, drive it, check it, stop it; ``kernel``
-    must have launched in the drive.  With ``shards`` > 1 the entry runs
-    --shards and every grant id must route to the shard that issued it."""
+    (unless None) must have launched in the drive.  With ``shards`` > 1 the entry runs
+    --shards and every grant id must route to the shard that issued it.
+    With ``--rpc-frontend aio`` among the arguments every client dials
+    aio:// and the front end must have refused no second reply.
+    ``post(port, iport, scheme, fleet, report)`` runs on the entry after
+    the drive's checks; its result is the result's ``post``."""
     port, iport = free_port(), free_port()
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     log_path = LOG_DIR / f"entry_{name}.log"
@@ -1451,8 +1476,11 @@ def run_main_path(name: str, extra_args: list, fleet: Fleet,
         proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log_file,
                                 stderr=subprocess.STDOUT)
         try:
-            return _drive(name, proc, port, iport, fleet, report, stop,
-                          threads, kernel, shards, min_grants)
+            res = _drive(name, proc, port, iport, fleet, report, stop,
+                         threads, kernel, shards, min_grants, extra_args)
+            if post is not None:
+                res["post"] = post(port, iport, res["scheme"], fleet, report)
+            return res
         finally:
             stop.set()
             for t in threads:
@@ -1466,14 +1494,17 @@ def run_main_path(name: str, extra_args: list, fleet: Fleet,
 
 
 def _drive(name, proc, port, iport, fleet, report, stop, threads,
-           kernel, shards, min_grants) -> dict:
+           kernel, shards, min_grants, extra_args) -> dict:
     from yadcc_tpu_torch import api
     from yadcc_tpu_torch.rpc import Channel, RpcError
     from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
 
     sch = api.scheduler
     t_boot = time.perf_counter()
-    ch = Channel(f"grpc://127.0.0.1:{port}")
+    aio = "--rpc-frontend" in extra_args and \
+        extra_args[extra_args.index("--rpc-frontend") + 1] == "aio"
+    scheme = "aio" if aio else "grpc"
+    ch = Channel(f"{scheme}://127.0.0.1:{port}")
     deadline = time.monotonic() + 300
     while True:
         check(proc.poll() is None, f"{name}: scheduler exited at boot "
@@ -1501,7 +1532,7 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
     chunks = [fleet.servants[1 + i::8] for i in range(8)]
     t0 = time.perf_counter()
     regs = [threading.Thread(target=beat_all, args=(Channel(
-        f"grpc://127.0.0.1:{port}"), c)) for c in chunks]
+        f"{scheme}://127.0.0.1:{port}"), c)) for c in chunks]
     for t in regs:
         t.start()
     for t in regs:
@@ -1521,7 +1552,7 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
     stream_before = td.get("stream", {})
 
     def rebeat():
-        chan = Channel(f"grpc://127.0.0.1:{port}")
+        chan = Channel(f"{scheme}://127.0.0.1:{port}")
         while not stop.wait(HB_REPEAT_S):
             beat_all(chan, fleet.servants)
 
@@ -1539,13 +1570,14 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
     def delegate(d: int):
         rng = random.Random(1000 + d)
         envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
-        # Channels to one address share one connection, so every delegate
-        # would reach the scheduler from one peer address and home on one
-        # shard.  With --shards each delegate dials its own loopback
-        # address (the connection still comes from 127.0.0.1, on a port
-        # of its own), as delegates on separate machines would.
+        # gRPC channels to one address share one connection, so every
+        # delegate would reach the scheduler from one peer address and
+        # home on one shard.  With --shards each delegate dials its own
+        # loopback address (the connection still comes from 127.0.0.1, on
+        # a port of its own), as delegates on separate machines would.
+        # (An aio:// channel has a connection of its own either way.)
         host = f"127.0.0.{2 + d}" if shards > 1 else "127.0.0.1"
-        chan = Channel(f"grpc://{host}:{port}")
+        chan = Channel(f"{scheme}://{host}:{port}")
         k = 0
         try:
             while not done.is_set():
@@ -1650,7 +1682,8 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
     check(td["stats"]["granted"] == totals["grants"],
           f"{name}: scheduler granted {td['stats']['granted']}, delegates "
           f"saw {totals['grants']}")
-    check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    if kernel is not None:
+        check(launches[kernel] > 0, f"{name}: {kernel} never launched")
     if shards > 1:
         # Every grant was freed through the shard its id routes to.
         left = [p["grants_outstanding"] for p in td["per_shard"]]
@@ -1665,6 +1698,10 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
                 if k in ("seeds", "delta_launches", "delta_slots",
                          "full_syncs", "oracle_checks", "oracle_mismatches")}
 
+    front = frontend_summary(state)
+    if aio:
+        check(front["double_replies"] == 0,
+              f"{name}: {front['double_replies']} double replies")
     lat = sorted(latencies)
     res = dict(
         grants=totals["grants"], calls=totals["calls"],
@@ -1674,7 +1711,8 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
         p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
         launches=launches, boot_s=boot_s, register_s=reg_s,
         resident=resident, stolen=totals.get("stolen", 0),
-        stages=td["latency_breakdown"],
+        stages=td["latency_breakdown"], frontend=front, scheme=scheme,
+        steal=td.get("steal", {}),
         per_shard_granted=[p["stats"]["granted"]
                            for p in td.get("per_shard", [])])
     report.append(
@@ -1692,7 +1730,115 @@ def _drive(name, proc, port, iport, fleet, report, stop, threads,
                       f"and was freed there")
     report.append(f"  {name} dispatcher stages: "
                   f"{json.dumps(td['latency_breakdown'])}")
+    report.append(f"  {name} front end: {json.dumps(front)}")
     return res
+
+
+HOT_STEAL_MARGIN = 512   # grants asked beyond the home shard's capacity
+
+
+def hot_steal_step(port, iport, scheme, fleet, report) -> dict:
+    """One hot delegate on a sharded entry after its drive: it asks for
+    more grants than its home shard's whole capacity, so the home shard
+    is outrun by definition and the router steals for it from the
+    least-loaded donors (at most one op a donor, each up to the steal
+    batch).  Every grant is checked as in the drive and freed; the
+    response must carry stolen grants, each issued by another shard."""
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    sch = api.scheduler
+    name = "hot_steal"
+    chan = Channel(f"{scheme}://127.0.0.1:{port}")
+    env = fleet.envs[0]
+    try:
+        def ask(n, wait_ms):
+            req = sch.WaitForStartingTaskRequest(
+                token="utok", milliseconds_to_wait=wait_ms,
+                next_keep_alive_in_ms=15000, immediate_reqs=n)
+            req.env_desc.compiler_digest = env
+            resp, _ = chan.call(SERVICE_NAME, "WaitForStartingTask", req,
+                                sch.WaitForStartingTaskResponse,
+                                timeout=60.0)
+            return resp
+
+        def free(resp):
+            ids = [g.task_grant_id for g in resp.grants]
+            if ids:
+                chan.call(SERVICE_NAME, "FreeTask",
+                          sch.FreeTaskRequest(token="utok",
+                                              task_grant_ids=ids),
+                          sch.FreeTaskResponse, timeout=60.0)
+
+        probe = ask(1, 2000)       # learns this connection's home shard
+        free(probe)
+        home = probe.shard_id
+        td = inspect_vars(iport)["yadcc"]["task_dispatcher"]
+        cap = sum(v["effective_capacity"]
+                  for v in td["per_shard"][home]["servants"].values())
+        steal_before = td["steal"]["stolen_grants"]
+        t0 = time.perf_counter()
+        resp = ask(cap + HOT_STEAL_MARGIN, 2000)
+        seconds = time.perf_counter() - t0
+        held: dict = {}
+        bad = []
+        for g in resp.grants:
+            s = fleet.by_loc.get(g.servant_location)
+            held[g.servant_location] = held.get(g.servant_location, 0) + 1
+            if s is None or env not in s["envs"] or \
+                    held[g.servant_location] > s["capacity"]:
+                bad.append(g.servant_location)
+            if (g.task_grant_id - 1) % SHARDS != g.shard_id or \
+                    g.stolen != (g.shard_id != home):
+                bad.append(f"grant {g.task_grant_id} shard {g.shard_id}")
+        ids = [g.task_grant_id for g in resp.grants]
+        free(resp)
+        td = inspect_vars(iport)["yadcc"]["task_dispatcher"]
+        stolen = sum(1 for g in resp.grants if g.stolen)
+        check(not bad, f"{name}: {bad[:5]}")
+        check(len(set(ids)) == len(ids), f"{name}: duplicate grant ids")
+        check(resp.stolen_grants == stolen > 0,
+              f"{name}: {resp.stolen_grants} stolen in the reply, {stolen} "
+              f"flagged")
+        check(td["steal"]["stolen_grants"] - steal_before == stolen,
+              f"{name}: steal stats moved by "
+              f"{td['steal']['stolen_grants'] - steal_before}, not {stolen}")
+        check(td["grants_outstanding"] == 0,
+              f"{name}: {td['grants_outstanding']} grants outstanding")
+        res = dict(home=home, home_capacity=cap,
+                   asked=cap + HOT_STEAL_MARGIN, granted=len(ids),
+                   stolen=stolen, seconds=seconds,
+                   donors=sorted({g.shard_id for g in resp.grants
+                                  if g.stolen}),
+                   steal=td["steal"])
+        report.append(
+            f"  {name}: a delegate homed on shard {home} (capacity {cap}) "
+            f"asked {cap + HOT_STEAL_MARGIN}: {len(ids)} granted in "
+            f"{seconds:.2f} s, {stolen} stolen from shards {res['donors']}; "
+            f"every grant valid and freed")
+        return res
+    finally:
+        chan.close()
+
+
+def frontend_summary(state: dict) -> dict:
+    """The RPC front end as /inspect/vars shows it after a drive: the
+    WaitForStartingTask handler stage (both front ends; on aio it spans
+    the parked wait), and on aio the transport stages (accept, read,
+    parse, write), the loops' lag and the refused second replies."""
+    rpc = state.get("scheduler_rpc", {})
+    out = {"handler": rpc.get("WaitForStartingTask:handler"),
+           "serialize": rpc.get("WaitForStartingTask:serialize")}
+    srv = state.get("rpc_server")
+    if srv is None:
+        return out
+    loops = srv.get("per_loop", [srv])
+    out.update(double_replies=srv["double_replies"],
+               connections=srv["connections"],
+               stages=[lp["stages"] for lp in loops],
+               loop_lag=[lp["loop_lag"] for lp in loops])
+    return out
 
 
 def interval_stats(spans):
@@ -3244,6 +3390,342 @@ class Failover:
             c.close()
 
 
+# ---------------------------------------------------------------------------
+# Phase 12's parked burst: thousands of waits parked on the aio front end.
+# ---------------------------------------------------------------------------
+
+BURST_CLIENTS = 2000           # AsyncAioChannel delegates, one client loop
+BURST_FREED_CLIENTS = 1500     # on the env whose capacity is then freed
+BURST_FREED_SERVANTS = 64      # x BURST_SLOTS slots, all held by a filler
+BURST_FULL_SERVANTS = 4        # the env that stays full to the deadline
+BURST_SLOTS = 4
+# Servants of a third env, so that the parked demand stays well under the
+# admission ladder's first step (1.5x the fleet's capacity): the burst
+# measures parked waits, not shedding.
+BURST_OTHER_SERVANTS = 400
+BURST_OTHER_SLOTS = 8
+BURST_WAIT_MS = 10_000         # the service's cap on a wait
+BURST_FULL_WAIT_MS = 8_000     # the full env's deadline (NO_QUOTA then)
+AIO_SYNC_MIN_GRANTS = 100_000  # phase 12's synchronous part
+
+
+def proc_status(pid: int) -> dict:
+    """VmRSS and VmSize (kB) and the thread count of a process."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in ("VmRSS", "VmSize", "Threads"):
+                out[key] = int(val.split()[0])
+    return out
+
+
+def raise_fd_limit(need: int) -> int:
+    """Raise this process's open-file limit to ``need`` (a child started
+    afterwards inherits it); fails the phase if the hard limit is lower."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < need:
+        target = need if hard == resource.RLIM_INFINITY else min(need, hard)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+        soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    check(soft >= need, f"open-file limit {soft} < {need} (hard {hard})")
+    return soft
+
+
+def wait_ready(name: str, proc, chan) -> float:
+    """Poll GetConfig until the entry answers; returns the boot time."""
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import RpcError
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 300
+    while True:
+        check(proc.poll() is None, f"{name}: scheduler exited at boot "
+                                   f"(rc {proc.returncode})")
+        try:
+            chan.call(SERVICE_NAME, "GetConfig",
+                      api.scheduler.GetConfigRequest(token="utok"),
+                      api.scheduler.GetConfigResponse, timeout=2.0)
+            return time.perf_counter() - t0
+        except RpcError:
+            check(time.monotonic() < deadline, f"{name}: boot timed out")
+            time.sleep(0.2)
+
+
+def run_parked_burst(report: list) -> dict:
+    """Phase 12's burst on a pipelined aio entry: every slot of two envs
+    held by a filler; BURST_CLIENTS AsyncAioChannel delegates on one
+    client loop each park one wait (BURST_FREED_CLIENTS on the env whose
+    slots the filler then frees, each freeing its grant at once; the
+    rest on the env that stays full).  Every wait is answered exactly
+    once: one grant, or NO_QUOTA at its deadline.  The entry's RSS and
+    thread count are read before the burst and with every wait parked."""
+    import asyncio
+
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel, RpcError
+    from yadcc_tpu_torch.rpc.aio_server import (AsyncAioChannel,
+                                                EventLoopThread)
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    sch = api.scheduler
+    name = "aio_burst"
+    fd_limit = raise_fd_limit(2 * BURST_CLIENTS + 1024)
+    port, iport = free_port(), free_port()
+    proc = start_entry(name, port, iport, ["--rpc-frontend", "aio"])
+    ch = Channel(f"aio://127.0.0.1:{port}")
+    loops = None
+    chans: list = []
+    try:
+        boot_s = wait_ready(name, proc, ch)
+        # The first servant takes slot 0, the slot every loopback
+        # delegate resolves to (self-avoidance): it holds neither env.
+        servants = [("127.0.0.1:29000", "burst-other", BURST_SLOTS)]
+        servants += [(f"127.0.0.1:{29001 + i}", "burst-freed", BURST_SLOTS)
+                     for i in range(BURST_FREED_SERVANTS)]
+        servants += [(f"127.0.0.1:{29101 + i}", "burst-full", BURST_SLOTS)
+                     for i in range(BURST_FULL_SERVANTS)]
+        servants += [(f"127.0.0.1:{30000 + i}", "burst-other",
+                      BURST_OTHER_SLOTS)
+                     for i in range(BURST_OTHER_SERVANTS)]
+        for loc, env, slots in servants:
+            hb = sch.HeartbeatRequest(
+                token="stok", next_heartbeat_in_ms=HB_INTERVAL_MS,
+                location=loc, version=1, num_processors=slots,
+                capacity=slots, total_memory_in_bytes=64 << 30,
+                memory_available_in_bytes=32 << 30)
+            hb.env_descs.add(compiler_digest=env)
+            ch.call(SERVICE_NAME, "Heartbeat", hb, sch.HeartbeatResponse,
+                    timeout=10.0)
+
+        def ask(env, n, wait_ms):
+            req = sch.WaitForStartingTaskRequest(
+                token="utok", milliseconds_to_wait=wait_ms,
+                next_keep_alive_in_ms=60_000, immediate_reqs=n)
+            req.env_desc.compiler_digest = env
+            return req
+
+        held = {}
+        for env, n in (("burst-freed", BURST_FREED_SERVANTS * BURST_SLOTS),
+                       ("burst-full", BURST_FULL_SERVANTS * BURST_SLOTS)):
+            resp, _ = ch.call(SERVICE_NAME, "WaitForStartingTask",
+                              ask(env, n, 5000),
+                              sch.WaitForStartingTaskResponse, timeout=30)
+            held[env] = [g.task_grant_id for g in resp.grants]
+            check(len(held[env]) == n,
+                  f"{name}: the filler got {len(held[env])} of {n} on {env}")
+        try:
+            ch.call(SERVICE_NAME, "WaitForStartingTask",
+                    ask("burst-freed", 1, 200),
+                    sch.WaitForStartingTaskResponse, timeout=30)
+            check(False, f"{name}: a slot was left after the filler")
+        except RpcError as e:
+            check(e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                  f"{name}: {e!r}")
+        before = proc_status(proc.pid)
+
+        results: list = [None] * BURST_CLIENTS
+        loops = EventLoopThread(name="burst-clients")
+
+        async def one(i: int, chan) -> None:
+            freed = i < BURST_FREED_CLIENTS
+            req = ask("burst-freed" if freed else "burst-full", 1,
+                      BURST_WAIT_MS if freed else BURST_FULL_WAIT_MS)
+            t = time.perf_counter()
+            try:
+                resp, _ = await chan.call(
+                    SERVICE_NAME, "WaitForStartingTask", req,
+                    sch.WaitForStartingTaskResponse, timeout=60)
+            except RpcError as e:
+                results[i] = ("error", e.status, time.perf_counter() - t)
+                return
+            ids = [g.task_grant_id for g in resp.grants]
+            results[i] = ("grants", [(g.task_grant_id, g.servant_location)
+                                     for g in resp.grants],
+                          time.perf_counter() - t, resp.flow_control)
+            if ids:
+                await chan.call(SERVICE_NAME, "FreeTask",
+                                sch.FreeTaskRequest(token="utok",
+                                                    task_grant_ids=ids),
+                                sch.FreeTaskResponse, timeout=60)
+
+        async def drive() -> None:
+            chans.extend(AsyncAioChannel(f"127.0.0.1:{port}")
+                         for _ in range(BURST_CLIENTS))
+            await asyncio.gather(*(one(i, c) for i, c in enumerate(chans)))
+
+        t0 = time.perf_counter()
+        fut = asyncio.run_coroutine_threadsafe(drive(), loops.loop)
+        deadline = time.monotonic() + 60
+        while True:
+            state = inspect_vars(iport)["yadcc"]
+            parked = state["task_dispatcher"]["pending_requests"]
+            if parked >= BURST_CLIENTS:
+                break
+            if fut.done():
+                check(False, f"{name}: the burst ended early "
+                             f"({fut.exception()!r})")
+            check(time.monotonic() < deadline,
+                  f"{name}: only {parked} waits parked")
+            time.sleep(0.05)
+        park_s = time.perf_counter() - t0
+        during = proc_status(proc.pid)
+        connections = state["rpc_server"]["connections"]
+        t_free = time.perf_counter()
+        ch.call(SERVICE_NAME, "FreeTask",
+                sch.FreeTaskRequest(token="utok",
+                                    task_grant_ids=held["burst-freed"]),
+                sch.FreeTaskResponse, timeout=30)
+        fut.result(timeout=120)
+        burst_s = time.perf_counter() - t0
+        ch.call(SERVICE_NAME, "FreeTask",
+                sch.FreeTaskRequest(token="utok",
+                                    task_grant_ids=held["burst-full"]),
+                sch.FreeTaskResponse, timeout=30)
+
+        check(all(r is not None for r in results),
+              f"{name}: {sum(r is None for r in results)} waits unanswered")
+        freed, full = (results[:BURST_FREED_CLIENTS],
+                       results[BURST_FREED_CLIENTS:])
+        bad = [r for r in freed if r[0] != "grants" or len(r[1]) != 1
+               or r[3] != 0
+               or not r[1][0][1].startswith("127.0.0.1:290")
+               or int(r[1][0][1].rsplit(":", 1)[1]) - 29001
+               not in range(BURST_FREED_SERVANTS)]
+        check(not bad, f"{name}: freed-env answers {bad[:3]}")
+        ids = [r[1][0][0] for r in freed]
+        check(len(set(ids)) == len(ids), f"{name}: a grant id twice")
+        no_quota = sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE
+        bad = [r for r in full if r[:2] != ("error", no_quota)
+               or r[2] < 0.9 * BURST_FULL_WAIT_MS / 1e3]
+        check(not bad, f"{name}: full-env answers {bad[:3]}")
+        state = inspect_vars(iport)["yadcc"]
+        td = state["task_dispatcher"]
+        check(td["failure"] is None, f"{name}: {td['failure']}")
+        check(td["pending_requests"] == 0 and td["grants_outstanding"] == 0,
+              f"{name}: {td['pending_requests']} pending, "
+              f"{td['grants_outstanding']} outstanding after the burst")
+        check(td["stats"]["granted"] == sum(held_n for held_n in map(
+            len, held.values())) + BURST_FREED_CLIENTS,
+            f"{name}: granted {td['stats']['granted']}")
+        check(state["rpc_server"]["double_replies"] == 0,
+              f"{name}: {state['rpc_server']['double_replies']} double "
+              f"replies")
+        launches = {k: v["launches"] for k, v in state["kernels"].items()}
+        check(launches["grouped_assign"] > 0,
+              f"{name}: grouped_assign never launched")
+        grant_lat = sorted(r[2] for r in freed)
+        res = dict(
+            clients=BURST_CLIENTS, boot_s=boot_s, park_s=park_s,
+            burst_s=burst_s, fd_limit=fd_limit,
+            connections_parked=connections,
+            rss_kb_before=before["VmRSS"], rss_kb_parked=during["VmRSS"],
+            rss_kb_per_wait=(during["VmRSS"] - before["VmRSS"])
+            / BURST_CLIENTS,
+            vmsize_kb_before=before["VmSize"],
+            vmsize_kb_parked=during["VmSize"],
+            threads_before=before["Threads"],
+            threads_parked=during["Threads"],
+            freed_grant_p50_ms=grant_lat[len(grant_lat) // 2] * 1e3,
+            freed_grant_max_ms=grant_lat[-1] * 1e3,
+            all_granted_after_free_s=max(
+                t0 + r[2] for r in freed) - t_free,
+            launches=launches, frontend=frontend_summary(state))
+        check(during["Threads"] - before["Threads"] < 64,
+              f"{name}: {during['Threads'] - before['Threads']} threads "
+              f"for {BURST_CLIENTS} parked waits")
+        report.append(
+            f"  {name}: {BURST_CLIENTS} waits parked in {park_s:.2f} s over "
+            f"{connections} connections; entry RSS {before['VmRSS']} kB "
+            f"before, {during['VmRSS']} kB parked "
+            f"({res['rss_kb_per_wait']:.2f} kB a wait), VmSize "
+            f"{before['VmSize']} -> {during['VmSize']} kB, threads "
+            f"{before['Threads']} -> {during['Threads']}; "
+            f"{BURST_FREED_CLIENTS} answered with one grant each once the "
+            f"filler freed (wait p50 {res['freed_grant_p50_ms']:.1f} ms, "
+            f"all within {res['all_granted_after_free_s']:.2f} s of the "
+            f"free), {BURST_CLIENTS - BURST_FREED_CLIENTS} with NO_QUOTA at "
+            f"their {BURST_FULL_WAIT_MS} ms deadline; double replies 0; K1 "
+            f"launches {launches['grouped_assign']}; open-file limit "
+            f"{fd_limit}")
+        return res
+    finally:
+        for c in chans:
+            if loops is not None:
+                loops.call_soon(c.close)
+        if loops is not None:
+            loops.stop()
+        ch.close()
+        stop_entry(proc)
+
+
+def aio_line(name: str, aio: dict, base: dict, base_name: str) -> str:
+    """One phase on the aio front end beside its threaded twin."""
+    front, bfront = aio["frontend"], base["frontend"]
+
+    def stage(st, key):
+        return (f"{st[key]['p50_ms']:.3f}/{st[key]['p99_ms']:.3f}"
+                if st and key in st else "-")
+
+    stages = "; ".join(
+        f"loop {k}: " + ", ".join(
+            f"{key} {stage(st, key)}"
+            for key in ("accept", "read", "parse", "write"))
+        for k, st in enumerate(front.get("stages", [])))
+    lags = "; ".join(
+        f"loop {k} p50 {lg['p50_ms']:.3f} p99 {lg['p99_ms']:.3f} max "
+        f"{lg['max_ms']:.3f} ({lg['count']} ticks)"
+        for k, lg in enumerate(front.get("loop_lag", [])))
+    return (
+        f"  {name} (aio) beside {base_name} (threaded), same call: "
+        f"{aio['grants_per_s']:.1f} vs {base['grants_per_s']:.1f} grants/s "
+        f"({aio['grants_per_s'] / base['grants_per_s']:.2f}x); "
+        f"WaitForStartingTask p50 {aio['p50_ms']:.2f} vs "
+        f"{base['p50_ms']:.2f} ms, p99 {aio['p99_ms']:.2f} vs "
+        f"{base['p99_ms']:.2f} ms; handler p50/p99 "
+        f"{stage({'h': front['handler']}, 'h')} vs "
+        f"{stage({'h': bfront['handler']}, 'h')} ms; aio stages p50/p99 "
+        f"ms: {stages}; loop lag ms: {lags}")
+
+
+def run_aio_path(report: list, phases: dict) -> None:
+    """Phases 12-13: phases 3, 4 and 8's drives through the aio front
+    end, the parked burst and the hot delegate.  ``phases`` holds phases
+    3, 4 and 8's results (``pipelined``, ``synchronous``, ``sharded``:
+    the threaded twins each is printed beside) and receives the new
+    ones."""
+    phases["aio_pipelined"] = run_main_path(
+        "aio_pipelined", ["--rpc-frontend", "aio"], Fleet(seed=6), report)
+    # The inline leader runs every cycle on the loop, one request deep
+    # (the loop reads nothing while it leads), so `auto` may keep every
+    # cycle on the host: K1's launches are reported, not required.
+    phases["aio_synchronous"] = run_main_path(
+        "aio_synchronous", ["--rpc-frontend", "aio",
+                            "--dispatch-pipeline-depth", "0"],
+        Fleet(seed=7), report, kernel=None, min_grants=AIO_SYNC_MIN_GRANTS)
+    burst = run_parked_burst(report)
+    phases["aio_burst"] = {"launches": burst["launches"]}
+    report.append(aio_line("aio_pipelined", phases["aio_pipelined"],
+                           phases["pipelined"], "phase 3"))
+    report.append(aio_line("aio_synchronous", phases["aio_synchronous"],
+                           phases["synchronous"], "phase 4"))
+    phases["aio_sharded"] = run_main_path(
+        "aio_sharded", ["--rpc-frontend", "aio", "--accept-loops", "4",
+                        "--shards", str(SHARDS)], Fleet(seed=8), report,
+        shards=SHARDS, min_grants=SHARDED_MIN_GRANTS, post=hot_steal_step)
+    hot = phases["aio_sharded"]["post"]
+    report.append(aio_line("aio_sharded", phases["aio_sharded"],
+                           phases["sharded"], "phase 8"))
+    report.append(
+        f"  aio_sharded: the drive stole {phases['aio_sharded']['stolen']} "
+        f"grants (phase 8: {phases['sharded']['stolen']}); the hot "
+        f"delegate {hot['stolen']} through the asynchronous steal "
+        f"(task_dispatcher.steal after it: {json.dumps(hot['steal'])})")
+
+
 def run_takeover_path(report: list) -> dict:
     """Phase 10: a standby entry (--standby, policy warmed on the card at
     boot) behind an active entry with phase 3's defaults and
@@ -4208,6 +4690,14 @@ def main() -> int:
         "grouped_assign": federation["k1_launches"],
         "assign_batch": federation["k2_launches"]}}
     log("phases 10-11 warm standby and federation:")
+    for line in report:
+        log(line)
+
+    report = []
+    t12 = time.perf_counter()
+    run_aio_path(report, phases)
+    log(f"phases 12-13 the aio front end ({time.perf_counter() - t12:.1f} "
+        f"s):")
     for line in report:
         log(line)
 

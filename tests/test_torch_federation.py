@@ -465,6 +465,38 @@ class TestSpillover:
         _, _, routers = plane
         assert not hasattr(routers[0], "submit_wait_for_starting_new_task")
 
+    def test_aio_front_end_serves_a_federated_service_blocking(self, plane):
+        """The federated router hides the parked API even when its local
+        dispatcher has it, so the service registers no parked handler and
+        the aio server answers through the blocking one (its pool), with
+        the spilled grant's cell in the reply."""
+        from yadcc_tpu_torch.rpc.aio_server import AioRpcServer
+        from yadcc_tpu_torch.scheduler.service import SchedulerService
+
+        ds, _, routers = plane
+        assert hasattr(ds[0], "submit_wait_for_starting_new_task")
+        spec = SchedulerService(routers[0]).spec()
+        assert spec.parked == {}
+        ds[0].restore_admission_rung(RUNG_SPILLOVER)
+        srv = AioRpcServer("127.0.0.1:0")
+        srv.add_service(spec)
+        chan = Channel(f"aio://127.0.0.1:{srv.port}")
+        req = api.scheduler.WaitForStartingTaskRequest(
+            token="", immediate_reqs=1, milliseconds_to_wait=1000)
+        req.env_desc.compiler_digest = ENV
+        try:
+            resp, _ = chan.call("ytpu.SchedulerService",
+                                "WaitForStartingTask", req,
+                                api.scheduler.WaitForStartingTaskResponse,
+                                timeout=10)
+        finally:
+            chan.close()
+            srv.stop()
+        assert [(g.cell_id, g.spilled) for g in resp.grants] == [(1, True)]
+        assert resp.spilled_grants == 1 and resp.cell_id == 0
+        assert srv.inspect()["double_replies"] == 0
+        assert routers[0].stats()["spilled_grants"] == 1
+
 
 # --------------------------------------------------------------------------
 # Scored spill placement: warmth + load + topology in one launch

@@ -33,6 +33,9 @@ _SHARD_MODULES = (
 _REPLICATION_MODULES = (
     "rpc.transport", "scheduler.replication", "scheduler.placement",
     "scheduler.federation", "scheduler.entry")
+# The aio front end and the parked wait, each by name.
+_AIO_MODULES = ("rpc.aio_server", "utils.looplag", "rpc.grpc_transport",
+                "scheduler.service", "scheduler.task_dispatcher")
 
 
 def _port_sources():
@@ -75,7 +78,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
             importlib.import_module(name)
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
-                "yadcc_tpu_torch." + m for m in BLOOM + SHARD + REPL):
+                "yadcc_tpu_torch." + m for m in BLOOM + SHARD + REPL + AIO):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_k1_ab, chip_k2_probe  # noqa: F401
@@ -85,11 +88,16 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                         or (n.startswith(("jax", "xxhash"))
                             and sys.modules[n]))
         assert not leaked, leaked
+        from yadcc_tpu_torch.rpc import Channel, make_rpc_server
+        from yadcc_tpu_torch.rpc.aio_server import AioChannel
+        assert type(Channel("aio://127.0.0.1:1")) is AioChannel
+        assert callable(make_rpc_server)
         print(len(names))
     """)
     script = (f"BLOOM = {_BLOOM_MODULES!r}\n"
               f"SHARD = {_SHARD_MODULES!r}\n"
-              f"REPL = {_REPLICATION_MODULES!r}\n" + script)
+              f"REPL = {_REPLICATION_MODULES!r}\n"
+              f"AIO = {_AIO_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -63,16 +63,33 @@ def manual(pkg, clock, max_servants=32, **kw):
                              start_dispatch_thread=False, **kw)
 
 
-def grant(d, clock, env, n, requestor="", lease_s=1000.0, home=None):
+def grant(d, clock, env, n, requestor="", lease_s=1000.0, home=None,
+          parked=False):
     """One blocking grant request on a dispatcher (or a router of shards)
     without a dispatch thread: a cycle serves it, the clock passes its
     deadline, a second cycle completes it.  ``home`` takes the router's
-    routed path on that shard."""
+    routed path on that shard; ``parked`` the parked (continuation) wait,
+    which must answer exactly once."""
     base = getattr(d, "inner", d)
     inners = list(getattr(base, "shards", [base]))
     kw = dict(immediate=n, requestor=requestor, lease_s=lease_s,
               timeout_s=1.0)
     out = []
+    if parked:
+        if home is None:
+            d.submit_wait_for_starting_new_task(env, on_done=out.append,
+                                                **kw)
+        else:
+            d.submit_wait_for_starting_new_task_routed(
+                env, home=home, on_done=lambda r: out.append(r.pairs()),
+                **kw)
+        for x in inners:
+            x.run_dispatch_cycle_for_testing()
+        clock.advance(1.5)
+        for x in inners:
+            x.run_dispatch_cycle_for_testing()
+        assert len(out) == 1
+        return out[0]
     if home is None:
         call = lambda: d.wait_for_starting_new_task(env, **kw)  # noqa: E731
     else:
@@ -94,9 +111,10 @@ def grant(d, clock, env, n, requestor="", lease_s=1000.0, home=None):
     return out[0]
 
 
-def drive_journal(pkg, seed, compact_keep=4096):
-    """The seeded sequence through one package's ReplicatingDispatcher;
-    returns (journal, [grant pairs of every request])."""
+def drive_journal(pkg, seed, compact_keep=4096, parked=False):
+    """The seeded sequence through one package's ReplicatingDispatcher
+    (its grants through the parked wait when ``parked``); returns
+    (journal, [grant pairs of every request])."""
     td, _, rep, clock_cls = pkg
     clock = clock_cls(100.0)
     d = manual(pkg, clock)
@@ -113,7 +131,8 @@ def drive_journal(pkg, seed, compact_keep=4096):
             if k <= 2:
                 got = grant(r, clock, str(rng.choice(ENVS)),
                             int(rng.integers(1, 5)),
-                            requestor=f"10.9.0.{int(rng.integers(1, 9))}:1")
+                            requestor=f"10.9.0.{int(rng.integers(1, 9))}:1",
+                            parked=parked)
                 issued.append(got)
                 held.extend(gid for gid, _ in got)
             elif k == 3 and held:
@@ -154,6 +173,41 @@ def test_journal_and_replica_state_match_jax(seed):
     assert tst.to_json() == jst.to_json()
     assert trep.ReplicaState.from_json(jst.to_json()).to_json() == \
         jst.to_json()
+
+
+def test_parked_grants_are_journaled_and_replayed_as_by_jax():
+    """Grants served through the parked wait reach the journal (inside
+    the continuation, before the reply), as the JAX wrapper journals
+    them: the same entries as the JAX package's parked drive and as the
+    blocking drive, the same replayed state, and a takeover into a fresh
+    dispatcher adopts every grant still held."""
+    jj, jissued = drive_journal(JAX, 1, parked=True)
+    tj, tissued = drive_journal(PORT, 1, parked=True)
+    bj, bissued = drive_journal(PORT, 1)
+    assert tissued == jissued == bissued
+    entries = [j.since(0)[2] for j in (jj, tj, bj)]
+    assert json.dumps(entries[1]) == json.dumps(entries[0]) \
+        == json.dumps(entries[2])
+    issues = [e for _, e in entries[1] if e["op"] == "issue"]
+    assert sum(len(e["grants"]) for e in issues) == \
+        sum(len(g) for g in tissued) > 0
+    jst, tst = jrep.ReplicaState(), trep.ReplicaState()
+    for seq, entry in entries[0]:
+        jst.apply(seq, entry)
+        tst.apply(seq, entry)
+    assert tst.to_json() == jst.to_json()
+    clock = TClock(100.0)
+    fresh = manual(PORT, clock)
+    sb = trep.StandbyScheduler(clock=clock)
+    try:
+        sb.receiver.Replicate(_wire(tapi, tapi, tj, 0), b"", None)
+        report = sb.takeover(lambda: fresh)
+        held = json.loads(tst.to_json())["grants"]
+        assert report["grants_adopted"] == len(held) > 0
+        assert sorted(g.grant_id for g in fresh.get_running_tasks()) == \
+            sorted(int(g) for g in held)
+    finally:
+        fresh.stop()
 
 
 def test_compacted_journal_snapshot_matches_jax():
@@ -405,6 +459,43 @@ def test_router_adoption_across_shards_matches_jax():
     want = run(jsr, jtd, jpol)
     assert run(tsr, ttd, tpol) == want
     assert sum(want[0]) > 0 and any(want[3])
+
+
+def test_router_parked_grants_are_journaled_unlike_the_reference():
+    """On a sharded plane the service parks through the router's routed
+    wait.  The port's wrapper journals those grants as its blocking
+    routed wait does, so the journal equals the JAX package's blocking
+    one; the JAX wrapper journals only the plain parked wait, so its
+    routed parked grants never reach the journal (a reference gap)."""
+    def run(pkg, sr, parked):
+        td, pol, rep, clock_cls = pkg
+        clock = clock_cls(100.0)
+        active = sr.ShardRouter.build(
+            lambda k: pol.GreedyCpuPolicy(), 2, max_servants_per_shard=16,
+            clock=clock, steal=sr.StealConfig(enabled=False),
+            start_dispatch_thread=False)
+        journal = rep.LeaseJournal()
+        r = rep.ReplicatingDispatcher(active, journal)
+        try:
+            for i in range(1, 9):
+                assert r.keep_servant_alive(td.ServantInfo(
+                    location=f"10.5.0.{i}:8335", num_processors=8,
+                    capacity=3, total_memory=64 << 30,
+                    memory_available=64 << 30, env_digests=("env-a",)),
+                    60.0)
+            got = [grant(r, clock, "env-a", 3, home=k, parked=parked)
+                   for k in (0, 1, 1)]
+            return got, json.dumps(journal.since(0)[2])
+        finally:
+            active.stop()
+
+    want_grants, want = run(JAX, jsr, parked=False)
+    got_grants, got = run(PORT, tsr, parked=True)
+    assert got_grants == want_grants and got == want
+    assert sum(len(g) for g in got_grants) == 9
+    ref_grants, ref = run(JAX, jsr, parked=True)
+    assert ref_grants == want_grants
+    assert '"issue"' in want and '"issue"' not in ref
 
 
 def test_router_takeover_adopts_every_shard_grant():

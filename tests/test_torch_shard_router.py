@@ -268,14 +268,89 @@ def test_grant_namespacing_is_checked():
         start_dispatch_thread=False)
     assert [router.shard_of_grant(d._next_grant_id)
             for d in router.shards] == [0, 1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        router.submit_wait_for_starting_new_task("e", on_done=print)
+    # The parked wait is ported: with no servant anywhere the steal finds
+    # no donor, the request parks on its home shard, and stop answers it
+    # once, empty.
+    fired = []
+    router.submit_wait_for_starting_new_task("e", timeout_s=30.0,
+                                             on_done=fired.append)
+    assert fired == [] and sum(len(d._pending) for d in router.shards) == 1
+    assert router.steal_stats()["steal_no_donor"] == 1
     # Lease adoption is ported: an empty replay adopts nothing, and a
     # grant outside the cell's namespace is refused by its shard.
     assert router.adopt_grants("loc", []) == 0
     with pytest.raises(ValueError, match="namespace"):
         router.adopt_grants("loc", [(1, "e", "r")])
     router.stop()
+    assert fired == [[]]
+
+
+def _steal_run(pkg, parked):
+    """tests/test_shard_router.py's async steal scenario (a hot delegate
+    homed on shard 1 asks for the fleet's whole capacity, request by
+    request) on one package's router, through the blocking routed wait
+    or the parked one.  No dispatch threads: this thread runs every
+    cycle, so no outcome depends on the wall clock."""
+    router, td = _router(pkg)
+    rng = np.random.default_rng(11)
+    locs = [f"10.{k >> 16 & 255}.{k >> 8 & 255}.{k & 255}:8335"
+            for k in range(32)]
+    caps = {loc: int(rng.integers(2, 6)) for loc in locs}
+    log = []
+    try:
+        for loc in locs:
+            assert router.keep_servant_alive(td.ServantInfo(
+                location=loc, version=1, num_processors=caps[loc] * 2,
+                dedicated=True, capacity=caps[loc], total_memory=1 << 30,
+                memory_available=1 << 30, env_digests=ENVS), 60.0)
+        hot = next(f"delegate-{i}" for i in range(10000)
+                   if router.shard_for_location(f"delegate-{i}") == 1)
+        left = sum(caps.values())
+        while left > 0:
+            n = min(int(rng.integers(1, 8)), left)
+            left -= n
+            kw = dict(requestor=hot, immediate=n, timeout_s=5.0)
+            if parked:
+                box = []
+                router.submit_wait_for_starting_new_task_routed(
+                    ENVS[0], on_done=box.append, **kw)
+                for _ in range(1000):
+                    if box:
+                        break
+                    router.run_dispatch_cycle_for_testing()
+                assert len(box) == 1, (pkg, n)
+                routed = box[0]
+            else:
+                routed = _pumped(router, lambda: (
+                    router.wait_for_starting_new_task_routed(
+                        ENVS[0], **kw)))
+            log.append((routed.shard_id, routed.stolen_count,
+                        [(g.grant_id, g.servant_location, g.shard_id,
+                          g.stolen) for g in routed.grants]))
+        occ = {}
+        for g in (g for d in router.shards for g in d.get_running_tasks()):
+            occ[g.servant_location] = occ.get(g.servant_location, 0) + 1
+        log.append(router.steal_stats())
+        log.append(occ == caps)
+    finally:
+        router.stop()
+    return log
+
+
+def test_parked_routed_wait_steals_as_the_jax_router():
+    """The parked routed wait and its asynchronous steal, against the
+    JAX router's parked wait and both packages' blocking wait: the same
+    grants request by request, the same stolen counts and steal stats,
+    every servant filled to its capacity."""
+    want = _steal_run("jax", parked=True)
+    assert _steal_run("torch", parked=True) == want
+    assert _steal_run("torch", parked=False) == want
+    assert _steal_run("jax", parked=False) == want
+    stats, full = want[-2], want[-1]
+    assert full and stats["stolen_grants"] > 0
+    assert sum(e[1] for e in want[:-2]) == stats["stolen_grants"]
+    ids = [g[0] for e in want[:-2] for g in e[2]]
+    assert len(ids) == len(set(ids))
 
 
 @pytest.mark.parametrize("fleet,shards", [(8192, 4), (5000, 8), (100, 2),
@@ -343,9 +418,12 @@ def test_entry_serves_four_shards_on_cpu():
             chan = Channel(f"grpc://127.0.0.1:{port}")
             try:
                 for _ in range(10):
+                    # 64 is more than any one shard's capacity (at most
+                    # 57 here), so every request outruns its home shard
+                    # and steals, however the delegates interleave.
                     req = sch.WaitForStartingTaskRequest(
                         token="utok", milliseconds_to_wait=300,
-                        immediate_reqs=24, next_keep_alive_in_ms=10_000)
+                        immediate_reqs=64, next_keep_alive_in_ms=10_000)
                     req.env_desc.compiler_digest = "gcc-12"
                     try:
                         resp, _ = chan.call(

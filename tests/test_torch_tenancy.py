@@ -4,7 +4,8 @@ Credentials minted by either package verify in the other; the tier x
 rung shedding matrix and the ledger-before-ladder admission order run on
 both packages' dispatchers with the same inputs and must rule alike; the
 port's SchedulerService resolves the verified tenant before admission on
-the grant path, as the JAX service does.  Every quantity compared is an
+the grant path, as the JAX service does, on the direct handler and on
+each package's aio front end (the parked wait).  Every quantity compared is an
 integer, a string or a verdict: the tolerance is 0 (exact equality)."""
 
 from __future__ import annotations
@@ -283,7 +284,9 @@ def test_every_exit_path_releases_the_ledger():
 # ---------------------------------------------------------------------------
 
 
-def _service_drive(p):
+def _service_drive(p, frontend="direct"):
+    """The tenancy sequence through one package's service: called
+    directly, or over that package's aio server (the parked handler)."""
     d = p.dispatcher([dict(tenant_id="acme", tier="batch",
                            max_outstanding=3)])
     p.servant(d)
@@ -294,6 +297,17 @@ def _service_drive(p):
     sch = p.api.scheduler
     ctx = p.Context(peer="10.9.9.9:4242")
     out = []
+    srv = chan = None
+    if frontend == "aio":
+        from yadcc_tpu.rpc import aio_server as jaio
+        from yadcc_tpu_torch.rpc import Channel
+        from yadcc_tpu_torch.rpc import aio_server as taio
+
+        srv = (jaio if p.name == "jax" else taio).AioRpcServer("127.0.0.1:0")
+        spec = svc.spec()
+        assert "WaitForStartingTask" in spec.parked
+        srv.add_service(spec)
+        chan = Channel(f"aio://127.0.0.1:{srv.port}")
 
     def ask(cred, n):
         req = sch.WaitForStartingTaskRequest(
@@ -301,8 +315,14 @@ def _service_drive(p):
             tenant_credential=cred)
         req.env_desc.compiler_digest = ENV
         try:
-            resp = svc.WaitForStartingTask(req, b"", ctx)
-        except p.RpcError as e:
+            if chan is None:
+                resp = svc.WaitForStartingTask(req, b"", ctx)
+            else:
+                resp, _ = chan.call("ytpu.SchedulerService",
+                                    "WaitForStartingTask", req,
+                                    sch.WaitForStartingTaskResponse,
+                                    timeout=10)
+        except (p.RpcError, TRpcError) as e:
             return ("error", e.status)
         return ("ok", resp.flow_control, resp.retry_after_ms,
                 [(g.task_grant_id, g.servant_location)
@@ -319,7 +339,12 @@ def _service_drive(p):
         ins = d.inspect()
         out.append((ins["stats_by_tenant"], ins["tenant_budgets"],
                     control.inspect()))
+        if srv is not None:
+            out.append(srv.inspect()["double_replies"])
     finally:
+        if chan is not None:
+            chan.close()
+            srv.stop()
         d.stop()
     return out
 
@@ -335,3 +360,12 @@ def test_service_resolves_the_tenant_before_admission():
     assert torch_out[5] == ("error", denied)
     assert torch_out[6][0]["acme"]["granted"] == 3
     assert np.sum(list(torch_out[6][1]["outstanding"].values())) == 3
+
+
+def test_service_resolves_the_tenant_before_admission_on_aio():
+    """The aio half: the parked WaitForStartingTask over each package's
+    event-loop server rules as the direct handler does."""
+    want = _service_drive(PKGS[1])
+    jax_aio = _service_drive(PKGS[0], "aio")
+    torch_aio = _service_drive(PKGS[1], "aio")
+    assert torch_aio == jax_aio == want + [0]

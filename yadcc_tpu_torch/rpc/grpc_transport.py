@@ -137,5 +137,12 @@ class GrpcChannel(Channel):
             raise RpcError(status, bytes(meta).decode(errors="replace"))
         return response_cls.FromString(meta), att
 
+    def call_raw(self, service, method_name, frame: bytes,
+                 timeout: Optional[float] = None) -> bytes:
+        """Send a pre-encoded request frame, return the raw reply frame
+        (the byte-parity harness for the aio front end; production uses
+        call())."""
+        return self._callable(service, method_name)(frame, timeout=timeout)
+
     def close(self) -> None:
         self._channel.close()

@@ -80,6 +80,14 @@ class RpcContext:
 # returns the response message (attachment goes via ctx).
 Handler = Callable[[object, bytes, RpcContext], object]
 
+# A parked handler additionally takes a `done` continuation and returns
+# nothing: it registers the continuation with the owning component and
+# the COMPLETING thread calls done(response) (or done(None, error=
+# RpcError(...))) exactly once, from any thread.  Only the aio front
+# end (rpc/aio_server.py) consults these; thread-per-request transports
+# keep using the blocking twin registered under the same name.
+ParkedHandler = Callable[[object, bytes, RpcContext, Callable], None]
+
 @dataclass
 class MethodSpec:
     name: str
@@ -94,14 +102,25 @@ class ServiceSpec:
     `stage_timer` (optional, a utils.stagetimer.StageTimer) makes
     dispatch_frame record per-method `<Method>:handler` and
     `<Method>:serialize` stages — the server-side half of the grant
-    path's latency decomposition."""
+    path's latency decomposition.
+
+    `parked` maps long-poll methods to their continuation-style
+    handlers (see ParkedHandler): on the aio front end a waiting client
+    is a parked continuation on the event loop instead of a parked
+    worker thread.  Methods without a parked variant run their blocking
+    handler on the front end's bounded pool."""
 
     service_name: str
     methods: Dict[str, MethodSpec] = field(default_factory=dict)
     stage_timer: Optional[object] = None
+    parked: Dict[str, MethodSpec] = field(default_factory=dict)
 
     def add(self, name: str, request_cls: type, handler: Handler) -> None:
         self.methods[name] = MethodSpec(name, request_cls, handler)
+
+    def add_parked(self, name: str, request_cls: type,
+                   handler: ParkedHandler) -> None:
+        self.parked[name] = MethodSpec(name, request_cls, handler)
 
 def encode_frame_payload(status: int, meta: bytes,
                          attachment: Attachment = b"") -> Payload:
@@ -196,9 +215,10 @@ def unregister_mock_server(name: str) -> None:
 class Channel:
     """Client-side channel; scheme-dispatched factory.
 
-    ``Channel("grpc://10.0.0.1:8336")`` or ``Channel("mock://scheduler")``
-    (an in-process server registered with register_mock_server); a bare
-    "host:port" is treated as grpc.
+    ``Channel("grpc://10.0.0.1:8336")``, ``Channel("aio://10.0.0.1:8336")``
+    (the event-loop front end's raw-TCP frame transport) or
+    ``Channel("mock://scheduler")`` (an in-process server registered with
+    register_mock_server); a bare "host:port" is treated as grpc.
     """
 
     def __new__(cls, uri: str):
@@ -208,6 +228,10 @@ class Channel:
         # then runs its __init__ exactly once (do NOT call it here).
         if uri.startswith("mock://"):
             return object.__new__(_MockChannel)
+        if uri.startswith("aio://"):
+            from .aio_server import AioChannel
+
+            return object.__new__(AioChannel)
         from .grpc_transport import GrpcChannel
 
         return object.__new__(GrpcChannel)

@@ -12,6 +12,15 @@ dispatchers behind a ShardRouter (consistent-hash routing, cross-shard
 steal), each with its own policy, warmed before serving, launching on a
 CUDA stream of its own.
 
+With ``--rpc-frontend aio`` the RPC port is served by the event-loop
+front end (rpc/aio_server.py; ``--accept-loops N`` runs N SO_REUSEPORT
+loops): a delegate's ``WaitForStartingTask`` long-poll is a parked
+continuation in the dispatcher's pending table, not a worker thread, and
+delegates dial ``aio://host:port``.  ``yadcc/rpc_server`` in
+``/inspect/vars`` carries its connections, ``double_replies``, the
+loops' lag and the front-end stages.  The inspect endpoint itself stays
+on its threaded HTTP server.
+
 Warm standby (scheduler/replication.py): an active started with
 ``--replicate-to grpc://STANDBY`` streams its lease journal to a
 scheduler started with ``--standby``.  The standby builds and warms its
@@ -38,7 +47,7 @@ from ..common.token_verifier import make_token_verifier_from_flag
 from ..device import resolve_device
 from ..ops import cuda_assign, cuda_grouped
 from ..parallel.mesh import control_plane_shard_slices
-from ..rpc import GrpcServer
+from ..rpc import make_rpc_server
 from ..utils import exposed_vars
 from ..utils.gctune import LatencyGcGuard
 from ..utils.inspect_server import InspectServer
@@ -67,6 +76,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "scan; torch_resident_grouped = the grouped "
                         "kernel on a device-resident pool (pipelined)")
     p.add_argument("--max-servants", type=int, default=8192)
+    p.add_argument("--rpc-frontend", default="threaded",
+                   choices=["threaded", "aio"],
+                   help="serving front end: 'threaded' = the gRPC "
+                        "thread-pool server, 'aio' = the event-loop "
+                        "server — WaitForStartingTask long-polls park as "
+                        "continuations instead of worker threads; "
+                        "delegates then dial aio://host:port")
+    p.add_argument("--accept-loops", type=int, default=1,
+                   help="aio front end only: shard the accept path "
+                        "across N SO_REUSEPORT event loops; 1 = a single "
+                        "loop")
     p.add_argument("--shards", type=int, default=1,
                    help="scheduler control-plane shards: N>1 partitions "
                         "the servant pool over N dispatchers routed by "
@@ -194,25 +214,31 @@ def _reset_kernel_counts() -> None:
 
 
 def _serve(args, services, stop, gc_guard: bool, tick) -> int:
-    """Mount ``services`` on the gRPC port and the inspect endpoint, then
-    run ``tick()`` once a second until ``stop`` is set (SIGINT/SIGTERM
-    when None) or ``tick`` returns False (a dispatcher failure: rc 1)."""
+    """Mount ``services`` on the RPC port (``--rpc-frontend``) and the
+    inspect endpoint, then run ``tick()`` once a second until ``stop`` is
+    set (SIGINT/SIGTERM when None) or ``tick`` returns False (a
+    dispatcher failure: rc 1)."""
     # The heap is built (policy warmed, dispatcher constructed): freeze it
     # and take the automatic cyclic collector off the grant path; the
     # sweep below collects the young generations instead.
     guard = LatencyGcGuard() if gc_guard else None
     if guard is not None:
         guard.start()
-    server = GrpcServer(f"0.0.0.0:{args.port}")
+    server = make_rpc_server(args.rpc_frontend, f"0.0.0.0:{args.port}",
+                             accept_loops=args.accept_loops)
     for spec in services:
         server.add_service(spec)
     server.start()
+    # The aio front end's serving stats, `double_replies` among them.
+    if hasattr(server, "inspect"):
+        exposed_vars.expose("yadcc/rpc_server", server.inspect)
     inspect = InspectServer(args.inspect_port, args.inspect_credential)
     inspect.start()
-    logger.info("%s on :%d (policy=%s, device=%s, shards=%d), inspect on "
-                ":%d", "standby" if args.standby else "scheduler serving",
+    logger.info("%s on :%d (policy=%s, device=%s, shards=%d, frontend=%s), "
+                "inspect on :%d",
+                "standby" if args.standby else "scheduler serving",
                 server.port, args.dispatch_policy, args.device, args.shards,
-                inspect.port)
+                args.rpc_frontend, inspect.port)
     if stop is None:
         stop = threading.Event()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -230,6 +256,7 @@ def _serve(args, services, stop, gc_guard: bool, tick) -> int:
         guard.stop()
         exposed_vars.unexpose("yadcc/gc_guard")
     server.stop()
+    exposed_vars.unexpose("yadcc/rpc_server")
     inspect.stop()
     return rc
 

@@ -160,9 +160,9 @@ class FederationRouter:
 
     The parked-continuation API (``submit_wait_for_starting_new_task``)
     is deliberately NOT exposed: parking happens inside one dispatcher
-    and cannot span cells, so a parked front end (ROADMAP Queue 1 item
-    5) takes the blocking path here — same trade the sharded router
-    makes.
+    and cannot span cells, so the aio front end serves a federated
+    service's ``WaitForStartingTask`` through the blocking handler on its
+    bounded pool, as in the reference.
     """
 
     # Candidate-key ring sizing: enough recent keys per env for a

@@ -189,11 +189,15 @@ class ReplicatingDispatcher:
 
     Everything not explicitly wrapped delegates via ``__getattr__``, so
     the wrapper is drop-in wherever the inner dispatcher was (the
-    SchedulerService feature-detects optional methods with getattr; the
-    routed wrapper is therefore bound as an instance attribute only
-    when the inner dispatcher has the method).  The JAX wrapper also
-    journals the parked wait (``submit_wait_for_starting_new_task``),
-    which the port does not have yet (ROADMAP Queue 1 item 5).
+    SchedulerService feature-detects optional methods with getattr and
+    hasattr; the routed and parked wrappers are therefore bound as
+    instance attributes only when the inner dispatcher has the method).
+
+    The parked waits (the aio front end) are journaled inside the
+    continuation: the grants land in the journal before the reply is
+    handed to the loop.  The JAX wrapper journals the plain parked wait
+    only, so on a sharded plane its routed parked grants never reach the
+    journal; the port wraps the routed one too.
     """
 
     def __init__(self, inner, journal: LeaseJournal):
@@ -202,6 +206,11 @@ class ReplicatingDispatcher:
         self._last_rung = 0
         if hasattr(inner, "wait_for_starting_new_task_routed"):
             self.wait_for_starting_new_task_routed = self._routed
+        if hasattr(inner, "submit_wait_for_starting_new_task"):
+            self.submit_wait_for_starting_new_task = self._submit
+        if hasattr(inner, "submit_wait_for_starting_new_task_routed"):
+            self.submit_wait_for_starting_new_task_routed = \
+                self._submit_routed
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -250,6 +259,32 @@ class ReplicatingDispatcher:
             kwargs.get("lease_s", 15.0),
             [(g.grant_id, g.servant_location) for g in routed.grants])
         return routed
+
+    def _submit(self, env_digest: str, *, on_done: Callable,
+                **kwargs) -> None:
+        requestor = kwargs.get("requestor", "")
+        lease_s = kwargs.get("lease_s", 15.0)
+
+        def journaling_done(pairs):  # fired outside dispatcher locks
+            self._journal_issue(env_digest, requestor, lease_s, pairs)
+            on_done(pairs)
+
+        self._inner.submit_wait_for_starting_new_task(
+            env_digest, on_done=journaling_done, **kwargs)
+
+    def _submit_routed(self, env_digest: str, *, on_done: Callable,
+                       **kwargs) -> None:
+        requestor = kwargs.get("requestor", "")
+        lease_s = kwargs.get("lease_s", 15.0)
+
+        def journaling_done(routed):  # fired outside dispatcher locks
+            self._journal_issue(
+                env_digest, requestor, lease_s,
+                [(g.grant_id, g.servant_location) for g in routed.grants])
+            on_done(routed)
+
+        self._inner.submit_wait_for_starting_new_task_routed(
+            env_digest, on_done=journaling_done, **kwargs)
 
     def keep_task_alive(self, grant_ids: Sequence[int],
                         next_keep_alive_s: float) -> List[bool]:
@@ -453,7 +488,9 @@ class StandbyGate:
       with the daemon, ROADMAP Queue 1 item 6).
 
     Post-takeover (:meth:`promote`) calls forward to the promoted
-    SchedulerService.
+    SchedulerService.  The gate registers only the blocking handlers: a
+    promoted standby behind the aio front end answers
+    ``WaitForStartingTask`` on its bounded pool, as in the reference.
     """
 
     _METHODS = (

@@ -9,7 +9,10 @@ request must carry a verifiable tenant credential, and the verified
 tenant rides admission and the grant path (tenancy/).  In front of a
 ShardRouter, the home shard is resolved once a request, and the reply
 carries each grant's shard and whether it was stolen (behind a
-FederationRouter also its cell and whether it was spilled there).
+FederationRouter also its cell and whether it was spilled there).  On the
+aio front end ``WaitForStartingTask`` is served by a parked twin
+(``WaitForStartingTaskParked``): the waiting delegate is a continuation
+in the dispatcher's pending table, not a worker thread.
 """
 
 from __future__ import annotations
@@ -20,12 +23,13 @@ from typing import List
 from .. import api
 from ..common.token_verifier import TokenVerifier, generate_token
 from ..rpc import RpcContext, RpcError, ServiceSpec
+from ..rpc.transport import STATUS_TRANSPORT_FAILURE
 from . import admission
 from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from .running_task_bookkeeper import RunningTaskBookkeeper, RunningTaskRecord
-from .task_dispatcher import ServantInfo, TaskDispatcher
+from .task_dispatcher import DispatcherFailed, ServantInfo, TaskDispatcher
 
 logger = get_logger("scheduler.service")
 
@@ -113,6 +117,16 @@ class SchedulerService:
         s.add("FreeTask", api.scheduler.FreeTaskRequest, self.FreeTask)
         s.add("GetRunningTasks", api.scheduler.GetRunningTasksRequest,
               self.GetRunningTasks)
+        # Parked long-poll twin for the aio front end: a waiting
+        # delegate is a pending-table entry plus the loop's
+        # continuation, not a parked worker thread.  Registered only
+        # when the dispatcher has the submit API — plain dispatchers
+        # and the sharded router do (the router chains its donor waits
+        # as continuations too); the federated router hides it.
+        if hasattr(self.dispatcher, "submit_wait_for_starting_new_task"):
+            s.add_parked("WaitForStartingTask",
+                         api.scheduler.WaitForStartingTaskRequest,
+                         self.WaitForStartingTaskParked)
         return s
 
     # -- handlers ----------------------------------------------------------
@@ -287,6 +301,105 @@ class SchedulerService:
         for gid, location in grants:
             resp.grants.add(task_grant_id=gid, servant_location=location)
         return resp
+
+    def WaitForStartingTaskParked(self, req, attachment, ctx, done):
+        """Parked-continuation WaitForStartingTask (aio front end).
+
+        Validation, tenancy, the admission ruling and the enqueue run
+        inline on the event loop; the grant wait itself is a parked
+        pending-table entry whose continuation the completing dispatch
+        thread fires.  Clamps, verdicts, the routed fields and NO_QUOTA
+        on an empty answer are the blocking handler's.  After a policy
+        failure the answer is the error the blocking handler raises."""
+        if not self._user_tokens.verify(req.token):
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_ACCESS_DENIED,
+                           "bad user token")
+        wait_ms = min(req.milliseconds_to_wait or 5000, _MAX_WAIT_MS)
+        lease_ms = min(req.next_keep_alive_in_ms or 15000, _MAX_LEASE_MS)
+        if not req.env_desc.compiler_digest:
+            raise RpcError(api.scheduler.SCHEDULER_STATUS_INVALID_ARGUMENT,
+                           "missing env_desc")
+        # One home resolution for admission AND the grant path, as in
+        # the blocking handler.
+        resolve_home = getattr(self.dispatcher, "resolve_home", None)
+        home = (resolve_home(ctx.peer, req.env_desc.compiler_digest)
+                if resolve_home is not None else None)
+        tenant, tier = self._resolve_tenant(req)
+        decision = self.dispatcher.admission_check(
+            immediate=req.immediate_reqs or 1,
+            prefetch=req.prefetch_reqs,
+            requestor=ctx.peer,
+            tenant=tenant, tier=tier,
+            **({} if home is None else {"home": home}))
+        if decision.flow != admission.FLOW_NONE:
+            done(api.scheduler.WaitForStartingTaskResponse(
+                flow_control=decision.flow,
+                retry_after_ms=decision.retry_after_ms,
+                degradation_rung=decision.rung))
+            return
+        wait_kw = dict(
+            min_version=max(req.min_version, self._min_version),
+            requestor=ctx.peer,
+            immediate=req.immediate_reqs or 1,
+            prefetch=req.prefetch_reqs if decision.prefetch_allowed else 0,
+            lease_s=lease_ms / 1000.0,
+            timeout_s=wait_ms / 1000.0,
+            tenant=tenant,
+        )
+
+        def refused(grants) -> bool:
+            """Answer the failure or the empty wait; True when answered."""
+            failure = getattr(self.dispatcher, "failure", None)
+            if failure is not None:
+                err = DispatcherFailed(
+                    f"dispatcher stopped after a policy failure: "
+                    f"{failure!r}")
+                done(None, error=RpcError(STATUS_TRANSPORT_FAILURE,
+                                          f"handler error: {err!r}"))
+                return True
+            if not grants:
+                done(None, error=RpcError(
+                    api.scheduler.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                    "no capacity for environment"))
+                return True
+            return False
+
+        if home is not None:
+            # Routed planes park with full provenance: the continuation
+            # receives RoutedGrants (donor ops chained as continuations
+            # inside the router).
+            def on_routed(routed):
+                if refused(routed.grants):
+                    return
+                resp = api.scheduler.WaitForStartingTaskResponse(
+                    degradation_rung=decision.rung,
+                    shard_id=routed.shard_id,
+                    stolen_grants=routed.stolen_count,
+                    cell_id=routed.cell_id,
+                    spilled_grants=routed.spilled_count)
+                for g in routed.grants:
+                    resp.grants.add(task_grant_id=g.grant_id,
+                                    servant_location=g.servant_location,
+                                    shard_id=g.shard_id, stolen=g.stolen,
+                                    cell_id=g.cell_id, spilled=g.spilled)
+                done(resp)
+
+            self.dispatcher.submit_wait_for_starting_new_task_routed(
+                req.env_desc.compiler_digest, home=home, on_done=on_routed,
+                **wait_kw)
+            return
+
+        def on_grants(grants):
+            if refused(grants):
+                return
+            resp = api.scheduler.WaitForStartingTaskResponse(
+                degradation_rung=decision.rung)
+            for gid, location in grants:
+                resp.grants.add(task_grant_id=gid, servant_location=location)
+            done(resp)
+
+        self.dispatcher.submit_wait_for_starting_new_task(
+            req.env_desc.compiler_digest, on_done=on_grants, **wait_kw)
 
     def KeepTaskAlive(self, req, attachment, ctx):
         if not self._user_tokens.verify(req.token):

@@ -36,9 +36,10 @@ samples — with the per-shard detail under ``per_shard``.
 
 Warm-standby adoption (``adopt_grants``, ``set_adoption_window``) routes
 each journaled grant to its owning shard by id and opens every shard's
-window.  Not ported yet: the asynchronous steal, which rides the
-dispatcher's parked wait (ROADMAP Queue 1 item 5); it raises
-NotImplementedError.
+window.  The parked wait (``submit_wait_for_starting_new_task_routed``,
+the aio front end's path) runs the same steal-first plan with every wait
+a continuation: donor ops chain through ``_try_steal_async`` and the home
+remainder parks on the home dispatcher's pending queue.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from .admission import RUNG_NAMES, AdmissionDecision
-from .task_dispatcher import (TAKEOVER_GAP_SLACK, LoadSignal, ServantInfo,
-                              TaskDispatcher)
+from .task_dispatcher import (TAKEOVER_GAP_SLACK, DispatcherFailed,
+                              LoadSignal, ServantInfo, TaskDispatcher)
 
 logger = get_logger("scheduler.shard_router")
 
@@ -443,13 +444,107 @@ class ShardRouter:
                 out.grants.append(RoutedGrant(gid, loc, home, False))
         return out
 
-    def submit_wait_for_starting_new_task(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the parked (asynchronous) grant wait and steal are not "
-            "ported yet (ROADMAP Queue 1 item 5)")
+    def submit_wait_for_starting_new_task(
+            self, env_digest: str, *,
+            min_version: int = 0,
+            requestor: str = "",
+            immediate: int = 1,
+            prefetch: int = 0,
+            lease_s: float = 15.0,
+            timeout_s: float = 5.0,
+            tenant: str = "",
+            on_done) -> None:
+        """Continuation twin of :meth:`wait_for_starting_new_task`:
+        fires ``on_done([(grant_id, location)])`` exactly once.  Its
+        presence is what enables the service's parked registration on
+        the sharded plane."""
+        self.submit_wait_for_starting_new_task_routed(
+            env_digest, min_version=min_version, requestor=requestor,
+            immediate=immediate, prefetch=prefetch, lease_s=lease_s,
+            timeout_s=timeout_s, tenant=tenant,
+            on_done=lambda routed: on_done(routed.pairs()))
 
-    submit_wait_for_starting_new_task_routed = \
-        submit_wait_for_starting_new_task
+    def submit_wait_for_starting_new_task_routed(
+            self, env_digest: str, *,
+            min_version: int = 0,
+            requestor: str = "",
+            immediate: int = 1,
+            prefetch: int = 0,
+            lease_s: float = 15.0,
+            timeout_s: float = 5.0,
+            home: Optional[int] = None,
+            tenant: str = "",
+            on_done) -> None:
+        """Continuation twin of :meth:`wait_for_starting_new_task_routed`:
+        the same steal-first plan, but every wait is a parked
+        continuation — donor ops chain through :meth:`_try_steal_async`
+        (no thread blocks on a donor) and the home remainder parks on
+        the home dispatcher's pending queue.  Steal predicate, op bound
+        (one per shard per request), batch clamp, pacing, channel bound
+        and backoff are the blocking path's.  Exactly one
+        ``on_done(RoutedGrants)`` fires; a failed shard ends the chain
+        with what it has, and the caller reads ``failure``."""
+        if home is None:
+            home = self.resolve_home(requestor)
+        d = self._shards[home]
+        out = RoutedGrants(shard_id=home)
+        state = {"need": max(0, immediate), "ops": 0}
+        t0 = self._clock.now()
+
+        def on_home(pairs) -> None:
+            for gid, loc in pairs:
+                out.grants.append(RoutedGrant(gid, loc, home, False))
+            on_done(out)
+
+        def finish() -> None:
+            # The blocking path's remainder rule — prefetch is never
+            # stolen, only home-queued.  This always goes through the
+            # home submit: with no immediate demand left and no
+            # prefetch, the dispatcher's empty-demand fast path answers
+            # [] inline, the same outcome with one reply shape.
+            remaining = max(0.0, timeout_s - (self._clock.now() - t0))
+            try:
+                d.submit_wait_for_starting_new_task(
+                    env_digest, min_version=min_version,
+                    requestor=requestor, immediate=state["need"],
+                    prefetch=prefetch, lease_s=lease_s,
+                    timeout_s=remaining, tenant=tenant, on_done=on_home)
+            except DispatcherFailed:
+                on_home([])
+
+        steal = False
+        if self._cfg.enabled and state["need"] > 0 \
+                and len(self._shards) > 1:
+            sig = d.load_signal()
+            steal = sig.queued_immediate + state["need"] > sig.free
+        if not steal:
+            finish()
+            return
+        max_ops = len(self._shards) - 1
+
+        def next_op() -> None:
+            if state["need"] <= 0 or state["ops"] >= max_ops:
+                finish()
+                return
+            state["ops"] += 1
+            self._try_steal_async(
+                home, env_digest, min_version, requestor,
+                min(state["need"], self._cfg.max_batch), lease_s,
+                tenant, on_got=on_got)
+
+        def on_got(got) -> None:
+            # A dry/paced/full op ends the steal phase, as the blocking
+            # loop's `if not got: break` does.  Chain depth is bounded
+            # by max_ops even when donors answer inline.
+            if not got:
+                finish()
+                return
+            for gid, loc, donor in got:
+                out.grants.append(RoutedGrant(gid, loc, donor, True))
+                state["need"] -= 1
+            next_op()
+
+        next_op()
 
     def adopt_grants(self, location: str,
                      grants: Sequence[Tuple[int, str, str]],
@@ -595,6 +690,76 @@ class ShardRouter:
             return [(gid, loc, donor) for gid, loc in got]
         finally:
             self._steal_sem.release()
+
+    def _try_steal_async(self, home: int, env_digest: str,
+                         min_version: int, requestor: str, want: int,
+                         lease_s: float, tenant: str = "",
+                         *, on_got) -> None:
+        """Continuation twin of :meth:`_try_steal`: the same pacing,
+        channel bound, donor pick and stats, but the donor wait parks
+        on the donor dispatcher's pending queue instead of blocking this
+        thread for up to ``donor_timeout_s``.  The channel semaphore is
+        released by the donor continuation (the op outlives this frame).
+        Fires ``on_got([(grant_id, location, donor_shard)])`` exactly
+        once; empty on pacing/full/no-donor, as the blocking path."""
+        cfg = self._cfg
+        now = self._clock.now()
+        with self._lock:
+            paced = now < self._steal_next_ok[home]
+            if paced:
+                self._stats["steal_paced"] += 1
+        if paced:
+            on_got([])
+            return
+        if not self._steal_sem.acquire(blocking=False):
+            with self._lock:
+                self._stats["steal_channel_full"] += 1
+            on_got([])
+            return
+        try:
+            donor, donor_free = self._pick_donor(home, now)
+        except Exception:
+            self._steal_sem.release()
+            raise
+        if donor is None:
+            with self._lock:
+                self._stats["steal_no_donor"] += 1
+            self._note_dry(home, now)
+            self._steal_sem.release()
+            on_got([])
+            return
+        with self._lock:
+            self._stats["steals_attempted"] += 1
+
+        def on_donor(pairs) -> None:
+            # Donor continuation (the donor's dispatch thread, or inline
+            # when its leader satisfied us).  Settle the stats and the
+            # channel slot first, then hand up.
+            try:
+                if pairs:
+                    with self._lock:
+                        self._stats["stolen_grants"] += len(pairs)
+                        self._steal_backoffs[home].reset()
+                        self._steal_next_ok[home] = 0.0
+                        # The donor's free capacity just moved; make
+                        # the next donor pick see it.
+                        self._loads_at = -1.0
+                else:
+                    with self._lock:
+                        self._stats["steal_dry"] += 1
+                    self._note_dry(home, self._clock.now())
+            finally:
+                self._steal_sem.release()
+            on_got([(gid, loc, donor) for gid, loc in pairs])
+
+        try:
+            self._shards[donor].submit_wait_for_starting_new_task(
+                env_digest, min_version=min_version, requestor=requestor,
+                immediate=min(want, donor_free), prefetch=0,
+                lease_s=lease_s, timeout_s=cfg.donor_timeout_s,
+                tenant=tenant, on_done=on_donor)
+        except DispatcherFailed:
+            on_donor([])
 
     def _note_dry(self, home: int, now: float) -> None:
         with self._lock:

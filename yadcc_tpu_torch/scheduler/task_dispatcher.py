@@ -11,6 +11,12 @@ resolves the whole backlog per cycle through the DispatchPolicy SPI
 Bookkeeping (leases, zombies, wakeups) stays host-side: it's I/O-shaped
 state, not math.
 
+A waiter either blocks (``wait_for_starting_new_task``, one RPC worker
+thread a wait) or parks (``submit_wait_for_starting_new_task``, the aio
+front end): its continuation fires exactly once, outside the lock, from
+whichever thread completes it (a cycle's apply, the pipelined drain, the
+deadline sweep, stop or a policy failure).
+
 Multi-tenant QoS: given a tenant directory, every grant is charged to its
 verified tenant's ledger at issue and released on every exit path, and
 admission rules on the tenant's budget before the overload ladder
@@ -40,7 +46,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -188,6 +194,11 @@ class _Pending:
     prefetch_launched: bool = False
     grants: List[_Grant] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
+    # Parked-continuation requests (aio front end): called once with
+    # [(grant_id, location)] when the request completes, instead of a
+    # thread blocking on `done`.  Fired OUTSIDE the dispatcher lock by
+    # _fire_async_done().
+    on_done: Optional[Callable] = None
 
 
 class TaskDispatcher:
@@ -277,6 +288,10 @@ class TaskDispatcher:
         self._grant_id_stride = grant_id_stride
 
         self._pending: List[_Pending] = []  # guarded by: self._lock
+        # Completed parked-continuation requests awaiting their
+        # callback fire (drained outside the lock; see
+        # _fire_async_done).
+        self._async_done: List[_Pending] = []  # guarded by: self._lock
         self._stopping = False  # guarded by: self._lock
         # The policy error that stopped the dispatcher (None: healthy).
         self.failure: Optional[BaseException] = None  # guarded by: self._lock
@@ -363,10 +378,12 @@ class TaskDispatcher:
         # Inline-leader dispatch: the first waiter of an idle backlog
         # runs the cycle on its own thread (two condvar handoffs and
         # the batch window fall off the lone-request latency path);
-        # concurrent arrivals coalesce into the leader's cycle.  Only
-        # in sync mode with a live dispatch thread — manual-cycle tests
-        # and benches (start_dispatch_thread=False) keep the invariant
-        # that no cycle runs unless they run one.
+        # concurrent arrivals coalesce into the leader's cycle.  A
+        # parked submit leads the same way, on the submitting thread
+        # (the aio front end's event loop).  Only in sync mode with a
+        # live dispatch thread — manual-cycle tests and benches
+        # (start_dispatch_thread=False) keep the invariant that no
+        # cycle runs unless they run one.
         self._inline_dispatch = bool(
             start_dispatch_thread and not self._pipelined)
         self._inline_busy = False  # guarded by: self._lock
@@ -706,6 +723,131 @@ class TaskDispatcher:
             self._raise_if_failed_locked()
             return [(g.grant_id, g.servant_location) for g in req.grants]
 
+    def submit_wait_for_starting_new_task(
+        self,
+        env_digest: str,
+        *,
+        min_version: int = 0,
+        requestor: str = "",
+        immediate: int = 1,
+        prefetch: int = 0,
+        lease_s: float = 15.0,
+        timeout_s: float = 5.0,
+        tenant: str = "",
+        on_done: Callable,
+    ) -> None:
+        """Parked-continuation twin of wait_for_starting_new_task (the
+        aio front end's long-poll path): enqueue the request and return
+        immediately; ``on_done`` fires exactly once with
+        [(grant_id, servant_location)] — from the completing thread
+        (dispatch cycle, pipelined drain, the deadline sweep, stop or a
+        policy failure), never under the dispatcher lock.  A parked
+        client costs this pending entry, not a thread.  Raises
+        DispatcherFailed, as the blocking wait does, once a policy
+        failure stopped the dispatcher; a request pending when the
+        failure struck fires with what it got, and its caller reads
+        ``failure``.
+
+        The inline-leader fast path applies here as it does to blocking
+        waiters: the submitting thread (the event loop) runs the cycle
+        itself when no cycle is in flight, so an uncontended grant
+        completes — callback fired — within this call.  The loop is
+        held for that cycle; in pipelined mode (the card's default)
+        there is no inline leader and the dispatch thread fires the
+        continuation."""
+        env_id = self._envs.intern(env_digest)
+        if env_id is None:
+            on_done([])
+            return
+        with self._lock:
+            self._raise_if_failed_locked()
+            now = self._clock.now()
+            req = _Pending(
+                env_id=env_id,
+                env_digest=env_digest,
+                min_version=min_version,
+                requestor_slot=self._requestor_slot_locked(requestor),
+                requestor=requestor,
+                tenant=tenant,
+                lease_s=lease_s,
+                immediate_left=max(0, immediate),
+                prefetch_left=max(0, prefetch),
+                deadline=now + timeout_s,
+                enqueued_at=now,
+                on_done=on_done,
+            )
+            lead = False
+            if req.immediate_left + req.prefetch_left == 0 \
+                    or self._stopping:
+                req = None
+            else:
+                self._pending.append(req)
+                lead = self._inline_dispatch and not self._inline_busy
+                if lead:
+                    self._inline_busy = True
+                else:
+                    self._work.notify_all()
+        if req is None:
+            on_done([])
+            return
+        if lead:
+            # Leading inline: the notify is deferred until we know the
+            # cycle left work behind — waking the dispatch thread just
+            # to find the leader already did everything costs a context
+            # switch on every uncontended grant call.  The leader
+            # DRAINS: requests that arrived mid-cycle (they could not
+            # lead) are served by the leader's next pass; the drain
+            # stops when a pass stops producing (capacity-blocked
+            # parked requests belong to the dispatch thread's deadline
+            # machinery, not a spin).
+            try:
+                for _ in range(8):
+                    issued = self._run_cycle()
+                    with self._lock:
+                        more = bool(self._pending)
+                    if not issued or not more:
+                        break
+            except Exception as e:
+                self._fail(e)
+            finally:
+                with self._lock:
+                    self._inline_busy = False
+                    if self._pending:
+                        self._work.notify_all()
+
+    def _fire_async_done(self) -> None:
+        """Deliver completed parked requests' grants to their
+        continuations.  Callbacks run outside the dispatcher lock (they
+        typically hop onto an event loop); abandoned is set first so a
+        racing pipelined drain can never issue into a request whose
+        grants were already reported."""
+        with self._lock:
+            if not self._async_done:
+                return
+            fired, self._async_done = self._async_done, []
+            batches = []
+            for req in fired:
+                req.abandoned = True
+                batches.append((req.on_done,
+                                [(g.grant_id, g.servant_location)
+                                 for g in req.grants]))
+                req.on_done = None
+        for cb, grants in batches:
+            try:
+                cb(grants)
+            except Exception:
+                logger.exception("parked grant continuation failed")
+
+    def _complete_parked_locked(self) -> None:
+        """Move every parked request off the pending queue into the fire
+        list (stop, policy failure): a parked continuation must not
+        dangle.  Each fires with whatever grants it accumulated."""
+        for req in self._pending:
+            if req.on_done is not None:
+                req.done.set()
+                self._async_done.append(req)
+        self._pending = [r for r in self._pending if r.on_done is None]
+
     def _raise_if_failed_locked(self) -> None:
         if self.failure is not None:
             raise DispatcherFailed(
@@ -725,7 +867,9 @@ class TaskDispatcher:
             self._stopping = True
             for req in self._pending:
                 req.done.set()
+            self._complete_parked_locked()
             self._work.notify_all()
+        self._fire_async_done()
 
     def keep_task_alive(
         self, grant_ids: Sequence[int], next_keep_alive_s: float
@@ -936,6 +1080,9 @@ class TaskDispatcher:
         # under the main one): periodic update lets the ladder step
         # down while no requests arrive to drive decide().
         self.admission.update(util, cap, self._clock.now())
+        # Backstop delivery for parked continuations (normally fired by
+        # the cycle that completed them).
+        self._fire_async_done()
 
     # ------------------------------------------------------------------
     # The dispatch cycle.
@@ -1070,6 +1217,10 @@ class TaskDispatcher:
             if snap is not None:
                 with self._lock:
                     self._release_snapshot_locked(snap)
+            # Parked continuations completed by this cycle fire here —
+            # on the granting thread, right after the apply phase, with
+            # no waiter-thread wakeup in between.
+            self._fire_async_done()
 
     def _try_issue_locked(self, req, is_prefetch: bool, pick: int,
                           snap_generation, cap_cache, now: float,
@@ -1210,8 +1361,11 @@ class TaskDispatcher:
                         break
                     launch = self._select_stream_work_locked()
                     idle = launch is None and not tickets
-                    if idle:
+                    if idle and not self._async_done:
                         self._work.wait(timeout=0.1)
+                # Deadline sweeps inside the selection may have
+                # completed parked requests; deliver before continuing.
+                self._fire_async_done()
                 if idle:
                     continue
                 if launch is None:
@@ -1424,6 +1578,7 @@ class TaskDispatcher:
             self._finish_satisfied_locked(self._clock.now())
             self._work.notify_all()
         self.stage_timer.record("apply", self._clock.now() - t0)
+        self._fire_async_done()
         return issued
 
     # ------------------------------------------------------------------
@@ -1455,6 +1610,10 @@ class TaskDispatcher:
             if (req.immediate_left <= 0 and not prefetch_pending) \
                     or now >= req.deadline:
                 req.done.set()
+                if req.on_done is not None:
+                    # Parked continuation: queue the fire; the caller's
+                    # unlocked epilogue (_fire_async_done) delivers it.
+                    self._async_done.append(req)
             else:
                 still.append(req)
         self._pending[:] = still
@@ -1687,6 +1846,10 @@ class TaskDispatcher:
         with self._lock:
             self._stopping = True
             self._work.notify_all()
+            # Parked continuations must not dangle past shutdown: hand
+            # each whatever grants it accumulated (usually none).
+            self._complete_parked_locked()
+        self._fire_async_done()
         if self._thread is not None:
             self._thread.join(timeout=2)
 
