@@ -1,6 +1,7 @@
 """The port stands alone: yadcc_tpu_torch imports no jax, nothing of the
-JAX package and no `xxhash` wheel, and its entry points refuse to run
-without a card unless the caller asks for the CPU."""
+JAX package and no `xxhash` wheel (and runs without the `zstandard` one),
+and its entry points refuse to run without a card unless the caller asks
+for the CPU."""
 
 from __future__ import annotations
 
@@ -36,13 +37,22 @@ _REPLICATION_MODULES = (
 # The aio front end and the parked wait, each by name.
 _AIO_MODULES = ("rpc.aio_server", "utils.looplag", "rpc.grpc_transport",
                 "scheduler.service", "scheduler.task_dispatcher")
+# The cache server and the daemon's cache client, each by name.
+_CACHE_MODULES = (
+    "api.gen.cache_pb2", "common._zlib_frames", "common.compress",
+    "common.disk_cache", "tenancy.keys", "cache.cache_engine",
+    "cache.in_memory_cache", "cache.disk_engine", "cache.object_store_engine",
+    "cache.service", "cache.entry", "daemon", "daemon.local", "daemon.cloud",
+    "daemon.cloud.distributed_cache_writer",
+    "daemon.local.distributed_cache_reader")
 
 
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "chip_k1_ab.py",
                                         REPO / "chip_k2_probe.py",
-                                        REPO / "chip_bloom_probe.py"]
+                                        REPO / "chip_bloom_probe.py",
+                                        REPO / "chip_cache_probe.py"]
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -59,15 +69,16 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name in ("jax", "jaxlib", "xxhash") \
+                if name in ("jax", "jaxlib", "xxhash", "zstandard") \
                         or name == "yadcc_tpu" \
-                        or name.startswith(("jax.", "jaxlib.",
-                                            "yadcc_tpu.", "xxhash.")):
+                        or name.startswith(("jax.", "jaxlib.", "yadcc_tpu.",
+                                            "xxhash.", "zstandard.")):
                     raise ImportError(f"blocked import of {name}")
                 return None
 
         sys.modules["jax"] = None
         sys.modules["xxhash"] = None
+        sys.modules["zstandard"] = None
         sys.meta_path.insert(0, Refuse())
         import yadcc_tpu_torch
         names = ["yadcc_tpu_torch"]
@@ -78,16 +89,21 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
             importlib.import_module(name)
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
-                "yadcc_tpu_torch." + m for m in BLOOM + SHARD + REPL + AIO):
+                "yadcc_tpu_torch." + m
+                for m in BLOOM + SHARD + REPL + AIO + CACHE):
             assert name in names, name
             importlib.import_module(name)
-        import chip_bloom_probe, chip_k1_ab, chip_k2_probe  # noqa: F401
+        import chip_bloom_probe, chip_cache_probe  # noqa: F401
+        import chip_k1_ab, chip_k2_probe  # noqa: F401
         import chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
                         if n == "yadcc_tpu" or n.startswith("yadcc_tpu.")
-                        or (n.startswith(("jax", "xxhash"))
+                        or (n.startswith(("jax", "xxhash", "zstandard"))
                             and sys.modules[n]))
         assert not leaked, leaked
+        from yadcc_tpu_torch.common import compress
+        assert compress.zstandard is None
+        assert compress.decompress(compress.compress(b"x" * 99)) == b"x" * 99
         from yadcc_tpu_torch.rpc import Channel, make_rpc_server
         from yadcc_tpu_torch.rpc.aio_server import AioChannel
         assert type(Channel("aio://127.0.0.1:1")) is AioChannel
@@ -97,11 +113,23 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
     script = (f"BLOOM = {_BLOOM_MODULES!r}\n"
               f"SHARD = {_SHARD_MODULES!r}\n"
               f"REPL = {_REPLICATION_MODULES!r}\n"
-              f"AIO = {_AIO_MODULES!r}\n" + script)
+              f"AIO = {_AIO_MODULES!r}\n"
+              f"CACHE = {_CACHE_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.strip().splitlines()[-1]) >= 50
+
+
+def test_cache_entry_loads_no_torch():
+    """The cache server runs nothing on the card: its entry and service
+    load no torch (only the daemon's reader and the card replicas do)."""
+    script = ("import sys, yadcc_tpu_torch.cache.entry, "
+              "yadcc_tpu_torch.daemon.cloud.distributed_cache_writer; "
+              "assert 'torch' not in sys.modules; print('ok')")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_resolve_device_refuses_missing_card():

@@ -1,1 +1,2 @@
-"""The cache server's Bloom filter: host generator and card replicas."""
+"""The cache server: its L1/L2/L3 tiers, its RPC service and entry, and
+the Bloom filter's host generator and card replicas."""

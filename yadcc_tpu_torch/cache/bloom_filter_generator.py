@@ -14,7 +14,9 @@ A DeviceBloomReplica mirrors the filter's words onto the card so
 million-key batches resolve in one kernel call (ops/bloom_pipeline.py,
 csrc/bloom.cu), and a DeviceBloomCascade tests a region and a fleet
 filter in one launch per key-length class.  Both run on the card unless
-the caller passes device="cpu".
+the caller passes device="cpu".  Torch is imported only by those two
+classes: the cache server, which runs nothing on the card, never loads
+it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from typing import Deque, Iterable, List, Optional, Tuple
 import numpy as np
 
 from ..common import bloom
-from ..device import resolve_device
 from ..utils.clock import REAL_CLOCK, Clock
 
 # Keep an hour of incremental keys (reference :70-82).
@@ -153,6 +154,7 @@ class DeviceBloomReplica:
     def __init__(self, filter_data: bytes, num_hashes: int, salt: int,
                  num_bits: int = bloom.DEFAULT_NUM_BITS,
                  device: str = "cuda"):
+        from ..device import resolve_device
         from ..ops.bloom_pipeline import as_device_words
 
         self._host = bloom.SaltedBloomFilter.from_bytes(
@@ -189,6 +191,8 @@ class DeviceBloomCascade:
     """
 
     def __init__(self, device: str = "cuda"):
+        from ..device import resolve_device
+
         self._device = resolve_device(device)
 
     def may_contain_batch(self, region: "bloom.SaltedBloomFilter",

@@ -1,0 +1,55 @@
+"""zlib-framed stand-in for the zstd helpers on hosts without the
+`zstandard` wheel (a copy of the JAX package's
+yadcc_tpu/common/_zlib_frames.py, trimmed to the one-shot frame the cache
+protocol uses; see common/compress.py for the gating story).
+
+A one-shot frame is ``YZF1`` + u64le declared size + zlib stream:
+frame_content_size reads the declared size, like a zstd frame header with
+the content size set, so the size-cap check in compress.decompress keeps
+working.  A ``YZFS`` (streaming) frame of the JAX package decodes here
+too.  Pure stdlib; never imported when the real wheel is present.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+_ONE_SHOT_MAGIC = b"YZF1"
+_STREAM_MAGIC = b"YZFS"
+
+
+class Error(Exception):
+    """Stands in for zstandard.ZstdError in except clauses."""
+
+
+def compress(data: bytes, level: int = 3) -> bytes:
+    return (_ONE_SHOT_MAGIC + len(data).to_bytes(8, "little")
+            + zlib.compress(data, level))
+
+
+def frame_content_size(data: bytes) -> int:
+    """Declared decompressed size; -1 for streaming frames.  Raises on
+    anything that isn't one of our frames — same contract as
+    zstandard.frame_content_size on a malformed header."""
+    if data[:4] == _ONE_SHOT_MAGIC and len(data) >= 12:
+        return int.from_bytes(data[4:12], "little")
+    if data[:4] == _STREAM_MAGIC:
+        return -1
+    raise Error("not a framed payload")
+
+
+def decompress(data: bytes, max_output_size: int) -> bytes:
+    declared = frame_content_size(data)        # raises on bad magic
+    body = data[12:] if declared >= 0 else data[4:]
+    obj = zlib.decompressobj()
+    try:
+        out = obj.decompress(body, max_output_size)
+    except zlib.error as e:
+        raise Error(str(e)) from None
+    if obj.unconsumed_tail:
+        raise Error(f"output exceeds cap {max_output_size}")
+    if not obj.eof:
+        raise Error("truncated stream")
+    if declared >= 0 and len(out) != declared:
+        raise Error("declared size mismatch")
+    return out

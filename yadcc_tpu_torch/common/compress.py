@@ -1,0 +1,100 @@
+"""One-shot zstd helpers (a copy of the JAX package's
+yadcc_tpu/common/compress.py, trimmed to what the cache protocol uses: the
+full Bloom filter travels as ``compress(u32 salt + words)``).
+
+When the `zstandard` wheel is absent (minimal containers), a stdlib
+zlib stand-in keeps the same API: framed one-shot payloads carry a
+declared-size header so the pre-allocation cap check still works.  The
+two formats do not interoperate — every component in a zstd-less process
+speaks the fallback, which is the only deployment such a process can be
+part of anyway (the wire peer would need the same build)."""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional
+
+try:
+    import zstandard
+except ImportError:  # gated: minimal containers ship no zstd wheel
+    zstandard = None
+    from . import _zlib_frames as _fallback
+
+# The reference tunes for throughput, not ratio (level 3).
+_LEVEL = 3
+
+# YTPU_COMPRESS_LEVEL bounds; values outside fall back to the default
+# rather than erroring.  The zlib stand-in caps at 9.
+_MAX_LEVEL = 19 if zstandard is not None else 9
+
+# The error type callers may catch regardless of which backend is
+# compiled in (zstandard.ZstdError when the wheel is present).
+CompressionError = (zstandard.ZstdError if zstandard is not None
+                    else _fallback.Error)
+
+# zstandard (de)compressor objects are not safe for concurrent use from
+# multiple threads, and the servers serve RPCs on thread pools — keep one
+# per thread.
+_tls = threading.local()
+
+
+def current_level() -> int:
+    """Active compression level: YTPU_COMPRESS_LEVEL when it parses to a
+    level the backend supports, else 3.  Read per call so a changed
+    environment is seen."""
+    raw = os.environ.get("YTPU_COMPRESS_LEVEL")
+    if not raw:
+        return _LEVEL
+    try:
+        v = int(raw)
+    except ValueError:
+        return _LEVEL
+    return v if 1 <= v <= _MAX_LEVEL else _LEVEL
+
+
+def _ctx() -> tuple:
+    level = current_level()
+    trio = getattr(_tls, "trio", None)
+    if trio is None or trio[0] != level:
+        trio = (
+            level,
+            zstandard.ZstdCompressor(level=level),
+            zstandard.ZstdDecompressor(),
+        )
+        _tls.trio = trio
+    return trio[1:]
+
+
+def compress(data: bytes) -> bytes:
+    if zstandard is None:
+        return _fallback.compress(data, current_level())
+    return _ctx()[0].compress(data)
+
+
+# Decompressed payloads beyond this are treated as corruption.
+_MAX_DECOMPRESSED = 1 << 31
+
+
+def decompress(data: bytes, max_output_size: int = _MAX_DECOMPRESSED) -> bytes:
+    # max_output_size only binds STREAMING frames (no content size in
+    # the header) — python-zstandard ignores it when the frame declares
+    # a size, so a hostile frame declaring terabytes would attempt the
+    # full allocation.  Check the declared size before touching the
+    # allocator (-1 = streaming/unknown; raises on malformed headers).
+    if zstandard is None:
+        return _fallback.decompress(data, max_output_size)
+    declared = zstandard.frame_content_size(data)
+    if declared > max_output_size:
+        raise zstandard.ZstdError(
+            f"declared content size {declared} exceeds cap")
+    return _ctx()[1].decompress(data, max_output_size=max_output_size)
+
+
+def try_decompress(data: bytes) -> Optional[bytes]:
+    try:
+        return decompress(data)
+    except (CompressionError, MemoryError, ValueError):
+        # Corruption — including allocation-level failures — must read
+        # as a miss, never take down the serving thread.
+        return None

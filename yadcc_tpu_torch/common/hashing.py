@@ -1,10 +1,11 @@
-"""Domain-separated content digests (a copy of the JAX package's
-``digest_keyed``, yadcc_tpu/common/hashing.py, kept in the port so that
-it stands alone).
+"""Content digests (a copy of the JAX package's yadcc_tpu/common/hashing.py,
+trimmed to what the port uses, kept in the port so that it stands alone).
 
-BLAKE2b-256 from the standard library's hashlib, personalised by the
-domain; the hex digests are opaque strings to every protocol.  Tenant
-credentials and cache secrets are keyed digests (tenancy/identity.py).
+BLAKE2b-256 from the standard library's hashlib; the hex digests are
+opaque strings to every protocol.  Tenant credentials and cache secrets
+are keyed digests (tenancy/identity.py, tenancy/keys.py); the disk cache
+names its files by ``digest_bytes`` of the key (common/disk_cache.py), so
+a directory either package filled reads back through the other.
 """
 
 from __future__ import annotations
@@ -12,6 +13,18 @@ from __future__ import annotations
 import hashlib
 
 _DIGEST_SIZE = 32
+
+
+def new_digest():
+    return hashlib.blake2b(digest_size=_DIGEST_SIZE)
+
+
+def digest_bytes(*parts: bytes) -> str:
+    """Digest of the concatenation of `parts`, hex-encoded."""
+    h = new_digest()
+    for p in parts:
+        h.update(p)
+    return h.hexdigest()
 
 
 def digest_keyed(domain: str, *parts: bytes) -> str:

@@ -1,13 +1,14 @@
-"""Multi-tenant QoS for the scheduler: verified tenant identity, tiers and
-budgets (the port's copy of yadcc_tpu/tenancy/, trimmed to what the
-scheduler uses; the cache-side pieces, ``keys`` and the cache-bytes
-ledger, wait for the port's cache server).
+"""Multi-tenant QoS: verified tenant identity, tiers, budgets and
+tenant-scoped cache keys (the port's copy of yadcc_tpu/tenancy/).
 
 ``identity``   per-tenant credentials HMAC-derived from the scheduler's
                rotating token window, verified fail-closed.
 ``tiers``      the fairness classes — interactive / batch / best_effort
                — and the tier x admission-rung shedding matrix.
-``budgets``    per-tenant outstanding-grant and queued-demand ledger.
+``budgets``    per-tenant outstanding-grant, queued-demand and
+               cache-bytes ledgers.
+``keys``       the tenant-domain cache-key separator and the public
+               namespace tag the cache server accounts by.
 """
 
 from .identity import (
@@ -29,9 +30,11 @@ from .tiers import (
     tier_fanout_cap,
     tier_shed_rung,
 )
-from .budgets import TenantLedger, TenantOverBudget
+from .budgets import CacheBytesLedger, TenantLedger, TenantOverBudget
+from .keys import key_namespace, tenant_scoped_key
 
 __all__ = [
+    "CacheBytesLedger",
     "TIER_BATCH",
     "TIER_BEST_EFFORT",
     "TIER_FANOUT_CAPS",
@@ -45,7 +48,9 @@ __all__ = [
     "TenantSpec",
     "apply_tier",
     "derive_tenant_credential",
+    "key_namespace",
     "tenant_key_secret",
+    "tenant_scoped_key",
     "tier_fanout_cap",
     "tier_shed_rung",
     "verify_tenant_credential",

@@ -1,6 +1,5 @@
-"""Per-tenant budget ledgers: grants and queued demand (a copy of the JAX
-package's yadcc_tpu/tenancy/budgets.py without its cache-bytes ledger,
-which waits for the port's cache server).
+"""Per-tenant budget ledgers: grants, queued demand and cache bytes (a
+copy of the JAX package's yadcc_tpu/tenancy/budgets.py).
 
 Budgets answer a different question than fairness.  The two-level
 stride queue shares *available* capacity by weight; a budget bounds
@@ -13,6 +12,7 @@ tenant-local incident.  Enforcement points:
   over-budget tenant gets a native FLOW_REJECT + retry-after WITHOUT
   touching the ladder, so its refused demand never pushes the global
   signal and cannot starve other tenants into degradation rungs
+* cache-entry fill               — CacheBytesLedger.try_charge
 
 All ledgers are leaf locks (nothing is called while they are held).
 """
@@ -120,4 +120,61 @@ class TenantLedger:
             return {
                 "outstanding": dict(self._outstanding),
                 "queued": dict(self._queued),
+            }
+
+
+class CacheBytesLedger:
+    """Write-quota accounting per cache namespace (keys.key_namespace).
+
+    Tracks an UPPER BOUND on live bytes: per-key sizes are remembered
+    so a same-key overwrite adjusts rather than double-counts, but
+    evictions below this service are not observed — the quota bounds
+    what a tenant may *write into* the cache, which is the poisoning/
+    flooding vector budgets exist for.  The legacy "" namespace (shared
+    single-tenant domain) is never budgeted.
+    """
+
+    def __init__(self, budgets: Optional[Dict[str, int]] = None):
+        # namespace tag -> byte budget (0/absent = unlimited).
+        self._budgets = dict(budgets or {})
+        self._lock = threading.Lock()
+        self._key_bytes: Dict[str, Dict[str, int]] = {}  # guarded by: self._lock
+        self._usage: Dict[str, int] = {}  # guarded by: self._lock
+        self._rejected: Dict[str, int] = {}  # guarded by: self._lock
+
+    def set_budget(self, namespace: str, budget_bytes: int) -> None:
+        with self._lock:
+            if budget_bytes:
+                self._budgets[namespace] = budget_bytes
+            else:
+                self._budgets.pop(namespace, None)
+
+    def try_charge(self, namespace: str, key: str, size: int) -> bool:
+        """Account one fill; False = over budget (caller must refuse
+        the write).  Unbudgeted namespaces always charge successfully
+        (usage is still tracked for inspect())."""
+        if not namespace:
+            return True
+        with self._lock:
+            per_key = self._key_bytes.setdefault(namespace, {})
+            old = per_key.get(key, 0)
+            budget = self._budgets.get(namespace, 0)
+            new_usage = self._usage.get(namespace, 0) - old + size
+            if budget and new_usage > budget:
+                self._rejected[namespace] = self._rejected.get(namespace, 0) + 1
+                return False
+            per_key[key] = size
+            self._usage[namespace] = new_usage
+            return True
+
+    def usage(self, namespace: str) -> int:
+        with self._lock:
+            return self._usage.get(namespace, 0)
+
+    def inspect(self) -> dict:
+        with self._lock:
+            return {
+                "usage_bytes": dict(self._usage),
+                "budgets": dict(self._budgets),
+                "rejected_fills": dict(self._rejected),
             }
