@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of yadcc_tpu_torch: the scheduler's grant path, the
-Bloom kernels and the cache server's reader on CUDA.
+Bloom kernels, the cache server's reader and the servant half of the
+daemon on CUDA.
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
@@ -140,12 +141,41 @@ Phases (any failure exits non-zero without printing the result line):
    the bytes written; L3-only keys NOT_FOUND first, then a hit once A's
    background promotion lands; 1,000 more fills arrive by an incremental
    sync and read True on the card; A restarted on its dirs: the next sync
-   is a full fetch whose filter holds every key of A's L2.
+   is a full fetch whose filter holds every key of A's L2;
+15. the servant half of the daemon: the scheduler entry with its
+   defaults and phase 3's 5,000 synthetic servants, one port cache entry
+   (threaded, disk L2) and two port servant entries as processes (python
+   -m yadcc_tpu_torch.daemon.entry, one --rpc-frontend threaded, one aio;
+   --extra-compiler-dirs at the host g++'s directory; non-dedicated, so
+   int(0.40 x nprocs) slots each; --ignore-cgroup-limits, --no-privilege-
+   drop, --allow-poor-machine at <= 16 cores, --temporary-dir in the
+   run's directory when /dev/shm is under 1 GiB); a build of 256 TUs
+   (the repo's native/client/ytpu-cxx.cc or ytpu-testtool.cc, each
+   preprocessed once by the host g++, plus one function of its own drawn
+   from the seed; flags -O2, -O0 -g or -O2 -g; 16 submitted twice at once
+   to one servant; 8 ending in #error, sent with -fpreprocessed
+   -fdirectives-only as a client preprocessing that way sends them, so
+   the directive fires on the servant) driven by 32 delegate threads on
+   the wire (GetConfig, WaitForStartingTask on g++'s digest,
+   QueueCxxCompilationTask with the attachment in whichever format the
+   port's compress speaks on the host, WaitForCompilationOutput, parked
+   on the aio servant, KeepTaskAlive past half the lease, FreeTask on the
+   servant and the scheduler); every grant on a real servant, none over
+   the capacity it reports, heartbeats reporting running tasks during the
+   drive and none after it, no grant outstanding, K1 launched over the
+   drive (counts read from /inspect/vars just before and just after);
+   every object byte-equal to a local compile of the same TU run as the
+   servant runs it (a -g object in the servant's own workspace path, and
+   equal again once both are patched to one client directory), #error
+   TUs failing with the text and no cache entry, joined submissions on
+   the first one's task id, every ok TU's cache entry read back and
+   parsed to the files the servant returned; no libtorch mapped in either
+   servant.
 
 The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}.  Logs of the scheduler and cache processes
-go to smoke_logs/; phase 14's directories live in smoke_cache/ while it
-runs.
+{"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
+processes go to smoke_logs/; phase 14's directories live in smoke_cache/
+and phase 15's in smoke_servant/ while they run.
 """
 
 from __future__ import annotations
@@ -5110,7 +5140,8 @@ def run_cache_path(report: list) -> dict:
         check(read_max <= reply_max["fill"]
               or read_max < out["promotion_ms"]["max"],
               f"a read set A's worst TryGetEntry reply {read_max} ms, "
-              f"the bucket's time {out['promotion_ms']['max']} ms")
+              f"the bucket's time {out['promotion_ms']['max']} ms (the "
+              f"worst after each stage: {reply_max})")
         check(a_cache["l2_hits"] > 0, "no L2 hit promoted into A's L1")
         check(a_cache["l3"]["hits"] >= CACHE_L3_ONLY,
               f"{a_cache['l3']['hits']} L3 promotions")
@@ -5215,6 +5246,759 @@ def cache_report(report: list, out: dict) -> None:
         f"{out['restart_batch']['seconds'] * 1e3:.2f} ms, positive "
         f"{out['restart_batch']['positive_rate']:.4f}; launches "
         f"{out['launches']}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the servant half of the daemon.
+# ---------------------------------------------------------------------------
+
+SERVANT_SEED = 15
+SERVANT_TUS = 256              # translation units of the build (512 took
+                               # 331-353 s with the local re-compiles,
+                               # past the smoke's time on an 8-core host)
+SERVANT_JOINED = 16            # submitted twice at once to one servant
+SERVANT_ERRORS = 8             # ending in `#error smoke`
+SERVANT_DELEGATES = 32
+SERVANT_SOURCES = ("native/client/ytpu-cxx.cc",
+                   "native/client/ytpu-testtool.cc")
+SERVANT_FLAGS = ("-O2", "-O0 -g", "-O2 -g")
+SERVANT_LEASE_MS = 6_000       # a grant's lease: the slowest TUs outlive
+                               # its half, so KeepTaskAlive runs
+SERVANT_POLL_MS = 1_000        # a long poll's lap, the reference keeper's
+SERVANT_LIMIT_S = 900.0        # bound on the drive
+SERVANT_SHM_MIN = 1 << 30      # a smaller /dev/shm: --temporary-dir
+SERVANT_DIR = REPO / "smoke_servant"
+
+
+# The zstd declarations native/client/ytpu-cxx.cc uses, for a host
+# without libzstd's header (the compiles only need the declarations).
+ZSTD_STUB = b"""#pragma once
+#include <stddef.h>
+extern "C" {
+typedef struct ZSTD_CCtx_s ZSTD_CCtx;
+typedef struct ZSTD_DCtx_s ZSTD_DCtx;
+typedef struct { const void *src; size_t size; size_t pos; } ZSTD_inBuffer;
+typedef struct { void *dst; size_t size; size_t pos; } ZSTD_outBuffer;
+typedef enum { ZSTD_c_compressionLevel = 100 } ZSTD_cParameter;
+typedef enum { ZSTD_e_continue = 0, ZSTD_e_flush = 1, ZSTD_e_end = 2 }
+    ZSTD_EndDirective;
+ZSTD_CCtx *ZSTD_createCCtx(void);
+size_t ZSTD_freeCCtx(ZSTD_CCtx *cctx);
+size_t ZSTD_CCtx_setParameter(ZSTD_CCtx *cctx, ZSTD_cParameter param,
+                              int value);
+size_t ZSTD_compressStream2(ZSTD_CCtx *cctx, ZSTD_outBuffer *output,
+                            ZSTD_inBuffer *input,
+                            ZSTD_EndDirective endOp);
+ZSTD_DCtx *ZSTD_createDCtx(void);
+size_t ZSTD_freeDCtx(ZSTD_DCtx *dctx);
+size_t ZSTD_decompressStream(ZSTD_DCtx *zds, ZSTD_outBuffer *output,
+                             ZSTD_inBuffer *input);
+unsigned ZSTD_isError(size_t code);
+}
+"""
+
+
+def servant_sources(gxx: str) -> tuple:
+    """Each source of the build preprocessed once on the host; and
+    whether libzstd's header was missing there (then ZSTD_STUB stands
+    in for it)."""
+    probe = subprocess.run([gxx, "-E", "-x", "c++", "-"],
+                           input=b"#include <zstd.h>\n",
+                           capture_output=True, timeout=60)
+    flags = []
+    if probe.returncode != 0:
+        stub = SERVANT_DIR / "include"
+        stub.mkdir(parents=True, exist_ok=True)
+        (stub / "zstd.h").write_bytes(ZSTD_STUB)
+        flags = ["-I", str(stub)]
+    out = {}
+    for src in SERVANT_SOURCES:
+        pre = subprocess.run([gxx, "-E", *flags, src], cwd=REPO,
+                             capture_output=True, timeout=120)
+        check(pre.returncode == 0,
+              f"g++ -E {src}: {pre.stderr.decode()[-500:]}")
+        out[src] = pre.stdout
+    return out, bool(flags)
+
+
+class ServantTU:
+    """One translation unit: a preprocessed source of the repo, plus a
+    function of its own (so every TU has its own digest), or a trailing
+    `#error smoke`."""
+
+    def __init__(self, i: int, rng: random.Random, error: bool,
+                 joined: bool):
+        self.i = i
+        self.base = rng.choice(SERVANT_SOURCES)
+        self.flags = rng.choice(SERVANT_FLAGS)
+        self.tail = (f"\nint ytpu_smoke_tu_{i}(int x) {{ return x * "
+                     f"{rng.randrange(1, 1 << 20)} + "
+                     f"{rng.randrange(1 << 20)}; }}\n").encode()
+        if error:
+            # As a client preprocessing with -fdirectives-only sends it:
+            # the directive survives and fires on the servant.
+            self.tail += b"#error smoke\n"
+            self.flags += " -fpreprocessed -fdirectives-only"
+        self.error = error
+        self.joined = joined
+        self.result = None
+
+    def source(self, pre: dict) -> bytes:
+        return pre[self.base] + self.tail
+
+
+def servant_tus() -> list:
+    rng = random.Random(SERVANT_SEED)
+    order = list(range(SERVANT_TUS))
+    rng.shuffle(order)
+    errors = set(order[:SERVANT_ERRORS])
+    joined = set(order[SERVANT_ERRORS:SERVANT_ERRORS + SERVANT_JOINED])
+    return [ServantTU(i, rng, i in errors, i in joined)
+            for i in range(SERVANT_TUS)]
+
+
+def start_servant(name: str, frontend: str, port: int, iport: int,
+                  sched_port: int, cache_port: int, gxx_dir: str,
+                  temp_dir, nprocs: int):
+    """The port's servant entry as a process on loopback, its log in
+    smoke_logs/servant_<name>.log.  The card's host is a container
+    (--ignore-cgroup-limits), may have few cores (--allow-poor-machine)
+    and the script may run as root (--no-privilege-drop)."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    log_file = open(LOG_DIR / f"servant_{name}.log", "w")
+    cmd = [sys.executable, "-m", "yadcc_tpu_torch.daemon.entry",
+           "--scheduler-uri", f"grpc://127.0.0.1:{sched_port}",
+           "--cache-server-uri", f"grpc://127.0.0.1:{cache_port}",
+           "--token", "stok", "--serving-port", str(port),
+           "--inspect-port", str(iport), "--location", f"127.0.0.1:{port}",
+           "--extra-compiler-dirs", gxx_dir, "--rpc-frontend", frontend,
+           "--ignore-cgroup-limits", "--no-privilege-drop"]
+    if nprocs <= 16:
+        cmd.append("--allow-poor-machine")
+    if temp_dir is not None:
+        cmd += ["--temporary-dir", str(temp_dir)]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(
+        os.environ, PYTHONPATH=str(REPO)), stdout=log_file,
+        stderr=subprocess.STDOUT)
+    proc.log_file = log_file
+    return proc
+
+
+def percentiles_ms(xs) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"p50": None, "p99": None}
+    return {"p50": xs[len(xs) // 2] * 1e3,
+            "p99": xs[min(len(xs) - 1, int(len(xs) * 0.99))] * 1e3}
+
+
+def patch_regions(data: bytes, patches, client_dir: bytes) -> bytes:
+    """The client's patch: each region replaced by ``client_dir`` + the
+    suffix, NUL-padded to the region's length."""
+    buf = bytearray(data)
+    for pos, total, suffix in patches:
+        repl = client_dir + bytes(suffix)
+        check(len(repl) <= total, f"patch of {total} bytes cannot hold "
+                                  f"{len(repl)}")
+        buf[pos:pos + total] = repl.ljust(total, b"\x00")
+    return bytes(buf)
+
+
+class ServantDrive:
+    """32 delegate threads doing on the wire what the reference's
+    delegate does for each TU: GetConfig (the serving-daemon token),
+    WaitForStartingTask on the host g++'s digest, QueueCxxCompilationTask
+    to the granted servant, WaitForCompilationOutput (parked on the aio
+    servant), KeepTaskAlive past half the grant's lease, FreeTask on the
+    servant and the scheduler."""
+
+    def __init__(self, sched_port, gxx_digest, servants, capacity, pre):
+        self.sched_uri = f"grpc://127.0.0.1:{sched_port}"
+        self.digest = gxx_digest
+        self.servants = servants          # location -> scheme
+        self.capacity = capacity
+        self.pre = pre
+        self.lock = threading.Lock()
+        self.held = {loc: 0 for loc in servants}
+        self.granted = {loc: 0 for loc in servants}
+        self.violations: list = []
+        self.errors: list = []
+        self.keepalives = 0
+        self.stages = {"grant": [], "queue": [], "output": []}
+
+    def run(self, tus: list) -> float:
+        import queue as queue_mod
+
+        jobs = queue_mod.Queue()
+        for tu in tus:
+            jobs.put(tu)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=self._delegate, args=(jobs,),
+                                    name=f"delegate-{d}")
+                   for d in range(SERVANT_DELEGATES)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVANT_LIMIT_S)
+            check(not t.is_alive(), "servant drive: a delegate hung")
+        return time.perf_counter() - t0
+
+    def _delegate(self, jobs) -> None:
+        import queue as queue_mod
+
+        from yadcc_tpu_torch import api
+        from yadcc_tpu_torch.rpc import Channel
+
+        sched = Channel(self.sched_uri)
+        chans = {loc: Channel(f"{scheme}://{loc}")
+                 for loc, scheme in self.servants.items()}
+        try:
+            token = sched.call(
+                "ytpu.SchedulerService", "GetConfig",
+                api.scheduler.GetConfigRequest(token="utok"),
+                api.scheduler.GetConfigResponse,
+                timeout=10.0)[0].serving_daemon_token
+            while not self.errors:
+                try:
+                    tu = jobs.get_nowait()
+                except queue_mod.Empty:
+                    return
+                self._one(tu, sched, chans, token)
+        except Exception as e:  # reported by the caller
+            self.errors.append(f"{threading.current_thread().name}: {e!r}")
+        finally:
+            for c in (sched, *chans.values()):
+                c.close()
+
+    def _one(self, tu, sched, chans, token) -> None:
+        from yadcc_tpu_torch import api
+        from yadcc_tpu_torch.common import compress
+        from yadcc_tpu_torch.daemon import packing
+        from yadcc_tpu_torch.rpc import RpcError
+
+        sch, dmn = api.scheduler, api.daemon
+        attachment = compress.compress(tu.source(self.pre))
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 300
+        while True:
+            req = sch.WaitForStartingTaskRequest(
+                token="utok", milliseconds_to_wait=SERVANT_POLL_MS,
+                next_keep_alive_in_ms=SERVANT_LEASE_MS, immediate_reqs=1,
+                min_version=0)
+            req.env_desc.compiler_digest = self.digest
+            try:
+                resp, _ = sched.call("ytpu.SchedulerService",
+                                     "WaitForStartingTask", req,
+                                     sch.WaitForStartingTaskResponse,
+                                     timeout=30.0)
+            except RpcError as e:
+                check(e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                      f"WaitForStartingTask: {e}")
+                check(time.monotonic() < deadline,
+                      f"TU {tu.i}: no grant in 300 s")
+                continue
+            if resp.grants:
+                break
+        check(len(resp.grants) == 1, f"{len(resp.grants)} grants for one")
+        grant = resp.grants[0]
+        gid, loc = grant.task_grant_id, grant.servant_location
+        t_grant = time.perf_counter()
+        with self.lock:
+            if loc not in self.servants:
+                self.violations.append(f"grant {gid} on {loc}, not a real "
+                                       f"servant")
+                return
+            self.held[loc] += 1
+            self.granted[loc] += 1
+            if self.held[loc] > self.capacity[loc]:
+                self.violations.append(
+                    f"{loc} over its capacity: {self.held[loc]} of "
+                    f"{self.capacity[loc]}")
+        chan = chans[loc]
+        try:
+            q = dmn.QueueCxxCompilationTaskRequest(
+                token=token, task_grant_id=gid, source_path=tu.base,
+                invocation_arguments=tu.flags,
+                compression_algorithm=dmn.COMPRESSION_ALGORITHM_ZSTD)
+            q.env_desc.compiler_digest = self.digest
+            tq = time.perf_counter()
+            task_id = chan.call("ytpu.DaemonService",
+                                "QueueCxxCompilationTask", q,
+                                dmn.QueueCxxCompilationTaskResponse,
+                                attachment=attachment,
+                                timeout=60.0)[0].task_id
+            t_queued = time.perf_counter()
+            ids = [task_id]
+            if tu.joined:
+                # The same TU again while it compiles: the servant joins
+                # it to the running task (find_task_by_digest).
+                ids.append(chan.call("ytpu.DaemonService",
+                                     "QueueCxxCompilationTask", q,
+                                     dmn.QueueCxxCompilationTaskResponse,
+                                     attachment=attachment,
+                                     timeout=60.0)[0].task_id)
+            replies = []
+            last_keep = t_grant
+            for tid in ids:
+                while True:
+                    w = dmn.WaitForCompilationOutputRequest(
+                        token=token, task_id=tid,
+                        milliseconds_to_wait=SERVANT_POLL_MS,
+                        acceptable_compression_algorithms=[
+                            dmn.COMPRESSION_ALGORITHM_ZSTD])
+                    out, att = chan.call(
+                        "ytpu.DaemonService", "WaitForCompilationOutput", w,
+                        dmn.WaitForCompilationOutputResponse,
+                        timeout=SERVANT_POLL_MS / 1e3 + 30)
+                    if out.status != dmn.COMPILATION_TASK_STATUS_RUNNING:
+                        break
+                    if (time.perf_counter() - last_keep
+                            > SERVANT_LEASE_MS / 2e3):
+                        st = sched.call(
+                            "ytpu.SchedulerService", "KeepTaskAlive",
+                            sch.KeepTaskAliveRequest(
+                                token="utok", task_grant_ids=[gid],
+                                next_keep_alive_in_ms=SERVANT_LEASE_MS),
+                            sch.KeepTaskAliveResponse, timeout=10.0)[0]
+                        check(list(st.statuses) == [True],
+                              f"KeepTaskAlive of {gid}: {st.statuses}")
+                        last_keep = time.perf_counter()
+                        with self.lock:
+                            self.keepalives += 1
+                check(out.status == dmn.COMPILATION_TASK_STATUS_DONE,
+                      f"TU {tu.i}: task {tid} ended {out.status}")
+                replies.append((out, bytes(att)))
+            t_done = time.perf_counter()
+            out, att = replies[0]
+            files = packing.try_unpack_keyed_buffers(att)
+            check(files is not None, f"TU {tu.i}: unparsable attachment")
+            tu.result = {
+                "task_ids": ids, "location": loc,
+                "exit_code": out.exit_code,
+                "stdout": out.standard_output, "stderr": out.standard_error,
+                "files": files,
+                "patches": {p.file_key: [(x.position, x.total_size,
+                                          x.suffix_to_keep)
+                                         for x in p.locations]
+                            for p in out.cxx_info.patches}}
+            if tu.joined:
+                o2, a2 = replies[1]
+                check((o2.exit_code, bytes(a2)) == (out.exit_code, att),
+                      f"TU {tu.i}: the joined submission's output differs")
+            for tid in ids:
+                chan.call("ytpu.DaemonService", "FreeTask",
+                          dmn.FreeDaemonTaskRequest(token=token,
+                                                    task_id=tid),
+                          dmn.FreeDaemonTaskResponse, timeout=10.0)
+        finally:
+            with self.lock:
+                self.held[loc] -= 1
+            sched.call("ytpu.SchedulerService", "FreeTask",
+                       sch.FreeTaskRequest(token="utok",
+                                           task_grant_ids=[gid]),
+                       sch.FreeTaskResponse, timeout=10.0)
+        with self.lock:
+            self.stages["grant"].append(t_grant - t0)
+            self.stages["queue"].append(t_queued - tq)
+            self.stages["output"].append(t_done - t_queued)
+
+
+class ServantMonitor:
+    """Each servant's last heartbeat (its capacity, load and running
+    count, from its /inspect/vars), printed once a second; no report may
+    run more than its capacity."""
+
+    def __init__(self, iports: dict):
+        self.iports = iports
+        self.stop = threading.Event()
+        self.max_running = {name: 0 for name in iports}
+        self.violations: list = []
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+
+    def read(self) -> dict:
+        out = {}
+        for name, iport in self.iports.items():
+            s = inspect_vars(iport)["yadcc"]["daemon"]["servant"]
+            out[name] = dict(s["last_heartbeat"], beats=s["heartbeats"],
+                             engine_running=s["engine"]["running"])
+        return out
+
+    def _loop(self) -> None:
+        t0 = time.perf_counter()
+        while not self.stop.wait(1.0):
+            try:
+                now = self.read()
+            except OSError as e:
+                self.violations.append(f"servant inspect failed: {e!r}")
+                return
+            for name, b in now.items():
+                self.max_running[name] = max(self.max_running[name],
+                                             b.get("running", 0))
+                if b.get("running", 0) > b.get("capacity", 0):
+                    self.violations.append(f"{name} reported {b}")
+            log("  phase 15 t={:.0f}s: {}".format(
+                time.perf_counter() - t0, "; ".join(
+                    f"{name} capacity {b.get('capacity')} load "
+                    f"{b.get('current_load')} running {b.get('running')}"
+                    for name, b in now.items())))
+
+
+def run_servant_path(report: list) -> dict:
+    """Phase 15: two port servant entries (threaded and aio) under the
+    port's scheduler on the card, a build of 256 TUs with the host's g++
+    driven by 32 delegate threads, the outputs held against local
+    compiles and the port's cache server (see the module docstring)."""
+    import shutil
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.common import compress
+    from yadcc_tpu_torch.common.hashing import digest_bytes, digest_file
+    from yadcc_tpu_torch.daemon import cache_format
+    from yadcc_tpu_torch.daemon.cloud.cxx_task import (
+        _PADDED_WORKSPACE_LEN, find_patch_locations)
+    from yadcc_tpu_torch.rpc import Channel, RpcError
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    t_phase = time.perf_counter()
+    gxx = shutil.which("g++")
+    check(gxx is not None, "phase 15 needs the host's g++")
+    gxx_real = os.path.realpath(gxx)
+    gxx_digest = digest_file(gxx_real)
+    nprocs = os.cpu_count() or 1
+    st = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+    shm = st.f_frsize * st.f_blocks if st else 0
+    shutil.rmtree(SERVANT_DIR, ignore_errors=True)
+    SERVANT_DIR.mkdir(parents=True)
+    temp_dirs = {"threaded": None, "aio": None}
+    if shm < SERVANT_SHM_MIN:
+        temp_dirs = {n: SERVANT_DIR / f"tmp-{n}" for n in temp_dirs}
+    report.append(
+        f"  host: nprocs {nprocs} ({'--allow-poor-machine' if nprocs <= 16 else 'not poor'}), "
+        f"/dev/shm {shm / 2**20:,.0f} MiB -> workspaces in "
+        f"{'/dev/shm' if temp_dirs['aio'] is None else 'the run dir (/dev/shm under 1 GiB): --temporary-dir ' + str(SERVANT_DIR)}; "
+        f"g++ {gxx} -> {gxx_real}, digest {gxx_digest[:16]}")
+    t0 = time.perf_counter()
+    pre, stubbed = servant_sources(gxx)
+    tus = servant_tus()
+    report.append(f"  {SERVANT_TUS} TUs over {len(pre)} sources "
+                  f"({', '.join(f'{k} {len(v):,} B' for k, v in pre.items())}"
+                  f" preprocessed in {time.perf_counter() - t0:.1f} s"
+                  f"{'; no zstd.h on this host: ZSTD_STUB declared its API' if stubbed else ''}), "
+                  f"flags {SERVANT_FLAGS}, {SERVANT_JOINED} joined, "
+                  f"{SERVANT_ERRORS} with #error")
+
+    fleet = Fleet(seed=6)
+    sport, siport = free_port(), free_port()
+    cport, ciport = free_port(), free_port()
+    ports = {n: (free_port(), free_port()) for n in ("threaded", "aio")}
+    locs = {n: f"127.0.0.1:{p}" for n, (p, _) in ports.items()}
+    procs = {}
+    stop = threading.Event()
+    threads: list = []
+    monitor = ServantMonitor({n: ip for n, (_, ip) in ports.items()})
+    try:
+        procs["scheduler"] = start_entry("servant", sport, siport, [])
+        sched = Channel(f"grpc://127.0.0.1:{sport}")
+        boot_s = wait_ready("servant", procs["scheduler"], sched)
+        # The first synthetic servant registers alone: slot 0 is what a
+        # loopback delegate's address resolves to (self-avoidance), so
+        # the real servants stay eligible.
+        def beat_all(chan, servants):
+            for s in servants:
+                chan.call(SERVICE_NAME, "Heartbeat", fleet.heartbeat(api, s),
+                          api.scheduler.HeartbeatResponse, timeout=10.0)
+
+        beat_all(sched, fleet.servants[:1])
+        regs = [threading.Thread(target=beat_all, args=(Channel(
+            f"grpc://127.0.0.1:{sport}"), fleet.servants[1 + i::8]))
+            for i in range(8)]
+        for t in regs:
+            t.start()
+        for t in regs:
+            t.join()
+
+        def rebeat():
+            chan = Channel(f"grpc://127.0.0.1:{sport}")
+            while not stop.wait(HB_REPEAT_S):
+                beat_all(chan, fleet.servants)
+
+        threads.append(threading.Thread(target=rebeat, daemon=True))
+        threads[-1].start()
+
+        cache_dir = SERVANT_DIR / "cache-l2"
+        procs["cache"] = start_cache_entry(
+            "servant", cport, ciport, ["--cache-engine", "disk",
+                                       "--cache-dirs", str(cache_dir)])
+        cache_uri = f"grpc://127.0.0.1:{cport}"
+        wait_cache_ready("servant", procs["cache"], cache_uri)
+        t0 = time.perf_counter()
+        for n, (p, ip) in ports.items():
+            procs[n] = start_servant(n, n, p, ip, sport, cport,
+                                     os.path.dirname(gxx), temp_dirs[n],
+                                     nprocs)
+        deadline = time.monotonic() + 120
+        while True:
+            for n in ports:
+                check(procs[n].poll() is None,
+                      f"servant {n} exited at boot (rc {procs[n].returncode})")
+            td = inspect_vars(siport)["yadcc"]["task_dispatcher"]
+            reg = {loc: td["servants"].get(loc) for loc in locs.values()}
+            if all(reg.values()):
+                try:
+                    beats = monitor.read()
+                except (OSError, KeyError):
+                    beats = {}   # an inspect server not serving yet
+                if (len(beats) == 2
+                        and all(b.get("capacity") for b in beats.values())):
+                    break
+            check(time.monotonic() < deadline,
+                  f"the servants did not register: {reg}")
+            time.sleep(0.2)
+        servant_boot_s = time.perf_counter() - t0
+        check(len(td["servants"]) == N_SERVANTS + 2,
+              f"{len(td['servants'])} servants registered")
+        want_cap = max(1, int(nprocs * 0.40))
+        capacity = {}
+        for n, b in beats.items():
+            check(b["capacity"] == want_cap,
+                  f"servant {n} reports capacity {b['capacity']}, not "
+                  f"int(0.40 x {nprocs})")
+            capacity[locs[n]] = b["capacity"]
+        for n in ports:
+            comp = inspect_vars(ports[n][1])["yadcc"]["daemon"]["servant"]
+            check(gxx_digest in comp["compilers"],
+                  f"servant {n} does not advertise the host g++")
+
+        # Each object against a local compile, run as cxx_task.prepare
+        # runs it; a -g object in the servant's own workspace path (read
+        # back at its first patch location: GCC orders debug strings by
+        # their hashes, so another directory of that length can permute
+        # them), then both patched to one client directory.
+        local_root = SERVANT_DIR / "local"
+        local_root.mkdir()
+        client_dir = b"/home/user/build/project"
+
+        def local(tu) -> float:
+            r = tu.result
+            obj = compress.decompress(r["files"][".o"])
+            patches = r["patches"].get(".o", [])
+            if patches:
+                pos, total, suffix = patches[0]
+                wdir = pathlib.Path(obj[pos:pos + total - len(suffix)]
+                                    .decode())
+                check(len(str(wdir)) == _PADDED_WORKSPACE_LEN,
+                      f"TU {tu.i}: workspace {wdir}")
+            else:
+                wdir = local_root / str(tu.i)
+            wdir.mkdir()
+            try:
+                (wdir / "src.ii").write_bytes(tu.source(pre))
+                t = time.perf_counter()
+                out = subprocess.run(
+                    f"{gxx} -x c++-cpp-output {tu.flags} -c -o "
+                    f"{wdir}/output.o {wdir}/src.ii", shell=True, cwd=wdir,
+                    capture_output=True, timeout=300)
+                s = time.perf_counter() - t
+                check(out.returncode == 0, f"TU {tu.i}: local compile "
+                                           f"failed")
+                mine = (wdir / "output.o").read_bytes()
+            finally:
+                shutil.rmtree(wdir, ignore_errors=True)
+            check(mine == obj, f"TU {tu.i} ({tu.flags}): the servant's "
+                               f"object differs from a local compile")
+            if patches:
+                check(find_patch_locations(mine, str(wdir).encode())
+                      == patches, f"TU {tu.i}: patch locations differ")
+                check(patch_regions(obj, patches, client_dir)
+                      == patch_regions(mine, patches, client_dir),
+                      f"TU {tu.i}: patched objects differ")
+            return s
+
+        state = inspect_vars(siport)["yadcc"]
+        before = {k: v["launches"] for k, v in state["kernels"].items()}
+        check(not any(before.values()),
+              f"launch counts {before} before the drive")
+        hb_before = state["scheduler_rpc"].get("Heartbeat:handler",
+                                               {}).get("count", 0)
+        monitor.thread.start()
+        drive = ServantDrive(sport, gxx_digest, {
+            locs["threaded"]: "grpc", locs["aio"]: "aio"}, capacity, pre)
+        t_drive = time.perf_counter()
+        seconds = drive.run(tus)
+        state = inspect_vars(siport)["yadcc"]
+        hb_after = state["scheduler_rpc"]["Heartbeat:handler"]["count"]
+        launches = {k: v["launches"] - before[k]
+                    for k, v in state["kernels"].items()}
+        monitor.stop.set()
+        monitor.thread.join(timeout=10)
+        check(not drive.errors, f"servant drive: {drive.errors[:3]}")
+        check(not drive.violations, f"servant drive: {drive.violations[:5]}")
+        check(not monitor.violations,
+              f"servant reports: {monitor.violations[:5]}")
+        check(launches["grouped_assign"] > 0,
+              "phase 15: K1 never launched over the drive")
+        check(drive.keepalives > 0, "no compile outlived half its lease: "
+                                    "KeepTaskAlive never ran")
+        td = state["task_dispatcher"]
+        check(td["failure"] is None, f"dispatcher failed: {td['failure']}")
+        check(td["grants_outstanding"] == 0,
+              f"{td['grants_outstanding']} grants outstanding after the "
+              f"drive")
+        for n in ports:
+            check(monitor.max_running[n] > 0,
+                  f"servant {n}'s heartbeats never reported a running task")
+        deadline = time.monotonic() + 10
+        while True:
+            beats = monitor.read()
+            if all(b["running"] == 0 and b["engine_running"] == 0
+                   for b in beats.values()):
+                break
+            check(time.monotonic() < deadline,
+                  f"servants still report running tasks: {beats}")
+            time.sleep(0.2)
+
+        # Each result against the TU: errors fail with the text, joined
+        # submissions share the first one's task id.
+        ok = [tu for tu in tus if not tu.error]
+        for tu in tus:
+            r = tu.result
+            check(r is not None, f"TU {tu.i} has no result")
+            if tu.error:
+                check(r["exit_code"] != 0 and b"#error smoke" in r["stderr"],
+                      f"TU {tu.i}: #error compiled: {r['exit_code']}")
+            else:
+                check(r["exit_code"] == 0,
+                      f"TU {tu.i} failed: {r['stderr'][-500:]}")
+                check(set(r["files"]) == {".o"}, f"TU {tu.i}: files "
+                                                 f"{sorted(r['files'])}")
+                has_g = "-g" in tu.flags.split()
+                check(bool(r["patches"].get(".o")) == has_g,
+                      f"TU {tu.i} ({tu.flags}): patches {r['patches']}")
+            if tu.joined:
+                check(len(set(r["task_ids"])) == 1,
+                      f"TU {tu.i}: joined ids {r['task_ids']}")
+
+        # The cache: every successful TU filled once, read back under
+        # its key; no error TU filled.
+        deadline = time.monotonic() + 60
+        while True:
+            fills = inspect_vars(ciport)["yadcc"]["cache"]["fills"]
+            if fills >= len(ok):
+                break
+            check(time.monotonic() < deadline,
+                  f"the cache took {fills} fills of {len(ok)}")
+            time.sleep(0.2)
+        check(fills == len(ok), f"{fills} fills for {len(ok)} TUs")
+        cache = Channel(cache_uri)
+        for tu in tus:
+            key = cache_format.get_cache_key(
+                gxx_digest, tu.flags, digest_bytes(tu.source(pre)))
+            try:
+                _, value = cache.call(
+                    "ytpu.CacheService", "TryGetEntry",
+                    api.cache.TryGetEntryRequest(token="utok", key=key),
+                    api.cache.TryGetEntryResponse, timeout=10.0)
+            except RpcError as e:
+                check(tu.error and e.status ==
+                      api.cache.CACHE_STATUS_NOT_FOUND,
+                      f"TU {tu.i}: TryGetEntry {e}")
+                continue
+            check(not tu.error, f"TU {tu.i} (#error) has a cache entry")
+            entry = cache_format.try_parse_cache_entry(value)
+            check(entry is not None, f"TU {tu.i}: the entry does not parse")
+            r = tu.result
+            check({k: bytes(v) for k, v in entry.files.items()}
+                  == r["files"] and entry.patches == r["patches"]
+                  and (entry.exit_code, entry.standard_output,
+                       entry.standard_error)
+                  == (0, r["stdout"], r["stderr"]),
+                  f"TU {tu.i}: the cache entry differs from the output")
+        cache.close()
+
+        # The servants' RSS and maps: no torch in either.
+        rss = {}
+        for n in ports:
+            with open(f"/proc/{procs[n].pid}/maps") as f:
+                maps = f.read()
+            check("libtorch" not in maps, f"servant {n} mapped libtorch")
+            rss[n] = proc_status(procs[n].pid)["VmRSS"]
+        engines = {n: inspect_vars(ports[n][1])["yadcc"]["daemon"]["engine"]
+                   for n in ports}
+        front = inspect_vars(ports["aio"][1])["yadcc"]["daemon"][
+            "servant_rpc"]
+        check(front["double_replies"] == 0,
+              f"aio servant: {front['double_replies']} double replies")
+        for n in ("aio", "threaded"):
+            procs[n].terminate()
+            check(procs[n].wait(timeout=30) == 0,
+                  f"servant {n} exited {procs[n].returncode} on SIGTERM")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(nprocs) as ex:
+            local_s = list(ex.map(local, ok))
+        local_wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        monitor.stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        for n in ("aio", "threaded", "cache", "scheduler"):
+            if n in procs:
+                stop_entry(procs[n])
+        shutil.rmtree(SERVANT_DIR, ignore_errors=True)
+
+    by_flags = collections.Counter(tu.flags for tu in ok)
+    res = {
+        "tus": SERVANT_TUS, "seconds": seconds,
+        "compiles_per_s": SERVANT_TUS / seconds,
+        "grant_ms": percentiles_ms(drive.stages["grant"]),
+        "queue_ms": percentiles_ms(drive.stages["queue"]),
+        "output_wait_ms": percentiles_ms(drive.stages["output"]),
+        "compile_ms": {n: e["run_ms"] for n, e in engines.items()},
+        "local_compile_ms": percentiles_ms(local_s),
+        "heartbeats_per_s": (hb_after - hb_before) / seconds,
+        "cache_fills": fills, "rss_kb": rss, "keepalives": drive.keepalives,
+        "granted": {n: drive.granted[locs[n]] for n in ports},
+        "capacity": want_cap, "nprocs": nprocs,
+        "max_running": monitor.max_running, "launches": launches,
+        "boot_s": boot_s, "servant_boot_s": servant_boot_s,
+        "local_wall_s": local_wall,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    report.append(
+        f"  drive: {SERVANT_TUS} TUs ({len(ok)} ok: {dict(by_flags)}) in "
+        f"{seconds:.2f} s = {res['compiles_per_s']:.2f} compiles/s, "
+        f"{SERVANT_DELEGATES} delegates; granted {res['granted']} (capacity {want_cap} each, "
+        f"the most running {monitor.max_running}); {drive.keepalives} "
+        f"KeepTaskAlive; every grant on a real servant, none over "
+        f"capacity, none outstanding")
+    def pq(d):
+        return f"{d['p50']:.2f} / {d['p99']:.2f}"
+
+    report.append(
+        f"  per TU p50 / p99 ms: grant wait {pq(res['grant_ms'])}, queue "
+        f"{pq(res['queue_ms'])}, output wait {pq(res['output_wait_ms'])}"
+        f"; compile (the engine's run time) " + ", ".join(
+            f"{n} {pq(c)} ({c['count']} tasks)"
+            for n, c in res["compile_ms"].items())
+        + f"; the same compiles locally, {nprocs} at once: "
+          f"{pq(res['local_compile_ms'])}")
+    report.append(
+        f"  scheduler took {res['heartbeats_per_s']:.1f} heartbeats/s "
+        f"({N_SERVANTS:,} synthetic servants every {HB_REPEAT_S:.0f} s + 2 "
+        f"real every 1 s); cache fills {fills} (every ok TU's entry read back "
+        f"and parsed to the servant's files; no #error TU filled); K1 "
+        f"launches {launches}; servants' RSS kB {rss} (no libtorch "
+        f"mapped); aio servant double replies 0")
+    report.append(
+        f"  every object byte-equal to a local compile ({nprocs} at once "
+        f"after the drive: {local_wall:.1f} s), every -g object also after "
+        f"the patch; boot: "
+        f"scheduler {boot_s:.1f} s, servants {servant_boot_s:.1f} s; "
+        f"phase {res['phase_s']:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -5334,6 +6118,15 @@ def main() -> int:
     cache = run_cache_path(report)
     log(f"phase 14 the cache server and its reader on the card "
         f"({time.perf_counter() - t14:.1f} s; {card}):")
+    for line in report:
+        log(line)
+
+    report = []
+    t15 = time.perf_counter()
+    servant = run_servant_path(report)
+    phases["servant"] = {"launches": servant["launches"]}
+    log(f"phase 15 the servant half of the daemon "
+        f"({time.perf_counter() - t15:.1f} s; {card}):")
     for line in report:
         log(line)
 

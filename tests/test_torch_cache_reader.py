@@ -19,6 +19,7 @@ import signal
 import socket
 import subprocess
 import sys
+import textwrap
 import threading
 import time
 import types
@@ -41,9 +42,11 @@ from yadcc_tpu.cache.object_store_engine import (
 from yadcc_tpu.common.disk_cache import ShardSpec as JShard
 from yadcc_tpu.common.token_verifier import TokenVerifier as JTokens
 from yadcc_tpu.utils.clock import VirtualClock as JClock
+import yadcc_tpu_torch.cache.bloom_filter_generator as tgen
 import yadcc_tpu_torch.cache.service as tsvc
 import yadcc_tpu_torch.daemon.cloud.distributed_cache_writer as twriter
 import yadcc_tpu_torch.daemon.local.distributed_cache_reader as treader
+import yadcc_tpu_torch.ops.bloom_pipeline as tpipe
 import yadcc_tpu_torch.rpc as trpc
 from yadcc_tpu_torch.cache import entry as tentry
 from yadcc_tpu_torch.cache.disk_engine import DiskCacheEngine as TDisk
@@ -230,8 +233,10 @@ def test_membership_path_taken_on_geometry_mismatch_or_cascade_off(
         synced, monkeypatch):
     srv, keys, readers = synced
     calls = {"cascade": 0, "membership": 0}
-    real_cascade = treader.DeviceBloomCascade.may_contain_batch
-    real_member = treader.bloom_membership_batch
+    # The reader imports the card classes at its first batch, so they
+    # are patched where they live.
+    real_cascade = tgen.DeviceBloomCascade.may_contain_batch
+    real_member = tpipe.bloom_membership_batch
 
     def cascade(self, *a, **kw):
         calls["cascade"] += 1
@@ -241,9 +246,9 @@ def test_membership_path_taken_on_geometry_mismatch_or_cascade_off(
         calls["membership"] += 1
         return real_member(*a, **kw)
 
-    monkeypatch.setattr(treader.DeviceBloomCascade, "may_contain_batch",
+    monkeypatch.setattr(tgen.DeviceBloomCascade, "may_contain_batch",
                         cascade)
-    monkeypatch.setattr(treader, "bloom_membership_batch", member)
+    monkeypatch.setattr(tpipe, "bloom_membership_batch", member)
     batch = keys[100:300]
     region = readers["cascade"]._filter
     fleet = readers["cascade"]._fleet_filter
@@ -273,10 +278,61 @@ def test_before_the_first_sync_every_key_may_be_held():
 
 
 def test_reader_defaults_to_the_card_and_raises_without_one():
+    """The batch runs on the card by default: without one the first
+    batch_may_contain raises (construction does not: try_read and the
+    syncs need no card)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    reader = treader.DistributedCacheReader("grpc://127.0.0.1:1", "user")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        treader.DistributedCacheReader("grpc://127.0.0.1:1", "user")
+        reader.batch_may_contain(["k"])
+
+
+def test_reader_constructs_syncs_and_reads_without_torch(tmp_path):
+    """A daemon that checks the cache one key at a time needs no torch:
+    with torch blocked, the port's reader constructs, full-syncs from a
+    port cache server, try_reads a hit and a Bloom-rejected miss, and
+    only its first batch raises."""
+    script = textwrap.dedent(r"""
+        import sys
+        sys.modules["torch"] = None
+        from yadcc_tpu_torch import rpc
+        from yadcc_tpu_torch.cache.disk_engine import DiskCacheEngine
+        from yadcc_tpu_torch.cache.in_memory_cache import InMemoryCache
+        from yadcc_tpu_torch.cache.service import CacheService
+        from yadcc_tpu_torch.common.disk_cache import ShardSpec
+        from yadcc_tpu_torch.common.token_verifier import TokenVerifier
+        from yadcc_tpu_torch.daemon.cloud.distributed_cache_writer import             DistributedCacheWriter
+        from yadcc_tpu_torch.daemon.local.distributed_cache_reader import             DistributedCacheReader
+
+        svc = CacheService(InMemoryCache(1 << 20),
+                           DiskCacheEngine([ShardSpec(TMP, 1 << 24)]),
+                           user_tokens=TokenVerifier({"user"}),
+                           servant_tokens=TokenVerifier({"servant"}))
+        rpc.register_mock_server("cache", svc.spec())
+        writer = DistributedCacheWriter("mock://cache", lambda: "servant")
+        writer._write("ytpu-cxx2-entry-" + "a" * 64, b"value")
+        reader = DistributedCacheReader("mock://cache", "user")
+        reader.sync_once()
+        assert reader.inspect()["synced"]
+        assert reader.try_read("ytpu-cxx2-entry-" + "a" * 64) == b"value"
+        assert reader.try_read("ytpu-cxx2-entry-" + "b" * 64) is None
+        assert reader.inspect()["bloom_rejects"] == 1
+        try:
+            reader.batch_may_contain(["k"])
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("a batch ran without torch")
+        svc.stop()
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c",
+         f"TMP = {str(tmp_path)!r}\n" + script],
+        cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def _free_port() -> int:

@@ -45,6 +45,16 @@ _CACHE_MODULES = (
     "cache.service", "cache.entry", "daemon", "daemon.local", "daemon.cloud",
     "daemon.cloud.distributed_cache_writer",
     "daemon.local.distributed_cache_reader")
+# The servant half of the daemon and its entry, each imported by name.
+_SERVANT_MODULES = (
+    "api.gen.daemon_pb2", "api.gen.extra_info_pb2", "api.gen.patch_pb2",
+    "version", "common.limits", "common.multi_chunk", "common.fsutil",
+    "common.cacheability", "daemon.task_digest", "daemon.cache_format",
+    "daemon.packing", "daemon.config", "daemon.sysinfo", "daemon.temp_dir",
+    "daemon.privilege", "daemon.cloud.execute_command",
+    "daemon.cloud.temporary", "daemon.cloud.compiler_registry",
+    "daemon.cloud.execution_engine", "daemon.cloud.cxx_task",
+    "daemon.cloud.daemon_service", "daemon.entry")
 
 
 def _port_sources():
@@ -90,7 +100,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
-                for m in BLOOM + SHARD + REPL + AIO + CACHE):
+                for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
@@ -114,7 +124,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"SHARD = {_SHARD_MODULES!r}\n"
               f"REPL = {_REPLICATION_MODULES!r}\n"
               f"AIO = {_AIO_MODULES!r}\n"
-              f"CACHE = {_CACHE_MODULES!r}\n" + script)
+              f"CACHE = {_CACHE_MODULES!r}\n"
+              f"SERVANT = {_SERVANT_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -130,6 +141,50 @@ def test_cache_entry_loads_no_torch():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_daemon_entry_loads_no_torch():
+    """The servant runs nothing on the card: its entry's --help and every
+    module of the servant half run with torch and jax blocked, and the
+    reader constructs without either."""
+    script = textwrap.dedent(r"""
+        import importlib, runpy, sys
+        for name in ("torch", "jax", "jaxlib"):
+            sys.modules[name] = None
+        for m in SERVANT:
+            importlib.import_module("yadcc_tpu_torch." + m)
+        from yadcc_tpu_torch.daemon.local.distributed_cache_reader import \
+            DistributedCacheReader
+        DistributedCacheReader("grpc://127.0.0.1:1", "user")
+        sys.argv = ["yadcc_tpu_torch.daemon.entry", "--help"]
+        try:
+            runpy.run_module("yadcc_tpu_torch.daemon.entry",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert not any(n.startswith(("torch.", "yadcc_tpu."))
+                       for n in sys.modules), "torch or the JAX package"
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", f"SERVANT = {_SERVANT_MODULES!r}\n" + script],
+        cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "--scheduler-uri" in out.stdout
+    assert "--local-port" not in out.stdout
+    # As a program: `python -m yadcc_tpu_torch.daemon.entry --help`,
+    # with every import it makes listed by -X importtime.
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "yadcc_tpu_torch.daemon.entry", "--help"],
+        cwd=REPO, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--rpc-frontend" in out.stdout
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in out.stderr.splitlines()
+                if line.startswith("import time:")}
+    assert "yadcc_tpu_torch.daemon.cloud.daemon_service" in imported
+    assert not {n for n in imported
+                if n.split(".")[0] in ("torch", "jax", "yadcc_tpu")}
 
 
 def test_resolve_device_refuses_missing_card():

@@ -1,14 +1,18 @@
-"""Wire contract of the scheduler and the cache server: protobuf messages
-+ service names.
+"""Wire contract of the scheduler, the cache server and the servant:
+protobuf messages + service names.
 
 The generated modules under ``gen/`` are byte-identical copies of the
 ones the JAX package ships, so both packages speak the same wire format
 (and can load into one process: the descriptors land in one pool)."""
 
 from .gen import cache_pb2 as cache
+from .gen import daemon_pb2 as daemon
 from .gen import env_desc_pb2 as env_desc
+from .gen import extra_info_pb2 as extra_info
+from .gen import patch_pb2 as patch
 from .gen import scheduler_pb2 as scheduler
 
 EnvironmentDesc = env_desc.EnvironmentDesc
 
-__all__ = ["cache", "env_desc", "scheduler", "EnvironmentDesc"]
+__all__ = ["cache", "daemon", "env_desc", "extra_info", "patch",
+           "scheduler", "EnvironmentDesc"]

@@ -1,13 +1,16 @@
 """zlib-framed stand-in for the zstd helpers on hosts without the
 `zstandard` wheel (a copy of the JAX package's
-yadcc_tpu/common/_zlib_frames.py, trimmed to the one-shot frame the cache
-protocol uses; see common/compress.py for the gating story).
+yadcc_tpu/common/_zlib_frames.py, trimmed to what the cache protocol and
+the servant's source intake use; see common/compress.py for the gating
+story).
 
 A one-shot frame is ``YZF1`` + u64le declared size + zlib stream:
 frame_content_size reads the declared size, like a zstd frame header with
 the content size set, so the size-cap check in compress.decompress keeps
 working.  A ``YZFS`` (streaming) frame of the JAX package decodes here
-too.  Pure stdlib; never imported when the real wheel is present.
+too, one-shot or fed in pieces (``AnyFrameDecompressor``, the engine
+under compress.DecompressingDigestReader on a host without the wheel).
+Pure stdlib; never imported when the real wheel is present.
 """
 
 from __future__ import annotations
@@ -53,3 +56,47 @@ def decompress(data: bytes, max_output_size: int) -> bytes:
     if declared >= 0 and len(out) != declared:
         raise Error("declared size mismatch")
     return out
+
+
+class AnyFrameDecompressor:
+    """Streaming twin of :func:`decompress`: accepts EITHER frame kind
+    (one-shot ``YZF1`` or streaming ``YZFS``) fed in arbitrary chunk
+    sizes — the engine under compress.DecompressingDigestReader when the
+    zstd wheel is absent.  Error semantics match the one-shot path:
+    truncation and declared-size mismatch raise :class:`Error`; trailing
+    bytes after the stream end are ignored (zlib routes them to
+    ``unused_data``), exactly as ``decompress`` accepts them."""
+
+    def __init__(self):
+        self._obj = zlib.decompressobj()
+        self._head = b""
+        self._declared = None  # None until the magic is seen; -1 = stream
+        self._out = 0
+
+    def decompress(self, chunk) -> bytes:
+        if self._declared is None:
+            self._head += bytes(chunk)
+            if len(self._head) < 4:
+                return b""
+            if self._head[:4] == _STREAM_MAGIC:
+                self._declared = -1
+                chunk, self._head = self._head[4:], b""
+            elif self._head[:4] == _ONE_SHOT_MAGIC:
+                if len(self._head) < 12:
+                    return b""
+                self._declared = int.from_bytes(self._head[4:12], "little")
+                chunk, self._head = self._head[12:], b""
+            else:
+                raise Error("not a framed payload")
+        try:
+            out = self._obj.decompress(chunk)
+        except zlib.error as e:
+            raise Error(str(e)) from None
+        self._out += len(out)
+        return out
+
+    def verify_eof(self) -> None:
+        if self._declared is None or not self._obj.eof:
+            raise Error("truncated stream")
+        if self._declared >= 0 and self._out != self._declared:
+            raise Error("declared size mismatch")

@@ -1,6 +1,8 @@
-"""One-shot zstd helpers (a copy of the JAX package's
-yadcc_tpu/common/compress.py, trimmed to what the cache protocol uses: the
-full Bloom filter travels as ``compress(u32 salt + words)``).
+"""zstd helpers (a copy of the JAX package's yadcc_tpu/common/compress.py,
+trimmed to what the port uses: the one-shot calls, with which the full
+Bloom filter travels as ``compress(u32 salt + words)`` and a servant
+compresses its outputs, and the fused streaming decompress-and-digest of
+a servant's source intake).
 
 When the `zstandard` wheel is absent (minimal containers), a stdlib
 zlib stand-in keeps the same API: framed one-shot payloads carry a
@@ -13,13 +15,15 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 try:
     import zstandard
 except ImportError:  # gated: minimal containers ship no zstd wheel
     zstandard = None
     from . import _zlib_frames as _fallback
+
+from .hashing import new_digest
 
 # The reference tunes for throughput, not ratio (level 3).
 _LEVEL = 3
@@ -98,3 +102,70 @@ def try_decompress(data: bytes) -> Optional[bytes]:
         # Corruption — including allocation-level failures — must read
         # as a miss, never take down the serving thread.
         return None
+
+
+class DecompressingDigestReader:
+    """Fused streaming decompress ⊕ BLAKE2b-256 — one pass over the
+    bytes instead of decompress-everything-then-rescan-to-digest.
+
+    The servant-side mirror of the client's compress⊕digest tee (the
+    JAX package's CompressingWriter + hashing.DigestingWriter): feed
+    compressed chunks with :meth:`feed`, each decompressed piece is digested as it
+    appears; :meth:`finish` verifies stream completeness.  The output
+    cap binds on *produced* bytes, so a hostile frame aborts mid-stream
+    instead of after a giant allocation.  All failures raise
+    :data:`CompressionError`; callers discard any partial output.
+    """
+
+    def __init__(self, max_output_size: int = _MAX_DECOMPRESSED):
+        self._h = new_digest()
+        self._cap = max_output_size
+        self.bytes_out = 0
+        self._obj = (_fallback.AnyFrameDecompressor() if zstandard is None
+                     else zstandard.ZstdDecompressor().decompressobj())
+
+    def feed(self, chunk) -> bytes:  # ytpu: sanitizes(size-cap)
+        out = self._obj.decompress(chunk)
+        self.bytes_out += len(out)
+        if self.bytes_out > self._cap:
+            raise CompressionError(f"output exceeds cap {self._cap}")
+        if out:
+            self._h.update(out)
+        return out
+
+    def finish(self) -> None:
+        if zstandard is None:
+            self._obj.verify_eof()
+        elif not getattr(self._obj, "eof", True):
+            raise CompressionError("truncated stream")
+
+    def hexdigest(self) -> str:
+        return self._h.hexdigest()
+
+
+def decompress_and_digest(
+    data,
+    max_output_size: int = _MAX_DECOMPRESSED,
+    chunk_size: int = 1 << 20,
+) -> Tuple[bytes, str]:  # ytpu: sanitizes(size-cap, digest)
+    """Single-pass (decompressed bytes, hex digest) of a complete frame.
+
+    Error contract matches :func:`decompress` — corruption, truncation,
+    a hostile declared size, or cap overflow raise
+    :data:`CompressionError`; no partial output escapes."""
+    mv = memoryview(data)
+    # Same fail-fast declared-size check as decompress(): a tiny frame
+    # declaring terabytes is refused before any work.
+    declared = (_fallback.frame_content_size(mv) if zstandard is None
+                else zstandard.frame_content_size(data))
+    if declared > max_output_size:
+        raise CompressionError(
+            f"declared content size {declared} exceeds cap")
+    reader = DecompressingDigestReader(max_output_size)
+    pieces = []
+    for off in range(0, len(mv), chunk_size):
+        out = reader.feed(mv[off:off + chunk_size])
+        if out:
+            pieces.append(out)
+    reader.finish()
+    return b"".join(pieces), reader.hexdigest()

@@ -5,12 +5,16 @@ BLAKE2b-256 from the standard library's hashlib; the hex digests are
 opaque strings to every protocol.  Tenant credentials and cache secrets
 are keyed digests (tenancy/identity.py, tenancy/keys.py); the disk cache
 names its files by ``digest_bytes`` of the key (common/disk_cache.py), so
-a directory either package filled reads back through the other.
+a directory either package filled reads back through the other.  The
+servant's compiler registry names each compiler by ``digest_file``, so a
+delegate of either package asks for the same environment.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+from typing import BinaryIO
 
 _DIGEST_SIZE = 32
 
@@ -35,3 +39,18 @@ def digest_keyed(domain: str, *parts: bytes) -> str:
         h.update(len(p).to_bytes(8, "little"))
         h.update(p)
     return h.hexdigest()
+
+
+def digest_stream(fp: BinaryIO, chunk_size: int = 1 << 20) -> str:
+    h = new_digest()
+    while True:
+        chunk = fp.read(chunk_size)
+        if not chunk:
+            break
+        h.update(chunk)
+    return h.hexdigest()
+
+
+def digest_file(path: str | os.PathLike) -> str:
+    with open(path, "rb") as fp:
+        return digest_stream(fp)

@@ -24,8 +24,12 @@ worth the retry.  Servers without an L3 answer NOT_FOUND once and the
 reader permanently falls back to the single-filter path (the membership
 kernel).
 
-The reader runs on the card unless the caller passes device="cpu" (the
-kernels' plain versions); on the card a failed build or launch raises.
+The reader's batch runs on the card unless the caller passes device="cpu"
+(the kernels' plain versions); on the card a failed build or launch
+raises.  Only the batch touches the card: torch, the device and the card
+classes load at the first batch_may_contain, so a daemon that checks the
+cache one key at a time (try_read, as the reference's delegate does)
+constructs, syncs and reads without a card and without torch.
 Both word arrays are uploaded on every batch: an incremental sync ORs
 keys into the host filters in place, so a device copy kept between
 batches would answer "definitely not" for a key the host filter holds.
@@ -41,10 +45,7 @@ from typing import List, Optional
 import numpy as np
 
 from ... import api
-from ...cache.bloom_filter_generator import DeviceBloomCascade
 from ...common import bloom, compress
-from ...device import resolve_device
-from ...ops.bloom_pipeline import as_device_words, bloom_membership_batch
 from ...rpc import Channel, RpcError
 from ...rpc.transport import STATUS_METHOD_NOT_FOUND
 from ...utils.logging import get_logger
@@ -59,7 +60,10 @@ class DistributedCacheReader:
     def __init__(self, cache_server_uri: str, token: str,
                  use_device_cascade: bool = True, device: str = "cuda"):
         self._uri = cache_server_uri
-        self._device = resolve_device(device)
+        # Resolved at the first batch (_card), with the cascade.
+        self._device_name = device
+        self._device = None  # guarded by: self._lock
+        self._cascade = None  # guarded by: self._lock
         self._token = token
         self._use_device_cascade = use_device_cascade
         self._lock = threading.Lock()
@@ -84,7 +88,6 @@ class DistributedCacheReader:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._channel: Optional[Channel] = None  # guarded by: self._lock
-        self._cascade = DeviceBloomCascade(device=self._device)
         self.hits = 0  # guarded by: self._lock
         self.bloom_rejects = 0  # guarded by: self._lock
         self.misses = 0  # guarded by: self._lock
@@ -157,22 +160,41 @@ class DistributedCacheReader:
             flt = self._filter
             salt = self._salt
             fleet = self._fleet_filter
+        device, cascade = self._card()
         if flt is None or not keys:
             return np.ones(len(keys), bool)
         if (fleet is not None and self._use_device_cascade
                 and fleet.num_bits == flt.num_bits):
-            return self._cascade.may_contain_batch(flt, fleet, keys)
+            return cascade.may_contain_batch(flt, fleet, keys)
+        from ...ops.bloom_pipeline import (as_device_words,
+                                           bloom_membership_batch)
+
         verdict = bloom_membership_batch(
-            as_device_words(flt.words, self._device), keys, salt,
+            as_device_words(flt.words, device), keys, salt,
             num_bits=flt.num_bits, num_hashes=flt.num_hashes)
         if fleet is not None:
             # Geometry mismatch (or cascade disabled): two single-filter
             # launches, host OR — same verdicts, one extra launch.
             verdict = verdict | bloom_membership_batch(
-                as_device_words(fleet.words, self._device), keys,
+                as_device_words(fleet.words, device), keys,
                 fleet.salt, num_bits=fleet.num_bits,
                 num_hashes=fleet.num_hashes)
         return verdict
+
+    def _card(self):
+        """(device, cascade), resolved at the first batch: torch and the
+        card classes load here, and a reader without a card raises here
+        (device="cuda", the default), not at construction."""
+        with self._lock:
+            if self._device is None:
+                from ...cache.bloom_filter_generator import \
+                    DeviceBloomCascade
+                from ...device import resolve_device
+
+                device = resolve_device(self._device_name)
+                self._cascade = DeviceBloomCascade(device=device)
+                self._device = device
+            return self._device, self._cascade
 
     # -- sync ----------------------------------------------------------------
 
