@@ -356,6 +356,43 @@ def test_reply_path_never_blocks_on_a_slow_l3(tmp_path, pkg):
         rig.close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_reply_beside_a_held_bucket_get(tmp_path, pkg):
+    """chip_smoke.py phase 14's check that the reply path never waits on
+    the bucket, on both packages' services behind a real front end: the
+    key's object is a FIFO, so its promotion's GET blocks until the
+    check writes the object into it."""
+    from chip_smoke import reply_beside_a_held_get
+
+    rig = Rig(pkg, tmp_path, l3=True, tag="held")
+    rig.serve("threaded")
+    key = "ytpu-cxx2-entry-" + "ab" * 32
+    value = random.Random(SEED).randbytes(9000)
+    rig.svc.l3.put(key, value)
+
+    def read(k):
+        chan = trpc.Channel(rig.uri)
+        try:
+            return chan.call(SVC, "TryGetEntry",
+                             tapi.cache.TryGetEntryRequest(token="user",
+                                                           key=k),
+                             tapi.cache.TryGetEntryResponse,
+                             timeout=10.0)[1]
+        except trpc.RpcError:
+            return None
+        finally:
+            chan.close()
+
+    try:
+        out = reply_beside_a_held_get(rig.uri, tmp_path / "bucket", key,
+                                      value, read, token="user")
+        assert len(out["reply_ms"]) == 2
+        assert (tmp_path / "bucket").joinpath(key).is_file()
+        assert rig.svc.l3.try_get(key) == value
+    finally:
+        rig.close()
+
+
 def _shed(rig):
     rec = [rig.put("ytpu-cxx2-entry-shed"), rig.svc.drain_l3_for_testing(),
            rig.get("ytpu-cxx2-entry-shed"), rig.inspect()]

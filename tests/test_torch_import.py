@@ -48,7 +48,7 @@ _CACHE_MODULES = (
 # The servant half of the daemon and its entry, each imported by name.
 _SERVANT_MODULES = (
     "api.gen.daemon_pb2", "api.gen.extra_info_pb2", "api.gen.patch_pb2",
-    "version", "common.limits", "common.multi_chunk", "common.fsutil",
+    "version", "common.limits", "common.multi_chunk",
     "common.cacheability", "daemon.task_digest", "daemon.cache_format",
     "daemon.packing", "daemon.config", "daemon.sysinfo", "daemon.temp_dir",
     "daemon.privilege", "daemon.cloud.execute_command",

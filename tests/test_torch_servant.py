@@ -14,6 +14,7 @@ pool joined at teardown."""
 
 from __future__ import annotations
 
+import os
 import pathlib
 import shutil
 import subprocess
@@ -292,10 +293,33 @@ def test_refusals_equal(pair):
         assert not list(pathlib.Path(svc.config.temporary_dir).iterdir())
 
 
+def sleepers(tag: str, want: int) -> int:
+    """How many ``/bin/sleep 30 <tag>`` processes live once their count
+    reaches ``want`` or 10 s pass.  The tag makes the command this
+    test's own, so other tests' processes never count."""
+    argv = b"\0".join([b"/bin/sleep", b"30", tag.encode()]) + b"\0"
+    deadline = time.monotonic() + 10
+    while True:
+        n = 0
+        for cmdline in pathlib.Path("/proc").glob("[0-9]*/cmdline"):
+            try:
+                n += cmdline.read_bytes() == argv
+            except OSError:
+                pass   # a process that ended while we looked
+        if n == want or time.monotonic() > deadline:
+            return n
+        time.sleep(0.05)
+
+
 def test_heartbeats_equal_and_the_kill_list(pair):
-    status, slow = both_equal(pair.queue(b"int slow();",
-                                         "-Dslow; /bin/sleep 30 0;", grant_id=41))
+    # Each servant runs the slow command in its task's process group:
+    # the kill list, and later the engine's stop, must end those
+    # processes, not only forget the tasks.
+    killed, stopped = (f"0.{os.getpid()}{k}" for k in (1, 2))
+    status, slow = both_equal(pair.queue(
+        b"int slow();", f"-Dslow; /bin/sleep 30 {killed};", grant_id=41))
     assert status == 0
+    assert sleepers(killed, 2) == 2
     status, quick = both_equal(pair.queue(b"int quick();", "-O2",
                                           grant_id=42))
     assert both_equal(pair.wait(quick))[1] == 0
@@ -317,6 +341,7 @@ def test_heartbeats_equal_and_the_kill_list(pair):
     assert both_equal(pair.wait(slow)) == \
         ("status", D.COMPILATION_TASK_STATUS_NOT_FOUND)
     pair.sched_reply["tokens"] = ["tok2"]
+    assert sleepers(killed, 0) == 0
     for svc in pair.servants.values():
         assert svc.engine.running_tasks() == []
         svc.heartbeat_once()
@@ -329,6 +354,14 @@ def test_heartbeats_equal_and_the_kill_list(pair):
     assert both_equal(pair.wait(quick)) == \
         ("error", D.DAEMON_STATUS_ACCESS_DENIED)
     assert both_equal(pair.wait(quick, token="tok2"))[1] == 0
+    # Stopping an engine kills what it still runs.
+    assert both_equal(pair.queue(
+        b"int stop();", f"-Dstop; /bin/sleep 30 {stopped};", grant_id=43,
+        token="tok2"))[0] == 0
+    assert sleepers(stopped, 2) == 2
+    for svc in pair.servants.values():
+        svc.engine.stop()
+    assert sleepers(stopped, 0) == 0
 
 
 def _compile_through(delegate, compiler, src: bytes, cache_control: int):
@@ -661,3 +694,29 @@ def test_servant_entry_serves_a_compile_and_leaves_on_sigterm(tmp_path):
             proc.wait()
         proc.stderr.close()
         server.stop(grace=0)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--local-port", "8334"], ["--max-local-tasks", "4"],
+    ["--lightweight-ratio", "2"],
+    ["--debugging-always-use-servant-at", "127.0.0.1:8335"],
+    ["--scheduler-uri", "grpc://a:8336,grpc://b:8336"],
+    ["--scheduler-uri", "grpc://a:8336,grpc://b:8336;grpc://c:8336"],
+])
+def test_servant_entry_refuses_what_it_cannot_serve(argv, capsys):
+    """The delegate's flags, and a failover list the port has no channel
+    for, are refused rather than ignored."""
+    from yadcc_tpu_torch.daemon.entry import build_arg_parser
+
+    with pytest.raises(SystemExit) as e:
+        build_arg_parser().parse_args(argv)
+    assert e.value.code == 2
+    assert argv[0] in capsys.readouterr().err
+
+
+def test_servant_entry_takes_the_first_cell():
+    from yadcc_tpu_torch.daemon.entry import build_arg_parser
+
+    uri = "grpc://a:8336;grpc://b:8336,grpc://c:8336"
+    assert build_arg_parser().parse_args(
+        ["--scheduler-uri", uri]).scheduler_uri == uri

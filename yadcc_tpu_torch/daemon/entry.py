@@ -57,13 +57,25 @@ def _load_window(v: str) -> int:
     return n
 
 
+def _scheduler_uri(v: str) -> str:
+    # The reference hands a ','-list to a failover channel; the port
+    # has none yet, and heartbeats sent only to the first URI would
+    # keep going to a dead active after a standby takes over.
+    if "," in v.split(";")[0]:
+        raise argparse.ArgumentTypeError(
+            "a ','-separated failover list in --scheduler-uri needs the "
+            "failover channel, which this package does not have yet")
+    return v
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("yadcc-tpu-torch-daemon")
     p.add_argument("--scheduler-uri", default="grpc://127.0.0.1:8336",
+                   type=_scheduler_uri,
                    help="scheduler endpoint; of a ';'-separated list of "
                         "federation cells the servant belongs to the "
-                        "first, and of a ','-separated failover list it "
-                        "dials the first")
+                        "first (a ','-separated failover list is "
+                        "refused)")
     p.add_argument("--cache-server-uri", default="")
     p.add_argument("--token", default="",
                    help="the servant token: the scheduler and the cache "
@@ -105,9 +117,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _guess_local_ip(scheduler_uri: str) -> str:
-    # Multi-URI forms (cell groups ';', failover lists ','): route
-    # discovery only needs ONE reachable peer — use the first URI.
-    first = scheduler_uri.split(";")[0].split(",")[0].strip()
+    # Of ';'-separated cells, route discovery only needs ONE reachable
+    # peer: the first.
+    first = scheduler_uri.split(";")[0].strip()
     target = first.split("://")[-1]
     host, _, port = target.rpartition(":")
     try:
@@ -132,9 +144,8 @@ def daemon_start(args) -> None:
     if not args.no_privilege_drop:
         drop_privileges()
 
-    # A servant BELONGS to one cell, and the port has no failover
-    # channel yet: heartbeats dial the first URI of the first group.
-    cell_uri = args.scheduler_uri.split(";")[0].split(",")[0].strip()
+    # A servant BELONGS to one cell: heartbeats dial the first group.
+    cell_uri = args.scheduler_uri.split(";")[0].strip()
     config = DaemonConfig(
         scheduler_uri=cell_uri,
         cache_server_uri=args.cache_server_uri,
