@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of yadcc_tpu_torch: the scheduler's grant path, the
-Bloom kernels, the cache server's reader and the servant half of the
-daemon on CUDA.
+Bloom kernels, the cache server's reader and the daemon (its servant and
+delegate halves) on CUDA.
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
@@ -146,37 +146,50 @@ Phases (any failure exits non-zero without printing the result line):
    waits on the bucket); 1,000 more fills arrive by an incremental
    sync and read True on the card; A restarted on its dirs: the next sync
    is a full fetch whose filter holds every key of A's L2;
-15. the servant half of the daemon: the scheduler entry with its
-   defaults and phase 3's 5,000 synthetic servants, one port cache entry
-   (threaded, disk L2) and two port servant entries as processes (python
-   -m yadcc_tpu_torch.daemon.entry, one --rpc-frontend threaded, one aio;
-   --extra-compiler-dirs at the host g++'s directory; non-dedicated, so
-   int(0.40 x nprocs) slots each; --ignore-cgroup-limits, --no-privilege-
-   drop, --allow-poor-machine at <= 16 cores, --temporary-dir in the
-   run's directory always: every servant boot empties its temporary
-   root of ytpu_* directories, so a shared /dev/shm would take another
-   checkout's live workspaces); a build of 256 TUs
-   (the repo's native/client/ytpu-cxx.cc or ytpu-testtool.cc, each
-   preprocessed once by the host g++, plus one function of its own drawn
-   from the seed; flags -O2, -O0 -g or -O2 -g; 16 submitted twice at once
-   to one servant; 8 ending in #error, sent with -fpreprocessed
-   -fdirectives-only as a client preprocessing that way sends them, so
-   the directive fires on the servant) driven by 32 delegate threads on
-   the wire (GetConfig, WaitForStartingTask on g++'s digest,
-   QueueCxxCompilationTask with the attachment in whichever format the
-   port's compress speaks on the host, WaitForCompilationOutput, parked
-   on the aio servant, KeepTaskAlive past half the lease, FreeTask on the
-   servant and the scheduler); every grant on a real servant, none over
-   the capacity it reports, heartbeats reporting running tasks during the
-   drive and none after it, no grant outstanding, K1 launched over the
-   drive (counts read from /inspect/vars just before and just after);
-   every object byte-equal to a local compile of the same TU run as the
-   servant runs it (a -g object in the servant's own workspace path, and
-   equal again once both are patched to one client directory), #error
-   TUs failing with the text and no cache entry, joined submissions on
-   the first one's task id, every ok TU's cache entry read back and
-   parsed to the files the servant returned; no libtorch mapped in either
-   servant.
+15. the daemon, both halves: the scheduler entry with its defaults and
+   phase 3's 5,000 synthetic servants, one port cache entry (threaded,
+   disk L2), and port daemon entries running both roles as processes
+   (python -m yadcc_tpu_torch.daemon.entry: a servant on --serving-port
+   and a delegate on --local-port; --extra-compiler-dirs at the host
+   g++'s directory; non-dedicated, so int(0.40 x nprocs) slots each;
+   --ignore-cgroup-limits, --no-privilege-drop, --allow-poor-machine at
+   <= 16 cores, --temporary-dir in the run's directory always: every
+   servant boot empties its temporary root of ytpu_* directories, so a
+   shared /dev/shm would take another checkout's live workspaces); a
+   build of 224 TUs (the repo's native/client/ytpu-cxx.cc or
+   ytpu-testtool.cc, each preprocessed once by the host g++, plus one
+   function of its own drawn from the seed; flags -O2, -O0 -g or -O2 -g;
+   16 submitted twice at once; 8 ending in #error, sent with
+   -fpreprocessed -fdirectives-only as a client preprocessing that way
+   sends them, so the directive fires on the servant) from 32 client
+   threads on the delegates' loopback HTTP, as the JAX package's client
+   speaks it (submit_cxx_task as a multi-chunk body, set_file_digest
+   after a 400, wait_for_cxx_task long polls, the script's own pid as
+   the requestor; an answer without a compile, such as "no compile
+   capacity" after the delegate's 10 s grant window, submitted again up
+   to 5 tries, as the JAX client does): the first 112 through two
+   threaded daemons, which then leave gracefully, the other 112 through
+   two aio daemons (a delegate dials every servant with its fleet's one
+   scheme); then the cached rebuild of all 224 through one aio
+   delegate once its reader has synced past the last fill.  Every grant
+   on a real servant (the delegates dial what they are granted), none
+   over the capacity the heartbeats report, running tasks reported
+   during each build and none after it, no grant outstanding after
+   either fleet left, K1 launched over the builds (counts read from
+   /inspect/vars just before and just after); the delegates'
+   actually_run + reused + hit_cache + failed, plus the answers without
+   a grant, equal to the submissions, failed 0, and each delegate's
+   grant wait, queue and output wait (p50/p99) printed; every object
+   (a joined TU's second answer too, where it is not the first's)
+   byte-equal to a local compile of the same TU run as the servant ran
+   it (a -g object in the servant's own workspace path, and equal again
+   once both are patched to one client directory), #error TUs failing
+   with the text and no cache entry;
+   the cache's fills equal to the successful compiles the servants ran,
+   every ok TU's cache entry read back, parsed and equal to what the
+   rebuild answered; in the rebuild every ok TU a cache hit and grants
+   taken only for the #error TUs; no libtorch mapped in any daemon, no
+   double reply on the aio ones, every daemon exiting 0 on SIGTERM.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
@@ -3807,7 +3820,8 @@ def run_takeover_path(report: list) -> dict:
     and a retry-after (the delegates count them), the other methods with
     NOT_SERVING and the in-band hint.  After it the delegates are served
     at once (paced by TAKEOVER_GAP_PACE_S) while every servant
-    re-heartbeats with the grants it runs; then every held grant renews exactly once, the delegates drive >=
+    re-heartbeats with the grants it runs, and keep their held grants
+    alive from the promotion on; then every held grant renews exactly once, the delegates drive >=
     TAKEOVER_POST_GRANTS more grants through the standby's K1, and
     everything is freed.  Every grant checked against the servants' facts,
     no grant id issued twice across the kill, the standby's outstanding
@@ -3838,6 +3852,7 @@ def run_takeover_path(report: list) -> dict:
     stats: dict = {}
     killed, freeze, resume, done = (threading.Event() for _ in range(4))
     renew_on = threading.Event()
+    gap_on = threading.Event()  # the kill-time grants kept alive too
     threads: list = []
     early_held: list = []       # (gid, loc): each delegate's first grants
     kill_held: list = []        # grants of responses in the active's end
@@ -3849,6 +3864,7 @@ def run_takeover_path(report: list) -> dict:
     kill_at: dict = collections.Counter()   # kill-time grants a servant holds
     beat_at: dict = {}          # servant -> its first beat the promoted
     gap_faults: list = []       # standby answered; (servant, excess)
+    gap_renewals: list = []     # held grants renewed, per gap keep-alive
 
     def standby_vars():
         return inspect_vars(is_)["yadcc"]
@@ -3933,6 +3949,13 @@ def run_takeover_path(report: list) -> dict:
                     beat_round()
 
         def renewer():
+            """The delegates' keep-alive of the grants they hold: the
+            first grants always, each renewal checked; from the promotion
+            to the check after the re-beat the kill-time grants too, and
+            then a refusal is counted, not failed: the standby knows only
+            the journaled grants until their servants' reports land, and
+            drops a servant whose replayed lease lapses before its
+            report (its grants adopted again off that report)."""
             fo = Failover(pa, ps, killed, stats, lock)
             try:
                 while not done.wait(TAKEOVER_RENEW_S):
@@ -3940,14 +3963,20 @@ def run_takeover_path(report: list) -> dict:
                         continue
                     with fleet.lock:
                         ids = [g for g, _ in early_held]
-                    if not ids:
+                        gap_ids = ([g for g, _ in kill_held]
+                                   if gap_on.is_set() else [])
+                    if not ids + gap_ids:
                         continue
                     resp, _ = fo.call("KeepTaskAlive",
                                       sch.KeepTaskAliveRequest(
-                                          token="utok", task_grant_ids=ids,
+                                          token="utok",
+                                          task_grant_ids=ids + gap_ids,
                                           next_keep_alive_in_ms=15000),
                                       sch.KeepTaskAliveResponse)
-                    if renew_on.is_set() and not all(resp.statuses):
+                    if gap_ids:
+                        with lock:
+                            gap_renewals.append(sum(resp.statuses))
+                    elif renew_on.is_set() and not all(resp.statuses):
                         fleet.violations.append("a held grant's renewal "
                                                 "failed")
             except Exception as e:
@@ -4181,6 +4210,12 @@ def run_takeover_path(report: list) -> dict:
               "takeover: a NOT_SERVING without its retry-after hint")
         takeover = sv["standby"]["report"]
         promoted_at = sv["standby"]["promoted_at"]
+        # The delegates keep their grants alive on the standby from now
+        # on, as a delegate's keep-alive does whatever the fleet is
+        # doing: the takeover gives journaled grants a 15 s lease, which
+        # a slow host's re-beat can outlast.
+        gap_on.set()
+        renew_on.set()
 
         # After it: the fleet's re-heartbeat lands (the journal gap's
         # grants adopted off the reports), then every held grant renews
@@ -4189,6 +4224,7 @@ def run_takeover_path(report: list) -> dict:
         check(not rebeat_thread.is_alive(), "takeover: the re-beat hung")
         check(not errors, f"takeover: {errors[:3]}")
         rebeat_s = time.time() - sv["standby"]["promoted_at"]
+        gap_on.clear()
         with fleet.lock:
             held_ids = [g for g, _ in early_held + kill_held]
         renew = Channel(f"grpc://127.0.0.1:{ps}")
@@ -4281,6 +4317,8 @@ def run_takeover_path(report: list) -> dict:
                      for k, v in probes.items()},
         delegate_rejects=totals["reject"], gap_grants=totals["gap"],
         gap_faults=len(gap_faults),
+        gap_keep_alives=len(gap_renewals),
+        gap_held_renewed=list(gap_renewals),
         gap_fault_servants=len({loc for loc, _ in gap_faults}),
         gap_fault_max_excess=max((e for _, e in gap_faults), default=0),
         refused=dict(stats), launches=launches,
@@ -4302,7 +4340,9 @@ def run_takeover_path(report: list) -> dict:
         f"  takeover: the fleet's re-beat done {rebeat_s:.2f} s after the "
         f"promotion; "
         f"{len(held_ids)} held grants ({len(kill_held)} of the active's last "
-        f"0.1 s) each renewed once; adopted {adopted_now} in all "
+        f"0.1 s) each renewed once, kept alive meanwhile by "
+        f"{len(gap_renewals)} keep-alives (held grants the standby knew "
+        f"at each: {gap_renewals}); adopted {adopted_now} in all "
         f"({res['gap_adopted']} off the servants' reports: the journal's "
         f"gap); first "
         f"grant {res['kill_to_first_grant_ms']:.1f} ms after the kill "
@@ -5353,23 +5393,25 @@ def cache_report(report: list, out: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: the servant half of the daemon.
+# Phase 15: the daemon, both halves.
 # ---------------------------------------------------------------------------
 
 SERVANT_SEED = 15
-SERVANT_TUS = 256              # translation units of the build (512 took
+SERVANT_TUS = 224              # translation units of the build (512 took
                                # 331-353 s with the local re-compiles,
-                               # past the smoke's time on an 8-core host)
-SERVANT_JOINED = 16            # submitted twice at once to one servant
+                               # past the smoke's time on an 8-core host;
+                               # 256 through the delegates 218.9 s)
+SERVANT_JOINED = 16            # submitted twice at once through a delegate
 SERVANT_ERRORS = 8             # ending in `#error smoke`
-SERVANT_DELEGATES = 32
+SERVANT_CLIENTS = 32           # compiler wrappers at once, as make -j32
+SERVANT_FLEETS = ("threaded", "aio")   # two daemons each, one after the
+                                       # other under one scheduler
 SERVANT_SOURCES = ("native/client/ytpu-cxx.cc",
                    "native/client/ytpu-testtool.cc")
 SERVANT_FLAGS = ("-O2", "-O0 -g", "-O2 -g")
-SERVANT_LEASE_MS = 6_000       # a grant's lease: the slowest TUs outlive
-                               # its half, so KeepTaskAlive runs
-SERVANT_POLL_MS = 1_000        # a long poll's lap, the reference keeper's
-SERVANT_LIMIT_S = 900.0        # bound on the drive
+SERVANT_POLL_MS = 2_000        # the client's long poll (compilation_saas)
+SERVANT_ATTEMPTS = 5           # the client's tries of a TU (yadcc_cxx)
+SERVANT_LIMIT_S = 900.0        # bound on a build
 SERVANT_DIR = REPO / "smoke_servant"
 
 
@@ -5444,7 +5486,9 @@ class ServantTU:
             self.flags += " -fpreprocessed -fdirectives-only"
         self.error = error
         self.joined = joined
-        self.result = None
+        self.result = None     # the build's answer
+        self.twin = None       # a joined TU's second answer
+        self.rebuilt = None    # the cached rebuild's answer
 
     def source(self, pre: dict) -> bytes:
         return pre[self.base] + self.tail
@@ -5460,22 +5504,27 @@ def servant_tus() -> list:
             for i in range(SERVANT_TUS)]
 
 
-def start_servant(name: str, frontend: str, port: int, iport: int,
-                  sched_port: int, cache_port: int, gxx_dir: str,
-                  temp_dir, nprocs: int):
-    """The port's servant entry as a process on loopback, its log in
-    smoke_logs/servant_<name>.log.  The card's host is a container
-    (--ignore-cgroup-limits), may have few cores (--allow-poor-machine)
-    and the script may run as root (--no-privilege-drop).  Its
-    workspaces go under ``temp_dir`` in the run's directory, never a
-    shared root such as /dev/shm that another checkout's servants use."""
+def start_daemon(name: str, frontend: str, ports: dict, sched_port: int,
+                 cache_port: int, gxx_dir: str, temp_dir, nprocs: int):
+    """The port's daemon entry as a process on loopback, both roles (the
+    servant on ``ports["serve"]``, the delegate's HTTP on
+    ``ports["local"]``), its log in smoke_logs/servant_<name>.log.  The
+    card's host is a container (--ignore-cgroup-limits), may have few
+    cores (--allow-poor-machine) and the script may run as root
+    (--no-privilege-drop).  Its workspaces go under ``temp_dir`` in the
+    run's directory, never a shared root such as /dev/shm that another
+    checkout's servants use.  One token for both roles, as a user's
+    daemon has: the scheduler and the cache take it as a servant's and as
+    a user's."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     log_file = open(LOG_DIR / f"servant_{name}.log", "w")
     cmd = [sys.executable, "-m", "yadcc_tpu_torch.daemon.entry",
            "--scheduler-uri", f"grpc://127.0.0.1:{sched_port}",
            "--cache-server-uri", f"grpc://127.0.0.1:{cache_port}",
-           "--token", "stok", "--serving-port", str(port),
-           "--inspect-port", str(iport), "--location", f"127.0.0.1:{port}",
+           "--token", "stok", "--serving-port", str(ports["serve"]),
+           "--local-port", str(ports["local"]),
+           "--inspect-port", str(ports["inspect"]),
+           "--location", f"127.0.0.1:{ports['serve']}",
            "--extra-compiler-dirs", gxx_dir, "--rpc-frontend", frontend,
            "--ignore-cgroup-limits", "--no-privilege-drop"]
     if nprocs <= 16:
@@ -5508,203 +5557,180 @@ def patch_regions(data: bytes, patches, client_dir: bytes) -> bytes:
     return bytes(buf)
 
 
-class ServantDrive:
-    """32 delegate threads doing on the wire what the reference's
-    delegate does for each TU: GetConfig (the serving-daemon token),
-    WaitForStartingTask on the host g++'s digest, QueueCxxCompilationTask
-    to the granted servant, WaitForCompilationOutput (parked on the aio
-    servant), KeepTaskAlive past half the grant's lease, FreeTask on the
-    servant and the scheduler."""
+class BuildClient:
+    """The compiler wrappers of a build: SERVANT_CLIENTS threads doing on
+    the wire what the JAX package's client does for a TU
+    (yadcc_tpu/client/compilation_saas.py): /local/submit_cxx_task as a
+    multi-chunk body (JSON, the compressed source); on a 400,
+    /local/set_file_digest with the compiler's digest and the submission
+    again; /local/wait_for_cxx_task long polls until 200; an answer that
+    is not a compile's (a negative exit code, such as "no compile
+    capacity" when the delegate's grant keeper found no slot in its
+    window, or 127) submitted again, up to SERVANT_ATTEMPTS tries, as
+    yadcc_tpu/client/yadcc_cxx.py does.  Each thread keeps one
+    keep-alive connection a delegate, and every submission names this
+    process's live pid (a dead one is an orphan the delegate aborts)."""
 
-    def __init__(self, sched_port, gxx_digest, servants, capacity, pre):
-        self.sched_uri = f"grpc://127.0.0.1:{sched_port}"
+    def __init__(self, gxx: str, gxx_digest: str, pre: dict):
+        st = os.stat(gxx)
+        self.compiler = {"path": gxx, "size": str(st.st_size),
+                         "timestamp": str(int(st.st_mtime))}
         self.digest = gxx_digest
-        self.servants = servants          # location -> scheme
-        self.capacity = capacity
         self.pre = pre
         self.lock = threading.Lock()
-        self.held = {loc: 0 for loc in servants}
-        self.granted = {loc: 0 for loc in servants}
-        self.violations: list = []
         self.errors: list = []
-        self.keepalives = 0
-        self.stages = {"grant": [], "queue": [], "output": []}
+        self.seconds: list = []        # a TU, submit to its last 200
+        self.submissions = 0
+        self.digest_reports = 0
+        self.no_grant = 0              # "no compile capacity" answers
+        self.retries = 0
 
-    def run(self, tus: list) -> float:
+    def run(self, jobs: list) -> float:
+        """``jobs``: (tu, delegate's local port, attribute of the tu that
+        takes the answer, submitted twice at once)."""
         import queue as queue_mod
 
-        jobs = queue_mod.Queue()
-        for tu in tus:
-            jobs.put(tu)
+        q = queue_mod.Queue()
+        for job in jobs:
+            q.put(job)
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=self._delegate, args=(jobs,),
-                                    name=f"delegate-{d}")
-                   for d in range(SERVANT_DELEGATES)]
+        threads = [threading.Thread(target=self._worker, args=(q,),
+                                    name=f"client-{i}")
+                   for i in range(SERVANT_CLIENTS)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=SERVANT_LIMIT_S)
-            check(not t.is_alive(), "servant drive: a delegate hung")
+            check(not t.is_alive(), "build: a client hung")
+        check(not self.errors, f"build: {self.errors[:3]}")
         return time.perf_counter() - t0
 
-    def _delegate(self, jobs) -> None:
+    def _worker(self, q) -> None:
         import queue as queue_mod
 
-        from yadcc_tpu_torch import api
-        from yadcc_tpu_torch.rpc import Channel
-
-        sched = Channel(self.sched_uri)
-        chans = {loc: Channel(f"{scheme}://{loc}")
-                 for loc, scheme in self.servants.items()}
+        conns: dict = {}
         try:
-            token = sched.call(
-                "ytpu.SchedulerService", "GetConfig",
-                api.scheduler.GetConfigRequest(token="utok"),
-                api.scheduler.GetConfigResponse,
-                timeout=10.0)[0].serving_daemon_token
             while not self.errors:
                 try:
-                    tu = jobs.get_nowait()
+                    tu, port, attr, twice = q.get_nowait()
                 except queue_mod.Empty:
                     return
-                self._one(tu, sched, chans, token)
-        except Exception as e:  # reported by the caller
+                results = self._one(tu, port, twice, conns)
+                setattr(tu, attr, results[0])
+                if twice:
+                    tu.twin = results[1]
+        except Exception as e:  # reported by run()
             self.errors.append(f"{threading.current_thread().name}: {e!r}")
         finally:
-            for c in (sched, *chans.values()):
+            for c in conns.values():
                 c.close()
 
-    def _one(self, tu, sched, chans, token) -> None:
-        from yadcc_tpu_torch import api
-        from yadcc_tpu_torch.common import compress
-        from yadcc_tpu_torch.daemon import packing
-        from yadcc_tpu_torch.rpc import RpcError
+    def _call(self, conns: dict, port: int, path: str, body: bytes):
+        import http.client
 
-        sch, dmn = api.scheduler, api.daemon
-        attachment = compress.compress(tu.source(self.pre))
-        t0 = time.perf_counter()
+        conn = conns.get(port)
+        if conn is None:
+            conn = conns[port] = http.client.HTTPConnection(
+                "127.0.0.1", port, timeout=60)
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Retry-After"), resp.read()
+
+    def _submit(self, conns: dict, port: int, body: bytes) -> int:
+        for attempt in range(2):
+            status, _, data = self._call(conns, port,
+                                         "/local/submit_cxx_task", body)
+            if status == 200:
+                return int(json.loads(data)["task_id"])
+            check(status == 400 and attempt == 0,
+                  f"submit_cxx_task: HTTP {status} {data[:200]!r}")
+            # The daemon cannot read our compiler: report its digest.
+            status, _, data = self._call(
+                conns, port, "/local/set_file_digest", json.dumps(
+                    {"file_desc": self.compiler,
+                     "digest": self.digest}).encode())
+            check(status == 200, f"set_file_digest: HTTP {status}")
+            with self.lock:
+                self.digest_reports += 1
+        raise SmokeFailure("submit_cxx_task: retries exhausted")
+
+    def _wait(self, conns: dict, port: int, task_id: int) -> dict:
+        import base64
+
+        from yadcc_tpu_torch.common.multi_chunk import try_parse_multi_chunk
+
+        body = json.dumps({"task_id": str(task_id),
+                           "milliseconds_to_wait": SERVANT_POLL_MS}).encode()
         deadline = time.monotonic() + 300
         while True:
-            req = sch.WaitForStartingTaskRequest(
-                token="utok", milliseconds_to_wait=SERVANT_POLL_MS,
-                next_keep_alive_in_ms=SERVANT_LEASE_MS, immediate_reqs=1,
-                min_version=0)
-            req.env_desc.compiler_digest = self.digest
-            try:
-                resp, _ = sched.call("ytpu.SchedulerService",
-                                     "WaitForStartingTask", req,
-                                     sch.WaitForStartingTaskResponse,
-                                     timeout=30.0)
-            except RpcError as e:
-                check(e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
-                      f"WaitForStartingTask: {e}")
-                check(time.monotonic() < deadline,
-                      f"TU {tu.i}: no grant in 300 s")
-                continue
-            if resp.grants:
+            t = time.perf_counter()
+            status, retry, data = self._call(
+                conns, port, "/local/wait_for_cxx_task", body)
+            if status == 200:
                 break
-        check(len(resp.grants) == 1, f"{len(resp.grants)} grants for one")
-        grant = resp.grants[0]
-        gid, loc = grant.task_grant_id, grant.servant_location
-        t_grant = time.perf_counter()
+            check(status == 503, f"wait_for_cxx_task {task_id}: HTTP "
+                                 f"{status}")
+            check(time.monotonic() < deadline,
+                  f"task {task_id}: no answer in 300 s")
+            if time.perf_counter() - t < 0.5:
+                time.sleep(float(retry or 0.05))
+        chunks = try_parse_multi_chunk(data)
+        check(chunks is not None, f"task {task_id}: malformed answer")
+        meta = json.loads(chunks[0])
+        exts = meta.get("file_extensions", [])
+        check(len(exts) == len(chunks) - 1,
+              f"task {task_id}: {len(exts)} files, {len(chunks) - 1} chunks")
+        return {
+            "task_id": task_id,
+            "exit_code": int(meta.get("exit_code", -1)),
+            "stdout": meta.get("output", "").encode(),
+            "stderr": meta.get("error", "").encode(),
+            # As the servant compressed them: the delegate passes them on.
+            "files": {ext: bytes(c) for ext, c in zip(exts, chunks[1:])},
+            "patches": {p["file_key"]: [
+                (int(x.get("position", 0)), int(x.get("total_size", 0)),
+                 base64.b64decode(x.get("suffix_to_keep", "")))
+                for x in p.get("locations", [])]
+                for p in meta.get("patches", []) if p.get("locations")},
+        }
+
+    def _one(self, tu, port: int, twice: bool, conns: dict) -> list:
+        from yadcc_tpu_torch.common import compress
+        from yadcc_tpu_torch.common.hashing import digest_bytes
+        from yadcc_tpu_torch.common.multi_chunk import make_multi_chunk
+
+        src = tu.source(self.pre)
+        msg = {"requestor_process_id": os.getpid(),
+               "source_path": str(REPO / tu.base),
+               "source_digest": digest_bytes(src),
+               "compiler_invocation_arguments": tu.flags,
+               "cache_control": 1, "compiler": self.compiler}
+        body = make_multi_chunk([json.dumps(msg).encode(),
+                                 compress.compress(src)])
+        t0 = time.perf_counter()
+        # A joined TU: the same submission twice before either answer,
+        # as two builds of one tree on one machine send it.
+        ids = [self._submit(conns, port, body) for _ in range(1 + twice)]
+        submissions, no_grant, results = len(ids), 0, []
+        for task_id in ids:
+            r = self._wait(conns, port, task_id)
+            for _ in range(SERVANT_ATTEMPTS - 1):
+                if r["exit_code"] >= 0 and r["exit_code"] != 127:
+                    break
+                no_grant += b"no compile capacity" in r["stderr"]
+                r = self._wait(conns, port,
+                               self._submit(conns, port, body))
+                submissions += 1
+            check(r["exit_code"] >= 0 and r["exit_code"] != 127,
+                  f"TU {tu.i}: {SERVANT_ATTEMPTS} tries, the last "
+                  f"{r['exit_code']}: {r['stderr'][-300:]!r}")
+            results.append(r)
         with self.lock:
-            if loc not in self.servants:
-                self.violations.append(f"grant {gid} on {loc}, not a real "
-                                       f"servant")
-                return
-            self.held[loc] += 1
-            self.granted[loc] += 1
-            if self.held[loc] > self.capacity[loc]:
-                self.violations.append(
-                    f"{loc} over its capacity: {self.held[loc]} of "
-                    f"{self.capacity[loc]}")
-        chan = chans[loc]
-        try:
-            q = dmn.QueueCxxCompilationTaskRequest(
-                token=token, task_grant_id=gid, source_path=tu.base,
-                invocation_arguments=tu.flags,
-                compression_algorithm=dmn.COMPRESSION_ALGORITHM_ZSTD)
-            q.env_desc.compiler_digest = self.digest
-            tq = time.perf_counter()
-            task_id = chan.call("ytpu.DaemonService",
-                                "QueueCxxCompilationTask", q,
-                                dmn.QueueCxxCompilationTaskResponse,
-                                attachment=attachment,
-                                timeout=60.0)[0].task_id
-            t_queued = time.perf_counter()
-            ids = [task_id]
-            if tu.joined:
-                # The same TU again while it compiles: the servant joins
-                # it to the running task (find_task_by_digest).
-                ids.append(chan.call("ytpu.DaemonService",
-                                     "QueueCxxCompilationTask", q,
-                                     dmn.QueueCxxCompilationTaskResponse,
-                                     attachment=attachment,
-                                     timeout=60.0)[0].task_id)
-            replies = []
-            last_keep = t_grant
-            for tid in ids:
-                while True:
-                    w = dmn.WaitForCompilationOutputRequest(
-                        token=token, task_id=tid,
-                        milliseconds_to_wait=SERVANT_POLL_MS,
-                        acceptable_compression_algorithms=[
-                            dmn.COMPRESSION_ALGORITHM_ZSTD])
-                    out, att = chan.call(
-                        "ytpu.DaemonService", "WaitForCompilationOutput", w,
-                        dmn.WaitForCompilationOutputResponse,
-                        timeout=SERVANT_POLL_MS / 1e3 + 30)
-                    if out.status != dmn.COMPILATION_TASK_STATUS_RUNNING:
-                        break
-                    if (time.perf_counter() - last_keep
-                            > SERVANT_LEASE_MS / 2e3):
-                        st = sched.call(
-                            "ytpu.SchedulerService", "KeepTaskAlive",
-                            sch.KeepTaskAliveRequest(
-                                token="utok", task_grant_ids=[gid],
-                                next_keep_alive_in_ms=SERVANT_LEASE_MS),
-                            sch.KeepTaskAliveResponse, timeout=10.0)[0]
-                        check(list(st.statuses) == [True],
-                              f"KeepTaskAlive of {gid}: {st.statuses}")
-                        last_keep = time.perf_counter()
-                        with self.lock:
-                            self.keepalives += 1
-                check(out.status == dmn.COMPILATION_TASK_STATUS_DONE,
-                      f"TU {tu.i}: task {tid} ended {out.status}")
-                replies.append((out, bytes(att)))
-            t_done = time.perf_counter()
-            out, att = replies[0]
-            files = packing.try_unpack_keyed_buffers(att)
-            check(files is not None, f"TU {tu.i}: unparsable attachment")
-            tu.result = {
-                "task_ids": ids, "location": loc,
-                "exit_code": out.exit_code,
-                "stdout": out.standard_output, "stderr": out.standard_error,
-                "files": files,
-                "patches": {p.file_key: [(x.position, x.total_size,
-                                          x.suffix_to_keep)
-                                         for x in p.locations]
-                            for p in out.cxx_info.patches}}
-            if tu.joined:
-                o2, a2 = replies[1]
-                check((o2.exit_code, bytes(a2)) == (out.exit_code, att),
-                      f"TU {tu.i}: the joined submission's output differs")
-            for tid in ids:
-                chan.call("ytpu.DaemonService", "FreeTask",
-                          dmn.FreeDaemonTaskRequest(token=token,
-                                                    task_id=tid),
-                          dmn.FreeDaemonTaskResponse, timeout=10.0)
-        finally:
-            with self.lock:
-                self.held[loc] -= 1
-            sched.call("ytpu.SchedulerService", "FreeTask",
-                       sch.FreeTaskRequest(token="utok",
-                                           task_grant_ids=[gid]),
-                       sch.FreeTaskResponse, timeout=10.0)
-        with self.lock:
-            self.stages["grant"].append(t_grant - t0)
-            self.stages["queue"].append(t_queued - tq)
-            self.stages["output"].append(t_done - t_queued)
+            self.seconds.append(time.perf_counter() - t0)
+            self.submissions += submissions
+            self.retries += submissions - len(ids)
+            self.no_grant += no_grant
+        return results
 
 
 class ServantMonitor:
@@ -5747,11 +5773,83 @@ class ServantMonitor:
                     for name, b in now.items())))
 
 
-def run_servant_path(report: list) -> dict:
-    """Phase 15: two port servant entries (threaded and aio) under the
-    port's scheduler on the card, a build of 256 TUs with the host's g++
-    driven by 32 delegate threads, the outputs held against local
-    compiles and the port's cache server (see the module docstring)."""
+def daemon_names(frontend: str) -> list:
+    return [f"{frontend}{k}" for k in range(2)]
+
+
+def boot_fleet(frontend: str, daemons: dict, procs: dict, siport: int,
+               sport: int, cport: int, gxx_dir: str, nprocs: int) -> float:
+    """Start the fleet's two daemons and wait until both servants are in
+    the scheduler's table, report their capacity, and both delegates
+    answer /local/get_version; returns the boot time."""
+    import urllib.error
+
+    t0 = time.perf_counter()
+    names = daemon_names(frontend)
+    for n in names:
+        procs[n] = start_daemon(n, frontend, daemons[n], sport, cport,
+                                gxx_dir, SERVANT_DIR / f"tmp-{n}", nprocs)
+    monitor = ServantMonitor({n: daemons[n]["inspect"] for n in names})
+    deadline = time.monotonic() + 120
+    while True:
+        for n in names:
+            check(procs[n].poll() is None,
+                  f"daemon {n} exited at boot (rc {procs[n].returncode})")
+        td = inspect_vars(siport)["yadcc"]["task_dispatcher"]
+        reg = {n: td["servants"].get(daemons[n]["loc"]) for n in names}
+        try:
+            beats = monitor.read()
+            for n in names:
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{daemons[n]['local']}"
+                    f"/local/get_version", timeout=5).read()
+        except (OSError, KeyError, urllib.error.URLError):
+            beats = {}   # an inspect or local server not serving yet
+        if (all(reg.values()) and len(beats) == 2
+                and all(b.get("capacity") for b in beats.values())
+                and len(td["servants"]) == N_SERVANTS + 2):
+            break
+        check(time.monotonic() < deadline,
+              f"the {frontend} daemons did not register: {reg}, "
+              f"{len(td['servants'])} servants in the table")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def delegate_state(daemons: dict, names) -> dict:
+    return {n: inspect_vars(daemons[n]["inspect"])["yadcc"]["daemon"]
+            for n in names}
+
+
+def leave(procs: dict, names, siport: int) -> None:
+    """SIGTERM each daemon: it leaves the scheduler, returns its grants
+    and exits 0; then no grant of it stays outstanding."""
+    for n in names:
+        procs[n].terminate()
+    for n in names:
+        check(procs[n].wait(timeout=60) == 0,
+              f"daemon {n} exited {procs[n].returncode} on SIGTERM")
+    deadline = time.monotonic() + 30
+    while True:
+        td = inspect_vars(siport)["yadcc"]["task_dispatcher"]
+        if td["grants_outstanding"] == 0:
+            return
+        check(time.monotonic() < deadline,
+              f"{td['grants_outstanding']} grants outstanding after "
+              f"{', '.join(names)} left")
+        time.sleep(0.2)
+
+
+def run_daemon_path(report: list) -> dict:
+    """Phase 15: the port's scheduler on the card with phase 3's 5,000
+    synthetic servants, one port cache entry, and port daemons running
+    both roles: a build of SERVANT_TUS TUs with the host's g++ from 32
+    client threads on the delegates' loopback HTTP, half through two
+    threaded daemons and half through two aio daemons (the threaded pair
+    leaves first), then the cached rebuild of all of them through one
+    delegate; the
+    outputs held against local compiles and the port's cache server (see
+    the module docstring)."""
     import shutil
 
     from concurrent.futures import ThreadPoolExecutor
@@ -5775,7 +5873,6 @@ def run_servant_path(report: list) -> dict:
     shm = st.f_frsize * st.f_blocks if st else 0
     shutil.rmtree(SERVANT_DIR, ignore_errors=True)
     SERVANT_DIR.mkdir(parents=True)
-    temp_dirs = {n: SERVANT_DIR / f"tmp-{n}" for n in ("threaded", "aio")}
     try:
         with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
             port_range = "-".join(f.read().split())
@@ -5791,6 +5888,7 @@ def run_servant_path(report: list) -> dict:
     t0 = time.perf_counter()
     pre, stubbed = servant_sources(gxx)
     tus = servant_tus()
+    ok = [tu for tu in tus if not tu.error]
     report.append(f"  {SERVANT_TUS} TUs over {len(pre)} sources "
                   f"({', '.join(f'{k} {len(v):,} B' for k, v in pre.items())}"
                   f" preprocessed in {time.perf_counter() - t0:.1f} s"
@@ -5801,14 +5899,21 @@ def run_servant_path(report: list) -> dict:
     fleet = Fleet(seed=6)
     sport, siport = free_port(), free_port()
     cport, ciport = free_port(), free_port()
-    ports = {n: (free_port(), free_port()) for n in ("threaded", "aio")}
-    locs = {n: f"127.0.0.1:{p}" for n, (p, _) in ports.items()}
+    daemons = {}
+    for frontend in SERVANT_FLEETS:
+        for n in daemon_names(frontend):
+            daemons[n] = {"frontend": frontend, "serve": free_port(),
+                          "inspect": free_port(), "local": free_port()}
+            daemons[n]["loc"] = f"127.0.0.1:{daemons[n]['serve']}"
     procs = {}
     stop = threading.Event()
     threads: list = []
-    monitor = ServantMonitor({n: ip for n, (_, ip) in ports.items()})
+    monitors: list = []
+    fleets: dict = {}
+    # The daemons' one token is a user's token too (grants, reads).
+    tokens = ["--acceptable-user-tokens", "utok,stok"]
     try:
-        procs["scheduler"] = start_entry("servant", sport, siport, [])
+        procs["scheduler"] = start_entry("servant", sport, siport, tokens)
         sched = Channel(f"grpc://127.0.0.1:{sport}")
         boot_s = wait_ready("servant", procs["scheduler"], sched)
         # The first synthetic servant registers alone: slot 0 is what a
@@ -5839,48 +5944,10 @@ def run_servant_path(report: list) -> dict:
         cache_dir = SERVANT_DIR / "cache-l2"
         procs["cache"] = start_cache_entry(
             "servant", cport, ciport, ["--cache-engine", "disk",
-                                       "--cache-dirs", str(cache_dir)])
+                                       "--cache-dirs", str(cache_dir),
+                                       *tokens])
         cache_uri = f"grpc://127.0.0.1:{cport}"
         wait_cache_ready("servant", procs["cache"], cache_uri)
-        t0 = time.perf_counter()
-        for n, (p, ip) in ports.items():
-            procs[n] = start_servant(n, n, p, ip, sport, cport,
-                                     os.path.dirname(gxx), temp_dirs[n],
-                                     nprocs)
-        deadline = time.monotonic() + 120
-        while True:
-            for n in ports:
-                check(procs[n].poll() is None,
-                      f"servant {n} exited at boot (rc {procs[n].returncode})")
-            td = inspect_vars(siport)["yadcc"]["task_dispatcher"]
-            reg = {loc: td["servants"].get(loc) for loc in locs.values()}
-            if all(reg.values()):
-                try:
-                    beats = monitor.read()
-                except (OSError, KeyError):
-                    beats = {}   # an inspect server not serving yet
-                if (len(beats) == 2
-                        and all(b.get("capacity") for b in beats.values())):
-                    break
-            check(time.monotonic() < deadline,
-                  f"the servants did not register: {reg}")
-            time.sleep(0.2)
-        servant_boot_s = time.perf_counter() - t0
-        missing = sorted(set(fleet.by_loc) - set(td["servants"]))
-        check(len(td["servants"]) == N_SERVANTS + 2,
-              f"{len(td['servants'])} servants registered (real at "
-              f"{sorted(locs.values())}; synthetic missing: {missing[:8]})")
-        want_cap = max(1, int(nprocs * 0.40))
-        capacity = {}
-        for n, b in beats.items():
-            check(b["capacity"] == want_cap,
-                  f"servant {n} reports capacity {b['capacity']}, not "
-                  f"int(0.40 x {nprocs})")
-            capacity[locs[n]] = b["capacity"]
-        for n in ports:
-            comp = inspect_vars(ports[n][1])["yadcc"]["daemon"]["servant"]
-            check(gxx_digest in comp["compilers"],
-                  f"servant {n} does not advertise the host g++")
 
         # Each object against a local compile, run as cxx_task.prepare
         # runs it; a -g object in the servant's own workspace path (read
@@ -5891,8 +5958,8 @@ def run_servant_path(report: list) -> dict:
         local_root.mkdir()
         client_dir = b"/home/user/build/project"
 
-        def local(tu) -> float:
-            r = tu.result
+        def local(job) -> float:
+            tu, r = job
             obj = compress.decompress(r["files"][".o"])
             patches = r["patches"].get(".o", [])
             if patches:
@@ -5902,7 +5969,7 @@ def run_servant_path(report: list) -> dict:
                 check(len(str(wdir)) == _PADDED_WORKSPACE_LEN,
                       f"TU {tu.i}: workspace {wdir}")
             else:
-                wdir = local_root / str(tu.i)
+                wdir = local_root / f"{tu.i}-{r['task_id']}"
             wdir.mkdir()
             try:
                 (wdir / "src.ii").write_bytes(tu.source(pre))
@@ -5930,78 +5997,186 @@ def run_servant_path(report: list) -> dict:
         state = inspect_vars(siport)["yadcc"]
         before = {k: v["launches"] for k, v in state["kernels"].items()}
         check(not any(before.values()),
-              f"launch counts {before} before the drive")
+              f"launch counts {before} before the build")
         hb_before = state["scheduler_rpc"].get("Heartbeat:handler",
                                                {}).get("count", 0)
-        monitor.thread.start()
-        drive = ServantDrive(sport, gxx_digest, {
-            locs["threaded"]: "grpc", locs["aio"]: "aio"}, capacity, pre)
-        t_drive = time.perf_counter()
-        seconds = drive.run(tus)
-        state = inspect_vars(siport)["yadcc"]
-        hb_after = state["scheduler_rpc"]["Heartbeat:handler"]["count"]
-        launches = {k: v["launches"] - before[k]
-                    for k, v in state["kernels"].items()}
-        monitor.stop.set()
-        monitor.thread.join(timeout=10)
-        check(not drive.errors, f"servant drive: {drive.errors[:3]}")
-        check(not drive.violations, f"servant drive: {drive.violations[:5]}")
-        check(not monitor.violations,
-              f"servant reports: {monitor.violations[:5]}")
-        check(launches["grouped_assign"] > 0,
-              "phase 15: K1 never launched over the drive")
-        check(drive.keepalives > 0, "no compile outlived half its lease: "
-                                    "KeepTaskAlive never ran")
-        td = state["task_dispatcher"]
-        check(td["failure"] is None, f"dispatcher failed: {td['failure']}")
-        check(td["grants_outstanding"] == 0,
-              f"{td['grants_outstanding']} grants outstanding after the "
-              f"drive")
-        for n in ports:
-            check(monitor.max_running[n] > 0,
-                  f"servant {n}'s heartbeats never reported a running task")
-        deadline = time.monotonic() + 10
+        client = BuildClient(gxx_real, gxx_digest, pre)
+        half = SERVANT_TUS // len(SERVANT_FLEETS)
+        t_build = time.perf_counter()
+        build_s = 0.0
+        for i, frontend in enumerate(SERVANT_FLEETS):
+            names = daemon_names(frontend)
+            boot = boot_fleet(frontend, daemons, procs, siport, sport, cport,
+                              os.path.dirname(gxx), nprocs)
+            capacity = {}
+            for n, b in ServantMonitor(
+                    {n: daemons[n]["inspect"] for n in names}).read().items():
+                capacity[n] = b["capacity"]
+            want_cap = max(1, int(nprocs * 0.40))
+            check(all(c == want_cap for c in capacity.values()),
+                  f"{frontend}: capacities {capacity}, not int(0.40 x "
+                  f"{nprocs})")
+            for n in names:
+                comp = inspect_vars(daemons[n]["inspect"])["yadcc"][
+                    "daemon"]["servant"]
+                check(gxx_digest in comp["compilers"],
+                      f"daemon {n} does not advertise the host g++")
+            monitor = ServantMonitor({n: daemons[n]["inspect"]
+                                      for n in names})
+            monitors.append(monitor)
+            monitor.thread.start()
+            part = tus[i * half:(i + 1) * half]
+            # Client threads split over the fleet's two delegates, as a
+            # build's wrappers on two machines would be.
+            jobs = [(tu, daemons[names[k % 2]]["local"], "result",
+                     tu.joined) for k, tu in enumerate(part)]
+            try:
+                seconds = client.run(jobs)
+            except SmokeFailure:
+                # What each delegate saw: counters, stages, its keeper.
+                for n, st in delegate_state(daemons, names).items():
+                    log(f"  {n}: {json.dumps(st['dispatcher'])}")
+                raise
+            build_s += seconds
+            monitor.stop.set()
+            monitor.thread.join(timeout=10)
+            check(not monitor.violations,
+                  f"servant reports: {monitor.violations[:5]}")
+            for n in names:
+                check(monitor.max_running[n] > 0,
+                      f"daemon {n}'s heartbeats never reported a running "
+                      f"task")
+            deadline = time.monotonic() + 10
+            while True:
+                beats = monitor.read()
+                if all(b["running"] == 0 and b["engine_running"] == 0
+                       for b in beats.values()):
+                    break
+                check(time.monotonic() < deadline,
+                      f"servants still report running tasks: {beats}")
+                time.sleep(0.2)
+            st = delegate_state(daemons, names)
+            fleets[frontend] = {
+                "tus": len(part), "seconds": seconds, "boot_s": boot,
+                "capacity": capacity,
+                "max_running": dict(monitor.max_running),
+                "state": st,
+                "rss_kb": {n: proc_status(procs[n].pid)["VmRSS"]
+                           for n in names}}
+            log(f"  phase 15 {frontend} fleet: {len(part)} TUs in "
+                f"{seconds:.2f} s; " + "; ".join(
+                    f"{n} stats {s['dispatcher']['stats']}, grant "
+                    f"timeouts {s['dispatcher']['grant_timeouts']}, "
+                    f"stages {s['dispatcher']['stages']}"
+                    for n, s in st.items()))
+            for n in names:
+                with open(f"/proc/{procs[n].pid}/maps") as f:
+                    check("libtorch" not in f.read(),
+                          f"daemon {n} mapped libtorch")
+            if i < len(SERVANT_FLEETS) - 1:
+                leave(procs, names, siport)
+        build_wall = time.perf_counter() - t_build
+
+        # The cache: every successful compile the servants ran filled
+        # once (a joined TU compiled on both servants fills twice).
+        runs = sum(fl["state"][n]["engine"]["tasks_run_ever"]
+                   for fl in fleets.values() for n in fl["state"])
+        want_fills = runs - SERVANT_ERRORS
+        deadline = time.monotonic() + 60
         while True:
-            beats = monitor.read()
-            if all(b["running"] == 0 and b["engine_running"] == 0
-                   for b in beats.values()):
+            fills = inspect_vars(ciport)["yadcc"]["cache"]["fills"]
+            if fills >= want_fills:
                 break
             check(time.monotonic() < deadline,
-                  f"servants still report running tasks: {beats}")
+                  f"the cache took {fills} fills of {want_fills}")
             time.sleep(0.2)
+        t_filled = time.monotonic()
+        check(fills == want_fills, f"{fills} fills for {want_fills} ok "
+                                   f"compiles ({runs} runs)")
+        check(len(ok) <= want_fills <= len(ok) + SERVANT_JOINED,
+              f"{want_fills} ok compiles for {len(ok)} ok TUs")
 
-        # Each result against the TU: errors fail with the text, joined
-        # submissions share the first one's task id.
-        ok = [tu for tu in tus if not tu.error]
+        # Every result against its TU: errors fail with the text, ok TUs
+        # give one object, with patches iff -g; a joined TU's second
+        # answer too (each is held against a local compile below, in its
+        # own workspace: two -g compiles in two workspaces can order
+        # their debug strings differently).
         for tu in tus:
             r = tu.result
             check(r is not None, f"TU {tu.i} has no result")
             if tu.error:
                 check(r["exit_code"] != 0 and b"#error smoke" in r["stderr"],
                       f"TU {tu.i}: #error compiled: {r['exit_code']}")
-            else:
-                check(r["exit_code"] == 0,
-                      f"TU {tu.i} failed: {r['stderr'][-500:]}")
-                check(set(r["files"]) == {".o"}, f"TU {tu.i}: files "
-                                                 f"{sorted(r['files'])}")
-                has_g = "-g" in tu.flags.split()
-                check(bool(r["patches"].get(".o")) == has_g,
-                      f"TU {tu.i} ({tu.flags}): patches {r['patches']}")
+                continue
+            check(r["exit_code"] == 0,
+                  f"TU {tu.i} failed: {r['stderr'][-500:]}")
+            check(set(r["files"]) == {".o"}, f"TU {tu.i}: files "
+                                             f"{sorted(r['files'])}")
+            has_g = "-g" in tu.flags.split()
+            check(bool(r["patches"].get(".o")) == has_g,
+                  f"TU {tu.i} ({tu.flags}): patches {r['patches']}")
             if tu.joined:
-                check(len(set(r["task_ids"])) == 1,
-                      f"TU {tu.i}: joined ids {r['task_ids']}")
+                t2 = tu.twin
+                check(t2["exit_code"] == 0 and t2["task_id"] != r["task_id"]
+                      and set(t2["files"]) == {".o"}
+                      and bool(t2["patches"].get(".o")) == has_g,
+                      f"TU {tu.i}: the joined submission {t2['task_id']}")
+                if not has_g:
+                    check(t2["files"] == r["files"],
+                          f"TU {tu.i}: the joined submissions' objects "
+                          f"differ")
 
-        # The cache: every successful TU filled once, read back under
-        # its key; no error TU filled.
-        deadline = time.monotonic() + 60
+        # The rebuild through one delegate, once its reader has synced
+        # past the last fill: every ok TU a cache hit, no grant taken but
+        # for the #error TUs, which go to a servant again.
+        rb = daemon_names(SERVANT_FLEETS[-1])[0]
+        deadline = time.monotonic() + 40
         while True:
-            fills = inspect_vars(ciport)["yadcc"]["cache"]["fills"]
-            if fills >= len(ok):
+            t_req = time.monotonic()
+            reader = inspect_vars(daemons[rb]["inspect"])["yadcc"]["daemon"][
+                "cache_reader"]
+            ago = reader["last_sync_s_ago"]
+            if ago is not None and ago < t_req - t_filled:
                 break
             check(time.monotonic() < deadline,
-                  f"the cache took {fills} fills of {len(ok)}")
-            time.sleep(0.2)
-        check(fills == len(ok), f"{fills} fills for {len(ok)} TUs")
+                  f"{rb}'s reader did not sync past the last fill: {reader}")
+            time.sleep(0.5)
+        sync_wait_s = time.monotonic() - t_filled
+        before_rb = inspect_vars(daemons[rb]["inspect"])["yadcc"]["daemon"][
+            "dispatcher"]
+        granted_before = inspect_vars(siport)["yadcc"]["task_dispatcher"][
+            "stats"]["granted"]
+        rebuild_s = client.run([(tu, daemons[rb]["local"], "rebuilt", False)
+                                for tu in tus])
+        after_rb = delegate_state(daemons, [rb])[rb]
+        granted_rb = inspect_vars(siport)["yadcc"]["task_dispatcher"][
+            "stats"]["granted"] - granted_before
+        delta = {k: after_rb["dispatcher"]["stats"][k]
+                 - before_rb["stats"][k] for k in before_rb["stats"]}
+        # The grant waits, less those that ended without a grant.
+        rb_grants = (after_rb["dispatcher"]["stages"]["grant_wait"]["count"]
+                     - before_rb["stages"]["grant_wait"]["count"]
+                     - after_rb["dispatcher"]["grant_timeouts"]
+                     + before_rb["grant_timeouts"])
+        check(delta["hit_cache"] == len(ok) and delta["failed"] == 0
+              and delta["actually_run"] == SERVANT_ERRORS,
+              f"rebuild: {delta}, {len(ok)} ok TUs")
+        check(rb_grants == SERVANT_ERRORS,
+              f"rebuild: {rb_grants} grants taken for {SERVANT_ERRORS} "
+              f"#error TUs")
+        for tu in tus:
+            r = tu.rebuilt
+            if tu.error:
+                check(r["exit_code"] != 0 and b"#error smoke" in r["stderr"],
+                      f"rebuild TU {tu.i}: #error compiled")
+            else:
+                check(r["exit_code"] == 0 and r["files"] in (
+                    tu.result["files"], (tu.twin or {}).get("files")),
+                      f"rebuild TU {tu.i}: not the build's output")
+
+        # The cache entries: each ok TU's read back under its key, equal
+        # to what the rebuild read and to a servant's output; no #error
+        # TU has one.
         cache = Channel(cache_uri)
         for tu in tus:
             key = cache_format.get_cache_key(
@@ -6019,7 +6194,7 @@ def run_servant_path(report: list) -> dict:
             check(not tu.error, f"TU {tu.i} (#error) has a cache entry")
             entry = cache_format.try_parse_cache_entry(value)
             check(entry is not None, f"TU {tu.i}: the entry does not parse")
-            r = tu.result
+            r = tu.rebuilt
             check({k: bytes(v) for k, v in entry.files.items()}
                   == r["files"] and entry.patches == r["patches"]
                   and (entry.exit_code, entry.standard_output,
@@ -6028,87 +6203,176 @@ def run_servant_path(report: list) -> dict:
                   f"TU {tu.i}: the cache entry differs from the output")
         cache.close()
 
-        # The servants' RSS and maps: no torch in either.
-        rss = {}
-        for n in ports:
+        # The aio fleet: the front end's double replies, then it leaves.
+        last = daemon_names(SERVANT_FLEETS[-1])
+        for n in last:
             with open(f"/proc/{procs[n].pid}/maps") as f:
-                maps = f.read()
-            check("libtorch" not in maps, f"servant {n} mapped libtorch")
-            rss[n] = proc_status(procs[n].pid)["VmRSS"]
-        engines = {n: inspect_vars(ports[n][1])["yadcc"]["daemon"]["engine"]
-                   for n in ports}
-        front = inspect_vars(ports["aio"][1])["yadcc"]["daemon"][
-            "servant_rpc"]
-        check(front["double_replies"] == 0,
-              f"aio servant: {front['double_replies']} double replies")
-        for n in ("aio", "threaded"):
-            procs[n].terminate()
-            check(procs[n].wait(timeout=30) == 0,
-                  f"servant {n} exited {procs[n].returncode} on SIGTERM")
+                check("libtorch" not in f.read(),
+                      f"daemon {n} mapped libtorch")
+            front = inspect_vars(daemons[n]["inspect"])["yadcc"]["daemon"][
+                "servant_rpc"]
+            check(front["double_replies"] == 0,
+                  f"aio daemon {n}: {front['double_replies']} double replies")
+        final = delegate_state(daemons, last)
+        for n in last:
+            fleets[SERVANT_FLEETS[-1]]["state"][n] = final[n]
+        state = inspect_vars(siport)["yadcc"]
+        launches = {k: v["launches"] - before[k]
+                    for k, v in state["kernels"].items()}
+        hb_after = state["scheduler_rpc"]["Heartbeat:handler"]["count"]
+        # The delegates' grant polls as the scheduler served them: a lap
+        # the scheduler cannot fill whole ends at its deadline (1 s).
+        polls = state["scheduler_rpc"].get("WaitForStartingTask:handler")
+        check(state["task_dispatcher"]["failure"] is None,
+              f"dispatcher failed: {state['task_dispatcher']['failure']}")
+        leave(procs, last, siport)
+        check(launches["grouped_assign"] > 0,
+              "phase 15: K1 never launched over the builds")
+
+        # The delegates' counters: every submission answered, none failed.
+        totals = collections.Counter()
+        for fl in fleets.values():
+            for s in fl["state"].values():
+                totals.update(s["dispatcher"]["stats"])
+        answered = sum(totals[k] for k in ("actually_run", "reused",
+                                           "hit_cache", "failed"))
+        timeouts = sum(s["dispatcher"]["grant_timeouts"]
+                       for fl in fleets.values()
+                       for s in fl["state"].values())
+        check(answered + timeouts == client.submissions
+              and timeouts == client.no_grant == client.retries
+              and totals["shed_to_local"] == 0,
+              f"delegates answered {answered} + {timeouts} without a grant "
+              f"of {client.submissions} submissions ({client.retries} "
+              f"retries, {client.no_grant} seen without a grant): "
+              f"{dict(totals)}")
+        check(totals["failed"] == 0, f"delegates failed {totals['failed']}")
 
         t0 = time.perf_counter()
+        # A joined TU's second answer is compiled again only when it is
+        # not the first one's (a servant joins a duplicate to its task).
+        jobs = [(tu, tu.result) for tu in ok] + [
+            (tu, tu.twin) for tu in ok
+            if tu.joined and tu.twin["files"] != tu.result["files"]]
         with ThreadPoolExecutor(nprocs) as ex:
-            local_s = list(ex.map(local, ok))
+            local_s = list(ex.map(local, jobs))
         local_wall = time.perf_counter() - t0
     finally:
         stop.set()
-        monitor.stop.set()
+        for m in monitors:
+            m.stop.set()
         for t in threads:
             t.join(timeout=30)
-        for n in ("aio", "threaded", "cache", "scheduler"):
+        for n in [*daemons, "cache", "scheduler"]:
             if n in procs:
                 stop_entry(procs[n])
         shutil.rmtree(SERVANT_DIR, ignore_errors=True)
 
+    stages = {n: s["dispatcher"]["stages"] for fl in fleets.values()
+              for n, s in fl["state"].items()}
+    no_grant = {n: s["dispatcher"]["grant_timeouts"]
+                for fl in fleets.values() for n, s in fl["state"].items()}
     by_flags = collections.Counter(tu.flags for tu in ok)
     res = {
-        "tus": SERVANT_TUS, "seconds": seconds,
-        "compiles_per_s": SERVANT_TUS / seconds,
-        "grant_ms": percentiles_ms(drive.stages["grant"]),
-        "queue_ms": percentiles_ms(drive.stages["queue"]),
-        "output_wait_ms": percentiles_ms(drive.stages["output"]),
-        "compile_ms": {n: e["run_ms"] for n, e in engines.items()},
+        "tus": SERVANT_TUS, "seconds": build_s,
+        "compiles_per_s": SERVANT_TUS / build_s,
+        "client_ms": percentiles_ms(client.seconds),
+        "stages": stages,
+        "compile_ms": {n: s["engine"]["run_ms"] for fl in fleets.values()
+                       for n, s in fl["state"].items()},
         "local_compile_ms": percentiles_ms(local_s),
-        "heartbeats_per_s": (hb_after - hb_before) / seconds,
-        "cache_fills": fills, "rss_kb": rss, "keepalives": drive.keepalives,
-        "granted": {n: drive.granted[locs[n]] for n in ports},
-        "capacity": want_cap, "nprocs": nprocs,
-        "max_running": monitor.max_running, "launches": launches,
-        "boot_s": boot_s, "servant_boot_s": servant_boot_s,
+        "heartbeats_per_s": (hb_after - hb_before) / build_wall,
+        "cache_fills": fills, "runs": runs,
+        "rss_kb": {n: v for fl in fleets.values()
+                   for n, v in fl["rss_kb"].items()},
+        "fleets": {f: {k: fl[k] for k in ("tus", "seconds", "boot_s",
+                                          "capacity", "max_running")}
+                   for f, fl in fleets.items()},
+        "delegate_stats": dict(totals), "submissions": client.submissions,
+        "grant_timeouts": timeouts, "retries": client.retries,
+        "digest_reports": client.digest_reports,
+        "rebuild": {"seconds": rebuild_s,
+                    "tus_per_s": SERVANT_TUS / rebuild_s,
+                    "sync_wait_s": sync_wait_s, "delta": delta,
+                    "grants_taken": rb_grants,
+                    "scheduler_granted": granted_rb},
+        "wait_for_starting_task_ms": polls,
+        "launches": launches, "boot_s": boot_s, "build_wall_s": build_wall,
         "local_wall_s": local_wall,
         "phase_s": time.perf_counter() - t_phase,
     }
-    report.append(
-        f"  drive: {SERVANT_TUS} TUs ({len(ok)} ok: {dict(by_flags)}) in "
-        f"{seconds:.2f} s = {res['compiles_per_s']:.2f} compiles/s, "
-        f"{SERVANT_DELEGATES} delegates; granted {res['granted']} (capacity {want_cap} each, "
-        f"the most running {monitor.max_running}); {drive.keepalives} "
-        f"KeepTaskAlive; every grant on a real servant, none over "
-        f"capacity, none outstanding")
-    def pq(d):
-        return f"{d['p50']:.2f} / {d['p99']:.2f}"
 
+    def pq(d, unit="p50", tail="p99"):
+        return f"{d[unit]:.2f} / {d[tail]:.2f}"
+
+    for f, fl in res["fleets"].items():
+        report.append(
+            f"  {f} fleet: {fl['tus']} TUs in {fl['seconds']:.2f} s = "
+            f"{fl['tus'] / fl['seconds']:.2f} compiles/s through 2 "
+            f"daemons (both roles; capacity {fl['capacity']}, the most "
+            f"running {fl['max_running']}), booted in {fl['boot_s']:.1f} s")
     report.append(
-        f"  per TU p50 / p99 ms: grant wait {pq(res['grant_ms'])}, queue "
-        f"{pq(res['queue_ms'])}, output wait {pq(res['output_wait_ms'])}"
-        f"; compile (the engine's run time) " + ", ".join(
+        f"  build: {SERVANT_TUS} TUs ({len(ok)} ok: {dict(by_flags)}) in "
+        f"{build_s:.2f} s = {res['compiles_per_s']:.2f} compiles/s from "
+        f"{SERVANT_CLIENTS} client threads (the wall of both builds "
+        f"{build_wall:.1f} s with the boots); {client.submissions} "
+        f"submissions in all ({client.retries} again after no grant in "
+        f"the keeper's 10 s), {client.digest_reports} compiler digests "
+        f"reported after a 400; the delegates' actually_run + reused + "
+        f"hit_cache + failed = {answered} ({dict(totals)}) + {timeouts} "
+        f"answered without a grant; every grant on "
+        f"a real servant, none over capacity, none outstanding after "
+        f"either fleet left")
+    report.append(
+        "  per submission p50 / p99 ms, as each delegate sees it (a grant "
+        "wait that ended without a grant included): " + "; ".join(
+            f"{n} grant wait {pq(s['grant_wait'], 'p50_ms', 'p99_ms')} "
+            f"({s['grant_wait']['count']} waits, {no_grant[n]} without a "
+            f"grant), queue {pq(s['queue'], 'p50_ms', 'p99_ms')}, output "
+            f"wait {pq(s['output_wait'], 'p50_ms', 'p99_ms')}"
+            for n, s in stages.items() if "grant_wait" in s))
+    report.append(
+        "  grant keepers (fetches / grants / dry laps / flow verdicts): "
+        + "; ".join(
+            f"{n} " + ", ".join(
+                f"{c['fetches']} / {c['grants']} / {c['dry']} / {c['flow']}"
+                for c in s["dispatcher"]["grant_keeper"]["fetchers"].values())
+            for fl in fleets.values() for n, s in fl["state"].items()))
+    report.append(
+        "  compile (the engine's run time) " + ", ".join(
             f"{n} {pq(c)} ({c['count']} tasks)"
             for n, c in res["compile_ms"].items())
-        + f"; the same compiles locally, {nprocs} at once: "
-          f"{pq(res['local_compile_ms'])}")
+        + f"; the client's clock (submit to 200, a TU) "
+          f"{pq(res['client_ms'])}; the same compiles locally, {nprocs} at "
+          f"once: {pq(res['local_compile_ms'])}")
+    rb_ = res["rebuild"]
+    report.append(
+        f"  cached rebuild through {rb}: {SERVANT_TUS} TUs in "
+        f"{rb_['seconds']:.2f} s = {rb_['tus_per_s']:.2f} TUs/s, its reader "
+        f"synced {rb_['sync_wait_s']:.1f} s after the last fill; "
+        f"hit_cache {rb_['delta']['hit_cache']} (every ok TU), "
+        f"actually_run {rb_['delta']['actually_run']} (the #error TUs), "
+        f"grants taken {rb_grants}, the scheduler granted "
+        f"{granted_rb} (prefetch included)")
+    if polls:
+        report.append(
+            f"  the delegates' WaitForStartingTask laps at the scheduler: "
+            f"{polls['count']} polls, handler p50 {polls['p50_ms']:.2f} / "
+            f"p99 {polls['p99_ms']:.2f} ms (a lap holds its grants until "
+            f"it is filled or its 1 s deadline)")
     report.append(
         f"  scheduler took {res['heartbeats_per_s']:.1f} heartbeats/s "
         f"({N_SERVANTS:,} synthetic servants every {HB_REPEAT_S:.0f} s + 2 "
-        f"real every 1 s); cache fills {fills} (every ok TU's entry read back "
-        f"and parsed to the servant's files; no #error TU filled); K1 "
-        f"launches {launches}; servants' RSS kB {rss} (no libtorch "
-        f"mapped); aio servant double replies 0")
+        f"real every 1 s); cache fills {fills} for {runs} compiles "
+        f"({SERVANT_ERRORS} #error; every ok TU's entry read back, parsed "
+        f"and equal to the rebuild's answer; no #error TU filled); K1 "
+        f"launches {launches}; daemons' RSS kB {res['rss_kb']} (no "
+        f"libtorch mapped); aio double replies 0")
     report.append(
         f"  every object byte-equal to a local compile ({nprocs} at once "
-        f"after the drive: {local_wall:.1f} s), every -g object also after "
-        f"the patch; boot: "
-        f"scheduler {boot_s:.1f} s, servants {servant_boot_s:.1f} s; "
-        f"phase {res['phase_s']:.1f} s")
+        f"after the builds: {local_wall:.1f} s), every -g object also after "
+        f"the patch; boot: scheduler {boot_s:.1f} s; phase "
+        f"{res['phase_s']:.1f} s")
     return res
 
 
@@ -6234,9 +6498,9 @@ def main() -> int:
 
     report = []
     t15 = time.perf_counter()
-    servant = run_servant_path(report)
-    phases["servant"] = {"launches": servant["launches"]}
-    log(f"phase 15 the servant half of the daemon "
+    daemon = run_daemon_path(report)
+    phases["daemon"] = {"launches": daemon["launches"]}
+    log(f"phase 15 the daemon, both halves "
         f"({time.perf_counter() - t15:.1f} s; {card}):")
     for line in report:
         log(line)

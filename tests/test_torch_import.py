@@ -55,6 +55,16 @@ _SERVANT_MODULES = (
     "daemon.cloud.temporary", "daemon.cloud.compiler_registry",
     "daemon.cloud.execution_engine", "daemon.cloud.cxx_task",
     "daemon.cloud.daemon_service", "daemon.entry")
+# The delegate half of the daemon, each imported by name.
+_DELEGATE_MODULES = (
+    "api.gen.local_pb2", "daemon.local.distributed_task",
+    "daemon.local.cxx_task", "daemon.local.file_digest_cache",
+    "daemon.local.task_registry", "daemon.local.fair_admission",
+    "daemon.local.task_grant_keeper", "daemon.local.config_keeper",
+    "daemon.local.running_task_keeper", "daemon.local.local_task_monitor",
+    "daemon.local.distributed_task_dispatcher", "daemon.local.http_service")
+# The in-process rig: it runs the scheduler, so it loads torch.
+_RIG_MODULES = ("testing", "testing.local_cluster")
 
 
 def _port_sources():
@@ -100,7 +110,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         for name in ("yadcc_tpu_torch.ops.cuda_assign",
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
-                for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT):
+                for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT
+                + DELEGATE + RIG):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
@@ -114,9 +125,11 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
         from yadcc_tpu_torch.common import compress
         assert compress.zstandard is None
         assert compress.decompress(compress.compress(b"x" * 99)) == b"x" * 99
-        from yadcc_tpu_torch.rpc import Channel, make_rpc_server
+        from yadcc_tpu_torch.rpc import (Channel, FailoverChannel,
+                                         make_rpc_server)
         from yadcc_tpu_torch.rpc.aio_server import AioChannel
         assert type(Channel("aio://127.0.0.1:1")) is AioChannel
+        assert type(Channel("mock://a,mock://b")) is FailoverChannel
         assert callable(make_rpc_server)
         print(len(names))
     """)
@@ -125,7 +138,9 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"REPL = {_REPLICATION_MODULES!r}\n"
               f"AIO = {_AIO_MODULES!r}\n"
               f"CACHE = {_CACHE_MODULES!r}\n"
-              f"SERVANT = {_SERVANT_MODULES!r}\n" + script)
+              f"SERVANT = {_SERVANT_MODULES!r}\n"
+              f"DELEGATE = {_DELEGATE_MODULES!r}\n"
+              f"RIG = {_RIG_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -143,15 +158,19 @@ def test_cache_entry_loads_no_torch():
     assert out.returncode == 0, out.stderr[-2000:]
 
 
-def test_daemon_entry_loads_no_torch():
-    """The servant runs nothing on the card: its entry's --help and every
-    module of the servant half run with torch and jax blocked, and the
-    reader constructs without either."""
+def test_daemon_entry_loads_no_torch(tmp_path, monkeypatch):
+    """Neither role of the daemon runs anything on the card: the entry's
+    --help and every module of both halves run with torch and jax
+    blocked, and the reader constructs without either.  Then the entry
+    as a program, both roles, against a scheduler stub: a client's TU
+    goes in over loopback HTTP, through the delegate (grant, queue,
+    wait, free) to its own servant and back, and the process maps no
+    torch."""
     script = textwrap.dedent(r"""
         import importlib, runpy, sys
         for name in ("torch", "jax", "jaxlib"):
             sys.modules[name] = None
-        for m in SERVANT:
+        for m in SERVANT + DELEGATE:
             importlib.import_module("yadcc_tpu_torch." + m)
         from yadcc_tpu_torch.daemon.local.distributed_cache_reader import \
             DistributedCacheReader
@@ -166,11 +185,13 @@ def test_daemon_entry_loads_no_torch():
                        for n in sys.modules), "torch or the JAX package"
     """)
     out = subprocess.run(
-        [sys.executable, "-c", f"SERVANT = {_SERVANT_MODULES!r}\n" + script],
+        [sys.executable, "-c", f"SERVANT = {_SERVANT_MODULES!r}\n"
+         f"DELEGATE = {_DELEGATE_MODULES!r}\n" + script],
         cwd=REPO, capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "--scheduler-uri" in out.stdout
-    assert "--local-port" not in out.stdout
+    for flag in ("--scheduler-uri", "--local-port", "--max-local-tasks",
+                 "--lightweight-ratio", "--debugging-always-use-servant-at"):
+        assert flag in out.stdout, flag
     # As a program: `python -m yadcc_tpu_torch.daemon.entry --help`,
     # with every import it makes listed by -X importtime.
     out = subprocess.run(
@@ -182,9 +203,115 @@ def test_daemon_entry_loads_no_torch():
     imported = {line.rsplit("|", 1)[-1].strip()
                 for line in out.stderr.splitlines()
                 if line.startswith("import time:")}
-    assert "yadcc_tpu_torch.daemon.cloud.daemon_service" in imported
+    assert {"yadcc_tpu_torch.daemon.cloud.daemon_service",
+            "yadcc_tpu_torch.daemon.local.http_service"} <= imported
     assert not {n for n in imported
                 if n.split(".")[0] in ("torch", "jax", "yadcc_tpu")}
+    _entry_serves_a_tu_over_http(tmp_path, monkeypatch)
+
+
+def _entry_serves_a_tu_over_http(tmp_path, monkeypatch):
+    import signal
+    import socket
+    import time
+
+    from yadcc_tpu.client import compilation_saas, daemon_call
+    import yadcc_tpu_torch.api as tapi
+    import yadcc_tpu_torch.rpc as trpc
+    from yadcc_tpu_torch.common import compress
+    from yadcc_tpu_torch.common.hashing import digest_bytes
+
+    toolchain = REPO / "tests" / "testdata" / "toolchains" / "bin"
+    S = tapi.scheduler
+    seen = {"beats": [], "freed": [], "grants": 0}
+
+    def heartbeat(req, att, ctx):
+        seen["beats"].append(req)
+        return S.HeartbeatResponse(acceptable_tokens=["dtok"])
+
+    def wait_for_starting_task(req, att, ctx):
+        if not seen["beats"]:
+            return S.WaitForStartingTaskResponse()
+        seen["grants"] += 1
+        resp = S.WaitForStartingTaskResponse()
+        for i in range(req.immediate_reqs + req.prefetch_reqs):
+            resp.grants.add(task_grant_id=100 * seen["grants"] + i,
+                            servant_location=seen["beats"][-1].location)
+        return resp
+
+    def free(req, att, ctx):
+        seen["freed"].extend(req.task_grant_ids)
+        return S.FreeTaskResponse()
+
+    sched = trpc.ServiceSpec("ytpu.SchedulerService")
+    sched.add("Heartbeat", S.HeartbeatRequest, heartbeat)
+    sched.add("GetConfig", S.GetConfigRequest, lambda req, att, ctx:
+              S.GetConfigResponse(serving_daemon_token="dtok"))
+    sched.add("GetRunningTasks", S.GetRunningTasksRequest,
+              lambda req, att, ctx: S.GetRunningTasksResponse())
+    sched.add("WaitForStartingTask", S.WaitForStartingTaskRequest,
+              wait_for_starting_task)
+    sched.add("KeepTaskAlive", S.KeepTaskAliveRequest, lambda req, att, ctx:
+              S.KeepTaskAliveResponse(
+                  statuses=[True] * len(req.task_grant_ids)))
+    sched.add("FreeTask", S.FreeTaskRequest, free)
+    server = trpc.make_rpc_server("threaded", "127.0.0.1:0")
+    server.add_service(sched)
+    server.start()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        local_port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "yadcc_tpu_torch.daemon.entry",
+         "--scheduler-uri", f"grpc://127.0.0.1:{server.port}",
+         "--token", "stok", "--local-port", str(local_port),
+         "--serving-port", "0", "--inspect-port", "0",
+         "--extra-compiler-dirs", str(toolchain), "--max-remote-tasks", "2",
+         "--max-local-tasks", "3", "--temporary-dir", str(tmp_path / "shm"),
+         "--allow-poor-machine", "--ignore-cgroup-limits",
+         "--no-privilege-drop"],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 30
+        while True:
+            assert proc.poll() is None, proc.stderr.read().decode()[-2000:]
+            assert time.monotonic() < deadline, "the entry never came up"
+            try:
+                with socket.create_connection(("127.0.0.1", local_port),
+                                              timeout=1):
+                    pass
+                if seen["beats"]:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        monkeypatch.setenv("YTPU_DAEMON_PORT", str(local_port))
+        daemon_call.set_daemon_call_handler(None)
+        src = b"int served(int x) { return x + 2; }\n"
+        tid = compilation_saas.submit_compilation_task(
+            compiler_path=str(toolchain / "g++"), source_path="/src/e.cc",
+            source_digest=digest_bytes(src),
+            compressed_source=compress.compress(src),
+            invocation_arguments="-O2", cache_control=1)
+        result, _ = compilation_saas.wait_for_compilation_task(
+            tid, timeout_s=60)
+        assert result.exit_code == 0, result.standard_error
+        assert set(result.files) == {".o", ".gcno"}
+        assert seen["grants"] >= 1
+        with open(f"/proc/{proc.pid}/maps") as f:
+            maps = f.read()
+        assert "libtorch" not in maps
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        # The grant it ran on, and the one it prefetched, went back.
+        assert {100, 101} <= set(seen["freed"]), seen["freed"]
+        assert seen["beats"][-1].next_heartbeat_in_ms == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+        server.stop(grace=0)
 
 
 def test_resolve_device_refuses_missing_card():

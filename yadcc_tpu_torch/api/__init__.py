@@ -1,5 +1,5 @@
-"""Wire contract of the scheduler, the cache server and the servant:
-protobuf messages + service names.
+"""Wire contract of the scheduler, the cache server, the servant and the
+delegate's loopback HTTP API: protobuf messages + service names.
 
 The generated modules under ``gen/`` are byte-identical copies of the
 ones the JAX package ships, so both packages speak the same wire format
@@ -9,10 +9,11 @@ from .gen import cache_pb2 as cache
 from .gen import daemon_pb2 as daemon
 from .gen import env_desc_pb2 as env_desc
 from .gen import extra_info_pb2 as extra_info
+from .gen import local_pb2 as local
 from .gen import patch_pb2 as patch
 from .gen import scheduler_pb2 as scheduler
 
 EnvironmentDesc = env_desc.EnvironmentDesc
 
-__all__ = ["cache", "daemon", "env_desc", "extra_info", "patch",
+__all__ = ["cache", "daemon", "env_desc", "extra_info", "local", "patch",
            "scheduler", "EnvironmentDesc"]

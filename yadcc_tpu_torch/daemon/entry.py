@@ -1,19 +1,21 @@
-"""Daemon main, the servant role (a copy of the servant half of the JAX
-package's yadcc_tpu/daemon/entry.py; the delegate role, with its flags
---local-port, --max-local-tasks, --lightweight-ratio and
---debugging-always-use-servant-at, comes with the delegate's slice, and
-until then argparse refuses those flags).
+"""Daemon main: one process, two roles (a copy of the JAX package's
+yadcc_tpu/daemon/entry.py for the C++ workload).
 
-Parity with reference yadcc/daemon/entry.cc:69-262: a *servant* serving
-peer daemons over RPC (:8335), environment scrubbing (LC_ALL,
-GCC_COMPARE_DEBUG, SOURCE_DATE_EPOCH would make outputs differ across
-machines and poison the cache), privilege drop, stale temp cleanup,
-ordered shutdown.  The servant runs nothing on the card, so the entry
-loads no torch and takes no ``--device``.  Run:
+Parity with reference yadcc/daemon/entry.cc:69-262: a *delegate* serving
+local clients over loopback HTTP (:8334, ``--local-port``) and a
+*servant* serving peer daemons over RPC (:8335); environment scrubbing
+(LC_ALL, GCC_COMPARE_DEBUG, SOURCE_DATE_EPOCH would make outputs differ
+across machines and poison the cache); privilege drop; stale temp
+cleanup; ordered shutdown.  Neither role runs anything on the card (the
+delegate checks the cache one key at a time on its host filter), so the
+entry loads no torch and takes no ``--device``.  The delegate's HTTP
+service is threaded under either ``--rpc-frontend``.  Run:
 
     python -m yadcc_tpu_torch.daemon.entry \\
         --scheduler-uri grpc://scheduler:8336 \\
-        --cache-server-uri grpc://cache:8337 --token SERVANT_TOKEN
+        --cache-server-uri grpc://cache:8337 --token DAEMON_TOKEN
+
+and point a compiler wrapper at ``--local-port`` (YTPU_DAEMON_PORT).
 """
 
 from __future__ import annotations
@@ -35,6 +37,14 @@ from .cloud.daemon_service import DaemonService
 from .cloud.distributed_cache_writer import DistributedCacheWriter
 from .cloud.execution_engine import ExecutionEngine, decide_capacity
 from .config import DaemonConfig
+from .local.config_keeper import ConfigKeeper
+from .local.distributed_cache_reader import DistributedCacheReader
+from .local.distributed_task_dispatcher import DistributedTaskDispatcher
+from .local.file_digest_cache import FileDigestCache
+from .local.http_service import LocalHttpService
+from .local.local_task_monitor import LocalTaskMonitor
+from .local.running_task_keeper import RunningTaskKeeper
+from .local.task_grant_keeper import TaskGrantKeeper
 from .privilege import drop_privileges
 from .sysinfo import LoadAverageSampler
 from .temp_dir import clean_stale_temp_dirs
@@ -57,29 +67,26 @@ def _load_window(v: str) -> int:
     return n
 
 
-def _scheduler_uri(v: str) -> str:
-    # The reference hands a ','-list to a failover channel; the port
-    # has none yet, and heartbeats sent only to the first URI would
-    # keep going to a dead active after a standby takes over.
-    if "," in v.split(";")[0]:
-        raise argparse.ArgumentTypeError(
-            "a ','-separated failover list in --scheduler-uri needs the "
-            "failover channel, which this package does not have yet")
-    return v
-
-
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("yadcc-tpu-torch-daemon")
     p.add_argument("--scheduler-uri", default="grpc://127.0.0.1:8336",
-                   type=_scheduler_uri,
-                   help="scheduler endpoint; of a ';'-separated list of "
-                        "federation cells the servant belongs to the "
-                        "first (a ','-separated failover list is "
-                        "refused)")
+                   help="scheduler endpoint(s).  Comma-separated URIs "
+                        "are an ordered active,standby failover list "
+                        "(dialed through FailoverChannel: on transport "
+                        "failure or NOT_SERVING the daemon rotates and "
+                        "re-dials under backoff); ';'-separated groups "
+                        "are federation cells, each group its own "
+                        "failover list.  The servant role belongs to the "
+                        "first cell; the delegate homes each compiler "
+                        "env on a cell by consistent hash on its digest")
     p.add_argument("--cache-server-uri", default="")
     p.add_argument("--token", default="",
-                   help="the servant token: the scheduler and the cache "
-                        "server check it (--acceptable-servant-tokens)")
+                   help="the daemon's token: the scheduler and the cache "
+                        "server check it as a servant's (heartbeats, "
+                        "fills) and as a user's (grants, reads)")
+    p.add_argument("--local-port", type=int, default=8334,
+                   help="the delegate's loopback HTTP port, which "
+                        "compiler wrappers call")
     p.add_argument("--serving-port", type=int, default=8335)
     p.add_argument("--inspect-port", type=int, default=9335)
     p.add_argument("--inspect-credential", default="")
@@ -99,16 +106,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="serve even inside a cgroup/container; only safe "
                         "when the container really owns its cores")
     p.add_argument("--no-privilege-drop", action="store_true")
+    p.add_argument("--max-local-tasks", type=int, default=0,
+                   help="heavy-class local quota; 0 = cores/2 "
+                        "(reference --max_local_tasks)")
+    p.add_argument("--lightweight-ratio", type=float, default=1.5,
+                   help="lightweight-class quota as a multiple of cores "
+                        "(reference "
+                        "--lightweight_local_task_overprovisioning_ratio)")
     p.add_argument("--cpu-load-average-seconds", type=_load_window,
                    default=15, help="loadavg window reported in "
                                     "heartbeats (1..60)")
     p.add_argument("--compiler-rescan-interval", type=float, default=60.0)
+    p.add_argument("--debugging-always-use-servant-at", default="",
+                   help="debug only: dial THIS servant for every "
+                        "dispatched task instead of the granted one")
     p.add_argument("--rpc-frontend", default="threaded",
                    choices=["threaded", "aio"],
-                   help="servant RPC front end: 'threaded' = grpc thread "
-                        "pool; 'aio' = the event-loop front end, where "
+                   help="servant RPC front end, and the scheme the "
+                        "delegate dials peer servants with (a fleet-wide "
+                        "choice): 'threaded' = grpc thread pool; 'aio' = "
+                        "the event-loop front end, where "
                         "WaitForCompilationOutput parks as a loop "
-                        "continuation (peers dial aio://)")
+                        "continuation (peers dial aio://).  The local "
+                        "HTTP service is threaded under both")
     p.add_argument("--accept-loops", type=int, default=1,
                    help="aio front end only: shard the accept path "
                         "across N SO_REUSEPORT event loops; 1 = single "
@@ -117,9 +137,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _guess_local_ip(scheduler_uri: str) -> str:
-    # Of ';'-separated cells, route discovery only needs ONE reachable
-    # peer: the first.
-    first = scheduler_uri.split(";")[0].strip()
+    # Multi-URI forms (cell groups ';', failover lists ','): route
+    # discovery only needs ONE reachable peer — use the first URI.
+    first = scheduler_uri.split(";")[0].split(",")[0].strip()
     target = first.split("://")[-1]
     host, _, port = target.rpartition(":")
     try:
@@ -137,22 +157,31 @@ def _guess_local_ip(scheduler_uri: str) -> str:
 
 
 def daemon_start(args) -> None:
-    """Serve until SIGINT or SIGTERM, then leave the scheduler gracefully
-    and kill what still runs."""
+    """Serve until SIGINT, SIGTERM or a client's ask_to_leave, then leave
+    the scheduler gracefully, return the delegate's grants and kill what
+    still runs."""
     for var in _SCRUBBED_ENV:
         os.environ.pop(var, None)
     if not args.no_privilege_drop:
         drop_privileges()
 
-    # A servant BELONGS to one cell: heartbeats dial the first group.
+    # Federation: a servant BELONGS to one cell — heartbeats, config
+    # pulls, and running-task renewal dial only the first ';'-group (its
+    # own cell's active,standby failover list, through FailoverChannel).
+    # Only the grant keeper (delegate role) federates across all cells,
+    # homing each compiler env by digest.
     cell_uri = args.scheduler_uri.split(";")[0].strip()
     config = DaemonConfig(
         scheduler_uri=cell_uri,
         cache_server_uri=args.cache_server_uri,
         token=args.token,
         serving_port=args.serving_port,
+        local_port=args.local_port,
         servant_priority_dedicated=args.dedicated,
         max_remote_tasks=args.max_remote_tasks,
+        max_local_tasks=args.max_local_tasks,
+        lightweight_overprovisioning_ratio=args.lightweight_ratio,
+        debugging_always_use_servant_at=args.debugging_always_use_servant_at,
         cpu_load_average_seconds=args.cpu_load_average_seconds,
         compiler_rescan_interval=args.compiler_rescan_interval,
         inspect_port=args.inspect_port,
@@ -167,6 +196,7 @@ def daemon_start(args) -> None:
     if removed:
         logger.info("removed %d stale temp dirs", removed)
 
+    # ---- servant role ----
     sampler = LoadAverageSampler()
     cgroup_present = False if args.ignore_cgroup_limits else None
     capacity, _ = decide_capacity(sampler.nprocs, args.dedicated,
@@ -197,35 +227,80 @@ def daemon_start(args) -> None:
     service.attach_frontend(server)
     server.add_service(service.spec())
     server.start()
-    service.start_heartbeat()
 
+    # ---- delegate role ----
+    # Grants over the whole --scheduler-uri (cells and failover lists);
+    # the serving-daemon token and the running tasks from our own cell.
+    grant_keeper = TaskGrantKeeper(args.scheduler_uri, args.token)
+    config_keeper = ConfigKeeper(cell_uri, args.token)
+    cache_reader = DistributedCacheReader(args.cache_server_uri, args.token)
+    running_keeper = RunningTaskKeeper(cell_uri)
+    dispatcher = DistributedTaskDispatcher(
+        grant_keeper=grant_keeper,
+        config_keeper=config_keeper,
+        cache_reader=cache_reader,
+        running_task_keeper=running_keeper,
+        debugging_always_use_servant_at=config.debugging_always_use_servant_at,
+        # The front end is a fleet-wide choice: an aio daemon's peers
+        # serve aio:// too.
+        servant_scheme=("aio://" if args.rpc_frontend == "aio"
+                        else "grpc://"),
+    )
+    monitor = LocalTaskMonitor(
+        max_heavy_tasks=config.max_local_tasks,
+        light_ratio=config.lightweight_overprovisioning_ratio)
+    digest_cache = FileDigestCache()
+    stop = threading.Event()
+    http = LocalHttpService(
+        monitor=monitor, digest_cache=digest_cache, dispatcher=dispatcher,
+        on_leave=stop.set, port=args.local_port)
+
+    config_keeper.start()
+    cache_reader.start()
+    running_keeper.start()
+    service.start_heartbeat()
+    http.start()
     inspect = InspectServer(args.inspect_port, args.inspect_credential)
     inspect.start()
-    exposed_vars.expose("yadcc/daemon/engine", engine.inspect)
-    exposed_vars.expose("yadcc/daemon/servant", service.inspect)
+    exposed = {
+        "yadcc/daemon/engine": engine.inspect,
+        "yadcc/daemon/servant": service.inspect,
+        "yadcc/daemon/dispatcher": dispatcher.inspect,
+        "yadcc/daemon/monitor": monitor.inspect,
+        "yadcc/daemon/cache_reader": cache_reader.inspect,
+        "yadcc/daemon/local_http": http.inspect,
+    }
     # Front-end serving stats: on aio these carry `double_replies`.
     if hasattr(server, "inspect"):
-        exposed_vars.expose("yadcc/daemon/servant_rpc", server.inspect)
-    logger.info("servant up: RPC :%d (as %s, %s), capacity %d, compilers "
-                "%d, inspect :%d", server.port, config.location,
-                args.rpc_frontend, capacity, len(registry.environments()),
-                inspect.port)
+        exposed["yadcc/daemon/servant_rpc"] = server.inspect
+    for path, producer in exposed.items():
+        exposed_vars.expose(path, producer)
+    logger.info("daemon up: local HTTP :%d, servant RPC :%d (as %s, %s), "
+                "capacity %d, compilers %d, inspect :%d", http.port,
+                server.port, config.location, args.rpc_frontend, capacity,
+                len(registry.environments()), inspect.port)
 
-    stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     last_rescan = time.monotonic()
     while not stop.wait(1.0):
+        dispatcher.on_timer()
+        monitor.on_reclaim_timer()
         if time.monotonic() - last_rescan >= config.compiler_rescan_interval:
             registry.rescan()
             last_rescan = time.monotonic()
 
     logger.info("shutting down")
     service.stop_heartbeat(graceful_leave=True)
+    http.stop()
+    # Aborts in-flight tasks, returns the grant keeper's queued grants
+    # and stops the cache reader.
+    dispatcher.stop()
     server.stop()
     inspect.stop()
-    for path in ("yadcc/daemon/engine", "yadcc/daemon/servant",
-                 "yadcc/daemon/servant_rpc"):
+    for c in (config_keeper, running_keeper):
+        c.stop()
+    for path in exposed:
         exposed_vars.unexpose(path)
     engine.stop()
     shutdown_pack_executor()

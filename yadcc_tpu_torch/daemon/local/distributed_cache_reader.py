@@ -282,8 +282,14 @@ class DistributedCacheReader:
             return self._channel
 
     def inspect(self) -> dict:
+        """Counters, and when the last answered region sync was sent
+        (``last_sync_s_ago``): a key filled before that moment is in the
+        replica."""
         with self._lock:
+            last = self._last_fetch
             return {"synced": self._filter is not None, "hits": self.hits,
                     "fleet_synced": self._fleet_filter is not None,
                     "bloom_rejects": self.bloom_rejects,
-                    "misses": self.misses}
+                    "misses": self.misses,
+                    "last_sync_s_ago": (time.monotonic() - last
+                                        if last else None)}

@@ -1,0 +1,304 @@
+"""Client-facing loopback HTTP API (a copy of the threaded half of the JAX
+package's yadcc_tpu/daemon/local/http_service.py, without the jit
+cache-shim routes; the aio front end's parked routes are not here).
+
+Parity with reference yadcc/daemon/local/http_service_impl.{h,cc} and
+the wire format in yadcc/daemon/local/README.md: plain HTTP/1.1 on
+127.0.0.1, JSON message bodies (uint64 as strings, per proto3 JSON),
+multi-chunk framing when attachments are present.  Routes:
+
+    GET  /local/get_version
+    POST /local/ask_to_leave
+    POST /local/acquire_quota        (200 granted / 503 timeout)
+    POST /local/release_quota
+    POST /local/set_file_digest
+
+plus one submit/wait route PAIR per registered task kind
+(task_registry.py — cxx):
+
+    POST /local/submit_<kind>_task   (multi-chunk: json + attachment;
+                                      400: fix the submission and retry
+                                      — e.g. report compiler digest
+                                      first)
+    POST /local/wait_for_<kind>_task (503: still running, retry;
+                                      404: unknown task id)
+
+With a TenancyControl every POST route fails closed (403) without a
+valid X-Ytpu-Tenant credential; an over-budget tenant's submission gets
+503 + Retry-After.
+"""
+
+from __future__ import annotations
+
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Optional
+
+from google.protobuf import json_format
+
+from ... import api
+from ...common import multi_chunk
+from ...common.limits import BodyTooLarge, checked_content_length, clamp_wait_s
+from ...common.payload import Payload
+from ...tenancy.budgets import TenantOverBudget
+from ...utils.logging import get_logger
+from ...version import BUILT_AT, VERSION_FOR_UPGRADE
+from .distributed_task_dispatcher import DistributedTaskDispatcher
+from .file_digest_cache import FileDigestCache
+from .local_task_monitor import LocalTaskMonitor
+from .task_registry import default_registry
+
+logger = get_logger("daemon.http")
+
+# Sentinel distinct from None: None = tenancy disabled (anonymous OK),
+# _TENANT_DENIED = tenancy enabled and this request failed verification.
+_TENANT_DENIED = object()
+_TENANT_HEADER = "x-ytpu-tenant"
+_DENIED_BODY = b'{"error":"valid tenant credential required"}'
+
+_DENIED_BUDGET_BODY = b'{"error":"tenant over budget"}'
+
+
+def _to_json(msg) -> bytes:
+    # Zero-valued fields (e.g. exit_code 0) must appear explicitly: the
+    # zero-dependency client reads them without proto schema knowledge.
+    return json_format.MessageToJson(
+        msg, preserving_proto_field_name=True,
+        always_print_fields_with_no_presence=True).encode()
+
+
+def _from_json(cls, data: bytes):
+    msg = cls()
+    json_format.Parse(data.decode(), msg, ignore_unknown_fields=True)
+    return msg
+
+
+class LocalHttpService:
+    def __init__(
+        self,
+        *,
+        monitor: LocalTaskMonitor,
+        digest_cache: FileDigestCache,
+        dispatcher: DistributedTaskDispatcher,
+        on_leave: Optional[Callable[[], None]] = None,
+        port: int = 8334,
+        host: str = "127.0.0.1",
+        # Multi-tenant QoS: a tenancy.TenancyControl makes every POST
+        # route fail-closed on the X-Ytpu-Tenant credential; the
+        # verified binding is stamped onto tasks (tenant-weighted
+        # fairness, tenant cache domain).  None (default) = single-
+        # tenant mode.
+        tenancy=None,
+    ):
+        self.monitor = monitor
+        self.digest_cache = digest_cache
+        self.dispatcher = dispatcher
+        self.on_leave = on_leave or (lambda: None)
+        self.registry = default_registry(digest_cache)
+        self.tenancy = tenancy
+        service = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def _reply(self, code: int, body=b"",
+                       content_type: str = "application/json",
+                       retry_after_s: Optional[float] = None):
+                # `body` may be a chunked Payload: gather-write its
+                # segments (wfile buffers small ones; a multi-MB object
+                # file goes straight from the servant-reply buffer to
+                # the socket, never joined).
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                if retry_after_s is not None:
+                    # Backpressure pacing hint; clients feed it to
+                    # their backoff instead of guessing.
+                    self.send_header("Retry-After", f"{retry_after_s:g}")
+                self.end_headers()
+                if isinstance(body, Payload):
+                    for seg in body.iter_segments():
+                        self.wfile.write(seg)
+                elif body:
+                    self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/local/get_version":
+                    resp = api.local.GetVersionResponse(
+                        built_at=BUILT_AT,
+                        version_for_upgrade=VERSION_FOR_UPGRADE)
+                    self._reply(200, _to_json(resp))
+                else:
+                    self._reply(404)
+
+            def do_POST(self):  # ytpu: untrusted(self.headers, self.rfile)
+                # Cap BEFORE buffering: any local process can open this
+                # socket, and a claimed Content-Length of terabytes
+                # must be refused at the header, not handed to the
+                # allocator.  413 mirrors the cap the servants enforce
+                # on the decompression side.
+                try:
+                    length = checked_content_length(
+                        self.headers.get("Content-Length", 0))
+                except BodyTooLarge:
+                    self._reply(413, b'{"error":"body exceeds wire cap"}')
+                    return
+                body = self.rfile.read(length) if length else b""
+                try:
+                    service._route_post(self, self.path, body)
+                except Exception:
+                    logger.exception("error handling %s", self.path)
+                    try:
+                        self._reply(500)
+                    except OSError:
+                        pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self.port = self._httpd.server_port
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="local-http", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def inspect(self) -> dict:
+        out = {"frontend": "threaded", "port": self.port}
+        if self.tenancy is not None:
+            out["tenancy"] = self.tenancy.inspect()
+        return out
+
+    # -- tenant verification -------------------------------------------------
+
+    def _tenant_binding(self, headers):
+        """Resolve the request's tenant from its headers: a
+        TenantBinding, None (tenancy disabled — anonymous requests keep
+        their legacy behavior), or _TENANT_DENIED (tenancy enabled,
+        credential missing/invalid/unknown — the caller must 403).
+        Fail-closed: with tenancy on, there is no anonymous path to any
+        POST route."""
+        if self.tenancy is None:
+            return None
+        cred = headers.get(_TENANT_HEADER, "") if headers else ""
+        binding = self.tenancy.authenticate(cred)
+        return binding if binding is not None else _TENANT_DENIED
+
+    # -- routing -------------------------------------------------------------
+
+    def _route_post(self, handler, path: str, body: bytes) -> None:  # ytpu: untrusted(body)  # ytpu: responder(handler)
+        binding = self._tenant_binding(
+            getattr(handler, "headers", None))
+        if binding is _TENANT_DENIED:
+            handler._reply(403, _DENIED_BODY)
+            return
+        if path == "/local/ask_to_leave":
+            handler._reply(200, _to_json(api.local.AskToLeaveResponse()))
+            self.on_leave()
+            return
+        if path == "/local/acquire_quota":
+            req = _from_json(api.local.AcquireQuotaRequest, body)
+            # Clamp the client-supplied window: an unbounded value
+            # parked this serving thread (and its quota waiter slot)
+            # for arbitrary time.  Clients long-poll and re-ask.
+            ok = self.monitor.wait_for_running_new_task_permission(
+                req.requestor_pid, req.lightweight_task,
+                clamp_wait_s(req.milliseconds_to_wait))
+            if ok:
+                handler._reply(200,
+                               _to_json(api.local.AcquireQuotaResponse()))
+            else:
+                # The machine is saturated and the caller already waited
+                # its full window; come back after a beat, not instantly.
+                handler._reply(503,
+                               _to_json(api.local.AcquireQuotaResponse()),
+                               retry_after_s=0.5)
+            return
+        if path == "/local/release_quota":
+            req = _from_json(api.local.ReleaseQuotaRequest, body)
+            self.monitor.drop_task_permission(req.requestor_pid)
+            handler._reply(200, _to_json(api.local.ReleaseQuotaResponse()))
+            return
+        if path == "/local/set_file_digest":
+            req = _from_json(api.local.SetFileDigestRequest, body)
+            self.digest_cache.set(req.file_desc.path, req.file_desc.size,
+                                  req.file_desc.timestamp, req.digest)
+            handler._reply(200, _to_json(api.local.SetFileDigestResponse()))
+            return
+        task_type = self.registry.for_submit(path)
+        if task_type is not None:
+            self._submit_task(handler, task_type, body, binding)
+            return
+        task_type = self.registry.for_wait(path)
+        if task_type is not None:
+            self._wait_for_task(handler, task_type, body)
+            return
+        handler._reply(404)
+
+    # -- generic task submit/wait (one flow for every registered kind) -------
+
+    def _submit_task(self, handler, task_type, body: bytes,
+                     binding=None) -> None:  # ytpu: untrusted(body)  # ytpu: responder(handler)
+        # Views: the (possibly multi-MB) attachment chunk stays a view
+        # into the request body all the way to the servant RPC.
+        chunks = multi_chunk.try_parse_multi_chunk_views(body)
+        if not chunks or len(chunks) != 2:
+            handler._reply(400, task_type.bad_chunks_error)
+            return
+        req = _from_json(task_type.submit_request_cls, bytes(chunks[0]))
+        try:
+            task = task_type.make_task(req, chunks[1])
+        except Exception as e:
+            err = task_type.submit_error(e)
+            if err is None:
+                raise
+            handler._reply(400, err)
+            return
+        if binding is not None:
+            # Instance-level stamp of the VERIFIED identity (never the
+            # request body): cache domain, two-level fairness.
+            task.tenant_id = binding.tenant_id
+            task.tenant_tier = binding.tier
+            task.tenant_key_secret = binding.key_secret
+            task.tenant_weight = binding.weight
+        try:
+            task_id = self.dispatcher.queue_task(task)
+        except TenantOverBudget as e:
+            # Budget refusal is backpressure, not an error: same 503 +
+            # Retry-After contract the quota and long-poll routes use,
+            # so existing client backoff handles it unchanged.
+            handler._reply(503, _DENIED_BUDGET_BODY,
+                           retry_after_s=e.retry_after_ms / 1000.0)
+            return
+        # Every submit response is {task_id}; the registered response
+        # classes share the field by convention.
+        handler._reply(200, _to_json(
+            api.local.SubmitCxxTaskResponse(task_id=task_id)))
+
+    def _wait_for_task(self, handler, task_type, body: bytes) -> None:  # ytpu: untrusted(body)  # ytpu: responder(handler)
+        req = _from_json(task_type.wait_request_cls, body)
+        result = self.dispatcher.wait_for_task(
+            req.task_id, clamp_wait_s(req.milliseconds_to_wait, 10.0))
+        if result is None:
+            if not self.dispatcher.is_known(req.task_id):
+                handler._reply(404)
+            else:
+                handler._reply(503, retry_after_s=0.5)
+            return
+        resp, out_chunks = task_type.build_wait_response(result)
+        self.dispatcher.free_task(req.task_id)
+        handler._reply(
+            200,
+            multi_chunk.make_multi_chunk_payload(
+                [_to_json(resp)] + list(out_chunks)),
+            content_type="application/octet-stream")

@@ -3,7 +3,8 @@
 ``grpc://host:port`` is the threaded transport over grpc's generic
 (bytes in / bytes out) API, ``aio://host:port`` the event-loop front end
 (``aio_server.py``: long-polls parked as continuations, not threads),
-``mock://name`` an in-process server for tests; every call carries a
+``mock://name`` an in-process server for tests, and a ``,``-list of
+them an ordered failover list (``FailoverChannel``); every call carries a
 length-prefixed frame
 (a serialized message plus an optional attachment).  Services are plain
 objects exposing ``service_name`` and a ``methods`` table.
@@ -12,6 +13,7 @@ objects exposing ``service_name`` and a ``methods`` table.
 from .transport import (
     STATUS_NOT_SERVING,
     Channel,
+    FailoverChannel,
     RpcContext,
     RpcError,
     ServiceSpec,
@@ -24,6 +26,7 @@ from .grpc_transport import GrpcServer
 __all__ = [
     "STATUS_NOT_SERVING",
     "Channel",
+    "FailoverChannel",
     "GrpcServer",
     "RpcContext",
     "RpcError",

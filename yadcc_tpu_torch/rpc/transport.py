@@ -195,6 +195,35 @@ def dispatch_frame(spec: ServiceSpec, name: str, data: bytes, peer: str) -> byte
 
 
 # --------------------------------------------------------------------------
+# Fault-injection seam.
+#
+# Tests impose latency, drops and refusals on the real call path without
+# forking the transports: one process-global hook, called by the mock
+# channel before the request leaves.  It may sleep (latency), raise
+# RpcError (drop/refuse), or do nothing.  Production never installs one:
+# the None fast path is a single global read.
+# --------------------------------------------------------------------------
+
+# fn(target, service, method) -> None; may sleep or raise RpcError.
+_fault_injector: Optional[Callable[[str, str, str], None]] = None
+
+
+def install_fault_injector(
+        fn: Optional[Callable[[str, str, str], None]]) -> None:
+    """Install (or, with None, clear) the process-wide RPC fault hook.
+    ``target`` is the channel's destination (a mock name), so an
+    injector can single out one server."""
+    global _fault_injector
+    _fault_injector = fn
+
+
+def apply_faults(target: str, service: str, method_name: str) -> None:
+    fn = _fault_injector
+    if fn is not None:
+        fn(target, service, method_name)
+
+
+# --------------------------------------------------------------------------
 # mock:// transport — in-process server registry for tests.
 # --------------------------------------------------------------------------
 
@@ -219,6 +248,10 @@ class Channel:
     (the event-loop front end's raw-TCP frame transport) or
     ``Channel("mock://scheduler")`` (an in-process server registered with
     register_mock_server); a bare "host:port" is treated as grpc.
+
+    A comma-separated URI list ("grpc://a:8336,grpc://b:8336") builds a
+    FailoverChannel over the members in order of preference: how
+    daemons dial an active scheduler with a warm standby behind it.
     """
 
     def __new__(cls, uri: str):
@@ -226,6 +259,8 @@ class Channel:
             return super().__new__(cls)
         # Return the concrete subclass instance; Python's call protocol
         # then runs its __init__ exactly once (do NOT call it here).
+        if "," in uri:
+            return object.__new__(FailoverChannel)
         if uri.startswith("mock://"):
             return object.__new__(_MockChannel)
         if uri.startswith("aio://"):
@@ -251,6 +286,93 @@ class Channel:
         pass
 
 
+class FailoverChannel(Channel):
+    """A channel over an ordered URI list ("active,standby,...").
+
+    Calls go to the currently-preferred member; on a transport-shaped
+    failure (TRANSPORT_FAILURE, TIMEOUT, NOT_SERVING) the channel
+    rotates to the next URI under common/backoff.py pacing and retries,
+    up to two laps around the list before surfacing the last error.
+    Application-status errors (NO_QUOTA, refusals, ...) pass straight
+    through: a different scheduler would answer them the same way.
+
+    Member channels are built lazily and cached, so a standby that was
+    never needed is never dialed.  Fault injection stays per-member:
+    each underlying channel applies the process-wide injector against
+    its own target, exactly as a directly-dialed channel would."""
+
+    # Failures that mean "this endpoint can't serve me right now", as
+    # opposed to "my request was ruled on".
+    _ROTATE_STATUSES = frozenset(
+        (STATUS_TRANSPORT_FAILURE, STATUS_TIMEOUT, STATUS_NOT_SERVING))
+
+    def __init__(self, uri: str):
+        self._uris = tuple(u.strip() for u in uri.split(",") if u.strip())
+        if len(self._uris) < 2:
+            raise ValueError(f"failover channel needs >= 2 URIs: {uri!r}")
+        self._lock = threading.Lock()
+        self._chans: Dict[int, Channel] = {}  # guarded by: self._lock
+        self._preferred = 0  # guarded by: self._lock
+        self._failovers = 0  # guarded by: self._lock
+
+    def _member(self, idx: int) -> Channel:
+        with self._lock:
+            ch = self._chans.get(idx)
+            if ch is None:
+                ch = self._chans[idx] = Channel(self._uris[idx])
+            return ch
+
+    def call(self, service, method_name, request, response_cls,
+             attachment=b"", timeout=None):
+        from ..common.backoff import Backoff
+
+        with self._lock:
+            start = self._preferred
+        backoff = Backoff(initial_s=0.02, max_s=0.5)
+        last: Optional[RpcError] = None
+        for attempt in range(2 * len(self._uris)):
+            idx = (start + attempt) % len(self._uris)
+            try:
+                result = self._member(idx).call(
+                    service, method_name, request, response_cls,
+                    attachment, timeout)
+            except RpcError as e:
+                if e.status not in self._ROTATE_STATUSES:
+                    raise
+                last = e
+                retry_after_s = None
+                if e.status == STATUS_NOT_SERVING:
+                    retry_after_s = retry_after_ms_from_error(e) / 1000.0
+                # Drop the dead member's channel so the next attempt
+                # re-dials instead of reusing a wedged connection.
+                with self._lock:
+                    stale = self._chans.pop(idx, None)
+                if stale is not None:
+                    stale.close()
+                backoff.wait(retry_after_s)
+                continue
+            with self._lock:
+                if self._preferred != idx:
+                    self._failovers += 1
+                    self._preferred = idx
+            return result
+        raise last
+
+    def preferred_uri(self) -> str:
+        with self._lock:
+            return self._uris[self._preferred]
+
+    def failovers(self) -> int:
+        with self._lock:
+            return self._failovers
+
+    def close(self) -> None:
+        with self._lock:
+            chans, self._chans = list(self._chans.values()), {}
+        for ch in chans:
+            ch.close()
+
+
 class _MockChannel(Channel):
     """``mock://name`` — optionally ``mock://name@ip:port`` to control the
     peer address the server-side context observes."""
@@ -262,6 +384,7 @@ class _MockChannel(Channel):
 
     def call(self, service, method_name, request, response_cls,
              attachment=b"", timeout=None):
+        apply_faults(self._name, service, method_name)
         with _mock_lock:
             services = _mock_servers.get(self._name)
         if services is None or service not in services:

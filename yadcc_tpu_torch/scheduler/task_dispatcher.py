@@ -17,6 +17,12 @@ front end): its continuation fires exactly once, outside the lock, from
 whichever thread completes it (a cycle's apply, the pipelined drain, the
 deadline sweep, stop or a policy failure).
 
+A request is held until its immediate part is filled or its deadline
+passes, as in the reference, except while another request waits for
+immediate grants: then a request that holds grants returns with them
+(_expire_pending_locked), so that delegates take turns at the freed
+slots instead of the oldest request taking every one.
+
 Multi-tenant QoS: given a tenant directory, every grant is charged to its
 verified tenant's ledger at issue and released on every exit path, and
 admission rules on the tenant's budget before the overload ladder
@@ -1599,6 +1605,14 @@ class TaskDispatcher:
         return min(slots) if slots else -1
 
     def _expire_pending_locked(self, now: float) -> None:
+        # A request that already holds grants returns them now if
+        # another request still waits for immediate grants, instead of
+        # holding them until it is filled or its deadline passes: slots
+        # are handed to the oldest request first, so holding on would
+        # keep the grants minted for it idle and give it every slot freed
+        # meanwhile, and another delegate's requests would come back
+        # empty.  It asks again behind the waiting ones.
+        waiting = sum(1 for r in self._pending if r.immediate_left > 0)
         still = []
         for req in self._pending:
             # A prefetch-only request (immediate=0) rides exactly one
@@ -1608,7 +1622,9 @@ class TaskDispatcher:
             prefetch_pending = (req.prefetch_left > 0
                                 and not req.first_cycle_done)
             if (req.immediate_left <= 0 and not prefetch_pending) \
-                    or now >= req.deadline:
+                    or now >= req.deadline \
+                    or (waiting > 1 and req.grants
+                        and req.immediate_left > 0):
                 req.done.set()
                 if req.on_done is not None:
                     # Parked continuation: queue the fire; the caller's
