@@ -7,13 +7,19 @@
 # 5 (torch_batched, every grant through K2) to every turn, with its
 # policy stage split into K2's share (K2 launches a cycle x K2's time on
 # two runs of 128 on the serving-like pool, timed in the same turn) and
-# the rest.  Prepare the other checkouts first, inside a directory
+# the rest.  A first argument --burst runs phase 12's burst of 2,000
+# parked waits instead, with this checkout's rig (chip_smoke.py) in every
+# turn and only the scheduler entry taken from the turn's checkout, and
+# prints one "AB {json}" line a turn with the park time, the burst's time
+# and the entry's threads (a burst the rig sees end early prints its
+# error).  Prepare the other checkouts first, inside a directory
 # .gitignore lists (so a chip call copies it):
 #
 #     mkdir -p .verify_scratch/parent
 #     git archive <parent commit> | tar -x -C .verify_scratch/parent
 #     bash chip_ab.sh                      # or: bash chip_ab.sh parent change ...
 #     bash chip_ab.sh --batched            # phases 3-5
+#     bash chip_ab.sh --burst              # phase 12's burst
 #
 # Each run prints the phases' report lines and one "AB {json}" line,
 # prefixed with the turn's name.
@@ -21,11 +27,29 @@ set -e
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 ROOT=$(pwd)
 BATCHED=0
+BURST=0
 if [ "${1:-}" = --batched ]; then BATCHED=1; shift; fi
+if [ "${1:-}" = --burst ]; then BURST=1; shift; fi
 TURNS=("$@")
 [ ${#TURNS[@]} -gt 0 ] || TURNS=(parent change change parent)
 for which in "${TURNS[@]}"; do
   if [ "$which" = change ]; then dir=$ROOT; else dir=$ROOT/.verify_scratch/$which; fi
+  if [ $BURST = 1 ]; then
+  AB_DIR=$dir python3 - <<'PY' | sed "s/^/[$which] /"
+import json, os, pathlib
+import chip_smoke as c
+r = []
+try:
+    res = c.run_parked_burst(r, repo=pathlib.Path(os.environ["AB_DIR"]))
+    out = {k: res[k] for k in ("park_s", "burst_s", "threads_before",
+                               "threads_parked", "rss_kb_per_wait")}
+except c.SmokeFailure as e:
+    out = {"failed": str(e)}
+print("\n".join(r), flush=True)
+print("AB", json.dumps(out), flush=True)
+PY
+  continue
+  fi
   (cd $dir && AB_BATCHED=$BATCHED python3 - <<'PY'
 import json, os, sys
 sys.path.insert(0, ".")

@@ -156,40 +156,46 @@ Phases (any failure exits non-zero without printing the result line):
    <= 16 cores, --temporary-dir in the run's directory always: every
    servant boot empties its temporary root of ytpu_* directories, so a
    shared /dev/shm would take another checkout's live workspaces); a
-   build of 224 TUs (the repo's native/client/ytpu-cxx.cc or
-   ytpu-testtool.cc, each preprocessed once by the host g++, plus one
-   function of its own drawn from the seed; flags -O2, -O0 -g or -O2 -g;
-   16 submitted twice at once; 8 ending in #error, sent with
-   -fpreprocessed -fdirectives-only as a client preprocessing that way
-   sends them, so the directive fires on the servant) from 32 client
-   threads on the delegates' loopback HTTP, as the JAX package's client
-   speaks it (submit_cxx_task as a multi-chunk body, set_file_digest
-   after a 400, wait_for_cxx_task long polls, the script's own pid as
-   the requestor; an answer without a compile, such as "no compile
-   capacity" after the delegate's 10 s grant window, submitted again up
-   to 5 tries, as the JAX client does): the first 112 through two
-   threaded daemons, which then leave gracefully, the other 112 through
-   two aio daemons (a delegate dials every servant with its fleet's one
-   scheme); then the cached rebuild of all 224 through one aio
-   delegate once its reader has synced past the last fill.  Every grant
-   on a real servant (the delegates dial what they are granted), none
-   over the capacity the heartbeats report, running tasks reported
-   during each build and none after it, no grant outstanding after
-   either fleet left, K1 launched over the builds (counts read from
-   /inspect/vars just before and just after); the delegates'
-   actually_run + reused + hit_cache + failed, plus the answers without
-   a grant, equal to the submissions, failed 0, and each delegate's
-   grant wait, queue and output wait (p50/p99) printed; every object
-   (a joined TU's second answer too, where it is not the first's)
-   byte-equal to a local compile of the same TU run as the servant ran
-   it (a -g object in the servant's own workspace path, and equal again
-   once both are patched to one client directory), #error TUs failing
-   with the text and no cache entry;
-   the cache's fills equal to the successful compiles the servants ran,
-   every ok TU's cache entry read back, parsed and equal to what the
-   rebuild answered; in the rebuild every ok TU a cache hit and grants
-   taken only for the #error TUs; no libtorch mapped in any daemon, no
-   double reply on the aio ones, every daemon exiting 0 on SIGTERM.
+   build of 128 TUs (files that include the repo's
+   native/client/ytpu-cxx.cc or ytpu-testtool.cc and add one function
+   of their own drawn from the seed; flags -O2, -O0 -g or -O2 -g; 16
+   compiled twice at once; 8 ending in #error) by the port's client
+   (yadcc_tpu_torch/client/yadcc_cxx.py), one process a TU behind a
+   wrapper named g++ in a farm directory first on PATH, 32 at once as
+   make -j32 runs them: each preprocesses under the delegate's quota,
+   submits, long-polls, sends an answer without a compile again up to 5
+   tries and compiles locally where its own rules say so (an #error
+   TU's preprocessing fails with this g++, so it is compiled locally):
+   the first 64 through two threaded daemons, which then leave
+   gracefully, the other 64 through two aio daemons (their quota and
+   wait long polls parked on the loop; a delegate dials every servant
+   with its fleet's one scheme); then the cached rebuild of all 128
+   through one aio delegate once its reader has synced past the last
+   fill.  Every grant on a real servant (the delegates dial what they
+   are granted), none over the capacity the heartbeats report, running
+   tasks reported during each build and none after it, no grant
+   outstanding after either fleet left, K1 launched over the builds
+   (counts read from /inspect/vars just before and just after); no
+   client compiled locally after the cloud ladder or for an unreachable
+   daemon (counted from each client's own log lines), every other local
+   compile counted; the delegates' actually_run + reused + hit_cache +
+   failed, plus the answers without a grant, equal to the clients'
+   submissions, failed 0, and each delegate's grant wait, queue and
+   output wait (p50/p99) printed; every client run's exit code, stdout
+   and stderr equal to a local compile's (the client's own log lines
+   aside); every answer a servant or the cache gave an ok TU's runs
+   (kept by the wrapper before the client patches it) byte-equal to a
+   local compile of the bytes the client preprocessed, run as the
+   servant ran it (a -g object in that servant's own workspace path),
+   each run's object equal to its answer once patched to the client's
+   directory, and each cache entry one of the build's answers; the
+   cache's fills equal to the successful compiles the servants ran; in
+   the rebuild every ok TU a cache hit and grants taken only for #error
+   TUs that reach a servant; the first client's imports hold no torch,
+   jax, numpy or JAX package; no libtorch mapped in any daemon, no
+   double reply on the aio ones (servant RPC and local HTTP), every
+   daemon exiting 0 on SIGTERM; the local HTTP's connections and loop
+   lag and each daemon's most threads printed.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
@@ -199,6 +205,7 @@ and phase 15's in smoke_servant/ while they run.
 
 from __future__ import annotations
 
+import base64
 import collections
 import json
 import os
@@ -1526,9 +1533,12 @@ class Fleet:
         return req
 
 
-def inspect_vars(port: int) -> dict:
+def inspect_vars(port: int, prefix: str = "") -> dict:
+    """The process's /inspect/vars, or only the subtree under ``prefix``
+    (a path such as ``yadcc/task_dispatcher``)."""
     with urllib.request.urlopen(
-            f"http://127.0.0.1:{port}/inspect/vars", timeout=10) as r:
+            f"http://127.0.0.1:{port}/inspect/vars/{prefix}",
+            timeout=10) as r:
         return json.loads(r.read())
 
 
@@ -3396,17 +3406,18 @@ TAKEOVER_SETTLE_S = 60.0          # for stale adoptions to be released
 TAKEOVER_GAP_PACE_S = 0.5
 
 
-def start_entry(name: str, port: int, iport: int, extra: list):
-    """The scheduler entry as a process on loopback, its log in
-    smoke_logs/entry_<name>.log."""
+def start_entry(name: str, port: int, iport: int, extra: list,
+                repo: pathlib.Path = REPO):
+    """The scheduler entry of the checkout at ``repo`` as a process on
+    loopback, its log in smoke_logs/entry_<name>.log."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     log_file = open(LOG_DIR / f"entry_{name}.log", "w")
     cmd = [sys.executable, "-m", "yadcc_tpu_torch.scheduler.entry",
            "--port", str(port), "--inspect-port", str(iport),
            "--acceptable-user-tokens", "utok",
            "--acceptable-servant-tokens", "stok", *extra]
-    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(
-        os.environ, PYTHONPATH=str(REPO)), stdout=log_file,
+    proc = subprocess.Popen(cmd, cwd=repo, env=dict(
+        os.environ, PYTHONPATH=str(repo)), stdout=log_file,
         stderr=subprocess.STDOUT)
     proc.log_file = log_file
     return proc
@@ -3536,8 +3547,10 @@ def wait_ready(name: str, proc, chan) -> float:
             time.sleep(0.2)
 
 
-def run_parked_burst(report: list) -> dict:
-    """Phase 12's burst on a pipelined aio entry: every slot of two envs
+def run_parked_burst(report: list, repo: pathlib.Path = REPO) -> dict:
+    """Phase 12's burst on a pipelined aio entry (the checkout at
+    ``repo``'s; chip_ab.sh --burst runs other checkouts' entries under
+    this rig): every slot of two envs
     held by a filler; BURST_CLIENTS AsyncAioChannel delegates on one
     client loop each park one wait (BURST_FREED_CLIENTS on the env whose
     slots the filler then frees, each freeing its grant at once; the
@@ -3556,7 +3569,7 @@ def run_parked_burst(report: list) -> dict:
     name = "aio_burst"
     fd_limit = raise_fd_limit(2 * BURST_CLIENTS + 1024)
     port, iport = free_port(), free_port()
-    proc = start_entry(name, port, iport, ["--rpc-frontend", "aio"])
+    proc = start_entry(name, port, iport, ["--rpc-frontend", "aio"], repo)
     ch = Channel(f"aio://127.0.0.1:{port}")
     loops = None
     chans: list = []
@@ -3642,8 +3655,11 @@ def run_parked_burst(report: list) -> dict:
         fut = asyncio.run_coroutine_threadsafe(drive(), loops.loop)
         deadline = time.monotonic() + 60
         while True:
-            state = inspect_vars(iport)["yadcc"]
-            parked = state["task_dispatcher"]["pending_requests"]
+            # The dispatcher's vars alone: the whole dump runs every
+            # producer of the entry on its GIL, beside the loop that
+            # parks the burst.
+            parked = inspect_vars(iport, "yadcc/task_dispatcher")["yadcc"][
+                "task_dispatcher"]["pending_requests"]
             if parked >= BURST_CLIENTS:
                 break
             if fut.done():
@@ -3654,7 +3670,8 @@ def run_parked_burst(report: list) -> dict:
             time.sleep(0.05)
         park_s = time.perf_counter() - t0
         during = proc_status(proc.pid)
-        connections = state["rpc_server"]["connections"]
+        connections = inspect_vars(iport, "yadcc/rpc_server")["yadcc"][
+            "rpc_server"]["connections"]
         t_free = time.perf_counter()
         ch.call(SERVICE_NAME, "FreeTask",
                 sch.FreeTaskRequest(token="utok",
@@ -5397,11 +5414,14 @@ def cache_report(report: list, out: dict) -> None:
 # ---------------------------------------------------------------------------
 
 SERVANT_SEED = 15
-SERVANT_TUS = 224              # translation units of the build (512 took
+SERVANT_TUS = 128              # translation units of the build (512 took
                                # 331-353 s with the local re-compiles,
                                # past the smoke's time on an 8-core host;
-                               # 256 through the delegates 218.9 s)
-SERVANT_JOINED = 16            # submitted twice at once through a delegate
+                               # 256 through the delegates 218.9 s; 224
+                               # through the port's client 315.0 s, each
+                               # client's start and g++ -E on the same
+                               # cores)
+SERVANT_JOINED = 16            # compiled twice at once through a delegate
 SERVANT_ERRORS = 8             # ending in `#error smoke`
 SERVANT_CLIENTS = 32           # compiler wrappers at once, as make -j32
 SERVANT_FLEETS = ("threaded", "aio")   # two daemons each, one after the
@@ -5409,11 +5429,18 @@ SERVANT_FLEETS = ("threaded", "aio")   # two daemons each, one after the
 SERVANT_SOURCES = ("native/client/ytpu-cxx.cc",
                    "native/client/ytpu-testtool.cc")
 SERVANT_FLAGS = ("-O2", "-O0 -g", "-O2 -g")
-SERVANT_POLL_MS = 2_000        # the client's long poll (compilation_saas)
-SERVANT_ATTEMPTS = 5           # the client's tries of a TU (yadcc_cxx)
 SERVANT_LIMIT_S = 900.0        # bound on a build
 SERVANT_DIR = REPO / "smoke_servant"
-
+SERVANT_BUILD = SERVANT_DIR / "build"  # the TUs' sources and objects
+SERVANT_FARM = SERVANT_DIR / "farm"    # the wrapper named g++
+# Why a client compiled locally, by the words of its own log line.
+LOCAL_REASONS = (("falling back locally", "after the cloud ladder"),
+                 ("local daemon unreachable", "daemon unreachable"),
+                 ("preprocessing failed", "preprocessing failed"),
+                 ("tiny TU", "tiny TU"),
+                 ("not distributable", "not distributable"),
+                 ("YTPU_DEBUGGING_COMPILE_LOCALLY", "forced local"))
+FORBIDDEN_LOCAL = ("after the cloud ladder", "daemon unreachable")
 
 # The zstd declarations native/client/ytpu-cxx.cc uses, for a host
 # without libzstd's header (the compiles only need the declarations).
@@ -5443,36 +5470,27 @@ unsigned ZSTD_isError(size_t code);
 """
 
 
-def servant_sources(gxx: str) -> tuple:
-    """Each source of the build preprocessed once on the host; and
-    whether libzstd's header was missing there (then ZSTD_STUB stands
-    in for it)."""
+def servant_includes(gxx: str) -> list:
+    """The flags that find libzstd's header: none where the host has it,
+    else ``-I`` a directory holding ZSTD_STUB."""
     probe = subprocess.run([gxx, "-E", "-x", "c++", "-"],
                            input=b"#include <zstd.h>\n",
                            capture_output=True, timeout=60)
-    flags = []
-    if probe.returncode != 0:
-        stub = SERVANT_DIR / "include"
-        stub.mkdir(parents=True, exist_ok=True)
-        (stub / "zstd.h").write_bytes(ZSTD_STUB)
-        flags = ["-I", str(stub)]
-    out = {}
-    for src in SERVANT_SOURCES:
-        pre = subprocess.run([gxx, "-E", *flags, src], cwd=REPO,
-                             capture_output=True, timeout=120)
-        check(pre.returncode == 0,
-              f"g++ -E {src}: {pre.stderr.decode()[-500:]}")
-        out[src] = pre.stdout
-    return out, bool(flags)
+    if probe.returncode == 0:
+        return []
+    stub = SERVANT_DIR / "include"
+    stub.mkdir(parents=True, exist_ok=True)
+    (stub / "zstd.h").write_bytes(ZSTD_STUB)
+    return ["-I", str(stub)]
 
 
 class ServantTU:
-    """One translation unit: a preprocessed source of the repo, plus a
-    function of its own (so every TU has its own digest), or a trailing
-    `#error smoke`."""
+    """One translation unit of the build: a source file that includes a
+    source of the repo and adds a function of its own (so every TU has
+    its own digest), or a trailing `#error smoke`."""
 
     def __init__(self, i: int, rng: random.Random, error: bool,
-                 joined: bool):
+                 joined: bool, includes: list):
         self.i = i
         self.base = rng.choice(SERVANT_SOURCES)
         self.flags = rng.choice(SERVANT_FLAGS)
@@ -5480,29 +5498,35 @@ class ServantTU:
                      f"{rng.randrange(1, 1 << 20)} + "
                      f"{rng.randrange(1 << 20)}; }}\n").encode()
         if error:
-            # As a client preprocessing with -fdirectives-only sends it:
-            # the directive survives and fires on the servant.
             self.tail += b"#error smoke\n"
-            self.flags += " -fpreprocessed -fdirectives-only"
         self.error = error
         self.joined = joined
-        self.result = None     # the build's answer
-        self.twin = None       # a joined TU's second answer
-        self.rebuilt = None    # the cached rebuild's answer
+        self.includes = includes
+        self.src = SERVANT_BUILD / "src" / f"tu{i}.cc"
+        self.invocation = None   # what the client forwards (the cache key)
+        self.pre = None          # the bytes the client preprocessed
+        self.result = None       # the build's client run
+        self.twin = None         # a joined TU's second run
+        self.rebuilt = None      # the cached rebuild's run
 
-    def source(self, pre: dict) -> bytes:
-        return pre[self.base] + self.tail
+    def write(self) -> None:
+        self.src.write_bytes(f'#include "{REPO / self.base}"\n'.encode()
+                             + self.tail)
+
+    def args(self, obj: pathlib.Path) -> list:
+        """The compiler's arguments, as a makefile passes them."""
+        return [*self.flags.split(), *self.includes, "-c", str(self.src),
+                "-o", str(obj)]
 
 
-def servant_tus() -> list:
+def servant_tus(includes: list) -> list:
     rng = random.Random(SERVANT_SEED)
     order = list(range(SERVANT_TUS))
     rng.shuffle(order)
     errors = set(order[:SERVANT_ERRORS])
     joined = set(order[SERVANT_ERRORS:SERVANT_ERRORS + SERVANT_JOINED])
-    return [ServantTU(i, rng, i in errors, i in joined)
+    return [ServantTU(i, rng, i in errors, i in joined, includes)
             for i in range(SERVANT_TUS)]
-
 
 def start_daemon(name: str, frontend: str, ports: dict, sched_port: int,
                  cache_port: int, gxx_dir: str, temp_dir, nprocs: int):
@@ -5558,36 +5582,61 @@ def patch_regions(data: bytes, patches, client_dir: bytes) -> bytes:
 
 
 class BuildClient:
-    """The compiler wrappers of a build: SERVANT_CLIENTS threads doing on
-    the wire what the JAX package's client does for a TU
-    (yadcc_tpu/client/compilation_saas.py): /local/submit_cxx_task as a
-    multi-chunk body (JSON, the compressed source); on a 400,
-    /local/set_file_digest with the compiler's digest and the submission
-    again; /local/wait_for_cxx_task long polls until 200; an answer that
-    is not a compile's (a negative exit code, such as "no compile
-    capacity" when the delegate's grant keeper found no slot in its
-    window, or 127) submitted again, up to SERVANT_ATTEMPTS tries, as
-    yadcc_tpu/client/yadcc_cxx.py does.  Each thread keeps one
-    keep-alive connection a delegate, and every submission names this
-    process's live pid (a dead one is an orphan the delegate aborts)."""
+    """The compiler wrappers of a build: SERVANT_CLIENTS threads, each
+    running one port client process a TU as `make -j32` would
+    (yadcc_tpu_torch/client/yadcc_cxx.py behind a wrapper named g++ in a
+    farm directory first on PATH, YTPU_WRAPPER_DIR set to it,
+    YTPU_DAEMON_PORT to a delegate's --local-port).  The client
+    preprocesses under the delegate's quota, submits, long-polls, sends
+    an answer without a compile again up to 5 tries and compiles locally
+    where its own rules say so; it logs every such decision at DEBUG,
+    and those lines (``ytpu-client ...``) are counted here and taken out
+    of the stderr that is held against a local compile's.  A joined TU
+    runs as two processes at once, the second writing its own object.
+    The wrapper runs the client's main() and keeps what the daemon
+    answered, before the client patched it, in the file SMOKE_ANSWER
+    names: each run's object is then held against a local compile in
+    the workspace its own servant used."""
 
-    def __init__(self, gxx: str, gxx_digest: str, pre: dict):
-        st = os.stat(gxx)
-        self.compiler = {"path": gxx, "size": str(st.st_size),
-                         "timestamp": str(int(st.st_mtime))}
-        self.digest = gxx_digest
-        self.pre = pre
+    def __init__(self, gxx_dir: str):
+        SERVANT_FARM.mkdir(parents=True, exist_ok=True)
+        (SERVANT_BUILD / "answers").mkdir(parents=True, exist_ok=True)
+        wrapper = SERVANT_FARM / "g++"
+        wrapper.write_text(
+            f"#!{sys.executable}\n"
+            "import base64, json, os\n"
+            "from yadcc_tpu_torch.client import yadcc_cxx\n"
+            "patch = yadcc_cxx.apply_path_patches\n"
+            "def keep(files, patches, client_dir):\n"
+            "    with open(os.environ['SMOKE_ANSWER'], 'w') as f:\n"
+            "        json.dump({'o': base64.b64encode(files['.o']).decode(),\n"
+            "                   'patches': patches.get('.o', [])}, f)\n"
+            "    return patch(files, patches, client_dir)\n"
+            "yadcc_cxx.apply_path_patches = keep\n"
+            "yadcc_cxx.main()\n")
+        wrapper.chmod(0o755)
+        self.wrapper = str(wrapper)
+        self.env = dict(
+            os.environ, PYTHONPATH=str(REPO), YTPU_LOG_LEVEL="DEBUG",
+            YTPU_WRAPPER_DIR=str(SERVANT_FARM),
+            PATH=os.pathsep.join([str(SERVANT_FARM), gxx_dir,
+                                  os.environ.get("PATH", "")]))
         self.lock = threading.Lock()
         self.errors: list = []
-        self.seconds: list = []        # a TU, submit to its last 200
+        self.seconds: list = []        # a TU's process, start to exit
+        self.runs = 0
+        self.cloud_runs = 0            # answered by the cloud
         self.submissions = 0
+        self.retries = 0               # sent again after a non-compile
+        self.no_grant = 0              # of them "no compile capacity"
+        self.cloud_errors = 0          # "cloud attempt N failed"
         self.digest_reports = 0
-        self.no_grant = 0              # "no compile capacity" answers
-        self.retries = 0
+        self.local = collections.Counter()   # local compiles by reason
+        self.imports: list = []        # one client's -X importtime lines
 
     def run(self, jobs: list) -> float:
         """``jobs``: (tu, delegate's local port, attribute of the tu that
-        takes the answer, submitted twice at once)."""
+        takes the run, object file name, extra environment)."""
         import queue as queue_mod
 
         q = queue_mod.Queue()
@@ -5608,140 +5657,78 @@ class BuildClient:
     def _worker(self, q) -> None:
         import queue as queue_mod
 
-        conns: dict = {}
         try:
             while not self.errors:
                 try:
-                    tu, port, attr, twice = q.get_nowait()
+                    tu, port, attr, obj_name, extra = q.get_nowait()
                 except queue_mod.Empty:
                     return
-                results = self._one(tu, port, twice, conns)
-                setattr(tu, attr, results[0])
-                if twice:
-                    tu.twin = results[1]
+                setattr(tu, attr, self._one(tu, port, obj_name, extra))
         except Exception as e:  # reported by run()
             self.errors.append(f"{threading.current_thread().name}: {e!r}")
-        finally:
-            for c in conns.values():
-                c.close()
 
-    def _call(self, conns: dict, port: int, path: str, body: bytes):
-        import http.client
-
-        conn = conns.get(port)
-        if conn is None:
-            conn = conns[port] = http.client.HTTPConnection(
-                "127.0.0.1", port, timeout=60)
-        conn.request("POST", path, body=body)
-        resp = conn.getresponse()
-        return resp.status, resp.getheader("Retry-After"), resp.read()
-
-    def _submit(self, conns: dict, port: int, body: bytes) -> int:
-        for attempt in range(2):
-            status, _, data = self._call(conns, port,
-                                         "/local/submit_cxx_task", body)
-            if status == 200:
-                return int(json.loads(data)["task_id"])
-            check(status == 400 and attempt == 0,
-                  f"submit_cxx_task: HTTP {status} {data[:200]!r}")
-            # The daemon cannot read our compiler: report its digest.
-            status, _, data = self._call(
-                conns, port, "/local/set_file_digest", json.dumps(
-                    {"file_desc": self.compiler,
-                     "digest": self.digest}).encode())
-            check(status == 200, f"set_file_digest: HTTP {status}")
-            with self.lock:
-                self.digest_reports += 1
-        raise SmokeFailure("submit_cxx_task: retries exhausted")
-
-    def _wait(self, conns: dict, port: int, task_id: int) -> dict:
-        import base64
-
-        from yadcc_tpu_torch.common.multi_chunk import try_parse_multi_chunk
-
-        body = json.dumps({"task_id": str(task_id),
-                           "milliseconds_to_wait": SERVANT_POLL_MS}).encode()
-        deadline = time.monotonic() + 300
-        while True:
-            t = time.perf_counter()
-            status, retry, data = self._call(
-                conns, port, "/local/wait_for_cxx_task", body)
-            if status == 200:
-                break
-            check(status == 503, f"wait_for_cxx_task {task_id}: HTTP "
-                                 f"{status}")
-            check(time.monotonic() < deadline,
-                  f"task {task_id}: no answer in 300 s")
-            if time.perf_counter() - t < 0.5:
-                time.sleep(float(retry or 0.05))
-        chunks = try_parse_multi_chunk(data)
-        check(chunks is not None, f"task {task_id}: malformed answer")
-        meta = json.loads(chunks[0])
-        exts = meta.get("file_extensions", [])
-        check(len(exts) == len(chunks) - 1,
-              f"task {task_id}: {len(exts)} files, {len(chunks) - 1} chunks")
-        return {
-            "task_id": task_id,
-            "exit_code": int(meta.get("exit_code", -1)),
-            "stdout": meta.get("output", "").encode(),
-            "stderr": meta.get("error", "").encode(),
-            # As the servant compressed them: the delegate passes them on.
-            "files": {ext: bytes(c) for ext, c in zip(exts, chunks[1:])},
-            "patches": {p["file_key"]: [
-                (int(x.get("position", 0)), int(x.get("total_size", 0)),
-                 base64.b64decode(x.get("suffix_to_keep", "")))
-                for x in p.get("locations", [])]
-                for p in meta.get("patches", []) if p.get("locations")},
-        }
-
-    def _one(self, tu, port: int, twice: bool, conns: dict) -> list:
-        from yadcc_tpu_torch.common import compress
-        from yadcc_tpu_torch.common.hashing import digest_bytes
-        from yadcc_tpu_torch.common.multi_chunk import make_multi_chunk
-
-        src = tu.source(self.pre)
-        msg = {"requestor_process_id": os.getpid(),
-               "source_path": str(REPO / tu.base),
-               "source_digest": digest_bytes(src),
-               "compiler_invocation_arguments": tu.flags,
-               "cache_control": 1, "compiler": self.compiler}
-        body = make_multi_chunk([json.dumps(msg).encode(),
-                                 compress.compress(src)])
+    def _one(self, tu, port: int, obj_name: str, extra: dict) -> dict:
+        obj = SERVANT_BUILD / "obj" / obj_name
+        answer = SERVANT_BUILD / "answers" / f"{obj_name}.json"
+        for f in (obj, answer):
+            if f.exists():
+                f.unlink()
+        env = dict(self.env, YTPU_DAEMON_PORT=str(port),
+                   SMOKE_ANSWER=str(answer), **extra)
         t0 = time.perf_counter()
-        # A joined TU: the same submission twice before either answer,
-        # as two builds of one tree on one machine send it.
-        ids = [self._submit(conns, port, body) for _ in range(1 + twice)]
-        submissions, no_grant, results = len(ids), 0, []
-        for task_id in ids:
-            r = self._wait(conns, port, task_id)
-            for _ in range(SERVANT_ATTEMPTS - 1):
-                if r["exit_code"] >= 0 and r["exit_code"] != 127:
-                    break
-                no_grant += b"no compile capacity" in r["stderr"]
-                r = self._wait(conns, port,
-                               self._submit(conns, port, body))
-                submissions += 1
-            check(r["exit_code"] >= 0 and r["exit_code"] != 127,
-                  f"TU {tu.i}: {SERVANT_ATTEMPTS} tries, the last "
-                  f"{r['exit_code']}: {r['stderr'][-300:]!r}")
-            results.append(r)
+        r = subprocess.run([self.wrapper, *tu.args(obj)], cwd=SERVANT_BUILD,
+                           env=env, capture_output=True,
+                           timeout=SERVANT_LIMIT_S)
+        seconds = time.perf_counter() - t0
+        lines = r.stderr.splitlines(keepends=True)
+        own = [ln.decode(errors="replace").rstrip() for ln in lines
+               if ln.startswith(b"ytpu-client ")]
+        imports = [ln.decode().rstrip() for ln in lines
+                   if ln.startswith(b"import time:")]
+        stderr = b"".join(ln for ln in lines if not ln.startswith(
+            (b"ytpu-client ", b"import time:")))
+        local = next((reason for key, reason in LOCAL_REASONS
+                      if any(key in ln for ln in own)), None)
+        retries = sum(ln.endswith("; retrying") for ln in own)
         with self.lock:
-            self.seconds.append(time.perf_counter() - t0)
-            self.submissions += submissions
-            self.retries += submissions - len(ids)
-            self.no_grant += no_grant
-        return results
-
+            self.runs += 1
+            self.seconds.append(seconds)
+            self.retries += retries
+            self.no_grant += sum("no compile capacity" in ln for ln in own)
+            self.cloud_errors += sum("cloud attempt" in ln for ln in own)
+            self.digest_reports += sum("reporting compiler digest" in ln
+                                       for ln in own)
+            if local is None:
+                self.cloud_runs += 1
+                self.submissions += 1 + retries
+            else:
+                self.local[local] += 1
+            if imports:
+                self.imports = imports
+        raw, patches = None, None
+        if answer.exists():
+            kept = json.loads(answer.read_text())
+            raw = base64.b64decode(kept["o"])
+            patches = [(int(p["position"]), int(p["total_size"]),
+                        base64.b64decode(p.get("suffix_to_keep", "")))
+                       for p in kept["patches"]]
+        return {"rc": r.returncode, "stdout": r.stdout, "stderr": stderr,
+                "log": own, "local": local, "seconds": seconds,
+                "obj": obj.read_bytes() if obj.exists() else None,
+                "raw": raw, "patches": patches}
 
 class ServantMonitor:
     """Each servant's last heartbeat (its capacity, load and running
     count, from its /inspect/vars), printed once a second; no report may
-    run more than its capacity."""
+    run more than its capacity.  With ``pids``, each daemon's thread
+    count too, the most kept."""
 
-    def __init__(self, iports: dict):
+    def __init__(self, iports: dict, pids: dict = None):
         self.iports = iports
+        self.pids = pids or {}
         self.stop = threading.Event()
         self.max_running = {name: 0 for name in iports}
+        self.max_threads = {name: 0 for name in self.pids}
         self.violations: list = []
         self.thread = threading.Thread(target=self._loop, daemon=True)
 
@@ -5761,6 +5748,12 @@ class ServantMonitor:
             except OSError as e:
                 self.violations.append(f"servant inspect failed: {e!r}")
                 return
+            for name, pid in self.pids.items():
+                try:
+                    self.max_threads[name] = max(self.max_threads[name],
+                                                 proc_status(pid)["Threads"])
+                except OSError:
+                    pass
             for name, b in now.items():
                 self.max_running[name] = max(self.max_running[name],
                                              b.get("running", 0))
@@ -5843,18 +5836,20 @@ def leave(procs: dict, names, siport: int) -> None:
 def run_daemon_path(report: list) -> dict:
     """Phase 15: the port's scheduler on the card with phase 3's 5,000
     synthetic servants, one port cache entry, and port daemons running
-    both roles: a build of SERVANT_TUS TUs with the host's g++ from 32
-    client threads on the delegates' loopback HTTP, half through two
-    threaded daemons and half through two aio daemons (the threaded pair
-    leaves first), then the cached rebuild of all of them through one
-    delegate; the
-    outputs held against local compiles and the port's cache server (see
-    the module docstring)."""
+    both roles: a build of SERVANT_TUS TUs with the host's g++, one port
+    client process a TU behind a wrapper named g++ (32 at once), half
+    through two threaded daemons and half through two aio daemons (the
+    threaded pair leaves first), then the cached rebuild of all of them
+    through one delegate; the clients' outputs held against local
+    compiles and the port's cache server (see the module docstring)."""
     import shutil
 
     from concurrent.futures import ThreadPoolExecutor
 
     from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.client.compiler_args import CompilerArgs
+    from yadcc_tpu_torch.client.rewrite_file import rewrite_file
+    from yadcc_tpu_torch.client.yadcc_cxx import remote_invocation
     from yadcc_tpu_torch.common import compress
     from yadcc_tpu_torch.common.hashing import digest_bytes, digest_file
     from yadcc_tpu_torch.daemon import cache_format
@@ -5872,27 +5867,30 @@ def run_daemon_path(report: list) -> dict:
     st = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
     shm = st.f_frsize * st.f_blocks if st else 0
     shutil.rmtree(SERVANT_DIR, ignore_errors=True)
-    SERVANT_DIR.mkdir(parents=True)
+    for d in (SERVANT_BUILD / "src", SERVANT_BUILD / "obj"):
+        d.mkdir(parents=True)
     try:
         with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
             port_range = "-".join(f.read().split())
     except OSError:
         port_range = "unknown"
+    shim = REPO / "native" / "libytpufakeroot.so"
     report.append(
         f"  host: nprocs {nprocs} ({'--allow-poor-machine' if nprocs <= 16 else 'not poor'}), "
         f"/dev/shm {shm / 2**20:,.0f} MiB (not used: workspaces under "
         f"--temporary-dir {SERVANT_DIR}/tmp-<name>); "
         f"g++ {gxx} -> {gxx_real}, digest {gxx_digest[:16]}; "
+        f"fakeroot shim {'present' if shim.exists() else 'absent'}; "
         f"ephemeral ports {port_range} (none taken from {SYNTHETIC_PORTS.start}-"
         f"{SYNTHETIC_PORTS.stop - 1})")
-    t0 = time.perf_counter()
-    pre, stubbed = servant_sources(gxx)
-    tus = servant_tus()
+    includes = servant_includes(gxx)
+    tus = servant_tus(includes)
+    for tu in tus:
+        tu.write()
     ok = [tu for tu in tus if not tu.error]
-    report.append(f"  {SERVANT_TUS} TUs over {len(pre)} sources "
-                  f"({', '.join(f'{k} {len(v):,} B' for k, v in pre.items())}"
-                  f" preprocessed in {time.perf_counter() - t0:.1f} s"
-                  f"{'; no zstd.h on this host: ZSTD_STUB declared its API' if stubbed else ''}), "
+    report.append(f"  {SERVANT_TUS} TUs, each a file including one of "
+                  f"{', '.join(SERVANT_SOURCES)}"
+                  f"{' (no zstd.h on this host: ZSTD_STUB declared its API)' if includes else ''}; "
                   f"flags {SERVANT_FLAGS}, {SERVANT_JOINED} joined, "
                   f"{SERVANT_ERRORS} with #error")
 
@@ -5949,50 +5947,51 @@ def run_daemon_path(report: list) -> dict:
         cache_uri = f"grpc://127.0.0.1:{cport}"
         wait_cache_ready("servant", procs["cache"], cache_uri)
 
-        # Each object against a local compile, run as cxx_task.prepare
-        # runs it; a -g object in the servant's own workspace path (read
-        # back at its first patch location: GCC orders debug strings by
-        # their hashes, so another directory of that length can permute
-        # them), then both patched to one client directory.
+        # Each object against a local compile of the bytes the client
+        # preprocessed, run as cxx_task.prepare runs it; a -g object in
+        # the servant's own workspace path (read back at its first patch
+        # location: GCC orders debug strings by their hashes, so another
+        # directory of that length can permute them).  An #error TU
+        # against the plain local compile a build without the client
+        # runs.
         local_root = SERVANT_DIR / "local"
         local_root.mkdir()
-        client_dir = b"/home/user/build/project"
+        client_dir = str(SERVANT_BUILD / "src").encode()
 
-        def local(job) -> float:
-            tu, r = job
-            obj = compress.decompress(r["files"][".o"])
-            patches = r["patches"].get(".o", [])
+        def local(job):
+            tu, k, raw, patches = job
+            if raw is None:
+                out = subprocess.run(
+                    [gxx, *tu.args(local_root / f"{tu.i}.o")],
+                    cwd=SERVANT_BUILD, capture_output=True, timeout=300)
+                return tu, (out.returncode, out.stdout, out.stderr), None, 0
             if patches:
                 pos, total, suffix = patches[0]
-                wdir = pathlib.Path(obj[pos:pos + total - len(suffix)]
+                wdir = pathlib.Path(raw[pos:pos + total - len(suffix)]
                                     .decode())
                 check(len(str(wdir)) == _PADDED_WORKSPACE_LEN,
                       f"TU {tu.i}: workspace {wdir}")
             else:
-                wdir = local_root / f"{tu.i}-{r['task_id']}"
+                wdir = local_root / f"{tu.i}-{k}"
             wdir.mkdir()
             try:
-                (wdir / "src.ii").write_bytes(tu.source(pre))
+                (wdir / "src.ii").write_bytes(tu.pre)
                 t = time.perf_counter()
                 out = subprocess.run(
-                    f"{gxx} -x c++-cpp-output {tu.flags} -c -o "
+                    f"{gxx} -x c++-cpp-output {tu.invocation} -c -o "
                     f"{wdir}/output.o {wdir}/src.ii", shell=True, cwd=wdir,
                     capture_output=True, timeout=300)
                 s = time.perf_counter() - t
-                check(out.returncode == 0, f"TU {tu.i}: local compile "
-                                           f"failed")
-                mine = (wdir / "output.o").read_bytes()
+                mine = ((wdir / "output.o").read_bytes()
+                        if out.returncode == 0 else None)
             finally:
                 shutil.rmtree(wdir, ignore_errors=True)
-            check(mine == obj, f"TU {tu.i} ({tu.flags}): the servant's "
+            check(mine == raw, f"TU {tu.i} ({tu.flags}): the servant's "
                                f"object differs from a local compile")
             if patches:
                 check(find_patch_locations(mine, str(wdir).encode())
                       == patches, f"TU {tu.i}: patch locations differ")
-                check(patch_regions(obj, patches, client_dir)
-                      == patch_regions(mine, patches, client_dir),
-                      f"TU {tu.i}: patched objects differ")
-            return s
+            return tu, (out.returncode, out.stdout, out.stderr), mine, s
 
         state = inspect_vars(siport)["yadcc"]
         before = {k: v["launches"] for k, v in state["kernels"].items()}
@@ -6000,7 +5999,7 @@ def run_daemon_path(report: list) -> dict:
               f"launch counts {before} before the build")
         hb_before = state["scheduler_rpc"].get("Heartbeat:handler",
                                                {}).get("count", 0)
-        client = BuildClient(gxx_real, gxx_digest, pre)
+        client = BuildClient(os.path.dirname(gxx))
         half = SERVANT_TUS // len(SERVANT_FLEETS)
         t_build = time.perf_counter()
         build_s = 0.0
@@ -6022,14 +6021,24 @@ def run_daemon_path(report: list) -> dict:
                 check(gxx_digest in comp["compilers"],
                       f"daemon {n} does not advertise the host g++")
             monitor = ServantMonitor({n: daemons[n]["inspect"]
-                                      for n in names})
+                                      for n in names},
+                                     {n: procs[n].pid for n in names})
             monitors.append(monitor)
             monitor.thread.start()
             part = tus[i * half:(i + 1) * half]
-            # Client threads split over the fleet's two delegates, as a
-            # build's wrappers on two machines would be.
-            jobs = [(tu, daemons[names[k % 2]]["local"], "result",
-                     tu.joined) for k, tu in enumerate(part)]
+            # Clients split over the fleet's two delegates, as a build's
+            # wrappers on two machines would be; a joined TU's two
+            # processes go to one delegate, one after the other in the
+            # queue, so they run at once.  The first client of the build
+            # lists its imports (-X importtime).
+            jobs = []
+            for k, tu in enumerate(part):
+                port = daemons[names[k % 2]]["local"]
+                extra = ({"PYTHONPROFILEIMPORTTIME": "1"}
+                         if i == k == 0 else {})
+                jobs.append((tu, port, "result", f"tu{tu.i}.o", extra))
+                if tu.joined:
+                    jobs.append((tu, port, "twin", f"tu{tu.i}.twin.o", {}))
             try:
                 seconds = client.run(jobs)
             except SmokeFailure:
@@ -6060,6 +6069,7 @@ def run_daemon_path(report: list) -> dict:
                 "tus": len(part), "seconds": seconds, "boot_s": boot,
                 "capacity": capacity,
                 "max_running": dict(monitor.max_running),
+                "max_threads": dict(monitor.max_threads),
                 "state": st,
                 "rss_kb": {n: proc_status(procs[n].pid)["VmRSS"]
                            for n in names}}
@@ -6067,7 +6077,8 @@ def run_daemon_path(report: list) -> dict:
                 f"{seconds:.2f} s; " + "; ".join(
                     f"{n} stats {s['dispatcher']['stats']}, grant "
                     f"timeouts {s['dispatcher']['grant_timeouts']}, "
-                    f"stages {s['dispatcher']['stages']}"
+                    f"stages {s['dispatcher']['stages']}, local HTTP "
+                    f"{s['local_http']}"
                     for n, s in st.items()))
             for n in names:
                 with open(f"/proc/{procs[n].pid}/maps") as f:
@@ -6076,12 +6087,33 @@ def run_daemon_path(report: list) -> dict:
             if i < len(SERVANT_FLEETS) - 1:
                 leave(procs, names, siport)
         build_wall = time.perf_counter() - t_build
+        check(client.imports and not any(
+            ln.rsplit("|", 1)[-1].strip().split(".")[0] in
+            ("torch", "jax", "jaxlib", "yadcc_tpu", "numpy")
+            for ln in client.imports),
+              f"a client imported torch, jax, numpy or the JAX package "
+              f"({len(client.imports)} imports listed)")
 
-        # The cache: every successful compile the servants ran filled
-        # once (a joined TU compiled on both servants fills twice).
+        # What each TU's client sent: its preprocessed bytes (the
+        # client's own rewrite_file) and forwarded arguments.
+        def preprocess(tu) -> None:
+            args = CompilerArgs.parse(["g++", *tu.args(
+                SERVANT_BUILD / "obj" / f"tu{tu.i}.o")])
+            rw = rewrite_file(args, gxx)
+            if rw is not None:
+                tu.pre = compress.decompress(rw.compressed_source.join())
+                tu.invocation = remote_invocation(args, rw.directives_only)
+
+        with ThreadPoolExecutor(nprocs) as ex:
+            list(ex.map(preprocess, tus))
+        cloud_errors = [tu for tu in tus if tu.error and tu.pre is not None]
+
+        # The cache: every compile the servants ran filled once but for
+        # the #error TUs that reached them (a joined TU compiled on both
+        # servants fills twice).
         runs = sum(fl["state"][n]["engine"]["tasks_run_ever"]
                    for fl in fleets.values() for n in fl["state"])
-        want_fills = runs - SERVANT_ERRORS
+        want_fills = runs - len(cloud_errors)
         deadline = time.monotonic() + 60
         while True:
             fills = inspect_vars(ciport)["yadcc"]["cache"]["fills"]
@@ -6096,39 +6128,29 @@ def run_daemon_path(report: list) -> dict:
         check(len(ok) <= want_fills <= len(ok) + SERVANT_JOINED,
               f"{want_fills} ok compiles for {len(ok)} ok TUs")
 
-        # Every result against its TU: errors fail with the text, ok TUs
-        # give one object, with patches iff -g; a joined TU's second
-        # answer too (each is held against a local compile below, in its
-        # own workspace: two -g compiles in two workspaces can order
-        # their debug strings differently).
+        # Every run against its TU: an #error TU fails with the text and
+        # writes no object, an ok TU writes one; a joined TU's second
+        # run too.
         for tu in tus:
-            r = tu.result
-            check(r is not None, f"TU {tu.i} has no result")
-            if tu.error:
-                check(r["exit_code"] != 0 and b"#error smoke" in r["stderr"],
-                      f"TU {tu.i}: #error compiled: {r['exit_code']}")
-                continue
-            check(r["exit_code"] == 0,
-                  f"TU {tu.i} failed: {r['stderr'][-500:]}")
-            check(set(r["files"]) == {".o"}, f"TU {tu.i}: files "
-                                             f"{sorted(r['files'])}")
-            has_g = "-g" in tu.flags.split()
-            check(bool(r["patches"].get(".o")) == has_g,
-                  f"TU {tu.i} ({tu.flags}): patches {r['patches']}")
-            if tu.joined:
-                t2 = tu.twin
-                check(t2["exit_code"] == 0 and t2["task_id"] != r["task_id"]
-                      and set(t2["files"]) == {".o"}
-                      and bool(t2["patches"].get(".o")) == has_g,
-                      f"TU {tu.i}: the joined submission {t2['task_id']}")
-                if not has_g:
-                    check(t2["files"] == r["files"],
-                          f"TU {tu.i}: the joined submissions' objects "
-                          f"differ")
+            for tag, r in (("build", tu.result), ("twin", tu.twin)):
+                if tag == "twin" and not tu.joined:
+                    continue
+                check(r is not None, f"TU {tu.i} has no {tag} run")
+                if tu.error:
+                    check(r["rc"] != 0 and b"#error smoke" in r["stderr"]
+                          and r["obj"] is None,
+                          f"TU {tu.i}: #error compiled: {r['rc']}")
+                else:
+                    check(r["rc"] == 0 and r["obj"],
+                          f"TU {tu.i} ({tag}) failed: {r['rc']} "
+                          f"{r['stderr'][-500:]!r} {r['log'][-3:]}")
+            if tu.joined and not tu.error and "-g" not in tu.flags.split():
+                check(tu.twin["obj"] == tu.result["obj"],
+                      f"TU {tu.i}: the joined runs' objects differ")
 
         # The rebuild through one delegate, once its reader has synced
         # past the last fill: every ok TU a cache hit, no grant taken but
-        # for the #error TUs, which go to a servant again.
+        # for #error TUs that reach a servant.
         rb = daemon_names(SERVANT_FLEETS[-1])[0]
         deadline = time.monotonic() + 40
         while True:
@@ -6146,8 +6168,9 @@ def run_daemon_path(report: list) -> dict:
             "dispatcher"]
         granted_before = inspect_vars(siport)["yadcc"]["task_dispatcher"][
             "stats"]["granted"]
-        rebuild_s = client.run([(tu, daemons[rb]["local"], "rebuilt", False)
-                                for tu in tus])
+        local_before = sum(client.local.values())
+        rebuild_s = client.run([(tu, daemons[rb]["local"], "rebuilt",
+                                 f"tu{tu.i}.rebuilt.o", {}) for tu in tus])
         after_rb = delegate_state(daemons, [rb])[rb]
         granted_rb = inspect_vars(siport)["yadcc"]["task_dispatcher"][
             "stats"]["granted"] - granted_before
@@ -6158,29 +6181,54 @@ def run_daemon_path(report: list) -> dict:
                      - before_rb["stages"]["grant_wait"]["count"]
                      - after_rb["dispatcher"]["grant_timeouts"]
                      + before_rb["grant_timeouts"])
+        # One client alone, after the rebuild: its wall time beside a
+        # bare interpreter's start and the TU's g++ -E, on an idle host.
+        solo_tu = ok[0]
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "pass"], check=True)
+        solo = {"python_s": time.perf_counter() - t}
+        t = time.perf_counter()
+        subprocess.run([gxx, "-E", "-fdirectives-only",
+                        "-fno-working-directory", *solo_tu.includes,
+                        str(solo_tu.src)], check=True, cwd=SERVANT_BUILD,
+                       stdout=subprocess.DEVNULL)
+        solo["preprocess_s"] = time.perf_counter() - t
+        solo_run = client._one(solo_tu, daemons[rb]["local"],
+                               f"tu{solo_tu.i}.solo.o", {})
+        solo["client_s"] = solo_run["seconds"]
+        check(solo_run["obj"] == solo_tu.rebuilt["obj"]
+              and solo_run["local"] is None,
+              f"TU {solo_tu.i}: the lone client's object is not the "
+              f"rebuild's")
         check(delta["hit_cache"] == len(ok) and delta["failed"] == 0
-              and delta["actually_run"] == SERVANT_ERRORS,
-              f"rebuild: {delta}, {len(ok)} ok TUs")
-        check(rb_grants == SERVANT_ERRORS,
-              f"rebuild: {rb_grants} grants taken for {SERVANT_ERRORS} "
-              f"#error TUs")
+              and delta["actually_run"] == len(cloud_errors),
+              f"rebuild: {delta}, {len(ok)} ok TUs, {len(cloud_errors)} "
+              f"#error TUs sent to the cloud")
+        check(rb_grants == len(cloud_errors),
+              f"rebuild: {rb_grants} grants taken for {len(cloud_errors)} "
+              f"#error TUs sent to the cloud")
+        rebuild_local = sum(client.local.values()) - local_before
         for tu in tus:
             r = tu.rebuilt
             if tu.error:
-                check(r["exit_code"] != 0 and b"#error smoke" in r["stderr"],
+                check(r["rc"] != 0 and b"#error smoke" in r["stderr"],
                       f"rebuild TU {tu.i}: #error compiled")
             else:
-                check(r["exit_code"] == 0 and r["files"] in (
-                    tu.result["files"], (tu.twin or {}).get("files")),
-                      f"rebuild TU {tu.i}: not the build's output")
+                check(r["rc"] == 0 and r["local"] is None and r["obj"] in (
+                    tu.result["obj"], (tu.twin or {}).get("obj")),
+                      f"rebuild TU {tu.i}: not the build's object")
 
-        # The cache entries: each ok TU's read back under its key, equal
-        # to what the rebuild read and to a servant's output; no #error
-        # TU has one.
+        # The cache entries: each ok TU's read back under the key of what
+        # its client sent, equal to the rebuild's object once patched to
+        # the client's directory; no #error TU has one.
         cache = Channel(cache_uri)
         for tu in tus:
+            check(tu.error or tu.pre is not None,
+                  f"TU {tu.i}: the client's preprocessing failed here")
+            if tu.pre is None:
+                continue
             key = cache_format.get_cache_key(
-                gxx_digest, tu.flags, digest_bytes(tu.source(pre)))
+                gxx_digest, tu.invocation, digest_bytes(tu.pre))
             try:
                 _, value = cache.call(
                     "ytpu.CacheService", "TryGetEntry",
@@ -6194,27 +6242,38 @@ def run_daemon_path(report: list) -> dict:
             check(not tu.error, f"TU {tu.i} (#error) has a cache entry")
             entry = cache_format.try_parse_cache_entry(value)
             check(entry is not None, f"TU {tu.i}: the entry does not parse")
-            r = tu.rebuilt
-            check({k: bytes(v) for k, v in entry.files.items()}
-                  == r["files"] and entry.patches == r["patches"]
-                  and (entry.exit_code, entry.standard_output,
-                       entry.standard_error)
-                  == (0, r["stdout"], r["stderr"]),
-                  f"TU {tu.i}: the cache entry differs from the output")
+            check(set(entry.files) == {".o"} and (
+                entry.exit_code, entry.standard_output,
+                entry.standard_error) == (0, b"", b""),
+                  f"TU {tu.i}: the cache entry holds {sorted(entry.files)}, "
+                  f"exit {entry.exit_code}")
+            raw = compress.decompress(bytes(entry.files[".o"]))
+            patches = entry.patches.get(".o", [])
+            check(bool(patches) == ("-g" in tu.flags.split()),
+                  f"TU {tu.i} ({tu.flags}): patches {entry.patches}")
+            patched = (patch_regions(raw, patches, client_dir) if patches
+                       else raw)
+            check(tu.rebuilt["obj"] == patched,
+                  f"TU {tu.i}: the rebuild's object is not the cache "
+                  f"entry's patched to the client's directory")
+            check(raw in (tu.result["raw"], (tu.twin or {}).get("raw")),
+                  f"TU {tu.i}: the cache entry is no build run's answer")
         cache.close()
 
-        # The aio fleet: the front end's double replies, then it leaves.
+        # The aio fleet: its front ends' double replies, then it leaves.
         last = daemon_names(SERVANT_FLEETS[-1])
         for n in last:
             with open(f"/proc/{procs[n].pid}/maps") as f:
                 check("libtorch" not in f.read(),
                       f"daemon {n} mapped libtorch")
-            front = inspect_vars(daemons[n]["inspect"])["yadcc"]["daemon"][
-                "servant_rpc"]
-            check(front["double_replies"] == 0,
-                  f"aio daemon {n}: {front['double_replies']} double replies")
         final = delegate_state(daemons, last)
         for n in last:
+            for front in ("servant_rpc", "local_http"):
+                check(final[n][front]["double_replies"] == 0,
+                      f"aio daemon {n}: {final[n][front]['double_replies']} "
+                      f"double replies on {front}")
+            check(final[n]["local_http"]["frontend"] == "aio",
+                  f"aio daemon {n}: local HTTP {final[n]['local_http']}")
             fleets[SERVANT_FLEETS[-1]]["state"][n] = final[n]
         state = inspect_vars(siport)["yadcc"]
         launches = {k: v["launches"] - before[k]
@@ -6229,7 +6288,13 @@ def run_daemon_path(report: list) -> dict:
         check(launches["grouped_assign"] > 0,
               "phase 15: K1 never launched over the builds")
 
-        # The delegates' counters: every submission answered, none failed.
+        # No silent local compile; the delegates' counters: every
+        # submission answered, none failed.
+        forbidden = {k: v for k, v in client.local.items()
+                     if k in FORBIDDEN_LOCAL}
+        check(not forbidden and client.cloud_errors == 0,
+              f"clients compiled locally {dict(client.local)}, "
+              f"{client.cloud_errors} cloud attempts failed")
         totals = collections.Counter()
         for fl in fleets.values():
             for s in fl["state"].values():
@@ -6247,16 +6312,60 @@ def run_daemon_path(report: list) -> dict:
               f"retries, {client.no_grant} seen without a grant): "
               f"{dict(totals)}")
         check(totals["failed"] == 0, f"delegates failed {totals['failed']}")
+        # Every run not compiled locally was a TU the cloud answered.
+        check(client.cloud_runs + sum(client.local.values()) == client.runs
+              and sum(client.local.values())
+              == 2 * (SERVANT_ERRORS - len(cloud_errors)) + sum(
+                  tu.error and tu.joined for tu in tus),
+              f"{client.cloud_runs} cloud runs, local {dict(client.local)} "
+              f"of {client.runs} runs")
 
+        # Every run's exit code, stdout and stderr against a local
+        # compile's; every answer a servant or the cache gave an ok TU's
+        # runs (as the daemon sent it, before the client's patch) against
+        # a local compile in its own workspace, and each run's object
+        # equal to its answer patched to the client's directory.
         t0 = time.perf_counter()
-        # A joined TU's second answer is compiled again only when it is
-        # not the first one's (a servant joins a duplicate to its task).
-        jobs = [(tu, tu.result) for tu in ok] + [
-            (tu, tu.twin) for tu in ok
-            if tu.joined and tu.twin["files"] != tu.result["files"]]
+        jobs = []
+        for tu in tus:
+            runs_of = [r for r in (tu.result, tu.twin, tu.rebuilt) if r]
+            if tu.error:
+                jobs.append((tu, 0, None, None))
+                continue
+            answers = {}
+            for r in runs_of:
+                check(r["raw"] is not None,
+                      f"TU {tu.i}: a run has no answer from the daemon")
+                answers.setdefault(r["raw"], r["patches"])
+            jobs += [(tu, k, raw, patches)
+                     for k, (raw, patches) in enumerate(answers.items())]
         with ThreadPoolExecutor(nprocs) as ex:
-            local_s = list(ex.map(local, jobs))
+            done = list(ex.map(local, jobs))
         local_wall = time.perf_counter() - t0
+        local_s = [s for _, _, mine, s in done if mine is not None]
+        outcomes = {}
+        for tu, outcome, _, _ in done:
+            check(outcomes.setdefault(tu.i, outcome) == outcome,
+                  f"TU {tu.i}: two local compiles' outcomes differ")
+        for tu in tus:
+            for r in (tu.result, tu.twin, tu.rebuilt):
+                if r is None:
+                    continue
+                outcome = outcomes[tu.i]
+                check((r["rc"], r["stdout"], r["stderr"]) == outcome,
+                      f"TU {tu.i}: the client's (exit code, stdout, "
+                      f"stderr) {(r['rc'], r['stdout'][-200:], r['stderr'][-200:])} "
+                      f"differ from a local compile's "
+                      f"{(outcome[0], outcome[1][-200:], outcome[2][-200:])}")
+                if not tu.error:
+                    check(bool(r["patches"]) == ("-g" in tu.flags.split()),
+                          f"TU {tu.i} ({tu.flags}): patches "
+                          f"{r['patches']}")
+                    check(r["obj"] == (patch_regions(
+                        r["raw"], r["patches"], client_dir)
+                        if r["patches"] else r["raw"]),
+                          f"TU {tu.i} ({tu.flags}): a client's object is "
+                          f"not its answer patched to its directory")
     finally:
         stop.set()
         for m in monitors:
@@ -6273,10 +6382,11 @@ def run_daemon_path(report: list) -> dict:
     no_grant = {n: s["dispatcher"]["grant_timeouts"]
                 for fl in fleets.values() for n, s in fl["state"].items()}
     by_flags = collections.Counter(tu.flags for tu in ok)
+    build_runs = [r for tu in tus for r in (tu.result, tu.twin) if r]
     res = {
         "tus": SERVANT_TUS, "seconds": build_s,
         "compiles_per_s": SERVANT_TUS / build_s,
-        "client_ms": percentiles_ms(client.seconds),
+        "client_ms": percentiles_ms(r["seconds"] for r in build_runs),
         "stages": stages,
         "compile_ms": {n: s["engine"]["run_ms"] for fl in fleets.values()
                        for n, s in fl["state"].items()},
@@ -6285,16 +6395,31 @@ def run_daemon_path(report: list) -> dict:
         "cache_fills": fills, "runs": runs,
         "rss_kb": {n: v for fl in fleets.values()
                    for n, v in fl["rss_kb"].items()},
+        "threads": {n: v for fl in fleets.values()
+                    for n, v in fl["max_threads"].items()},
+        "local_http": {n: {k: s["local_http"].get(k) for k in
+                           ("frontend", "connections", "double_replies",
+                            "loop_lag")}
+                       for fl in fleets.values()
+                       for n, s in fl["state"].items()},
         "fleets": {f: {k: fl[k] for k in ("tus", "seconds", "boot_s",
                                           "capacity", "max_running")}
                    for f, fl in fleets.items()},
         "delegate_stats": dict(totals), "submissions": client.submissions,
         "grant_timeouts": timeouts, "retries": client.retries,
         "digest_reports": client.digest_reports,
+        "client_runs": client.runs, "local": dict(client.local),
+        "cloud_errors_tus": len(cloud_errors),
+        "client_imports": len(client.imports),
+        # The self times of every import the first client made (us).
+        "client_import_ms": sum(
+            int(f) for f in (ln.split("|")[0].split(":")[1].strip()
+                             for ln in client.imports) if f.isdigit()) / 1e3,
+        "solo": solo,
         "rebuild": {"seconds": rebuild_s,
                     "tus_per_s": SERVANT_TUS / rebuild_s,
                     "sync_wait_s": sync_wait_s, "delta": delta,
-                    "grants_taken": rb_grants,
+                    "grants_taken": rb_grants, "local": rebuild_local,
                     "scheduler_granted": granted_rb},
         "wait_for_starting_task_ms": polls,
         "launches": launches, "boot_s": boot_s, "build_wall_s": build_wall,
@@ -6314,15 +6439,26 @@ def run_daemon_path(report: list) -> dict:
     report.append(
         f"  build: {SERVANT_TUS} TUs ({len(ok)} ok: {dict(by_flags)}) in "
         f"{build_s:.2f} s = {res['compiles_per_s']:.2f} compiles/s from "
-        f"{SERVANT_CLIENTS} client threads (the wall of both builds "
-        f"{build_wall:.1f} s with the boots); {client.submissions} "
-        f"submissions in all ({client.retries} again after no grant in "
-        f"the keeper's 10 s), {client.digest_reports} compiler digests "
+        f"{SERVANT_CLIENTS} client processes at once, each a port client "
+        f"(python -m yadcc_tpu_torch.client.yadcc_cxx behind a wrapper "
+        f"named g++; the wall of both builds {build_wall:.1f} s with the "
+        f"boots); {client.runs} client runs in all with the rebuild, "
+        f"{client.cloud_runs} answered by the cloud, local compiles "
+        f"{dict(client.local)} (the #error TUs: their preprocessing "
+        f"fails here, so the client compiles them locally; "
+        f"{len(cloud_errors)} reached a servant), none after the cloud "
+        f"ladder or for an unreachable daemon; {client.submissions} "
+        f"submissions ({client.retries} again after no grant in the "
+        f"keeper's 10 s), {client.digest_reports} compiler digests "
         f"reported after a 400; the delegates' actually_run + reused + "
         f"hit_cache + failed = {answered} ({dict(totals)}) + {timeouts} "
-        f"answered without a grant; every grant on "
-        f"a real servant, none over capacity, none outstanding after "
-        f"either fleet left")
+        f"answered without a grant; every grant on a real servant, none "
+        f"over capacity, none outstanding after either fleet left; every "
+        f"run's exit code, stdout and stderr (the client's own "
+        f"`ytpu-client` lines aside) equal to a local compile's; the "
+        f"first client's {len(client.imports)} imports "
+        f"({res['client_import_ms']:.1f} ms) hold no torch, jax, numpy or "
+        f"JAX package")
     report.append(
         "  per submission p50 / p99 ms, as each delegate sees it (a grant "
         "wait that ended without a grant included): " + "; ".join(
@@ -6342,18 +6478,33 @@ def run_daemon_path(report: list) -> dict:
         "  compile (the engine's run time) " + ", ".join(
             f"{n} {pq(c)} ({c['count']} tasks)"
             for n, c in res["compile_ms"].items())
-        + f"; the client's clock (submit to 200, a TU) "
-          f"{pq(res['client_ms'])}; the same compiles locally, {nprocs} at "
-          f"once: {pq(res['local_compile_ms'])}")
+        + f"; the client process (start to exit, a TU, submit to answer "
+          f"included) {pq(res['client_ms'])}; the same compiles locally, "
+          f"{nprocs} at once: {pq(res['local_compile_ms'])}")
+    report.append(
+        "  local HTTP and threads (the most a daemon had during its "
+        "build): " + "; ".join(
+            f"{n} {h['frontend']}, threads {res['threads'][n]}"
+            + (f", connections {h['connections']}, double replies "
+               f"{h['double_replies']}, loop lag p50 / p99 / max "
+               f"{h['loop_lag']['p50_ms']:.2f} / "
+               f"{h['loop_lag']['p99_ms']:.2f} / "
+               f"{h['loop_lag']['max_ms']:.2f} ms"
+               if h["frontend"] == "aio" else "")
+            for n, h in res["local_http"].items()))
     rb_ = res["rebuild"]
     report.append(
-        f"  cached rebuild through {rb}: {SERVANT_TUS} TUs in "
-        f"{rb_['seconds']:.2f} s = {rb_['tus_per_s']:.2f} TUs/s, its reader "
-        f"synced {rb_['sync_wait_s']:.1f} s after the last fill; "
-        f"hit_cache {rb_['delta']['hit_cache']} (every ok TU), "
-        f"actually_run {rb_['delta']['actually_run']} (the #error TUs), "
-        f"grants taken {rb_grants}, the scheduler granted "
-        f"{granted_rb} (prefetch included)")
+        f"  cached rebuild through {rb}: {SERVANT_TUS} client processes in "
+        f"{rb_['seconds']:.2f} s = {rb_['tus_per_s']:.2f} TUs/s (each "
+        f"preprocesses locally), its reader synced "
+        f"{rb_['sync_wait_s']:.1f} s after the last fill; hit_cache "
+        f"{rb_['delta']['hit_cache']} (every ok TU), actually_run "
+        f"{rb_['delta']['actually_run']}, local compiles {rebuild_local} "
+        f"(the #error TUs), grants taken {rb_grants}, the scheduler "
+        f"granted {granted_rb} (prefetch included); one client alone "
+        f"afterwards {solo['client_s'] * 1e3:.1f} ms (a bare interpreter's "
+        f"start {solo['python_s'] * 1e3:.1f} ms, the TU's g++ -E "
+        f"{solo['preprocess_s'] * 1e3:.1f} ms)")
     if polls:
         report.append(
             f"  the delegates' WaitForStartingTask laps at the scheduler: "
@@ -6364,14 +6515,19 @@ def run_daemon_path(report: list) -> dict:
         f"  scheduler took {res['heartbeats_per_s']:.1f} heartbeats/s "
         f"({N_SERVANTS:,} synthetic servants every {HB_REPEAT_S:.0f} s + 2 "
         f"real every 1 s); cache fills {fills} for {runs} compiles "
-        f"({SERVANT_ERRORS} #error; every ok TU's entry read back, parsed "
-        f"and equal to the rebuild's answer; no #error TU filled); K1 "
+        f"(every ok TU's entry read back, parsed and equal to the "
+        f"rebuild's object once patched; no #error TU filled); K1 "
         f"launches {launches}; daemons' RSS kB {res['rss_kb']} (no "
-        f"libtorch mapped); aio double replies 0")
+        f"libtorch mapped); aio double replies 0 (servant RPC and local "
+        f"HTTP)")
     report.append(
-        f"  every object byte-equal to a local compile ({nprocs} at once "
-        f"after the builds: {local_wall:.1f} s), every -g object also after "
-        f"the patch; boot: scheduler {boot_s:.1f} s; phase "
+        f"  every answer ({len(local_s)} distinct ones: each ok TU's, a "
+        f"joined TU's two where its servants' objects differ) byte-equal "
+        f"to a local compile of the client's preprocessed bytes in its "
+        f"servant's workspace ({nprocs} at once after the builds: "
+        f"{local_wall:.1f} s), and every client run's object equal to its "
+        f"answer after the client's patch; boot: scheduler "
+        f"{boot_s:.1f} s; phase "
         f"{res['phase_s']:.1f} s")
     return res
 

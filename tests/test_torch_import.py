@@ -5,6 +5,7 @@ for the CPU."""
 
 from __future__ import annotations
 
+import os
 import pathlib
 import re
 import subprocess
@@ -65,6 +66,12 @@ _DELEGATE_MODULES = (
     "daemon.local.distributed_task_dispatcher", "daemon.local.http_service")
 # The in-process rig: it runs the scheduler, so it loads torch.
 _RIG_MODULES = ("testing", "testing.local_cluster")
+# The compiler-masquerading client and the inspect server, each by name.
+_CLIENT_MODULES = (
+    "client", "client.env_options", "client.logging", "client.command",
+    "client.compiler_args", "client.daemon_call", "client.task_quota",
+    "client.rewrite_file", "client.compilation_saas", "client.yadcc_cxx",
+    "client.universal_wrapper", "utils.inspect_server")
 
 
 def _port_sources():
@@ -111,7 +118,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
                 for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT
-                + DELEGATE + RIG):
+                + DELEGATE + RIG + CLIENT):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
@@ -140,7 +147,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"CACHE = {_CACHE_MODULES!r}\n"
               f"SERVANT = {_SERVANT_MODULES!r}\n"
               f"DELEGATE = {_DELEGATE_MODULES!r}\n"
-              f"RIG = {_RIG_MODULES!r}\n" + script)
+              f"RIG = {_RIG_MODULES!r}\n"
+              f"CLIENT = {_CLIENT_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -165,12 +173,14 @@ def test_daemon_entry_loads_no_torch(tmp_path, monkeypatch):
     as a program, both roles, against a scheduler stub: a client's TU
     goes in over loopback HTTP, through the delegate (grant, queue,
     wait, free) to its own servant and back, and the process maps no
-    torch."""
+    torch; on the threaded front end, then on aio, where the quota and
+    the wait long polls are parked routes and the inspect port is the
+    aio server too."""
     script = textwrap.dedent(r"""
         import importlib, runpy, sys
         for name in ("torch", "jax", "jaxlib"):
             sys.modules[name] = None
-        for m in SERVANT + DELEGATE:
+        for m in SERVANT + DELEGATE + CLIENT:
             importlib.import_module("yadcc_tpu_torch." + m)
         from yadcc_tpu_torch.daemon.local.distributed_cache_reader import \
             DistributedCacheReader
@@ -186,7 +196,8 @@ def test_daemon_entry_loads_no_torch(tmp_path, monkeypatch):
     """)
     out = subprocess.run(
         [sys.executable, "-c", f"SERVANT = {_SERVANT_MODULES!r}\n"
-         f"DELEGATE = {_DELEGATE_MODULES!r}\n" + script],
+         f"DELEGATE = {_DELEGATE_MODULES!r}\n"
+         f"CLIENT = {_CLIENT_MODULES!r}\n" + script],
         cwd=REPO, capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr[-3000:]
     for flag in ("--scheduler-uri", "--local-port", "--max-local-tasks",
@@ -207,11 +218,15 @@ def test_daemon_entry_loads_no_torch(tmp_path, monkeypatch):
             "yadcc_tpu_torch.daemon.local.http_service"} <= imported
     assert not {n for n in imported
                 if n.split(".")[0] in ("torch", "jax", "yadcc_tpu")}
-    _entry_serves_a_tu_over_http(tmp_path, monkeypatch)
+    for frontend in ("threaded", "aio"):
+        _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend)
 
 
-def _entry_serves_a_tu_over_http(tmp_path, monkeypatch):
+def _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend):
+    import json
+    import os
     import signal
+    import urllib.request
     import socket
     import time
 
@@ -258,16 +273,21 @@ def _entry_serves_a_tu_over_http(tmp_path, monkeypatch):
     server = trpc.make_rpc_server("threaded", "127.0.0.1:0")
     server.add_service(sched)
     server.start()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        local_port = s.getsockname()[1]
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    local_port, inspect_port = ports
     proc = subprocess.Popen(
         [sys.executable, "-m", "yadcc_tpu_torch.daemon.entry",
          "--scheduler-uri", f"grpc://127.0.0.1:{server.port}",
          "--token", "stok", "--local-port", str(local_port),
-         "--serving-port", "0", "--inspect-port", "0",
+         "--serving-port", "0", "--inspect-port", str(inspect_port),
          "--extra-compiler-dirs", str(toolchain), "--max-remote-tasks", "2",
-         "--max-local-tasks", "3", "--temporary-dir", str(tmp_path / "shm"),
+         "--max-local-tasks", "3",
+         "--temporary-dir", str(tmp_path / f"shm-{frontend}"),
+         "--rpc-frontend", frontend,
          "--allow-poor-machine", "--ignore-cgroup-limits",
          "--no-privilege-drop"],
         cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
@@ -298,6 +318,19 @@ def _entry_serves_a_tu_over_http(tmp_path, monkeypatch):
         assert result.exit_code == 0, result.standard_error
         assert set(result.files) == {".o", ".gcno"}
         assert seen["grants"] >= 1
+        for path in ("acquire_quota", "release_quota"):
+            r = daemon_call.call_daemon("POST", f"/local/{path}", json.dumps(
+                {"requestor_pid": os.getpid(), "lightweight_task": True,
+                 "milliseconds_to_wait": 1000}).encode())
+            assert r.status == 200, (path, r.status)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{inspect_port}/inspect/vars",
+                timeout=10) as resp:
+            daemon = json.loads(resp.read())["yadcc"]["daemon"]
+        assert daemon["local_http"]["frontend"] == frontend
+        if frontend == "aio":
+            assert daemon["local_http"]["double_replies"] == 0
+            assert daemon["servant_rpc"]["double_replies"] == 0
         with open(f"/proc/{proc.pid}/maps") as f:
             maps = f.read()
         assert "libtorch" not in maps
@@ -312,6 +345,57 @@ def _entry_serves_a_tu_over_http(tmp_path, monkeypatch):
             proc.wait()
         proc.stderr.close()
         server.stop(grace=0)
+        daemon_call._drop_conn()
+
+
+def test_client_loads_no_torch(tmp_path):
+    """The compiler wrapper runs once a TU, so it must not load torch: a
+    client process with torch, jax and the JAX package blocked compiles
+    one TU through a port daemon (the in-process rig, a fake compiler
+    that preprocesses), and `-X importtime` lists none of them."""
+    from tests.test_torch_client import FAKE_GXX
+    from yadcc_tpu_torch.daemon.cloud.cxx_task import shutdown_pack_executor
+    from yadcc_tpu_torch.testing import LocalCluster
+
+    fake = tmp_path / "fake" / "tc"
+    fake.mkdir(parents=True)
+    (fake / "g++").write_text(FAKE_GXX)
+    (fake / "g++").chmod(0o755)
+    (tmp_path / "rig").mkdir()
+    rig = LocalCluster(tmp_path / "rig", device="cpu",
+                       compiler_dirs=[str(fake)], http_frontend="aio")
+    try:
+        (tmp_path / "a.cc").write_text("int a(int x) { return x; }\n")
+        script = textwrap.dedent(r"""
+            import runpy, sys
+            for name in ("torch", "jax", "jaxlib", "yadcc_tpu"):
+                sys.modules[name] = None
+            sys.argv = ["yadcc_cxx.py", "g++", "-O2", "-c", "a.cc",
+                        "-o", "a.o"]
+            runpy.run_module("yadcc_tpu_torch.client.yadcc_cxx",
+                             run_name="__main__")
+        """)
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   PATH=str(fake) + os.pathsep + os.environ["PATH"],
+                   YTPU_DAEMON_PORT=str(rig.http.port),
+                   YTPU_COMPILE_ON_CLOUD_SIZE_THRESHOLD="1")
+        out = subprocess.run(
+            [sys.executable, "-X", "importtime", "-c", script],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=60)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert (tmp_path / "a.o").read_bytes() == \
+            b"FAKEOBJ\nint a(int x) { return x; }\n"
+        assert rig.delegate.inspect()["stats"]["actually_run"] == 1
+        imported = {line.rsplit("|", 1)[-1].strip()
+                    for line in out.stderr.splitlines()
+                    if line.startswith("import time:")}
+        assert "yadcc_tpu_torch.client.compilation_saas" in imported
+        assert not {n for n in imported if n.split(".")[0] in
+                    ("torch", "jax", "jaxlib", "yadcc_tpu", "numpy")}
+    finally:
+        rig.stop()
+        shutdown_pack_executor()
 
 
 def test_resolve_device_refuses_missing_card():

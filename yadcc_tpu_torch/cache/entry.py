@@ -123,7 +123,11 @@ def cache_server_start(args, stop: "threading.Event | None" = None) -> None:
     # aio front-end serving stats, `double_replies` among them.
     if hasattr(server, "inspect"):
         exposed_vars.expose("yadcc/rpc_server", server.inspect)
-    inspect = InspectServer(args.inspect_port, args.inspect_credential)
+    # On aio the inspect port serves on the RPC server's loop.
+    inspect = InspectServer(
+        args.inspect_port, args.inspect_credential,
+        frontend=args.rpc_frontend,
+        loops=server.loops if args.rpc_frontend == "aio" else None)
     inspect.start()
     logger.info("cache server on :%d (engine=%s, l3=%s, frontend=%s), "
                 "inspect on :%d", server.port, service.l2.name,
@@ -142,9 +146,9 @@ def cache_server_start(args, stop: "threading.Event | None" = None) -> None:
             service.purge()
             last_purge = time.monotonic()
     logger.info("shutting down")
+    inspect.stop()  # before the server whose loop it may share
     server.stop()
     exposed_vars.unexpose("yadcc/rpc_server")
-    inspect.stop()
     service.stop()  # drain the async L3 pool before the engines close
     exposed_vars.unexpose("yadcc/cache")
     service.l2.stop()

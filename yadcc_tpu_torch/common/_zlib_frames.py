@@ -1,8 +1,8 @@
 """zlib-framed stand-in for the zstd helpers on hosts without the
 `zstandard` wheel (a copy of the JAX package's
-yadcc_tpu/common/_zlib_frames.py, trimmed to what the cache protocol and
-the servant's source intake use; see common/compress.py for the gating
-story).
+yadcc_tpu/common/_zlib_frames.py, trimmed to what the cache protocol,
+the servant's source intake and the client's source stream use; see
+common/compress.py for the gating story).
 
 A one-shot frame is ``YZF1`` + u64le declared size + zlib stream:
 frame_content_size reads the declared size, like a zstd frame header with
@@ -56,6 +56,27 @@ def decompress(data: bytes, max_output_size: int) -> bytes:
     if declared >= 0 and len(out) != declared:
         raise Error("declared size mismatch")
     return out
+
+
+class StreamCompressor:
+    """compressobj() twin: .compress(bytes) / .flush(), magic-prefixed
+    (the client's streaming source frame, ``YZFS``)."""
+
+    def __init__(self, level: int = 3):
+        self._obj = zlib.compressobj(level)
+        self._first = True
+
+    def _prefix(self, out: bytes) -> bytes:
+        if self._first:
+            self._first = False
+            return _STREAM_MAGIC + out
+        return out
+
+    def compress(self, data: bytes) -> bytes:
+        return self._prefix(self._obj.compress(data))
+
+    def flush(self) -> bytes:
+        return self._prefix(self._obj.flush())
 
 
 class AnyFrameDecompressor:

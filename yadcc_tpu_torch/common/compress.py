@@ -1,8 +1,9 @@
 """zstd helpers (a copy of the JAX package's yadcc_tpu/common/compress.py,
 trimmed to what the port uses: the one-shot calls, with which the full
 Bloom filter travels as ``compress(u32 salt + words)`` and a servant
-compresses its outputs, and the fused streaming decompress-and-digest of
-a servant's source intake).
+compresses its outputs; the fused streaming decompress-and-digest of a
+servant's source intake; and the client's streaming writers, which tee
+its preprocessor's output into a compressor and a digest in one pass).
 
 When the `zstandard` wheel is absent (minimal containers), a stdlib
 zlib stand-in keeps the same API: framed one-shot payloads carry a
@@ -102,6 +103,47 @@ def try_decompress(data: bytes) -> Optional[bytes]:
         # Corruption — including allocation-level failures — must read
         # as a miss, never take down the serving thread.
         return None
+
+
+class CompressingWriter:
+    """Streaming compressor chaining into a downstream writer (a zstd
+    frame, or the zlib stand-in's streaming frame without the wheel);
+    composable with hashing.DigestingWriter into the client's
+    single-pass preprocess -> (digest, compressed source) tee."""
+
+    def __init__(self, sink):
+        self._sink = sink
+        level = current_level()
+        self._obj = (_fallback.StreamCompressor(level)
+                     if zstandard is None
+                     else zstandard.ZstdCompressor(level=level)
+                     .compressobj())
+        self._closed = False
+
+    def write(self, data: bytes) -> int:
+        out = self._obj.compress(data)
+        if out:
+            self._sink.write(out)
+        return len(data)
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            out = self._obj.flush()
+            if out:
+                self._sink.write(out)
+
+
+class TeeWriter:
+    """Fan a write out to several sinks (ForwardingOutputStream parity)."""
+
+    def __init__(self, *sinks):
+        self._sinks = sinks
+
+    def write(self, data: bytes) -> int:
+        for s in self._sinks:
+            s.write(data)
+        return len(data)
 
 
 class DecompressingDigestReader:

@@ -7,7 +7,8 @@ are keyed digests (tenancy/identity.py, tenancy/keys.py); the disk cache
 names its files by ``digest_bytes`` of the key (common/disk_cache.py), so
 a directory either package filled reads back through the other.  The
 servant's compiler registry names each compiler by ``digest_file``, so a
-delegate of either package asks for the same environment.
+delegate of either package asks for the same environment.  The client
+digests its preprocessed source as it streams (``DigestingWriter``).
 """
 
 from __future__ import annotations
@@ -54,3 +55,24 @@ def digest_stream(fp: BinaryIO, chunk_size: int = 1 << 20) -> str:
 def digest_file(path: str | os.PathLike) -> str:
     with open(path, "rb") as fp:
         return digest_stream(fp)
+
+
+class DigestingWriter:
+    """Output-stream sink that digests everything written through it.
+
+    Mirrors the client's Blake3OutputStream (reference
+    yadcc/client/common/output_stream.{h,cc}) so preprocessing can stream
+    into compression and hashing in a single pass.
+    """
+
+    def __init__(self):
+        self._h = new_digest()
+        self.bytes_written = 0
+
+    def write(self, data: bytes) -> int:
+        self._h.update(data)
+        self.bytes_written += len(data)
+        return len(data)
+
+    def hexdigest(self) -> str:
+        return self._h.hexdigest()

@@ -8,8 +8,10 @@ local clients over loopback HTTP (:8334, ``--local-port``) and a
 across machines and poison the cache); privilege drop; stale temp
 cleanup; ordered shutdown.  Neither role runs anything on the card (the
 delegate checks the cache one key at a time on its host filter), so the
-entry loads no torch and takes no ``--device``.  The delegate's HTTP
-service is threaded under either ``--rpc-frontend``.  Run:
+entry loads no torch and takes no ``--device``.  Under ``--rpc-frontend
+aio`` the servant's RPC, the delegate's loopback HTTP (its quota and
+wait long polls parked as continuations on the loop) and the inspect
+port are all served by the event-loop front end.  Run:
 
     python -m yadcc_tpu_torch.daemon.entry \\
         --scheduler-uri grpc://scheduler:8336 \\
@@ -251,16 +253,21 @@ def daemon_start(args) -> None:
         light_ratio=config.lightweight_overprovisioning_ratio)
     digest_cache = FileDigestCache()
     stop = threading.Event()
+    # On aio the loopback HTTP and the inspect port serve on the servant
+    # RPC's loop: one loop thread for the process.
+    loops = server.loops if args.rpc_frontend == "aio" else None
     http = LocalHttpService(
         monitor=monitor, digest_cache=digest_cache, dispatcher=dispatcher,
-        on_leave=stop.set, port=args.local_port)
+        on_leave=stop.set, port=args.local_port,
+        frontend=args.rpc_frontend, loops=loops)
 
     config_keeper.start()
     cache_reader.start()
     running_keeper.start()
     service.start_heartbeat()
     http.start()
-    inspect = InspectServer(args.inspect_port, args.inspect_credential)
+    inspect = InspectServer(args.inspect_port, args.inspect_credential,
+                            frontend=args.rpc_frontend, loops=loops)
     inspect.start()
     exposed = {
         "yadcc/daemon/engine": engine.inspect,
@@ -296,8 +303,8 @@ def daemon_start(args) -> None:
     # Aborts in-flight tasks, returns the grant keeper's queued grants
     # and stops the cache reader.
     dispatcher.stop()
+    inspect.stop()  # before the server whose loop it may share
     server.stop()
-    inspect.stop()
     for c in (config_keeper, running_keeper):
         c.stop()
     for path in exposed:

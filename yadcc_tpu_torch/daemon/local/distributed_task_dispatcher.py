@@ -1,7 +1,7 @@
 """Delegate-side task dispatcher: one state machine per in-flight task (a
 copy of the JAX package's yadcc_tpu/daemon/local/
 distributed_task_dispatcher.py, trimmed to the C++ workload: no fan-out
-parents and no parked long-poll of the aio front end).
+parents).
 
 Workload-agnostic: everything task-specific (cache key, dedup digest,
 servant submission, output parsing) lives behind the DistributedTask
@@ -78,6 +78,10 @@ class _Entry:
     done: threading.Event = field(default_factory=threading.Event)
     aborted: bool = False
     thread: Optional[threading.Thread] = None
+    # Parked long-poll continuations (aio front end): fired once with
+    # the TaskResult when the task completes; a waiting client costs
+    # this list entry, not a serving thread.
+    waiters: list = field(default_factory=list)
 
 
 class DistributedTaskDispatcher:
@@ -139,7 +143,10 @@ class DistributedTaskDispatcher:
         refresh loop, then join the task threads (bounded: an aborted
         task ends at its next long-poll lap).  A task thread frees its
         grant on its own thread once the keeper is stopping, so every
-        grant a joined task held is freed when this returns."""
+        grant a joined task held is freed when this returns.  A task
+        that ends in the join fires its parked waiters as always; the
+        waiters of one that outlives the join are dropped, so no
+        continuation outlives the dispatcher."""
         with self._lock:
             entries = list(self._tasks.values())
             for entry in entries:
@@ -153,6 +160,8 @@ class DistributedTaskDispatcher:
                 entry.thread.join(
                     timeout=max(0.0, deadline - time.monotonic()))
         with self._lock:
+            for entry in self._tasks.values():
+                entry.waiters.clear()
             chans, self._channels = list(self._channels.values()), {}
         for ch in chans:
             ch.close()
@@ -197,6 +206,25 @@ class DistributedTaskDispatcher:
         entry.done.wait(timeout=timeout_s)
         return entry.result
 
+    def wait_for_task_async(self, task_id: int, on_done) -> bool:
+        """Parked-continuation twin of wait_for_task (aio front end):
+        ``on_done(result)`` fires from the completing task thread, or
+        immediately when the task already finished.  Returns False for
+        an unknown task id (the caller answers 404 — same contract as
+        wait_for_task returning None on unknown).  The caller owns the
+        long-poll deadline: its loop timer answers 503 and the late
+        completion callback becomes a no-op (reply-once responder)."""
+        with self._lock:
+            entry = self._tasks.get(task_id)
+            if entry is None:
+                return False
+            if entry.state != TaskState.DONE:
+                entry.waiters.append(on_done)
+                return True
+            result = entry.result
+        on_done(result)
+        return True
+
     def free_task(self, task_id: int) -> None:
         with self._lock:
             self._tasks.pop(task_id, None)
@@ -234,7 +262,13 @@ class DistributedTaskDispatcher:
             entry.result = result
             entry.state = TaskState.DONE
             entry.completed_at = time.monotonic()
+            waiters, entry.waiters = entry.waiters, []
         entry.done.set()
+        for cb in waiters:  # parked long polls (aio front end)
+            try:
+                cb(result)
+            except Exception:
+                logger.exception("parked wait continuation failed")
 
     def _try_read_cache(self, entry: _Entry) -> Optional[TaskResult]:
         if self._cache is None or not self._cache.enabled:

@@ -1,6 +1,6 @@
-"""Client-facing loopback HTTP API (a copy of the threaded half of the JAX
-package's yadcc_tpu/daemon/local/http_service.py, without the jit
-cache-shim routes; the aio front end's parked routes are not here).
+"""Client-facing loopback HTTP API (a copy of the JAX package's
+yadcc_tpu/daemon/local/http_service.py, both front ends, without the jit
+cache-shim routes).
 
 Parity with reference yadcc/daemon/local/http_service_impl.{h,cc} and
 the wire format in yadcc/daemon/local/README.md: plain HTTP/1.1 on
@@ -26,6 +26,12 @@ plus one submit/wait route PAIR per registered task kind
 With a TenancyControl every POST route fails closed (403) without a
 valid X-Ytpu-Tenant credential; an over-budget tenant's submission gets
 503 + Retry-After.
+
+``frontend="threaded"`` serves on a ThreadingHTTPServer, a thread a
+connection; ``"aio"`` (``--rpc-frontend aio``) on the event-loop front
+end (rpc/aio_server.py): acquire_quota and wait_for_<kind>_task park as
+continuations with a loop timer for their deadline, the other POST
+routes run on its bounded pool, and both front ends answer alike.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from google.protobuf import json_format
 
 from ... import api
 from ...common import multi_chunk
-from ...common.limits import BodyTooLarge, checked_content_length, clamp_wait_s
+from ...common.limits import (MAX_WIRE_BODY, BodyTooLarge,
+                              checked_content_length, clamp_wait_s)
 from ...common.payload import Payload
 from ...tenancy.budgets import TenantOverBudget
 from ...utils.logging import get_logger
@@ -83,6 +90,13 @@ class LocalHttpService:
         on_leave: Optional[Callable[[], None]] = None,
         port: int = 8334,
         host: str = "127.0.0.1",
+        # "threaded" = ThreadingHTTPServer; "aio" = the event-loop front
+        # end, where long polls (acquire_quota, wait_for_*) park as
+        # continuations plus a loop timer instead of a serving thread.
+        frontend: str = "threaded",
+        # aio: the loop to serve on (the entry's RPC loop); None = one
+        # of the server's own.
+        loops=None,
         # Multi-tenant QoS: a tenancy.TenancyControl makes every POST
         # route fail-closed on the X-Ytpu-Tenant credential; the
         # verified binding is stamped onto tasks (tenant-weighted
@@ -95,6 +109,7 @@ class LocalHttpService:
         self.dispatcher = dispatcher
         self.on_leave = on_leave or (lambda: None)
         self.registry = default_registry(digest_cache)
+        self.frontend = frontend
         self.tenancy = tenancy
         service = self
 
@@ -156,25 +171,42 @@ class LocalHttpService:
                     except OSError:
                         pass
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self.port = self._httpd.server_port
+        if frontend == "aio":
+            from ...rpc.aio_server import AioHttpServer
+
+            self._httpd = None
+            self._aio = AioHttpServer(
+                self._handle_aio, address=f"{host}:{port}", loops=loops,
+                max_body=MAX_WIRE_BODY,
+                too_large_body=b'{"error":"body exceeds wire cap"}')
+            self.port = self._aio.port
+        else:
+            self._aio = None
+            self._httpd = ThreadingHTTPServer((host, port), Handler)
+            self.port = self._httpd.server_port
         self._thread: Optional[threading.Thread] = None
 
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
+        if self._aio is not None:
+            return  # the event loop serves from construction
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="local-http", daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
+        if self._aio is not None:
+            self._aio.stop()
+            return
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
 
     def inspect(self) -> dict:
-        out = {"frontend": "threaded", "port": self.port}
+        out = ({"frontend": "threaded", "port": self.port}
+               if self._aio is None else self._aio.inspect())
         if self.tenancy is not None:
             out["tenancy"] = self.tenancy.inspect()
         return out
@@ -190,9 +222,138 @@ class LocalHttpService:
         POST route."""
         if self.tenancy is None:
             return None
+        # Both header shapes: the threaded front end's case-insensitive
+        # Message and the aio dict (lower-cased keys).
         cred = headers.get(_TENANT_HEADER, "") if headers else ""
         binding = self.tenancy.authenticate(cred)
         return binding if binding is not None else _TENANT_DENIED
+
+    # -- aio front end (event-loop routing) ----------------------------------
+
+    def _handle_aio(self, responder) -> None:  # loop thread only
+        """Runs ON the loop for every request: long polls park, the
+        version route answers inline, every route that may block (task
+        submission, set_file_digest) goes to the bounded worker pool.
+        Route semantics and reply bodies match the threaded front end."""
+        if responder.method == "GET":
+            if responder.path == "/local/get_version":
+                responder._reply(200, _to_json(api.local.GetVersionResponse(
+                    built_at=BUILT_AT,
+                    version_for_upgrade=VERSION_FOR_UPGRADE)))
+            else:
+                responder._reply(404)
+            return
+        if responder.method != "POST":
+            responder._reply(501)
+            return
+        # Tenant check BEFORE parking: parked routes drop their headers
+        # (release_request), so this is the one place the credential
+        # exists.  Pooled routes resolve it again in _route_post (their
+        # headers are kept), which also stamps it onto submitted tasks.
+        if self._tenant_binding(responder.headers) is _TENANT_DENIED:
+            responder._reply(403, _DENIED_BODY)
+            return
+        path, body = responder.path, responder.request.body
+        if path == "/local/acquire_quota":
+            self._acquire_quota_parked(responder, body)
+            return
+        task_type = self.registry.for_wait(path)
+        if task_type is not None:
+            self._wait_parked(responder, task_type, body)
+            return
+        self._aio.submit(self._route_post_pooled, responder, path, body)
+
+    def _route_post_pooled(self, responder, path: str, body: bytes) -> None:
+        try:
+            self._route_post(responder, path, body)
+        except Exception:
+            logger.exception("error handling %s", path)
+            # A route that replied and then raised must not fire a
+            # second 500 into the settled stream.
+            if not responder.replied:
+                responder._reply(500)
+
+    def _acquire_quota_parked(self, responder, body: bytes) -> None:
+        req = _from_json(api.local.AcquireQuotaRequest, body)
+        deadline_timer = []
+
+        def on_grant(ok: bool) -> None:
+            # The continuation won: its deadline timer dies with it.  The
+            # box is filled after acquire_async returns; an inline grant
+            # leaves the timer to fire waiter.expire as a no-op.
+            if deadline_timer:
+                deadline_timer[0].cancel()
+            if ok:
+                responder._reply(200,
+                                 _to_json(api.local.AcquireQuotaResponse()))
+            else:
+                # The threaded route's pacing: the caller already waited
+                # its window server-side.
+                responder._reply(503,
+                                 _to_json(api.local.AcquireQuotaResponse()),
+                                 retry_after_s=0.5)
+
+        responder.release_request()  # parked: keep the continuation only
+        waiter = self.monitor.acquire_async(
+            req.requestor_pid, req.lightweight_task, on_grant)
+        # The deadline half of the parked continuation: a loop timer,
+        # not a polling thread (the threaded route's clamp).
+        deadline_timer.append(self._aio.call_later(
+            clamp_wait_s(req.milliseconds_to_wait), waiter.expire))
+
+    def _wait_parked(self, responder, task_type, body: bytes) -> None:
+        req = _from_json(task_type.wait_request_cls, body)
+        task_id = req.task_id
+        deadline_timer = []
+        finishing = []
+
+        def on_done(result) -> None:
+            if responder.replied or result is None:
+                return
+            finishing.append(True)
+            # We are going to reply: the deadline timer dies now instead
+            # of pinning this closure until the window ends.
+            if deadline_timer:
+                deadline_timer[0].cancel()
+            # Building the answer (a multi-MB object file's framing)
+            # belongs on the pool, not on the completing thread.
+            self._aio.submit(self._finish_wait_pooled, responder,
+                             task_type, task_id, result)
+
+        if not self.dispatcher.wait_for_task_async(task_id, on_done):
+            responder._reply(404)
+            return
+        if finishing:
+            return  # the task had finished: answered, no deadline to arm
+        responder.release_request()  # parked: keep the continuation only
+
+        def on_deadline() -> None:
+            # A completion that fired first answers; the deadline does
+            # not race it for the reply.
+            if finishing:
+                return
+            # Still running at the window's end: 503 + Retry-After, the
+            # client polls again (the threaded route's answer).
+            if not self.dispatcher.is_known(task_id):
+                responder._reply(404)
+            else:
+                responder._reply(503, retry_after_s=0.5)
+
+        # The threaded route's clamp, so both front ends time out alike.
+        deadline_timer.append(self._aio.call_later(
+            clamp_wait_s(req.milliseconds_to_wait, 10.0), on_deadline))
+
+    def _finish_wait_pooled(self, responder, task_type, task_id: int,
+                            result) -> None:
+        resp, out_chunks = task_type.build_wait_response(result)
+        payload = multi_chunk.make_multi_chunk_payload(
+            [_to_json(resp)] + list(out_chunks))
+        # Free only if OUR reply won: when the deadline already answered
+        # 503, the client never saw this result and will poll for it
+        # again — freeing here would turn that into a 404.
+        if responder._reply(200, payload,
+                            content_type="application/octet-stream"):
+            self.dispatcher.free_task(task_id)
 
     # -- routing -------------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Event-loop RPC front end (``--rpc-frontend aio``).
+"""Event-loop RPC and HTTP front end (``--rpc-frontend aio``).
 
 The threaded front end (``grpc_transport.GrpcServer``) parks one worker
 thread per waiting ``WaitForStartingTask`` for its whole wait.  This
@@ -24,6 +24,11 @@ transport's (``transport.py``: ``[u32 status][u32 meta_len][meta]
   one persistent connection per channel with seq-matched pipelining.
   :class:`AsyncAioChannel` is the loop-native client that holds
   thousands of concurrent calls on one thread.
+* :class:`AioHttpServer` — a minimal HTTP/1.1 server (the daemon's
+  loopback API and every entry's inspect port under ``--rpc-frontend
+  aio``) whose responder has the ``_reply`` of the threaded routes,
+  keep-alive by default; long polls park as continuations with a loop
+  timer for their deadline, and blocking routes go to a bounded pool.
 
 Stage accounting: the servers record ``accept`` / ``read`` / ``parse`` /
 ``write`` into a ``utils.stagetimer.StageTimer`` (``inspect()["stages"]``),
@@ -33,8 +38,7 @@ the loop.
 
 Coroutines and parked handlers here must never block — no sleep, file
 or socket I/O or sync RPC on the loop — or the loop regresses to the
-thread-per-connection latency profile it replaces.  The HTTP half of the
-JAX module (the daemon's local HTTP service) is not ported here.
+thread-per-connection latency profile it replaces.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import struct
 import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -585,6 +589,8 @@ class AioServerGroup:
             self._loops.append(loops)
             self._servers.append(server)
         self.port = self._servers[0].port
+        # Lent to the entry's side servers (inspect, local HTTP).
+        self.loops = self._loops[0]
         self._rr = itertools.count()
 
     def add_service(self, spec: ServiceSpec) -> None:
@@ -890,3 +896,348 @@ class AsyncAioChannel:
         if self._transport is not None:
             self._transport.close()
             self._transport = None
+
+
+# ---------------------------------------------------------------------------
+# HTTP/1.1 server.
+# ---------------------------------------------------------------------------
+
+_HTTP_STATUS_TEXT = {
+    200: "OK", 400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
+    404: "Not Found", 413: "Request Entity Too Large",
+    500: "Internal Server Error", 501: "Not Implemented",
+    503: "Service Unavailable",
+}
+_MAX_HEADER_BYTES = 64 << 10
+
+
+class HttpRequest:
+    __slots__ = ("method", "path", "version", "headers", "body")
+
+    def __init__(self, method, path, version, headers, body):
+        self.method = method
+        self.path = path
+        self.version = version
+        self.headers = headers  # dict, lower-cased keys
+        self.body = body
+
+
+class BodyOverCap(Exception):
+    """Content-Length over the wire cap, or not a number: reply 413 (as
+    the threaded front end's checked_content_length does).  Parsing
+    cannot go on (the body bytes would follow), so the connection closes
+    after the reply."""
+
+    def __init__(self, method, path, headers):
+        super().__init__("body over cap")
+        self.method = method
+        self.path = path
+        self.headers = headers
+
+
+class HttpStreamParser:
+    """Incremental HTTP/1.1 request parser (Content-Length bodies only —
+    every client of the daemon's loopback API sends one; a chunked
+    Transfer-Encoding is a protocol error).  Tolerates the same
+    adversarial streams as the frame parser: partial reads, pipelining,
+    byte-drip."""
+
+    __slots__ = ("_buf", "_headers_done", "_req", "_body_need", "_cap")
+
+    def __init__(self, max_body: int):
+        self._buf = bytearray()
+        self._headers_done = False
+        self._req: Optional[HttpRequest] = None
+        self._body_need = 0
+        self._cap = max_body
+
+    def feed(self, data) -> List[HttpRequest]:
+        self._buf += data
+        out: List[HttpRequest] = []
+        while True:
+            if not self._headers_done:
+                end = self._buf.find(b"\r\n\r\n")
+                if end < 0:
+                    if len(self._buf) > _MAX_HEADER_BYTES:
+                        raise ProtocolError("oversized header block")
+                    break
+                head = bytes(self._buf[:end]).decode("latin-1")
+                del self._buf[:end + 4]
+                lines = head.split("\r\n")
+                parts = lines[0].split()
+                if len(parts) != 3:
+                    raise ProtocolError(f"bad request line {lines[0]!r}")
+                headers: Dict[str, str] = {}
+                for line in lines[1:]:
+                    k, _, v = line.partition(":")
+                    headers[k.strip().lower()] = v.strip()
+                if "transfer-encoding" in headers:
+                    raise ProtocolError("chunked bodies unsupported")
+                try:
+                    need = int(headers.get("content-length", 0) or 0)
+                except ValueError:
+                    need = -1
+                if need < 0 or need > self._cap:
+                    # A 413 from the server, not a silent close: the cap
+                    # is policy, not stream corruption.
+                    raise BodyOverCap(parts[0], parts[1], headers)
+                self._req = HttpRequest(parts[0], parts[1], parts[2],
+                                        headers, b"")
+                self._body_need = need
+                self._headers_done = True
+            if len(self._buf) < self._body_need:
+                break
+            req = self._req
+            req.body = bytes(self._buf[: self._body_need])
+            del self._buf[: self._body_need]
+            self._headers_done = False
+            self._req = None
+            self._body_need = 0
+            out.append(req)
+        return out
+
+
+class AioHttpResponder:
+    """The reply surface handlers get — duck-type compatible with the
+    ``_reply`` of the threaded daemon routes.  ``_reply`` answers once
+    and is thread-safe: a parked long-poll's completion and its deadline
+    timer may race, the first wins, a second is refused and counted
+    (``double_replies`` in the server's ``inspect()``)."""
+
+    __slots__ = ("server", "_conn", "request", "method", "path",
+                 "headers", "_reply_lock", "_replied")
+
+    def __init__(self, server: "AioHttpServer", conn: "_HttpConnection",
+                 request: HttpRequest):
+        self.server = server
+        self._conn = conn
+        self.request = request
+        self.method = request.method
+        self.path = request.path
+        self.headers = request.headers
+        self._reply_lock = threading.Lock()
+        self._replied = False
+
+    def release_request(self) -> None:
+        """Drop the request body and headers before parking: an idle
+        long-poll client costs its continuation, not its parsed
+        request."""
+        self.request = None
+        self.headers = None
+
+    @property
+    def replied(self) -> bool:
+        with self._reply_lock:
+            return self._replied
+
+    def _reply(self, code: int, body=b"",
+               content_type: str = "application/json",
+               retry_after_s: Optional[float] = None,
+               extra_headers: Tuple[Tuple[str, str], ...] = ()) -> bool:
+        """Returns True iff THIS call produced the response — parked
+        completions and deadline timers race, and cleanup that must
+        happen exactly once (freeing a task) belongs to the winner."""
+        with self._reply_lock:
+            if self._replied:
+                self.server._note_double_reply()
+                return False
+            self._replied = True
+        head = [f"HTTP/1.1 {code} {_HTTP_STATUS_TEXT.get(code, 'X')}",
+                f"Content-Type: {content_type}",
+                f"Content-Length: {len(body)}"]
+        if retry_after_s is not None:
+            head.append(f"Retry-After: {retry_after_s:g}")
+        head.extend(f"{k}: {v}" for k, v in extra_headers)
+        head.append("\r\n")
+        segments = ["\r\n".join(head).encode("latin-1")]
+        if isinstance(body, Payload):
+            segments.extend(body.iter_segments())
+        elif body:
+            segments.append(body)
+        try:
+            self.server.loops.call_soon(self._conn.write_segments, segments)
+        except RuntimeError:
+            pass  # the server stopped: no connection left to answer on
+        return True
+
+
+class _HttpConnection(asyncio.Protocol):
+    __slots__ = ("server", "parser", "transport", "peer",
+                 "_accepted_at", "_first_seen")
+
+    def __init__(self, server: "AioHttpServer"):
+        self.server = server
+        self.parser = HttpStreamParser(server.max_body)
+        self.transport = None
+        self.peer = ""
+        self._accepted_at = _time.perf_counter()
+        self._first_seen = False
+
+    def connection_made(self, transport) -> None:
+        self.transport = transport
+        peername = transport.get_extra_info("peername") or ("?", 0)
+        self.peer = f"{peername[0]}:{peername[1]}"
+        self.server._conn_opened(self)
+
+    def connection_lost(self, exc) -> None:
+        self.server._conn_closed(self)
+
+    def data_received(self, data) -> None:  # loop thread only
+        timer = self.server.stage_timer
+        try:
+            t0 = _time.perf_counter()
+            requests = self.parser.feed(data)
+            timer.record("parse", _time.perf_counter() - t0)
+        except BodyOverCap:
+            body = self.server.too_large_body
+            self.transport.write(
+                (f"HTTP/1.1 413 Request Entity Too Large\r\n"
+                 f"Content-Type: application/json\r\n"
+                 f"Content-Length: {len(body)}\r\n"
+                 f"Connection: close\r\n\r\n").encode("latin-1") + body)
+            self.transport.close()
+            return
+        except ProtocolError as e:
+            logger.warning("http stream error from %s: %s", self.peer, e)
+            self.transport.close()
+            return
+        if requests and not self._first_seen:
+            self._first_seen = True
+            timer.record("accept", _time.perf_counter() - self._accepted_at)
+        for req in requests:
+            self._invoke_handler(AioHttpResponder(self.server, self, req))
+
+    def _invoke_handler(self, responder) -> None:  # loop thread only
+        try:
+            self.server.handler_fn(responder)
+        except Exception:
+            logger.exception("http handler failed for %s", responder.path)
+            # A handler that already replied and THEN raised must not
+            # fire a 500 into the settled stream.
+            if not responder.replied:
+                responder._reply(500)
+
+    def write_segments(self, segments) -> None:  # loop thread only
+        if self.transport is None or self.transport.is_closing():
+            return
+        t0 = _time.perf_counter()
+        self.transport.writelines(segments)
+        self.server.stage_timer.record("write", _time.perf_counter() - t0)
+
+
+class AioHttpServer:
+    """Event-loop HTTP/1.1 front end.
+
+    ``handler_fn(responder)`` runs on the loop for every request: it
+    must either reply, park (register a continuation and a deadline
+    timer), or hand blocking work to ``submit()``'s bounded pool.
+    Keep-alive is the default (HTTP/1.1); an idle parked client costs its
+    responder and its timer, no thread.  An entry lends it its RPC
+    server's ``loops``, so the side servers add no loop thread; without
+    them the server runs a loop of its own.  ``stop()`` closes every connection
+    and joins the pool, and the loop when the server owns it: stop the
+    server before the RPC server that lent it its loop."""
+
+    def __init__(self, handler_fn: Callable[[AioHttpResponder], None],
+                 address: str = "127.0.0.1:0", *,
+                 loops: Optional[EventLoopThread] = None,
+                 max_body: int = 1 << 30,
+                 too_large_body: bytes = b'{"error":"body too large"}'):
+        self.handler_fn = handler_fn
+        self.max_body = max_body
+        self.too_large_body = too_large_body
+        self._own_loops = loops is None
+        self.loops = loops or EventLoopThread(name="aio-http")
+        self.stage_timer = StageTimer(FRONTEND_STAGES, maxlen=16384)
+        self._pool = ThreadPoolExecutor(
+            max_workers=8, thread_name_prefix="aio-http-worker")
+        self._conns: set = set()  # guarded by: self._conn_lock
+        self._conn_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._double_replies = 0  # guarded by: self._stats_lock
+        host, _, port = address.rpartition(":")
+        try:
+            self._asyncio_server = self.loops.run_sync(
+                self._start(host or "127.0.0.1", int(port)))
+        except BaseException:
+            self._pool.shutdown(wait=True)
+            if self._own_loops:
+                self.loops.stop()
+            raise
+        self.port = self._asyncio_server.sockets[0].getsockname()[1]
+
+    async def _start(self, host, port):
+        return await self.loops.loop.create_server(
+            lambda: _HttpConnection(self), host, port, backlog=1024)
+
+    def submit(self, fn, *args) -> None:
+        """Run blocking route work on the bounded pool (dropped once the
+        server has stopped: its connections are closed)."""
+        try:
+            self._pool.submit(self._guard, fn, *args)
+        except RuntimeError:
+            logger.debug("http pool stopped; %r dropped", fn)
+
+    @staticmethod
+    def _guard(fn, *args) -> None:
+        try:
+            fn(*args)
+        except Exception:
+            logger.exception("http pool task failed")
+
+    def call_later(self, delay_s: float, fn, *args) -> LoopTimer:
+        """As AioRpcServer.call_later: a thread-safe cancel handle, so
+        the winning continuation can kill its deadline."""
+        timer = LoopTimer(self.loops)
+        self.loops.call_soon(timer._arm, delay_s, fn, args)
+        return timer
+
+    def connection_count(self) -> int:
+        with self._conn_lock:
+            return len(self._conns)
+
+    def _conn_opened(self, conn) -> None:
+        with self._conn_lock:
+            self._conns.add(conn)
+
+    def _conn_closed(self, conn) -> None:
+        with self._conn_lock:
+            self._conns.discard(conn)
+
+    def _note_double_reply(self) -> None:
+        with self._stats_lock:
+            self._double_replies += 1
+
+    def inspect(self) -> Dict[str, object]:
+        """Serving stats: connections, every refused second reply
+        (``double_replies``), the loop's lag and the front-end stages."""
+        with self._stats_lock:
+            doubles = self._double_replies
+        return {"frontend": "aio", "connections": self.connection_count(),
+                "double_replies": doubles, "port": self.port,
+                "loop_lag_s": round(self.loops.lag_s(), 4),
+                "loop_lag": self.loops.lag_stats(),
+                "stages": self.stage_timer.percentiles()}
+
+    def start(self) -> None:
+        pass  # serving from construction
+
+    def stop(self) -> None:
+        async def _close():
+            self._asyncio_server.close()
+            # Close the live connections first: since Python 3.12.1
+            # wait_closed() waits for every connection to end.
+            with self._conn_lock:
+                conns = list(self._conns)
+            for c in conns:
+                if c.transport is not None:
+                    c.transport.close()
+            await self._asyncio_server.wait_closed()
+
+        try:
+            self.loops.run_sync(_close())
+        except Exception:
+            logger.exception("aio http server close failed")
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        if self._own_loops:
+            self.loops.stop()

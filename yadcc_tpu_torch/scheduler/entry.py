@@ -18,8 +18,8 @@ loops): a delegate's ``WaitForStartingTask`` long-poll is a parked
 continuation in the dispatcher's pending table, not a worker thread, and
 delegates dial ``aio://host:port``.  ``yadcc/rpc_server`` in
 ``/inspect/vars`` carries its connections, ``double_replies``, the
-loops' lag and the front-end stages.  The inspect endpoint itself stays
-on its threaded HTTP server.
+loops' lag and the front-end stages.  The inspect endpoint is served on
+the same front end (an AioHttpServer on the RPC server's first loop).
 
 Warm standby (scheduler/replication.py): an active started with
 ``--replicate-to grpc://STANDBY`` streams its lease journal to a
@@ -232,7 +232,11 @@ def _serve(args, services, stop, gc_guard: bool, tick) -> int:
     # The aio front end's serving stats, `double_replies` among them.
     if hasattr(server, "inspect"):
         exposed_vars.expose("yadcc/rpc_server", server.inspect)
-    inspect = InspectServer(args.inspect_port, args.inspect_credential)
+    # On aio the inspect port serves on the RPC server's loop.
+    inspect = InspectServer(
+        args.inspect_port, args.inspect_credential,
+        frontend=args.rpc_frontend,
+        loops=server.loops if args.rpc_frontend == "aio" else None)
     inspect.start()
     logger.info("%s on :%d (policy=%s, device=%s, shards=%d, frontend=%s), "
                 "inspect on :%d",
@@ -255,9 +259,9 @@ def _serve(args, services, stop, gc_guard: bool, tick) -> int:
     if guard is not None:
         guard.stop()
         exposed_vars.unexpose("yadcc/gc_guard")
+    inspect.stop()  # before the server whose loop it may share
     server.stop()
     exposed_vars.unexpose("yadcc/rpc_server")
-    inspect.stop()
     return rc
 
 

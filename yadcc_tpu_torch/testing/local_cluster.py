@@ -1,7 +1,8 @@
 """Boot a full cluster in one process, on ephemeral loopback ports (a copy
 of the JAX package's yadcc_tpu/testing/local_cluster.py, trimmed to what
 the port's tests drive: the C++ workload (servants advertise compilers
-only), the threaded front ends, the disk L2).
+only), the threaded RPC front ends, the delegate's HTTP on either front
+end (``http_frontend``), the disk L2).
 
 It boots the REAL services over real loopback RPC — the port's
 scheduler (its policy on ``device``), cache server, N servant daemons,
@@ -140,6 +141,7 @@ class LocalCluster:
         device: str = "cuda",
         servant_concurrency: int = 4,
         compiler_dirs: Optional[List[str]] = None,
+        http_frontend: str = "threaded",
     ):
         # Single-process rig: self-avoidance must be off, or the
         # requesting machine (ourselves) is never eligible.  A device
@@ -186,6 +188,7 @@ class LocalCluster:
             digest_cache=FileDigestCache(),
             dispatcher=self.delegate,
             port=0,
+            frontend=http_frontend,
         )
         self.config_keeper.start()
         self.cache_reader.start()

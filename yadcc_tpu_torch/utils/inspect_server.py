@@ -2,7 +2,8 @@
 
 Parity with the reference's /inspect/vars JSON dumps on every process
 (yadcc/doc/debugging.md:26-174), gated by optional basic auth
-(yadcc/common/inspect_auth.h)."""
+(yadcc/common/inspect_auth.h).  A copy of the JAX package's
+yadcc_tpu/utils/inspect_server.py, both front ends."""
 
 from __future__ import annotations
 
@@ -39,19 +40,59 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class InspectServer:
+    """``frontend="threaded"``: a ThreadingHTTPServer on its own thread;
+    ``"aio"`` (``--rpc-frontend aio``): an AioHttpServer on ``loops``
+    (the entry's RPC loop; one of its own when None), whose loop routes
+    the request and whose bounded pool runs the dump (it may call any
+    exposed callable, so it stays off the loop)."""
+
     def __init__(self, port: int = 0, credential: str = "",
-                 host: str = "127.0.0.1"):
+                 host: str = "127.0.0.1", frontend: str = "threaded",
+                 loops=None):
         self._auth = InspectAuth(credential)
-        handler = type("BoundHandler", (_Handler,), {"auth": self._auth})
-        self._httpd = ThreadingHTTPServer((host, port), handler)
-        self.port = self._httpd.server_port
+        if frontend == "aio":
+            from ..rpc.aio_server import AioHttpServer
+
+            self._httpd = None
+            self._aio = AioHttpServer(self._handle_aio,
+                                      address=f"{host}:{port}", loops=loops)
+            self.port = self._aio.port
+        else:
+            self._aio = None
+            handler = type("BoundHandler", (_Handler,),
+                           {"auth": self._auth})
+            self._httpd = ThreadingHTTPServer((host, port), handler)
+            self.port = self._httpd.server_port
         self._thread: Optional[threading.Thread] = None
 
+    def _handle_aio(self, responder) -> None:  # loop thread only
+        if responder.method != "GET" or \
+                not responder.path.startswith("/inspect/vars"):
+            responder._reply(404, content_type="text/plain")
+            return
+        if not self._auth.check(responder.headers.get("authorization")):
+            # The threaded handler's answer: 401 with the challenge.
+            responder._reply(401, content_type="text/plain",
+                             extra_headers=(("WWW-Authenticate",
+                                             'Basic realm="inspect"'),))
+            return
+        prefix = responder.path[len("/inspect/vars"):].strip("/")
+
+        def dump() -> None:
+            responder._reply(200, exposed_vars.dump_json(prefix).encode())
+
+        self._aio.submit(dump)
+
     def start(self) -> None:
+        if self._aio is not None:
+            return  # the loop serves from construction
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="inspect", daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
+        if self._aio is not None:
+            self._aio.stop()
+            return
         self._httpd.shutdown()
         self._httpd.server_close()
