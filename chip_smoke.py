@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of yadcc_tpu_torch: the scheduler's grant path, the
-Bloom kernels, the cache server's reader and the daemon (its servant and
-delegate halves) on CUDA.
+Bloom kernels, the cache server's reader, the daemon (its servant and
+delegate halves) and the scheduler's scale harnesses on CUDA.
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
@@ -195,7 +195,24 @@ Phases (any failure exits non-zero without printing the result line):
    jax, numpy or JAX package; no libtorch mapped in any daemon, no
    double reply on the aio ones (servant RPC and local HTTP), every
    daemon exiting 0 on SIGTERM; the local HTTP's connections and loop
-   lag and each daemon's most threads printed.
+   lag and each daemon's most threads printed;
+16. the scale harnesses (yadcc_tpu_torch/tools/trace_replay.py and
+   pod_sim.py), in process: (a) a trace of 6,000 tasks over 128 servants
+   (seed 0, batches of 64, 16 envs; BASELINE configs[1]) replayed through
+   greedy_cpu, torch_batched (K2), torch_grouped (K1) and auto, every
+   policy's grants equal to greedy_cpu's batch by batch, and the
+   pipelined stream (K1's stream wrapper) at depth 16 pick for pick
+   equal to depth 0; (b) the same at 5,000 servants; (c) pod_sim with
+   5,000 servants of capacities uniform 4-16, auto, 30 ms compiles, 2
+   servants churned a second and 30% duplicate TUs through the
+   in-process RPC grant path for 20,000 tasks (configs[4] has 100,000):
+   every task a hit, a join or a run, no grant id issued twice, the
+   client's grants equal to the scheduler's; (d) pod_sim's own gates:
+   smoke_device (the fused grid of 4 shards, 20 lock-step cycles, every
+   shard's picks against greedy_assign_reference) and smoke (4 shards, a
+   zipf:1.5 hotspot: the steal engages, the load summary on the card);
+   K1 and K2 launched in (a)-(b), K1 in (c) and in smoke_device, no
+   Bloom kernel in the phase.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
@@ -6532,6 +6549,203 @@ def run_daemon_path(report: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the scheduler's scale harnesses (trace replay, pod simulation).
+# ---------------------------------------------------------------------------
+
+SCALE_TRACE = dict(tasks=6000, batch=64, envs=16, seed=0)   # configs[1]
+SCALE_TRACE_SERVANTS = (("16a", 128), ("16b", 5000))
+SCALE_STREAM_DEPTHS = (0, 16)
+SCALE_POD_SERVANTS = 5000
+SCALE_POD_TASKS = 20_000       # configs[4] has 100,000: cut to fit the budget
+SCALE_POD = dict(capacity=8, policy="auto", exec_ms=30.0, churn_per_s=2,
+                 capacity_dist="uniform:4:16", check_unique=True)
+SCALE_POD_DUP = 0.3
+SCALE_POD_SUBMITTERS = 8
+
+
+def zero_launches() -> None:
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    kg.launches = 0
+    ka.launches = 0
+
+
+def read_launches() -> dict:
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    return {"grouped_assign": kg.launches, "assign_batch": ka.launches}
+
+
+def run_scale_path(report: list) -> dict:
+    """Phase 16: the port's scale harnesses on the card.  16a/16b: a
+    trace of 6,000 tasks (seed 0, batches of 64, 16 envs) over 128 and
+    then 5,000 servants, replayed through the panel (greedy_cpu,
+    torch_batched = K2, torch_grouped = K1, auto), every policy equal to
+    the greedy reference batch by batch, and the pipelined stream (K1's
+    stream wrapper) at depth 16 pick for pick equal to depth 0.  16c: a
+    PodSim of 5,000 servants (capacities uniform 4-16, auto, 30 ms
+    compiles, 2 servants churned a second, 30% duplicates) through the
+    in-process RPC grant path for 20,000 tasks: every task accounted
+    for, no grant id issued twice, the client's grants equal to the
+    scheduler's.  16d: pod_sim's own gates on the card: smoke_device (4
+    shards x 20 lock-step cycles of the fused grid, one K1 launch each,
+    every shard's picks against greedy_assign_reference) and smoke (4
+    shards, zipf:1.5 hotspot: the steal engages, no id twice, the
+    aggregate equal to the sum over shards, the load summary on the
+    card).  Every launch count is set to 0 just before each run and read
+    just after it."""
+    import logging
+
+    import torch
+
+    from yadcc_tpu_torch.ops import cuda_bloom
+    from yadcc_tpu_torch.tools import trace_replay as tr
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    bloom_before = dict(cuda_bloom.launches)
+    LOG_DIR.mkdir(exist_ok=True)
+    res = {"launches": {}, "replay": {}, "stream": {}}
+    for tag, servants in SCALE_TRACE_SERVANTS:
+        path = LOG_DIR / f"scale_trace_{servants}.jsonl"
+        tr.generate_trace(str(path), servants=servants, **SCALE_TRACE)
+        t0 = time.perf_counter()
+        zero_launches()
+        replay = tr.replay(str(path), device=dev)
+        n_replay = read_launches()
+        zero_launches()
+        stream = tr.replay_stream(str(path), depths=SCALE_STREAM_DEPTHS,
+                                  device=dev)
+        n_stream = read_launches()
+        seconds = time.perf_counter() - t0
+        for name, r in replay.items():
+            check(r["matches_reference"],
+                  f"phase {tag}: {name} diverges from greedy_cpu")
+            check(r["granted"] == replay["greedy_cpu"]["granted"] > 0,
+                  f"phase {tag}: {name} granted {r['granted']}")
+        for key, r in stream.items():
+            check(r["matches_serialized"] and r["picks_equal_serialized"],
+                  f"phase {tag}: the stream at {key} differs from depth 0")
+        check(stream["stream_serialized"]["granted"] > 0,
+              f"phase {tag}: the stream granted nothing")
+        check(n_replay["grouped_assign"] > 0 and
+              n_replay["assign_batch"] > 0,
+              f"phase {tag}: replay launches {n_replay}")
+        check(n_stream["grouped_assign"] > 0,
+              f"phase {tag}: stream launches {n_stream}")
+        check(n_stream["assign_batch"] == 0,
+              f"phase {tag}: K2 in the K1 stream {n_stream}")
+        res["launches"][f"phase16_replay_{servants}"] = n_replay
+        res["launches"][f"phase16_stream_{servants}"] = n_stream
+        res["replay"][servants] = replay
+        res["stream"][servants] = stream
+        report.append(
+            f"  {tag} replay of {SCALE_TRACE['tasks']} tasks x {servants} "
+            f"servants ({seconds:.1f} s with warmups): " + "; ".join(
+                f"{name} {r['assignments_per_sec']:.1f} assignments/s "
+                f"({r['granted']} granted, final running "
+                f"{r['final_running']})" for name, r in replay.items())
+            + f"; every policy matches greedy_cpu; launches {n_replay}")
+        report.append(
+            f"  {tag} stream: " + "; ".join(
+                f"{key} {r['assignments_per_sec']:.1f} assignments/s "
+                f"({r['granted']} granted)" for key, r in stream.items())
+            + f"; depth {SCALE_STREAM_DEPTHS[-1]} pick for pick equal to "
+              f"depth 0; launches {n_stream}")
+
+    # The cache server logs a line a fill at INFO: 14,000 stderr writes
+    # on the measured path (pod_sim's main runs at WARNING for this).
+    root_log = logging.getLogger()
+    level = root_log.level
+    root_log.setLevel(logging.WARNING)
+    try:
+        pod_sim_gates(res, report, dev)
+    finally:
+        root_log.setLevel(level)
+    res["bloom_launches"] = {k: v - bloom_before.get(k, 0)
+                             for k, v in cuda_bloom.launches.items()}
+    check(not any(res["bloom_launches"].values()),
+          f"phase 16 ran a Bloom kernel: {res['bloom_launches']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def pod_sim_gates(res: dict, report: list, dev) -> None:
+    """Phase 16c and 16d (see run_scale_path)."""
+    import contextlib
+    import io
+
+    from yadcc_tpu_torch.tools import pod_sim
+
+    t0 = time.perf_counter()
+    zero_launches()
+    sim = pod_sim.PodSim(SCALE_POD_SERVANTS, device=dev, **SCALE_POD)
+    built_s = time.perf_counter() - t0
+    out = sim.run(SCALE_POD_TASKS, SCALE_POD_DUP, SCALE_POD_SUBMITTERS)
+    n_pod = read_launches()
+    b = out["breakdown"]
+    check(out["tasks"] == SCALE_POD_TASKS,
+          f"16c: {out['tasks']} of {SCALE_POD_TASKS} tasks accounted for")
+    check(b["hit_cache"] + b["reused"] + b["actually_run"]
+          == SCALE_POD_TASKS, f"16c: the ladder does not sum: {b}")
+    check(sim._dup_gids == 0, f"16c: {sim._dup_gids} grant ids issued twice")
+    check(out["grants_granted"] == out["scheduler_stats"]["granted"],
+          f"16c: client grants {out['grants_granted']} != scheduler "
+          f"{out['scheduler_stats']['granted']}")
+    check(n_pod["grouped_assign"] > 0, f"16c: K1 launches {n_pod}")
+    res["launches"]["phase16_pod_sim"] = n_pod
+    lb = out["latency_breakdown"]
+    res["pod"] = {k: out[k] for k in (
+        "tasks", "servants", "total_capacity", "wall_seconds",
+        "tasks_per_sec", "assignments_per_sec", "breakdown", "grant_calls",
+        "grants_granted", "grant_call_p50_ms", "grant_call_p99_ms",
+        "dispatch_only_p99_ms")}
+    res["pod"]["latency_breakdown"] = {
+        k: v for k, v in lb.items() if k != "frontend_stages"}
+    report.append(
+        f"  16c pod_sim: {out['tasks']} tasks x {out['servants']} servants "
+        f"(capacity {out['total_capacity']}, {SCALE_POD['capacity_dist']}, "
+        f"{SCALE_POD['policy']}; built and warmed in {built_s:.1f} s) in "
+        f"{out['wall_seconds']} s: {out['tasks_per_sec']} tasks/s, "
+        f"{out['assignments_per_sec']} assignments/s; breakdown "
+        f"{json.dumps(b)}; grant call p50 {out['grant_call_p50_ms']} ms "
+        f"p99 {out['grant_call_p99_ms']} ms; dispatch_only_p99_ms "
+        f"{out['dispatch_only_p99_ms']}; no id twice; launches {n_pod}")
+    report.append("  16c latency_breakdown (ms): " + json.dumps(
+        {k: v and {q: v[q] for q in ("count", "p50_ms", "p99_ms")}
+         for k, v in res["pod"]["latency_breakdown"].items()}))
+
+    for name, gate in (("smoke_device", pod_sim.smoke_device),
+                       ("smoke", pod_sim.smoke)):
+        args = pod_sim.build_arg_parser().parse_args(
+            ["--device", str(dev), "--shards", "4"])
+        t0 = time.perf_counter()
+        zero_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = gate(args)
+        n = read_launches()
+        got = json.loads(buf.getvalue())
+        check(rc == 0 and not got["failures"],
+              f"16d {name}: {got['failures']}")
+        res["launches"][f"phase16_{name}"] = n
+        res[name] = got
+        keys = (("cycles", "grants_issued", "parity_runs_checked",
+                 "duplicate_grant_ids", "fused") if name == "smoke_device"
+                else ("shards", "hotspot", "tasks", "assignments_per_sec",
+                      "steal_rate", "stolen_grants", "duplicate_grant_ids",
+                      "load_summary"))
+        report.append(
+            f"  16d {name} ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps({k: got[k] for k in keys}) + f"; launches {n}")
+    check(res["launches"]["phase16_smoke_device"]["grouped_assign"]
+          >= res["smoke_device"]["cycles"],
+          "16d smoke_device: fewer K1 launches than fused cycles")
+
+
 def main() -> int:
     try:
         import torch
@@ -6661,6 +6875,15 @@ def main() -> int:
     for line in report:
         log(line)
 
+    report = []
+    scale = run_scale_path(report)
+    for name, n in scale["launches"].items():
+        phases[name] = {"launches": n}
+    log(f"phase 16 the scale harnesses: trace replay and pod_sim "
+        f"({scale['seconds']:.1f} s; {card}):")
+    for line in report:
+        log(line)
+
     def by_phase(kernel):
         return {name: r["launches"][kernel] for name, r in phases.items()}
 
@@ -6753,7 +6976,8 @@ def main() -> int:
             for rate, r in bloom_timing["hits"].items()}
     for i, kernel in ((2, "membership"), (3, "cascade")):
         by = {"phase7_bloom_bench": bloom_run["launches"][kernel],
-              "phase14_cache_reader": cache["launches"][kernel]}
+              "phase14_cache_reader": cache["launches"][kernel],
+              "phase16_scale": scale["bloom_launches"].get(kernel, 0)}
         record["kernels"][i]["launches"] = sum(by.values())
         record["kernels"][i]["launches_by_phase"] = by
         record["kernels"][i]["cache_reader_batch_ms"] = {

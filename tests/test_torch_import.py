@@ -72,6 +72,9 @@ _CLIENT_MODULES = (
     "client.compiler_args", "client.daemon_call", "client.task_quota",
     "client.rewrite_file", "client.compilation_saas", "client.yadcc_cxx",
     "client.universal_wrapper", "utils.inspect_server")
+# The S3 engine, the trace prefetcher and the scheduler's scale harnesses.
+_SCALE_MODULES = ("cache.s3_backend", "cache.prefetcher",
+                  "tools.trace_replay", "tools.pod_sim")
 
 
 def _port_sources():
@@ -79,7 +82,8 @@ def _port_sources():
                                         REPO / "chip_k1_ab.py",
                                         REPO / "chip_k2_probe.py",
                                         REPO / "chip_bloom_probe.py",
-                                        REPO / "chip_cache_probe.py"]
+                                        REPO / "chip_cache_probe.py",
+                                        REPO / "chip_scale_probe.py"]
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -118,10 +122,11 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
                 for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT
-                + DELEGATE + RIG + CLIENT):
+                + DELEGATE + RIG + CLIENT + SCALE):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
+        import chip_scale_probe  # noqa: F401
         import chip_k1_ab, chip_k2_probe  # noqa: F401
         import chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
@@ -148,7 +153,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"SERVANT = {_SERVANT_MODULES!r}\n"
               f"DELEGATE = {_DELEGATE_MODULES!r}\n"
               f"RIG = {_RIG_MODULES!r}\n"
-              f"CLIENT = {_CLIENT_MODULES!r}\n" + script)
+              f"CLIENT = {_CLIENT_MODULES!r}\n"
+              f"SCALE = {_SCALE_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -156,10 +162,16 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
 
 
 def test_cache_entry_loads_no_torch():
-    """The cache server runs nothing on the card: its entry and service
-    load no torch (only the daemon's reader and the card replicas do)."""
+    """The cache server runs nothing on the card: its entry and service,
+    its S3 engine and its trace prefetcher (with the key-trace half of
+    the replay tool) load no torch (only the daemon's reader and the card
+    replicas do)."""
     script = ("import sys, yadcc_tpu_torch.cache.entry, "
-              "yadcc_tpu_torch.daemon.cloud.distributed_cache_writer; "
+              "yadcc_tpu_torch.daemon.cloud.distributed_cache_writer, "
+              "yadcc_tpu_torch.cache.s3_backend, "
+              "yadcc_tpu_torch.cache.prefetcher, "
+              "yadcc_tpu_torch.tools.trace_replay, "
+              "yadcc_tpu_torch.tools.pod_sim; "
               "assert 'torch' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=60)

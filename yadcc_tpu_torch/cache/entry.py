@@ -1,5 +1,4 @@
-"""Cache server main (a copy of the JAX package's yadcc_tpu/cache/entry.py
-without its S3 engine choices, which a later slice ports).
+"""Cache server main (a copy of the JAX package's yadcc_tpu/cache/entry.py).
 
 Parity with reference yadcc/cache/entry.cc (port 8337, 128MB packet cap
 enforced in the service).  The cache server runs nothing on the card: its
@@ -9,11 +8,17 @@ Bloom filters are host filters that daemons replicate and probe on theirs
 
     python -m yadcc_tpu_torch.cache.entry --cache-engine disk \\
         --cache-dirs /var/cache/ytpu1,/var/cache/ytpu2
+
+or over an S3-compatible bucket for both the L2 and the shared L3:
+
+    python -m yadcc_tpu_torch.cache.entry --cache-engine s3 \\
+        --l3-engine s3 --s3-endpoint HOST:PORT --s3-bucket BUCKET
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import threading
 import time
@@ -43,9 +48,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--inspect-port", type=int, default=9337)
     p.add_argument("--inspect-credential", default="")
     p.add_argument("--cache-engine", default="null",
-                   choices=["disk", "null", "objstore"])
+                   choices=["disk", "null", "objstore", "s3"])
     p.add_argument("--cache-dirs", default="",
                    help="comma-separated shard dirs (disk) or root (objstore)")
+    # S3-compatible engine (reference cos_cache_engine.cc:38-51 exposes
+    # the same shape: credentials, bucket, dir prefix, capacity).
+    # Credentials come from flags or YTPU_S3_ACCESS_KEY/YTPU_S3_SECRET_KEY
+    # so they need not appear on the command line.
+    p.add_argument("--s3-endpoint", default="", help="host:port")
+    p.add_argument("--s3-bucket", default="")
+    p.add_argument("--s3-prefix", default="ytpu-cache/")
+    p.add_argument("--s3-region", default="us-east-1")
+    p.add_argument("--s3-access-key", default="")
+    p.add_argument("--s3-secret-key", default="")
+    p.add_argument("--s3-tls", action="store_true")
     p.add_argument("--l2-capacity", default="64G")
     p.add_argument("--misplaced-entry-action", default="move",
                    choices=["move", "delete", "ignore"],
@@ -57,14 +73,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="idle seconds before the 1-min purge timer "
                         "expires an L1 entry (0 disables expiry)")
     # Shared L3 tier: a bucket this regional server reads through to
-    # and writes back into, shared with peer regions.
+    # and writes back into, shared with peer regions.  "s3" reuses the
+    # --s3-* connection flags with its own prefix so one object store can
+    # host both tiers.
     p.add_argument("--l3-engine", default="none",
-                   choices=["none", "objstore"],
+                   choices=["none", "objstore", "s3"],
                    help="shared L3 object-store tier (none = two-level "
                         "server)")
     p.add_argument("--l3-root", default="",
                    help="objstore L3: shared bucket root directory")
     p.add_argument("--l3-capacity", default="1T")
+    p.add_argument("--l3-s3-prefix", default="ytpu-l3/")
     p.add_argument("--l3-workers", type=int, default=2,
                    help="background pool threads for async L3 "
                         "promotions and write-backs")
@@ -82,6 +101,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _s3_engine(args, prefix: str, capacity: str):
+    return make_engine(
+        "s3",
+        endpoint=args.s3_endpoint,
+        bucket=args.s3_bucket,
+        prefix=prefix,
+        region=args.s3_region,
+        access_key=args.s3_access_key
+        or os.environ.get("YTPU_S3_ACCESS_KEY", ""),
+        secret_key=args.s3_secret_key
+        or os.environ.get("YTPU_S3_SECRET_KEY", ""),
+        use_tls=args.s3_tls,
+        capacity=parse_size(capacity),
+    )
+
+
 def build_service(args) -> CacheService:
     if args.cache_engine == "disk":
         l2 = make_engine("disk", dirs=args.cache_dirs,
@@ -90,12 +125,16 @@ def build_service(args) -> CacheService:
     elif args.cache_engine == "objstore":
         l2 = make_engine("objstore", root=args.cache_dirs,
                          capacity=parse_size(args.l2_capacity))
+    elif args.cache_engine == "s3":
+        l2 = _s3_engine(args, args.s3_prefix, args.l2_capacity)
     else:
         l2 = make_engine("null")
     l3 = None
     if args.l3_engine == "objstore":
         l3 = make_engine("objstore", root=args.l3_root,
                          capacity=parse_size(args.l3_capacity))
+    elif args.l3_engine == "s3":
+        l3 = _s3_engine(args, args.l3_s3_prefix, args.l3_capacity)
     return CacheService(
         InMemoryCache(parse_size(args.l1_capacity)),
         l2,

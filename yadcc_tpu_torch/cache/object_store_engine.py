@@ -1,12 +1,12 @@
 """Object-store engine (the COS-engine analogue) for the L2 and the shared
-L3 (a copy of the JAX package's yadcc_tpu/cache/object_store_engine.py
-without its S3 backend, which a later slice ports).
+L3 (a copy of the JAX package's yadcc_tpu/cache/object_store_engine.py).
 
 Parity with reference yadcc/cache/cos_cache_engine.{h,cc}: the reference
 persists its L2 in Tencent Cloud COS via flare's CosClient.  This
 engine is written against a minimal ObjectStoreBackend interface —
-list/get/put/delete under a key prefix — with one implementation here:
-a filesystem backend (tests and on-prem NFS-style deployments).
+list/get/put/delete under a key prefix — with two implementations: a
+filesystem backend (tests and on-prem NFS-style deployments) and the
+S3-compatible HTTP backend in s3_backend.py (AWS/GCS/MinIO/Ceph).
 
 Object names are the url-quoted cache key, so a bare LIST recovers every
 key without downloading objects — the Bloom rebuild after a restart
@@ -233,4 +233,21 @@ def _make_objstore(root: str = "", capacity: int = 64 << 30, **kw):
     return ObjectStoreEngine(FsObjectStoreBackend(root), capacity)
 
 
+def _make_s3(endpoint: str = "", bucket: str = "", access_key: str = "",
+             secret_key: str = "", region: str = "us-east-1",
+             prefix: str = "", use_tls: bool = False,
+             capacity: int = 64 << 30, **kw):
+    from .s3_backend import S3Config, S3ObjectStoreBackend
+
+    if not endpoint or not bucket:
+        raise ValueError("s3 engine requires --s3-endpoint and --s3-bucket")
+    cfg = S3Config(endpoint=endpoint, bucket=bucket, access_key=access_key,
+                   secret_key=secret_key, region=region, prefix=prefix,
+                   use_tls=use_tls)
+    eng = ObjectStoreEngine(S3ObjectStoreBackend(cfg), capacity)
+    eng.name = "s3"
+    return eng
+
+
 register_engine("objstore", _make_objstore)
+register_engine("s3", _make_s3)

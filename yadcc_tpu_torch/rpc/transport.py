@@ -149,6 +149,18 @@ def decode_frame_views(data) -> Tuple[int, memoryview, memoryview]:
     return status, mv[off:off + meta_len], mv[off + meta_len:]
 
 
+# Per-thread duration of the last dispatch_frame call (decode + handler
+# + serialize), in seconds.  An in-process transport (mock://) runs the
+# server on the caller's thread, so the client can subtract this from
+# its wall time to get the pure transport/framing stage — how
+# tools/pod_sim.py decomposes grant_call latency.
+_tls = threading.local()
+
+
+def last_server_inner_s() -> Optional[float]:
+    return getattr(_tls, "server_inner_s", None)
+
+
 def dispatch_frame_payload(spec: ServiceSpec, name: str, data,
                            peer: str) -> Payload:  # ytpu: untrusted(data)
     """Server-side: decode a request frame, run the handler, encode the
@@ -174,10 +186,14 @@ def dispatch_frame_payload(spec: ServiceSpec, name: str, data,
     try:
         resp = ms.handler(req, attachment, ctx)
     except RpcError as e:
-        return encode_frame_payload(e.status, e.message.encode())
+        out = encode_frame_payload(e.status, e.message.encode())
+        _tls.server_inner_s = _time.perf_counter() - t0
+        return out
     except Exception as e:
-        return encode_frame_payload(STATUS_TRANSPORT_FAILURE,
-                                    f"handler error: {e!r}".encode())
+        out = encode_frame_payload(STATUS_TRANSPORT_FAILURE,
+                                   f"handler error: {e!r}".encode())
+        _tls.server_inner_s = _time.perf_counter() - t0
+        return out
     t1 = _time.perf_counter()
     out = encode_frame_payload(0, resp.SerializeToString(),
                                ctx.response_attachment)
@@ -187,6 +203,7 @@ def dispatch_frame_payload(spec: ServiceSpec, name: str, data,
         # work on the request side; the response side is `serialize`).
         timer.record(f"{name}:handler", t1 - t0)
         timer.record(f"{name}:serialize", t2 - t1)
+    _tls.server_inner_s = t2 - t0
     return out
 
 

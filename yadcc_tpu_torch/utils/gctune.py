@@ -13,12 +13,13 @@ Those pauses land in the middle of grant cycles.  The guard:
     a full pass about once a minute for genuine long-lived cycles.
 
 The scheduler entry calls `start()` after warmup, `maintain()` from its
-sweep and `stop()` at exit.  A copy, trimmed to the guard, of the JAX
-package's module of the same name.
+sweep and `stop()` at exit; tools scope the same policy with `guard()`.
+A copy of the JAX package's module of the same name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 
 from . import exposed_vars
@@ -86,3 +87,17 @@ class LatencyGcGuard:
             "young_passes": self._young_passes,
             "full_passes": self._full_passes,
         }
+
+
+@contextlib.contextmanager
+def guard():
+    """Scoped variant for benchmarks/tools: automatic collection off
+    (after one drain pass) for the duration, restored on exit."""
+    was_enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
