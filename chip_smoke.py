@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of yadcc_tpu_torch: the scheduler's grant path, the
 Bloom kernels, the cache server's reader, the daemon (its servant and
-delegate halves) and the scheduler's scale harnesses on CUDA.
+delegate halves), the scheduler's scale harnesses and the jit workloads
+(nvcc as the farm's compile worker) on CUDA.
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
@@ -38,7 +39,7 @@ Phases (any failure exits non-zero without printing the result line):
    shape and at 8 cells x 256 keys x 8 tasks beside an empty launch's;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
-   servants registered by Heartbeat, 24 delegates driving >= 200,000
+   servants registered by Heartbeat, 24 delegates driving >= 100,000
    grants with WaitForStartingTask(immediate_reqs=128) and FreeTask;
    every grant checked against the servants' facts, no servant over its
    capacity, no duplicate grant id, and kernel launches > 0 (the entry
@@ -81,7 +82,7 @@ Phases (any failure exits non-zero without printing the result line):
    torch.profiler: how many K1 launches overlap, the card's busy share;
 9. the fused control plane, in process: a ShardRouter of 8 shards x
    8,192 slots, 40,000 servants, two tenants with budgets, delegate
-   threads ruled by admission and granted through >= 1,000 fused cycles
+   threads ruled by admission and granted through >= 400 fused cycles
    (each one launch of K1 over the grid of 8 shards); no tenant's ledger
    above its budget, every ledger 0 at the end, the fused oracle clean,
    the load summary equal to the host's; the routing hash's cost a call;
@@ -92,7 +93,7 @@ Phases (any failure exits non-zero without printing the result line):
    the grants of its last 0.1 s held as well (the journal's gap); before
    the promotion the standby refuses (REJECT with a retry-after,
    NOT_SERVING with the hint); after it the fleet re-heartbeats with what
-   it runs, every held grant renews once, >= 100,000 more grants go
+   it runs, every held grant renews once, >= 50,000 more grants go
    through the standby's K1; phase 3's checks across the kill (adopted
    grants counted), no id issued twice, the standby's outstanding grants
    0 at the end, its K1 launches 0 before the promotion and > 0 after;
@@ -125,9 +126,9 @@ Phases (any failure exits non-zero without printing the result line):
    task_dispatcher.steal), every grant valid and freed;
 14. the cache server and the daemon's cache reader: two port cache
    entries on loopback over one shared L3 root (--l3-engine objstore),
-   each with its own disk L2; region B on --rpc-frontend aio takes 5,000
+   each with its own disk L2; region B on --rpc-frontend aio takes 2,000
    fills, and once its L3 write-backs have drained region A (threaded,
-   --l1-capacity 26M) boots and takes 20,000, each through the port's
+   --l1-capacity 6M) boots and takes 5,000, each through the port's
    DistributedCacheWriter under the servant token from 16 threads (keys
    of the daemon's shapes, 80 and 88 bytes, two tenants; values 1-16 KiB
    log-uniform); a user token's PutEntry is refused; a port
@@ -156,20 +157,20 @@ Phases (any failure exits non-zero without printing the result line):
    <= 16 cores, --temporary-dir in the run's directory always: every
    servant boot empties its temporary root of ytpu_* directories, so a
    shared /dev/shm would take another checkout's live workspaces); a
-   build of 128 TUs (files that include the repo's
+   build of 48 TUs (files that include the repo's
    native/client/ytpu-cxx.cc or ytpu-testtool.cc and add one function
-   of their own drawn from the seed; flags -O2, -O0 -g or -O2 -g; 16
-   compiled twice at once; 8 ending in #error) by the port's client
+   of their own drawn from the seed; flags -O2, -O0 -g or -O2 -g; 8
+   compiled twice at once; 4 ending in #error) by the port's client
    (yadcc_tpu_torch/client/yadcc_cxx.py), one process a TU behind a
    wrapper named g++ in a farm directory first on PATH, 32 at once as
    make -j32 runs them: each preprocesses under the delegate's quota,
    submits, long-polls, sends an answer without a compile again up to 5
    tries and compiles locally where its own rules say so (an #error
    TU's preprocessing fails with this g++, so it is compiled locally):
-   the first 64 through two threaded daemons, which then leave
-   gracefully, the other 64 through two aio daemons (their quota and
+   the first 24 through two threaded daemons, which then leave
+   gracefully, the other 24 through two aio daemons (their quota and
    wait long polls parked on the loop; a delegate dials every servant
-   with its fleet's one scheme); then the cached rebuild of all 128
+   with its fleet's one scheme); then the cached rebuild of all 48
    through one aio delegate once its reader has synced past the last
    fill.  Every grant on a real servant (the delegates dial what they
    are granted), none over the capacity the heartbeats report, running
@@ -212,7 +213,35 @@ Phases (any failure exits non-zero without printing the result line):
    shard's picks against greedy_assign_reference) and smoke (4 shards, a
    zipf:1.5 hotspot: the steal engages, the load summary on the card);
    K1 and K2 launched in (a)-(b), K1 in (c) and in smoke_device, no
-   Bloom kernel in the phase.
+   Bloom kernel in the phase;
+17. the jit, AOT and autotune workloads, on phase 15's two aio daemons
+   before they leave (their servants' worker runs nvcc for the card:
+   --jit-backends auto found it), through the port's jit clients with
+   YTPU_JIT_LOCAL_FALLBACK=0 (an artifact not from the farm fails the
+   phase): (a) csrc/grouped_assign.cu, assign_batch.cu and bloom.cu
+   through build_library with empty options, each source's nvcc seconds
+   and peak child RSS on the servant beside phase 1's local builds, and
+   K1 launched through the farm's grouped_assign library (loaded
+   RTLD_LOCAL beside the local one) on phase 2's seeded pools at S =
+   8,192 and its edge pools: counts, picks and running equal to the
+   plain version and the local library at tolerance 0, the refusals
+   kept; (c) a source ending in #error smoke: exit 1, not retried, its
+   line in the raised diagnostics; (d) AOT of grouped_assign.cu over
+   (1,) sm_90a, (1,) sm_90, (2,2) sm_90a and (8,) sm_80 (each
+   topology's compile options name its arch): four artifacts with
+   verdict ok, each one's target read back with cuobjdump --list-elf,
+   the (1,) sm_90a one running K1 on the seeded pools; (e) a .cu
+   template with {BLOCK} and {ITEMS} swept over 16 configs at width 4,
+   children on both servants, the winner evaluated 16 and in the space;
+   (f) a 1 MiB jit_cache_put through one delegate; once every fill has
+   landed and both readers synced past it: (b) the three sources again
+   from the other delegate, hit_cache 3, no servant run, artifacts
+   byte-equal to (a)'s; (e') the same sweep from the other delegate
+   served from the sweep cache with no child run; (f') the shim read
+   back byte-equal through it; (d') the AOT resubmitted with a fifth
+   topology: 4 cached, 1 ok; K1 launched in the scheduler over the
+   phase, the per-kind stats, the daemons' RSS printed and no libtorch
+   mapped; every grant freed (0 outstanding once the fleet left).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
@@ -243,7 +272,7 @@ N_ENVS = 64
 N_DELEGATES = 24
 ENVS_PER_DELEGATE = 16
 IMMEDIATE = 128
-MIN_GRANTS = 200_000
+MIN_GRANTS = 100_000           # 200,000 until the smoke outgrew 1,200 s
 PHASE_LIMIT_S = 240.0
 HB_INTERVAL_MS = 4000          # servant lease = 10x this
 HB_REPEAT_S = 10.0             # re-beat well inside the lease
@@ -268,6 +297,21 @@ def check(cond, msg) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+WALLS: dict = {}   # seconds of each step of main(), in order
+
+
+def walled(name: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall time kept in WALLS[name] and written to
+    stderr, so a failed or cut run still shows where its time went."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        WALLS[name] = round(time.perf_counter() - t0, 1)
+        print(f"chip_smoke: {name} {WALLS[name]} s", file=sys.stderr,
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2075,7 +2119,7 @@ def measure_shard_overlap(report: list) -> dict:
 FUSED_SHARDS = 8
 FUSED_SLOTS = 8192
 FUSED_SERVANTS = 40_000
-FUSED_CYCLES = 1000
+FUSED_CYCLES = 400             # 1,000 until the smoke outgrew 1,200 s
 # tenant: (tier, max_outstanding); a budget binds per shard, on the ledger
 # of the home shard that rules on the tenant's admission.
 FUSED_TENANTS = {"acme": ("interactive", 48), "ci": ("batch", 32)}
@@ -2089,7 +2133,7 @@ def run_fused_path(report: list) -> dict:
     then wait_for_starting_new_task with its tenant, a churn thread
     re-beating servants with new capacities, and this thread driving
     run_fused_cycle (one launch of K1 over the grid of 8 shards a cycle)
-    for >= 1,000 cycles.  The router steals nothing here, so each grant is
+    for >= FUSED_CYCLES cycles.  The router steals nothing here, so each grant is
     charged to the home shard whose ledger ruled on its admission.
     Checks: no tenant's ledger ever above its budget, every ledger at 0
     at the end, the fused oracle clean, every cycle one K1 launch, the
@@ -3410,7 +3454,7 @@ def time_placement(report: list) -> dict:
 # ---------------------------------------------------------------------------
 
 TAKEOVER_PRE_GRANTS = 50_000      # through the active, before the kill
-TAKEOVER_POST_GRANTS = 100_000    # through the promoted standby
+TAKEOVER_POST_GRANTS = 50_000     # through the promoted standby
 TAKEOVER_HELD = 8                 # grants a delegate holds across the kill
 TAKEOVER_SILENCE_S = 1.0
 TAKEOVER_RENEW_S = 3.0
@@ -4736,12 +4780,12 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 CACHE_SEED = 14
-CACHE_B_PUTS = 5_000           # region B (aio), drained into L3 first
-CACHE_A_PUTS = 20_000          # region A (threaded); 50,000 and B's
-                               # 10,000 took the smoke past 1,200 s on a
+CACHE_B_PUTS = 2_000           # region B (aio), drained into L3 first
+CACHE_A_PUTS = 5_000           # region A (threaded); 20,000 and B's
+                               # 5,000 took the smoke past 1,200 s on a
                                # slow host
-CACHE_A_L1 = "26M"             # A's --l1-capacity: most hits are L2 hits
-                               # (64M held a quarter of 50,000 fills)
+CACHE_A_L1 = "6M"              # A's --l1-capacity: most hits are L2 hits
+                               # (26M held a quarter of 20,000 fills)
 CACHE_MORE_PUTS = 1_000        # into A before the incremental sync
 CACHE_PUT_THREADS = 16         # the fixed pool of writer threads
 CACHE_BATCH = 1_000_000        # keys a batch_may_contain call
@@ -5431,15 +5475,15 @@ def cache_report(report: list, out: dict) -> None:
 # ---------------------------------------------------------------------------
 
 SERVANT_SEED = 15
-SERVANT_TUS = 128              # translation units of the build (512 took
+SERVANT_TUS = 48               # translation units of the build (512 took
                                # 331-353 s with the local re-compiles,
                                # past the smoke's time on an 8-core host;
-                               # 256 through the delegates 218.9 s; 224
-                               # through the port's client 315.0 s, each
-                               # client's start and g++ -E on the same
-                               # cores)
-SERVANT_JOINED = 16            # compiled twice at once through a delegate
-SERVANT_ERRORS = 8             # ending in `#error smoke`
+                               # 224 through the port's client 315.0 s,
+                               # each client's start and g++ -E on the
+                               # same cores; 128 took the whole smoke
+                               # past 1,200 s on a slow host)
+SERVANT_JOINED = 8             # compiled twice at once through a delegate
+SERVANT_ERRORS = 4             # ending in `#error smoke`
 SERVANT_CLIENTS = 32           # compiler wrappers at once, as make -j32
 SERVANT_FLEETS = ("threaded", "aio")   # two daemons each, one after the
                                        # other under one scheduler
@@ -6301,6 +6345,10 @@ def run_daemon_path(report: list) -> dict:
         polls = state["scheduler_rpc"].get("WaitForStartingTask:handler")
         check(state["task_dispatcher"]["failure"] is None,
               f"dispatcher failed: {state['task_dispatcher']['failure']}")
+        # Phase 17 on this fleet before it leaves: its grants are freed
+        # by the time leave() reads 0 outstanding.
+        jit = run_jit_path(daemons, last, procs, siport,
+                           f"grpc://127.0.0.1:{cport}")
         leave(procs, last, siport)
         check(launches["grouped_assign"] > 0,
               "phase 15: K1 never launched over the builds")
@@ -6410,6 +6458,7 @@ def run_daemon_path(report: list) -> dict:
         "local_compile_ms": percentiles_ms(local_s),
         "heartbeats_per_s": (hb_after - hb_before) / build_wall,
         "cache_fills": fills, "runs": runs,
+        "jit": jit,
         "rss_kb": {n: v for fl in fleets.values()
                    for n, v in fl["rss_kb"].items()},
         "threads": {n: v for fl in fleets.values()
@@ -6547,6 +6596,495 @@ def run_daemon_path(report: list) -> dict:
         f"{boot_s:.1f} s; phase "
         f"{res['phase_s']:.1f} s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the jit, AOT and autotune workloads on phase 15's last fleet.
+# ---------------------------------------------------------------------------
+
+JIT_SOURCES = ("grouped_assign.cu", "assign_batch.cu", "bloom.cu")
+JIT_TOPOLOGIES = (((1,), "sm_90a"), ((1,), "sm_90"), ((2, 2), "sm_90a"),
+                  ((8,), "sm_80"))
+JIT_FIFTH = ((4,), "sm_90a")
+JIT_SWEEP = {"BLOCK": (64, 128, 256, 512), "ITEMS": (1, 2, 4, 8)}
+JIT_SWEEP_WIDTH = 4
+JIT_SHIM_BYTES = 1 << 20
+JIT_SYNC_LIMIT_S = 45.0       # bound on the fills' landing and a sync
+JIT_SWEEP_TEMPLATE = r"""// Autotune template of chip_smoke.py's phase 17: {BLOCK} threads a
+// block, {ITEMS} items a thread.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define BLOCK {BLOCK}
+#define ITEMS {ITEMS}
+
+__global__ void __launch_bounds__(BLOCK)
+ytpu_sweep_scale(const int32_t* __restrict__ x, int32_t* __restrict__ y,
+                 int n) {
+  int base = blockIdx.x * BLOCK * ITEMS + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    int j = base + i * BLOCK;
+    if (j < n) y[j] = 3 * x[j] + 1;
+  }
+}
+
+extern "C" int ytpu_sweep_launch(const int32_t* x, int32_t* y, int n,
+                                 void* stream) {
+  int per = BLOCK * ITEMS;
+  int grid = (n + per - 1) / per;
+  if (grid > 0)
+    ytpu_sweep_scale<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def farm_k1_compare(lib, tag: str, full: bool = True) -> int:
+    """K1 launched through another loaded copy of its library (``lib``,
+    built by the farm) on phase 2's seeded pools at the main shape (S =
+    8,192, G up to 64) and, with ``full``, its edge pools: counts, picks
+    and running equal to the plain version and to the checkout's own
+    library at tolerance 0, and the wrapper's refusals unchanged.
+    Returns the number of pools."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2026)
+    cases = []
+    for g in (1, 8, 64):
+        for total in (g, 512, MAIN_TASKS):
+            cases.append((f"seeded_G{g}_m{total}", np_pool(rng, MAIN_S),
+                          seeded_groups(rng, g, total, MAIN_S)))
+    if full:
+        cases += edge_cases(rng)
+    for name, p, groups in cases:
+        pool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields),
+                                   dev)
+        pad = asg.group_pad(len(groups))
+        bg = asg.make_grouped_batch(groups, pad, dev)
+        t_max = asg.task_pad(max(1, sum(c for *_, c in groups)))
+        got = kg.cuda_assign_grouped(pool, bg, lib=lib)
+        for ref, want in (("plain", asg.assign_grouped(pool, bg)),
+                          ("local", kg.cuda_assign_grouped(pool, bg))):
+            check(torch.equal(got[0], want[0]),
+                  f"phase 17 {tag}: {name} counts != {ref}")
+            check(torch.equal(got[1], want[1]),
+                  f"phase 17 {tag}: {name} running != {ref}")
+            check(torch.equal(asg.expand_counts(got[0], bg.count, t_max),
+                              asg.expand_counts(want[0], bg.count, t_max)),
+                  f"phase 17 {tag}: {name} picks != {ref}")
+    p = np_pool(rng, MAIN_S)
+    pool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields), dev)
+    bg = asg.make_grouped_batch(seeded_groups(rng, 8, 512, MAIN_S), 8, dev)
+    for what, bp in (
+            ("non-contiguous running", pool._replace(running=torch.zeros(
+                2 * MAIN_S, dtype=torch.int32, device=dev)[::2])),
+            ("int64 capacity", pool._replace(capacity=pool.capacity.long()))):
+        try:
+            kg.cuda_assign_grouped(bp, bg, lib=lib)
+        except (TypeError, ValueError):
+            continue
+        raise SmokeFailure(f"phase 17 {tag}: the wrapper accepted {what}")
+    torch.cuda.synchronize()
+    return len(cases)
+
+
+def run_jit_path(daemons: dict, names, procs: dict, siport: int,
+                 cache_uri: str) -> dict:
+    """Phase 17 (see the module docstring): the jit, AOT and autotune
+    workloads through the two aio daemons of phase 15, whose servants'
+    worker runs nvcc for the card (--jit-backends auto found it), with
+    YTPU_JIT_LOCAL_FALLBACK=0: an artifact that did not come from the
+    farm fails the phase.  Returns its numbers and report lines."""
+    import ctypes
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.client import daemon_call
+    from yadcc_tpu_torch.common.hashing import digest_bytes
+    from yadcc_tpu_torch.daemon.cache_format import (
+        get_aot_cache_key, get_autotune_sweep_key, get_jit_cache_key)
+    from yadcc_tpu_torch.daemon.local.http_service import shim_cache_key
+    from yadcc_tpu_torch.jit import aot, autotune, fanout, frontend
+    from yadcc_tpu_torch.jit.cache_shim import ClusterCompileCache
+    from yadcc_tpu_torch.jit.compile_worker import options_json
+    from yadcc_tpu_torch.jit.env import find_nvcc, local_jit_environment
+    from yadcc_tpu_torch.ops import _build
+    from yadcc_tpu_torch.rpc import Channel, RpcError
+
+    t_phase = time.perf_counter()
+    lines: list = []
+    a, b = names
+    env = local_jit_environment()
+    check(env.toolchain_version, "phase 17: no nvcc on this machine")
+
+    def daemon(n):
+        return inspect_vars(daemons[n]["inspect"])["yadcc"]["daemon"]
+
+    for n in names:
+        served = daemon(n)["servant"]["jit_environments"]
+        check([e["digest"] for e in served] == [env.digest],
+              f"phase 17: daemon {n} serves {served}, not {env}")
+
+    def runs():
+        return {n: daemon(n)["engine"]["tasks_run_ever"] for n in names}
+
+    def k1():
+        return inspect_vars(siport)["yadcc"]["kernels"]["grouped_assign"][
+            "launches"]
+
+    def kinds(n):
+        return daemon(n)["dispatcher"]["stats_by_kind"]
+
+    def use(n):
+        os.environ["YTPU_DAEMON_PORT"] = str(daemons[n]["local"])
+
+    def nvcc_of(lib):
+        m = re.search(r"nvcc (\d+) run\(s\) ([0-9.]+) s, peak child RSS "
+                      r"(\d+) kB", lib.output)
+        check(m is not None, f"phase 17: no nvcc line in {lib.output!r}")
+        return float(m.group(2)), int(m.group(3))
+
+    saved = {k: os.environ.get(k) for k in (
+        "YTPU_DAEMON_PORT", "YTPU_JIT_OFFLOAD", "YTPU_JIT_LOCAL_FALLBACK",
+        "YTPU_JIT_TIMEOUT_S")}
+    os.environ.update(YTPU_JIT_OFFLOAD="1", YTPU_JIT_LOCAL_FALLBACK="0",
+                      YTPU_JIT_TIMEOUT_S="300")
+    daemon_call.set_daemon_call_handler(None)
+    walls = {}
+    try:
+        sources = {s: (_build.CSRC_DIR / s).read_bytes()
+                   for s in JIT_SOURCES}
+        gsrc = sources["grouped_assign.cu"]
+        k1_before, runs0 = k1(), runs()
+
+        # (a) the three sources, one build_library each, at once.
+        use(a)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(sources)) as ex:
+            libs = dict(zip(sources, ex.map(
+                lambda s: frontend.build_library(
+                    sources[s], name=pathlib.Path(s).stem), sources)))
+        walls["a"] = time.perf_counter() - t0
+        arts = {}
+        nvcc = {}
+        for s, lib in libs.items():
+            check(lib.remote, f"phase 17: {s} not built by the farm")
+            arts[s] = lib.path.read_bytes()
+            nvcc[s] = nvcc_of(lib)
+        farm = ctypes.CDLL(os.fspath(libs["grouped_assign.cu"]))
+        pools = farm_k1_compare(farm, "jit")
+        runs_a = runs()
+        check(sum(runs_a.values()) - sum(runs0.values()) == len(sources),
+              f"phase 17 (a): servants ran {runs0} -> {runs_a}")
+        lines.append(
+            f"  (a) jit: {', '.join(JIT_SOURCES)} built by the farm with "
+            f"empty options in {walls['a']:.2f} s wall; nvcc on the servant "
+            + ", ".join(f"{s} {t:.2f} s (peak child RSS {kb:,} kB)"
+                        for s, (t, kb) in nvcc.items())
+            + " under the worker's 8 GiB address-space limit; phase 1's "
+            "local builds "
+            + ", ".join(f"{s} {_build.build_seconds.get(s, 0.0):.2f} s"
+                        for s in JIT_SOURCES)
+            + f"; the farm's grouped_assign library (RTLD_LOCAL beside the "
+            f"local one) ran K1 on {pools} pools (phase 2's seeded at S = "
+            f"{MAIN_S:,}, G up to {MAIN_G}, and edge pools): counts, picks "
+            f"and running equal to the plain version and the local "
+            f"library at tolerance 0")
+
+        # (c) a compile error: not retried, raised with its diagnostics.
+        runs_c, jit_c = runs(), kinds(a).get("jit", {})
+        t0 = time.perf_counter()
+        try:
+            frontend.build_library(gsrc + b"\n#error smoke\n",
+                                   name="error_smoke")
+            raise SmokeFailure("phase 17 (c): a source ending in #error "
+                               "built")
+        except RuntimeError as e:
+            msg = str(e)
+        walls["c"] = time.perf_counter() - t0
+        check("remote jit build failed (exit 1)" in msg
+              and "#error smoke" in msg,
+              f"phase 17 (c): diagnostics {msg[-400:]!r}")
+        check(sum(runs().values()) == sum(runs_c.values()) + 1,
+              "phase 17 (c): the failed build was retried or not run")
+        jit_c1 = kinds(a)["jit"]
+        check(jit_c1["actually_run"] == jit_c.get("actually_run", 0) + 1
+              and jit_c1["failed"] == jit_c.get("failed", 0),
+              f"phase 17 (c): jit stats {jit_c} -> {jit_c1}")
+        err_line = next(ln for ln in msg.splitlines() if "#error" in ln)
+        lines.append(f"  (c) a source ending in #error smoke: exit 1, not "
+                     f"retried, raised with the servant's diagnostics "
+                     f"({err_line.strip()[-100:]!r}) in {walls['c']:.2f} s")
+
+        # (d) AOT across four topologies, each its own target.
+        def topology(shape, arch):
+            count = int(np.prod(shape))
+            return fanout.TopologySpec(
+                mesh_shape=tuple(shape), device_count=count,
+                compile_options=options_json(arch=arch)).validate()
+
+        topos = [topology(*t) for t in JIT_TOPOLOGIES]
+        t0 = time.perf_counter()
+        out = aot.submit_aot_build(gsrc, topos)
+        walls["d"] = time.perf_counter() - t0
+        check(out.ok and out.exit_code == 0
+              and [v["status"] for v in out.verdicts] == ["ok"] * 4,
+              f"phase 17 (d): {out.exit_code} {out.error[-300:]} "
+              f"{out.verdicts}")
+        cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+        targets = {}
+        aot_paths = {}
+        for t, (shape, arch) in zip(topos, JIT_TOPOLOGIES):
+            data = out.artifact_for(t)
+            check(data is not None, f"phase 17 (d): no artifact for {t}")
+            path = frontend.BUILD_DIR / f"libaot_{t.tag()}.so"
+            path.write_bytes(data)
+            aot_paths[t.tag()] = path
+            listed = subprocess.run([cuobjdump, "--list-elf", str(path)],
+                                    capture_output=True, text=True,
+                                    timeout=60).stdout
+            targets[t.tag()] = sorted(set(re.findall(r"sm_\d+a?", listed)))
+            check(targets[t.tag()] == [arch],
+                  f"phase 17 (d): {t.tag()} asked for {arch}, "
+                  f"cuobjdump lists {listed!r}")
+        aot_lib = ctypes.CDLL(str(aot_paths[topos[0].tag()]))
+        aot_pools = farm_k1_compare(aot_lib, "aot (1,) sm_90a", full=False)
+        lines.append(
+            f"  (d) AOT of grouped_assign.cu over "
+            + ", ".join(f"{s} {a_}" for s, a_ in JIT_TOPOLOGIES)
+            + f": 4 artifacts, verdicts ok, in {walls['d']:.2f} s; "
+            f"cuobjdump --list-elf targets {targets}; the (1,) sm_90a "
+            f"artifact ran K1 on {aot_pools} seeded pools equal to the "
+            f"plain version")
+
+        # (e) the sweep: 16 configs at width 4 over both servants.
+        space = autotune.SearchSpace.of(**JIT_SWEEP)
+        configs = [json.loads(c) for c in space.expand()]
+        template = JIT_SWEEP_TEMPLATE.encode()
+        runs_e = runs()
+        t0 = time.perf_counter()
+        res = autotune.sweep(template, space, fanout_width=JIT_SWEEP_WIDTH)
+        walls["e"] = time.perf_counter() - t0
+        check(res.ok and res.exit_code == 0, f"phase 17 (e): {res.error}")
+        check(res.winner["evaluated"] == len(configs) == 16
+              and res.winning_config in configs
+              and [v["status"] for v in res.verdicts] == ["ok"] * 4,
+              f"phase 17 (e): {res.winner} {res.verdicts}")
+        runs_e1 = runs()
+        per_servant = {n: runs_e1[n] - runs_e[n] for n in names}
+        check(sum(per_servant.values()) == JIT_SWEEP_WIDTH
+              and all(per_servant.values()),
+              f"phase 17 (e): children ran {per_servant}")
+        lines.append(
+            f"  (e) autotune: {len(configs)} configs of a .cu template "
+            f"({{BLOCK}} x {{ITEMS}}) at width {JIT_SWEEP_WIDTH}, children "
+            f"per servant {per_servant}, in {walls['e']:.2f} s: winner "
+            f"{res.winning_config} (score {res.winner['score']:.3f} = "
+            f"minus nvcc seconds), evaluated {res.winner['evaluated']}")
+
+        # (f) the shim: a 1 MiB put through the first delegate.
+        blob = np.random.default_rng(17).integers(
+            0, 256, JIT_SHIM_BYTES, dtype=np.uint8).tobytes()
+        ClusterCompileCache().put("chip-smoke-phase17", blob)
+
+        # Every fill landed, then both readers synced past it.
+        keys = [get_jit_cache_key(env.digest, b"", digest_bytes(src))
+                for src in sources.values()]
+        keys += [get_aot_cache_key(env.digest, t.digest(),
+                                   digest_bytes(gsrc)) for t in topos]
+        keys.append(get_autotune_sweep_key(
+            env.digest, fanout.search_space_digest(space.expand()),
+            digest_bytes(template)))
+        keys.append(shim_cache_key("chip-smoke-phase17"))
+        chan = Channel(cache_uri)
+        t0 = time.monotonic()
+        pending = list(keys)
+        while pending:
+            try:
+                chan.call("ytpu.CacheService", "TryGetEntry",
+                          api.cache.TryGetEntryRequest(token="utok",
+                                                       key=pending[0]),
+                          api.cache.TryGetEntryResponse, timeout=5.0)
+                pending.pop(0)
+                continue
+            except RpcError:
+                pass
+            check(time.monotonic() - t0 < JIT_SYNC_LIMIT_S,
+                  f"phase 17: {len(pending)} fills never landed")
+            time.sleep(0.2)
+        chan.close()
+        t_filled = time.monotonic()
+        for n in names:
+            while True:
+                t_req = time.monotonic()
+                ago = daemon(n)["cache_reader"]["last_sync_s_ago"]
+                if ago is not None and ago < t_req - t_filled:
+                    break
+                check(time.monotonic() - t_filled < JIT_SYNC_LIMIT_S,
+                      f"phase 17: {n}'s reader did not sync past the fills")
+                time.sleep(0.5)
+        walls["sync"] = time.monotonic() - t_filled
+
+        # (b) the same three from the other delegate: cache hits.
+        use(b)
+        runs_b, jit_b = runs(), kinds(b).get("jit", {})
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(sources)) as ex:
+            again = dict(zip(sources, ex.map(
+                lambda s: frontend.build_library(
+                    sources[s], name=pathlib.Path(s).stem), sources)))
+        walls["b"] = time.perf_counter() - t0
+        for s, lib in again.items():
+            check(lib.remote and lib.path.read_bytes() == arts[s],
+                  f"phase 17 (b): {s} not the farm's first artifact")
+        jit_b1 = kinds(b)["jit"]
+        check(runs() == runs_b and jit_b1["hit_cache"]
+              - jit_b.get("hit_cache", 0) == len(sources),
+              f"phase 17 (b): runs {runs_b} -> {runs()}, jit {jit_b} -> "
+              f"{jit_b1}")
+        lines.append(f"  (b) after both readers synced past the fills "
+                     f"({walls['sync']:.1f} s): the three again from the "
+                     f"other delegate in {walls['b']:.2f} s, hit_cache 3, "
+                     f"tasks_run_ever unchanged, artifacts byte-equal to "
+                     f"(a)'s")
+
+        # (e') the same sweep from the other delegate: the sweep cache.
+        runs_e2 = runs()
+        t0 = time.perf_counter()
+        res2 = autotune.sweep(template, space, fanout_width=JIT_SWEEP_WIDTH)
+        walls["e2"] = time.perf_counter() - t0
+        check(res2.ok and res2.verdicts == [] and res2.winner == res.winner
+              and runs() == runs_e2,
+              f"phase 17 (e): second sweep {res2.winner} {res2.verdicts}")
+        # (f') the shim read back through the other delegate.
+        got = ClusterCompileCache().get("chip-smoke-phase17")
+        check(got == blob, "phase 17 (f): the shim read back other bytes")
+        lines.append(f"  (e') the sweep from the other delegate: the winner "
+                     f"from the sweep cache, no child run, in "
+                     f"{walls['e2']:.3f} s; (f) a {JIT_SHIM_BYTES:,}-byte "
+                     f"jit_cache_put through {a} read back byte-equal by "
+                     f"jit_cache_get through {b}")
+
+        # (d') resubmitted with a fifth topology: 4 cached, 1 ok.
+        use(a)
+        fifth = topology(*JIT_FIFTH)
+        runs_d = runs()
+        t0 = time.perf_counter()
+        out2 = aot.submit_aot_build(gsrc, topos + [fifth])
+        walls["d2"] = time.perf_counter() - t0
+        check(out2.ok and out2.exit_code == 0 and [
+            v["status"] for v in out2.verdicts] == ["cached"] * 4 + ["ok"]
+              and sum(runs().values()) == sum(runs_d.values()) + 1,
+              f"phase 17 (d): resubmission {out2.verdicts}")
+        for t in topos:
+            check(out2.artifact_for(t) == out.artifact_for(t),
+                  f"phase 17 (d): {t.tag()} cached artifact differs")
+        lines.append(f"  (d') resubmitted with {JIT_FIFTH[0]} "
+                     f"{JIT_FIFTH[1]}: 4 cached, 1 ok in "
+                     f"{walls['d2']:.2f} s")
+
+        launches = k1() - k1_before
+        check(launches > 0, "phase 17: K1 never launched for its grants")
+        by_kind = {n: kinds(n) for n in names}
+        rss = {n: proc_status(procs[n].pid)["VmRSS"] for n in names}
+        for n in names:
+            with open(f"/proc/{procs[n].pid}/maps") as f:
+                check("libtorch" not in f.read(),
+                      f"phase 17: daemon {n} mapped libtorch")
+        lines.append(f"  K1 launches in the scheduler over the phase "
+                     f"{launches} (every build granted through it); "
+                     f"stats_by_kind {json.dumps(by_kind, sort_keys=True)}; "
+                     f"daemons' RSS kB {rss} (no libtorch mapped); walls "
+                     + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t_phase
+    return {"seconds": seconds, "lines": lines, "walls": walls,
+            "nvcc_s": {s: t for s, (t, _) in nvcc.items()},
+            "nvcc_peak_rss_kb": {s: kb for s, (_, kb) in nvcc.items()},
+            "launches": {"grouped_assign": launches, "assign_batch": 0},
+            "targets": targets, "winner": res.winner, "by_kind": by_kind,
+            "rss_kb": rss}
+
+
+def run_jit_fleet(entry_args=()) -> dict:
+    """Phase 17 alone, on a fleet of its own (about a minute): the
+    scheduler entry with its defaults (plus ``entry_args``), one synthetic
+    servant registered first at the delegates' loopback address (so both
+    real servants stay eligible), one port cache entry and two aio
+    daemons; then run_jit_path.  Call build_kernels() first: the farm's
+    library is held against the local one."""
+    import shutil
+
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel
+    from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+
+    shutil.rmtree(SERVANT_DIR, ignore_errors=True)
+    SERVANT_DIR.mkdir(parents=True)
+    sport, siport, cport, ciport = (free_port() for _ in range(4))
+    tokens = ["--acceptable-user-tokens", "utok,stok"]
+    daemons, procs = {}, {}
+    names = daemon_names("aio")
+    try:
+        procs["scheduler"] = start_entry("jit", sport, siport,
+                                         [*tokens, *entry_args])
+        sched = Channel(f"grpc://127.0.0.1:{sport}")
+        wait_ready("jit", procs["scheduler"], sched)
+        fleet = Fleet(seed=17)
+        sched.call(SERVICE_NAME, "Heartbeat",
+                   fleet.heartbeat(api, fleet.servants[0]),
+                   api.scheduler.HeartbeatResponse, timeout=10.0)
+        procs["cache"] = start_cache_entry(
+            "jit", cport, ciport, ["--cache-engine", "disk", "--cache-dirs",
+                                   str(SERVANT_DIR / "cache-l2"), *tokens])
+        wait_cache_ready("jit", procs["cache"], f"grpc://127.0.0.1:{cport}")
+        gxx = shutil.which("g++") or "/usr/bin/g++"
+        for n in names:
+            daemons[n] = {"serve": free_port(), "inspect": free_port(),
+                          "local": free_port()}
+            daemons[n]["loc"] = f"127.0.0.1:{daemons[n]['serve']}"
+            procs[n] = start_daemon(n, "aio", daemons[n], sport, cport,
+                                    os.path.dirname(gxx),
+                                    SERVANT_DIR / f"tmp-{n}",
+                                    os.cpu_count() or 1)
+        deadline = time.monotonic() + 120
+        while True:
+            td = inspect_vars(siport)["yadcc"]["task_dispatcher"]
+            try:
+                up = all(inspect_vars(daemons[n]["inspect"])["yadcc"][
+                    "daemon"]["servant"]["last_heartbeat"].get("capacity")
+                         for n in names)
+            except (OSError, KeyError):
+                up = False
+            if up and len(td["servants"]) == 3:
+                break
+            for n in names:
+                check(procs[n].poll() is None, f"daemon {n} exited at boot")
+            check(time.monotonic() < deadline, "the jit fleet did not boot")
+            time.sleep(0.2)
+        res = run_jit_path(daemons, names, procs, siport,
+                           f"grpc://127.0.0.1:{cport}")
+        leave(procs, names, siport)
+        return res
+    finally:
+        for p in procs.values():
+            stop_entry(p)
+        shutil.rmtree(SERVANT_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -6768,36 +7306,38 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    built = build_kernels()
+    built = walled("1 build", build_kernels)
     log(f"phase 1 build (wall {built.pop('total_s'):.2f} s): " + "; ".join(
         f"{src} -> {b['library']} (nvcc {b['nvcc_s']:.2f} s)"
         for src, b in built.items()))
 
     report: list = []
-    timing = compare_kernel(report)
-    compare_resident_step(report)
-    compare_shard_grid(report)
-    grid = time_shard_grid(report)
-    k2 = compare_assign_batch(report)
-    compare_placement(report)
-    place = time_placement(report)
+    timing = walled("2 compare_kernel", compare_kernel, report)
+    walled("2 compare_resident_step", compare_resident_step, report)
+    walled("2 compare_shard_grid", compare_shard_grid, report)
+    grid = walled("2 time_shard_grid", time_shard_grid, report)
+    k2 = walled("2 compare_assign_batch", compare_assign_batch, report)
+    walled("2 compare_placement", compare_placement, report)
+    place = walled("2 time_placement", time_placement, report)
     log("phase 2 kernels vs plain (tolerance 0):")
     for line in report:
         log(line)
 
     report = []
     phases = {
-        "pipelined": run_main_path("pipelined", [], Fleet(seed=1), report),
-        "synchronous": run_main_path(
-            "synchronous", ["--dispatch-pipeline-depth", "0"], Fleet(seed=2),
-            report),
-        "batched": run_main_path(
-            "batched", ["--dispatch-policy", "torch_batched"], Fleet(seed=3),
-            report, kernel="assign_batch"),
-        "resident": run_main_path(
-            "resident", ["--dispatch-policy", "torch_resident_grouped",
-                         "--dispatch-pipeline-depth", "16"], Fleet(seed=4),
-            report),
+        "pipelined": walled("3 pipelined", run_main_path, "pipelined", [],
+                            Fleet(seed=1), report),
+        "synchronous": walled(
+            "4 synchronous", run_main_path, "synchronous",
+            ["--dispatch-pipeline-depth", "0"], Fleet(seed=2), report),
+        "batched": walled(
+            "5 batched", run_main_path, "batched",
+            ["--dispatch-policy", "torch_batched"], Fleet(seed=3), report,
+            kernel="assign_batch"),
+        "resident": walled(
+            "6 resident", run_main_path, "resident",
+            ["--dispatch-policy", "torch_resident_grouped",
+             "--dispatch-pipeline-depth", "16"], Fleet(seed=4), report),
     }
     rs = phases["resident"]["resident"]
     check(rs["delta_launches"] + rs["full_syncs"] > 0,
@@ -6817,22 +7357,22 @@ def main() -> int:
 
     report = []
     t7 = time.perf_counter()
-    compare_bloom_edges(report)
-    compare_bloom_raw(report)
-    compare_bloom_layouts(report)
-    bloom_timing = compare_bloom_main(report)
-    bloom_run = run_bloom_main_path(report)
+    walled("7 compare_bloom_edges", compare_bloom_edges, report)
+    walled("7 compare_bloom_raw", compare_bloom_raw, report)
+    walled("7 compare_bloom_layouts", compare_bloom_layouts, report)
+    bloom_timing = walled("7 compare_bloom_main", compare_bloom_main, report)
+    bloom_run = walled("7 bloom_bench", run_bloom_main_path, report)
     log(f"phase 7 the Bloom path ({time.perf_counter() - t7:.1f} s; "
         f"kernels vs plain at tolerance 0):")
     for line in report:
         log(line)
 
     report = []
-    phases["sharded"] = run_main_path(
-        "sharded", ["--shards", str(SHARDS)], Fleet(seed=5), report,
-        shards=SHARDS, min_grants=SHARDED_MIN_GRANTS)
-    overlap = measure_shard_overlap(report)
-    fused = run_fused_path(report)
+    phases["sharded"] = walled(
+        "8 sharded", run_main_path, "sharded", ["--shards", str(SHARDS)],
+        Fleet(seed=5), report, shards=SHARDS, min_grants=SHARDED_MIN_GRANTS)
+    overlap = walled("8 overlap", measure_shard_overlap, report)
+    fused = walled("9 fused", run_fused_path, report)
     phases["fused"] = {"launches": {"grouped_assign": fused["launches"],
                                     "assign_batch": fused["k2_launches"]}}
     log("phases 8-9 the sharded scheduler:")
@@ -6840,9 +7380,9 @@ def main() -> int:
         log(line)
 
     report = []
-    takeover = run_takeover_path(report)
+    takeover = walled("10 takeover", run_takeover_path, report)
     phases["takeover"] = {"launches": takeover["launches"]}
-    federation = run_federation_path(report, place)
+    federation = walled("11 federation", run_federation_path, report, place)
     phases["federation"] = {"launches": {
         "grouped_assign": federation["k1_launches"],
         "assign_batch": federation["k2_launches"]}}
@@ -6852,7 +7392,7 @@ def main() -> int:
 
     report = []
     t12 = time.perf_counter()
-    run_aio_path(report, phases)
+    walled("12-13 aio", run_aio_path, report, phases)
     log(f"phases 12-13 the aio front end ({time.perf_counter() - t12:.1f} "
         f"s):")
     for line in report:
@@ -6860,7 +7400,7 @@ def main() -> int:
 
     report = []
     t14 = time.perf_counter()
-    cache = run_cache_path(report)
+    cache = walled("14 cache", run_cache_path, report)
     log(f"phase 14 the cache server and its reader on the card "
         f"({time.perf_counter() - t14:.1f} s; {card}):")
     for line in report:
@@ -6868,7 +7408,7 @@ def main() -> int:
 
     report = []
     t15 = time.perf_counter()
-    daemon = run_daemon_path(report)
+    daemon = walled("15 daemon with 17 jit", run_daemon_path, report)
     phases["daemon"] = {"launches": daemon["launches"]}
     log(f"phase 15 the daemon, both halves "
         f"({time.perf_counter() - t15:.1f} s; {card}):")
@@ -6876,12 +7416,19 @@ def main() -> int:
         log(line)
 
     report = []
-    scale = run_scale_path(report)
+    scale = walled("16 scale", run_scale_path, report)
     for name, n in scale["launches"].items():
         phases[name] = {"launches": n}
     log(f"phase 16 the scale harnesses: trace replay and pod_sim "
         f"({scale['seconds']:.1f} s; {card}):")
     for line in report:
+        log(line)
+
+    jit = daemon["jit"]
+    phases["jit"] = {"launches": jit["launches"]}
+    log(f"phase 17 the jit, AOT and autotune workloads on phase 15's aio "
+        f"fleet, nvcc on its servants ({jit['seconds']:.1f} s; {card}):")
+    for line in jit["lines"]:
         log(line)
 
     def by_phase(kernel):
@@ -7015,6 +7562,7 @@ def main() -> int:
             f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} "
             f"ms" for name, r in phases.items() if "p99_ms" in r),
             fused["cycles"], fused["seconds"], time.perf_counter() - t_start))
+    log("walls (s): " + json.dumps(WALLS))
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@ for the CPU."""
 
 from __future__ import annotations
 
+import json
 import os
 import pathlib
 import re
@@ -75,6 +76,14 @@ _CLIENT_MODULES = (
 # The S3 engine, the trace prefetcher and the scheduler's scale harnesses.
 _SCALE_MODULES = ("cache.s3_backend", "cache.prefetcher",
                   "tools.trace_replay", "tools.pod_sim")
+# The jit, AOT and autotune workloads, each by name; none loads torch.
+_JIT_MODULES = (
+    "api.gen.jit_pb2", "api.gen.fanout_pb2", "jit", "jit.env",
+    "jit.fanout", "jit.compile_worker", "jit.frontend", "jit.aot",
+    "jit.autotune", "jit.cache_shim", "daemon.cloud.jit_task",
+    "daemon.cloud.aot_task", "daemon.cloud.autotune_task",
+    "daemon.local.jit_task", "daemon.local.aot_task",
+    "daemon.local.autotune_task")
 
 
 def _port_sources():
@@ -122,7 +131,7 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
                 for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT
-                + DELEGATE + RIG + CLIENT + SCALE):
+                + DELEGATE + RIG + CLIENT + SCALE + JIT):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
@@ -154,7 +163,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"DELEGATE = {_DELEGATE_MODULES!r}\n"
               f"RIG = {_RIG_MODULES!r}\n"
               f"CLIENT = {_CLIENT_MODULES!r}\n"
-              f"SCALE = {_SCALE_MODULES!r}\n" + script)
+              f"SCALE = {_SCALE_MODULES!r}\n"
+              f"JIT = {_JIT_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -232,6 +242,157 @@ def test_daemon_entry_loads_no_torch(tmp_path, monkeypatch):
                 if n.split(".")[0] in ("torch", "jax", "yadcc_tpu")}
     for frontend in ("threaded", "aio"):
         _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend)
+
+
+def test_jit_clients_and_worker_load_no_torch(tmp_path):
+    """The jit clients, the cache shim and the build worker run with
+    torch, jax and the JAX package blocked: every jit module imports, and
+    the worker as a program (fake mode) builds a request."""
+    script = textwrap.dedent(r"""
+        import importlib, json, os, subprocess, sys
+        for name in ("torch", "jax", "jaxlib", "yadcc_tpu"):
+            sys.modules[name] = None
+        for m in JIT:
+            importlib.import_module("yadcc_tpu_torch." + m)
+        from yadcc_tpu_torch.common.multi_chunk import make_multi_chunk
+        ws = sys.argv[1]
+        with open(os.path.join(ws, "request.bin"), "wb") as f:
+            f.write(make_multi_chunk([json.dumps({"backend": "cuda"}).encode(),
+                                      b"int x;"]))
+        sys.argv = ["w", "--workspace", ws, "--fake"]
+        import runpy
+        try:
+            runpy.run_module("yadcc_tpu_torch.jit.compile_worker",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert open(os.path.join(ws, "artifact.bin"), "rb").read(
+            ).startswith(b"FAKEXLA1")
+        assert not any(n == "torch" or n.startswith(("torch.", "jax",
+                                                     "yadcc_tpu."))
+                       for n in sys.modules if sys.modules[n] is not None)
+        print("ok")
+    """)
+    out = subprocess.run(
+        [sys.executable, "-c", f"JIT = {_JIT_MODULES!r}\n" + script,
+         str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+        timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_daemon_entry_serves_jit_with_nvcc_and_no_torch(tmp_path,
+                                                        monkeypatch):
+    """The entry with --jit-backends cuda and a stub nvcc first on PATH:
+    its heartbeat advertises the cuda environment of the stub's release
+    line, a jit build through its delegate runs the worker in real mode
+    on its own servant (nvcc's argv is _build.NVCC_FLAGS), and the
+    process maps no torch.  Without nvcc, --jit-backends cuda refuses to
+    start."""
+    import signal
+    import socket
+    import time
+
+    import yadcc_tpu_torch.api as tapi
+    import yadcc_tpu_torch.rpc as trpc
+    from yadcc_tpu_torch.client import daemon_call
+    from yadcc_tpu_torch.jit import frontend
+    from yadcc_tpu_torch.jit.env import jit_env_digest
+    from yadcc_tpu_torch.ops import _build
+
+    from .test_torch_jit_offload import STUB_NVCC, STUB_RELEASE
+
+    bindir = tmp_path / "stubbin"
+    bindir.mkdir()
+    (bindir / "nvcc").write_text(STUB_NVCC)
+    (bindir / "nvcc").chmod(0o755)
+    log = tmp_path / "nvcc.log"
+    env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ['PATH']}",
+               STUB_NVCC_LOG=str(log), CUDA_HOME=str(tmp_path / "none"))
+    S = tapi.scheduler
+    seen = {"beats": [], "grants": 0}
+
+    def wait_for_starting_task(req, att, ctx):
+        if not seen["beats"]:
+            return S.WaitForStartingTaskResponse()
+        seen["grants"] += 1
+        resp = S.WaitForStartingTaskResponse()
+        for i in range(req.immediate_reqs + req.prefetch_reqs):
+            resp.grants.add(task_grant_id=100 * seen["grants"] + i,
+                            servant_location=seen["beats"][-1].location)
+        return resp
+
+    sched = trpc.ServiceSpec("ytpu.SchedulerService")
+    sched.add("Heartbeat", S.HeartbeatRequest, lambda req, att, ctx: (
+        seen["beats"].append(req),
+        S.HeartbeatResponse(acceptable_tokens=["dtok"]))[1])
+    sched.add("GetConfig", S.GetConfigRequest, lambda req, att, ctx:
+              S.GetConfigResponse(serving_daemon_token="dtok"))
+    sched.add("GetRunningTasks", S.GetRunningTasksRequest,
+              lambda req, att, ctx: S.GetRunningTasksResponse())
+    sched.add("WaitForStartingTask", S.WaitForStartingTaskRequest,
+              wait_for_starting_task)
+    sched.add("KeepTaskAlive", S.KeepTaskAliveRequest, lambda req, att, ctx:
+              S.KeepTaskAliveResponse(
+                  statuses=[True] * len(req.task_grant_ids)))
+    sched.add("FreeTask", S.FreeTaskRequest,
+              lambda req, att, ctx: S.FreeTaskResponse())
+    server = trpc.make_rpc_server("threaded", "127.0.0.1:0")
+    server.add_service(sched)
+    server.start()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        local_port = s.getsockname()[1]
+    argv = [sys.executable, "-m", "yadcc_tpu_torch.daemon.entry",
+            "--scheduler-uri", f"grpc://127.0.0.1:{server.port}",
+            "--token", "stok", "--local-port", str(local_port),
+            "--serving-port", "0", "--inspect-port", "0",
+            "--max-remote-tasks", "2",
+            "--temporary-dir", str(tmp_path / "shm"),
+            "--jit-backends", "cuda", "--allow-poor-machine",
+            "--ignore-cgroup-limits", "--no-privilege-drop"]
+    proc = subprocess.Popen(argv, cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 30
+        while not seen["beats"]:
+            assert proc.poll() is None, proc.stderr.read().decode()[-2000:]
+            assert time.monotonic() < deadline, "the entry never beat"
+            time.sleep(0.05)
+        digest = jit_env_digest("cuda", STUB_RELEASE)
+        assert digest in [e.compiler_digest
+                          for e in seen["beats"][-1].env_descs]
+        monkeypatch.setenv("YTPU_DAEMON_PORT", str(local_port))
+        monkeypatch.setenv("YTPU_JIT_OFFLOAD", "1")
+        daemon_call.set_daemon_call_handler(None)
+        src = b'extern "C" int entry_probe(void) { return 3; }\n'
+        out = frontend.offload_compile(src, toolchain_version=STUB_RELEASE,
+                                       cache_control=0, timeout_s=60)
+        assert out.ok and out.exit_code == 0, out.error
+        assert out.library == b"STUBLIB" + src
+        assert out.output.startswith("built ")
+        (run,) = [json.loads(line) for line in open(log)]
+        assert tuple(run["argv"][:-3]) == _build.NVCC_FLAGS
+        assert run["tmpdir"].startswith(str(tmp_path / "shm"))
+        with open(f"/proc/{proc.pid}/maps") as f:
+            assert "libtorch" not in f.read()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+        server.stop(grace=0)
+        daemon_call._drop_conn()
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        out = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                             timeout=60, env=dict(
+                                 os.environ, PATH=os.defpath,
+                                 CUDA_HOME=str(tmp_path / "none")))
+        assert out.returncode != 0
+        assert "--jit-backends cuda: nvcc not found" in out.stderr
 
 
 def _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend):

@@ -1,5 +1,5 @@
 """Client environment knobs (a copy of the JAX package's
-yadcc_tpu/client/env_options.py without the jit workload's knobs).
+yadcc_tpu/client/env_options.py, with the jit workloads' knobs).
 
 Parity with reference yadcc/client/common/env_options.{h,cc} and the
 semantics documented in yadcc/doc/client.md:15-25 / doc/client/cxx.md:
@@ -38,6 +38,18 @@ configuration is environment variables:
                            throughput-over-ratio tune); out-of-range or
                            unparsable values fall back to the default
                            (read by common/compress.py)
+    YTPU_JIT_OFFLOAD       1 = offload jit, AOT and autotune builds to
+                           the cluster (default 0: opt-in per process)
+    YTPU_JIT_TIMEOUT_S     overall budget for one offloaded build,
+                           submit through artifact (default 120;
+                           unparsable or non-positive values fall back
+                           to the default)
+    YTPU_JIT_LOCAL_FALLBACK
+                           1 (default) = build locally with nvcc when the
+                           cluster can't (no daemon, no capacity, no
+                           toolchain-matching servant, timeout); 0 =
+                           raise instead (rigs that must not mask a
+                           broken farm)
     YTPU_TENANT_TOKEN      tenant credential, sent to the local daemon
                            as the X-Ytpu-Tenant header on every request;
                            empty = anonymous (refused 403 by a daemon
@@ -116,6 +128,32 @@ def debugging_compile_locally() -> bool:
 
 def treat_stdin_as_lightweight() -> bool:
     return _int_env("YTPU_TREAT_SOURCE_FROM_STDIN_AS_LIGHTWEIGHT", 0) == 1
+
+
+def jit_offload_enabled() -> bool:
+    """YTPU_JIT_OFFLOAD: opt-in gate of the jit workloads; anything but
+    a parsable 1 means off (builds leaving the machine on a typo would
+    surprise in the bad direction)."""
+    return _int_env("YTPU_JIT_OFFLOAD", 0) == 1
+
+
+def jit_timeout_s() -> float:
+    """YTPU_JIT_TIMEOUT_S: submit-to-artifact budget of one offloaded
+    build; unparsable or non-positive values fall back to the default
+    rather than a deadline that fails every offload at once."""
+    default = 120.0
+    try:
+        v = float(os.environ.get("YTPU_JIT_TIMEOUT_S", default))
+    except ValueError:
+        return default
+    return v if v > 0 else default
+
+
+def jit_local_fallback() -> bool:
+    """YTPU_JIT_LOCAL_FALLBACK: build locally on any infrastructure miss
+    (default).  Off = raise, for rigs that must not mask a broken farm
+    behind silent local builds."""
+    return _int_env("YTPU_JIT_LOCAL_FALLBACK", 1) == 1
 
 
 def tenant_token() -> str:

@@ -1,6 +1,7 @@
 """Compilation cache-entry wire format (a copy of the JAX package's
-yadcc_tpu/daemon/cache_format.py, trimmed to the C++ key and the entry
-format: the jit, AOT and autotune keys come with those workloads).
+yadcc_tpu/daemon/cache_format.py: the entry format and the C++, jit, AOT
+and autotune keys and kinds, byte for byte, so both packages' servants,
+delegates and caches share entries).
 
 Parity with reference yadcc/daemon/cache_format.cc:35-127: an entry
 bundles the compiler's exit code, stdout/stderr, the produced output
@@ -33,8 +34,14 @@ from typing import Dict, List, Optional, Tuple
 from ..common.hashing import new_digest
 from ..common.multi_chunk import try_parse_multi_chunk_views
 from ..common.payload import Payload
+from ..common.hashing import digest_keyed
 from ..tenancy.keys import tenant_scoped_key
-from .task_digest import get_cxx_task_digest
+from .task_digest import (
+    get_aot_task_digest,
+    get_autotune_task_digest,
+    get_cxx_task_digest,
+    get_jit_task_digest,
+)
 
 _MAGIC = b"YTC2"
 _LEN = struct.Struct("<I")
@@ -42,10 +49,22 @@ _LEN = struct.Struct("<I")
 # Bump the key prefix on any format change: old entries become silent
 # misses instead of parse failures (reference cache_format.cc:56-64).
 _KEY_PREFIX = "ytpu-cxx2-entry-"
+# Second workload, own versioned namespace: a jit artifact can never be
+# read back as a C++ object file even if key derivation ever collided.
+_JIT_KEY_PREFIX = "ytpu-jit1-entry-"
+# Workloads 3 & 4 (doc/workloads.md): per-topology AOT executables and
+# autotune winning-config records — separate versioned namespaces, same
+# two-factor guarantee (prefix + integrity-covered kind field).
+_AOT_KEY_PREFIX = "ytpu-aot1-entry-"
+_AUTOTUNE_KEY_PREFIX = "ytpu-tune1-entry-"
+
 # Entry kinds.  "cxx" is the wire default and is OMITTED from the
 # serialized meta, so every historical entry (and the dataplane A/B
 # parity gate against the legacy writer) stays byte-identical.
 KIND_CXX = "cxx"
+KIND_JIT = "jit"
+KIND_AOT = "aot"
+KIND_AUTOTUNE = "autotune"
 
 
 @dataclass
@@ -69,6 +88,49 @@ def get_cache_key(compiler_digest: str, invocation_arguments: str,
                   tenant_secret: str = "") -> str:  # ytpu: sanitizes(key-domain, tenant-domain)
     return tenant_scoped_key(tenant_secret, _KEY_PREFIX + get_cxx_task_digest(
         compiler_digest, invocation_arguments, source_digest))
+
+
+def get_jit_cache_key(env_digest: str, compile_options: bytes,
+                      computation_digest: str,
+                      tenant_secret: str = "") -> str:  # ytpu: sanitizes(key-domain, tenant-domain)
+    return tenant_scoped_key(
+        tenant_secret, _JIT_KEY_PREFIX + get_jit_task_digest(
+            env_digest, compile_options, computation_digest))
+
+
+def get_aot_cache_key(env_digest: str, topology_digest: str,
+                      computation_digest: str,
+                      tenant_secret: str = "") -> str:  # ytpu: sanitizes(key-domain, tenant-domain)
+    """One AOT child's executable: topology-tagged, so a resubmission
+    that adds topologies re-reads the hits and compiles only the
+    misses (partial-hit reuse, doc/workloads.md)."""
+    return tenant_scoped_key(
+        tenant_secret, _AOT_KEY_PREFIX + get_aot_task_digest(
+            env_digest, topology_digest, computation_digest))
+
+
+def get_autotune_cache_key(env_digest: str, slice_digest: str,
+                           kernel_digest: str,
+                           tenant_secret: str = "") -> str:  # ytpu: sanitizes(key-domain, tenant-domain)
+    """One autotune child's slice-winner record."""
+    return tenant_scoped_key(
+        tenant_secret, _AUTOTUNE_KEY_PREFIX + get_autotune_task_digest(
+            env_digest, slice_digest, kernel_digest))
+
+
+def get_autotune_sweep_key(env_digest: str, space_digest: str,
+                           kernel_digest: str,
+                           tenant_secret: str = "") -> str:  # ytpu: sanitizes(key-domain, tenant-domain)
+    """The SWEEP-level winner record — (kernel digest, search-space
+    digest, env digest) — filled by the delegate after the reduce, so
+    a second host sweeping the identical space gets the final answer
+    in one cache read with zero fan-out.  Domain-separated from the
+    per-slice child keys: a slice record can never be read back as a
+    sweep verdict."""
+    return tenant_scoped_key(
+        tenant_secret, _AUTOTUNE_KEY_PREFIX + digest_keyed(
+            "ytpu-autotune-sweep", env_digest.encode(),
+            space_digest.encode(), kernel_digest.encode()))
 
 
 def write_cache_entry_payload(entry: CacheEntry) -> Payload:

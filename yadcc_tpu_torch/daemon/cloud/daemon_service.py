@@ -1,8 +1,10 @@
 """Servant RPC service + heartbeat pacemaker (a copy of the JAX package's
-yadcc_tpu/daemon/cloud/daemon_service.py, trimmed to the C++ workload:
-the jit, AOT and autotune handlers and the jit environments in the
-heartbeat come with those workloads, so this servant advertises compiler
-digests only and the scheduler never grants it a jit task).
+yadcc_tpu/daemon/cloud/daemon_service.py).  Besides the C++ workload it
+serves the jit, AOT and autotune builds (QueueJitCompilationTask,
+QueueAotCompilationTask, QueueAutotuneTask), whose worker runs nvcc for
+the card, and advertises its jit environments in the heartbeat beside
+its compiler digests, so the scheduler grants jit work only to servants
+of a matching toolchain.
 
 Parity with reference yadcc/daemon/cloud/daemon_service_impl.{h,cc}:
 the DaemonService RPC surface (QueueCxxCompilationTask / ReferenceTask /
@@ -18,10 +20,11 @@ from __future__ import annotations
 import hmac
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Set
+from typing import Dict, List, Optional, Set
 
 from ... import api
 from ...common.limits import clamp_wait_s
+from ...jit.env import JitEnvironment, default_jit_environments
 from ...rpc import Channel, RpcContext, RpcError, ServiceSpec
 from ...utils.logging import get_logger
 from ...version import VERSION_FOR_UPGRADE
@@ -32,6 +35,8 @@ from ..sysinfo import (
     read_memory_available,
     read_memory_total,
 )
+from .aot_task import CloudAotCompilationTask
+from .autotune_task import CloudAutotuneTask
 from .compiler_registry import CompilerRegistry
 from .cxx_task import CloudCxxCompilationTask
 from .distributed_cache_writer import DistributedCacheWriter
@@ -39,6 +44,7 @@ from .execution_engine import (
     ExecutionEngine,
     decide_capacity,
 )
+from .jit_task import CloudJitCompilationTask
 
 logger = get_logger("daemon.cloud.service")
 
@@ -67,6 +73,7 @@ class DaemonService:
         sampler: Optional[LoadAverageSampler] = None,
         allow_poor_machine: bool = True,
         cgroup_present: Optional[bool] = None,
+        jit_environments: Optional[List[JitEnvironment]] = None,
     ):
         self.config = config
         self.engine = engine
@@ -75,6 +82,14 @@ class DaemonService:
         self.sampler = sampler or LoadAverageSampler()
         self._allow_poor = allow_poor_machine
         self._cgroup = cgroup_present
+        # Jit environments this servant builds for.  None = the default
+        # (the cuda environment when nvcc is found, nothing otherwise);
+        # [] = jit serving off.  Their digests ride the heartbeat's
+        # env_descs like compiler digests.
+        if jit_environments is None:
+            jit_environments = default_jit_environments()
+        self._jit_envs = list(jit_environments)
+        self._jit_env_digests = {e.digest: e for e in self._jit_envs}
         self._lock = threading.Lock()
         # Tokens delegates may present, as rolled out by the scheduler.
         self._acceptable_tokens: Set[str] = set()  # guarded by: self._lock
@@ -104,6 +119,15 @@ class DaemonService:
         s.add("QueueCxxCompilationTask",
               api.daemon.QueueCxxCompilationTaskRequest,
               self.QueueCxxCompilationTask)
+        s.add("QueueJitCompilationTask",
+              api.jit.QueueJitCompilationTaskRequest,
+              self.QueueJitCompilationTask)
+        s.add("QueueAotCompilationTask",
+              api.fanout.QueueAotCompilationTaskRequest,
+              self.QueueAotCompilationTask)
+        s.add("QueueAutotuneTask",
+              api.fanout.QueueAutotuneTaskRequest,
+              self.QueueAutotuneTask)
         s.add("ReferenceTask", api.daemon.ReferenceTaskRequest,
               self.ReferenceTask)
         s.add("WaitForCompilationOutput",
@@ -232,6 +256,137 @@ class DaemonService:
                 task.workspace.remove()
             raise
         return api.daemon.QueueCxxCompilationTaskResponse(task_id=task_id)
+
+    def _require_jit_env(self, req):
+        """The intake gate of the worker task kinds (jit, AOT, autotune):
+        a zstd attachment and an advertised jit environment.  A direct
+        or stale-grant submission for a toolchain this servant does not
+        serve is refused, not built into a library the requestor cannot
+        use."""
+        if req.compression_algorithm != \
+                api.daemon.COMPRESSION_ALGORITHM_ZSTD:
+            raise RpcError(api.daemon.DAEMON_STATUS_INVALID_ARGUMENT,
+                           "only zstd attachments accepted")
+        env = self._jit_env_digests.get(req.env_desc.compiler_digest)
+        if env is None:
+            raise RpcError(
+                api.daemon.DAEMON_STATUS_ENVIRONMENT_NOT_AVAILABLE,
+                req.env_desc.compiler_digest)
+        return env
+
+    def _queue_worker_task(self, task, grant_id: int, attachment):
+        """Prepare and queue one worker task (jit, AOT, autotune) on the
+        engine; returns the servant task id.  The cxx handler's
+        defensive dedup, completion capture, cache fill and no-leak
+        cleanup, for the three kinds."""
+        try:
+            try:
+                task.prepare(attachment)
+            except ValueError as e:
+                raise RpcError(api.daemon.DAEMON_STATUS_INVALID_ARGUMENT,
+                               str(e))
+            existing = self.engine.find_task_by_digest(task.task_digest)
+            if existing is not None and \
+                    self.engine.reference_task(existing):
+                task.workspace.remove()
+                return existing
+
+            def on_completion(task_id: int, output):
+                files, patches, cache_entry = task.collect_outputs(output)
+                result = _TaskResult(
+                    exit_code=output.exit_code,
+                    standard_output=output.standard_output,
+                    standard_error=output.standard_error,
+                    files=files,
+                    patches=patches,
+                )
+                with self._lock:
+                    self._results[task_id] = result
+                if cache_entry is not None and \
+                        self.cache_writer is not None:
+                    self.cache_writer.async_write(task.cache_key,
+                                                  cache_entry)
+
+            task_id = self.engine.try_queue_task(
+                grant_id=grant_id,
+                digest=task.task_digest,
+                cmdline=task.cmdline,
+                on_completion=on_completion,
+                env=task.worker_env(),
+                cwd=task.workspace.path,
+            )
+            if task_id is None:
+                raise RpcError(api.daemon.DAEMON_STATUS_HEAVILY_LOADED,
+                               "servant saturated")
+        except BaseException:
+            if task.workspace is not None:
+                task.workspace.remove()
+            raise
+        return task_id
+
+    def QueueJitCompilationTask(self, req, attachment: bytes,
+                                ctx: RpcContext):  # ytpu: untrusted(req, attachment)
+        """A jit build on the engine that runs compilers, through the
+        generic wait/free RPCs; only the submission is jit's own."""
+        self._verify(req.token)
+        env = self._require_jit_env(req)
+        task = CloudJitCompilationTask(
+            env_digest=env.digest,
+            backend=req.backend or env.backend,
+            compile_options=req.compile_options,
+            claimed_computation_digest=req.computation_digest,
+            temp_root=self.config.temporary_dir,
+            disallow_cache_fill=req.disallow_cache_fill,
+            tenant_scope=req.env_desc.tenant_scope,
+        )
+        task_id = self._queue_worker_task(task, req.task_grant_id,
+                                          attachment)
+        return api.jit.QueueJitCompilationTaskResponse(task_id=task_id)
+
+    def QueueAotCompilationTask(self, req, attachment: bytes,
+                                ctx: RpcContext):  # ytpu: untrusted(req, attachment)
+        """One AOT fan-out child: the jit flow with the topology in the
+        worker's options and in the cache identity."""
+        self._verify(req.token)
+        env = self._require_jit_env(req)
+        if req.topology.device_count <= 0 or \
+                not req.topology.mesh_shape:
+            raise RpcError(api.daemon.DAEMON_STATUS_INVALID_ARGUMENT,
+                           "aot submission names no topology")
+        task = CloudAotCompilationTask(
+            env_digest=env.digest,
+            backend=req.backend or env.backend,
+            mesh_shape=tuple(req.topology.mesh_shape),
+            device_count=req.topology.device_count,
+            compile_options=req.topology.compile_options,
+            claimed_computation_digest=req.computation_digest,
+            temp_root=self.config.temporary_dir,
+            disallow_cache_fill=req.disallow_cache_fill,
+            tenant_scope=req.env_desc.tenant_scope,
+        )
+        task_id = self._queue_worker_task(task, req.task_grant_id,
+                                          attachment)
+        return api.fanout.QueueAotCompilationTaskResponse(
+            task_id=task_id)
+
+    def QueueAutotuneTask(self, req, attachment: bytes,
+                          ctx: RpcContext):  # ytpu: untrusted(req, attachment)
+        """One autotune fan-out child: build a config slice; the artifact
+        is the slice's winning-config record."""
+        self._verify(req.token)
+        env = self._require_jit_env(req)
+        task = CloudAutotuneTask(
+            env_digest=env.digest,
+            backend=req.backend or env.backend,
+            configs=list(req.configs),
+            claimed_kernel_digest=req.kernel_digest,
+            temp_root=self.config.temporary_dir,
+            disallow_cache_fill=req.disallow_cache_fill,
+            tenant_scope=req.env_desc.tenant_scope,
+        )
+        task_id = self._queue_worker_task(task, req.task_grant_id,
+                                          attachment)
+        return api.fanout.QueueAutotuneTaskResponse(task_id=task_id)
 
     def ReferenceTask(self, req, attachment, ctx):  # ytpu: untrusted(req, attachment)
         self._verify(req.token)
@@ -416,6 +571,10 @@ class DaemonService:
         )
         for digest in self.registry.environments():
             req.env_descs.add(compiler_digest=digest)
+        # Jit environments travel in the same list: to the scheduler an
+        # environment is an opaque digest.
+        for env in self._jit_envs:
+            req.env_descs.add(compiler_digest=env.digest)
         for tid, grant_id, digest in self.engine.running_tasks():
             req.running_tasks.add(
                 servant_task_id=tid, task_grant_id=grant_id,
@@ -451,6 +610,12 @@ class DaemonService:
         return {
             "engine": self.engine.inspect(),
             "compilers": self.registry.environments(),
+            "jit_environments": [
+                {"backend": e.backend,
+                 "toolchain_version": e.toolchain_version,
+                 "digest": e.digest}
+                for e in self._jit_envs
+            ],
             "load": self.sampler.loadavg(
                 self.config.cpu_load_average_seconds),
             "load_window_s": self.config.cpu_load_average_seconds,

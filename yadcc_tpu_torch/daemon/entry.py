@@ -1,5 +1,6 @@
 """Daemon main: one process, two roles (a copy of the JAX package's
-yadcc_tpu/daemon/entry.py for the C++ workload).
+yadcc_tpu/daemon/entry.py): C++ compiles, and the jit, AOT and autotune
+builds, whose servant worker runs nvcc for the card (``--jit-backends``).
 
 Parity with reference yadcc/daemon/entry.cc:69-262: a *delegate* serving
 local clients over loopback HTTP (:8334, ``--local-port``) and a
@@ -7,8 +8,9 @@ local clients over loopback HTTP (:8334, ``--local-port``) and a
 (LC_ALL, GCC_COMPARE_DEBUG, SOURCE_DATE_EPOCH would make outputs differ
 across machines and poison the cache); privilege drop; stale temp
 cleanup; ordered shutdown.  Neither role runs anything on the card (the
-delegate checks the cache one key at a time on its host filter), so the
-entry loads no torch and takes no ``--device``.  Under ``--rpc-frontend
+delegate checks the cache one key at a time on its host filter, and the
+servant's build worker only runs nvcc), so the entry loads no torch and
+takes no ``--device``.  Under ``--rpc-frontend
 aio`` the servant's RPC, the delegate's loopback HTTP (its quota and
 wait long polls parked as continuations on the loop) and the inspect
 port are all served by the event-loop front end.  Run:
@@ -129,8 +131,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "choice): 'threaded' = grpc thread pool; 'aio' = "
                         "the event-loop front end, where "
                         "WaitForCompilationOutput parks as a loop "
-                        "continuation (peers dial aio://).  The local "
-                        "HTTP service is threaded under both")
+                        "continuation (peers dial aio://), and so do "
+                        "the local HTTP service's long polls")
+    p.add_argument("--jit-backends", default="auto",
+                   choices=["auto", "none", "cuda"],
+                   help="jit, AOT and autotune builds this servant serves "
+                        "(its worker runs nvcc for the card): 'auto' = "
+                        "cuda when nvcc is found; 'none' = no jit "
+                        "serving; 'cuda' = cuda, and nvcc must be found")
     p.add_argument("--accept-loops", type=int, default=1,
                    help="aio front end only: shard the accept path "
                         "across N SO_REUSEPORT event loops; 1 = single "
@@ -209,6 +217,17 @@ def daemon_start(args) -> None:
         bundle_dirs=[d for d in
                      args.extra_compiler_bundle_dirs.split(",") if d])
     engine = ExecutionEngine(max_concurrency=max(capacity, 1))
+    if args.jit_backends == "auto":
+        jit_envs = None  # DaemonService's default: cuda iff nvcc is found
+    elif args.jit_backends == "none":
+        jit_envs = []
+    else:
+        from ..jit.env import local_jit_environment
+
+        jit_envs = [local_jit_environment(args.jit_backends)]
+        if not jit_envs[0].toolchain_version:
+            raise SystemExit("--jit-backends cuda: nvcc not found "
+                             "(PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
     server = make_rpc_server(args.rpc_frontend,
                              f"0.0.0.0:{args.serving_port}",
                              accept_loops=args.accept_loops)
@@ -223,7 +242,7 @@ def daemon_start(args) -> None:
     service = DaemonService(
         config, engine=engine, registry=registry, cache_writer=cache_writer,
         sampler=sampler, allow_poor_machine=args.allow_poor_machine,
-        cgroup_present=cgroup_present)
+        cgroup_present=cgroup_present, jit_environments=jit_envs)
     # Before spec(): an aio front end parks WaitForCompilationOutput on
     # the accept loop (engine continuation + loop deadline timer).
     service.attach_frontend(server)
@@ -247,6 +266,9 @@ def daemon_start(args) -> None:
         # serve aio:// too.
         servant_scheme=("aio://" if args.rpc_frontend == "aio"
                         else "grpc://"),
+        # Fan-out parents fill their reduced verdict (the autotune sweep's
+        # winner record) through the servant role's writer.
+        cache_writer=cache_writer,
     )
     monitor = LocalTaskMonitor(
         max_heavy_tasks=config.max_local_tasks,
@@ -259,6 +281,9 @@ def daemon_start(args) -> None:
     http = LocalHttpService(
         monitor=monitor, digest_cache=digest_cache, dispatcher=dispatcher,
         on_leave=stop.set, port=args.local_port,
+        # The jit cache shim: gets through the delegate's reader, puts
+        # through the servant role's writer (static token).
+        cache_reader=cache_reader, cache_writer=cache_writer,
         frontend=args.rpc_frontend, loops=loops)
 
     config_keeper.start()

@@ -1,6 +1,6 @@
 """Distributed-task SPI, delegate side (a copy of the JAX package's
-yadcc_tpu/daemon/local/distributed_task.py, trimmed to the C++ workload:
-no fan-out parents, no per-child verdicts).
+yadcc_tpu/daemon/local/distributed_task.py: the C++ and jit tasks, and
+the fan-out parents of AOT and autotune with their per-child verdicts).
 
 Parity with reference yadcc/daemon/local/distributed_task.h: the
 dispatcher state machine is language-agnostic; a task type supplies its
@@ -26,16 +26,26 @@ class TaskResult:
     # Provenance (reference distributed_task_dispatcher.h:222-224).
     from_cache: bool = False
     reused_existing: bool = False
+    # Fan-out parents only (jit/fanout.py): one ChildVerdict per child,
+    # in submission order, surfaced to the client verbatim.
+    verdicts: List = field(default_factory=list)
 
 
 class DistributedTask:
-    """SPI; the implementation here is CxxCompilationTask.
+    """SPI; implementations: CxxCompilationTask, JitCompilationTask, and
+    the fan-out kinds (daemon/local/{aot,autotune}_task.py).
 
     Implementations must expose `requestor_pid` (0 = unknown) for the
     dispatcher's orphan-kill timer, and a class-level `kind` string
     (stable, lowercase) used for per-workload stats and diagnostics."""
 
     kind = "unknown"
+
+    # Fan-out parents (jit/fanout.py) set this True and implement
+    # expand_children()/reduce() instead of the servant-facing methods;
+    # the dispatcher routes them through its fan-out path, where every
+    # child is a normal DistributedTask of the same kind.
+    is_fanout = False
 
     # Weighted-fair grant admission: grants are handed out fair-share
     # across fairness keys, weighted by this.
@@ -50,6 +60,9 @@ class DistributedTask:
     tenant_tier = ""
     tenant_key_secret = ""
     tenant_weight = 1.0
+    # Fan-out width cap for this submission (0 = global default),
+    # derived from the tenant's tier or spec at the HTTP surface.
+    tenant_fanout_cap = 0
 
     def fairness_key(self) -> str:
         """Requestor identity for fair grant hand-out: the submitting

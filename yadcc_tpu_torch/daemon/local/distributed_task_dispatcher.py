@@ -1,12 +1,13 @@
 """Delegate-side task dispatcher: one state machine per in-flight task (a
 copy of the JAX package's yadcc_tpu/daemon/local/
-distributed_task_dispatcher.py, trimmed to the C++ workload: no fan-out
-parents).
+distributed_task_dispatcher.py).
 
 Workload-agnostic: everything task-specific (cache key, dedup digest,
 servant submission, output parsing) lives behind the DistributedTask
 SPI, and the servant's wait/reference/free RPC surface is shared by all
-task kinds.
+task kinds — C++ TUs and jit builds run through this same machine,
+interleaved, with per-kind provenance counters, and a fan-out parent
+(AOT, autotune) expands into children that each re-enter it.
 
 Parity with reference yadcc/daemon/local/distributed_task_dispatcher
 .{h,cc}: a queued task runs Pending -> ReadyToFire -> Dispatched -> Done
@@ -38,6 +39,7 @@ from enum import Enum
 from typing import Dict, Optional
 
 from ... import api
+from ...jit import fanout
 from ...rpc import Channel, RpcError
 from ...tenancy import TenantLedger, TenantOverBudget
 from ...utils.logging import get_logger
@@ -104,6 +106,11 @@ class DistributedTaskDispatcher:
         # occupying a task thread.  None = unbudgeted (single-tenant
         # deployments).
         tenant_ledger: Optional[TenantLedger] = None,
+        # Delegate-side cache fills, used only by fan-out parents whose
+        # reduced verdict is itself cacheable (the autotune sweep's
+        # winner record); children fill servant-side like every other
+        # task.  None = no parent fills.
+        cache_writer=None,
     ):
         self._grants = grant_keeper
         self._config = config_keeper
@@ -115,6 +122,7 @@ class DistributedTaskDispatcher:
         self._debug_servant = debugging_always_use_servant_at
         self._servant_scheme = servant_scheme
         self._tenant_ledger = tenant_ledger
+        self._cache_writer = cache_writer
         self._stages = StageTimer(STAGES)
         self._lock = threading.Lock()
         self._tasks: Dict[int, _Entry] = {}  # guarded by: self._lock
@@ -240,6 +248,8 @@ class DistributedTaskDispatcher:
             result = self._try_read_cache(entry)
             if result is None:
                 result = self._try_join_existing(entry)
+            if result is None and entry.task.is_fanout:
+                result = self._perform_fanout(entry)
             if result is None:
                 result = self._start_new_servant_task(entry)
         except Exception as e:  # never leave a waiter hanging
@@ -292,6 +302,35 @@ class DistributedTaskDispatcher:
         with self._lock:
             self._bump_locked(entry.task.kind, "hit_cache",
                               entry.task.fairness_tenant())
+        return result
+
+    def _perform_fanout(self, entry: _Entry) -> TaskResult:
+        """Fan-out parents (jit/fanout.py): expand into child tasks — each
+        a normal DistributedTask re-entering this dispatcher's cache,
+        join and dispatch with its own cache key, digest and grant — then
+        join them with bounded retries and reduce to one result with
+        per-child verdicts.  The parent holds no grant and no engine
+        slot; the children bump the per-kind counters through the normal
+        path, the parent bumps nothing on success."""
+        children = entry.task.expand_children()
+        if entry.task.tenant_fanout_cap:
+            # The tier's fan-out cap, however generous the global
+            # YTPU_FANOUT_MAX_WIDTH bound is.
+            fanout.checked_fanout_width(
+                len(children), cap=entry.task.tenant_fanout_cap)
+        outcomes = fanout.run_fanout(
+            children,
+            queue=self.queue_task,
+            wait=self.wait_for_task,
+            free=self.free_task,
+            aborted=lambda: entry.aborted,
+        )
+        result = entry.task.reduce(outcomes)
+        make = getattr(entry.task, "make_parent_cache_entry", None)
+        if self._cache_writer is not None and make is not None:
+            filled = make(result)
+            if filled is not None:
+                self._cache_writer.async_write(*filled)
         return result
 
     def _try_join_existing(self, entry: _Entry) -> Optional[TaskResult]:

@@ -1,6 +1,5 @@
 """Client-facing loopback HTTP API (a copy of the JAX package's
-yadcc_tpu/daemon/local/http_service.py, both front ends, without the jit
-cache-shim routes).
+yadcc_tpu/daemon/local/http_service.py, both front ends).
 
 Parity with reference yadcc/daemon/local/http_service_impl.{h,cc} and
 the wire format in yadcc/daemon/local/README.md: plain HTTP/1.1 on
@@ -12,20 +11,23 @@ multi-chunk framing when attachments are present.  Routes:
     POST /local/acquire_quota        (200 granted / 503 timeout)
     POST /local/release_quota
     POST /local/set_file_digest
+    POST /local/jit_cache_get        (the jit cache shim; 404: miss)
+    POST /local/jit_cache_put
 
 plus one submit/wait route PAIR per registered task kind
-(task_registry.py — cxx):
+(task_registry.py — cxx, jit, aot, autotune):
 
     POST /local/submit_<kind>_task   (multi-chunk: json + attachment;
                                       400: fix the submission and retry
                                       — e.g. report compiler digest
-                                      first)
+                                      or jit environment first)
     POST /local/wait_for_<kind>_task (503: still running, retry;
                                       404: unknown task id)
 
 With a TenancyControl every POST route fails closed (403) without a
 valid X-Ytpu-Tenant credential; an over-budget tenant's submission gets
-503 + Retry-After.
+503 + Retry-After, and its tier's fan-out cap bounds its AOT and
+autotune submissions.
 
 ``frontend="threaded"`` serves on a ThreadingHTTPServer, a thread a
 connection; ``"aio"`` (``--rpc-frontend aio``) on the event-loop front
@@ -44,10 +46,13 @@ from google.protobuf import json_format
 
 from ... import api
 from ...common import multi_chunk
+from ...common.hashing import digest_keyed
 from ...common.limits import (MAX_WIRE_BODY, BodyTooLarge,
                               checked_content_length, clamp_wait_s)
 from ...common.payload import Payload
 from ...tenancy.budgets import TenantOverBudget
+from ...tenancy.keys import tenant_scoped_key
+from ...tenancy.tiers import tier_fanout_cap
 from ...utils.logging import get_logger
 from ...version import BUILT_AT, VERSION_FOR_UPGRADE
 from .distributed_task_dispatcher import DistributedTaskDispatcher
@@ -64,6 +69,20 @@ _TENANT_HEADER = "x-ytpu-tenant"
 _DENIED_BODY = b'{"error":"valid tenant credential required"}'
 
 _DENIED_BUDGET_BODY = b'{"error":"tenant over budget"}'
+
+# Shim keys are opaque client strings; they are domain-hashed into a
+# versioned namespace (the JAX package's, byte for byte) so they never
+# collide with task-derived cache keys.
+_SHIM_KEY_PREFIX = "ytpu-jitext1-"
+_SHIM_KEY_DOMAIN = "ytpu-jit-extcache"
+
+
+def shim_cache_key(client_key: str,
+                   tenant_secret: str = "") -> str:  # ytpu: sanitizes(key-domain, tenant-domain)
+    return tenant_scoped_key(
+        tenant_secret,
+        _SHIM_KEY_PREFIX + digest_keyed(_SHIM_KEY_DOMAIN,
+                                        client_key.encode()))
 
 
 def _to_json(msg) -> bytes:
@@ -90,6 +109,11 @@ class LocalHttpService:
         on_leave: Optional[Callable[[], None]] = None,
         port: int = 8334,
         host: str = "127.0.0.1",
+        # The jit cache shim: reads through the delegate's reader, puts
+        # through the servant role's cache writer.  Either absent = that
+        # route answers 404.
+        cache_reader=None,
+        cache_writer=None,
         # "threaded" = ThreadingHTTPServer; "aio" = the event-loop front
         # end, where long polls (acquire_quota, wait_for_*) park as
         # continuations plus a loop timer instead of a serving thread.
@@ -109,6 +133,8 @@ class LocalHttpService:
         self.dispatcher = dispatcher
         self.on_leave = on_leave or (lambda: None)
         self.registry = default_registry(digest_cache)
+        self.cache_reader = cache_reader
+        self.cache_writer = cache_writer
         self.frontend = frontend
         self.tenancy = tenancy
         service = self
@@ -233,7 +259,8 @@ class LocalHttpService:
     def _handle_aio(self, responder) -> None:  # loop thread only
         """Runs ON the loop for every request: long polls park, the
         version route answers inline, every route that may block (task
-        submission, set_file_digest) goes to the bounded worker pool.
+        submission, set_file_digest, the jit cache shim) goes to the
+        bounded worker pool.
         Route semantics and reply bodies match the threaded front end."""
         if responder.method == "GET":
             if responder.path == "/local/get_version":
@@ -396,6 +423,12 @@ class LocalHttpService:
                                   req.file_desc.timestamp, req.digest)
             handler._reply(200, _to_json(api.local.SetFileDigestResponse()))
             return
+        if path == "/local/jit_cache_get":
+            self._jit_cache_get(handler, body, binding)
+            return
+        if path == "/local/jit_cache_put":
+            self._jit_cache_put(handler, body, binding)
+            return
         task_type = self.registry.for_submit(path)
         if task_type is not None:
             self._submit_task(handler, task_type, body, binding)
@@ -427,11 +460,14 @@ class LocalHttpService:
             return
         if binding is not None:
             # Instance-level stamp of the VERIFIED identity (never the
-            # request body): cache domain, two-level fairness.
+            # request body): cache domain, two-level fairness, the
+            # tier's fan-out rights.
             task.tenant_id = binding.tenant_id
             task.tenant_tier = binding.tier
             task.tenant_key_secret = binding.key_secret
             task.tenant_weight = binding.weight
+            task.tenant_fanout_cap = (binding.spec.fanout_cap
+                                      or tier_fanout_cap(binding.tier))
         try:
             task_id = self.dispatcher.queue_task(task)
         except TenantOverBudget as e:
@@ -463,3 +499,37 @@ class LocalHttpService:
             multi_chunk.make_multi_chunk_payload(
                 [_to_json(resp)] + list(out_chunks)),
             content_type="application/octet-stream")
+
+    # -- the jit cache shim's routes -----------------------------------------
+
+    def _jit_cache_get(self, handler, body: bytes,
+                       binding=None) -> None:  # ytpu: untrusted(body)  # ytpu: responder(handler)
+        req = _from_json(api.jit.JitCacheGetRequest, body)
+        if self.cache_reader is None or not req.key:
+            handler._reply(404)
+            return
+        secret = binding.key_secret if binding is not None else ""
+        data = self.cache_reader.try_read(shim_cache_key(req.key, secret))
+        if data is None:
+            handler._reply(404)
+            return
+        handler._reply(
+            200,
+            multi_chunk.make_multi_chunk_payload(
+                [_to_json(api.jit.JitCacheGetResponse()), data]),
+            content_type="application/octet-stream")
+
+    def _jit_cache_put(self, handler, body: bytes,
+                       binding=None) -> None:  # ytpu: untrusted(body)  # ytpu: responder(handler)
+        chunks = multi_chunk.try_parse_multi_chunk_views(body)
+        if not chunks or len(chunks) != 2:
+            handler._reply(400, b'{"error":"expect json+value chunks"}')
+            return
+        req = _from_json(api.jit.JitCachePutRequest, bytes(chunks[0]))
+        if self.cache_writer is None or not req.key:
+            handler._reply(404)
+            return
+        secret = binding.key_secret if binding is not None else ""
+        self.cache_writer.async_write(shim_cache_key(req.key, secret),
+                                      bytes(chunks[1]))
+        handler._reply(200, _to_json(api.jit.JitCachePutResponse()))

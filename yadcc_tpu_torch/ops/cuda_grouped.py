@@ -13,6 +13,9 @@ the card around the launch.
 
 `launches` counts kernel launches (one per launch on the card, whatever
 its grid), so a run can show that its main path went through the kernel.
+``cuda_assign_grouped`` can launch through another loaded copy of the
+library (``lib``: e.g. one the compile farm built from the same source,
+jit/frontend.py:build_library); the checks on the tensors are the same.
 """
 
 from __future__ import annotations
@@ -39,20 +42,28 @@ _count_lock = threading.Lock()
 _fn = None
 
 
-def _kernel():
+def _bind(lib: ctypes.CDLL):
+    """(kernel entry, scratch sizer) of one loaded library, typed."""
+    fn = lib.yadcc_grouped_assign
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, i, ll, ll, i,
+                   p, p, p, p]
+    fn.restype = ctypes.c_int
+    lib.yadcc_grouped_assign_scratch_bytes.argtypes = [i]
+    lib.yadcc_grouped_assign_scratch_bytes.restype = ll
+    return fn, lib.yadcc_grouped_assign_scratch_bytes
+
+
+def _kernel(lib=None):
+    """The kernel of ``lib``, or of the library built from the checkout's
+    source (loaded once)."""
     global _fn
+    if lib is not None:
+        return _bind(lib)
     if _fn is None:
         from ._build import load
 
-        lib = load(SOURCE)
-        fn = lib.yadcc_grouped_assign
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, i, ll, ll, i,
-                       p, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.yadcc_grouped_assign_scratch_bytes.argtypes = [i]
-        lib.yadcc_grouped_assign_scratch_bytes.restype = ll
-        _fn = (fn, lib.yadcc_grouped_assign_scratch_bytes)
+        _fn = _bind(load(SOURCE))
     return _fn
 
 
@@ -69,8 +80,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(pool: PoolArrays, groups, n: int,
-            cm: DispatchCostModel) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(pool: PoolArrays, groups, n: int, cm: DispatchCostModel,
+            lib=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One K1 launch over ``n`` shards of S = len(pool) / n slots each:
     ``pool`` holds the shards one after another ([n*S]), ``groups`` the
     four descriptor arrays as int32[n, G].  Returns (counts int32[n, G, S],
@@ -96,7 +107,7 @@ def _launch(pool: PoolArrays, groups, n: int,
     for name, a in zip(GROUP_FIELDS, groups):
         _check(name, a, torch.int32, (n, g), dev)
 
-    fn, scratch_bytes = _kernel()
+    fn, scratch_bytes = _kernel(lib)
     counts = torch.empty((n, g, s), dtype=torch.int32, device=dev)
     running = torch.empty(total, dtype=torch.int32, device=dev)
     scratch = torch.empty(max(1, n * scratch_bytes(s)), dtype=torch.uint8,
@@ -124,14 +135,16 @@ def cuda_assign_grouped(
     pool: PoolArrays,
     batch: asg.GroupedBatch,
     cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+    lib=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(counts int32[G, S], running int32[S]); the drop-in counterpart of
-    assignment_grouped.assign_grouped."""
+    assignment_grouped.assign_grouped.  ``lib``: the loaded library to
+    launch through (default: the one built from csrc/)."""
     if pool.alive.device.type == "cpu":
         return asg.assign_grouped(pool, batch, cost_model)
     counts, running = _launch(
         pool, [getattr(batch, f).unsqueeze(0) for f in GROUP_FIELDS], 1,
-        cost_model)
+        cost_model, lib)
     return counts[0], running
 
 

@@ -1,8 +1,9 @@
 """Boot a full cluster in one process, on ephemeral loopback ports (a copy
 of the JAX package's yadcc_tpu/testing/local_cluster.py, trimmed to what
-the port's tests drive: the C++ workload (servants advertise compilers
-only), the threaded RPC front ends, the delegate's HTTP on either front
-end (``http_frontend``), the disk L2).
+the port's tests drive: the C++ and jit workloads (every servant serves
+an explicit jit environment), the threaded RPC front ends, the
+delegate's HTTP on either front end (``http_frontend``), the disk L2,
+extra delegates (``make_extra_delegate``)).
 
 It boots the REAL services over real loopback RPC — the port's
 scheduler (its policy on ``device``), cache server, N servant daemons,
@@ -36,6 +37,7 @@ from ..daemon.local.local_task_monitor import LocalTaskMonitor
 from ..daemon.local.running_task_keeper import RunningTaskKeeper
 from ..daemon.local.task_grant_keeper import TaskGrantKeeper
 from ..daemon.sysinfo import LoadAverageSampler
+from ..jit.env import JitEnvironment, local_jit_environment
 from ..rpc import make_rpc_server
 from ..scheduler.policy import make_policy
 from ..scheduler.service import SchedulerService
@@ -87,7 +89,8 @@ class _IdleSampler(LoadAverageSampler):
 class _Servant:
     def __init__(self, cluster: "LocalCluster", tmp: pathlib.Path,
                  index: int, max_concurrency: int,
-                 compiler_dirs: List[str]):
+                 compiler_dirs: List[str],
+                 jit_environments: List[JitEnvironment]):
         self.server = make_rpc_server("threaded", "127.0.0.1:0")
         config = DaemonConfig(
             scheduler_uri=cluster.sched_uri,
@@ -114,7 +117,10 @@ class _Servant:
         self.service = DaemonService(
             config, engine=self.engine, registry=self.registry,
             cache_writer=cache_writer, sampler=sampler,
-            allow_poor_machine=True, cgroup_present=False)
+            allow_poor_machine=True, cgroup_present=False,
+            # An explicit jit environment (YTPU_JIT_FAKE_WORKER=1 stands
+            # the worker's nvcc down for control-plane tests).
+            jit_environments=jit_environments)
         self.service.attach_frontend(self.server)
         self.server.add_service(self.service.spec())
         self.server.start()
@@ -142,6 +148,9 @@ class LocalCluster:
         servant_concurrency: int = 4,
         compiler_dirs: Optional[List[str]] = None,
         http_frontend: str = "threaded",
+        # What every servant serves; None = this host's cuda
+        # environment (local_jit_environment()).
+        jit_environments: Optional[List[JitEnvironment]] = None,
     ):
         # Single-process rig: self-avoidance must be off, or the
         # requesting machine (ourselves) is never eligible.  A device
@@ -164,9 +173,11 @@ class LocalCluster:
         self.cache_server.start()
         self.cache_uri = f"grpc://127.0.0.1:{self.cache_server.port}"
 
+        if jit_environments is None:
+            jit_environments = [local_jit_environment()]
         self.servants = [
             _Servant(self, tmp, i, servant_concurrency,
-                     compiler_dirs or [])
+                     compiler_dirs or [], jit_environments)
             for i in range(n_servants)
         ]
 
@@ -177,19 +188,29 @@ class LocalCluster:
                                                    device=device)
         self.running_keeper = RunningTaskKeeper(self.sched_uri,
                                                 refresh_interval_s=0.5)
+        # The jit cache shim and the fan-out parents' fills, wired as
+        # entry.py wires them: reads through the delegate's reader, puts
+        # through a servant-role cache writer.
+        self.shim_cache_writer = DistributedCacheWriter(self.cache_uri,
+                                                        lambda: "")
         self.delegate = DistributedTaskDispatcher(
             grant_keeper=TaskGrantKeeper(self.sched_uri, ""),
             config_keeper=self.config_keeper,
             cache_reader=self.cache_reader,
             running_task_keeper=self.running_keeper,
+            cache_writer=self.shim_cache_writer,
         )
         self.http = LocalHttpService(
             monitor=LocalTaskMonitor(nprocs=8, pid_prober=lambda p: True),
             digest_cache=FileDigestCache(),
             dispatcher=self.delegate,
             port=0,
+            cache_reader=self.cache_reader,
+            cache_writer=self.shim_cache_writer,
             frontend=http_frontend,
         )
+        # Extra delegates (make_extra_delegate), stopped with the rig.
+        self._extra: List = []
         self.config_keeper.start()
         self.cache_reader.start()
         self.running_keeper.start()
@@ -205,9 +226,28 @@ class LocalCluster:
             self.stop()
             raise RuntimeError("servants failed to register")
 
+    def make_extra_delegate(self) -> DistributedTaskDispatcher:
+        """A second delegate, as another build machine runs one: its own
+        grant keeper and running-task snapshot, sharing the cluster's
+        services and this rig's cache reader.  stop() stops it."""
+        keeper = RunningTaskKeeper(self.sched_uri, refresh_interval_s=0.5)
+        keeper.start()
+        delegate = DistributedTaskDispatcher(
+            grant_keeper=TaskGrantKeeper(self.sched_uri, ""),
+            config_keeper=self.config_keeper,
+            cache_reader=self.cache_reader,
+            running_task_keeper=keeper,
+            cache_writer=self.shim_cache_writer,
+        )
+        self._extra.append((delegate, keeper))
+        return delegate
+
     def stop(self):
         self.http.stop()
         self.delegate.stop()  # joins its fetchers and its task threads
+        for delegate, keeper in self._extra:
+            delegate.stop()  # the shared reader's stop is idempotent
+            keeper.stop()
         self.running_keeper.stop()
         self.config_keeper.stop()
         self.cache_reader.stop()
