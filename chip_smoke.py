@@ -39,7 +39,7 @@ Phases (any failure exits non-zero without printing the result line):
    shape and at 8 cells x 256 keys x 8 tasks beside an empty launch's;
 3. main path, pipelined: the scheduler entry with its defaults (auto
    policy, pipeline depth 16 on the card, 8192 slots) on loopback, 5,000
-   servants registered by Heartbeat, 24 delegates driving >= 100,000
+   servants registered by Heartbeat, 24 delegates driving >= 50,000
    grants with WaitForStartingTask(immediate_reqs=128) and FreeTask;
    every grant checked against the servants' facts, no servant over its
    capacity, no duplicate grant id, and kernel launches > 0 (the entry
@@ -49,8 +49,9 @@ Phases (any failure exits non-zero without printing the result line):
 5. the scan policy: phase 4's drive with --dispatch-policy torch_batched,
    every grant through K2 (launches of 256 tasks, one collect a cycle);
 6. the device-resident stream: phase 3's drive with --dispatch-policy
-   torch_resident_grouped, K1 inside the resident step, the resident
-   pool's statics oracle clean;
+   torch_resident_grouped to >= 100,000 grants (the statics oracle runs
+   every 64 resident launches), K1 inside the resident step, the
+   resident pool's statics oracle clean;
 7. the Bloom path: (a) the four Bloom kernels (membership, cascade,
    probe, scatter-OR) held against their plain versions and the host
    filter at tolerance 0 on an edge pool (every key length 0..34, 63-65,
@@ -76,7 +77,7 @@ Phases (any failure exits non-zero without printing the result line):
    count set to 0 just before and each > 0 just after;
 8. the sharded scheduler: phase 3's drive with --shards 4 (four shard
    dispatchers behind the consistent-hash router, each policy on a CUDA
-   stream of its own), >= 100,000 grants, phase 3's checks plus: every
+   stream of its own), >= 50,000 grants, phase 3's checks plus: every
    grant id routes to the shard that issued it and is freed there; then
    the same scheduler built in process and driven without RPC under
    torch.profiler: how many K1 launches overlap, the card's busy share;
@@ -109,7 +110,7 @@ Phases (any failure exits non-zero without printing the result line):
    the dispatcher's pending table, fired by the pipelined dispatch
    thread), every client dialling aio://, phase 3's checks plus no
    refused second reply (`yadcc/rpc_server` double_replies 0); then
-   phase 4's synchronous drive on it (>= 100,000 grants: the inline
+   phase 4's synchronous drive on it (>= 50,000 grants: the inline
    leader runs each cycle on the event loop, one request deep, so K1's
    launches there are reported, not required), with the loop's lag; then a
    parked burst on the pipelined entry: 2,000 AsyncAioChannel delegates
@@ -119,7 +120,7 @@ Phases (any failure exits non-zero without printing the result line):
    before the burst and with every wait parked; each beside its
    threaded twin of the same call;
 13. the sharded scheduler on aio: phase 8's drive through --rpc-frontend
-   aio --accept-loops 4 --shards 4 (>= 100,000 grants), phase 8's checks;
+   aio --accept-loops 4 --shards 4 (>= 50,000 grants), phase 8's checks;
    then on the same entry a hot delegate asks for more grants than its
    home shard's whole capacity: the router's asynchronous steal must pull
    grants from the other shards (stolen > 0 in the reply and in
@@ -128,7 +129,7 @@ Phases (any failure exits non-zero without printing the result line):
    entries on loopback over one shared L3 root (--l3-engine objstore),
    each with its own disk L2; region B on --rpc-frontend aio takes 2,000
    fills, and once its L3 write-backs have drained region A (threaded,
-   --l1-capacity 6M) boots and takes 5,000, each through the port's
+   --l1-capacity 4M) boots and takes 3,000, each through the port's
    DistributedCacheWriter under the servant token from 16 threads (keys
    of the daemon's shapes, 80 and 88 bytes, two tenants; values 1-16 KiB
    log-uniform); a user token's PutEntry is refused; a port
@@ -157,7 +158,7 @@ Phases (any failure exits non-zero without printing the result line):
    <= 16 cores, --temporary-dir in the run's directory always: every
    servant boot empties its temporary root of ytpu_* directories, so a
    shared /dev/shm would take another checkout's live workspaces); a
-   build of 48 TUs (files that include the repo's
+   build of 32 TUs (files that include the repo's
    native/client/ytpu-cxx.cc or ytpu-testtool.cc and add one function
    of their own drawn from the seed; flags -O2, -O0 -g or -O2 -g; 8
    compiled twice at once; 4 ending in #error) by the port's client
@@ -167,10 +168,10 @@ Phases (any failure exits non-zero without printing the result line):
    submits, long-polls, sends an answer without a compile again up to 5
    tries and compiles locally where its own rules say so (an #error
    TU's preprocessing fails with this g++, so it is compiled locally):
-   the first 24 through two threaded daemons, which then leave
-   gracefully, the other 24 through two aio daemons (their quota and
+   the first 16 through two threaded daemons, which then leave
+   gracefully, the other 16 through two aio daemons (their quota and
    wait long polls parked on the loop; a delegate dials every servant
-   with its fleet's one scheme); then the cached rebuild of all 48
+   with its fleet's one scheme); then the cached rebuild of all 32
    through one aio delegate once its reader has synced past the last
    fill.  Every grant on a real servant (the delegates dial what they
    are granted), none over the capacity the heartbeats report, running
@@ -231,8 +232,8 @@ Phases (any failure exits non-zero without printing the result line):
    topology's compile options name its arch): four artifacts with
    verdict ok, each one's target read back with cuobjdump --list-elf,
    the (1,) sm_90a one running K1 on the seeded pools; (e) a .cu
-   template with {BLOCK} and {ITEMS} swept over 16 configs at width 4,
-   children on both servants, the winner evaluated 16 and in the space;
+   template with {BLOCK} and {ITEMS} swept over 8 configs at width 4,
+   children on both servants, the winner evaluated 8 and in the space;
    (f) a 1 MiB jit_cache_put through one delegate; once every fill has
    landed and both readers synced past it: (b) the three sources again
    from the other delegate, hit_cache 3, no servant run, artifacts
@@ -241,7 +242,20 @@ Phases (any failure exits non-zero without printing the result line):
    back byte-equal through it; (d') the AOT resubmitted with a fifth
    topology: 4 cached, 1 ok; K1 launched in the scheduler over the
    phase, the per-kind stats, the daemons' RSS printed and no libtorch
-   mapped; every grant freed (0 outstanding once the fleet left).
+   mapped; every grant freed (0 outstanding once the fleet left);
+18. lock-order tracing and the cluster sweep, in process: (a) the
+   scheduler as the entry builds it with its defaults (auto, pipelined,
+   on the card), 5,000 servants, 24 delegate threads for 5 s, once
+   untraced and once built and driven inside locktrace.installed(): no
+   lock-order cycle through a lock of the port, the graph not saturated,
+   K1 launched, every grant freed, grants/s printed beside the untraced
+   drive's; (b) yadcc_tpu_torch/tools/cluster_sim.run's cxx sweep, 300
+   TUs (2,000, the tool's default, takes ~2 minutes: its grant wait is
+   1-2 s once 32 submissions share the 16 slots) on 4 servants of 4
+   slots, 20% duplicates, torch_grouped on the card; (c) its jit sweep of
+   200 modules through the fake worker: no failure, every submission a
+   hit, a join or a run, every unique source run, K1 launched, no grant
+   outstanding in the scheduler at the end, (c) deduped.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
@@ -272,15 +286,19 @@ N_ENVS = 64
 N_DELEGATES = 24
 ENVS_PER_DELEGATE = 16
 IMMEDIATE = 128
-MIN_GRANTS = 100_000           # 200,000 until the smoke outgrew 1,200 s
+MIN_GRANTS = 50_000            # 200,000, then 100,000 (PR 20), then this
+#                                to pay for phase 18
 PHASE_LIMIT_S = 240.0
 HB_INTERVAL_MS = 4000          # servant lease = 10x this
 HB_REPEAT_S = 10.0             # re-beat well inside the lease
 MAIN_S, MAIN_G, MAIN_TASKS = 8192, 64, 2048   # the policy's largest chunk
 MAIN_T = 256                   # torch_batched's chunk (max_batch)
 SHARDS = 4                     # phase 8's --shards
-SHARDED_MIN_GRANTS = 100_000
+SHARDED_MIN_GRANTS = 50_000    # 100,000 until phase 18
+RESIDENT_MIN_GRANTS = 100_000  # phase 6: its statics oracle runs every
+#                                64 resident launches (~90 at 100,000)
 OVERLAP_WINDOW_S = 3.0         # phase 8's in-process profile
+OVERLAP_WARMUP_S = 1.0         # its drive before the profile starts
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = 67e12         # 32-bit non-tensor peak, H100 SXM data sheet
 KERNELS = ("grouped_assign", "assign_batch")   # /inspect/vars yadcc/kernels
@@ -2017,6 +2035,96 @@ def interval_stats(spans):
     return union, total, len(overlapping)
 
 
+def register_fleet(dispatcher, fleet: Fleet, tag: str) -> None:
+    """Every servant of ``fleet`` registered in process (no RPC)."""
+    from yadcc_tpu_torch.scheduler.task_dispatcher import ServantInfo
+
+    for s in fleet.servants:
+        check(dispatcher.keep_servant_alive(ServantInfo(
+            location=s["location"], version=1,
+            num_processors=s["capacity"], dedicated=s["dedicated"],
+            capacity=s["capacity"], total_memory=64 << 30,
+            memory_available=32 << 30,
+            env_digests=tuple(sorted(s["envs"]))), 600.0),
+            f"{tag}: a servant was refused")
+
+
+class InProcessDrive:
+    """N_DELEGATES threads calling a dispatcher (or a shard router)
+    directly, without RPC: each asks for IMMEDIATE grants on its envs in
+    turn and frees what it got at once.  ``grants`` counts what they
+    were granted."""
+
+    def __init__(self, dispatcher, fleet: Fleet, tag: str, seed: int):
+        self.d, self.tag = dispatcher, tag
+        self.stop = threading.Event()
+        self.lock = threading.Lock()
+        self.errors: list = []
+        self.grants = 0
+        self.threads = [
+            threading.Thread(target=self._delegate, daemon=True,
+                             args=(d, random.Random(seed + d), fleet))
+            for d in range(N_DELEGATES)]
+
+    def _delegate(self, d: int, rng, fleet: Fleet) -> None:
+        envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
+        who = f"127.0.0.1:{30000 + d}"
+        k = 0
+        try:
+            while not self.stop.is_set():
+                got = self.d.wait_for_starting_new_task(
+                    envs[k % len(envs)], requestor=who,
+                    immediate=IMMEDIATE, timeout_s=0.5)
+                k += 1
+                with self.lock:
+                    self.grants += len(got)
+                if got:
+                    self.d.free_task([g for g, _ in got])
+        except Exception as e:  # reported by join()
+            self.errors.append(f"delegate {d}: {e!r}")
+
+    def start(self) -> None:
+        for t in self.threads:
+            t.start()
+
+    def join(self) -> None:
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=30)
+            check(not t.is_alive(), f"{self.tag}: a delegate hung")
+        check(not self.errors, f"{self.tag}: {self.errors[:3]}")
+        check(self.d.failure is None, f"{self.tag}: {self.d.failure!r}")
+
+
+def preload_profiler_imports() -> threading.Thread:
+    """torch.profiler's first start imports torch._inductor (its
+    prepare_trace asks ``hasattr(torch, "_inductor")``): ~9 s of host time
+    on the card's host, ~26 s inside phase 8's probe, where 24 delegate
+    threads contend for the GIL.  Import it on a thread of its own while
+    phase 3's entry boots instead (this process only polls the entry
+    then; phase 2's host work would contend with it); main() joins it
+    before the probe."""
+    def load():
+        import torch._inductor  # noqa: F401
+
+    t = threading.Thread(target=load, name="profiler-imports", daemon=True)
+    t.start()
+    return t
+
+
+def device_spans(prof) -> list:
+    """(name, start_us, end_us) of every device event of a finished
+    torch.profiler window, read from its raw kineto results: building
+    the profile's function-event tree (``prof.events()``) for a window
+    of thousands of launches costs seconds of host time and the probe
+    needs only the device intervals."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def measure_shard_overlap(report: list) -> dict:
     """Phase 8's scheduler built in process (the entry's build_dispatcher
     with --shards 4 and its other defaults: four pipelined shard
@@ -2025,79 +2133,62 @@ def measure_shard_overlap(report: list) -> dict:
     with torch.profiler for OVERLAP_WINDOW_S: how many K1 launches ran
     at the same time as another, and the card's busy share of the
     window.  Reports "not measured" when the profiler returns no device
-    events."""
-    import torch
-    from torch.autograd import DeviceType
+    events.  Each stage's seconds (build, register, warm-up, window,
+    the profile's exit, reading its device events, join, stop) go to
+    ``stages``."""
     from torch.profiler import ProfilerActivity, profile
 
     from yadcc_tpu_torch.scheduler import entry
-    from yadcc_tpu_torch.scheduler.task_dispatcher import ServantInfo
+
+    stages = {}
+    t = time.perf_counter()
+
+    def stage(name):
+        nonlocal t
+        now = time.perf_counter()
+        stages[name] = round(now - t, 3)
+        t = now
 
     args = entry.build_arg_parser().parse_args(["--shards", str(SHARDS)])
     router = entry.build_dispatcher(args)
+    stage("build")
     fleet = Fleet(seed=6)
-    stop = threading.Event()
-    lock = threading.Lock()
-    errors, totals = [], {"grants": 0}
-
-    def delegate(d: int):
-        rng = random.Random(2000 + d)
-        envs = rng.sample(fleet.envs, ENVS_PER_DELEGATE)
-        who = f"127.0.0.1:{30000 + d}"
-        k = 0
-        try:
-            while not stop.is_set():
-                got = router.wait_for_starting_new_task(
-                    envs[k % len(envs)], requestor=who,
-                    immediate=IMMEDIATE, timeout_s=2.0)
-                k += 1
-                with lock:
-                    totals["grants"] += len(got)
-                if got:
-                    router.free_task([g for g, _ in got])
-        except Exception as e:  # reported below
-            errors.append(f"delegate {d}: {e!r}")
-
-    threads = [threading.Thread(target=delegate, args=(d,), daemon=True)
-               for d in range(N_DELEGATES)]
+    drive = InProcessDrive(router, fleet, "overlap", 2000)
     try:
-        for s in fleet.servants:
-            check(router.keep_servant_alive(ServantInfo(
-                location=s["location"], version=1,
-                num_processors=s["capacity"], dedicated=s["dedicated"],
-                capacity=s["capacity"], total_memory=64 << 30,
-                memory_available=32 << 30,
-                env_digests=tuple(sorted(s["envs"]))), 600.0),
-                "overlap: a servant was refused")
-        for t in threads:
-            t.start()
-        time.sleep(1.0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            g0, t0 = totals["grants"], time.perf_counter()
-            time.sleep(OVERLAP_WINDOW_S)
-            window_s = time.perf_counter() - t0
-            granted = totals["grants"] - g0
-        stop.set()
-        for t in threads:
-            t.join(timeout=30)
-            check(not t.is_alive(), "overlap: a delegate hung")
-        check(not errors, f"overlap: {errors[:3]}")
-        check(router.failure is None, f"overlap: {router.failure!r}")
+        register_fleet(router, fleet, "overlap")
+        stage("register")
+        drive.start()
+        time.sleep(OVERLAP_WARMUP_S)
+        stage("warmup")
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        g0, t0 = drive.grants, time.perf_counter()
+        time.sleep(OVERLAP_WINDOW_S)
+        window_s = time.perf_counter() - t0
+        granted = drive.grants - g0
+        stage("window")
+        prof.stop()
+        stage("profile_exit")
+        drive.join()
+        stage("join")
     finally:
-        stop.set()
+        drive.stop.set()
         router.stop()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    k1 = [(e.time_range.start, e.time_range.end) for e in device
-          if "grouped_assign_kernel" in e.name]
-    res = dict(window_s=window_s, grants=granted, k1_launches=len(k1))
+    stage("stop")
+    device = device_spans(prof)
+    stage("events")
+    k1 = [(s, e) for name, s, e in device if "grouped_assign_kernel" in name]
+    res = dict(window_s=window_s, grants=granted, k1_launches=len(k1),
+               stages=stages)
+    split = ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
     if not k1:
         report.append(f"  overlap: {granted} grants in {window_s:.2f} s; "
                       f"the profiler returned {len(device)} device events, "
-                      f"no K1 kernel: overlap not measured")
+                      f"no K1 kernel: overlap not measured; stages (s): "
+                      f"{split}")
         return res
     k1_union, k1_sum, k1_overlapping = interval_stats(k1)
-    busy, _, _ = interval_stats([(e.time_range.start, e.time_range.end)
-                                 for e in device])
+    busy, _, _ = interval_stats([(s, e) for _, s, e in device])
     res.update(k1_overlapping=k1_overlapping, k1_busy_us=k1_union,
                k1_sum_us=k1_sum, device_busy_us=busy,
                device_busy_share=busy / (window_s * 1e6))
@@ -2108,7 +2199,8 @@ def measure_shard_overlap(report: list) -> dict:
         f"{k1_sum / 1e3:.2f} ms over {k1_union / 1e3:.2f} ms of wall "
         f"({k1_sum / max(k1_union, 1e-9):.2f} launches at a time on "
         f"average); the card busy {busy / 1e3:.2f} ms, "
-        f"{res['device_busy_share'] * 100:.1f}% of the window")
+        f"{res['device_busy_share'] * 100:.1f}% of the window; stages "
+        f"(s): {split}")
     return res
 
 
@@ -3559,7 +3651,8 @@ BURST_OTHER_SERVANTS = 400
 BURST_OTHER_SLOTS = 8
 BURST_WAIT_MS = 10_000         # the service's cap on a wait
 BURST_FULL_WAIT_MS = 8_000     # the full env's deadline (NO_QUOTA then)
-AIO_SYNC_MIN_GRANTS = 100_000  # phase 12's synchronous part
+AIO_SYNC_MIN_GRANTS = 50_000   # phase 12's synchronous part (100,000
+#                                until phase 18)
 
 
 def proc_status(pid: int) -> dict:
@@ -4781,10 +4874,10 @@ def run_federation_path(report: list, place_timing: dict) -> dict:
 
 CACHE_SEED = 14
 CACHE_B_PUTS = 2_000           # region B (aio), drained into L3 first
-CACHE_A_PUTS = 5_000           # region A (threaded); 20,000 and B's
+CACHE_A_PUTS = 3_000           # region A (threaded); 20,000 and B's
                                # 5,000 took the smoke past 1,200 s on a
-                               # slow host
-CACHE_A_L1 = "6M"              # A's --l1-capacity: most hits are L2 hits
+                               # slow host; 5,000 until phase 18
+CACHE_A_L1 = "4M"              # A's --l1-capacity: most hits are L2 hits
                                # (26M held a quarter of 20,000 fills)
 CACHE_MORE_PUTS = 1_000        # into A before the incremental sync
 CACHE_PUT_THREADS = 16         # the fixed pool of writer threads
@@ -5475,13 +5568,14 @@ def cache_report(report: list, out: dict) -> None:
 # ---------------------------------------------------------------------------
 
 SERVANT_SEED = 15
-SERVANT_TUS = 48               # translation units of the build (512 took
+SERVANT_TUS = 32               # translation units of the build (512 took
                                # 331-353 s with the local re-compiles,
                                # past the smoke's time on an 8-core host;
                                # 224 through the port's client 315.0 s,
                                # each client's start and g++ -E on the
                                # same cores; 128 took the whole smoke
-                               # past 1,200 s on a slow host)
+                               # past 1,200 s on a slow host; 48 until
+                               # phase 18)
 SERVANT_JOINED = 8             # compiled twice at once through a delegate
 SERVANT_ERRORS = 4             # ending in `#error smoke`
 SERVANT_CLIENTS = 32           # compiler wrappers at once, as make -j32
@@ -6606,7 +6700,8 @@ JIT_SOURCES = ("grouped_assign.cu", "assign_batch.cu", "bloom.cu")
 JIT_TOPOLOGIES = (((1,), "sm_90a"), ((1,), "sm_90"), ((2, 2), "sm_90a"),
                   ((8,), "sm_80"))
 JIT_FIFTH = ((4,), "sm_90a")
-JIT_SWEEP = {"BLOCK": (64, 128, 256, 512), "ITEMS": (1, 2, 4, 8)}
+JIT_SWEEP = {"BLOCK": (64, 128, 256, 512), "ITEMS": (1, 4)}   # 8 configs
+#                                (16, with ITEMS 1, 2, 4, 8, until phase 18)
 JIT_SWEEP_WIDTH = 4
 JIT_SHIM_BYTES = 1 << 20
 JIT_SYNC_LIMIT_S = 45.0       # bound on the fills' landing and a sync
@@ -6867,7 +6962,7 @@ def run_jit_path(daemons: dict, names, procs: dict, siport: int,
             f"artifact ran K1 on {aot_pools} seeded pools equal to the "
             f"plain version")
 
-        # (e) the sweep: 16 configs at width 4 over both servants.
+        # (e) the sweep: 8 configs at width 4 over both servants.
         space = autotune.SearchSpace.of(**JIT_SWEEP)
         configs = [json.loads(c) for c in space.expand()]
         template = JIT_SWEEP_TEMPLATE.encode()
@@ -6876,7 +6971,7 @@ def run_jit_path(daemons: dict, names, procs: dict, siport: int,
         res = autotune.sweep(template, space, fanout_width=JIT_SWEEP_WIDTH)
         walls["e"] = time.perf_counter() - t0
         check(res.ok and res.exit_code == 0, f"phase 17 (e): {res.error}")
-        check(res.winner["evaluated"] == len(configs) == 16
+        check(res.winner["evaluated"] == len(configs) == 8
               and res.winning_config in configs
               and [v["status"] for v in res.verdicts] == ["ok"] * 4,
               f"phase 17 (e): {res.winner} {res.verdicts}")
@@ -7284,6 +7379,176 @@ def pod_sim_gates(res: dict, report: list, dev) -> None:
           "16d smoke_device: fewer K1 launches than fused cycles")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: lock-order tracing and the cluster sweep on the card.
+# ---------------------------------------------------------------------------
+
+TOOLS_DRIVE_S = 5.0            # phase 18a's drive, untraced then traced
+SWEEP_TASKS = 300              # phase 18b (the tool's 2,000 take ~2 min)
+SWEEP_JIT_TASKS = 200          # phase 18c's jit sweep
+SWEEP_SHAPE = dict(servants=4, concurrency=4, dup_rate=0.2)
+
+
+def run_locktrace_drive(report: list) -> dict:
+    """Phase 18a: the scheduler as the entry builds it with its defaults
+    (auto, pipelined, on the card), 5,000 servants, 24 delegate threads
+    for TOOLS_DRIVE_S without RPC; once untraced, then with the dispatcher
+    built and driven inside locktrace.installed(), so every lock it
+    constructs is traced.  The traced run: no lock-order cycle through a
+    lock of the port (torch's own locks are nodes too, filtered by module
+    name), the graph not saturated, K1 launched, every grant freed, no
+    failure.  Launch counts are set to 0 just before each build and read
+    just after its drive."""
+    import contextlib
+
+    from yadcc_tpu_torch.scheduler import entry
+    from yadcc_tpu_torch.utils import locktrace
+
+    args = entry.build_arg_parser().parse_args([])
+    fleet = Fleet(seed=18)
+    res = {}
+    for traced in (False, True):
+        tag = "18a traced" if traced else "18a untraced"
+        zero_launches()
+        with (locktrace.installed() if traced
+              else contextlib.nullcontext()) as graph:
+            d = entry.build_dispatcher(args)
+            drive = InProcessDrive(d, fleet, tag, 1800)
+            try:
+                register_fleet(d, fleet, tag)
+                drive.start()
+                t0 = time.perf_counter()
+                time.sleep(TOOLS_DRIVE_S)
+                granted, seconds = drive.grants, time.perf_counter() - t0
+                drive.join()
+                deadline = time.monotonic() + 10
+                while d.inspect()["grants_outstanding"] and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.05)
+                state = d.inspect()
+            finally:
+                drive.stop.set()
+                d.stop()
+        launches = read_launches()
+        k1 = launches["grouped_assign"]
+        check(state["failure"] is None, f"{tag}: {state['failure']}")
+        check(state["grants_outstanding"] == 0,
+              f"{tag}: {state['grants_outstanding']} grants outstanding")
+        check(granted > 0, f"{tag}: no grant")
+        check(k1 > 0, f"{tag}: K1 never launched")
+        res["traced" if traced else "untraced"] = dict(
+            grants=granted, seconds=seconds,
+            grants_per_s=granted / seconds, launches=k1,
+            counts=launches, policy=state["policy"])
+    snap = graph.inspect()
+    bad = locktrace.framework_violations(graph)
+    check(not snap["saturated"], "18a: the lock graph saturated")
+    check(not bad, f"18a: lock-order cycles through the port: {bad[:3]}")
+    ours = [n for n in snap["locks"] if n.startswith("yadcc_tpu_torch.")]
+    check(ours, "18a: no lock of the port was traced")
+    res["graph"] = dict(nodes=len(snap["locks"]), port_nodes=len(ours),
+                        edges=snap["edges"],
+                        violations=len(snap["violations"]),
+                        framework_violations=len(bad))
+    g, u, t = res["graph"], res["untraced"], res["traced"]
+    report.append(
+        f"  18a lock order on the grant path ({t['policy']}, pipelined, "
+        f"{N_SERVANTS} servants, {N_DELEGATES} delegate threads in "
+        f"process): traced "
+        f"{t['grants']} grants in {t['seconds']:.2f} s "
+        f"({t['grants_per_s']:.1f}/s, {t['launches']} K1 launches) beside "
+        f"untraced {u['grants']} ({u['grants_per_s']:.1f}/s, "
+        f"{u['launches']} K1 launches) in the same call; graph "
+        f"{g['nodes']} nodes ({g['port_nodes']} of the port), {g['edges']} "
+        f"edges, {g['violations']} cycles, {g['framework_violations']} "
+        f"through the port; not saturated; every grant freed")
+    return res
+
+
+def run_sweeps(report: list) -> dict:
+    """Phase 18b-c: yadcc_tpu_torch/tools/cluster_sim.run on the card
+    (torch_grouped: K1 for every cycle), 4 servants of 4 slots, 20%
+    duplicates, instant fake compiles: (b) SWEEP_TASKS C++ TUs, (c)
+    SWEEP_JIT_TASKS jit modules through the fake worker.  No failure,
+    every submission resolved (hit, join or run), every unique source run,
+    K1 launched, no grant outstanding in the scheduler once the rig has
+    stopped; (c) deduped.  Counts of hits and joins vary with timing and
+    are printed, not held."""
+    import logging
+
+    from yadcc_tpu_torch import testing
+    from yadcc_tpu_torch.tools import cluster_sim
+
+    made: list = []
+
+    class Recording(testing.LocalCluster):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    res = {"launches": {}}
+    rig, testing.LocalCluster = testing.LocalCluster, Recording
+    # The cache server logs a line a fill at INFO.
+    root_log = logging.getLogger()
+    level = root_log.level
+    root_log.setLevel(logging.WARNING)
+    try:
+        for tag, workload, tasks in (("18b", "cxx", SWEEP_TASKS),
+                                     ("18c", "jit", SWEEP_JIT_TASKS)):
+            made.clear()
+            zero_launches()
+            out = cluster_sim.run(
+                tasks, SWEEP_SHAPE["servants"], SWEEP_SHAPE["concurrency"],
+                SWEEP_SHAPE["dup_rate"], "torch_grouped", compile_s=0.0,
+                workload=workload, device="cuda")
+            launches = read_launches()
+            k1 = launches["grouped_assign"]
+            b = out["breakdown"]
+            unique = max(1, int(tasks * (1.0 - SWEEP_SHAPE["dup_rate"])))
+            outstanding = made[0].sched_dispatcher.inspect()[
+                "grants_outstanding"]
+            check(out["failures"] == 0, f"{tag}: {out['failures']} failed")
+            check(b["hit_cache"] + b["reused"] + b["actually_run"] >= tasks,
+                  f"{tag}: unresolved submissions {b}")
+            check(b["actually_run"] >= unique,
+                  f"{tag}: {b['actually_run']} runs for {unique} sources")
+            check(k1 > 0, f"{tag}: K1 never launched")
+            check(outstanding == 0, f"{tag}: {outstanding} grants left")
+            if workload == "jit":
+                check(out["dedup_ratio"] > 0, f"{tag}: no dedup")
+            res[workload] = out
+            res["launches"][f"phase18{tag[-1]}_{workload}_sweep"] = launches
+            report.append(
+                f"  {tag} {workload} sweep of {tasks} tasks "
+                f"({SWEEP_SHAPE['servants']} servants x "
+                f"{SWEEP_SHAPE['concurrency']} slots, "
+                f"{SWEEP_SHAPE['dup_rate']:.0%} duplicates, torch_grouped on "
+                f"the card): "
+                f"{out['tasks_per_sec']} tasks/s over "
+                f"{out['wall_seconds']} s, p50 {out['p50_latency_ms']} ms, "
+                f"p99 {out['p99_latency_ms']} ms; hit {b['hit_cache']} / "
+                f"joined {b['reused']} / run {b['actually_run']} for "
+                f"{unique} unique; "
+                + (f"dedup ratio {out['dedup_ratio']}; "
+                   if workload == "jit" else "")
+                + f"K1 launches {k1}; 0 failures, 0 grants outstanding")
+    finally:
+        testing.LocalCluster = rig
+        root_log.setLevel(level)
+    return res
+
+
+def run_tools_path(report: list) -> dict:
+    """Phase 18 (see run_locktrace_drive and run_sweeps)."""
+    t0 = time.perf_counter()
+    res = {"locktrace": run_locktrace_drive(report)}
+    res.update(run_sweeps(report))
+    for run in ("untraced", "traced"):
+        res["launches"][f"phase18a_{run}"] = res["locktrace"][run]["counts"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -7324,6 +7589,7 @@ def main() -> int:
         log(line)
 
     report = []
+    profiler_imports = preload_profiler_imports()
     phases = {
         "pipelined": walled("3 pipelined", run_main_path, "pipelined", [],
                             Fleet(seed=1), report),
@@ -7337,7 +7603,8 @@ def main() -> int:
         "resident": walled(
             "6 resident", run_main_path, "resident",
             ["--dispatch-policy", "torch_resident_grouped",
-             "--dispatch-pipeline-depth", "16"], Fleet(seed=4), report),
+             "--dispatch-pipeline-depth", "16"], Fleet(seed=4), report,
+            min_grants=RESIDENT_MIN_GRANTS),
     }
     rs = phases["resident"]["resident"]
     check(rs["delta_launches"] + rs["full_syncs"] > 0,
@@ -7371,6 +7638,7 @@ def main() -> int:
     phases["sharded"] = walled(
         "8 sharded", run_main_path, "sharded", ["--shards", str(SHARDS)],
         Fleet(seed=5), report, shards=SHARDS, min_grants=SHARDED_MIN_GRANTS)
+    walled("8 profiler imports", profiler_imports.join)
     overlap = walled("8 overlap", measure_shard_overlap, report)
     fused = walled("9 fused", run_fused_path, report)
     phases["fused"] = {"launches": {"grouped_assign": fused["launches"],
@@ -7429,6 +7697,15 @@ def main() -> int:
     log(f"phase 17 the jit, AOT and autotune workloads on phase 15's aio "
         f"fleet, nvcc on its servants ({jit['seconds']:.1f} s; {card}):")
     for line in jit["lines"]:
+        log(line)
+
+    report = []
+    tools = walled("18 tools", run_tools_path, report)
+    for name, n in tools["launches"].items():
+        phases[name] = {"launches": n}
+    log(f"phase 18 lock-order tracing and the cluster sweep "
+        f"({tools['seconds']:.1f} s; {card}):")
+    for line in report:
         log(line)
 
     def by_phase(kernel):

@@ -76,6 +76,9 @@ _CLIENT_MODULES = (
 # The S3 engine, the trace prefetcher and the scheduler's scale harnesses.
 _SCALE_MODULES = ("cache.s3_backend", "cache.prefetcher",
                   "tools.trace_replay", "tools.pod_sim")
+# Lock-order tracing, the interleaving explorer and the cluster sweep.
+_TOOL_MODULES = ("utils.locktrace", "testing.interleave",
+                 "tools.cluster_sim")
 # The jit, AOT and autotune workloads, each by name; none loads torch.
 _JIT_MODULES = (
     "api.gen.jit_pb2", "api.gen.fanout_pb2", "jit", "jit.env",
@@ -92,7 +95,8 @@ def _port_sources():
                                         REPO / "chip_k2_probe.py",
                                         REPO / "chip_bloom_probe.py",
                                         REPO / "chip_cache_probe.py",
-                                        REPO / "chip_scale_probe.py"]
+                                        REPO / "chip_scale_probe.py",
+                                        REPO / "chip_overlap_probe.py"]
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -131,11 +135,11 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
                 for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT
-                + DELEGATE + RIG + CLIENT + SCALE + JIT):
+                + DELEGATE + RIG + CLIENT + SCALE + JIT + TOOLS):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
-        import chip_scale_probe  # noqa: F401
+        import chip_scale_probe, chip_overlap_probe  # noqa: F401
         import chip_k1_ab, chip_k2_probe  # noqa: F401
         import chip_smoke  # noqa: F401
         leaked = sorted(n for n in sys.modules
@@ -164,7 +168,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"RIG = {_RIG_MODULES!r}\n"
               f"CLIENT = {_CLIENT_MODULES!r}\n"
               f"SCALE = {_SCALE_MODULES!r}\n"
-              f"JIT = {_JIT_MODULES!r}\n" + script)
+              f"JIT = {_JIT_MODULES!r}\n"
+              f"TOOLS = {_TOOL_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -395,7 +400,88 @@ def test_daemon_entry_serves_jit_with_nvcc_and_no_torch(tmp_path,
         assert "--jit-backends cuda: nvcc not found" in out.stderr
 
 
-def _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend):
+def test_daemon_entry_with_locktrace_loads_no_torch(tmp_path, monkeypatch):
+    """YTPU_LOCKTRACE=1 hooks lock-order tracing into the daemon entry
+    (utils/locktrace.py imports no torch): the entry serves a TU as
+    before, maps no libtorch, and /inspect/vars shows yadcc/locktrace
+    with no violation."""
+    monkeypatch.setenv("YTPU_LOCKTRACE", "1")
+    _entry_serves_a_tu_over_http(tmp_path, monkeypatch, "aio",
+                                 locktrace=True)
+
+
+def test_cache_entry_with_locktrace_loads_no_torch(tmp_path):
+    """The cache entry with YTPU_LOCKTRACE=1 as a program: a put and a
+    get go through, /inspect/vars shows yadcc/locktrace with no
+    violation, the process maps no libtorch and exits 0 on SIGTERM
+    without a locktrace report."""
+    import json
+    import os
+    import signal
+    import socket
+    import time
+    import urllib.request
+
+    import yadcc_tpu_torch.api as tapi
+    import yadcc_tpu_torch.rpc as trpc
+
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    port, iport = ports
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "yadcc_tpu_torch.cache.entry",
+         "--port", str(port), "--inspect-port", str(iport),
+         "--cache-engine", "disk", "--cache-dirs", str(tmp_path / "l2"),
+         "--acceptable-user-tokens", "user",
+         "--acceptable-servant-tokens", "servant"],
+        cwd=REPO, env=dict(os.environ, YTPU_LOCKTRACE="1"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    chan = None
+    try:
+        deadline = time.monotonic() + 30
+        while True:
+            assert proc.poll() is None, proc.stderr.read()[-2000:]
+            assert time.monotonic() < deadline, "the entry never came up"
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                time.sleep(0.05)
+        chan = trpc.Channel(f"grpc://127.0.0.1:{port}")
+        key, value = "ytpu-cxx2-entry-" + "ab" * 32, b"v" * 4096
+        chan.call("ytpu.CacheService", "PutEntry",
+                  tapi.cache.PutEntryRequest(token="servant", key=key),
+                  tapi.cache.PutEntryResponse, attachment=value,
+                  timeout=10.0)
+        _, got = chan.call("ytpu.CacheService", "TryGetEntry",
+                           tapi.cache.TryGetEntryRequest(token="user",
+                                                         key=key),
+                           tapi.cache.TryGetEntryResponse, timeout=5.0)
+        assert bytes(got) == value
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{iport}/inspect/vars/yadcc/locktrace",
+                timeout=10) as r:
+            trace = json.loads(r.read())["yadcc"]["locktrace"]
+        assert trace["violations"] == [] and not trace["saturated"]
+        with open(f"/proc/{proc.pid}/maps") as f:
+            assert "libtorch" not in f.read()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        assert "locktrace:" not in proc.stderr.read()
+    finally:
+        if chan is not None:
+            chan.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+
+
+def _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend,
+                                 locktrace=False):
     import json
     import os
     import signal
@@ -499,7 +585,12 @@ def _entry_serves_a_tu_over_http(tmp_path, monkeypatch, frontend):
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{inspect_port}/inspect/vars",
                 timeout=10) as resp:
-            daemon = json.loads(resp.read())["yadcc"]["daemon"]
+            yadcc = json.loads(resp.read())["yadcc"]
+        daemon = yadcc["daemon"]
+        assert ("locktrace" in yadcc) == locktrace
+        if locktrace:
+            assert yadcc["locktrace"]["violations"] == []
+            assert yadcc["locktrace"]["edges"] > 0
         assert daemon["local_http"]["frontend"] == frontend
         if frontend == "aio":
             assert daemon["local_http"]["double_replies"] == 0

@@ -151,6 +151,9 @@ def build_service(args) -> CacheService:
 def cache_server_start(args, stop: "threading.Event | None" = None) -> None:
     """Serve until ``stop`` is set (SIGINT/SIGTERM when None), then drain
     the L3 pool and close the engines."""
+    from ..utils.locktrace import install_from_env
+
+    install_from_env()  # YTPU_LOCKTRACE=1: lock-order checking tier
     service = build_service(args)
     exposed_vars.expose("yadcc/cache", service.inspect)
 

@@ -170,6 +170,9 @@ def daemon_start(args) -> None:
     """Serve until SIGINT, SIGTERM or a client's ask_to_leave, then leave
     the scheduler gracefully, return the delegate's grants and kill what
     still runs."""
+    from ..utils.locktrace import install_from_env
+
+    install_from_env()  # YTPU_LOCKTRACE=1: lock-order checking tier
     for var in _SCRUBBED_ENV:
         os.environ.pop(var, None)
     if not args.no_privilege_drop:

@@ -66,6 +66,7 @@ from .transport import (
     STATUS_METHOD_NOT_FOUND,
     STATUS_TIMEOUT,
     STATUS_TRANSPORT_FAILURE,
+    apply_faults,
     decode_frame_views,
     dispatch_frame_payload,
     encode_frame,
@@ -788,6 +789,7 @@ class AioChannel(Channel):
 
     def call(self, service, method_name, request, response_cls,
              attachment=b"", timeout=None):
+        apply_faults(self._target, service, method_name)
         frame = encode_frame(0, request.SerializeToString(), attachment)
         seq, waiter = self._send(service, method_name, frame)
         reply = self._wait(seq, waiter,
@@ -801,6 +803,7 @@ class AioChannel(Channel):
                  timeout: Optional[float] = None) -> bytes:
         """Send a pre-encoded request frame, return the raw reply frame
         (the byte-parity harness; production uses call())."""
+        apply_faults(self._target, service, method_name)
         seq, waiter = self._send(service, method_name, frame)
         return self._wait(seq, waiter,
                           timeout if timeout is not None else 30.0)
@@ -868,6 +871,9 @@ class AsyncAioChannel:
 
     async def call(self, service, method_name, request, response_cls,
                    attachment=b"", timeout: Optional[float] = None):
+        # An injector that sleeps stalls the loop: one aimed at this
+        # path raises or keeps its delays sub-millisecond.
+        apply_faults(self._target, service, method_name)
         if self._conn_lock is None:
             self._conn_lock = asyncio.Lock()
         async with self._conn_lock:  # concurrent callers dial once

@@ -26,6 +26,7 @@ from .transport import (
     ServiceSpec,
     STATUS_TIMEOUT,
     STATUS_TRANSPORT_FAILURE,
+    apply_faults,
     decode_frame_views,
     dispatch_frame,
     encode_frame,
@@ -120,6 +121,9 @@ class GrpcChannel(Channel):
 
     def call(self, service, method_name, request, response_cls,
              attachment=b"", timeout=None):
+        # Fault seam: may sleep (latency) or raise RpcError (a flaky
+        # peer).  One global read unless an injector is installed.
+        apply_faults(self._target, service, method_name)
         # The socket boundary: encode_frame flattens header + meta +
         # attachment segments exactly once (a Payload attachment arrives
         # here never having been copied).

@@ -283,6 +283,9 @@ def scheduler_standby_start(args, stop: "threading.Event | None" = None,
     exposes the last journal sequence applied and, once promoted, the
     takeover's report.  Returns the exit code, as scheduler_start does; a
     takeover that raises ends the process with 1."""
+    from ..utils.locktrace import install_from_env
+
+    install_from_env()  # YTPU_LOCKTRACE=1: lock-order checking tier
     dispatcher = build_dispatcher(args)  # warmed NOW, replayed at takeover
     _reset_kernel_counts()
     standby = StandbyScheduler(token=args.replication_token)
@@ -342,8 +345,11 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
     ``--standby`` the process is a warm standby
     (scheduler_standby_start); with ``--replicate-to`` every lease
     mutation is journaled at the call boundary and shipped there."""
+    from ..utils.locktrace import install_from_env
+
     if args.standby:
         return scheduler_standby_start(args, stop, gc_guard)
+    install_from_env()  # YTPU_LOCKTRACE=1: lock-order checking tier
     dispatcher = build_dispatcher(args)
     _reset_kernel_counts()
     streamer = None

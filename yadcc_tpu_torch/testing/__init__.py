@@ -1,5 +1,8 @@
-"""In-process cluster rig for tests: the port's scheduler, cache server,
-N servant daemons and one delegate inside a single process on ephemeral
-loopback ports."""
+"""In-process cluster rig for tests and tools: the port's scheduler,
+cache server, N servant daemons and delegates inside a single process on
+ephemeral loopback ports (testing/local_cluster.py), used by the port's
+tests and by tools/cluster_sim.py's sweeps and connection storm; and the
+interleaving explorer of the exactly-once lease path
+(testing/interleave.py, imported by name: it is not re-exported here)."""
 
 from .local_cluster import LocalCluster, make_fake_compiler  # noqa: F401

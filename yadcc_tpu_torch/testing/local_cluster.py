@@ -1,9 +1,11 @@
 """Boot a full cluster in one process, on ephemeral loopback ports (a copy
 of the JAX package's yadcc_tpu/testing/local_cluster.py, trimmed to what
-the port's tests drive: the C++ and jit workloads (every servant serves
-an explicit jit environment), the threaded RPC front ends, the
-delegate's HTTP on either front end (``http_frontend``), the disk L2,
-extra delegates (``make_extra_delegate``)).
+the port's tests and tools/cluster_sim.py drive: the C++ and jit
+workloads (every servant serves an explicit jit environment), the
+control-plane servers on either RPC front end (``rpc_frontend``,
+``accept_loops``), the delegate's HTTP on either front end
+(``http_frontend``), the disk L2, extra delegates
+(``make_extra_delegate``)).
 
 It boots the REAL services over real loopback RPC — the port's
 scheduler (its policy on ``device``), cache server, N servant daemons,
@@ -91,7 +93,8 @@ class _Servant:
                  index: int, max_concurrency: int,
                  compiler_dirs: List[str],
                  jit_environments: List[JitEnvironment]):
-        self.server = make_rpc_server("threaded", "127.0.0.1:0")
+        self.server = make_rpc_server(cluster.rpc_frontend, "127.0.0.1:0",
+                                      accept_loops=cluster.accept_loops)
         config = DaemonConfig(
             scheduler_uri=cluster.sched_uri,
             cache_server_uri=cluster.cache_uri,
@@ -147,11 +150,25 @@ class LocalCluster:
         device: str = "cuda",
         servant_concurrency: int = 4,
         compiler_dirs: Optional[List[str]] = None,
-        http_frontend: str = "threaded",
+        http_frontend: Optional[str] = None,
+        # "aio" boots every control-plane server (scheduler, cache,
+        # servants) on the event-loop front end with aio:// dialing, and
+        # the delegate's HTTP on the aio HTTP server unless
+        # ``http_frontend`` says otherwise; ``accept_loops`` > 1 shards
+        # each aio server's accept path (AioServerGroup).
+        rpc_frontend: str = "threaded",
+        accept_loops: int = 1,
         # What every servant serves; None = this host's cuda
         # environment (local_jit_environment()).
         jit_environments: Optional[List[JitEnvironment]] = None,
     ):
+        self.rpc_frontend = "threaded" if rpc_frontend == "grpc" \
+            else rpc_frontend
+        self._scheme = scheme = \
+            "aio" if self.rpc_frontend == "aio" else "grpc"
+        self.accept_loops = accept_loops
+        http_frontend = http_frontend or (
+            "aio" if self.rpc_frontend == "aio" else "threaded")
         # Single-process rig: self-avoidance must be off, or the
         # requesting machine (ourselves) is never eligible.  A device
         # policy runs on ``device``.
@@ -160,18 +177,22 @@ class LocalCluster:
             max_servants=max(16, n_servants), max_envs=64,
             batch_window_s=0.0)
         self.sched = SchedulerService(self.sched_dispatcher)
-        self.sched_server = make_rpc_server("threaded", "127.0.0.1:0")
+        self.sched_server = make_rpc_server(self.rpc_frontend,
+                                            "127.0.0.1:0",
+                                            accept_loops=accept_loops)
         self.sched_server.add_service(self.sched.spec())
         self.sched_server.start()
-        self.sched_uri = f"grpc://127.0.0.1:{self.sched_server.port}"
+        self.sched_uri = f"{scheme}://127.0.0.1:{self.sched_server.port}"
 
         self.cache_service = CacheService(
             InMemoryCache(64 << 20),
             DiskCacheEngine([ShardSpec(str(tmp / "l2"), 1 << 30)]))
-        self.cache_server = make_rpc_server("threaded", "127.0.0.1:0")
+        self.cache_server = make_rpc_server(self.rpc_frontend,
+                                            "127.0.0.1:0",
+                                            accept_loops=accept_loops)
         self.cache_server.add_service(self.cache_service.spec())
         self.cache_server.start()
-        self.cache_uri = f"grpc://127.0.0.1:{self.cache_server.port}"
+        self.cache_uri = f"{scheme}://127.0.0.1:{self.cache_server.port}"
 
         if jit_environments is None:
             jit_environments = [local_jit_environment()]
@@ -199,6 +220,7 @@ class LocalCluster:
             cache_reader=self.cache_reader,
             running_task_keeper=self.running_keeper,
             cache_writer=self.shim_cache_writer,
+            servant_scheme=f"{scheme}://",
         )
         self.http = LocalHttpService(
             monitor=LocalTaskMonitor(nprocs=8, pid_prober=lambda p: True),
@@ -238,6 +260,7 @@ class LocalCluster:
             cache_reader=self.cache_reader,
             running_task_keeper=keeper,
             cache_writer=self.shim_cache_writer,
+            servant_scheme=f"{self._scheme}://",
         )
         self._extra.append((delegate, keeper))
         return delegate
