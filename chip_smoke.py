@@ -253,9 +253,36 @@ Phases (any failure exits non-zero without printing the result line):
    TUs (2,000, the tool's default, takes ~2 minutes: its grant wait is
    1-2 s once 32 submissions share the 16 slots) on 4 servants of 4
    slots, 20% duplicates, torch_grouped on the card; (c) its jit sweep of
-   200 modules through the fake worker: no failure, every submission a
+   100 modules (200 until phase 19 came) through the fake worker: no
+   failure, every submission a
    hit, a join or a run, every unique source run, K1 launched, no grant
-   outstanding in the scheduler at the end, (c) deduped.
+   outstanding in the scheduler at the end, (c) deduped;
+19. the hostile-world scenarios and the native client, in process
+   (yadcc_tpu_torch/tools/scenarios.py at full size, torch_grouped on the
+   card): (a) overload-ladder (16 storm threads x 6 tasks against 4
+   slots: the admission ladder reaches REJECT and walks back to NORMAL,
+   no flapping, REJECT p99 <= 250 ms), (b) cell-kill (two federated
+   cells, a warm standby on cell 0 killed mid-spike: spillover before
+   any local-only verdict, the promoted standby's dispatcher
+   torch_grouped on the card and granting, failover within one 3 s
+   keep-alive, no grant issued twice, every straddling lease renewed;
+   at its smoke size, 8 storm threads x 6 tasks: its full size fails
+   its own bound in both packages, see HOSTILE_CARD),
+   (c) spill-affinity (three cells, scored placement through the
+   placement kernel against the least-loaded baseline: >= 1.3x the
+   baseline's post-spill hit rate, placement_score_p99_us printed);
+   every scenario's own SLO checks pass, K1 launches in each, the
+   placement kernel in (c); (d) tools/install_client.py builds the port's
+   native client (yadcc_tpu_torch/native/, the frames of this host's
+   daemon) into yadcc_tpu_torch/_build/native/ and installs a farm whose
+   g++ links to it, then 8 TUs of phase 15's corpus at -O2 go through
+   that g++ against the port's LocalCluster (torch_grouped on the card):
+   every object byte-equal to a local compile, K1 granting the slots, no
+   grant left; the same TUs through the Python client's farm, and the
+   CPU seconds a TU of both clients' process trees printed.
+
+Each kernel's plain version is timed with one call (timed_once) beside
+its comparison; the kernel itself with CUDA events over many calls.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Logs of the scheduler, cache and servant
@@ -620,6 +647,22 @@ def timed(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def timed_once(fn) -> float:
+    """ms of one call of ``fn`` with CUDA events: a plain version's time
+    for the kernels' record.  One call, no warm call and no repeats
+    (``timed`` makes five): the plain versions are no yardstick, and the
+    comparison beside each has already run it on these inputs."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 # Integer operations (32-bit equivalents) that K1's function needs on
 # this data, for its bound: the eligibility test of every slot for each
 # group that grants (alive, env bit, version, requestor, room), and one
@@ -857,7 +900,7 @@ def time_k1(p, pool, groups, pad, reps=50) -> dict:
 
     batch = asg.make_grouped_batch(groups, pad, pool.alive.device)
     ms = timed(lambda: kg.cuda_assign_grouped(pool, batch), reps)
-    plain_ms = timed(lambda: asg.assign_grouped(pool, batch), 3)
+    plain_ms = timed_once(lambda: asg.assign_grouped(pool, batch))
     counts = kg.cuda_assign_grouped(pool, batch)[0].cpu().numpy()
     cost = k1_cost(p, groups, pad)
     check(np.array_equal(cost["counts"], counts),
@@ -942,7 +985,7 @@ def time_kernel(report: list) -> dict:
                  pool, packed, adj, rmask, adj, t_max),
              lambda: asg.assign_grouped_picks_stream(
                  pool, packed, adj, rmask, adj, t_max))):
-        w = dict(ms=timed(kern, 50), plain_ms=timed(plain, 3),
+        w = dict(ms=timed(kern, 50), plain_ms=timed_once(plain),
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         out[name] = w
@@ -970,8 +1013,8 @@ def time_kernel(report: list) -> dict:
     w = dict(
         ms=timed(lambda: kg.cuda_resident_grouped_step(
             rpool, delta, packed, adj, all_reset, run0, t_max), 50),
-        plain_ms=timed(lambda: asg.resident_grouped_step(
-            ppool, delta, packed, adj, all_reset, run0, t_max), 3),
+        plain_ms=timed_once(lambda: asg.resident_grouped_step(
+            ppool, delta, packed, adj, all_reset, run0, t_max)),
         bound_ms=max(r_bytes, r_ops),
         bound_by="bytes" if r_bytes >= r_ops else "operations")
     out["resident_step"] = w
@@ -1285,8 +1328,8 @@ def time_shard_grid(report: list) -> dict:
     ppool = asn.PoolArrays(*(x.clone() for x in pool))
     step_ms = timed(lambda: kg.cuda_resident_control_plane_step(
         kpool, delta, packed, zeros, all_reset, run0, t_max), 20)
-    plain_ms = timed(lambda: asg.resident_control_plane_step(
-        ppool, delta, packed, zeros, all_reset, run0, t_max), 1)
+    plain_ms = timed_once(lambda: asg.resident_control_plane_step(
+        ppool, delta, packed, zeros, all_reset, run0, t_max))
 
     floors = [c["ops"] / (H100_OPS_PER_S / H100_SMS) * 1e3 for c in costs]
     bytes_ms = sum(c["bytes"] for c in costs) / H100_BYTES_PER_S * 1e3
@@ -1433,7 +1476,7 @@ def time_k2(p, pool, tasks, reps=50) -> dict:
     _, work = k2_run(p, pool, tasks)
     batch = k2_batch(tasks, len(tasks), pool.alive.device)
     ms = timed(lambda: ka.cuda_assign_batch(pool, batch), reps)
-    plain_ms = timed(lambda: asn.assign_batch(pool, batch), 3)
+    plain_ms = timed_once(lambda: asn.assign_batch(pool, batch))
     s, t = len(p["alive"]), len(tasks)
     e = pool.env_bitmap.shape[1]
     # The pool read once (alive, capacity, running, dedicated, version,
@@ -2981,8 +3024,8 @@ def compare_bloom_main(report: list) -> dict:
         mem = {
             "ms": timed(lambda: kb.bloom_membership(
                 words, packed, length, seed, num_bits=nb, num_hashes=k), 50),
-            "plain_ms": timed(lambda: bpl.membership_plain(
-                words, packed, length, seed, nb, k), 3),
+            "plain_ms": timed_once(lambda: bpl.membership_plain(
+                words, packed, length, seed, nb, k)),
             "key_bytes": length, "positive_rate": float(want.mean()),
             "probes_per_key": float(per_key.mean()),
             **membership_bound(n, row_bytes, nw, length, per_key),
@@ -3006,8 +3049,8 @@ def compare_bloom_main(report: list) -> dict:
               "cascade != the host OR")
         out["cascade"] = {
             "ms": timed(lambda: kb.bloom_cascade(*cas_args, **cas_geo), 50),
-            "plain_ms": timed(lambda: bpl.cascade_plain(
-                *cas_args, nb, k, FLEET_HASHES), 3),
+            "plain_ms": timed_once(lambda: bpl.cascade_plain(
+                *cas_args, nb, k, FLEET_HASHES)),
             "positive_rate": float(want_c.mean()),
             **cascade_bound(n, row_bytes, nw, length, per_key, per_key_f,
                             ~want),
@@ -3021,7 +3064,8 @@ def compare_bloom_main(report: list) -> dict:
         out["probe"] = {
             "ms": timed(lambda: kb.bloom_probe(words, fps, num_bits=nb,
                                                num_hashes=k), 50),
-            "plain_ms": timed(lambda: bpr.probe_body(words, fps, nb, k), 3),
+            "plain_ms": timed_once(lambda: bpr.probe_body(words, fps, nb,
+                                                          k)),
             **bloom_bound(n * 8 + nw * 4 + n,
                           int(per_key.sum()) * BLOOM_PROBE_OPS),
         }
@@ -3037,8 +3081,8 @@ def compare_bloom_main(report: list) -> dict:
         out["scatter_or"] = {
             "ms": timed(lambda: kb.bloom_scatter_or(
                 empty, mfps, num_bits=nb, num_hashes=k), 50),
-            "plain_ms": timed(lambda: bpr.scatter_add_plain(
-                empty, mfps, nb, k), 3),
+            "plain_ms": timed_once(lambda: bpr.scatter_add_plain(
+                empty, mfps, nb, k)),
             **bloom_bound(n * 8 + 2 * nw * 4, n * k * BLOOM_PROBE_OPS),
         }
     torch.cuda.synchronize()
@@ -3512,8 +3556,8 @@ def time_placement(report: list) -> dict:
         check(np.array_equal(slot.dev_out[:want.size].cpu().numpy(), want),
               f"timed {name} placement")
         floor_ms = timed(lambda: kb.empty_launch(dev), 50)
-        plain_ms = timed(lambda: bpl.placement_score_plain(
-            *args, device=dev, **kw), 10)
+        plain_ms = timed_once(lambda: bpl.placement_score_plain(
+            *args, device=dev, **kw))
         reps = 200
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -3759,10 +3803,22 @@ def run_parked_burst(report: list, repo: pathlib.Path = REPO) -> dict:
         held = {}
         for env, n in (("burst-freed", BURST_FREED_SERVANTS * BURST_SLOTS),
                        ("burst-full", BURST_FULL_SERVANTS * BURST_SLOTS)):
-            resp, _ = ch.call(SERVICE_NAME, "WaitForStartingTask",
-                              ask(env, n, 5000),
-                              sch.WaitForStartingTaskResponse, timeout=30)
-            held[env] = [g.task_grant_id for g in resp.grants]
+            # A reply may carry fewer grants than asked when a servant's
+            # first heartbeat is still staged in the pipelined dispatcher
+            # (12 of 16 once on the card): ask again for the rest.
+            held[env] = []
+            deadline = time.monotonic() + 30.0
+            while len(held[env]) < n and time.monotonic() < deadline:
+                try:
+                    resp, _ = ch.call(SERVICE_NAME, "WaitForStartingTask",
+                                      ask(env, n - len(held[env]), 5000),
+                                      sch.WaitForStartingTaskResponse,
+                                      timeout=30)
+                except RpcError as e:
+                    check(e.status == sch.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
+                          f"{name}: {e!r}")
+                    continue
+                held[env] += [g.task_grant_id for g in resp.grants]
             check(len(held[env]) == n,
                   f"{name}: the filler got {len(held[env])} of {n} on {env}")
         try:
@@ -6029,13 +6085,16 @@ def run_daemon_path(report: list) -> dict:
             port_range = "-".join(f.read().split())
     except OSError:
         port_range = "unknown"
-    shim = REPO / "native" / "libytpufakeroot.so"
+    # The Python client preloads the shim the installer builds beside
+    # the native client (phase 19d builds it, after this phase).
+    shim = next((REPO / "yadcc_tpu_torch" / "_build" / "native").glob(
+        "*/libytpufakeroot.so"), None)
     report.append(
         f"  host: nprocs {nprocs} ({'--allow-poor-machine' if nprocs <= 16 else 'not poor'}), "
         f"/dev/shm {shm / 2**20:,.0f} MiB (not used: workspaces under "
         f"--temporary-dir {SERVANT_DIR}/tmp-<name>); "
         f"g++ {gxx} -> {gxx_real}, digest {gxx_digest[:16]}; "
-        f"fakeroot shim {'present' if shim.exists() else 'absent'}; "
+        f"fakeroot shim {'present' if shim else 'absent'}; "
         f"ephemeral ports {port_range} (none taken from {SYNTHETIC_PORTS.start}-"
         f"{SYNTHETIC_PORTS.stop - 1})")
     includes = servant_includes(gxx)
@@ -7385,7 +7444,7 @@ def pod_sim_gates(res: dict, report: list, dev) -> None:
 
 TOOLS_DRIVE_S = 5.0            # phase 18a's drive, untraced then traced
 SWEEP_TASKS = 300              # phase 18b (the tool's 2,000 take ~2 min)
-SWEEP_JIT_TASKS = 200          # phase 18c's jit sweep
+SWEEP_JIT_TASKS = 100          # phase 18c's jit sweep (200 until phase 19)
 SWEEP_SHAPE = dict(servants=4, concurrency=4, dup_rate=0.2)
 
 
@@ -7549,6 +7608,303 @@ def run_tools_path(report: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the hostile-world scenarios and the native client farm.
+# ---------------------------------------------------------------------------
+
+# (scenario, smoke size): cell-kill runs at its smoke size (8 storm
+# threads x 6 tasks).  At its full size (12 x 10) the JAX package's
+# scenario fails its own local_only_verdicts_max 0 on every policy: 12
+# waiters on cell 0's 2 slots are 6x its capacity, the ladder's
+# LOCAL_ONLY threshold (both packages, PERF.md).
+HOSTILE_CARD = (("overload-ladder", False), ("cell-kill", True),
+                ("spill-affinity", False))
+NATIVE_TUS = 8                 # phase 15's corpus at -O2 through the farm
+NATIVE_DIR = REPO / "smoke_native"
+
+# Runs one client process, its stdout and stderr passed through, and
+# writes its exit code and the CPU seconds of its process tree (the
+# client and the g++ it runs) to argv[1].
+CPU_WRAPPER = (
+    "import json, resource, subprocess, sys\n"
+    "r = subprocess.run(sys.argv[2:])\n"
+    "u = resource.getrusage(resource.RUSAGE_CHILDREN)\n"
+    "open(sys.argv[1], 'w').write(json.dumps("
+    "{'rc': r.returncode, 'cpu_s': u.ru_utime + u.ru_stime}))\n"
+    "sys.exit(r.returncode)\n")
+
+
+def run_scenario_on_card(report: list, name: str, smoke: bool) -> dict:
+    """One scenario of yadcc_tpu_torch/tools/scenarios.py (HOSTILE_CARD's
+    size), torch_grouped on the card; every SLO check must pass and K1
+    must launch (cell-kill: the promoted standby's dispatcher runs
+    torch_grouped on the card too, and grants after the promotion)."""
+    import torch
+
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.testing import federated_cluster
+    from yadcc_tpu_torch.tools import scenarios
+
+    made: list = []
+
+    class Recording(federated_cluster.FederatedCluster):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    rig, federated_cluster.FederatedCluster = \
+        federated_cluster.FederatedCluster, Recording
+    zero_launches()
+    for k in kb.launches:
+        kb.launches[k] = 0
+    t0 = time.perf_counter()
+    try:
+        out = scenarios.run_scenario(name, smoke=smoke,
+                                     policy="torch_grouped", device="cuda")
+    finally:
+        federated_cluster.FederatedCluster = rig
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    launches["placement_score"] = kb.launches["placement_score"]
+    bad = {k: (out.get(k.rsplit("_", 1)[0]), out["slo"][k])
+           for k, ok in out["slo_checks"].items() if not ok}
+    check(out["slo_ok"], f"19 {name}: SLO checks failed "
+                         f"(measured, bound): {bad}")
+    check(launches["grouped_assign"] > 0, f"19 {name}: K1 never launched")
+    measured = {k: out.get(k.rsplit("_", 1)[0]) for k in out["slo"]}
+    line = (f"  19 {name} (torch_grouped on the card, "
+            f"{'smoke' if smoke else 'full'} size, {wall:.1f} s): every SLO "
+            f"check passed "
+            f"{json.dumps(measured)}; K1 launches "
+            f"{launches['grouped_assign']}")
+    if name == "overload-ladder":
+        line += (f"; storm {out['storm_seconds']} s, back to NORMAL "
+                 f"{out['recovery_seconds_after_storm']} s after it, "
+                 f"{out['grant_calls']} grant calls, {out['ok_remote']} "
+                 f"remote / {out['local_fallback']} local")
+    if name == "cell-kill":
+        check(len(made) == 1, "19 cell-kill: no federated rig recorded")
+        promoted = made[0].standby.dispatcher
+        check(promoted is not None, "19 cell-kill: no promoted dispatcher")
+        pol = promoted._policy
+        check(type(pol).__name__ == "TorchGroupedPolicy"
+              and pol._device.type == "cuda",
+              f"19 cell-kill: the promoted dispatcher runs "
+              f"{type(pol).__name__} on {getattr(pol, '_device', None)}")
+        after = promoted.inspect()["stats"]["granted"]
+        check(after > 0, "19 cell-kill: no grant after the promotion")
+        check(out["double_runs"] == 0, "19 cell-kill: a grant issued twice")
+        line += (f"; promoted standby torch_grouped on "
+                 f"{pol._device}, {after} grants after the promotion, "
+                 f"failover {out['failover_time_ms']} ms, 0 double runs")
+    if name == "spill-affinity":
+        check(launches["placement_score"] > 0,
+              "19 spill-affinity: the placement kernel never launched")
+        line += (f"; placement kernel launches "
+                 f"{launches['placement_score']}, scored hit rate "
+                 f"{out['scored_hit_rate']} vs least-loaded "
+                 f"{out['baseline']['post_spill_hit_rate']} (ratio "
+                 f"{out['warm_hit_rate_ratio']}), placement_score_p99_us "
+                 f"{out['placement_score_p99_us']}")
+    report.append(line)
+    torch.cuda.synchronize()
+    return {"out": out, "launches": launches, "seconds": wall}
+
+
+def run_client_build(farm, tus: list, port: int, gxx_dir: str,
+                     tag: str) -> list:
+    """Each TU through ``farm``'s g++ (one client process a TU, all at
+    once, as make -j runs them), its object beside its source as
+    <tag>.o; ``farm`` None runs the host g++ itself (the local
+    reference).  The exit code and the CPU seconds of each run's process
+    tree (the client and the g++ it runs)."""
+    wrapper = NATIVE_DIR / "cpu_wrapper.py"
+    wrapper.write_text(CPU_WRAPPER)
+    path = f"{gxx_dir}:{os.environ['PATH']}"
+    env = dict(os.environ, PATH=f"{farm}:{path}" if farm else path,
+               YTPU_DAEMON_PORT=str(port),
+               YTPU_COMPILE_ON_CLOUD_SIZE_THRESHOLD="1")
+    procs = []
+    for tu in tus:
+        rec = tu.src.with_suffix(f".{tag}.json")
+        obj = tu.src.with_suffix(f".{tag}.o")
+        procs.append((tu, rec, obj, subprocess.Popen(
+            [sys.executable, str(wrapper), str(rec), "g++",
+             *tu.args(obj)], cwd=tu.src.parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+    runs = []
+    for tu, rec, obj, p in procs:
+        out, err = p.communicate(timeout=SERVANT_LIMIT_S)
+        check(p.returncode == 0, f"19d {tag} tu{tu.i}: exit "
+                                 f"{p.returncode}: {err[-800:]!r}")
+        runs.append(dict(json.loads(rec.read_text()), obj=obj))
+    return runs
+
+
+def run_native_farm(report: list, make_s: float) -> dict:
+    """Phase 19d: the port's native client, built on this host into
+    yadcc_tpu_torch/_build/native/ by tools/install_client.py with its
+    fakeroot shim (which the Python client then preloads too, so the two
+    clients' cache keys agree), installed as a farm whose g++ links to
+    it; NATIVE_TUS TUs of phase 15's corpus at -O2 through that g++
+    against the port's LocalCluster (two servants of 4 slots,
+    torch_grouped on the card): every object byte-equal to a local
+    compile, K1 granting the slots.  Then, once the fills have landed
+    and the delegate's reader has synced, the same TUs through the
+    native farm and the Python client's farm (every one a cache hit, so
+    no servant compiles beside them) and the host g++'s
+    -E -fdirectives-only alone, each batch all at once: the clients' CPU
+    seconds a TU, with and without the preprocessing they run.
+    ``make_s``: the build's wall (run_hostile_path runs it on a thread
+    beside the scenarios; here make finds it up to date, or fails the
+    phase)."""
+    import shutil
+
+    from yadcc_tpu_torch.daemon.cloud.cxx_task import shutdown_pack_executor
+    from yadcc_tpu_torch.testing import LocalCluster
+    from yadcc_tpu_torch.tools import install_client
+
+    t0 = time.perf_counter()
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    (NATIVE_DIR / "src").mkdir(parents=True)
+    gxx = shutil.which("g++")
+    check(gxx is not None, "19d: no g++ on this host")
+    gxx_dir = str(pathlib.Path(gxx).resolve().parent)
+    native = install_client._native_client()
+    check(native is not None, "19d: the native client did not build")
+    farm, pyfarm = NATIVE_DIR / "farm", NATIVE_DIR / "pyfarm"
+    install_client.install(str(farm))
+    install_client.install(str(pyfarm), use_python_client=True)
+    built = (REPO / "yadcc_tpu_torch" / "_build" / "native").resolve()
+    link = farm / "g++"
+    check(link.is_symlink() and built in link.resolve().parents,
+          f"19d: the farm's g++ is not a link into {built}: {link}")
+    check((link.resolve().parent / "libytpufakeroot.so").exists(),
+          "19d: no fakeroot shim beside the native client")
+
+    includes = servant_includes(gxx)
+    tus = [tu for tu in servant_tus(includes) if not tu.error][:NATIVE_TUS]
+    for tu in tus:
+        tu.flags = "-O2"
+        tu.src = NATIVE_DIR / "src" / f"tu{tu.i}.cc"
+        tu.write()
+    (NATIVE_DIR / "rig").mkdir()
+    cluster = LocalCluster(NATIVE_DIR / "rig", n_servants=2,
+                           policy="torch_grouped", device="cuda",
+                           servant_concurrency=4, compiler_dirs=[gxx_dir])
+    try:
+        zero_launches()
+        t1 = time.perf_counter()
+        cold = run_client_build(farm, tus, cluster.http.port, gxx_dir,
+                                "native")
+        cold_s = time.perf_counter() - t1
+        launches = read_launches()
+        stats = dict(cluster.delegate.inspect()["stats"])
+        deadline = time.monotonic() + 60
+        while cluster.cache_service.inspect()["fills"] < NATIVE_TUS:
+            check(time.monotonic() < deadline, "19d: fills never landed")
+            time.sleep(0.05)
+        cluster.cache_reader.sync_once()
+        warm = run_client_build(farm, tus, cluster.http.port, gxx_dir,
+                                "warm")
+        warm_stats = {k: v - stats[k] for k, v in
+                      cluster.delegate.inspect()["stats"].items()}
+        py = run_client_build(pyfarm, tus, cluster.http.port, gxx_dir,
+                              "python")
+        py_stats = {k: v - stats[k] - warm_stats[k] for k, v in
+                    cluster.delegate.inspect()["stats"].items()}
+    finally:
+        cluster.stop()
+        shutdown_pack_executor()
+    # Read once the rig has stopped: the delegate's grant keeper holds
+    # spare grants while it runs.
+    outstanding = cluster.sched_dispatcher.inspect()["grants_outstanding"]
+    ref = run_client_build(None, tus, 0, gxx_dir, "ref")
+    for tu in tus:
+        tu.includes = [*includes, "-E", "-fdirectives-only"]
+    pre = run_client_build(None, tus, 0, gxx_dir, "pre")
+    for i, tu in enumerate(tus):
+        want = ref[i]["obj"].read_bytes()
+        for runs in (cold, warm, py):
+            check(runs[i]["obj"].read_bytes() == want,
+                  f"19d tu{tu.i}: {runs[i]['obj'].name} differs from a "
+                  f"local compile")
+    check(launches["grouped_assign"] > 0, "19d: K1 never launched")
+    check(stats["actually_run"] == NATIVE_TUS and stats["failed"] == 0,
+          f"19d: the native build's delegate stats {stats}")
+    for name, st in (("native", warm_stats), ("Python", py_stats)):
+        check(st["hit_cache"] == NATIVE_TUS and st["failed"] == 0,
+              f"19d: the {name} client's cached run {st}")
+    check(outstanding == 0, f"19d: {outstanding} grants left")
+    cpu = {name: sum(r["cpu_s"] for r in runs) / NATIVE_TUS
+           for name, runs in (("native", warm), ("python", py),
+                              ("preprocess", pre))}
+    report.append(
+        f"  19d native client built in {make_s:.2f} s beside 19a-c (frames "
+        f"{install_client.native_frames()}), farm g++ -> "
+        f"{link.resolve().relative_to(REPO)}; {NATIVE_TUS} TUs "
+        f"of phase 15's corpus at -O2 through it in {cold_s:.2f} s: every "
+        f"object byte-equal to a local compile, delegate {stats}, K1 "
+        f"launches {launches['grouped_assign']}, 0 grants outstanding; "
+        f"cached, all {NATIVE_TUS} at once, native and Python clients "
+        f"byte-equal too; CPU seconds a TU of the client's process tree "
+        f"(its g++ -E included): native {cpu['native']:.3f}, Python "
+        f"{cpu['python']:.3f}; g++ -E -fdirectives-only alone "
+        f"{cpu['preprocess']:.3f}, so the client's own "
+        f"{cpu['native'] - cpu['preprocess']:.3f} vs "
+        f"{cpu['python'] - cpu['preprocess']:.3f}")
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    return {"launches": launches, "cpu_s": cpu,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_hostile_path(report: list) -> dict:
+    """Phase 19 (see run_scenario_on_card and run_native_farm)."""
+    import logging
+
+    from yadcc_tpu_torch.tools import install_client
+
+    t0 = time.perf_counter()
+    res = {"launches": {}, "scenarios": {}}
+    # 19d's native build (make, one core) runs beside the scenarios,
+    # which mostly wait on sleeps and RPCs; 19d joins it.
+    make = {}
+
+    def build():
+        t = time.perf_counter()
+        try:
+            install_client.build_native()
+        except RuntimeError:
+            pass   # 19d builds again and fails with make's output
+        make["s"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=build, name="native-make")
+    builder.start()
+    # The rigs' cache servers log a line a fill at INFO.
+    root_log = logging.getLogger()
+    level = root_log.level
+    root_log.setLevel(logging.WARNING)
+    try:
+        for tag, (name, smoke) in zip("abc", HOSTILE_CARD):
+            r = run_scenario_on_card(report, name, smoke)
+            res["scenarios"][name] = r
+            res["launches"][f"phase19{tag}_{name}"] = {
+                k: r["launches"][k] for k in KERNELS}
+            if name == "spill-affinity":
+                res["placement_launches"] = r["launches"]["placement_score"]
+                res["placement_score_p99_us"] = \
+                    r["out"]["placement_score_p99_us"]
+        builder.join()
+        res["native"] = run_native_farm(report, make["s"])
+        res["launches"]["phase19d_native_farm"] = \
+            res["native"]["launches"]
+    finally:
+        builder.join()
+        root_log.setLevel(level)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -7708,6 +8064,15 @@ def main() -> int:
     for line in report:
         log(line)
 
+    report = []
+    hostile = walled("19 hostile", run_hostile_path, report)
+    for name, n in hostile["launches"].items():
+        phases[name] = {"launches": n}
+    log(f"phase 19 the hostile-world scenarios and the native client farm "
+        f"({hostile['seconds']:.1f} s; {card}):")
+    for line in report:
+        log(line)
+
     def by_phase(kernel):
         return {name: r["launches"][kernel] for name, r in phases.items()}
 
@@ -7813,12 +8178,18 @@ def main() -> int:
             for k in ("pack_seconds", "upload_seconds", "kernel_seconds",
                       "end_to_end_seconds")}
         for s in bloom_run["bench"]["sweep"]}
+    place_by = {"phase11_federation": federation["launches"][
+                    "placement_score"],
+                "phase19c_spill_affinity": hostile["placement_launches"]}
     record["kernels"].append({
         "name": "placement_score",
         "route": "cuda",
         "source": "yadcc_tpu_torch/csrc/bloom.cu",
         "replaces": "yadcc_tpu/parallel/mesh.py:698",
-        "launches": federation["launches"]["placement_score"],
+        "launches": sum(place_by.values()),
+        "launches_by_phase": place_by,
+        "spill_affinity_placement_score_p99_us":
+            hostile["placement_score_p99_us"],
         "max_abs_err": 0,
         "ms": place["path"]["ms"],
         "plain_ms": place["path"]["plain_ms"],

@@ -204,9 +204,13 @@ def _source(rng: random.Random, i: int) -> str:
     return "\n".join(lines) + "\n"
 
 
-@pytest.mark.skipif(GXX is None, reason="no g++ on PATH")
-@pytest.mark.parametrize("seed", range(3))
-def test_rewrite_file_alike(seed, tmp_path, monkeypatch):
+def _rewrite_file_alike(seed, tmp_path, monkeypatch, shim):
+    """Both packages' rewrite_file on the same TUs with the same fakeroot
+    shim (or none): each package looks for its own shim (the JAX
+    package's in native/, the port's in _build/native/), so the test
+    hands both the same one."""
+    for rw in (jrewrite, trewrite):
+        monkeypatch.setattr(rw, "_fakeroot_path", lambda: shim)
     monkeypatch.chdir(tmp_path)
     rng = random.Random(seed)
     for i in range(3):
@@ -228,6 +232,33 @@ def test_rewrite_file_alike(seed, tmp_path, monkeypatch):
     argv = ["gcc", "-c", "bad.c", "-o", "bad.o"]
     assert trewrite.rewrite_file(targs.CompilerArgs.parse(argv), GXX) is None
     assert jrewrite.rewrite_file(jargs.CompilerArgs.parse(argv), GXX) is None
+
+
+@pytest.mark.skipif(GXX is None, reason="no g++ on PATH")
+@pytest.mark.parametrize("seed", range(3))
+def test_rewrite_file_alike(seed, tmp_path, monkeypatch):
+    _rewrite_file_alike(seed, tmp_path, monkeypatch, None)
+
+
+@pytest.mark.skipif(GXX is None, reason="no g++ on PATH")
+def test_rewrite_file_alike_with_the_shim(tmp_path, monkeypatch):
+    """With the port's fakeroot shim preloaded in both packages (the
+    installer builds it beside the native client): the headers under the
+    compiler's root read /ytpu/compiler, the bytes still alike."""
+    from yadcc_tpu_torch.tools import install_client
+
+    try:
+        out = install_client.build_native(("fakeroot",))
+    except RuntimeError as e:
+        pytest.skip(f"native toolchain unavailable: {str(e)[-400:]}")
+    shim = str(out / "libytpufakeroot.so")
+    assert trewrite._fakeroot_path() == shim
+    _rewrite_file_alike(0, tmp_path, monkeypatch, shim)
+    (tmp_path / "h.c").write_text("#include <stddef.h>\nint x;\n")
+    argv = ["gcc", "-c", "h.c", "-o", "h.o"]
+    r = trewrite.rewrite_file(targs.CompilerArgs.parse(argv), GXX)
+    text = tcompress.decompress(r.compressed_source.join())
+    assert b"/ytpu/compiler" in text
 
 
 def _through_writers(compress_mod, hashing_mod, chunks) -> tuple:

@@ -76,9 +76,14 @@ _CLIENT_MODULES = (
 # The S3 engine, the trace prefetcher and the scheduler's scale harnesses.
 _SCALE_MODULES = ("cache.s3_backend", "cache.prefetcher",
                   "tools.trace_replay", "tools.pod_sim")
-# Lock-order tracing, the interleaving explorer and the cluster sweep.
+# Lock-order tracing, the interleaving explorer and the cluster sweep;
+# the federated rig, the hostile-world matrix, the front-end and data
+# plane benches and the client installer.
 _TOOL_MODULES = ("utils.locktrace", "testing.interleave",
-                 "tools.cluster_sim")
+                 "tools.cluster_sim", "testing.federated_cluster",
+                 "tools.scenarios", "tools.rpc_frontend_bench",
+                 "tools._dataplane_legacy", "tools.dataplane_bench",
+                 "tools.install_client")
 # The jit, AOT and autotune workloads, each by name; none loads torch.
 _JIT_MODULES = (
     "api.gen.jit_pb2", "api.gen.fanout_pb2", "jit", "jit.env",
@@ -710,3 +715,81 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     assert kg.launches == before
     assert torch.equal(counts, want_c) and torch.equal(running, want_r)
     assert int(counts.sum()) == 10
+
+
+# Each host-only tool as a program, with torch, jax and the JAX package
+# blocked: a tool that drives only host programs loads no torch.
+_HOST_TOOL_RUNS = {
+    "scenarios_noisy_neighbor": (
+        "yadcc_tpu_torch.tools.scenarios",
+        ["--scenario", "noisy-neighbor", "--policy", "greedy_cpu",
+         "--device", "cpu", "--smoke"], '"all_slo_ok": true'),
+    "rpc_frontend_parity": (
+        "yadcc_tpu_torch.tools.rpc_frontend_bench", ["--parity-smoke"],
+        '"parity_smoke": "ok"'),
+    "dataplane_smoke": (
+        "yadcc_tpu_torch.tools.dataplane_bench", ["--smoke"],
+        "dataplane parity OK"),
+    "install_client_python": (
+        "yadcc_tpu_torch.tools.install_client",
+        ["--python-client", "{tmp}/pyfarm"], "python client wrappers"),
+    "install_client_native": (
+        "yadcc_tpu_torch.tools.install_client", ["{tmp}/farm"],
+        "quota wrappers"),
+}
+
+
+@pytest.mark.parametrize("run", sorted(_HOST_TOOL_RUNS))
+def test_host_tool_loads_no_torch(run, tmp_path):
+    module, argv, want = _HOST_TOOL_RUNS[run]
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    script = textwrap.dedent(f"""
+        import runpy, sys
+        for name in ("torch", "jax", "jaxlib", "yadcc_tpu"):
+            sys.modules[name] = None
+        sys.argv = [{module!r}] + {argv!r}
+        try:
+            runpy.run_module({module!r}, run_name="__main__")
+        except SystemExit as e:
+            assert not e.code, e.code
+        loaded = sorted(n for n in sys.modules if sys.modules[n] is not None
+                        and n.split(".")[0] in ("torch", "jax", "yadcc_tpu"))
+        assert not loaded, loaded
+        print("NO_TORCH_OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert want in out.stdout and "NO_TORCH_OK" in out.stdout
+
+
+def test_federated_rig_runs_without_jax_on_the_cpu():
+    """The federated rig runs the port's scheduler (whose policy module
+    imports torch, as testing/local_cluster.py's does): with jax and the
+    JAX package blocked it boots two cells and a standby on greedy_cpu,
+    promotes the standby after a kill, and never touches a card."""
+    script = textwrap.dedent(r"""
+        import sys
+        for name in ("jax", "jaxlib", "yadcc_tpu"):
+            sys.modules[name] = None
+        from yadcc_tpu_torch.testing import FederatedCluster
+        rig = FederatedCluster(2, policy="greedy_cpu", device="cpu",
+                               heartbeat_ms=300)
+        try:
+            rig.arm_monitor(silence_s=0.3)
+            rig.kill_active()
+            assert rig.wait_promoted(15.0)
+            assert type(rig.standby.dispatcher._policy).__name__ ==                 "GreedyCpuPolicy"
+        finally:
+            rig.stop()
+        import torch
+        assert not torch.cuda.is_initialized()
+        assert not any(n.startswith(("jax", "yadcc_tpu."))
+                       for n in sys.modules if sys.modules[n] is not None)
+        print("RIG_OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "RIG_OK" in out.stdout

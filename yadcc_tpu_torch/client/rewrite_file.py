@@ -6,8 +6,10 @@ Parity with reference yadcc/client/cxx/rewrite_file.cc:75-182: run
 preprocessing is ~4x faster and keeps macros unexpanded for better cache
 hits), streaming stdout simultaneously into the compressor and the
 content digest; fall back to plain -E when the compiler rejects
--fdirectives-only.  When the fakeroot preload library
-(native/libytpufakeroot.so, built from native/fakeroot.c) is present it
+-fdirectives-only.  When the port's fakeroot preload library
+(libytpufakeroot.so, which tools/install_client.py builds from
+native/fakeroot.c beside the native client in _build/native/<frames>/)
+is present it
 is injected so compiler-install-dependent include paths in linemarkers
 become machine-independent (higher cache hit rates across hosts); when
 it is missing or the dynamic linker refuses it, preprocessing runs
@@ -95,13 +97,17 @@ def _note_shim(msg: str) -> None:
 
 
 def _fakeroot_path() -> Optional[str]:
-    """The LD_PRELOAD shim (built from native/fakeroot.c); optional."""
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    cand = os.path.join(here, "native", "libytpufakeroot.so")
-    if os.path.exists(cand):
-        return cand
-    _note_shim(f"no fakeroot shim at {cand}; preprocessing without it")
+    """The LD_PRELOAD shim the installer built beside the native client
+    (the same for either frames); optional.  The native client preloads
+    the one beside it, so with both clients on a host their preprocessed
+    bytes, and so their cache keys, agree."""
+    build = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "_build", "native")
+    for frames in ("zstd", "zlib"):
+        cand = os.path.join(build, frames, "libytpufakeroot.so")
+        if os.path.exists(cand):
+            return cand
+    _note_shim(f"no fakeroot shim under {build}; preprocessing without it")
     return None
 
 

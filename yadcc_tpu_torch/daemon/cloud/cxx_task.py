@@ -81,6 +81,12 @@ class _PackExecutor:
 _PACK_EXECUTOR = _PackExecutor()
 
 
+def _decompress_and_digest(data) -> Tuple[bytes, str]:
+    """Module-level seam: the fused single-pass source intake (swapped
+    for the two-pass legacy path in tools/dataplane_bench.py's A/B)."""
+    return compress.decompress_and_digest(data)
+
+
 def shutdown_pack_executor() -> None:
     """Join the shared pack pool's threads (the servant's stop)."""
     _PACK_EXECUTOR.shutdown()
@@ -148,7 +154,7 @@ class CloudCxxCompilationTask:
         # re-scanning all of it for the digest (the attachment arrives
         # as a view into the RPC frame — no copy on the way in either).
         try:
-            src, self.source_digest = compress.decompress_and_digest(
+            src, self.source_digest = _decompress_and_digest(
                 compressed_source)
         except (compress.CompressionError, MemoryError, ValueError):
             # zstd, or the zlib frames of a host without the zstd wheel

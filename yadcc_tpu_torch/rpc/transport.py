@@ -149,6 +149,14 @@ def decode_frame_views(data) -> Tuple[int, memoryview, memoryview]:
     return status, mv[off:off + meta_len], mv[off + meta_len:]
 
 
+def decode_frame(data: bytes) -> Tuple[int, bytes, bytes]:
+    """Copying decode (the pre-zero-copy form, kept for the data plane's
+    A/B in tools/dataplane_bench.py): meta and attachment are slices."""
+    status, meta_len = _HEADER.unpack_from(data)
+    off = _HEADER.size
+    return status, data[off : off + meta_len], data[off + meta_len :]
+
+
 # Per-thread duration of the last dispatch_frame call (decode + handler
 # + serialize), in seconds.  An in-process transport (mock://) runs the
 # server on the caller's thread, so the client can subtract this from

@@ -5,7 +5,9 @@ workloads (every servant serves an explicit jit environment), the
 control-plane servers on either RPC front end (``rpc_frontend``,
 ``accept_loops``), the delegate's HTTP on either front end
 (``http_frontend``), the disk L2, extra delegates
-(``make_extra_delegate``)).
+(``make_extra_delegate``), the scheduler's admission ladder
+(``admission_config``) and the cache-restart chaos hook
+(``restart_cache_server``, tools/scenarios.py)).
 
 It boots the REAL services over real loopback RPC — the port's
 scheduler (its policy on ``device``), cache server, N servant daemons,
@@ -151,6 +153,7 @@ class LocalCluster:
         servant_concurrency: int = 4,
         compiler_dirs: Optional[List[str]] = None,
         http_frontend: Optional[str] = None,
+        admission_config=None,
         # "aio" boots every control-plane server (scheduler, cache,
         # servants) on the event-loop front end with aio:// dialing, and
         # the delegate's HTTP on the aio HTTP server unless
@@ -175,7 +178,7 @@ class LocalCluster:
         self.sched_dispatcher = TaskDispatcher(
             make_policy(policy, avoid_self=False, device=device),
             max_servants=max(16, n_servants), max_envs=64,
-            batch_window_s=0.0)
+            batch_window_s=0.0, admission_config=admission_config)
         self.sched = SchedulerService(self.sched_dispatcher)
         self.sched_server = make_rpc_server(self.rpc_frontend,
                                             "127.0.0.1:0",
@@ -247,6 +250,23 @@ class LocalCluster:
         if len(self.sched_dispatcher.inspect()["servants"]) != n_servants:
             self.stop()
             raise RuntimeError("servants failed to register")
+
+    def restart_cache_server(self, down_for_s: float = 0.0) -> None:
+        """Chaos hook (tools/scenarios.py, cache-restart scenario):
+        stop the cache server's listener, optionally stay dark, then
+        serve the SAME engines again on the SAME port — a cache-server
+        crash/upgrade mid-build.  Readers and writers are expected to
+        ride it out: compiles proceed, hit rate drops, nothing errors
+        to clients."""
+        port = self.cache_server.port
+        self.cache_server.stop(grace=0)
+        if down_for_s > 0:
+            time.sleep(down_for_s)
+        self.cache_server = make_rpc_server(self.rpc_frontend,
+                                            f"127.0.0.1:{port}",
+                                            accept_loops=self.accept_loops)
+        self.cache_server.add_service(self.cache_service.spec())
+        self.cache_server.start()
 
     def make_extra_delegate(self) -> DistributedTaskDispatcher:
         """A second delegate, as another build machine runs one: its own

@@ -47,6 +47,8 @@ child resolutions that did NOT cost a servant compile), and explicit
 
 `--clients N` (the connection storm), `--servant-park N` and
 `--steal-ab N` price the front ends and the loop-native steal path.
+`--scenario NAME|all` runs the hostile-world matrix instead
+(tools/scenarios.py).
 The module imports no torch at the top: the storm's server subprocess
 (`_storm_server_main`) prices only the delegate's front end and must
 not load it.
@@ -1566,12 +1568,28 @@ def main(argv=None) -> int:
                     help="steal-storm A/B mode: N hot-shard requests "
                          "through the blocking vs loop-native steal "
                          "path; reports thread occupancy of each arm")
+    ap.add_argument("--scenario", default="",
+                    help="run a hostile-world scenario (or 'all') "
+                         "instead of the friendly sweep: one of "
+                         "tools/scenarios.py's SCENARIO_NAMES, with "
+                         "--smoke, --out, --policy and --device passed "
+                         "through; exits 1 on any SLO miss")
     ap.add_argument("--out", default="",
                     help="write the JSON report here")
     ap.add_argument("--smoke", action="store_true",
                     help="gate: small run; exit 1 on any failure or, "
                          "for jit, if dedup never engaged")
     args = ap.parse_args(argv)
+    if args.scenario:
+        from . import scenarios
+
+        sargv = ["--scenario", args.scenario, "--policy", args.policy,
+                 "--device", args.device]
+        if args.smoke:
+            sargv.append("--smoke")
+        if args.out:
+            sargv += ["--out", args.out]
+        return scenarios.main(sargv)
     if args.servant_park:
         out = run_servant_park(args.servant_park)
         print(json.dumps(out, indent=2))

@@ -75,6 +75,7 @@ from __future__ import annotations
 import argparse
 import heapq
 import json
+import math
 import queue
 import threading
 import time
@@ -183,6 +184,11 @@ class PodSim:
         # scheduler's stage percentiles.
         self.arrival_rate = arrival_rate
         self.pump_batch = max(1, pump_batch)
+        # Pump-rig pacing: aggregate grant-call rate across pumps
+        # (0 = flood).  A latency instrument must run BELOW saturation
+        # or it measures queueing, not the path.
+        self.rig_call_rate = 0.0
+        self._pump_phase_seq = 0  # guarded by: self.need_lock
         # Pump-rig mode: the pump itself frees its grants and returns
         # the demand (no binder/free thread = no GIL ping-pong per
         # grant batch on the measured path).
@@ -460,7 +466,30 @@ class PodSim:
         from ..rpc import transport as rpc_transport
 
         rng = random.Random(threading.get_ident() ^ id(self))
+        period = (self.n_pumps / self.rig_call_rate
+                  if self.rig_call_rate > 0 else 0.0)
+        # Phase-spread across pumps, EQUALLY: paced pumps with fixed
+        # periods keep their relative phases all run long, so two
+        # pumps that start near each other collide on every single
+        # call (the whole run's p50 doubles) — deterministic 1/N
+        # spacing is the only clustering-free assignment.
+        with self.need_lock:
+            pump_idx = self._pump_phase_seq
+            self._pump_phase_seq += 1
+        next_at = time.monotonic() + period * pump_idx / max(
+            1, self.n_pumps)
         while not self._stop.is_set():
+            if period > 0.0:
+                ahead = next_at - time.monotonic()
+                if ahead > 0:
+                    time.sleep(ahead)
+                next_at += period
+                behind = time.monotonic() - next_at
+                if behind > 0:
+                    # Overran: skip the missed slots but KEEP the 1/N
+                    # phase — resetting to "now" would let this pump
+                    # drift into a permanent collision with another.
+                    next_at += period * math.ceil(behind / period)
             with self.need_lock:
                 n = min(self.need, self.pump_batch)
                 if n > 0:
@@ -580,7 +609,27 @@ class PodSim:
 
         rng = random.Random()
         target = f"127.0.0.1:{self._rpc_server.port}"
+        period = (self.n_pumps / self.rig_call_rate
+                  if self.rig_call_rate > 0 else 0.0)
+        # Equal 1/N phase spacing — see _grant_pump: with fixed
+        # periods, randomly-clustered phases collide on EVERY call for
+        # the whole run.
+        with self.need_lock:
+            pump_idx = self._pump_phase_seq
+            self._pump_phase_seq += 1
+        next_at = _t.monotonic() + period * pump_idx / max(
+            1, self.n_pumps)
         while not self._stop.is_set():
+            if period > 0.0:
+                ahead = next_at - _t.monotonic()
+                if ahead > 0:
+                    await asyncio.sleep(ahead)
+                next_at += period
+                behind = _t.monotonic() - next_at
+                if behind > 0:
+                    # Overran: skip missed slots, KEEP the 1/N phase
+                    # (see _grant_pump).
+                    next_at += period * math.ceil(behind / period)
             with self.need_lock:
                 n = min(self.need, self.pump_batch)
                 if n > 0:
@@ -785,6 +834,7 @@ class PodSim:
     # -- pump rig (grant-path latency instrument) ----------------------------
 
     def run_pump_rig(self, calls: int, demand: int,
+                     call_rate: float = 0.0,
                      time_limit_s: float = 300.0,
                      warmup_s: float = 2.0) -> dict:
         """The grant-path latency instrument: steady grant
@@ -804,6 +854,7 @@ class PodSim:
         # client-observed tail on a 1-core box.
         prev_switch = _sys.getswitchinterval()
         _sys.setswitchinterval(0.0002)
+        self.rig_call_rate = call_rate
         self._rig_inline_free = True
         # Chunks BELOW the dispatcher's staged-heartbeat flush
         # threshold (64): a chunk that hits it makes the hb thread
@@ -885,6 +936,7 @@ class PodSim:
             "frontend": self.frontend,
             "servants": len(self.servant_running),
             "demand": demand,
+            "call_rate": call_rate,
             "grant_calls_per_sec": round(self.grant_calls / wall, 1),
             "pumps": self.n_pumps,
             "pump_batch": self.pump_batch,
@@ -1656,7 +1708,8 @@ def run_pump_rig_one(args) -> dict:
                  pump_batch=args.pump_batch,
                  frontend=args.frontend,
                  device=args.device)
-    return sim.run_pump_rig(args.rig_calls, args.rig_demand)
+    return sim.run_pump_rig(args.rig_calls, args.rig_demand,
+                            call_rate=args.rig_rate)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -1714,6 +1767,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="pump-rig: grant calls to record")
     ap.add_argument("--rig-demand", type=int, default=256,
                     help="pump-rig: steady outstanding grant demand")
+    ap.add_argument("--rig-rate", type=float, default=0.0,
+                    help="pump-rig: aggregate grant calls/s across "
+                         "pumps (0 = flood; a latency claim needs a "
+                         "below-saturation rate)")
     ap.add_argument("--device-resident", action="store_true",
                     help="fused device-resident control plane (one "
                          "launch of K1 over a grid of shards a sweep): "
