@@ -7,7 +7,10 @@
 # 5 (torch_batched, every grant through K2) to every turn, with its
 # policy stage split into K2's share (K2 launches a cycle x K2's time on
 # two runs of 128 on the serving-like pool, timed in the same turn) and
-# the rest.  A first argument --burst runs phase 12's burst of 2,000
+# the rest.  --resident adds phase 6 (torch_resident_grouped, pipeline
+# depth 16, K1 on the device-resident pool) the same way; --batched and
+# --resident together give phases 3-6.  A first argument --burst runs
+# phase 12's burst of 2,000
 # parked waits instead, with this checkout's rig (chip_smoke.py) in every
 # turn and only the scheduler entry taken from the turn's checkout, and
 # prints one "AB {json}" line a turn with the park time, the burst's time
@@ -19,17 +22,26 @@
 #     git archive <parent commit> | tar -x -C .verify_scratch/parent
 #     bash chip_ab.sh                      # or: bash chip_ab.sh parent change ...
 #     bash chip_ab.sh --batched            # phases 3-5
+#     bash chip_ab.sh --batched --resident # phases 3-6
 #     bash chip_ab.sh --burst              # phase 12's burst
 #
-# Each run prints the phases' report lines and one "AB {json}" line,
+# Each run prints the phases' report lines and one "AB {json}" line
+# (each phase's grants/s, p50/p99, policy stage and wall seconds),
 # prefixed with the turn's name.
 set -e
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 ROOT=$(pwd)
 BATCHED=0
+RESIDENT=0
 BURST=0
-if [ "${1:-}" = --batched ]; then BATCHED=1; shift; fi
-if [ "${1:-}" = --burst ]; then BURST=1; shift; fi
+while [ "${1:-}" = --batched ] || [ "${1:-}" = --resident ] || [ "${1:-}" = --burst ]; do
+  case "$1" in
+    --batched) BATCHED=1 ;;
+    --resident) RESIDENT=1 ;;
+    --burst) BURST=1 ;;
+  esac
+  shift
+done
 TURNS=("$@")
 [ ${#TURNS[@]} -gt 0 ] || TURNS=(parent change change parent)
 for which in "${TURNS[@]}"; do
@@ -50,19 +62,22 @@ print("AB", json.dumps(out), flush=True)
 PY
   continue
   fi
-  (cd $dir && AB_BATCHED=$BATCHED python3 - <<'PY'
-import json, os, sys
+  (cd $dir && AB_BATCHED=$BATCHED AB_RESIDENT=$RESIDENT python3 - <<'PY'
+import json, os, sys, time
 sys.path.insert(0, ".")
 import chip_smoke as c
-phases = [("pipelined", [], 1), ("synchronous", ["--dispatch-pipeline-depth", "0"], 2)]
+phases = [("pipelined", [], 1, {}), ("synchronous", ["--dispatch-pipeline-depth", "0"], 2, {})]
 if os.environ["AB_BATCHED"] == "1":
-    phases.append(("batched", ["--dispatch-policy", "torch_batched"], 3))
+    phases.append(("batched", ["--dispatch-policy", "torch_batched"], 3, {"kernel": "assign_batch"}))
+if os.environ["AB_RESIDENT"] == "1":
+    phases.append(("resident", ["--dispatch-policy", "torch_resident_grouped", "--dispatch-pipeline-depth", "16"], 4, {"min_grants": c.RESIDENT_MIN_GRANTS}))
 out = {}
-for name, args, seed in phases:
+for name, args, seed, kw in phases:
     r = []
-    kernel = "assign_batch" if name == "batched" else "grouped_assign"
-    res = c.run_main_path(name, args, c.Fleet(seed=seed), r, kernel=kernel)
+    t0 = time.perf_counter()
+    res = c.run_main_path(name, args, c.Fleet(seed=seed), r, **kw)
     out[name] = {k: res[k] for k in ("grants_per_s", "p50_ms", "p99_ms", "register_s", "launches")}
+    out[name]["wall_s"] = time.perf_counter() - t0
     head = f"  {name} dispatcher stages: "
     stages = json.loads(next(x for x in r if x.startswith(head))[len(head):])
     out[name]["policy"] = stages["policy"]

@@ -279,7 +279,17 @@ Phases (any failure exits non-zero without printing the result line):
    that g++ against the port's LocalCluster (torch_grouped on the card):
    every object byte-equal to a local compile, K1 granting the slots, no
    grant left; the same TUs through the Python client's farm, and the
-   CPU seconds a TU of both clients' process trees printed.
+   CPU seconds a TU of both clients' process trees printed;
+20. the static analyzer, the proto builder and the torch-free host path,
+   in one subprocess with torch and jax blocked (sys.modules[...] =
+   None), started before phase 18 and joined after phase 19: the port's
+   analyzer over yadcc_tpu_torch/ (--no-cache --stats
+   --strict-suppressions: no unsuppressed finding, each family's ms
+   printed), `python -m yadcc_tpu_torch.api.build_protos --check` (every
+   pure-built module byte-identical), and cell-kill at its smoke size on
+   greedy_cpu (its SLO checks pass, the standby promoted, no double
+   run); the phase fails on any finding, any drift, or torch or jax in
+   the subprocess's modules.
 
 Each kernel's plain version is timed with one call (timed_once) beside
 its comparison; the kernel itself with CUDA events over many calls.
@@ -7905,6 +7915,99 @@ def run_hostile_path(report: list) -> dict:
     return res
 
 
+# Phase 20's subprocess: torch and jax blocked before anything is imported.
+HOST_PATH_SCRIPT = r"""
+import contextlib, io, json, sys, tempfile, time
+for name in ("torch", "jax", "jaxlib", "yadcc_tpu"):
+    sys.modules[name] = None
+from yadcc_tpu_torch.analysis.__main__ import main as analyze
+from yadcc_tpu_torch.api import build_protos
+from yadcc_tpu_torch.tools.scenarios import run_scenario
+
+out = {}
+t = time.perf_counter()
+with tempfile.NamedTemporaryFile(suffix=".json") as rep:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["analyze_rc"] = analyze(["yadcc_tpu_torch", "--no-cache",
+                                     "--stats", "--strict-suppressions",
+                                     "--json", rep.name])
+    out["analyze_s"] = time.perf_counter() - t
+    out["analyze_lines"] = [x for x in buf.getvalue().splitlines()
+                            if "[" in x or x.startswith("ytpu-analyze")]
+    out["stats"] = json.load(open(rep.name))["stats"]
+t = time.perf_counter()
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+    out["check_rc"] = build_protos.check_pure()
+out["check_lines"] = buf.getvalue().splitlines()
+out["check_s"] = time.perf_counter() - t
+t = time.perf_counter()
+r = run_scenario("cell-kill", True, policy="greedy_cpu", device="cpu")
+out["cell_kill"] = {k: r[k] for k in (
+    "slo_ok", "slo_checks", "promoted", "double_runs", "grants_issued",
+    "failover_time_ms", "compile_success_rate", "spilled_grants_stamped")}
+out["cell_kill_s"] = time.perf_counter() - t
+out["loaded"] = sorted(n for n in sys.modules if sys.modules[n] is not None
+                       and n.split(".")[0] in ("torch", "jax", "jaxlib",
+                                               "yadcc_tpu"))
+print("PHASE20 " + json.dumps(out), flush=True)
+"""
+
+
+def start_host_path() -> subprocess.Popen:
+    """Phase 20's subprocess, started while the card-bound phases 18-19
+    run (its work is host CPU and loopback RPC only)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", HOST_PATH_SCRIPT], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def join_host_path(proc: subprocess.Popen, report: list) -> dict:
+    """Phase 20: join the subprocess and hold its results."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    line = next((x for x in stdout.splitlines()
+                 if x.startswith("PHASE20 ")), None)
+    check(proc.returncode == 0 and line is not None,
+          f"20: the subprocess failed (rc {proc.returncode}): "
+          f"{stderr[-2000:]}")
+    r = json.loads(line[len("PHASE20 "):])
+    st = r["stats"]
+    check(not r["loaded"], f"20: the host path loaded {r['loaded']}")
+    check(r["analyze_rc"] == 0 and st["findings"] == 0,
+          "20: analyzer findings: " + "; ".join(r["analyze_lines"][-20:]))
+    check(r["check_rc"] == 0,
+          "20: build_protos --check drift: " + "; ".join(r["check_lines"]))
+    ck = r["cell_kill"]
+    check(ck["slo_ok"], f"20: cell-kill on greedy_cpu: {ck['slo_checks']}")
+    check(ck["promoted"] == 1 and ck["double_runs"] == 0,
+          f"20: cell-kill promoted {ck['promoted']}, double runs "
+          f"{ck['double_runs']}")
+    fam = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(
+        st["timings"].items(), key=lambda kv: -kv[1]))
+    report.append(
+        f"  20a analyzer over yadcc_tpu_torch/ (torch and jax blocked): "
+        f"{st['files_analyzed']} files, {st['findings']} findings, "
+        f"{st['suppressed']} suppressed, strict; {r['analyze_s']:.2f} s "
+        f"wall; families (ms): {fam}")
+    report.append(
+        f"  20b build_protos --check: rc {r['check_rc']} in "
+        f"{r['check_s']:.2f} s: " + "; ".join(r["check_lines"]))
+    report.append(
+        f"  20c cell-kill (smoke size) on greedy_cpu without torch: slo_ok "
+        f"{ck['slo_ok']}, promoted {ck['promoted']}, double runs "
+        f"{ck['double_runs']}, {ck['grants_issued']} grants, failover "
+        f"{ck['failover_time_ms']} ms, {ck['spilled_grants_stamped']} "
+        f"spilled, in {r['cell_kill_s']:.2f} s; modules loaded of torch, "
+        f"jax, the JAX package: none")
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -8055,21 +8158,35 @@ def main() -> int:
     for line in jit["lines"]:
         log(line)
 
-    report = []
-    tools = walled("18 tools", run_tools_path, report)
-    for name, n in tools["launches"].items():
-        phases[name] = {"launches": n}
-    log(f"phase 18 lock-order tracing and the cluster sweep "
-        f"({tools['seconds']:.1f} s; {card}):")
-    for line in report:
-        log(line)
+    host_path = start_host_path()
+    try:
+        report = []
+        tools = walled("18 tools", run_tools_path, report)
+        for name, n in tools["launches"].items():
+            phases[name] = {"launches": n}
+        log(f"phase 18 lock-order tracing and the cluster sweep "
+            f"({tools['seconds']:.1f} s; {card}):")
+        for line in report:
+            log(line)
+
+        report = []
+        hostile = walled("19 hostile", run_hostile_path, report)
+        for name, n in hostile["launches"].items():
+            phases[name] = {"launches": n}
+        log(f"phase 19 the hostile-world scenarios and the native client "
+            f"farm ({hostile['seconds']:.1f} s; {card}):")
+        for line in report:
+            log(line)
+    except BaseException:
+        host_path.kill()
+        host_path.communicate()
+        raise
 
     report = []
-    hostile = walled("19 hostile", run_hostile_path, report)
-    for name, n in hostile["launches"].items():
-        phases[name] = {"launches": n}
-    log(f"phase 19 the hostile-world scenarios and the native client farm "
-        f"({hostile['seconds']:.1f} s; {card}):")
+    walled("20 join", join_host_path, host_path, report)
+    log(f"phase 20 the static analyzer, build_protos and the torch-free "
+        f"host path (subprocess started before phase 18; join "
+        f"{WALLS['20 join']:.2f} s):")
     for line in report:
         log(line)
 

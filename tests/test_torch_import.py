@@ -84,6 +84,16 @@ _TOOL_MODULES = ("utils.locktrace", "testing.interleave",
                  "tools.scenarios", "tools.rpc_frontend_bench",
                  "tools._dataplane_legacy", "tools.dataplane_bench",
                  "tools.install_client")
+# The static analyzer, the proto builder and the scheduler's torch-free
+# host modules, each by name.
+_ANALYSIS_MODULES = (
+    "analysis", "analysis.__main__", "analysis.core", "analysis.minitoml",
+    "analysis.cache", "analysis.sarif", "analysis.lockrules",
+    "analysis.device_sync", "analysis.jit_hygiene", "analysis.taint",
+    "analysis.lifecycle", "analysis.replproto", "analysis.asyncproto",
+    "analysis.wirecompat", "api.build_protos", "ops.greedy",
+    "ops.bloom_pack", "scheduler.host_policy", "scheduler.placement_host",
+    "scheduler.routed")
 # The jit, AOT and autotune workloads, each by name; none loads torch.
 _JIT_MODULES = (
     "api.gen.jit_pb2", "api.gen.fanout_pb2", "jit", "jit.env",
@@ -140,7 +150,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
                      "yadcc_tpu_torch.scheduler.device_pool") + tuple(
                 "yadcc_tpu_torch." + m
                 for m in BLOOM + SHARD + REPL + AIO + CACHE + SERVANT
-                + DELEGATE + RIG + CLIENT + SCALE + JIT + TOOLS):
+                + DELEGATE + RIG + CLIENT + SCALE + JIT + TOOLS
+                + ANALYSIS):
             assert name in names, name
             importlib.import_module(name)
         import chip_bloom_probe, chip_cache_probe  # noqa: F401
@@ -174,7 +185,8 @@ def test_every_module_imports_with_jax_and_jax_package_blocked():
               f"CLIENT = {_CLIENT_MODULES!r}\n"
               f"SCALE = {_SCALE_MODULES!r}\n"
               f"JIT = {_JIT_MODULES!r}\n"
-              f"TOOLS = {_TOOL_MODULES!r}\n" + script)
+              f"TOOLS = {_TOOL_MODULES!r}\n"
+              f"ANALYSIS = {_ANALYSIS_MODULES!r}\n" + script)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -765,13 +777,13 @@ def test_host_tool_loads_no_torch(run, tmp_path):
 
 
 def test_federated_rig_runs_without_jax_on_the_cpu():
-    """The federated rig runs the port's scheduler (whose policy module
-    imports torch, as testing/local_cluster.py's does): with jax and the
-    JAX package blocked it boots two cells and a standby on greedy_cpu,
-    promotes the standby after a kill, and never touches a card."""
+    """The federated rig runs the port's scheduler on its host path: with
+    torch, jax and the JAX package blocked it boots two cells and a
+    standby on greedy_cpu, promotes the standby after a kill, and loads
+    none of them."""
     script = textwrap.dedent(r"""
         import sys
-        for name in ("jax", "jaxlib", "yadcc_tpu"):
+        for name in ("torch", "jax", "jaxlib", "yadcc_tpu"):
             sys.modules[name] = None
         from yadcc_tpu_torch.testing import FederatedCluster
         rig = FederatedCluster(2, policy="greedy_cpu", device="cpu",
@@ -783,9 +795,7 @@ def test_federated_rig_runs_without_jax_on_the_cpu():
             assert type(rig.standby.dispatcher._policy).__name__ ==                 "GreedyCpuPolicy"
         finally:
             rig.stop()
-        import torch
-        assert not torch.cuda.is_initialized()
-        assert not any(n.startswith(("jax", "yadcc_tpu."))
+        assert not any(n.startswith(("torch", "jax", "yadcc_tpu."))
                        for n in sys.modules if sys.modules[n] is not None)
         print("RIG_OK")
     """)
@@ -793,3 +803,173 @@ def test_federated_rig_runs_without_jax_on_the_cpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "RIG_OK" in out.stdout
+
+
+_HOST_PATH_PRELUDE = r"""
+import os, pathlib, subprocess, sys, threading, time
+for name in ("torch", "jax", "jaxlib", "yadcc_tpu"):
+    sys.modules[name] = None
+
+
+def loaded_forbidden():
+    return sorted(n for n in sys.modules if sys.modules[n] is not None
+                  and n.split(".")[0] in ("torch", "jax", "jaxlib",
+                                          "yadcc_tpu"))
+"""
+
+
+def _run_host_path(script: str, *args, timeout: float = 120):
+    out = subprocess.run(
+        [sys.executable, "-c", _HOST_PATH_PRELUDE + textwrap.dedent(script),
+         *args], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+def test_local_rig_on_greedy_cpu_runs_without_torch(tmp_path):
+    """The local rig on greedy_cpu (its default policy) with torch, jax
+    and the JAX package blocked: a TU goes from the port's client through
+    the delegate, the scheduler and a servant, and none of them loads."""
+    from tests.test_torch_client import FAKE_GXX
+
+    fake = tmp_path / "fake"
+    fake.mkdir()
+    (fake / "g++").write_text(FAKE_GXX)
+    (fake / "g++").chmod(0o755)
+    (tmp_path / "rig").mkdir()
+    (tmp_path / "a.cc").write_text("int a(int x) { return x; }\n")
+    out = _run_host_path(r"""
+        from yadcc_tpu_torch.daemon.cloud.cxx_task import \
+            shutdown_pack_executor
+        from yadcc_tpu_torch.testing import LocalCluster
+
+        tmp, fake = pathlib.Path(sys.argv[1]), sys.argv[2]
+        rig = LocalCluster(tmp / "rig", device="cpu", compiler_dirs=[fake])
+        try:
+            assert type(rig.sched_dispatcher._policy).__name__ == \
+                "GreedyCpuPolicy"
+            env = dict(os.environ, PYTHONPATH=os.getcwd(),
+                       PATH=fake + os.pathsep + os.environ["PATH"],
+                       YTPU_DAEMON_PORT=str(rig.http.port),
+                       YTPU_COMPILE_ON_CLOUD_SIZE_THRESHOLD="1")
+            run = subprocess.run(
+                [sys.executable, "-m", "yadcc_tpu_torch.client.yadcc_cxx",
+                 "g++", "-O2", "-c", "a.cc", "-o", "a.o"], cwd=tmp, env=env,
+                capture_output=True, text=True, timeout=60)
+            assert run.returncode == 0, run.stderr[-2000:]
+            assert rig.delegate.inspect()["stats"]["actually_run"] == 1
+        finally:
+            rig.stop()
+            shutdown_pack_executor()
+        assert not loaded_forbidden(), loaded_forbidden()
+        print("LOCAL_OK")
+    """, str(tmp_path), str(fake))
+    assert "LOCAL_OK" in out
+    assert (tmp_path / "a.o").read_bytes() == \
+        b"FAKEOBJ\nint a(int x) { return x; }\n"
+
+
+def test_scheduler_entry_on_greedy_cpu_runs_without_torch():
+    """The scheduler entry with --device cpu --dispatch-policy greedy_cpu
+    serves a heartbeat and a grant, and stops, with torch, jax and the
+    JAX package blocked; its kernel counters read 0."""
+    out = _run_host_path(r"""
+        from yadcc_tpu_torch import api
+        from yadcc_tpu_torch.rpc import Channel, RpcError
+        from yadcc_tpu_torch.scheduler import entry
+        from yadcc_tpu_torch.scheduler.service import SERVICE_NAME
+        from yadcc_tpu_torch.utils import exposed_vars
+
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        args = entry.build_arg_parser().parse_args([
+            "--port", str(port), "--inspect-port", "0", "--device", "cpu",
+            "--dispatch-policy", "greedy_cpu", "--max-servants", "64",
+            "--acceptable-user-tokens", "utok",
+            "--acceptable-servant-tokens", "stok", "--allow-self-dispatch"])
+        stop = threading.Event()
+        rc = []
+        server = threading.Thread(target=lambda: rc.append(
+            entry.scheduler_start(args, stop, gc_guard=False)), daemon=True)
+        server.start()
+        ch = Channel(f"grpc://127.0.0.1:{port}")
+        sch = api.scheduler
+        try:
+            deadline = time.monotonic() + 30
+            while True:
+                try:
+                    ch.call(SERVICE_NAME, "GetConfig",
+                            sch.GetConfigRequest(token="utok"),
+                            sch.GetConfigResponse, timeout=1.0)
+                    break
+                except RpcError:
+                    assert time.monotonic() < deadline, "entry never served"
+                    time.sleep(0.05)
+            hb = sch.HeartbeatRequest(
+                token="stok", next_heartbeat_in_ms=1000,
+                location="127.0.0.1:20001", version=1, num_processors=8,
+                capacity=4, total_memory_in_bytes=64 << 30,
+                memory_available_in_bytes=64 << 30)
+            hb.env_descs.add(compiler_digest="gcc-12")
+            ch.call(SERVICE_NAME, "Heartbeat", hb, sch.HeartbeatResponse,
+                    timeout=5.0)
+            wreq = sch.WaitForStartingTaskRequest(
+                token="utok", milliseconds_to_wait=2000, immediate_reqs=2,
+                next_keep_alive_in_ms=10_000)
+            wreq.env_desc.compiler_digest = "gcc-12"
+            wresp, _ = ch.call(SERVICE_NAME, "WaitForStartingTask", wreq,
+                               sch.WaitForStartingTaskResponse, timeout=10.0)
+            ids = [g.task_grant_id for g in wresp.grants]
+            assert len(set(ids)) == 2, ids
+            ch.call(SERVICE_NAME, "FreeTask",
+                    sch.FreeTaskRequest(token="utok", task_grant_ids=ids),
+                    sch.FreeTaskResponse, timeout=5.0)
+            kernels = exposed_vars.collect("yadcc/kernels")["yadcc"]["kernels"]
+        finally:
+            stop.set()
+            server.join(timeout=30)
+        assert rc == [0], rc
+        assert kernels == {"grouped_assign": {"launches": 0},
+                           "assign_batch": {"launches": 0}}, kernels
+        assert not loaded_forbidden(), loaded_forbidden()
+        print("ENTRY_OK")
+    """)
+    assert "ENTRY_OK" in out
+
+
+def test_analyzer_and_build_protos_run_with_torch_and_jax_blocked():
+    """The port's analyzer (over the api tree: the wire checks and every
+    per-file family; the whole package's self-check is
+    tests/test_torch_analysis.py's) and build_protos --check run with
+    torch, jax and the JAX package blocked."""
+    out = _run_host_path(r"""
+        from yadcc_tpu_torch.analysis.__main__ import main
+        from yadcc_tpu_torch.api import build_protos
+
+        assert main(["yadcc_tpu_torch/api", "--no-cache"]) == 0
+        assert build_protos.check_pure() == 0
+        assert not loaded_forbidden(), loaded_forbidden()
+        print("ANALYSIS_OK")
+    """)
+    assert "ANALYSIS_OK" in out
+    assert "0 finding(s)" in out
+
+
+def test_device_policies_still_load_torch_on_demand():
+    """make_policy builds the device policies (and with them torch) only
+    when asked for one; the names stay importable from policy.py."""
+    from yadcc_tpu_torch.scheduler import host_policy, policy
+
+    assert policy.make_policy is host_policy.make_policy
+    assert policy.GreedyCpuPolicy is host_policy.GreedyCpuPolicy
+    for name, cls in (("torch_grouped", policy.TorchGroupedPolicy),
+                      ("torch_batched", policy.TorchBatchedPolicy),
+                      ("torch_resident_grouped",
+                       policy.TorchResidentGroupedPolicy),
+                      ("auto", policy.AutoPolicy)):
+        assert type(host_policy.make_policy(name, device="cpu")) is cls
+    with pytest.raises(ValueError):
+        host_policy.make_policy("jax_grouped")
+

@@ -81,7 +81,7 @@ def compress(data: bytes) -> bytes:
 _MAX_DECOMPRESSED = 1 << 31
 
 
-def decompress(data: bytes, max_output_size: int = _MAX_DECOMPRESSED) -> bytes:
+def decompress(data: bytes, max_output_size: int = _MAX_DECOMPRESSED) -> bytes:  # ytpu: sanitizes(size-cap)
     # max_output_size only binds STREAMING frames (no content size in
     # the header) — python-zstandard ignores it when the frame declares
     # a size, so a hostile frame declaring terabytes would attempt the
@@ -96,7 +96,7 @@ def decompress(data: bytes, max_output_size: int = _MAX_DECOMPRESSED) -> bytes:
     return _ctx()[1].decompress(data, max_output_size=max_output_size)
 
 
-def try_decompress(data: bytes) -> Optional[bytes]:
+def try_decompress(data: bytes) -> Optional[bytes]:  # ytpu: sanitizes(size-cap)
     try:
         return decompress(data)
     except (CompressionError, MemoryError, ValueError):

@@ -32,7 +32,7 @@ def digest_bytes(*parts: bytes) -> str:
     return h.hexdigest()
 
 
-def digest_keyed(domain: str, *parts: bytes) -> str:
+def digest_keyed(domain: str, *parts: bytes) -> str:  # ytpu: sanitizes(key-domain)
     """Domain-separated digest: each part is length-prefixed so component
     boundaries can't be confused (unlike plain concatenation)."""
     h = hashlib.blake2b(digest_size=_DIGEST_SIZE, person=domain.encode()[:16])

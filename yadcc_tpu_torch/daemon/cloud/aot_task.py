@@ -39,7 +39,7 @@ class CloudAotCompilationTask(WorkerTask):
     _prefix = "aot_"
     _kind = cache_format.KIND_AOT
 
-    def prepare(self, compressed_computation: bytes) -> None:
+    def prepare(self, compressed_computation: bytes) -> None:  # ytpu: acquires(workspace)
         source, self.computation_digest = self._intake(
             compressed_computation, self.claimed_computation_digest)
         self._stage({

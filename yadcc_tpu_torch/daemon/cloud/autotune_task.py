@@ -46,7 +46,7 @@ class CloudAutotuneTask(WorkerTask):
     _kind = cache_format.KIND_AUTOTUNE
     _what = "kernel"
 
-    def prepare(self, compressed_kernel: bytes) -> None:
+    def prepare(self, compressed_kernel: bytes) -> None:  # ytpu: acquires(workspace)
         kernel, self.kernel_digest = self._intake(
             compressed_kernel, self.claimed_kernel_digest)
         parsed = []

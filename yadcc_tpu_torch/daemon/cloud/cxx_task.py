@@ -81,7 +81,7 @@ class _PackExecutor:
 _PACK_EXECUTOR = _PackExecutor()
 
 
-def _decompress_and_digest(data) -> Tuple[bytes, str]:
+def _decompress_and_digest(data) -> Tuple[bytes, str]:  # ytpu: sanitizes(size-cap, digest)
     """Module-level seam: the fused single-pass source intake (swapped
     for the two-pass legacy path in tools/dataplane_bench.py's A/B)."""
     return compress.decompress_and_digest(data)

@@ -164,7 +164,7 @@ class CloudJitCompilationTask(WorkerTask):
     workspace: Optional[TemporaryDir] = None
     cmdline: str = ""
 
-    def prepare(self, compressed_computation: bytes) -> None:
+    def prepare(self, compressed_computation: bytes) -> None:  # ytpu: acquires(workspace)
         source, self.computation_digest = self._intake(
             compressed_computation, self.claimed_computation_digest)
         self._stage({

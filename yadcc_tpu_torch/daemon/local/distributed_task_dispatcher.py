@@ -214,7 +214,7 @@ class DistributedTaskDispatcher:
         entry.done.wait(timeout=timeout_s)
         return entry.result
 
-    def wait_for_task_async(self, task_id: int, on_done) -> bool:
+    def wait_for_task_async(self, task_id: int, on_done) -> bool:  # ytpu: responder(on_done)  # ytpu: allow(reply-drop)  # unknown id: the False return hands the reply back to the caller, which answers 404
         """Parked-continuation twin of wait_for_task (aio front end):
         ``on_done(result)`` fires from the completing task thread, or
         immediately when the task already finished.  Returns False for

@@ -256,7 +256,7 @@ class LocalHttpService:
 
     # -- aio front end (event-loop routing) ----------------------------------
 
-    def _handle_aio(self, responder) -> None:  # loop thread only
+    def _handle_aio(self, responder) -> None:  # ytpu: loop-only  # ytpu: responder(responder)
         """Runs ON the loop for every request: long polls park, the
         version route answers inline, every route that may block (task
         submission, set_file_digest, the jit cache shim) goes to the
@@ -290,7 +290,7 @@ class LocalHttpService:
             return
         self._aio.submit(self._route_post_pooled, responder, path, body)
 
-    def _route_post_pooled(self, responder, path: str, body: bytes) -> None:
+    def _route_post_pooled(self, responder, path: str, body: bytes) -> None:  # ytpu: responder(responder)
         try:
             self._route_post(responder, path, body)
         except Exception:
@@ -300,7 +300,7 @@ class LocalHttpService:
             if not responder.replied:
                 responder._reply(500)
 
-    def _acquire_quota_parked(self, responder, body: bytes) -> None:
+    def _acquire_quota_parked(self, responder, body: bytes) -> None:  # ytpu: untrusted(body)  # ytpu: responder(responder)
         req = _from_json(api.local.AcquireQuotaRequest, body)
         deadline_timer = []
 
@@ -328,7 +328,7 @@ class LocalHttpService:
         deadline_timer.append(self._aio.call_later(
             clamp_wait_s(req.milliseconds_to_wait), waiter.expire))
 
-    def _wait_parked(self, responder, task_type, body: bytes) -> None:
+    def _wait_parked(self, responder, task_type, body: bytes) -> None:  # ytpu: untrusted(body)  # ytpu: responder(responder)
         req = _from_json(task_type.wait_request_cls, body)
         task_id = req.task_id
         deadline_timer = []
@@ -354,9 +354,7 @@ class LocalHttpService:
             return  # the task had finished: answered, no deadline to arm
         responder.release_request()  # parked: keep the continuation only
 
-        def on_deadline() -> None:
-            # A completion that fired first answers; the deadline does
-            # not race it for the reply.
+        def on_deadline() -> None:  # ytpu: allow(reply-drop)  # a completion that fired first answers through _finish_wait_pooled; the deadline yields the reply to it
             if finishing:
                 return
             # Still running at the window's end: 503 + Retry-After, the
@@ -371,7 +369,7 @@ class LocalHttpService:
             clamp_wait_s(req.milliseconds_to_wait, 10.0), on_deadline))
 
     def _finish_wait_pooled(self, responder, task_type, task_id: int,
-                            result) -> None:
+                            result) -> None:  # ytpu: responder(responder)
         resp, out_chunks = task_type.build_wait_response(result)
         payload = multi_chunk.make_multi_chunk_payload(
             [_to_json(resp)] + list(out_chunks))

@@ -104,7 +104,7 @@ class LocalTaskMonitor:
             return True
 
     def acquire_async(self, pid: int, lightweight: bool,
-                      on_grant: Callable[[bool], None]) -> QuotaWaiter:
+                      on_grant: Callable[[bool], None]) -> QuotaWaiter:  # ytpu: responder(on_grant)
         """Parked-continuation twin of
         wait_for_running_new_task_permission (aio front end): claims
         quota and fires ``on_grant(True)`` immediately when there is

@@ -6,13 +6,14 @@ sees, never a silent slowdown."""
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(name: str = "cuda") -> torch.device:
+def resolve_device(name: str = "cuda") -> "torch.device":  # noqa: F821
     """``torch.device`` for ``name``: "cuda" (the default) requires a
     visible CUDA device and raises without one; "cpu" is returned only
-    when asked for."""
+    when asked for.  torch is imported here, not with the module, so a
+    host-only program that imports this module loads no torch."""
+    import torch
+
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

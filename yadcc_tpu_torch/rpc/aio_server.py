@@ -204,7 +204,7 @@ class EventLoopThread:
         self.loop.call_soon(self._started.set)
         self.loop.run_forever()
 
-    def _tick(self, due: Optional[float]) -> None:  # loop thread only
+    def _tick(self, due: Optional[float]) -> None:  # ytpu: loop-only
         now = _time.monotonic()
         self._last_tick = now
         if due is not None:
@@ -214,8 +214,7 @@ class EventLoopThread:
                 self._lag_count += 1
                 self._lag_max = max(self._lag_max, late)
         if not self.loop.is_closed():
-            # Self-rearming; it dies with the loop, nothing to cancel.
-            self.loop.call_later(_TICK_INTERVAL_S, self._tick,
+            self.loop.call_later(_TICK_INTERVAL_S, self._tick,  # ytpu: allow(async-timer-leak)  # self-rearming liveness tick: it dies with the loop, there is never anything to cancel
                                  now + _TICK_INTERVAL_S)
 
     def lag_s(self) -> float:
@@ -275,7 +274,7 @@ class LoopTimer:
         self._handle = None
         self._cancelled = False
 
-    def _arm(self, delay_s: float, fn, args) -> None:  # loop thread only
+    def _arm(self, delay_s: float, fn, args) -> None:  # ytpu: loop-only
         with self._lock:
             if self._cancelled:
                 return
@@ -329,7 +328,7 @@ class _RpcConnection(asyncio.Protocol):
     def connection_lost(self, exc) -> None:
         self.server._conn_closed(self)
 
-    def data_received(self, data) -> None:  # loop thread only
+    def data_received(self, data) -> None:  # ytpu: loop-only
         timer = self.server.stage_timer
         now = _time.perf_counter()
         if self._read_started_at is None:
@@ -356,7 +355,7 @@ class _RpcConnection(asyncio.Protocol):
         for seq, payload in messages:
             self.server._dispatch(self, seq, payload)
 
-    def send_payload(self, seq: int, payload: Payload) -> None:  # loop only
+    def send_payload(self, seq: int, payload: Payload) -> None:  # ytpu: loop-only
         if self.transport is None or self.transport.is_closing():
             return
         t0 = _time.perf_counter()
@@ -456,6 +455,7 @@ class AioRpcServer:
 
     # -- dispatch (loop thread) ----------------------------------------------
 
+    # ytpu: loop-only
     def _dispatch(self, conn: _RpcConnection, seq: int, payload) -> None:
         try:
             service, method, frame = split_request_payload(payload)
@@ -479,7 +479,7 @@ class AioRpcServer:
         fut.add_done_callback(
             lambda f: self._send_result(conn, seq, f))
 
-    def _send_result(self, conn, seq, fut) -> None:  # loop thread only
+    def _send_result(self, conn, seq, fut) -> None:  # ytpu: loop-only
         try:
             reply = fut.result()
         except Exception as e:  # handler pool died; keep the connection
@@ -489,7 +489,7 @@ class AioRpcServer:
         conn.send_payload(seq, reply)
 
     def _dispatch_parked(self, conn, seq, spec: ServiceSpec, ms,
-                         frame) -> None:  # loop thread only
+                         frame) -> None:  # ytpu: loop-only
         """Long-poll path: the handler runs on the loop, registers its
         continuation with the owning component and returns without a
         response.  The completing thread calls ``done``, which encodes
@@ -1088,7 +1088,7 @@ class _HttpConnection(asyncio.Protocol):
     def connection_lost(self, exc) -> None:
         self.server._conn_closed(self)
 
-    def data_received(self, data) -> None:  # loop thread only
+    def data_received(self, data) -> None:  # ytpu: loop-only
         timer = self.server.stage_timer
         try:
             t0 = _time.perf_counter()
@@ -1113,7 +1113,7 @@ class _HttpConnection(asyncio.Protocol):
         for req in requests:
             self._invoke_handler(AioHttpResponder(self.server, self, req))
 
-    def _invoke_handler(self, responder) -> None:  # loop thread only
+    def _invoke_handler(self, responder) -> None:  # ytpu: loop-only  # ytpu: responder(responder)
         try:
             self.server.handler_fn(responder)
         except Exception:
@@ -1123,7 +1123,7 @@ class _HttpConnection(asyncio.Protocol):
             if not responder.replied:
                 responder._reply(500)
 
-    def write_segments(self, segments) -> None:  # loop thread only
+    def write_segments(self, segments) -> None:  # ytpu: loop-only
         if self.transport is None or self.transport.is_closing():
             return
         t0 = _time.perf_counter()

@@ -163,9 +163,9 @@ class DeviceResidentPool:
         count, re-sync — the stream keeps serving from repaired state
         rather than drifting.  Returns True when parity held."""
         self.stats["oracle_checks"] += 1
-        dev = {f: getattr(self._pool, f).cpu().numpy() for f in _STATICS}
+        dev = {f: getattr(self._pool, f).cpu().numpy() for f in _STATICS}  # ytpu: allow(device-sync)  # oracle sync: the periodic statics check is the explicit sync point
         dev["env_bitmap"] = dev["env_bitmap"].view(np.uint32)
-        ok = all(np.array_equal(dev[f], np.asarray(getattr(snap, f)))
+        ok = all(np.array_equal(dev[f], np.asarray(getattr(snap, f)))  # ytpu: allow(device-sync)  # host snapshot: the oracle's other side is a numpy array
                  for f in _STATICS)
         if not ok:
             self.stats["oracle_mismatches"] += 1

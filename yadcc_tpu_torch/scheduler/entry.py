@@ -45,14 +45,12 @@ import time
 from ..common.parse_size import parse_size
 from ..common.token_verifier import make_token_verifier_from_flag
 from ..device import resolve_device
-from ..ops import cuda_assign, cuda_grouped
-from ..parallel.mesh import control_plane_shard_slices
 from ..rpc import make_rpc_server
 from ..utils import exposed_vars
 from ..utils.gctune import LatencyGcGuard
 from ..utils.inspect_server import InspectServer
 from ..utils.logging import get_logger
-from .policy import POLICY_NAMES, make_policy
+from .host_policy import POLICY_NAMES, make_policy
 from .replication import (JournalStreamer, LeaseJournal,
                           ReplicatingDispatcher, StandbyMonitor,
                           StandbyScheduler)
@@ -153,9 +151,31 @@ def sharded_registry_size(max_servants: int, n_shards: int) -> int:
     the exact split overflows whenever a shard draws its expected
     above-mean share, and keep-alives fail with "servant registry full"
     while the fleet still fits --max-servants."""
+    from ..parallel.mesh import control_plane_shard_slices
+
     slices = control_plane_shard_slices(max_servants, n_shards)
     base = max(hi - lo for lo, hi in slices)
     return max(256, (base * 10 // 8 + 64 + 255) // 256 * 256)
+
+
+def _host_only(args) -> bool:
+    """greedy_cpu on --device cpu: the host path, which loads no torch."""
+    return args.dispatch_policy == "greedy_cpu" and args.device == "cpu"
+
+
+def _policy_device(args):
+    """The policies' device: the card unless --device cpu; None on the
+    host path, where no policy reads it."""
+    return None if _host_only(args) else resolve_device(args.device)
+
+
+def _load_device_path(args) -> None:
+    """Import the device policies, and with them torch, unless on the host
+    path.  Called before the lock-order tracer is installed, so torch's
+    import-time locks stay real ones (a traced lock has no
+    ``_at_fork_reinit``, which ``concurrent.futures`` asks of its locks)."""
+    if not _host_only(args):
+        from . import policy  # noqa: F401
 
 
 def build_dispatcher(args):
@@ -167,7 +187,7 @@ def build_dispatcher(args):
     1: N policies (each shard owns its policy and its CUDA stream; device
     kernels are not shared across dispatch threads) behind a
     ShardRouter."""
-    device = resolve_device(args.device)
+    device = _policy_device(args)
     n = args.shards
     if n < 1:
         raise ValueError(f"--shards must be >= 1, got {n}")
@@ -204,8 +224,17 @@ def build_service(dispatcher, args) -> SchedulerService:
     )
 
 
-def _reset_kernel_counts() -> None:
-    """Count the launches made while serving, not the warmup's."""
+def _reset_kernel_counts(args) -> None:
+    """Count the launches made while serving, not the warmup's.  The
+    host path launches nothing and loads no kernel module: its counts
+    stay 0."""
+    if _host_only(args):
+        exposed_vars.expose("yadcc/kernels", lambda: {
+            "grouped_assign": {"launches": 0},
+            "assign_batch": {"launches": 0}})
+        return
+    from ..ops import cuda_assign, cuda_grouped
+
     cuda_grouped.launches = 0
     cuda_assign.launches = 0
     exposed_vars.expose("yadcc/kernels", lambda: {
@@ -285,9 +314,10 @@ def scheduler_standby_start(args, stop: "threading.Event | None" = None,
     takeover that raises ends the process with 1."""
     from ..utils.locktrace import install_from_env
 
+    _load_device_path(args)
     install_from_env()  # YTPU_LOCKTRACE=1: lock-order checking tier
     dispatcher = build_dispatcher(args)  # warmed NOW, replayed at takeover
-    _reset_kernel_counts()
+    _reset_kernel_counts(args)
     standby = StandbyScheduler(token=args.replication_token)
     promoted, failed = threading.Event(), threading.Event()
     state = {"promoted": False, "report": None, "promoted_at": None}
@@ -349,9 +379,10 @@ def scheduler_start(args, stop: "threading.Event | None" = None,
 
     if args.standby:
         return scheduler_standby_start(args, stop, gc_guard)
+    _load_device_path(args)
     install_from_env()  # YTPU_LOCKTRACE=1: lock-order checking tier
     dispatcher = build_dispatcher(args)
-    _reset_kernel_counts()
+    _reset_kernel_counts(args)
     streamer = None
     if args.replicate_to:
         journal = LeaseJournal()

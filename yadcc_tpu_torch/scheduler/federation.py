@@ -58,9 +58,9 @@ from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from .admission import RUNG_SPILLOVER, AdmissionDecision
-from .placement import (BIG as _SCORE_BIG, CellCandidate,
-                        DevicePlacementScorer, host_reference_placement)
-from .shard_router import RoutedGrant, RoutedGrants
+from .placement_host import (BIG as _SCORE_BIG, CellCandidate,
+                             host_reference_placement)
+from .routed import RoutedGrant, RoutedGrants
 
 logger = get_logger("scheduler.federation")
 
@@ -344,6 +344,10 @@ class FederationRouter:
     def _scorer_obj(self):
         with self._affinity_lock:
             if self._scorer is None:
+                # The device scorer loads torch; a router that never
+                # scores on a device does not.
+                from .placement import DevicePlacementScorer
+
                 self._scorer = DevicePlacementScorer(device=self._device)
             return self._scorer
 

@@ -1,11 +1,5 @@
-"""DispatchPolicy SPI: the greedy CPU oracle and the device policies.
-
-The scheduler's host code (task_dispatcher.py) owns all bookkeeping —
-leases, zombies, wakeups.  Worker *selection* is delegated to a policy
-behind this SPI.  Every policy consumes the same snapshot format and
-produces identical picks for identical inputs, so flipping
---dispatch-policy can never change scheduling semantics, only
-throughput.
+"""The device policies behind the DispatchPolicy SPI (host_policy.py),
+which produce the greedy oracle's picks for identical inputs.
 
 Device policies run where they are told (`device`): on "cuda" every
 grouped assignment goes through the hand-written kernel K1
@@ -24,9 +18,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,99 +30,13 @@ from ..ops import assignment_grouped as asg
 from ..ops import cuda_assign as kassign
 from ..ops import cuda_grouped as kgrouped
 from ..utils.logging import get_logger
+# The host half (torch-free) lives in host_policy.py; every name of it
+# stays importable from here.
+from .host_policy import (POLICY_NAMES, AssignRequest,  # noqa: F401
+                          DispatchPolicy, EnvRegistry, GreedyCpuPolicy,
+                          PoolSnapshot, compress_runs, make_policy)
 
 logger = get_logger("scheduler.policy")
-
-
-class EnvRegistry:
-    """Interns environment digests to dense ids for the bitmap axis."""
-
-    def __init__(self, max_envs: int = 256):
-        self.max_envs = max_envs
-        self._ids: Dict[str, int] = {}  # guarded by: self._lock
-        self._lock = threading.Lock()
-
-    def intern(self, digest: str) -> Optional[int]:
-        with self._lock:
-            i = self._ids.get(digest)
-            if i is not None:
-                return i
-            if len(self._ids) >= self.max_envs:
-                # Env table full: extremely unlikely (256 distinct compiler
-                # binaries live at once); refuse rather than evict, since
-                # ids are baked into servant bitmaps.
-                return None
-            i = len(self._ids)
-            self._ids[digest] = i
-            return i
-
-    def lookup(self, digest: str) -> Optional[int]:
-        with self._lock:
-            return self._ids.get(digest)
-
-    def __len__(self) -> int:
-        with self._lock:
-            return len(self._ids)
-
-
-@dataclass
-class PoolSnapshot:
-    """Host-side struct-of-arrays view of the servant registry, produced
-    under the dispatcher lock and handed to a policy."""
-
-    alive: np.ndarray       # bool[S]
-    capacity: np.ndarray    # int32[S] effective capacity (lease/memory/NAT
-    running: np.ndarray     # int32[S]  already folded in by the dispatcher)
-    dedicated: np.ndarray   # bool[S]
-    version: np.ndarray     # int32[S]
-    env_bitmap: np.ndarray  # uint32[S, E//32]
-    # Bumped by the dispatcher whenever heartbeat-derived state changes;
-    # device policies keep alive/dedicated/version/env_bitmap resident
-    # on device across cycles with an unchanged epoch and re-upload only
-    # the per-cycle capacity/running vectors.  < 0 = not cacheable
-    # (snapshots built directly by tests).
-    epoch: int = -1
-
-
-@dataclass
-class AssignRequest:
-    env_id: int
-    min_version: int
-    requestor_slot: int  # -1 when the requestor is not a servant
-
-
-class DispatchPolicy:
-    """SPI: pick a servant slot for each request, consuming capacity in
-    request order.  Returns a slot per request or assignment.NO_PICK."""
-
-    name = "abstract"
-    # True when the policy implements the stream_* API (pipelined
-    # dispatch: launch without blocking on the device round-trip).
-    supports_stream = False
-
-    def assign(self, snap: PoolSnapshot,
-               requests: Sequence[AssignRequest]) -> List[int]:
-        raise NotImplementedError
-
-    def warmup(self, pool_size: int, env_words: int = 8) -> None:
-        """Prepare device kernels for the serving shapes (no-op for host
-        policies).  Entry points call this before serving so the first
-        real grant cycle never pays a kernel build."""
-
-
-def compress_runs(requests: Sequence[AssignRequest]):
-    """Consecutive identical descriptors -> [(env_id, min_version,
-    requestor_slot, count)] runs, in request order.  THE descriptor
-    contract for grouped kernels and stream_launch: flat pick position
-    i always corresponds to request i."""
-    descr = []
-    for r in requests:
-        key = (r.env_id, r.min_version, r.requestor_slot)
-        if descr and tuple(descr[-1][:3]) == key:
-            descr[-1][3] += 1
-        else:
-            descr.append([key[0], key[1], key[2], 1])
-    return [tuple(d) for d in descr]
 
 
 @dataclass
@@ -142,30 +49,6 @@ class StreamTicket:
     launch_id: int
     picks: torch.Tensor
     ready: Optional[torch.cuda.Event] = None  # None: already on the host
-
-
-class GreedyCpuPolicy(DispatchPolicy):
-    """Faithful restatement of the reference's UnsafePickServantFor loop
-    (yadcc/scheduler/task_dispatcher.cc:362-451); the correctness oracle."""
-
-    name = "greedy_cpu"
-
-    def __init__(self, cost_model: DispatchCostModel = DEFAULT_COST_MODEL):
-        self._cm = cost_model
-
-    def assign(self, snap, requests):
-        pool = {
-            "alive": snap.alive,
-            "capacity": snap.capacity,
-            "running": snap.running.copy(),
-            "dedicated": snap.dedicated,
-            "version": snap.version,
-            "env_bitmap": snap.env_bitmap,
-        }
-        tasks = [
-            (r.env_id, r.min_version, r.requestor_slot) for r in requests
-        ]
-        return asn.greedy_assign(pool, tasks, self._cm)
 
 
 class _DevicePoolCache:
@@ -185,7 +68,7 @@ def _upload(a: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
     """A copy on ``device`` (also on the CPU: snapshot buffers are
     republished in place once released, and cached statics must not
     alias them)."""
-    return torch.tensor(np.asarray(a, dtype), device=device)
+    return torch.tensor(np.asarray(a, dtype), device=device)  # ytpu: allow(device-sync)  # host snapshot array: np.asarray of a host buffer before its upload
 
 
 def _upload_pool(snap: PoolSnapshot, running, device: torch.device,
@@ -295,7 +178,7 @@ class TorchBatchedPolicy(DispatchPolicy):
             pool = pool._replace(running=running)
             chunks.append(got)
         # The cycle's one blocking device-to-host point.
-        return torch.cat(chunks).tolist()
+        return torch.cat(chunks).tolist()  # ytpu: allow(device-sync)  # pick readback: the cycle's one .tolist()
 
 
 class TorchGroupedPolicy(DispatchPolicy):
@@ -436,7 +319,7 @@ class TorchGroupedPolicy(DispatchPolicy):
 
     def _sync(self) -> None:
         if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+            torch.cuda.synchronize(self._device)  # ytpu: allow(device-sync)  # warmup fence: runs before the first cycle, not in it
 
     def _run_stream_kernel(self, pool, packed, adj, rmask, rval,
                            t_max: int):
@@ -497,8 +380,8 @@ class TorchGroupedPolicy(DispatchPolicy):
         # The sanctioned device-to-host point of the stream: the apply
         # boundary, reached after stream_ready (or accepting the wait).
         if ticket.ready is not None:
-            ticket.ready.synchronize()
-        return ticket.picks.numpy()
+            ticket.ready.synchronize()  # ytpu: allow(device-sync)  # apply boundary: the stream's one wait, after stream_ready
+        return ticket.picks.numpy()  # ytpu: allow(device-sync)  # apply boundary
 
     def _chunk_runs(self, runs):
         """Split the run list into kernel-sized chunks: at most
@@ -569,8 +452,8 @@ class TorchGroupedPolicy(DispatchPolicy):
                 flat, new_running = \
                     kgrouped.cuda_assign_grouped_picks_packed(
                         pool, packed, t_pad, self._cm)
-                flat = flat.cpu().numpy()
-                running = new_running.cpu().numpy()
+                flat = flat.cpu().numpy()  # ytpu: allow(device-sync)  # pick readback: the cycle's one device-to-host copy
+                running = new_running.cpu().numpy()  # ytpu: allow(device-sync)  # sync collect: the running vector rides the pick readback
                 off = 0
                 for (_, member_idx), size in zip(chunk, sizes):
                     for req_idx, s in zip(member_idx, flat[off:off + size]):
@@ -579,8 +462,8 @@ class TorchGroupedPolicy(DispatchPolicy):
                 continue
             counts, new_running = kgrouped.cuda_assign_grouped(
                 pool, asg.unpack_grouped(packed), self._cm)
-            counts = counts.cpu().numpy()
-            running = new_running.cpu().numpy()
+            counts = counts.cpu().numpy()  # ytpu: allow(device-sync)  # sync collect: counts readback of the cycle
+            running = new_running.cpu().numpy()  # ytpu: allow(device-sync)  # sync collect
             # Expand (group, slot)->count into per-request picks with
             # one pass over the counts matrix for the whole chunk
             # (np.nonzero yields row-major order, i.e. grouped by
@@ -780,32 +663,3 @@ class AutoPolicy(DispatchPolicy):
         if self._use_greedy(snap, len(requests)):
             return self._greedy.assign(snap, requests)
         return self._grouped.assign(snap, requests)
-
-
-# The port's --dispatch-policy names.  Each stands for the JAX package's
-# policies of the same semantics: torch_grouped for jax_grouped and
-# jax_pallas_grouped, torch_batched for jax_batched and jax_pallas,
-# torch_resident_grouped for jax_resident_grouped and
-# jax_resident_pallas_grouped (the kernel follows the device, not a name).
-POLICY_NAMES = ("auto", "greedy_cpu", "torch_grouped", "torch_batched",
-                "torch_resident_grouped")
-
-
-def make_policy(name: str, avoid_self: bool = True,
-                device="cuda") -> DispatchPolicy:
-    """Policy by its --dispatch-policy name; device policies run on
-    ``device`` (a torch device or its name) and take any pool width."""
-    from dataclasses import replace
-
-    cm = replace(DEFAULT_COST_MODEL, avoid_self=avoid_self)
-    if name == "greedy_cpu":
-        return GreedyCpuPolicy(cm)
-    if name == "torch_grouped":
-        return TorchGroupedPolicy(device, cost_model=cm)
-    if name == "torch_batched":
-        return TorchBatchedPolicy(device, cost_model=cm)
-    if name == "torch_resident_grouped":
-        return TorchResidentGroupedPolicy(device, cost_model=cm)
-    if name == "auto":
-        return AutoPolicy(device, cost_model=cm)
-    raise ValueError(f"unknown dispatch policy {name!r}")

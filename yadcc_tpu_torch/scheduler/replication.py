@@ -221,7 +221,7 @@ class ReplicatingDispatcher:
 
     # -- journaled mutators --------------------------------------------------
 
-    def keep_servant_alive(self, info: ServantInfo,
+    def keep_servant_alive(self, info: ServantInfo,  # ytpu: replicated(servant, servant_leave)
                            expires_in_s: float) -> bool:
         ok = self._inner.keep_servant_alive(info, expires_in_s)
         if expires_in_s <= 0:
@@ -234,7 +234,7 @@ class ReplicatingDispatcher:
                  "lease_s": expires_in_s})
         return ok
 
-    def wait_for_starting_new_task(self, env_digest: str, *,
+    def wait_for_starting_new_task(self, env_digest: str, *,  # ytpu: replicated(issue)
                                    min_version: int = 0,
                                    requestor: str = "",
                                    immediate: int = 1,
@@ -251,7 +251,7 @@ class ReplicatingDispatcher:
                             [(gid, loc) for gid, loc in pairs])
         return pairs
 
-    def _routed(self, env_digest: str, **kwargs):
+    def _routed(self, env_digest: str, **kwargs):  # ytpu: replicated(issue)
         routed = self._inner.wait_for_starting_new_task_routed(
             env_digest, **kwargs)
         self._journal_issue(
@@ -260,8 +260,9 @@ class ReplicatingDispatcher:
             [(g.grant_id, g.servant_location) for g in routed.grants])
         return routed
 
+    # ytpu: replicated(issue)
     def _submit(self, env_digest: str, *, on_done: Callable,
-                **kwargs) -> None:
+                **kwargs) -> None:  # ytpu: responder(on_done)
         requestor = kwargs.get("requestor", "")
         lease_s = kwargs.get("lease_s", 15.0)
 
@@ -286,7 +287,7 @@ class ReplicatingDispatcher:
         self._inner.submit_wait_for_starting_new_task_routed(
             env_digest, on_done=journaling_done, **kwargs)
 
-    def keep_task_alive(self, grant_ids: Sequence[int],
+    def keep_task_alive(self, grant_ids: Sequence[int],  # ytpu: replicated(renew)
                         next_keep_alive_s: float) -> List[bool]:
         out = self._inner.keep_task_alive(grant_ids, next_keep_alive_s)
         renewed = [gid for gid, ok in zip(grant_ids, out) if ok]
@@ -295,14 +296,12 @@ class ReplicatingDispatcher:
                                   "lease_s": next_keep_alive_s})
         return out
 
-    def free_task(self, grant_ids: Sequence[int]) -> None:
+    def free_task(self, grant_ids: Sequence[int]) -> None:  # ytpu: replicated(free)
         self._inner.free_task(grant_ids)
         if grant_ids:
             self._journal.append({"op": "free", "ids": list(grant_ids)})
 
-    def on_expiration_timer(self) -> None:
-        # Expiration frees are deliberately unjournaled: a stale
-        # adoption self-heals within one zombie sweep (module docstring).
+    def on_expiration_timer(self) -> None:  # ytpu: replicated(rung, free)  # ytpu: allow(repl-journal-skip)  # expiration frees are deliberately unjournaled: a stale adoption self-heals within one zombie sweep (module docstring)
         self._inner.on_expiration_timer()
         # Rung transitions ride the sweep cadence (1s): coarse enough
         # to stay cheap, fine enough that a takeover restores a ladder
@@ -552,6 +551,7 @@ class StandbyScheduler:
         self.gate = StandbyGate(retry_after_ms=retry_after_ms)
         self.dispatcher = None  # set by takeover()
 
+    # ytpu: protocol(freeze<replay<adopt<window<promote)
     def takeover(self, dispatcher_factory: Callable[[], object], *,
                  service_factory: Optional[Callable] = None,
                  servant_lease_s: float = _TAKEOVER_SERVANT_LEASE_S,

@@ -18,7 +18,7 @@ in the dispatcher's pending table, not a worker thread.
 from __future__ import annotations
 
 import threading
-from typing import List
+from typing import List, Optional
 
 from .. import api
 from ..common.token_verifier import TokenVerifier, generate_token
@@ -302,7 +302,8 @@ class SchedulerService:
             resp.grants.add(task_grant_id=gid, servant_location=location)
         return resp
 
-    def WaitForStartingTaskParked(self, req, attachment, ctx, done):
+    # ytpu: loop-only
+    def WaitForStartingTaskParked(self, req, attachment, ctx, done):  # ytpu: responder(done)
         """Parked-continuation WaitForStartingTask (aio front end).
 
         Validation, tenancy, the admission ruling and the enqueue run
@@ -347,29 +348,29 @@ class SchedulerService:
             tenant=tenant,
         )
 
-        def refused(grants) -> bool:
-            """Answer the failure or the empty wait; True when answered."""
+        def refusal(grants) -> Optional[RpcError]:
+            """The error for a failed dispatcher or an empty wait."""
             failure = getattr(self.dispatcher, "failure", None)
             if failure is not None:
                 err = DispatcherFailed(
                     f"dispatcher stopped after a policy failure: "
                     f"{failure!r}")
-                done(None, error=RpcError(STATUS_TRANSPORT_FAILURE,
-                                          f"handler error: {err!r}"))
-                return True
+                return RpcError(STATUS_TRANSPORT_FAILURE,
+                                f"handler error: {err!r}")
             if not grants:
-                done(None, error=RpcError(
+                return RpcError(
                     api.scheduler.SCHEDULER_STATUS_NO_QUOTA_AVAILABLE,
-                    "no capacity for environment"))
-                return True
-            return False
+                    "no capacity for environment")
+            return None
 
         if home is not None:
             # Routed planes park with full provenance: the continuation
             # receives RoutedGrants (donor ops chained as continuations
             # inside the router).
             def on_routed(routed):
-                if refused(routed.grants):
+                err = refusal(routed.grants)
+                if err is not None:
+                    done(None, error=err)
                     return
                 resp = api.scheduler.WaitForStartingTaskResponse(
                     degradation_rung=decision.rung,
@@ -390,7 +391,9 @@ class SchedulerService:
             return
 
         def on_grants(grants):
-            if refused(grants):
+            err = refusal(grants)
+            if err is not None:
+                done(None, error=err)
                 return
             resp = api.scheduler.WaitForStartingTaskResponse(
                 degradation_rung=decision.rung)

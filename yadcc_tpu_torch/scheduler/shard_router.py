@@ -47,23 +47,23 @@ from __future__ import annotations
 import itertools
 import threading
 from collections import defaultdict
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..common.backoff import Backoff
 from ..common.consistent_hash import (SCHEDULER_VNODES_PER_WEIGHT,
                                       ConsistentHash)
 from ..models.cost import DEFAULT_COST_MODEL
-from ..ops import assignment_grouped as asg
-from ..ops.assignment import NO_PICK, PoolArrays
-from ..parallel import mesh
+from ..ops.greedy import NO_PICK
 from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
 from .admission import RUNG_NAMES, AdmissionDecision
+# The routed-grant types (torch-free) live in routed.py; they stay
+# importable from here.
+from .routed import RoutedGrant, RoutedGrants  # noqa: F401
 from .task_dispatcher import (TAKEOVER_GAP_SLACK, DispatcherFailed,
                               LoadSignal, ServantInfo, TaskDispatcher)
 
@@ -97,42 +97,6 @@ class StealConfig:
     # Minimum period between device load-summary refreshes
     # (observability; the gather touches every shard's lock).
     summary_refresh_s: float = 10.0
-
-
-@dataclass
-class RoutedGrant:
-    """One grant plus its provenance on the sharded plane."""
-
-    grant_id: int
-    servant_location: str
-    shard_id: int          # shard whose dispatcher issued (owns) it
-    stolen: bool           # True when shard_id != the serving shard
-    # Federation provenance (scheduler/federation.py): the cell whose
-    # dispatcher issued the grant, and whether it was spilled there
-    # from an overloaded home cell.  Single-cell planes leave the
-    # defaults — cell 0, nothing spilled.
-    cell_id: int = 0
-    spilled: bool = False
-
-
-@dataclass
-class RoutedGrants:
-    """wait_for_starting_new_task_routed result."""
-
-    shard_id: int                  # home (serving) shard
-    grants: List[RoutedGrant] = field(default_factory=list)
-    cell_id: int = 0               # home (serving) cell
-
-    def pairs(self) -> List[Tuple[int, str]]:
-        return [(g.grant_id, g.servant_location) for g in self.grants]
-
-    @property
-    def stolen_count(self) -> int:
-        return sum(1 for g in self.grants if g.stolen)
-
-    @property
-    def spilled_count(self) -> int:
-        return sum(1 for g in self.grants if g.spilled)
 
 
 class ShardRouter:
@@ -200,7 +164,11 @@ class ShardRouter:
         # Device load summary: one reduction over the concatenated pool
         # on ``device``, refreshed from the expiration sweep; read by
         # inspect().  None: no device view (the host load cache only).
-        self._device = None if device is None else torch.device(device)
+        self._device = None
+        if device is not None:
+            import torch
+
+            self._device = torch.device(device)
         self._summary_rows: Optional[np.ndarray] = None  # guarded by: self._lock
         self._summary_at = -1.0  # guarded by: self._lock
         self._fused: Optional[dict] = None
@@ -453,7 +421,7 @@ class ShardRouter:
             lease_s: float = 15.0,
             timeout_s: float = 5.0,
             tenant: str = "",
-            on_done) -> None:
+            on_done) -> None:  # ytpu: responder(on_done)
         """Continuation twin of :meth:`wait_for_starting_new_task`:
         fires ``on_done([(grant_id, location)])`` exactly once.  Its
         presence is what enables the service's parked registration on
@@ -474,7 +442,7 @@ class ShardRouter:
             timeout_s: float = 5.0,
             home: Optional[int] = None,
             tenant: str = "",
-            on_done) -> None:
+            on_done) -> None:  # ytpu: responder(on_done)
         """Continuation twin of :meth:`wait_for_starting_new_task_routed`:
         the same steal-first plan, but every wait is a parked
         continuation — donor ops chain through :meth:`_try_steal_async`
@@ -694,7 +662,7 @@ class ShardRouter:
     def _try_steal_async(self, home: int, env_digest: str,
                          min_version: int, requestor: str, want: int,
                          lease_s: float, tenant: str = "",
-                         *, on_got) -> None:
+                         *, on_got) -> None:  # ytpu: responder(on_got)
         """Continuation twin of :meth:`_try_steal`: the same pacing,
         channel bound, donor pick and stats, but the donor wait parks
         on the donor dispatcher's pending queue instead of blocking this
@@ -777,6 +745,10 @@ class ShardRouter:
         if dev is None:
             raise RuntimeError("the router has no device for its load "
                                "summary (ShardRouter(device=...))")
+        import torch
+
+        from ..parallel import mesh
+
         slices = [d.pool_load_arrays() for d in self._shards]
         per = max(a.shape[0] for a, _, _ in slices)
 
@@ -785,7 +757,7 @@ class ShardRouter:
                 np.pad(s[i], (0, per - s[i].shape[0])) for s in slices
             ])).to(dev)
 
-        rows = mesh.shard_load_summary(cat(0), cat(1), cat(2),
+        rows = mesh.shard_load_summary(cat(0), cat(1), cat(2),  # ytpu: allow(device-sync)  # rebalance tick: the load summary is read once a tick, off the grant path
                                        len(self._shards)).cpu().numpy()
         with self._lock:
             self._summary_rows = rows
@@ -819,7 +791,10 @@ class ShardRouter:
         start_dispatch_thread=False (the fused cycle alone drives their
         streams) and equal pool widths.  The pool lives on the router's
         ``device``: the card unless the router was given the CPU."""
+        import torch
+
         from ..device import resolve_device
+        from ..ops.assignment import PoolArrays
 
         dev = self._device if self._device is not None \
             else resolve_device("cuda")
@@ -872,6 +847,11 @@ class ShardRouter:
         fused = self._fused
         if fused is None:
             raise RuntimeError("call enable_fused_dispatch() first")
+        import torch
+
+        from ..ops import assignment_grouped as asg
+        from ..parallel import mesh
+
         n, per, dev = len(self._shards), fused["per"], fused["device"]
         clock = self._clock
         t0 = clock.now()
@@ -910,7 +890,7 @@ class ShardRouter:
                     rval[k * per + slot] = val
                 nd = len(dirty)
                 if nd:
-                    di = np.asarray(dirty, np.int64)
+                    di = np.asarray(dirty, np.int64)  # ytpu: allow(device-sync)  # host list
                     if np.unique(di).size != nd:
                         raise ValueError(
                             "a delta sends each dirty slot at most once")
@@ -934,7 +914,7 @@ class ShardRouter:
                 up(rval), t_max, fused["cm"], return_picks=on_device)
             # The one device-to-host copy of the cycle: collecting the
             # fused picks IS the apply boundary.
-            out = out_dev.cpu().numpy()
+            out = out_dev.cpu().numpy()  # ytpu: allow(device-sync)  # apply boundary: collecting the fused picks is the cycle's one copy
             if on_device:
                 picks = [None if l is None else out[k, :len(l[0])]
                          for k, l in enumerate(launches)]
@@ -1002,14 +982,16 @@ class ShardRouter:
         must match bit-for-bit).  Mismatch -> log, count, repair the
         slice in place.  `running` stays out — it legitimately carries
         this cycle's not-yet-applied device grants."""
+        import torch
+
         fused = self._fused
         per = fused["per"]
         pool = fused["pool"]
         fields = ("alive", "capacity", "dedicated", "version")
         # One download per field, oracle cadence only — the oracle is
         # the explicit periodic sync point.
-        host = {f: getattr(pool, f).cpu().numpy() for f in fields}
-        host["env_bitmap"] = pool.env_bitmap.cpu().numpy().view(np.uint32)
+        host = {f: getattr(pool, f).cpu().numpy() for f in fields}  # ytpu: allow(device-sync)  # oracle sync
+        host["env_bitmap"] = pool.env_bitmap.cpu().numpy().view(np.uint32)  # ytpu: allow(device-sync)  # oracle sync
         for k, l in enumerate(launches):
             if l is None:
                 continue
@@ -1075,7 +1057,7 @@ class ShardRouter:
                 "stats": adm_stats,
             },
             "latency_breakdown": self.aggregate_latency_breakdown(),
-            "load_summary": None if summary is None else summary.tolist(),
+            "load_summary": None if summary is None else summary.tolist(),  # ytpu: allow(device-sync)  # inspect: the load summary is a host array by then
             # Fused device-resident cycle counters and stages (None
             # unless enable_fused_dispatch was called).
             "fused": self.fused_stats(),

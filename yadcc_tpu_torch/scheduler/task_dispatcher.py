@@ -59,11 +59,12 @@ import numpy as np
 from ..utils.clock import REAL_CLOCK, Clock
 from ..utils.logging import get_logger
 from ..utils.stagetimer import StageTimer
-from ..ops.assignment import NO_PICK
+from ..ops.greedy import NO_PICK
 from ..tenancy import TenantDirectory, TenantLedger, apply_tier
 from .admission import (FLOW_REJECT, AdmissionConfig, AdmissionDecision,
                         OverloadLadder)
-from .policy import AssignRequest, DispatchPolicy, EnvRegistry, PoolSnapshot
+from .host_policy import (AssignRequest, DispatchPolicy, EnvRegistry,
+                          PoolSnapshot)
 
 logger = get_logger("scheduler.dispatcher")
 
@@ -604,7 +605,7 @@ class TaskDispatcher:
         claimed range, so a gap id can never be double-issued.  After
         the window closes, unknown ids go back to being killed."""
         with self._lock:
-            ceiling = (int(floor_grant_id)
+            ceiling = (int(floor_grant_id)  # ytpu: allow(grant-id-arith)  # the gap-slack ceiling IS namespace math: floor + slack whole strides stays on this dispatcher's residue
                        + max(0, gap_slack) * self._grant_id_stride)
             self._adopt_floor = max(self._adopt_floor, ceiling)
             # max(): adopt_grants may already have parked entries whose
@@ -741,7 +742,7 @@ class TaskDispatcher:
         timeout_s: float = 5.0,
         tenant: str = "",
         on_done: Callable,
-    ) -> None:
+    ) -> None:  # ytpu: responder(on_done)
         """Parked-continuation twin of wait_for_starting_new_task (the
         aio front end's long-poll path): enqueue the request and return
         immediately; ``on_done`` fires exactly once with
@@ -1284,7 +1285,7 @@ class TaskDispatcher:
             requestor=req.requestor,
             tenant=req.tenant,
         )
-        self._next_grant_id += self._grant_id_stride
+        self._next_grant_id += self._grant_id_stride  # ytpu: allow(grant-id-arith)  # THE mint site: stepping by the namespace stride is the one sanctioned id arithmetic outside the helpers
         self._grants[g.grant_id] = g
         servant.running_grants.add(g.grant_id)
         self._arr_running[pick] += 1

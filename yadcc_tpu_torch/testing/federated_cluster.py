@@ -47,7 +47,7 @@ from ..scheduler.admission import AdmissionConfig
 from ..scheduler.federation import (CellDirectory, CellHandle,
                                     FederationRouter,
                                     grant_namespace_for_cell)
-from ..scheduler.policy import make_policy
+from ..scheduler.host_policy import make_policy
 from ..scheduler.replication import (JournalStreamer, LeaseJournal,
                                      ReplicatingDispatcher,
                                      StandbyMonitor, StandbyScheduler)

@@ -43,7 +43,7 @@ from ..daemon.local.task_grant_keeper import TaskGrantKeeper
 from ..daemon.sysinfo import LoadAverageSampler
 from ..jit.env import JitEnvironment, local_jit_environment
 from ..rpc import make_rpc_server
-from ..scheduler.policy import make_policy
+from ..scheduler.host_policy import make_policy
 from ..scheduler.service import SchedulerService
 from ..scheduler.task_dispatcher import TaskDispatcher
 

@@ -65,7 +65,7 @@ class InspectServer:
             self.port = self._httpd.server_port
         self._thread: Optional[threading.Thread] = None
 
-    def _handle_aio(self, responder) -> None:  # loop thread only
+    def _handle_aio(self, responder) -> None:  # ytpu: loop-only
         if responder.method != "GET" or \
                 not responder.path.startswith("/inspect/vars"):
             responder._reply(404, content_type="text/plain")
