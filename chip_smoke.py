@@ -158,7 +158,7 @@ Phases (any failure exits non-zero without printing the result line):
    <= 16 cores, --temporary-dir in the run's directory always: every
    servant boot empties its temporary root of ytpu_* directories, so a
    shared /dev/shm would take another checkout's live workspaces); a
-   build of 32 TUs (files that include the repo's
+   build of 24 TUs (files that include the repo's
    native/client/ytpu-cxx.cc or ytpu-testtool.cc and add one function
    of their own drawn from the seed; flags -O2, -O0 -g or -O2 -g; 8
    compiled twice at once; 4 ending in #error) by the port's client
@@ -168,10 +168,10 @@ Phases (any failure exits non-zero without printing the result line):
    submits, long-polls, sends an answer without a compile again up to 5
    tries and compiles locally where its own rules say so (an #error
    TU's preprocessing fails with this g++, so it is compiled locally):
-   the first 16 through two threaded daemons, which then leave
-   gracefully, the other 16 through two aio daemons (their quota and
+   the first 12 through two threaded daemons, which then leave
+   gracefully, the other 12 through two aio daemons (their quota and
    wait long polls parked on the loop; a delegate dials every servant
-   with its fleet's one scheme); then the cached rebuild of all 32
+   with its fleet's one scheme); then the cached rebuild of all 24
    through one aio delegate once its reader has synced past the last
    fill.  Every grant on a real servant (the delegates dial what they
    are granted), none over the capacity the heartbeats report, running
@@ -209,12 +209,17 @@ Phases (any failure exits non-zero without printing the result line):
    servants churned a second and 30% duplicate TUs through the
    in-process RPC grant path for 20,000 tasks (configs[4] has 100,000):
    every task a hit, a join or a run, no grant id issued twice, the
-   client's grants equal to the scheduler's; (d) pod_sim's own gates:
+   client's grants equal to the scheduler's; once synchronous (depth 0:
+   auto's cycles below its measured crossover on the host, K1 for each
+   one above it) and once at pipeline depth 16 (the entry's default on
+   the card), where every K1 launch of the run goes through its stream
+   wrapper, the two arms' tasks/s, assignments/s, grant-call p50/p99,
+   latency breakdowns, auto's routes and launches printed side by side; (d) pod_sim's own gates:
    smoke_device (the fused grid of 4 shards, 20 lock-step cycles, every
    shard's picks against greedy_assign_reference) and smoke (4 shards, a
    zipf:1.5 hotspot: the steal engages, the load summary on the card);
-   K1 and K2 launched in (a)-(b), K1 in (c) and in smoke_device, no
-   Bloom kernel in the phase;
+   K1 and K2 launched in (a)-(b), K1 in (c)'s depth-16 arm and in
+   smoke_device, no Bloom kernel in the phase;
 17. the jit, AOT and autotune workloads, on phase 15's two aio daemons
    before they leave (their servants' worker runs nvcc for the card:
    --jit-backends auto found it), through the port's jit clients with
@@ -249,9 +254,10 @@ Phases (any failure exits non-zero without printing the result line):
    untraced and once built and driven inside locktrace.installed(): no
    lock-order cycle through a lock of the port, the graph not saturated,
    K1 launched, every grant freed, grants/s printed beside the untraced
-   drive's; (b) yadcc_tpu_torch/tools/cluster_sim.run's cxx sweep, 300
-   TUs (2,000, the tool's default, takes ~2 minutes: its grant wait is
-   1-2 s once 32 submissions share the 16 slots) on 4 servants of 4
+   drive's; (b) yadcc_tpu_torch/tools/cluster_sim.run's cxx sweep, 200
+   TUs (300 until phase 21; 2,000, the tool's default, takes ~2
+   minutes: its grant wait is 1-2 s once 32 submissions share the 16
+   slots) on 4 servants of 4
    slots, 20% duplicates, torch_grouped on the card; (c) its jit sweep of
    100 modules (200 until phase 19 came) through the fake worker: no
    failure, every submission a
@@ -289,7 +295,18 @@ Phases (any failure exits non-zero without printing the result line):
    pure-built module byte-identical), and cell-kill at its smoke size on
    greedy_cpu (its SLO checks pass, the standby promoted, no double
    run); the phase fails on any finding, any drift, or torch or jax in
-   the subprocess's modules.
+   the subprocess's modules;
+21. the scenario canaries on the card, in one subprocess started before
+   phase 15 and joined after it (their time is mostly their rigs'
+   sleeps and deadlines, phase 15's its g++ processes and long polls):
+   quick_hostile_metrics (overload-ladder, flaky-servant and cell-kill
+   at their smoke sizes), quick_spill_affinity_metrics,
+   quick_coldregion_metrics and
+   quick_tenancy_metrics (noisy-neighbor and cache-poisoning) from
+   yadcc_tpu_torch/tools/scenarios.py with device="cuda" (policy auto):
+   every value a finite number, every rate within [0, 1], the tenancy
+   isolation bit 1, the placement kernel launched in spill-affinity;
+   each canary's values and K1, K2 and placement launches printed.
 
 Each kernel's plain version is timed with one call (timed_once) beside
 its comparison; the kernel itself with CUDA events over many calls.
@@ -5634,14 +5651,14 @@ def cache_report(report: list, out: dict) -> None:
 # ---------------------------------------------------------------------------
 
 SERVANT_SEED = 15
-SERVANT_TUS = 32               # translation units of the build (512 took
+SERVANT_TUS = 24               # translation units of the build (512 took
                                # 331-353 s with the local re-compiles,
                                # past the smoke's time on an 8-core host;
                                # 224 through the port's client 315.0 s,
                                # each client's start and g++ -E on the
                                # same cores; 128 took the whole smoke
                                # past 1,200 s on a slow host; 48 until
-                               # phase 18)
+                               # phase 18, 32 until phase 21)
 SERVANT_JOINED = 8             # compiled twice at once through a delegate
 SERVANT_ERRORS = 4             # ending in `#error smoke`
 SERVANT_CLIENTS = 32           # compiler wrappers at once, as make -j32
@@ -7264,6 +7281,8 @@ SCALE_POD = dict(capacity=8, policy="auto", exec_ms=30.0, churn_per_s=2,
                  capacity_dist="uniform:4:16", check_unique=True)
 SCALE_POD_DUP = 0.3
 SCALE_POD_SUBMITTERS = 8
+SCALE_POD_DEPTH = 16           # 16c's second arm: the entry's default on
+                               # the card (--dispatch-pipeline-depth auto)
 
 
 def zero_launches() -> None:
@@ -7292,7 +7311,11 @@ def run_scale_path(report: list) -> dict:
     compiles, 2 servants churned a second, 30% duplicates) through the
     in-process RPC grant path for 20,000 tasks: every task accounted
     for, no grant id issued twice, the client's grants equal to the
-    scheduler's.  16d: pod_sim's own gates on the card: smoke_device (4
+    scheduler's; once synchronous (depth 0: auto sends a cycle below
+    its measured crossover to the host, one above it to K1 through
+    _picks_packed) and once pipelined at SCALE_POD_DEPTH, the mode the
+    scheduler entry takes on the card, where every cycle launches K1
+    through its stream wrapper (cuda_assign_grouped_picks_stream).  16d: pod_sim's own gates on the card: smoke_device (4
     shards x 20 lock-step cycles of the fused grid, one K1 launch each,
     every shard's picks against greedy_assign_reference) and smoke (4
     shards, zipf:1.5 hotspot: the steal engages, no id twice, the
@@ -7375,6 +7398,118 @@ def run_scale_path(report: list) -> dict:
     return res
 
 
+def pod_sim_arm(res: dict, report: list, dev, depth: int) -> dict:
+    """One arm of 16c at ``depth`` (see run_scale_path).  Both arms set
+    the counts to 0 after the build and its warmups (auto's calibration
+    ladder launches K1) and read them after the run, and both count the
+    stream wrapper's calls in the run.  Depth 0: auto sends each cycle
+    below its measured crossover to the host greedy route and the rest
+    to K1, so the run launches K1 for, and only for, the cycles it sent
+    to the device (none, where every cycle is below the crossover), and
+    never through the stream wrapper.  Depth 16: every cycle takes the
+    stream, and every K1 launch of the run goes through the stream
+    wrapper, with no stale-stream resync."""
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+    from yadcc_tpu_torch.tools import pod_sim
+
+    tag = "16c" if depth == 0 else f"16c depth {depth}"
+    t0 = time.perf_counter()
+    sim = pod_sim.PodSim(SCALE_POD_SERVANTS, device=dev,
+                         pipeline_depth=depth, **SCALE_POD)
+    built_s = time.perf_counter() - t0
+    stream_calls = [0]
+    real = kg.cuda_assign_grouped_picks_stream
+
+    def counted(*a, **kw):
+        stream_calls[0] += 1
+        return real(*a, **kw)
+
+    # auto's two routes, cycles counted in the run.
+    pol = sim.dispatcher._policy
+    routes = {"host": 0, "device": 0}
+
+    def route(name, assign):
+        def counted_assign(*a, **kw):
+            routes[name] += 1
+            return assign(*a, **kw)
+        return counted_assign
+
+    pol._greedy.assign = route("host", pol._greedy.assign)
+    pol._grouped.assign = route("device", pol._grouped.assign)
+    zero_launches()
+    kg.cuda_assign_grouped_picks_stream = counted
+    try:
+        out = sim.run(SCALE_POD_TASKS, SCALE_POD_DUP, SCALE_POD_SUBMITTERS)
+    finally:
+        kg.cuda_assign_grouped_picks_stream = real
+    n_pod = read_launches()
+    b = out["breakdown"]
+    check(out["tasks"] == SCALE_POD_TASKS,
+          f"{tag}: {out['tasks']} of {SCALE_POD_TASKS} tasks accounted for")
+    check(b["hit_cache"] + b["reused"] + b["actually_run"]
+          == SCALE_POD_TASKS, f"{tag}: the ladder does not sum: {b}")
+    check(sim._dup_gids == 0,
+          f"{tag}: {sim._dup_gids} grant ids issued twice")
+    check(out["grants_granted"] == out["scheduler_stats"]["granted"],
+          f"{tag}: client grants {out['grants_granted']} != scheduler "
+          f"{out['scheduler_stats']['granted']}")
+    check(n_pod["assign_batch"] == 0, f"{tag}: K2 launched {n_pod}")
+    stream = sim.dispatcher.inspect()["stream"]
+    crossover = pol._measured_threshold
+    if depth == 0:
+        check(routes["host"] + routes["device"] > 0,
+              f"{tag}: auto routed no cycle ({routes})")
+        check(n_pod["grouped_assign"] >= routes["device"]
+              and (n_pod["grouped_assign"] > 0) == (routes["device"] > 0),
+              f"{tag}: K1 launches {n_pod} for auto's routes {routes}")
+        check(stream_calls[0] == 0,
+              f"{tag}: the synchronous arm called K1's stream wrapper "
+              f"{stream_calls[0]} times")
+    else:
+        check(n_pod["grouped_assign"] > 0,
+              f"{tag}: K1 never launched in the run ({n_pod})")
+        check(routes["host"] == 0,
+              f"{tag}: a pipelined cycle took the host route ({routes})")
+        check(stream_calls[0] == n_pod["grouped_assign"],
+              f"{tag}: {stream_calls[0]} stream wrapper calls for "
+              f"{n_pod['grouped_assign']} K1 launches")
+        check(stream["resyncs"] == 0,
+              f"{tag}: the stale-stream guard resynced: {stream}")
+    key = "phase16_pod_sim" + ("" if depth == 0 else f"_depth{depth}")
+    res["launches"][key] = n_pod
+    lb = out["latency_breakdown"]
+    pod = {k: out[k] for k in (
+        "tasks", "servants", "total_capacity", "wall_seconds",
+        "tasks_per_sec", "assignments_per_sec", "breakdown", "grant_calls",
+        "grants_granted", "grant_call_p50_ms", "grant_call_p99_ms",
+        "dispatch_only_p99_ms")}
+    pod["latency_breakdown"] = {
+        k: v for k, v in lb.items() if k != "frontend_stages"}
+    pod["stream_wrapper_calls"] = stream_calls[0]
+    pod["stream"] = stream
+    pod["auto_routes"] = routes
+    pod["auto_crossover"] = crossover
+    res["pod" if depth == 0 else f"pod_depth{depth}"] = pod
+    report.append(
+        f"  {tag} pod_sim: {out['tasks']} tasks x {out['servants']} "
+        f"servants (capacity {out['total_capacity']}, "
+        f"{SCALE_POD['capacity_dist']}, {SCALE_POD['policy']}, pipeline "
+        f"depth {depth}; built and warmed in {built_s:.1f} s) in "
+        f"{out['wall_seconds']} s: {out['tasks_per_sec']} tasks/s, "
+        f"{out['assignments_per_sec']} assignments/s; breakdown "
+        f"{json.dumps(b)}; grant call p50 {out['grant_call_p50_ms']} ms "
+        f"p99 {out['grant_call_p99_ms']} ms; dispatch_only_p99_ms "
+        f"{out['dispatch_only_p99_ms']}; no id twice; launches in the run "
+        f"{n_pod}; auto's cycles by route {routes} (measured crossover "
+        f"{crossover} tasks)"
+        + (f"; stream wrapper calls {stream_calls[0]}, dispatcher stream "
+           f"{stream}" if depth > 0 else ""))
+    report.append(f"  {tag} latency_breakdown (ms): " + json.dumps(
+        {k: v and {q: v[q] for q in ("count", "p50_ms", "p99_ms")}
+         for k, v in pod["latency_breakdown"].items()}))
+    return {"pod": pod, "launches": n_pod}
+
+
 def pod_sim_gates(res: dict, report: list, dev) -> None:
     """Phase 16c and 16d (see run_scale_path)."""
     import contextlib
@@ -7382,43 +7517,15 @@ def pod_sim_gates(res: dict, report: list, dev) -> None:
 
     from yadcc_tpu_torch.tools import pod_sim
 
-    t0 = time.perf_counter()
-    zero_launches()
-    sim = pod_sim.PodSim(SCALE_POD_SERVANTS, device=dev, **SCALE_POD)
-    built_s = time.perf_counter() - t0
-    out = sim.run(SCALE_POD_TASKS, SCALE_POD_DUP, SCALE_POD_SUBMITTERS)
-    n_pod = read_launches()
-    b = out["breakdown"]
-    check(out["tasks"] == SCALE_POD_TASKS,
-          f"16c: {out['tasks']} of {SCALE_POD_TASKS} tasks accounted for")
-    check(b["hit_cache"] + b["reused"] + b["actually_run"]
-          == SCALE_POD_TASKS, f"16c: the ladder does not sum: {b}")
-    check(sim._dup_gids == 0, f"16c: {sim._dup_gids} grant ids issued twice")
-    check(out["grants_granted"] == out["scheduler_stats"]["granted"],
-          f"16c: client grants {out['grants_granted']} != scheduler "
-          f"{out['scheduler_stats']['granted']}")
-    check(n_pod["grouped_assign"] > 0, f"16c: K1 launches {n_pod}")
-    res["launches"]["phase16_pod_sim"] = n_pod
-    lb = out["latency_breakdown"]
-    res["pod"] = {k: out[k] for k in (
-        "tasks", "servants", "total_capacity", "wall_seconds",
-        "tasks_per_sec", "assignments_per_sec", "breakdown", "grant_calls",
-        "grants_granted", "grant_call_p50_ms", "grant_call_p99_ms",
-        "dispatch_only_p99_ms")}
-    res["pod"]["latency_breakdown"] = {
-        k: v for k, v in lb.items() if k != "frontend_stages"}
+    arm0 = walled("16c depth 0", pod_sim_arm, res, report, dev, 0)
+    arm = walled(f"16c depth {SCALE_POD_DEPTH}", pod_sim_arm, res, report,
+                 dev, SCALE_POD_DEPTH)
     report.append(
-        f"  16c pod_sim: {out['tasks']} tasks x {out['servants']} servants "
-        f"(capacity {out['total_capacity']}, {SCALE_POD['capacity_dist']}, "
-        f"{SCALE_POD['policy']}; built and warmed in {built_s:.1f} s) in "
-        f"{out['wall_seconds']} s: {out['tasks_per_sec']} tasks/s, "
-        f"{out['assignments_per_sec']} assignments/s; breakdown "
-        f"{json.dumps(b)}; grant call p50 {out['grant_call_p50_ms']} ms "
-        f"p99 {out['grant_call_p99_ms']} ms; dispatch_only_p99_ms "
-        f"{out['dispatch_only_p99_ms']}; no id twice; launches {n_pod}")
-    report.append("  16c latency_breakdown (ms): " + json.dumps(
-        {k: v and {q: v[q] for q in ("count", "p50_ms", "p99_ms")}
-         for k, v in res["pod"]["latency_breakdown"].items()}))
+        f"  16c depth {SCALE_POD_DEPTH} beside depth 0: "
+        + "; ".join(f"{k} {arm['pod'][k]} vs {arm0['pod'][k]}" for k in (
+            "tasks_per_sec", "assignments_per_sec", "grant_call_p50_ms",
+            "grant_call_p99_ms", "dispatch_only_p99_ms"))
+        + f"; launches {arm['launches']} vs {arm0['launches']}")
 
     for name, gate in (("smoke_device", pod_sim.smoke_device),
                        ("smoke", pod_sim.smoke)):
@@ -7453,7 +7560,8 @@ def pod_sim_gates(res: dict, report: list, dev) -> None:
 # ---------------------------------------------------------------------------
 
 TOOLS_DRIVE_S = 5.0            # phase 18a's drive, untraced then traced
-SWEEP_TASKS = 300              # phase 18b (the tool's 2,000 take ~2 min)
+SWEEP_TASKS = 200              # phase 18b (the tool's 2,000 take ~2 min;
+                               # 300 until phase 21)
 SWEEP_JIT_TASKS = 100          # phase 18c's jit sweep (200 until phase 19)
 SWEEP_SHAPE = dict(servants=4, concurrency=4, dup_rate=0.2)
 
@@ -8008,6 +8116,118 @@ def join_host_path(proc: subprocess.Popen, report: list) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the scenario canaries on the card.
+# ---------------------------------------------------------------------------
+
+# The canaries whose scenarios run a scheduler or the placement scorer on
+# the card (the policy is auto).  The other nine name greedy_cpu or run
+# host code only; the CPU tests hold them.
+CARD_CANARIES = ("quick_hostile_metrics", "quick_spill_affinity_metrics",
+                 "quick_coldregion_metrics", "quick_tenancy_metrics")
+RATE_KEYS = ("survival_compile_success_rate", "cell_kill_success_rate",
+             "placement_warm_hit_rate", "l3_read_through_hit_rate")
+
+
+def run_canary_path(report: list) -> dict:
+    """Phase 21: each canary of CARD_CANARIES with device="cuda", its
+    launch counts set to 0 just before it and read just after.  Every
+    value must be a finite number, every rate within [0, 1], the tenancy
+    isolation bit 1, and the placement kernel must launch in
+    spill-affinity; K1's count is printed (auto keeps a shallow cycle on
+    the host)."""
+    import logging
+    import math
+
+    import torch
+
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.tools import scenarios
+
+    t0 = time.perf_counter()
+    res = {"launches": {}, "values": {}, "placement_launches": 0}
+    # The rigs' cache servers log a line a fill at INFO.
+    root_log = logging.getLogger()
+    level = root_log.level
+    root_log.setLevel(logging.WARNING)
+    try:
+        for tag, name in zip("abcd", CARD_CANARIES):
+            zero_launches()
+            for k in kb.launches:
+                kb.launches[k] = 0
+            t = time.perf_counter()
+            values = getattr(scenarios, name)(device="cuda")
+            wall = time.perf_counter() - t
+            launches = read_launches()
+            placed = kb.launches["placement_score"]
+            for k, v in values.items():
+                check(isinstance(v, (int, float)) and math.isfinite(v),
+                      f"21 {name}: {k} = {v!r}")
+                if k in RATE_KEYS:
+                    check(0.0 <= v <= 1.0, f"21 {name}: {k} = {v}")
+            if name == "quick_tenancy_metrics":
+                check(values["cross_tenant_isolation_ok"] == 1,
+                      f"21 {name}: cache isolation broke: {values}")
+            if name == "quick_spill_affinity_metrics":
+                check(placed > 0,
+                      "21 spill-affinity: the placement kernel never "
+                      "launched")
+                res["placement_launches"] = placed
+            res["values"][name] = values
+            res["launches"][f"phase21{tag}_{name}"] = launches
+            report.append(
+                f"  21{tag} {name}(device='cuda') ({wall:.1f} s): "
+                f"{json.dumps(values)}; K1 launches "
+                f"{launches['grouped_assign']}, K2 "
+                f"{launches['assign_batch']}, placement kernel {placed}")
+    finally:
+        root_log.setLevel(level)
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    res["report"] = report
+    return res
+
+
+# Phase 21's subprocess: the canaries and their counts in a process of
+# their own, on the libraries phase 1 built.
+CANARY_SCRIPT = r"""
+import json
+import chip_smoke
+res = chip_smoke.run_canary_path([])
+print("PHASE21 " + json.dumps(res), flush=True)
+"""
+
+
+def start_canary_path() -> subprocess.Popen:
+    """Phase 21's subprocess, started while phase 15 runs (whose time
+    goes to g++ processes and the clients' long polls); its output goes
+    to files in LOG_DIR, read when it is joined."""
+    LOG_DIR.mkdir(exist_ok=True)
+    with open(LOG_DIR / "phase21.out", "w") as out, \
+            open(LOG_DIR / "phase21.err", "w") as err:
+        return subprocess.Popen([sys.executable, "-c", CANARY_SCRIPT],
+                                cwd=REPO, stdout=out, stderr=err)
+
+
+def join_canary_path(proc: subprocess.Popen, report: list) -> dict:
+    """Phase 21: join the subprocess and take its results."""
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout = (LOG_DIR / "phase21.out").read_text()
+    line = next((x for x in stdout.splitlines()
+                 if x.startswith("PHASE21 ")), None)
+    check(proc.returncode == 0 and line is not None,
+          f"21: the subprocess failed (rc {proc.returncode}): "
+          f"{(LOG_DIR / 'phase21.err').read_text()[-3000:]}")
+    res = json.loads(line[len("PHASE21 "):])
+    report.extend(res["report"])
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -8135,10 +8355,26 @@ def main() -> int:
 
     report = []
     t15 = time.perf_counter()
-    daemon = walled("15 daemon with 17 jit", run_daemon_path, report)
+    canary_path = start_canary_path()
+    try:
+        daemon = walled("15 daemon with 17 jit", run_daemon_path, report)
+    except BaseException:
+        canary_path.kill()
+        canary_path.wait()
+        raise
     phases["daemon"] = {"launches": daemon["launches"]}
     log(f"phase 15 the daemon, both halves "
         f"({time.perf_counter() - t15:.1f} s; {card}):")
+    for line in report:
+        log(line)
+
+    report = []
+    canaries = walled("21 join", join_canary_path, canary_path, report)
+    for name, n in canaries["launches"].items():
+        phases[name] = {"launches": n}
+    log(f"phase 21 the scenario canaries on the card (a subprocess beside "
+        f"phase 15: {canaries['seconds']:.1f} s; join "
+        f"{WALLS['21 join']:.2f} s; {card}):")
     for line in report:
         log(line)
 
@@ -8297,7 +8533,8 @@ def main() -> int:
         for s in bloom_run["bench"]["sweep"]}
     place_by = {"phase11_federation": federation["launches"][
                     "placement_score"],
-                "phase19c_spill_affinity": hostile["placement_launches"]}
+                "phase19c_spill_affinity": hostile["placement_launches"],
+                "phase21b_spill_affinity": canaries["placement_launches"]}
     record["kernels"].append({
         "name": "placement_score",
         "route": "cuda",

@@ -309,3 +309,53 @@ def test_decompress_and_digest_on_zlib_frames_without_the_zstd_wheel():
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "ok"
+
+
+def test_pack_pool_threads_end_with_the_servants_stop(tmp_path):
+    """The non-daemon threads that tests/test_zz_hygiene.py's sentinel
+    finds in a pytest worker after tests/test_daemon_cloud.py are the JAX
+    package's pack pool's (``output-pack_0/1``): its collect_outputs
+    starts them and no stop of that package joins them.  The port's
+    servant stop does (``shutdown_pack_executor``, daemon/entry.py): after
+    a collect that packs two outputs on the port's pool, it leaves no
+    thread of the pool alive, while the JAX twin's threads stay until
+    this test joins them."""
+    from yadcc_tpu.daemon.cloud.execution_engine import \
+        TaskOutput as JOutput
+    from yadcc_tpu_torch.daemon.cloud.execution_engine import \
+        TaskOutput as TOutput
+
+    def join_jax_pool():
+        pool, jcxx._PACK_EXECUTOR._pool = jcxx._PACK_EXECUTOR._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    # Fresh pools, started from this (non-daemon) thread as the JAX test
+    # starts its: a pool thread inherits its starter's daemon flag.
+    tcxx.shutdown_pack_executor()
+    join_jax_pool()
+    pools = {}
+    try:
+        for mod, output in ((jcxx, JOutput), (tcxx, TOutput)):
+            task = mod.CloudCxxCompilationTask(
+                compiler_path=str(TESTDATA / "fake-g++"),
+                compiler_digest="cd", invocation_arguments="-O2",
+                source_path="/home/user/proj/a.cc", temp_root=str(tmp_path))
+            task.prepare(mod.compress.compress(b"int main() { return 0; }"))
+            run = subprocess.run(["sh", "-c", task.cmdline],
+                                 capture_output=True)
+            assert run.returncode == 0, run.stderr
+            files, _, _ = task.collect_outputs(
+                output(0, run.stdout, run.stderr))
+            assert set(files) == {".o", ".gcno"}
+            pools[mod] = mod._PACK_EXECUTOR._pool
+            threads = set(pools[mod]._threads)
+            assert threads and all(
+                t.name.startswith("output-pack") and not t.daemon
+                for t in threads)
+        tcxx.shutdown_pack_executor()
+        assert not any(t.is_alive() for t in pools[tcxx]._threads)
+        assert any(t.is_alive() for t in pools[jcxx]._threads)
+    finally:
+        tcxx.shutdown_pack_executor()
+        join_jax_pool()

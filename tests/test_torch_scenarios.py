@@ -232,3 +232,37 @@ def test_cell_kill_on_torch_grouped():
     promoted standby's, on torch_grouped (K1's plain version here)."""
     out = assert_port_scenario("cell-kill", policy="torch_grouped")
     assert out["promoted"] == 1 and out["double_runs"] == 0
+
+
+class _SlowPaceSleeps:
+    """The scenarios module's ``time`` with each pace sleep of the first
+    arm overshooting by ``extra`` seconds: a host busy while that arm ran
+    and idle for the other."""
+
+    def __init__(self, pace: float, calls: int, extra: float):
+        self._pace, self._left, self._extra = pace, calls, extra
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    def sleep(self, seconds):
+        if seconds == self._pace and self._left > 0:
+            self._left -= 1
+            seconds += self._extra
+        time.sleep(seconds)
+
+
+def test_cold_region_speedup_holds_when_one_arm_sleeps_long(monkeypatch):
+    """The cold-region SLO is the ratio of two arms' times-to-warm, run
+    one after the other.  A busy host while the prefetched arm runs (each
+    of its 400 pace sleeps 4 ms late) must not move it: each arm's clock
+    is the open-loop arrival stream's (request i at i * pace, its reply a
+    round trip later), which a sleep's overshoot does not delay.  The
+    bound is still the JAX source's warm_speedup_min."""
+    monkeypatch.setattr(tsc, "time", _SlowPaceSleeps(0.002, 400, 0.004))
+    out = assert_port_scenario("cold-region")
+    assert jax_slo_bounds("cold-region")["warm_speedup_min"] == 2.0
+    assert out["warm_speedup"] >= 2.0
+    # 50 requests to the window: the nominal pace alone is 0.1 s, the
+    # overshoot would add 0.2 s more.
+    assert out["time_to_warm_on_s"] < 0.1 + 0.2

@@ -161,3 +161,14 @@ def tenant_token() -> str:
     daemon.  The credential identifies and authenticates; it carries no
     cache secrets (those never reach clients)."""
     return os.environ.get("YTPU_TENANT_TOKEN", "")
+
+
+def compress_level() -> int:
+    """Validated YTPU_COMPRESS_LEVEL (the clamp lives in
+    common.compress.current_level, which every compression call site
+    reads; client code and diagnostics report the same resolved value
+    the compressor will use).  Kept for parity: only the tests call it,
+    in both packages."""
+    from ..common.compress import current_level
+
+    return current_level()

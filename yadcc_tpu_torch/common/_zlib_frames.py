@@ -9,7 +9,8 @@ frame_content_size reads the declared size, like a zstd frame header with
 the content size set, so the size-cap check in compress.decompress keeps
 working.  A ``YZFS`` (streaming) frame of the JAX package decodes here
 too, one-shot or fed in pieces (``AnyFrameDecompressor``, the engine
-under compress.DecompressingDigestReader on a host without the wheel).
+under compress.DecompressingDigestReader and compress.decompress_iter on
+a host without the wheel).
 Pure stdlib; never imported when the real wheel is present.
 """
 
@@ -121,3 +122,4 @@ class AnyFrameDecompressor:
             raise Error("truncated stream")
         if self._declared >= 0 and self._out != self._declared:
             raise Error("declared size mismatch")
+

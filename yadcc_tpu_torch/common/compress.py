@@ -2,8 +2,10 @@
 trimmed to what the port uses: the one-shot calls, with which the full
 Bloom filter travels as ``compress(u32 salt + words)`` and a servant
 compresses its outputs; the fused streaming decompress-and-digest of a
-servant's source intake; and the client's streaming writers, which tee
-its preprocessor's output into a compressor and a digest in one pass).
+servant's source intake; the client's streaming writers, which tee
+its preprocessor's output into a compressor and a digest in one pass;
+and decompress_iter, their chunked reader, kept for parity: only the
+tests call it).
 
 When the `zstandard` wheel is absent (minimal containers), a stdlib
 zlib stand-in keeps the same API: framed one-shot payloads carry a
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 try:
     import zstandard
@@ -144,6 +146,17 @@ class TeeWriter:
         for s in self._sinks:
             s.write(data)
         return len(data)
+
+
+def decompress_iter(chunks: Iterable[bytes]) -> bytes:
+    """One frame fed in ``chunks`` (the output of CompressingWriter or
+    compress, however it was split), decompressed whole.  Either frame
+    kind, on zstd and on the zlib stand-in alike (the JAX package's
+    stand-in refuses a one-shot frame here).  No caller in either
+    package but the tests: kept for parity."""
+    obj = (_fallback.AnyFrameDecompressor() if zstandard is None
+           else _ctx()[1].decompressobj())
+    return b"".join(obj.decompress(c) for c in chunks)
 
 
 class DecompressingDigestReader:

@@ -1516,6 +1516,85 @@ def quick_async_steal_engages() -> int:
         router.stop()
 
 
+def quick_accept_loops_scaling() -> float:
+    """Canary: accept p99 ratio of a small aio storm at accept_loops 4
+    over accept_loops 1.  The multi-loop front end must hold the accept
+    tail flat (<=1.5x) while behaving identically."""
+    p99 = {}
+    for loops in (1, 4):
+        # 50 probes/s over a 4s plateau: ~200 tail samples per arm —
+        # a p99 that is an actual percentile, not the max of 40.
+        out = run_storm(200, "aio", ramp_per_s=200.0, hold_s=4.0,
+                        probes_per_s=50.0, compile_tasks=5,
+                        compile_s=0.0, accept_loops=loops)
+        if out["error_rate"] or out["lost_or_hung"]:
+            raise RuntimeError(
+                f"accept-loops={loops} storm failed: {out}")
+        # The RPC probes dial the surface accept_loops actually shards
+        # (the servant's AioServerGroup); the HTTP accept p99 is the
+        # fallback when no probe completed.
+        p99[loops] = max(0.05, out["rpc_accept_p99_ms"]
+                         or out["accept_p99_ms"])
+    return round(p99[4] / p99[1], 3)
+
+
+def quick_servant_parked_waiters() -> int:
+    """Canary: parked WaitForCompilationOutput continuations a small
+    servant rig holds at once with zero extra OS threads."""
+    out = run_servant_park(waiters=600, hold_s=2.5)
+    if out["replies_done"] != out["waiters"]:
+        raise RuntimeError(f"servant park quick run failed: {out}")
+    if out["threads_per_waiter"] > 0.01:
+        raise RuntimeError(
+            f"parked waiters cost threads: {out}")
+    return int(out["parked_waiters_peak"])
+
+
+def quick_storm_concurrent_connections() -> int:
+    """Canary: concurrent long-poll connections a small aio-front-end
+    storm sustains with zero errors and losses."""
+    out = run_storm(200, "aio", ramp_per_s=200.0, hold_s=2.0,
+                    compile_tasks=5, compile_s=0.0)
+    if out["error_rate"] or out["lost_or_hung"]:
+        raise RuntimeError(f"storm quick run failed: {out}")
+    return int(out["concurrent_connections"])
+
+
+def quick_jit_compiles_per_sec(device: str = "cuda") -> float:
+    """Canary: end-to-end jit submissions/s through the full loopback
+    farm (fake worker — the farm is the unit under test, not the
+    compiler).  greedy_cpu: nothing runs on ``device``."""
+    out = run(tasks=60, servants=2, concurrency=2, dup_rate=0.5,
+              policy="greedy_cpu", compile_s=0.0, workload="jit",
+              device=device)
+    if out["failures"]:
+        raise RuntimeError(f"jit quick run failed: {out['failures']}")
+    return float(out["jit_compiles_per_sec"])
+
+
+def quick_aot_fanout_compiles_per_sec(device: str = "cuda") -> float:
+    """Canary: topology results delivered per second through the AOT
+    fan-out path (fake worker)."""
+    out = run(tasks=24, servants=2, concurrency=2, dup_rate=0.5,
+              policy="greedy_cpu", compile_s=0.0, workload="aot",
+              device=device)
+    if out["failures"]:
+        raise RuntimeError(f"aot quick run failed: {out['failures']}")
+    return float(out["aot_topology_compiles_per_sec"])
+
+
+def quick_autotune_sweep_dedup_ratio(device: str = "cuda") -> float:
+    """Canary: the dedup ratio of a Zipf-duplicated autotune sweep
+    corpus (fake worker) — the cluster-wide 'measure once' claim in one
+    number."""
+    out = run(tasks=24, servants=2, concurrency=2, dup_rate=0.5,
+              policy="greedy_cpu", compile_s=0.0, workload="autotune",
+              device=device)
+    if out["failures"]:
+        raise RuntimeError(f"autotune quick run failed: {out['failures']}")
+    return float(out["dedup_ratio"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser("python -m yadcc_tpu_torch.tools.cluster_sim")
     ap.add_argument("--tasks", type=int, default=2000)

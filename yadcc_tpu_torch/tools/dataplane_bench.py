@@ -326,6 +326,12 @@ def run_cluster_ab(tasks: int, servants: int, concurrency: int,
     }
 
 
+def quick_dataplane_mb_per_sec(repeats: int = 3) -> float:
+    """Canary: zero-copy copy-path MB/s at 1MB (host work, cheap enough
+    to ride along in a benchmark run)."""
+    return run_sweep(1 << 20, repeats)["copy_path"]["zero_copy_mb_per_sec"]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         "python -m yadcc_tpu_torch.tools.dataplane_bench")

@@ -48,6 +48,11 @@ BASELINE configs[4]'s heterogeneous-capacity bin-pack.
     python -m yadcc_tpu_torch.tools.pod_sim --tasks 100000 \
         --servants 5000 --capacity-dist uniform:4:16 [--device cpu]
 
+`--pipeline-depth N` runs the dispatchers on the policy's stream API
+with N cycles in flight, the mode the scheduler entry takes on the card
+(`--dispatch-pipeline-depth auto` = 16); 0 (the default) is synchronous.
+A policy without the stream API (greedy_cpu) refuses a depth above 0.
+
 Sharded control plane (`--shards N`, doc/scheduler.md): the dispatcher
 becomes a ShardRouter over N TaskDispatchers — servant heartbeats and
 grant requests route by consistent hash, grant demand arrives through a
@@ -138,17 +143,12 @@ def parse_hotspot(spec: Optional[str], n_delegates: int):
     return np.cumsum(w / w.sum())
 
 
-# Synthetic delegate identities, each a distinct RPC peer (the shard
-# router's routing key).
-DELEGATES = 32
-
-
 class PodSim:
     def __init__(self, servants: int, capacity: int, policy: str,
                  exec_ms: float, churn_per_s: int, seed: int = 7,
-                 capacity_dist: str = "fixed",
+                 pipeline_depth: int = 0, capacity_dist: str = "fixed",
                  shards: int = 1, hotspot: Optional[str] = None,
-                 steal: bool = True,
+                 steal: bool = True, delegates: int = 32,
                  pumps: Optional[int] = None, hb_interval: float = 0.5,
                  mesh_loads: str = "auto", check_unique: bool = False,
                  arrival_rate: float = 0.0, pump_batch: int = 128,
@@ -211,10 +211,14 @@ class PodSim:
                               device=self.device)
             # Like scheduler/entry.py: device kernels compile before
             # serving, never inside a live grant cycle.
-            pol.warmup(pool)
+            if pipeline_depth > 0:
+                pol.stream_warmup(pool)
+            else:
+                pol.warmup(pool)
             self.dispatcher = TaskDispatcher(
                 pol, max_servants=pool, batch_window_s=0.001,
-                min_memory_for_new_task=1)
+                min_memory_for_new_task=1,
+                pipeline_depth=pipeline_depth)
         else:
             # Sharded control plane: the same headroom math per shard
             # (the consistent hash spreads the fleet ~evenly; the
@@ -228,7 +232,10 @@ class PodSim:
                                     device=self.device)
                         for _ in range(self.shards)]
             for pol in policies:
-                pol.warmup(pool)
+                if pipeline_depth > 0:
+                    pol.stream_warmup(pool)
+                else:
+                    pol.warmup(pool)
             # The cross-shard load summary runs on the device ('auto')
             # or not at all ('off'); on one card every shard slice lives
             # on that card, so no mesh is needed.
@@ -239,7 +246,8 @@ class PodSim:
                                   max_batch=max(1, steal_batch)),
                 device=self.device if mesh_loads != "off" else None,
                 batch_window_s=0.001,
-                min_memory_for_new_task=1)
+                min_memory_for_new_task=1,
+                pipeline_depth=pipeline_depth)
             self.dispatcher = self.router
         self.bookkeeper = RunningTaskBookkeeper()
         self.cache = CacheService(InMemoryCache(256 << 20),
@@ -254,7 +262,7 @@ class PodSim:
         # WaitForStartingTask parked).
         self.service = SchedulerService(self.dispatcher)
         self.frontend = frontend
-        self.n_delegates = DELEGATES
+        self.n_delegates = max(1, delegates)
         self.n_pumps = pumps if pumps else max(1, self.shards)
         self._mock_name = f"podsim-{id(self):x}"
         self._rpc_server = None
@@ -1188,19 +1196,19 @@ class PodSim:
 
 
 def run_one(args, *, shards: int, hotspot: Optional[str], steal: bool,
-            tasks: int, check_unique: bool = False,
-            arrival_rate: float = 0.0, steal_batch: int = 64) -> dict:
+            tasks: int, check_unique: bool = False) -> dict:
     sim = PodSim(args.servants, args.capacity, args.policy,
                  args.exec_ms, args.churn_per_s,
+                 pipeline_depth=args.pipeline_depth,
                  capacity_dist=args.capacity_dist,
                  shards=shards, hotspot=hotspot, steal=steal,
-                 pumps=args.pumps,
+                 delegates=args.delegates, pumps=args.pumps,
                  hb_interval=args.hb_interval,
                  mesh_loads=args.mesh_loads,
                  check_unique=check_unique,
-                 arrival_rate=arrival_rate,
+                 arrival_rate=args.arrival_rate,
                  pump_batch=args.pump_batch,
-                 steal_batch=steal_batch,
+                 steal_batch=args.steal_batch,
                  frontend=args.frontend,
                  device=args.device)
     return sim.run(tasks, args.dup_rate, args.submitters)
@@ -1313,18 +1321,17 @@ def run_ab(args) -> dict:
     lat.pumps = 1
     lat.pump_batch = 32
     lat.hb_interval = max(args.hb_interval, 3.0)
-    lat_rate = baseline["tasks_per_sec"]
+    lat.arrival_rate = baseline["tasks_per_sec"]
     lat_tasks = min(args.tasks, 60000)
     sys.setswitchinterval(0.002)
-    print(f"== latency pair at {lat_rate:.0f} tasks/s: "
+    print(f"== latency pair at {lat.arrival_rate:.0f} tasks/s: "
           f"{args.shards} shards ==", flush=True)
     sharded_lat = run_one(lat, shards=args.shards, hotspot=None,
-                          steal=True, tasks=lat_tasks,
-                          arrival_rate=lat_rate)
+                          steal=True, tasks=lat_tasks)
     print("== latency pair: single dispatcher, same fleet ==",
           flush=True)
     single_lat = run_one(lat, shards=1, hotspot=None, steal=True,
-                         tasks=lat_tasks, arrival_rate=lat_rate)
+                         tasks=lat_tasks)
     sys.setswitchinterval(0.001)
 
     # Hotspot A/B: a deliberately overloadable fleet (small capacity,
@@ -1343,16 +1350,17 @@ def run_ab(args) -> dict:
     # near 1, backlog drains at the whole fleet's rate) while the
     # no-steal plane grinds at its hot shards' capacity with the rest
     # of the fleet idle.
+    hs.arrival_rate = 0.0
     hs.pump_batch = 32
+    hs.steal_batch = 128
     hotspot = args.hotspot or "zipf:1.4"
     hs_tasks = min(args.tasks, 20000)
     print(f"== hotspot A/B ({hotspot}): steal ON ==", flush=True)
     steal_on = run_one(hs, shards=args.shards, hotspot=hotspot,
-                       steal=True, tasks=hs_tasks, check_unique=True,
-                       steal_batch=128)
+                       steal=True, tasks=hs_tasks, check_unique=True)
     print(f"== hotspot A/B ({hotspot}): steal OFF ==", flush=True)
     steal_off = run_one(hs, shards=args.shards, hotspot=hotspot,
-                        steal=False, tasks=hs_tasks, steal_batch=128)
+                        steal=False, tasks=hs_tasks)
 
     def cyc(run, key):
         c = run["latency_breakdown"].get("dispatch_cycle_ms")
@@ -1368,7 +1376,7 @@ def run_ab(args) -> dict:
             r["assignments_per_sec"] for r in runs],
         "sharded_vs_single_assignments_speedup": speedup,
         "latency_pair": {
-            "arrival_rate": lat_rate,
+            "arrival_rate": lat.arrival_rate,
             "tasks": lat_tasks,
             "sharded_dispatch_cycle_p50_ms": cyc(sharded_lat, "p50_ms"),
             "sharded_dispatch_cycle_p99_ms_max_shard":
@@ -1697,11 +1705,27 @@ def smoke_device(args) -> int:
     return 1 if failures else 0
 
 
+def quick_sharded_assignments_per_sec(device: str = "cuda") -> float:
+    """Canary: grants/s through a small 4-shard router (hotspot-free,
+    steal armed) on the full RPC grant path; greedy_cpu, with the
+    cross-shard load summary on ``device``."""
+    ap = build_arg_parser()
+    args = ap.parse_args([
+        "--servants", "256", "--capacity", "8", "--policy", "greedy_cpu",
+        "--exec-ms", "4", "--churn-per-s", "0", "--dup-rate", "0.2",
+        "--submitters", "8", "--shards", "4", "--hb-interval", "0.5",
+        "--device", str(device),
+    ])
+    out = run_one(args, shards=4, hotspot=None, steal=True, tasks=6000)
+    return float(out["assignments_per_sec"])
+
+
 def run_pump_rig_one(args) -> dict:
     sim = PodSim(args.servants, args.capacity, args.policy,
                  0.0, args.churn_per_s,
                  capacity_dist=args.capacity_dist,
                  shards=args.shards,
+                 delegates=args.delegates,
                  pumps=args.pumps or 4,
                  hb_interval=args.hb_interval,
                  mesh_loads="off",
@@ -1710,6 +1734,21 @@ def run_pump_rig_one(args) -> dict:
                  device=args.device)
     return sim.run_pump_rig(args.rig_calls, args.rig_demand,
                             call_rate=args.rig_rate)
+
+
+def quick_aio_grant_call_p99_ms(device: str = "cuda") -> float:
+    """Canary: grant_call p99 through the aio front end (parked
+    WaitForStartingTask, coroutine pumps, real loopback sockets) on a
+    small single-dispatcher pump rig."""
+    ap = build_arg_parser()
+    args = ap.parse_args([
+        "--servants", "256", "--capacity", "8", "--policy", "greedy_cpu",
+        "--churn-per-s", "0", "--pumps", "4", "--pump-batch", "16",
+        "--hb-interval", "2.0", "--frontend", "aio",
+        "--rig-calls", "4000", "--rig-demand", "128", "--rig-rate", "400",
+        "--device", str(device),
+    ])
+    return float(run_pump_rig_one(args)["grant_call_p99_ms"])
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -1726,6 +1765,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--exec-ms", type=float, default=30.0)
     ap.add_argument("--churn-per-s", type=int, default=2)
     ap.add_argument("--policy", default="auto")
+    ap.add_argument("--pipeline-depth", type=int, default=0)
     ap.add_argument("--submitters", type=int, default=8)
     ap.add_argument("--capacity-dist", default="fixed",
                     help="per-servant capacity distribution: fixed | "
@@ -1739,14 +1779,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "zipf:<exponent> (concentrates demand on the "
                          "hot delegates' home shards, exercising the "
                          "cross-shard steal path)")
+    ap.add_argument("--no-steal", action="store_true",
+                    help="disable cross-shard work stealing (the "
+                         "hotspot A/B's control arm)")
+    ap.add_argument("--delegates", type=int, default=32,
+                    help="synthetic delegate identities (each a "
+                         "distinct RPC peer = routing key)")
     ap.add_argument("--pumps", type=int, default=None,
                     help="concurrent grant fetchers (default: one per "
                          "shard)")
     ap.add_argument("--hb-interval", type=float, default=0.5,
                     help="whole-fleet heartbeat sweep period, seconds")
+    ap.add_argument("--switch-interval", type=float, default=0.001,
+                    help="sys.setswitchinterval for the rig (see main; "
+                         "0.005 for latency-focused runs)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="paced task arrivals/s across submitters "
+                         "(0 = flood as fast as the box allows)")
     ap.add_argument("--pump-batch", type=int, default=128,
                     help="max grants requested per WaitForStartingTask "
                          "call")
+    ap.add_argument("--steal-batch", type=int, default=64,
+                    help="max grants per cross-shard steal op "
+                         "(StealConfig.max_batch)")
     ap.add_argument("--mesh-loads", default="auto",
                     choices=["auto", "off"],
                     help="cross-shard load summary on --device "
@@ -1818,9 +1873,12 @@ def main(argv=None) -> None:
     # trades the two measurement artifacts a co-hosted rig can have: a
     # SMALL slice preempts mid-stage (a sub-ms dispatch stage reads as
     # many ms of other threads' time), a LARGE slice delays stage
-    # STARTS (queue-wait and grant-call tails grow).  1 ms favors call
-    # latency; run_ab's latency pair takes 2 ms.
-    sys.setswitchinterval(0.001)
+    # STARTS (queue-wait and grant-call tails grow).  The default (1 ms)
+    # favors call latency; latency-focused sharded runs pass
+    # --switch-interval 0.005 so a dispatch stage, once entered, usually
+    # runs to completion and the dispatch-only percentiles price the
+    # scheduler, not its co-tenants.  run_ab's latency pair takes 2 ms.
+    sys.setswitchinterval(args.switch_interval)
     if args.device_resident and args.smoke:
         sys.exit(smoke_device(args))
     if args.smoke:
@@ -1833,7 +1891,7 @@ def main(argv=None) -> None:
         out = run_ab(args)
     else:
         out = run_one(args, shards=args.shards, hotspot=args.hotspot,
-                      steal=True, tasks=args.tasks)
+                      steal=not args.no_steal, tasks=args.tasks)
     text = json.dumps(out, indent=2)
     if args.out:
         with open(args.out, "w") as f:
