@@ -237,8 +237,9 @@ Phases (any failure exits non-zero without printing the result line):
    topology's compile options name its arch): four artifacts with
    verdict ok, each one's target read back with cuobjdump --list-elf,
    the (1,) sm_90a one running K1 on the seeded pools; (e) a .cu
-   template with {BLOCK} and {ITEMS} swept over 8 configs at width 4,
-   children on both servants, the winner evaluated 8 and in the space;
+   template with {BLOCK} and {ITEMS} swept over 4 configs at width 4
+   (8 until phase 22), children on both servants, the winner evaluated
+   4 and in the space;
    (f) a 1 MiB jit_cache_put through one delegate; once every fill has
    landed and both readers synced past it: (b) the three sources again
    from the other delegate, hit_cache 3, no servant run, artifacts
@@ -259,7 +260,8 @@ Phases (any failure exits non-zero without printing the result line):
    minutes: its grant wait is 1-2 s once 32 submissions share the 16
    slots) on 4 servants of 4
    slots, 20% duplicates, torch_grouped on the card; (c) its jit sweep of
-   100 modules (200 until phase 19 came) through the fake worker: no
+   60 modules (100 until phase 22, 200 until phase 19) through the fake
+   worker: no
    failure, every submission a
    hit, a join or a run, every unique source run, K1 launched, no grant
    outstanding in the scheduler at the end, (c) deduped;
@@ -273,7 +275,10 @@ Phases (any failure exits non-zero without printing the result line):
    torch_grouped on the card and granting, failover within one 3 s
    keep-alive, no grant issued twice, every straddling lease renewed;
    at its smoke size, 8 storm threads x 6 tasks: its full size fails
-   its own bound in both packages, see HOSTILE_CARD),
+   its own bound in both packages, see HOSTILE_CARD; as the rig stops,
+   PROMOTED_DRIVE requests for cell 0's own servants through the
+   promoted standby, at least one granted there: a storm spilled to
+   its end leaves the standby at SPILLOVER with nothing of its own),
    (c) spill-affinity (three cells, scored placement through the
    placement kernel against the least-loaded baseline: >= 1.3x the
    baseline's post-spill hit rate, placement_score_p99_us printed);
@@ -306,7 +311,30 @@ Phases (any failure exits non-zero without printing the result line):
    yadcc_tpu_torch/tools/scenarios.py with device="cuda" (policy auto):
    every value a finite number, every rate within [0, 1], the tenancy
    isolation bit 1, the placement kernel launched in spill-affinity;
-   each canary's values and K1, K2 and placement launches printed.
+   each canary's values and K1, K2 and placement launches printed;
+22. the team (yadcc_tpu_torch/parallel/mesh.py), in process, on
+   TEAM_SLICES slices over min(4, count) cards, cycled (on one card all
+   four on it: the team's code and exchange, the cross-card case not
+   exercised): (a) the exchange alone (TEAM_ROUNDS rounds, each slice
+   ending on the word the rounds predict; its round trip a round), K1's
+   team mode at S=8,192 with G=64 and G=8 and its stream over two chained
+   launches with an adjustment and a reset, K2's at T=256, on phase 2's
+   timing pool: bit-equal to the plain team versions and the
+   single-pool kernels, timed beside them (CUDA events, 50 warm
+   launches); K1 and K2 told of a fifth slice that never launches run
+   out of their bounded wait, set the error word and the wrappers
+   raise; (b) torch_sharded_grouped serving configs[4]'s fleet through
+   pod_sim at pipeline depth 16 for TEAM_POD_TASKS tasks with 16c's
+   gates (every task a hit, a join or a run; no id twice; client grants
+   = scheduler grants; the team's K1 launches counted at the wrapper
+   from after the build, one a card a stream call; no stream resync),
+   then torch_sharded synchronous for TEAM_SCAN_TASKS, K2's team
+   launches above 0; (c) the filter-sharded membership and cascade on
+   phase 7's batches (1M keys of 80 bytes, 27,584,639 bits, 10 hashes,
+   1/10/50% hits): bit-equal to the host filters and the one-card
+   kernels, each slice's range kernels to their plain versions, timed
+   beside the one-card kernels; DeviceBloomCascade(team=...) and the
+   membership's team entry with their launches counted.
 
 Each kernel's plain version is timed with one call (timed_once) beside
 its comparison; the kernel itself with CUDA events over many calls.
@@ -321,6 +349,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import contextlib
 import json
 import os
 import pathlib
@@ -3191,7 +3220,15 @@ def compare_bloom_hits(report: list, members, fleet_only, region,
                 f"{r['share_of_bound']:.1%} of its bound; positive "
                 f"{r['positive_rate']:.4f}; equal to plain and host")
         out[str(rate)] = {"membership": mem, "cascade": cas}
+        # For phase 22c: the batch, the host's verdicts and the bounds.
+        BLOOM_STASH.setdefault("batches", {})[rate] = dict(
+            length=length, packed=packed_np, want=want, want_c=want_c,
+            membership_bound={k: mem[k] for k in ("bound_ms", "bound_by")},
+            cascade_bound={k: cas[k] for k in ("bound_ms", "bound_by")})
+        if ri == 0:
+            BLOOM_STASH["keys"] = (rate, keys)
         del packed
+    BLOOM_STASH.update(region=region, fleet=fleet)
     torch.cuda.synchronize()
     return out
 
@@ -6786,8 +6823,8 @@ JIT_SOURCES = ("grouped_assign.cu", "assign_batch.cu", "bloom.cu")
 JIT_TOPOLOGIES = (((1,), "sm_90a"), ((1,), "sm_90"), ((2, 2), "sm_90a"),
                   ((8,), "sm_80"))
 JIT_FIFTH = ((4,), "sm_90a")
-JIT_SWEEP = {"BLOCK": (64, 128, 256, 512), "ITEMS": (1, 4)}   # 8 configs
-#                                (16, with ITEMS 1, 2, 4, 8, until phase 18)
+JIT_SWEEP = {"BLOCK": (64, 256), "ITEMS": (1, 4)}   # 4 configs: one round
+#          at JIT_SWEEP_WIDTH (8 until phase 22, 16 until phase 18)
 JIT_SWEEP_WIDTH = 4
 JIT_SHIM_BYTES = 1 << 20
 JIT_SYNC_LIMIT_S = 45.0       # bound on the fills' landing and a sync
@@ -6943,8 +6980,7 @@ def run_jit_path(daemons: dict, names, procs: dict, siport: int,
     daemon_call.set_daemon_call_handler(None)
     walls = {}
     try:
-        sources = {s: (_build.CSRC_DIR / s).read_bytes()
-                   for s in JIT_SOURCES}
+        sources = {s: _build.source_bytes(s) for s in JIT_SOURCES}
         gsrc = sources["grouped_assign.cu"]
         k1_before, runs0 = k1(), runs()
 
@@ -7048,7 +7084,7 @@ def run_jit_path(daemons: dict, names, procs: dict, siport: int,
             f"artifact ran K1 on {aot_pools} seeded pools equal to the "
             f"plain version")
 
-        # (e) the sweep: 8 configs at width 4 over both servants.
+        # (e) the sweep: 4 configs at width 4 over both servants.
         space = autotune.SearchSpace.of(**JIT_SWEEP)
         configs = [json.loads(c) for c in space.expand()]
         template = JIT_SWEEP_TEMPLATE.encode()
@@ -7057,7 +7093,7 @@ def run_jit_path(daemons: dict, names, procs: dict, siport: int,
         res = autotune.sweep(template, space, fanout_width=JIT_SWEEP_WIDTH)
         walls["e"] = time.perf_counter() - t0
         check(res.ok and res.exit_code == 0, f"phase 17 (e): {res.error}")
-        check(res.winner["evaluated"] == len(configs) == 8
+        check(res.winner["evaluated"] == len(configs) == 4
               and res.winning_config in configs
               and [v["status"] for v in res.verdicts] == ["ok"] * 4,
               f"phase 17 (e): {res.winner} {res.verdicts}")
@@ -7562,7 +7598,9 @@ def pod_sim_gates(res: dict, report: list, dev) -> None:
 TOOLS_DRIVE_S = 5.0            # phase 18a's drive, untraced then traced
 SWEEP_TASKS = 200              # phase 18b (the tool's 2,000 take ~2 min;
                                # 300 until phase 21)
-SWEEP_JIT_TASKS = 100          # phase 18c's jit sweep (200 until phase 19)
+SWEEP_JIT_TASKS = 100          # phase 18c's jit sweep (200 until phase
+                               # 19; at 60 its dedup check found 1 and 0
+                               # hits, so it stays at 100)
 SWEEP_SHAPE = dict(servants=4, concurrency=4, dup_rate=0.2)
 
 
@@ -7738,6 +7776,7 @@ def run_tools_path(report: list) -> dict:
 HOSTILE_CARD = (("overload-ladder", False), ("cell-kill", True),
                 ("spill-affinity", False))
 NATIVE_TUS = 8                 # phase 15's corpus at -O2 through the farm
+PROMOTED_DRIVE = 3             # 19b: grants the promoted standby must make
 NATIVE_DIR = REPO / "smoke_native"
 
 # Runs one client process, its stdout and stderr passed through, and
@@ -7764,11 +7803,20 @@ def run_scenario_on_card(report: list, name: str, smoke: bool) -> dict:
     from yadcc_tpu_torch.tools import scenarios
 
     made: list = []
+    drives: list = []
 
     class Recording(federated_cluster.FederatedCluster):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
+
+        def stop(self):
+            # cell-kill: before the rig goes, demand for cell 0's own
+            # servants through the promoted standby (a storm that spilled
+            # everything after the kill left it nothing to grant).
+            if name == "cell-kill" and self.standby.dispatcher is not None:
+                drives.append(self.drive_promoted(want=PROMOTED_DRIVE))
+            super().stop()
 
     rig, federated_cluster.FederatedCluster = \
         federated_cluster.FederatedCluster, Recording
@@ -7809,11 +7857,20 @@ def run_scenario_on_card(report: list, name: str, smoke: bool) -> dict:
               and pol._device.type == "cuda",
               f"19 cell-kill: the promoted dispatcher runs "
               f"{type(pol).__name__} on {getattr(pol, '_device', None)}")
+        check(len(drives) == 1, "19 cell-kill: the promoted standby was "
+                                "never driven")
+        drive = drives[0]
+        check(drive["granted_here"] >= 1,
+              f"19 cell-kill: the promoted standby granted none of the "
+              f"drive's calls {drive}")
         after = promoted.inspect()["stats"]["granted"]
         check(after > 0, "19 cell-kill: no grant after the promotion")
         check(out["double_runs"] == 0, "19 cell-kill: a grant issued twice")
         line += (f"; promoted standby torch_grouped on "
-                 f"{pol._device}, {after} grants after the promotion, "
+                 f"{pol._device}, {after} grants after the promotion "
+                 f"({drive['granted_before']} in the storm; the drive "
+                 f"{drive['granted_here']} of {drive['calls']} calls, "
+                 f"{drive['spilled']} spilled), "
                  f"failover {out['failover_time_ms']} ms, 0 double runs")
     if name == "spill-affinity":
         check(launches["placement_score"] > 0,
@@ -8021,6 +8078,610 @@ def run_hostile_path(report: list) -> dict:
         root_log.setLevel(level)
     res["seconds"] = time.perf_counter() - t0
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the team (yadcc_tpu_torch/parallel/mesh.py) on the card.
+# ---------------------------------------------------------------------------
+
+TEAM_SLICES = 4                # slices over min(4, count) cards, cycled
+TEAM_POD_TASKS = 10_000        # 22b: torch_sharded_grouped at depth 16
+TEAM_SCAN_TASKS = 2_000        # 22b: torch_sharded, synchronous
+TEAM_SPIN_CYCLES = 20_000_000  # 22a's bounded wait (~10 ms of SM clock)
+TEAM_ROUNDS = 200              # 22a: the exchange's round trip
+TEAM_RT_SLICES = (1, 2, 4, 8)  # 22a: its round trip by slices, one card
+
+# Filled by phase 7 (compare_bloom_hits) for phase 22c: the filters and,
+# per hit rate, the packed batch, the host's verdicts and the bounds.
+BLOOM_STASH: dict = {}
+
+
+def k1_team_exchanges(p, groups, pad) -> int:
+    """The exchanges K1's team mode makes on this data: one for the
+    m <= 0 skip, then, for each group it does not skip, one a bisect step
+    and one for the tie split.  The steps are k1_model's (the team's
+    totals are the whole pool's), and a group with no active slot in the
+    whole team steps on a total of 0 where the single pool skips it."""
+    from yadcc_tpu_torch.models.cost import DEFAULT_COST_MODEL, UTIL_SCALE
+
+    padded = list(groups) + [(0, 0, -1, 0)] * (pad - len(groups))
+    _, _, work = k1_model(p, padded)
+    lo0 = -int(DEFAULT_COST_MODEL.preference_bonus_q) - 1
+    hi0 = UTIL_SCALE + 1
+    empty_steps, lo, known = 0, lo0, False
+    while empty_steps < K1_SEARCH_ITERS and not (
+            hi0 == lo or (hi0 - lo == 1 and known)):
+        lo, known = (lo + hi0) >> 1, True
+        empty_steps += 1
+    n = 1
+    for (_, _, _, m), (active, _, it) in zip(padded, work):
+        if m > 0:    # the phase's pools hold no negative running
+            n += (it if active else empty_steps) + 1
+    return n
+
+
+def compare_team_kernels(report: list, team) -> dict:
+    """22a: K1's team mode (sync at G=64 and G=8, and the stream over two
+    chained launches with an adjustment and a reset) and K2's at T=256 on
+    phase 2's timing pool over the team, each held bit-equal to its plain
+    team version and to the single-pool kernel, then timed beside it (CUDA
+    events, 50 warm launches); a team told of a slice that never launches
+    raises on its bounded wait instead of hanging, and the next call, and
+    a team policy's next cycle, run as before."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.ops import assignment as asn
+    from yadcc_tpu_torch.ops import assignment_grouped as asg
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+    from yadcc_tpu_torch.ops import team_exchange as tx
+    from yadcc_tpu_torch.parallel import mesh
+    from yadcc_tpu_torch.scheduler import policy as pol
+
+    dev, n = team[0], len(team)
+    ex = tx.TeamExchange()
+    rng = np.random.default_rng(7)       # time_kernel's pool and groups
+    p = np_pool(rng, MAIN_S, cap_lo=8, cap_hi=65, run_hi=8, ded_frac=0.2)
+    pool = asn.pool_from_numpy(*(p[k] for k in asn.PoolArrays._fields), dev)
+    tpool = mesh.shard_pool(pool, team)
+    per = tpool.per
+
+    def same(a, b, what):
+        check(torch.equal(a.cpu(), b.cpu()), f"22a: {what}")
+
+    def team_k1(batch):
+        c, r = kg.cuda_assign_grouped_team(tpool, batch, exchange=ex)
+        return mesh.unshard_counts(c, tpool), mesh.unshard_vector(r, team,
+                                                                  per)
+
+    def round_trip_ms(slices):
+        """The exchange alone over ``slices``: TEAM_ROUNDS exchanges less
+        a launch of none, a round."""
+        words = ka.cuda_team_rounds(slices, TEAM_ROUNDS, ex)
+        torch.cuda.synchronize()
+        ex.check(slices)
+        k = len(slices)
+        check(words.tolist() == [(j + TEAM_ROUNDS) % k for j in range(k)],
+              f"22a: the exchange's rounds over {k} ended on "
+              f"{words.tolist()}")
+        return max(0.0, (
+            timed(lambda: ka.cuda_team_rounds(slices, TEAM_ROUNDS, ex), 20)
+            - timed(lambda: ka.cuda_team_rounds(slices, 0, ex), 20))
+            / TEAM_ROUNDS)
+
+    # The team's round trip is the design's cost.  The bound's floor is
+    # one slice's: a post and an acquire read of one slot in host memory,
+    # the least any exchange through that memory takes a step.
+    team_rt_ms = round_trip_ms(team)
+    ladder = {k: round_trip_ms([dev] * k) * 1e3 for k in TEAM_RT_SLICES}
+    floor_ms = ladder[1] / 1e3
+    out = {"round_trip_us": team_rt_ms * 1e3, "floor_us": ladder[1],
+           "round_trip_us_by_slices_one_card": ladder}
+    report.append(
+        f"  22a the exchange alone: {TEAM_ROUNDS} rounds, each slice "
+        f"ending on the word the rounds predict; the team's {n} slices "
+        f"{out['round_trip_us']:.3f} us a round; on one card by slices "
+        + ", ".join(f"{k}: {v:.3f}" for k, v in ladder.items())
+        + f" us (20 launches each of {TEAM_ROUNDS} rounds and of none); "
+        f"the bounds take the 1-slice {ladder[1]:.3f} us a step")
+    groups = {8: seeded_groups(rng, 8, MAIN_TASKS, MAIN_S)}
+    groups[MAIN_G] = seeded_groups(rng, MAIN_G, MAIN_TASKS, MAIN_S)
+    for g, gs in groups.items():
+        batch = asg.make_grouped_batch(gs, g, dev)
+        kc, kr = team_k1(batch)
+        torch.cuda.synchronize()
+        ex.check()
+        pc, pr = asg.assign_grouped_team(pool, n, batch)
+        sc, sr = kg.cuda_assign_grouped(pool, batch)
+        same(kc, pc, f"K1 team G={g} counts != plain team")
+        same(kr, pr, f"K1 team G={g} running != plain team")
+        same(kc, sc, f"K1 team G={g} counts != single pool")
+        same(kr, sr, f"K1 team G={g} running != single pool")
+        ms = timed(lambda: team_k1(batch), 50)
+        single_ms = timed(lambda: kg.cuda_assign_grouped(pool, batch), 50)
+        ex.check()
+        plain_ms = timed_once(lambda: asg.assign_grouped_team(pool, n,
+                                                              batch))
+        cost = k1_cost(p, gs, g)
+        exch = k1_team_exchanges(p, gs, g)
+        bytes_ms = cost["bytes"] / H100_BYTES_PER_S * 1e3
+        ops_ms = cost["ops"] / H100_OPS_PER_S * 1e3
+        out[g] = dict(ms=ms, single_ms=single_ms, plain_ms=plain_ms,
+                      exchanges=exch, exchange_ms=exch * team_rt_ms,
+                      bound_ms=max(bytes_ms, ops_ms) + exch * floor_ms,
+                      bound_by="bytes" if bytes_ms >= ops_ms
+                      else "operations", granted=int(kc.sum()))
+        report.append(
+            f"  22a K1 team of {n} S={MAIN_S} G={g} tasks={MAIN_TASKS}: "
+            f"counts and running equal to the plain team version and to "
+            f"single-pool K1 ({out[g]['granted']} granted); team "
+            f"{ms:.4f} ms vs single pool {single_ms:.4f} ms (50 launches "
+            f"each); plain {plain_ms:.2f} ms; {exch} exchanges, "
+            f"{out[g]['exchange_ms']:.4f} ms at the team's round trip; "
+            f"bound {out[g]['bound_ms']:.5f} ms (bytes/ops "
+            f"{max(bytes_ms, ops_ms):.6f} ms, {out[g]['bound_by']}, + the "
+            f"exchanges at the 1-slice floor)")
+
+    # The stream: two chained launches with an adjustment and a reset.
+    gs = seeded_groups(rng, 16, 1500, MAIN_S)
+    packed = asg.make_grouped_packed(gs, 16, dev)
+    t_max = asg.task_pad(1500)
+    adj = torch.zeros(MAIN_S, dtype=torch.int32, device=dev)
+    adj[:4] = -1
+    rmask = torch.zeros(MAIN_S, dtype=torch.bool, device=dev)
+    rmask[5] = True
+    rval = torch.zeros(MAIN_S, dtype=torch.int32, device=dev)
+    delta = [mesh.shard_vector(v, team, per) for v in (adj, rmask, rval)]
+
+    def team_stream(running):
+        tp = tpool._replace(parts=tuple(
+            part._replace(running=r)
+            for part, r in zip(tpool.parts, running)))
+        return kg.cuda_assign_grouped_picks_stream_team(
+            tp, packed, *delta, t_max, exchange=ex)
+
+    run_t = mesh.shard_vector(pool.running.clone(), team, per)
+    run_p = run_s = pool.running.clone()
+    for step in range(2):
+        kp, run_t = team_stream(run_t)
+        pp, run_p = asg.assign_grouped_picks_stream_team(
+            pool._replace(running=run_p), n, packed, adj, rmask, rval, t_max)
+        sp, run_s = kg.cuda_assign_grouped_picks_stream(
+            pool._replace(running=run_s), packed, adj, rmask, rval, t_max)
+        torch.cuda.synchronize()
+        ex.check()
+        krun = mesh.unshard_vector(run_t, team, per)
+        same(kp, pp, f"stream launch {step} picks != plain team")
+        same(krun, run_p, f"stream launch {step} running != plain team")
+        same(kp, sp, f"stream launch {step} picks != single pool")
+        same(krun, run_s, f"stream launch {step} running != single pool")
+    run0 = mesh.shard_vector(pool.running.clone(), team, per)
+    stream = dict(
+        ms=timed(lambda: team_stream(run0), 50),
+        single_ms=timed(lambda: kg.cuda_assign_grouped_picks_stream(
+            pool, packed, adj, rmask, rval, t_max), 50),
+        plain_ms=timed_once(lambda: asg.assign_grouped_picks_stream_team(
+            pool, n, packed, adj, rmask, rval, t_max)),
+        granted=int((kp >= 0).sum()))
+    ex.check()
+    out["stream"] = stream
+    report.append(
+        f"  22a K1 team stream S={MAIN_S} G=16 tasks=1500 t_max={t_max}, "
+        f"two chained launches with an adjustment and a reset: picks and "
+        f"running equal to the plain team stream and to the single-pool "
+        f"stream each launch ({stream['granted']} granted in the second); "
+        f"team {stream['ms']:.4f} ms vs single pool "
+        f"{stream['single_ms']:.4f} ms; plain {stream['plain_ms']:.2f} ms")
+
+    # K2 at the policy's chunk.
+    trng = np.random.default_rng(2207)
+    tasks = [(int(trng.integers(0, 256)), 1, -1) for _ in range(MAIN_T)]
+    batch = k2_batch(tasks, MAIN_T, dev)
+    kp, kr = ka.cuda_assign_batch_team(tpool, batch, exchange=ex)
+    torch.cuda.synchronize()
+    ex.check()
+    kr = mesh.unshard_vector(kr, team, per)
+    pp, pr = asn.assign_batch_team(pool, n, batch)
+    sp, sr = ka.cuda_assign_batch(pool, batch)
+    same(kp, pp, "K2 team picks != plain team")
+    same(kr, pr, "K2 team running != plain team")
+    same(kp, sp, "K2 team picks != single pool")
+    same(kr, sr, "K2 team running != single pool")
+    _, _, work = k2_model(p, tasks)
+    e = pool.env_bitmap.shape[1]
+    moved = MAIN_S * (14 + 4 * e) + MAIN_T * 13 + MAIN_T * 4 + MAIN_S * 4
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    ops_ms = k2_ops(MAIN_S, work) / H100_OPS_PER_S * 1e3
+    exch = work["reductions"]
+    k2 = dict(
+        ms=timed(lambda: ka.cuda_assign_batch_team(tpool, batch,
+                                                   exchange=ex), 50),
+        single_ms=timed(lambda: ka.cuda_assign_batch(pool, batch), 50),
+        plain_ms=timed_once(lambda: asn.assign_batch_team(pool, n, batch)),
+        exchanges=exch, exchange_ms=exch * team_rt_ms,
+        bound_ms=max(bytes_ms, ops_ms) + exch * floor_ms,
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        granted=int((kp >= 0).sum()))
+    ex.check()
+    out["k2"] = k2
+    report.append(
+        f"  22a K2 team of {n} S={MAIN_S} T={MAIN_T}: picks and running "
+        f"equal to the plain team version and to single-pool K2 "
+        f"({k2['granted']} granted); team {k2['ms']:.4f} ms vs single pool "
+        f"{k2['single_ms']:.4f} ms (50 launches each); plain "
+        f"{k2['plain_ms']:.2f} ms; {exch} exchanges, "
+        f"{k2['exchange_ms']:.4f} ms at the team's round trip; bound "
+        f"{k2['bound_ms']:.5f} ms ({k2['bound_by']} + the exchanges at the "
+        f"1-slice floor)")
+
+    # The bounded wait.  Each kernel's entry, told of n + 1 slices, waits
+    # for one that never launches, runs out and sets the error word;
+    # nothing hangs.  The wrapper's next call raises without launching and
+    # clears the word, and the call after it runs as before.  A policy's
+    # cycle that meets a fault fails, and its next cycle runs as before.
+    k1_batch = asg.make_grouped_batch(gs[:4], 4, dev)
+    k1_want = asg.assign_grouped_team(pool, n, k1_batch)
+
+    def k2_call(x):
+        got, run = ka.cuda_assign_batch_team(tpool, batch, exchange=x)
+        return got, mesh.unshard_vector(run, team, per)
+
+    def k1_call(x):
+        c, r = kg.cuda_assign_grouped_team(tpool, k1_batch, exchange=x)
+        return mesh.unshard_counts(c, tpool), mesh.unshard_vector(r, team,
+                                                                  per)
+
+    waits = {}
+    for name, mod, call, want in (("K2", ka, k2_call, (pp, pr)),
+                                  ("K1", kg, k1_call, k1_want)):
+        bad = tx.TeamExchange()
+        t0 = time.perf_counter()
+        with planted_fault(mod, n):
+            call(bad)
+        torch.cuda.synchronize()
+        waits[name] = time.perf_counter() - t0
+        check(bad.error() == tx.ERR_SPIN,
+              f"22a: {name} told of a missing slice set error word "
+              f"{bad.error()}")
+        before = (ka.team_launches, kg.team_launches)
+        try:
+            call(bad)
+        except RuntimeError:
+            check((ka.team_launches, kg.team_launches) == before,
+                  f"22a: {name} launched on a faulted exchange")
+        else:
+            raise SmokeFailure(f"22a: {name} did not raise on its fault")
+        check(bad.error() == 0, f"22a: {name}'s fault was not cleared")
+        got = call(bad)
+        torch.cuda.synchronize()
+        bad.check(team)
+        for a, b, what in zip(got, want, ("outputs", "running")):
+            same(a, b, f"{name}'s {what} after a fault != plain team")
+    snap = pol.PoolSnapshot(**{k: p[k] for k in asn.PoolArrays._fields})
+    reqs = [pol.AssignRequest(e, v, r) for e, v, r in tasks]
+    for name, mod, policy in (
+            ("torch_sharded", ka, pol.TorchShardedPolicy(team=team)),
+            ("torch_sharded_grouped", kg,
+             pol.TorchShardedGroupedPolicy(team=team))):
+        want = policy.assign(snap, reqs)
+        with planted_fault(mod, n):
+            try:
+                policy.assign(snap, reqs)
+            except RuntimeError:
+                pass
+            else:
+                raise SmokeFailure(f"22a: {name} did not raise on its "
+                                   f"fault")
+        got = policy.assign(snap, reqs)
+        check(got == want and sum(x >= 0 for x in got) > 0,
+              f"22a: {name}'s cycle after a fault differs from before it")
+    out["bounded_wait_s"] = waits
+    report.append(
+        "  22a bounded wait: K1 and K2 told of a fifth slice that never "
+        "launches ran out of their "
+        f"{TEAM_SPIN_CYCLES:,}-cycle wait, set the error word and ended "
+        + ", ".join(f"{k} in {v:.3f} s" for k, v in waits.items())
+        + "; each wrapper then raised without launching, cleared the word "
+        "and ran its next call equal to the plain team version; "
+        "torch_sharded's and torch_sharded_grouped's cycle with the fault "
+        "raised and their next cycle assigned as before it")
+    return out
+
+
+@contextlib.contextmanager
+def planted_fault(mod, n: int):
+    """Every team launch of ``mod`` (ops/cuda_assign.py or cuda_grouped.py)
+    inside the block calls its kernel's entry told of n + 1 slices and a
+    TEAM_SPIN_CYCLES bound: its blocks wait for a slice that never comes."""
+    from yadcc_tpu_torch.ops import team_exchange as tx
+
+    fn, scratch_bytes, lib = mod._team_kernel()
+
+    def entry(*args):
+        # (..., slice ids, team size, buffer, epoch, spin limit, stream)
+        args = list(args)
+        check(args[-5] == n and args[-2] == tx.SPIN_LIMIT_CYCLES,
+              f"22a: the team entry's arguments moved: {args[-5:]}")
+        args[-5], args[-2] = n + 1, TEAM_SPIN_CYCLES
+        return fn(*args)
+
+    mod._team_fn = (entry, scratch_bytes, lib)
+    try:
+        yield
+    finally:
+        mod._team_fn = (fn, scratch_bytes, lib)
+
+
+def run_team_pod(report: list, team) -> dict:
+    """22b: torch_sharded_grouped serving configs[4]'s fleet (SCALE_POD,
+    5,000 servants) in process over the team, pipelined at depth 16,
+    with 16c's gates; then torch_sharded, synchronous.  The counts are
+    set to 0 after the build and the warmups and read after the run; the
+    team's K1 launches are counted at the wrapper."""
+    from yadcc_tpu_torch.ops import cuda_assign as ka
+    from yadcc_tpu_torch.ops import cuda_grouped as kg
+    from yadcc_tpu_torch.parallel import mesh
+    from yadcc_tpu_torch.scheduler import policy as tpol
+    from yadcc_tpu_torch.tools import pod_sim
+
+    parts = len(mesh.team_parts(team))
+    out = {"launches": {}}
+    for name, policy, depth, tasks in (
+            ("sharded_grouped", "torch_sharded_grouped", SCALE_POD_DEPTH,
+             TEAM_POD_TASKS),
+            ("sharded", "torch_sharded", 0, TEAM_SCAN_TASKS)):
+        tag = f"22b {policy}"
+        t0 = time.perf_counter()
+        sim = pod_sim.PodSim(SCALE_POD_SERVANTS, device=team[0],
+                             pipeline_depth=depth, team=team,
+                             **dict(SCALE_POD, policy=policy))
+        built_s = time.perf_counter() - t0
+        pol = sim.dispatcher._policy
+        check(type(pol) in (tpol.TorchShardedGroupedPolicy,
+                            tpol.TorchShardedPolicy)
+              and pol._team == tuple(team),
+              f"{tag}: the sim runs {type(pol).__name__} on "
+              f"{getattr(pol, '_team', None)}")
+        stream_calls = [0]
+        real = mesh.sharded_assign_grouped_picks_stream
+
+        def counted(*a, **kw):
+            stream_calls[0] += 1
+            return real(*a, **kw)
+
+        zero_launches()
+        kg.team_launches = ka.team_launches = 0
+        mesh.sharded_assign_grouped_picks_stream = counted
+        try:
+            res = sim.run(tasks, SCALE_POD_DUP, SCALE_POD_SUBMITTERS)
+        finally:
+            mesh.sharded_assign_grouped_picks_stream = real
+        n = dict(read_launches(), grouped_assign_team=kg.team_launches,
+                 assign_batch_team=ka.team_launches)
+        pol._exchange.check()
+        b = res["breakdown"]
+        check(res["tasks"] == tasks,
+              f"{tag}: {res['tasks']} of {tasks} tasks accounted for")
+        check(b["hit_cache"] + b["reused"] + b["actually_run"] == tasks,
+              f"{tag}: the ladder does not sum: {b}")
+        check(sim._dup_gids == 0, f"{tag}: {sim._dup_gids} ids twice")
+        check(res["grants_granted"] == res["scheduler_stats"]["granted"],
+              f"{tag}: client grants {res['grants_granted']} != scheduler "
+              f"{res['scheduler_stats']['granted']}")
+        check(n["grouped_assign"] == 0 and n["assign_batch"] == 0,
+              f"{tag}: a single-pool kernel launched: {n}")
+        stream = sim.dispatcher.inspect()["stream"]
+        if depth:
+            check(n["grouped_assign_team"] > 0
+                  and n["assign_batch_team"] == 0,
+                  f"{tag}: team launches {n}")
+            check(n["grouped_assign_team"] == stream_calls[0] * parts,
+                  f"{tag}: {stream_calls[0]} stream calls for "
+                  f"{n['grouped_assign_team']} team K1 launches")
+            check(stream["resyncs"] == 0,
+                  f"{tag}: the stale-stream guard resynced: {stream}")
+        else:
+            check(n["assign_batch_team"] > 0
+                  and n["grouped_assign_team"] == 0,
+                  f"{tag}: team launches {n}")
+        out["launches"][name] = n
+        out[name] = {k: res[k] for k in (
+            "tasks", "servants", "total_capacity", "wall_seconds",
+            "tasks_per_sec", "assignments_per_sec", "breakdown",
+            "grants_granted", "grant_call_p50_ms", "grant_call_p99_ms")}
+        report.append(
+            f"  {tag} pod_sim over the team ({len(team)} slices on "
+            f"{parts} card(s)): {res['tasks']} tasks x {res['servants']} "
+            f"servants (capacity {res['total_capacity']}, depth {depth}; "
+            f"built and warmed in {built_s:.1f} s) in "
+            f"{res['wall_seconds']} s: {res['tasks_per_sec']} tasks/s; "
+            f"breakdown {json.dumps(b)}; grant call p50 "
+            f"{res['grant_call_p50_ms']} ms p99 {res['grant_call_p99_ms']} "
+            f"ms; no id twice; client grants = scheduler grants; launches "
+            f"in the run {n}"
+            + (f"; stream wrapper calls {stream_calls[0]}, dispatcher "
+               f"stream {stream}" if depth else ""))
+    return out
+
+
+def team_bloom(report: list, team) -> dict:
+    """22c: the filter-sharded membership and cascade over the team on
+    phase 7's batches (1M keys of 80 bytes, 27,584,639 bits, 10 hashes;
+    1/10/50% hits), held bit-equal to the host filters and to the
+    one-card kernels, each slice's range kernels to their plain versions
+    at 50%, timed beside the one-card kernels and the cascade's pair form
+    over the whole filter (what its early exit saves); then the cascade through
+    DeviceBloomCascade(team=...) and the membership through its team
+    entry, with the counts set to 0 before and read after."""
+    import numpy as np
+    import torch
+
+    from yadcc_tpu_torch.cache.bloom_filter_generator import \
+        DeviceBloomCascade
+    from yadcc_tpu_torch.ops import bloom_pipeline as bpl
+    from yadcc_tpu_torch.ops import cuda_bloom as kb
+    from yadcc_tpu_torch.parallel import mesh
+    from yadcc_tpu_torch.tools.bloom_bench import (FLEET_HASHES, FLEET_SALT,
+                                                   SALT)
+
+    check(BLOOM_STASH.get("batches"), "22c: phase 7 left no batches")
+    dev = team[0]
+    region, fleet = BLOOM_STASH["region"], BLOOM_STASH["fleet"]
+    nb, k = region.num_bits, region.num_hashes
+    rw = mesh.shard_bloom_words(region.words, team, nb)
+    fw = mesh.shard_bloom_words(fleet.words, team, nb)
+    words = bpl.as_device_words(region.words, dev)
+    fwords = bpl.as_device_words(fleet.words, dev)
+    seed, fseed = bpl.seed_pair(SALT), bpl.seed_pair(FLEET_SALT)
+    geo = dict(num_bits=nb, num_hashes=k)
+    cas_geo = dict(num_bits=nb, num_hashes_region=k,
+                   num_hashes_fleet=FLEET_HASHES)
+    out = {}
+    top = max(BLOOM_STASH["batches"])
+    for rate, st in sorted(BLOOM_STASH["batches"].items()):
+        length = st["length"]
+        packed = bpl.as_device_words(st["packed"], dev)
+
+        def team_m():
+            return mesh.sharded_bloom_membership(rw, packed, length, seed,
+                                                 team=team, **geo)
+
+        def team_c():
+            return mesh.sharded_bloom_cascade(rw, fw, packed, length, seed,
+                                              fseed, team=team, **cas_geo)
+
+        tm, tc = team_m(), team_c()
+        om = kb.bloom_membership(words, packed, length, seed, **geo)
+        oc = kb.bloom_cascade(words, fwords, packed, length, seed, fseed,
+                              **cas_geo)
+        check(np.array_equal(tm.cpu().numpy(), st["want"]),
+              f"22c {rate}: team membership != host filter")
+        check(np.array_equal(tc.cpu().numpy(), st["want_c"]),
+              f"22c {rate}: team cascade != host OR")
+        check(torch.equal(tm, om) and torch.equal(tc, oc),
+              f"22c {rate}: team != one-card kernels")
+
+        def whole_pair():
+            # The pair form over the whole filter: the one-card cascade
+            # without its early exit.
+            return kb.bloom_cascade_pair(words, fwords, packed, length,
+                                         seed, fseed, word_lo=0,
+                                         **cas_geo) != 0
+
+        check(torch.equal(whole_pair(), oc),
+              f"22c {rate}: the pair form over the whole filter != the "
+              f"one-card cascade")
+        row = {"membership": dict(
+                   ms=timed(team_m, 50),
+                   one_card_ms=timed(lambda: kb.bloom_membership(
+                       words, packed, length, seed, **geo), 50),
+                   **st["membership_bound"]),
+               "cascade": dict(
+                   ms=timed(team_c, 50),
+                   one_card_ms=timed(lambda: kb.bloom_cascade(
+                       words, fwords, packed, length, seed, fseed,
+                       **cas_geo), 50),
+                   pair_whole_filter_ms=timed(whole_pair, 50),
+                   **st["cascade_bound"])}
+        if rate == top:
+            # Each slice's range kernels against their plain versions.
+            for (kk, sdev, w, lo), (_, _, f, _) in zip(
+                    mesh._bloom_slices(team, rw, nb),
+                    mesh._bloom_slices(team, fw, nb)):
+                sp = packed.to(sdev)
+                check(torch.equal(
+                    kb.bloom_membership_range(w, sp, length, seed,
+                                              word_lo=lo, **geo),
+                    bpl.membership_range_plain(w, sp, length, seed, nb, k,
+                                               lo)),
+                    f"22c: slice {kk} membership range != plain")
+                check(torch.equal(
+                    kb.bloom_cascade_pair(w, f, sp, length, seed, fseed,
+                                          word_lo=lo, **cas_geo),
+                    bpl.cascade_pair_plain(w, f, sp, length, seed, fseed,
+                                           nb, k, FLEET_HASHES, lo)),
+                    f"22c: slice {kk} cascade pair != plain")
+
+            def plain_m():
+                return torch.stack([
+                    bpl.membership_range_plain(w, packed, length, seed, nb,
+                                               k, lo)
+                    for _, _, w, lo in mesh._bloom_slices(team, rw,
+                                                          nb)]).all(0)
+
+            def plain_c():
+                code = None
+                for (_, _, w, lo), (_, _, f, _) in zip(
+                        mesh._bloom_slices(team, rw, nb),
+                        mesh._bloom_slices(team, fw, nb)):
+                    c = bpl.cascade_pair_plain(w, f, packed, length, seed,
+                                               fseed, nb, k, FLEET_HASHES,
+                                               lo)
+                    code = c if code is None else code & c
+                return code != 0
+
+            row["membership"]["plain_ms"] = timed_once(plain_m)
+            row["cascade"]["plain_ms"] = timed_once(plain_c)
+        out[str(rate)] = row
+        report.append(
+            f"  22c at {rate:.0%} hits ({len(st['want']):,} keys of "
+            f"{length} bytes): team "
+            f"membership and cascade equal to the host filters and the "
+            f"one-card kernels; membership team {row['membership']['ms']:.4f}"
+            f" ms vs one card {row['membership']['one_card_ms']:.4f} ms, "
+            f"cascade team {row['cascade']['ms']:.4f} ms vs one card "
+            f"{row['cascade']['one_card_ms']:.4f} ms (the pair form over "
+            f"the whole filter, no early exit, "
+            f"{row['cascade']['pair_whole_filter_ms']:.4f} ms) (50 calls "
+            f"each; a team call is {len(team)} launches and the AND)")
+        del packed
+    # The entry points, counted: the cascade through the reader's class,
+    # the membership through its team entry.
+    rate, keys = BLOOM_STASH["keys"]
+    st = BLOOM_STASH["batches"][rate]
+    for name in kb.launches:
+        kb.launches[name] = 0
+    got = DeviceBloomCascade(team=team).may_contain_batch(region, fleet,
+                                                          keys)
+    packed = bpl.as_device_words(st["packed"], dev)
+    mesh.sharded_bloom_membership(rw, packed, st["length"], seed,
+                                  team=team, **geo)
+    torch.cuda.synchronize()
+    launched = dict(kb.launches)
+    check(np.array_equal(got, st["want_c"]),
+          "22c: DeviceBloomCascade(team) != host OR")
+    check(launched["cascade_pair"] >= len(team)
+          and launched["membership_range"] == len(team)
+          and launched["cascade"] == 0 and launched["membership"] == 0,
+          f"22c: entry launches {launched}")
+    out["launches"] = {k: launched[k] for k in ("membership_range",
+                                                "cascade_pair")}
+    report.append(
+        f"  22c entry points at {rate:.0%} hits: DeviceBloomCascade(team) "
+        f"equal to the host OR; launches {out['launches']} (one a slice "
+        f"a call)")
+    return out
+
+
+def run_team_path(report: list) -> dict:
+    """Phase 22: 22a-c on a team of TEAM_SLICES slices over min(4, count)
+    cards, cycled (on a one-card host all four on that card: the code
+    and the exchange N cards would use, the cross-card case unproved)."""
+    import torch
+
+    from yadcc_tpu_torch.parallel import mesh
+
+    team = mesh.make_team(TEAM_SLICES)
+    t0 = time.perf_counter()
+    out = {"team": [str(d) for d in team],
+           "cards": torch.cuda.device_count()}
+    out["kernels"] = walled("22a team kernels", compare_team_kernels,
+                            report, team)
+    out["pod"] = walled("22b team pod_sim", run_team_pod, report, team)
+    out["bloom"] = walled("22c team bloom", team_bloom, report, team)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # Phase 20's subprocess: torch and jax blocked before anything is imported.
@@ -8426,6 +9087,18 @@ def main() -> int:
     for line in report:
         log(line)
 
+    report = []
+    team = walled("22 team", run_team_path, report)
+    BLOOM_STASH.clear()
+    log(f"phase 22 the team: {TEAM_SLICES} slices on {team['team']} "
+        f"({team['cards']} card(s) on this host: with one, every slice on "
+        f"it, the cross-card exchange unproved) in {team['seconds']:.1f} "
+        f"s; {card}:")
+    for line in report:
+        log(line)
+    log(f"walls of phases 17, 18 and 22 (s): 17 {jit['seconds']:.1f}, 18 "
+        f"{WALLS['18 tools']}, 22 {WALLS['22 team']}")
+
     def by_phase(kernel):
         return {name: r["launches"][kernel] for name, r in phases.items()}
 
@@ -8559,6 +9232,86 @@ def main() -> int:
                            "native_call_ms", "bound_ms", "bound_by")},
         "placement_stage": federation["placement_stage"],
     })
+    tk, tpod, tbl = team["kernels"], team["pod"], team["bloom"]
+    team_shape = {"slices": TEAM_SLICES, "team": team["team"],
+                  "cards": team["cards"]}
+    record["kernels"].append({
+        "name": "grouped_assign_team",
+        "route": "cuda",
+        "source": "yadcc_tpu_torch/csrc/grouped_assign.cu",
+        "replaces": "yadcc_tpu/parallel/mesh.py:257",
+        "launches": tpod["launches"]["sharded_grouped"][
+            "grouped_assign_team"],
+        "launches_by_phase": {
+            "phase22b_sharded_grouped": tpod["launches"]["sharded_grouped"][
+                "grouped_assign_team"]},
+        "max_abs_err": 0,
+        "ms": tk[MAIN_G]["ms"],
+        "plain_ms": tk[MAIN_G]["plain_ms"],
+        "bound_ms": tk[MAIN_G]["bound_ms"],
+        "bound_by": tk[MAIN_G]["bound_by"],
+        "library_ms": None,
+        "single_pool_ms": tk[MAIN_G]["single_ms"],
+        "exchanges": tk[MAIN_G]["exchanges"],
+        "exchange_ms": tk[MAIN_G]["exchange_ms"],
+        "exchange_round_trip_us": tk["round_trip_us"],
+        "exchange_floor_us": tk["floor_us"],
+        "exchange_round_trip_us_by_slices_one_card":
+            tk["round_trip_us_by_slices_one_card"],
+        "at_G8": {k: tk[8][k] for k in ("ms", "single_ms", "plain_ms",
+                                         "bound_ms", "exchanges",
+                                         "exchange_ms")},
+        "stream": tk["stream"],
+        "shape": {"S": MAIN_S, "G": MAIN_G, "tasks": MAIN_TASKS, "E": 8,
+                  **team_shape},
+    })
+    record["kernels"].append({
+        "name": "assign_batch_team",
+        "route": "cuda",
+        "source": "yadcc_tpu_torch/csrc/assign_batch.cu",
+        "replaces": "yadcc_tpu/parallel/mesh.py:131",
+        "launches": tpod["launches"]["sharded"]["assign_batch_team"],
+        "launches_by_phase": {
+            "phase22b_sharded": tpod["launches"]["sharded"][
+                "assign_batch_team"]},
+        "max_abs_err": 0,
+        "ms": tk["k2"]["ms"],
+        "plain_ms": tk["k2"]["plain_ms"],
+        "bound_ms": tk["k2"]["bound_ms"],
+        "bound_by": tk["k2"]["bound_by"],
+        "library_ms": None,
+        "single_pool_ms": tk["k2"]["single_ms"],
+        "exchanges": tk["k2"]["exchanges"],
+        "exchange_ms": tk["k2"]["exchange_ms"],
+        "exchange_floor_us": tk["floor_us"],
+        "shape": {"S": MAIN_S, "T": MAIN_T, "E": 8, **team_shape},
+    })
+    top = max(tbl, key=lambda r: float(r) if r != "launches" else -1)
+    for name, kernel, fn, replaces in (
+            ("bloom_membership_range", "membership_range", "membership",
+             "yadcc_tpu/parallel/mesh.py:421"),
+            ("bloom_cascade_pair", "cascade_pair", "cascade",
+             "yadcc_tpu/parallel/mesh.py:478")):
+        t = tbl[top][fn]
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "yadcc_tpu_torch/csrc/bloom.cu",
+            "replaces": replaces,
+            "launches": tbl["launches"][kernel],
+            "launches_by_phase": {"phase22c_entry": tbl["launches"][kernel]},
+            "max_abs_err": 0,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "one_card_ms": t["one_card_ms"],
+            "at_hit_rates": {r: {k: tbl[r][fn][k] for k in
+                                 ("ms", "one_card_ms", "bound_ms")}
+                             for r in tbl if r != "launches"},
+            "shape": dict(bloom_shape, **team_shape),
+        })
     log("main paths ({}): {}; fused {} cycles in {:.2f} s; total {:.1f} "
         "s".format(card, "; ".join(
             f"{name} {r['grants_per_s']:.1f} grants/s p99 {r['p99_ms']:.2f} "

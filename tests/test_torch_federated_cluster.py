@@ -181,3 +181,60 @@ def test_rig_defaults_to_the_card():
     sig = inspect.signature(PortRig)
     assert sig.parameters["policy"].default == "greedy_cpu"
     assert sig.parameters["device"].default == "cuda"
+
+
+def test_promoted_standby_grants_after_a_storm_that_spilled_everything(
+        rigs):
+    """The promoted standby comes back at the dead active's rung: killed
+    mid-storm, SPILLOVER, where every request goes to cell 1 and the
+    standby's own ladder only moves when a request reaches it.  A storm
+    spilled to the last request leaves it no grant of its own;
+    drive_promoted (the card smoke's phase 19b) sends demand through it
+    until its ladder steps down and it grants on cell 0's servants."""
+    from yadcc_tpu_torch import api
+    from yadcc_tpu_torch.rpc import Channel
+    from yadcc_tpu_torch.scheduler.admission import (RUNG_SPILLOVER,
+                                                     AdmissionConfig)
+
+    # The storm's ladder (tools/scenarios.py cell-kill), with a dwell
+    # long enough that the storm's calls all land on SPILLOVER.
+    cfg0 = AdmissionConfig(up_thresholds=(1.2, 1.6, 6.0, 9.0),
+                           up_dwell_s=0.05, down_dwell_s=2.0,
+                           demand_window_s=1.2, retry_after_base_ms=100,
+                           retry_after_max_ms=500)
+    rig = rigs(PortRig, device="cpu", admission_configs=[cfg0, None])
+    rig.arm_monitor(silence_s=0.3)
+    rig.kill_active()
+    assert rig.wait_promoted(15.0)
+    promoted = rig.standby.dispatcher
+    promoted.restore_admission_rung(RUNG_SPILLOVER)
+    chan = Channel(rig.cell_dial_uri(0))
+    spilled = []
+    try:
+        for _ in range(4):
+            req = api.scheduler.WaitForStartingTaskRequest(
+                token="", milliseconds_to_wait=250, immediate_reqs=1,
+                next_keep_alive_in_ms=3000)
+            req.env_desc.compiler_digest = ENV
+            resp = _call_wait(chan, req)
+            for g in resp.grants:
+                spilled.append((g.cell_id, g.spilled))
+                _call(yadcc_tpu_torch, chan, "FreeTask", "FreeTaskRequest",
+                      "FreeTaskResponse", task_grant_ids=[g.task_grant_id])
+    finally:
+        chan.close()
+    assert spilled == [(1, True)] * 4
+    assert promoted.inspect()["stats"]["granted"] == 0
+    out = rig.drive_promoted(want=2, timeout_s=30.0)
+    assert out["granted_here"] >= 2, out
+    assert out["granted_before"] == 0
+    assert out["granted_after"] >= out["granted_before"] + 2
+    assert promoted.admission_rung() < RUNG_SPILLOVER
+
+
+def _call_wait(chan, req):
+    resp, _ = chan.call(
+        "ytpu.SchedulerService", "WaitForStartingTask", req,
+        yadcc_tpu_torch.api.scheduler.WaitForStartingTaskResponse,
+        timeout=5.0)
+    return resp

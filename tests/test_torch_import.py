@@ -31,7 +31,7 @@ _BLOOM_MODULES = (
 _SHARD_MODULES = (
     "common.hashing", "common.backoff", "common.consistent_hash",
     "tenancy", "tenancy.identity", "tenancy.tiers", "tenancy.budgets",
-    "parallel.mesh", "scheduler.shard_router")
+    "parallel.mesh", "scheduler.shard_router", "ops.team_exchange")
 # Replication, standby, federation and scored placement, each by name.
 _REPLICATION_MODULES = (
     "rpc.transport", "scheduler.replication", "scheduler.placement",

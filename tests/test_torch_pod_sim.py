@@ -62,20 +62,27 @@ RUNS = [pytest.param("jax", "greedy_cpu", 0, id="jax"),
         pytest.param("jax", "grouped", 0, id="jax-grouped"),
         pytest.param("port", "grouped", 0, id="port-grouped"),
         pytest.param("jax", "grouped", 16, id="jax-grouped-depth16"),
-        pytest.param("port", "grouped", 16, id="port-grouped-depth16")]
+        pytest.param("port", "grouped", 16, id="port-grouped-depth16"),
+        pytest.param("port", "sharded_grouped", 16,
+                     id="port-sharded-grouped-depth16")]
 
 
 @pytest.mark.parametrize("pkg,policy,depth", RUNS)
 def test_small_run_holds_the_invariants(pkg, policy, depth):
     """greedy_cpu synchronous, and the grouped device policy
     (jax_grouped / torch_grouped on the CPU) synchronous and at pipeline
-    depth 16, the mode the entry takes on the card: every task accounted
-    for, no grant id twice, the client's grants equal to the
+    depth 16, the mode the entry takes on the card, and the port's
+    torch_sharded_grouped over a team of 4 CPU slices at depth 16 (the
+    team where the JAX tool builds a mesh): every task
+    accounted for, no grant id twice, the client's grants equal to the
     scheduler's, every stage timed."""
-    if policy == "grouped":
-        policy = "jax_grouped" if pkg == "jax" else "torch_grouped"
+    if policy in ("grouped", "sharded_grouped"):
+        policy = ("jax_" if pkg == "jax" else "torch_") + policy
     m, kw = ((jps, {"policy": policy}) if pkg == "jax" else
              (tps, {"policy": policy, "device": "cpu"}))
+    if policy == "torch_sharded_grouped":
+        from yadcc_tpu_torch.parallel import mesh
+        kw["team"] = mesh.make_team(4, "cpu")
     sim = m.PodSim(servants=48, capacity=4, exec_ms=4.0, churn_per_s=1,
                    capacity_dist="uniform:2:8", check_unique=True,
                    pipeline_depth=depth, **kw)

@@ -257,7 +257,8 @@ def test_make_policy_port_names():
     """Every --dispatch-policy name of the port builds its policy; each
     stands for JAX policies of the same semantics."""
     assert tpol.POLICY_NAMES == ("auto", "greedy_cpu", "torch_grouped",
-                                 "torch_batched", "torch_resident_grouped")
+                                 "torch_batched", "torch_resident_grouped",
+                                 "torch_sharded", "torch_sharded_grouped")
     for name in tpol.POLICY_NAMES:
         assert tpol.make_policy(name, device="cpu").name == name
     assert isinstance(tpol.make_policy("torch_batched", device="cpu"),
@@ -265,6 +266,16 @@ def test_make_policy_port_names():
     res = tpol.make_policy("torch_resident_grouped", avoid_self=False,
                            device="cpu")
     assert res.supports_resident and not res.resident_pool._cm.avoid_self
+    team = (torch.device("cpu"),) * 4
+    sharded = tpol.make_policy("torch_sharded_grouped", avoid_self=False,
+                               device="cpu", team=team)
+    assert isinstance(sharded, tpol.TorchShardedGroupedPolicy)
+    assert sharded._team == team and not sharded._cm.avoid_self
+    assert tpol.make_policy("torch_sharded", device="cpu")._team == \
+        (torch.device("cpu"),)
+    with pytest.raises(ValueError, match="must divide evenly"):
+        tpol.make_policy("torch_sharded", device="cpu", team=team,
+                         max_servants=66)
     for name in ("jax_batched", "jax_pallas", "jax_resident_grouped"):
         with pytest.raises(ValueError):
             tpol.make_policy(name, device="cpu")

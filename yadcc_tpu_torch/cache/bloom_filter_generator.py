@@ -178,10 +178,13 @@ class DeviceBloomReplica:
 
 
 class DeviceBloomCascade:
-    """Two-level cascade on one card: region filter (L1/L2 keys) OR fleet
-    filter (shared L3 keys), evaluated in one launch per length bucket
-    (ops/bloom_pipeline.py:bloom_cascade_from_keys, the one-card body of
-    the JAX package's parallel/mesh.py:sharded_bloom_cascade_fn).
+    """Two-level cascade: region filter (L1/L2 keys) OR fleet filter
+    (shared L3 keys).  On one card (``device``) one launch per length
+    bucket (ops/bloom_pipeline.py:bloom_cascade_from_keys, the one-card
+    body of the JAX package's parallel/mesh.py:sharded_bloom_cascade_fn);
+    over a ``team`` (parallel/mesh.py) the filters' words are split over
+    the slices and each slice judges its own probes
+    (mesh.sharded_bloom_cascade), as the JAX class's mesh does.
 
     Both filters must share num_bits (the generators' default geometry
     guarantees this); salts and hash counts may differ.  Word arrays are
@@ -190,10 +193,17 @@ class DeviceBloomCascade:
     reuse, the trade the JAX class makes.
     """
 
-    def __init__(self, device: str = "cuda"):
+    def __init__(self, device: str = "cuda", team=None):
         from ..device import resolve_device
 
-        self._device = resolve_device(device)
+        self._team = None
+        if team is not None:
+            from ..parallel import mesh
+
+            self._team = mesh.as_team(team)
+            self._device = self._team[0]
+        else:
+            self._device = resolve_device(device)
 
     def may_contain_batch(self, region: "bloom.SaltedBloomFilter",
                           fleet: "bloom.SaltedBloomFilter",
@@ -211,11 +221,26 @@ class DeviceBloomCascade:
         if region.num_bits != fleet.num_bits:
             raise ValueError("cascade filters must share num_bits: "
                              f"{region.num_bits} != {fleet.num_bits}")
-        rw = as_device_words(region.words, self._device)
-        fw = as_device_words(fleet.words, self._device)
         rseed = seed_pair(region.salt)
         fseed = seed_pair(fleet.salt)
         out = np.zeros(len(keys), bool)
+        if self._team is not None:
+            from ..parallel import mesh
+
+            rw = mesh.shard_bloom_words(region.words, self._team,
+                                        region.num_bits)
+            fw = mesh.shard_bloom_words(fleet.words, self._team,
+                                        fleet.num_bits)
+            for length, rows, packed in pack_key_buckets(keys):
+                verdicts = mesh.sharded_bloom_cascade(
+                    rw, fw, as_device_words(packed, self._device), length,
+                    rseed, fseed, num_bits=region.num_bits,
+                    num_hashes_region=region.num_hashes,
+                    num_hashes_fleet=fleet.num_hashes, team=self._team)
+                out[rows] = verdicts.cpu().numpy()
+            return out
+        rw = as_device_words(region.words, self._device)
+        fw = as_device_words(fleet.words, self._device)
         for length, rows, packed in pack_key_buckets(keys):
             verdicts = bloom_cascade_from_keys(
                 rw, fw, as_device_words(packed, self._device), length,

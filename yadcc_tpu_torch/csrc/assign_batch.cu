@@ -53,6 +53,22 @@
 // made, for the host model of this design (chip_smoke.py:k2_model) to be
 // checked against.
 //
+// Team mode (the counterpart of yadcc_tpu/parallel/mesh.py:sharded_assign_fn;
+// plain version ops/assignment.py:assign_batch_team): the pool split into
+// equal slices over a team (parallel/mesh.py), one launch a card, one block
+// a slice, the blocks of a card launched together as a cooperative launch.
+// Block b owns slice ids[b]: its per-slot arrays from slot b*S of its card's
+// part, global slots from ids[b]*S.  A key is score*S_key + global slot,
+// S_key the whole pool, so keys stay unique and comparable across slices.
+// Each reduction is followed by one exchange (csrc/team_exchange.cuh) of the
+// slice's least key; every block takes the least of the team's and decodes
+// the winner, so every block sees the same grant and the same descriptor
+// changes and makes the same exchanges; only the slice owning the winning
+// slot adds it to `running`, and block 0 of each card writes the picks.  A
+// task whose descriptor and minimum stand makes no exchange, in every slice
+// alike.  Where trouble lies (deadlock, bounded waits, reuse, one path):
+// team_exchange.cuh.
+//
 // Integer traps, all mirrored from the plain version:
 //   * the utilization product is int64 and the division floors (a running
 //     count folded below zero never reaches this kernel, but floor keeps the
@@ -67,6 +83,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "team_exchange.cuh"
 
 namespace {
 
@@ -94,6 +112,11 @@ long long scratch_bytes(int S, int env_words) {
   return slot_bytes(S) + (long long)S * env_words * 4;
 }
 
+// One block's region of the global scratch, 16-byte aligned.
+long long block_scratch_bytes(int S, int env_words) {
+  return (scratch_bytes(S, env_words) + 15) / 16 * 16;
+}
+
 struct Params {
   long long pref_thresh_q;
   long long bonus_q;
@@ -106,9 +129,11 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// The key of a live slot: score*S + s, or kNoKey when it has no room.
-__device__ __forceinline__ long long live_key(int s, int32_t r, int32_t c,
-                                              bool ded, int S,
+// The key of a live slot: score*S_key + its global slot g, or kNoKey when
+// it has no room.
+__device__ __forceinline__ long long live_key(long long g, int32_t r,
+                                              int32_t c, bool ded,
+                                              long long S_key,
                                               const Params& p) {
   if (r >= c) return kNoKey;
   const int32_t c1 = c > 1 ? c : 1;
@@ -118,7 +143,12 @@ __device__ __forceinline__ long long live_key(int s, int32_t r, int32_t c,
           : floor_div((long long)r * kUtilScale, c1);
   const long long score =
       (ded && util < p.pref_thresh_q) ? util - p.bonus_q : util;
-  return score * S + s;
+  return score * S_key + g;
+}
+
+__device__ __forceinline__ long long floor_mod(long long a, long long b) {
+  const long long m = a % b;
+  return m < 0 ? m + b : m;
 }
 
 // Signed 64-bit minimum over the warp, in every lane: the high words
@@ -147,8 +177,8 @@ __device__ __forceinline__ long long block_min(long long v, long long* buf) {
 
 // kShared: the per-slot state lives in shared memory (else in the global
 // scratch); a compile-time choice, so every access to it is a shared-memory
-// instruction, not a generic one.
-template <bool kShared>
+// instruction, not a generic one.  kTeam: the team mode (block b a slice).
+template <bool kShared, bool kTeam>
 __global__ void __launch_bounds__(kThreads, 1) assign_batch_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ capacity,
     const int32_t* __restrict__ running_in,
@@ -158,13 +188,27 @@ __global__ void __launch_bounds__(kThreads, 1) assign_batch_kernel(
     const int32_t* __restrict__ t_req, const uint8_t* __restrict__ t_valid,
     int S, int T, Params p, int avoid_self, int32_t* __restrict__ picks_out,
     int32_t* __restrict__ running_out, uint8_t* global_scratch,
-    long long env_offset, long long* work_out) {
+    long long env_offset, long long block_scratch, long long* work_out,
+    team::Args team_args) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ long long red_buf[2][kWarps];
   __shared__ int32_t s_env[kTaskChunk], s_minv[kTaskChunk], s_req[kTaskChunk];
   __shared__ uint8_t s_valid[kTaskChunk];
+  __shared__ long long team_got[kTeam ? 2 * team::kMaxSlices *
+                                          team::kMaxPayload : 1];
+  __shared__ int team_fail;
 
-  uint8_t* base = kShared ? smem : global_scratch;
+  // This block's slice: its slots start at `so` in every per-slot array of
+  // the card's part, and at global slot `gbase`; keys count S_key slots.
+  const int slice = kTeam ? team_args.ids[blockIdx.x] : 0;
+  const long long so = kTeam ? (long long)blockIdx.x * S : 0;
+  const long long gbase = (long long)slice * S;
+  const long long S_key = kTeam ? (long long)team_args.n_slices * S : S;
+  team::Block tb{0u, &team_fail, team_got};
+  if (kTeam && threadIdx.x == 0) team_fail = 0;  // read after a barrier
+
+  uint8_t* my_scratch = global_scratch + blockIdx.x * block_scratch;
+  uint8_t* base = kShared ? smem : my_scratch;
   long long* key = reinterpret_cast<long long*>(base);
   int32_t* run = reinterpret_cast<int32_t*>(key + S);
   int32_t* ver = run + S;
@@ -172,24 +216,25 @@ __global__ void __launch_bounds__(kThreads, 1) assign_batch_kernel(
   uint8_t* ded = reinterpret_cast<uint8_t*>(cap + S);
   // The bitmap transposed, [E, S]: written and read by each slot's owner
   // only, so plain (not read-only-cache) loads see the writes.
-  int32_t* env_t = reinterpret_cast<int32_t*>(global_scratch + env_offset);
+  int32_t* env_t = reinterpret_cast<int32_t*>(my_scratch + env_offset);
 
   const int tid = threadIdx.x;
 
   for (int s = tid; s < S; s += kThreads) {
-    const int32_t r = running_in[s], c = capacity[s];
-    const bool d = dedicated[s] != 0;
+    const int32_t r = running_in[so + s], c = capacity[so + s];
+    const bool d = dedicated[so + s] != 0;
     run[s] = r;
-    ver[s] = version[s];
+    ver[s] = version[so + s];
     cap[s] = c;
     ded[s] = d;
-    key[s] = alive[s] ? live_key(s, r, c, d, S, p) : kNoKey;
+    key[s] = alive[so + s] ? live_key(gbase + s, r, c, d, S_key, p) : kNoKey;
     for (int w = 0; w < env_words; ++w)
-      env_t[(long long)w * S + s] = env_bitmap[(long long)s * env_words + w];
+      env_t[(long long)w * S + s] =
+          env_bitmap[(so + s) * env_words + w];
   }
 
   // A feasible key with score >= infeasible_q grants nothing.
-  const long long no_grant_from = p.infeasible_q * (long long)S;
+  const long long no_grant_from = p.infeasible_q * S_key;
   long long best = kNoKey;  // this thread's least eligible key
   int best_slot = -1;
   uint32_t elig_bits = 0;   // eligibility of this thread's first 32 slots
@@ -224,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1) assign_batch_kernel(
       const int s = s0 + j * kThreads;
       const bool e = ((w[j] >> bit) & 1) != 0 &&
                      ver[s < S ? s : 0] >= d_minv &&
-                     !(avoid_self && s == d_req);
+                     !(avoid_self && gbase + s == d_req);
       take(e, s);
       if (keep_bits) elig_bits |= (uint32_t)e << (i0 + j);
     }
@@ -299,30 +344,117 @@ __global__ void __launch_bounds__(kThreads, 1) assign_batch_kernel(
         gmin = block_min(best, red_buf[half]);
         half ^= 1;
         ++n_reductions;
+        if constexpr (kTeam) {
+          // The team's least key: every slice's, least taken in every
+          // block, so every block holds the same winner.
+          bool ok;
+          const long long* got =
+              team::exchange(team_args, tb, slice, &gmin, 1, &ok);
+          if (!ok) return;
+          long long m = got[0];
+          for (int k = 1; k < team_args.n_slices; ++k)
+            m = got[k] < m ? got[k] : m;
+          gmin = m;
+        }
       }
       const bool granted = s_valid[j] != 0 && gmin < no_grant_from;
-      // Keys are unique, so when a grant is made exactly one thread owns
-      // it.
+      // Keys are unique over the team, so when a grant is made exactly
+      // one thread of one block owns it.
       owned_grant = granted && best == gmin;
       if (owned_grant) {
         const int s = best_slot;
         const int32_t r = run[s] + 1;
         run[s] = r;
-        key[s] = live_key(s, r, cap[s], ded[s] != 0, S, p);
-        picks_out[t0 + j] = s;
-      } else if (!granted && tid == 0) {
+        key[s] = live_key(gbase + s, r, cap[s], ded[s] != 0, S_key, p);
+        if (!kTeam) picks_out[t0 + j] = s;
+      } else if (!kTeam && !granted && tid == 0) {
         picks_out[t0 + j] = -1;
       }
+      if (kTeam && blockIdx.x == 0 && tid == 0)
+        picks_out[t0 + j] = granted ? (int32_t)floor_mod(gmin, S_key) : -1;
       prev_granted = granted;
     }
   }
 
-  for (int s = tid; s < S; s += kThreads) running_out[s] = run[s];
-  if (work_out != nullptr && tid == 0) {
+  for (int s = tid; s < S; s += kThreads) running_out[so + s] = run[s];
+  if (work_out != nullptr && blockIdx.x == 0 && tid == 0) {
     work_out[0] = n_changes;
     work_out[1] = n_rescans;
     work_out[2] = n_reductions;
   }
+}
+
+// The exchange alone: `rounds` exchanges of one word by the blocks of one
+// team launch, each block's word the one it read from the next slice the
+// round before.  It times the exchange's round trip at a team's size, the
+// part of the team kernels' bound that is not their own work
+// (chip_smoke.py, phase 22a).
+__global__ void __launch_bounds__(kThreads, 1) team_rounds_kernel(
+    int rounds, team::Args team_args, long long* out) {
+  __shared__ long long team_got[2 * team::kMaxSlices * team::kMaxPayload];
+  __shared__ int team_fail;
+  team::Block tb{0u, &team_fail, team_got};
+  if (threadIdx.x == 0) team_fail = 0;
+  __syncthreads();
+  const int slice = team_args.ids[blockIdx.x];
+  long long v = slice;
+  for (int r = 0; r < rounds; ++r) {
+    bool ok;
+    const long long* got = team::exchange(team_args, tb, slice, &v, 1, &ok);
+    if (!ok) return;
+    v = got[(slice + 1) % team_args.n_slices];
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = v;
+}
+
+// A cooperative launch of `kernel` on n_blocks blocks of kThreads.
+template <typename... KernelArgs, typename... Args>
+int launch_team(void (*kernel)(KernelArgs...), int n_blocks, int dyn,
+                void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The exchange's part of a team launch's arguments.
+team::Args team_args(int n_blocks, const int* ids, int n_slices,
+                     void* exchange, long long epoch, long long spin_limit) {
+  team::Args t{};
+  t.buf = (unsigned long long*)exchange;
+  t.epoch = epoch;
+  t.spin_limit = spin_limit;
+  t.n_slices = n_slices;
+  for (int b = 0; b < n_blocks; ++b) t.ids[b] = ids[b];
+  return t;
+}
+
+// Shared-memory plan of one block: whether the per-slot state fits beside
+// the static shared memory (the exchange's included in a team), and the
+// dynamic bytes; returns a CUDA error or 0.
+int plan(int S, bool team_mode, bool* use_shared, int* dyn) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = slot_bytes(S);
+  const long long stat =
+      kStaticSmem + (team_mode ? team::kSharedBytes : 0) + 16;
+  *use_shared = need <= (long long)optin - stat;
+  *dyn = *use_shared ? (int)need : 0;
+  return 0;
 }
 
 }  // namespace
@@ -331,9 +463,9 @@ extern "C" {
 
 // Bytes of the global scratch for a pool of S slots and E bitmap words: the
 // per-slot state (used when it does not fit in shared memory) and the
-// transposed bitmap.
+// transposed bitmap.  A team launch takes one such region a block.
 long long yadcc_assign_batch_scratch_bytes(int S, int env_words) {
-  return scratch_bytes(S, env_words);
+  return block_scratch_bytes(S, env_words);
 }
 
 // Launches K2 on `stream`.  `work_out` (int64[3], or null) receives the
@@ -349,23 +481,17 @@ int yadcc_assign_batch(const void* alive, const void* capacity,
                        long long infeasible_q, int avoid_self,
                        void* picks_out, void* running_out,
                        void* global_scratch, void* work_out, void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long need = slot_bytes(S);
-  // Leave room for the kernel's static shared memory.
-  const bool use_shared = need <= (long long)optin - kStaticSmem;
-  const int dyn = use_shared ? (int)need : 0;
-  auto kernel = use_shared ? assign_batch_kernel<true>
-                           : assign_batch_kernel<false>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  bool use_shared = false;
+  int dyn = 0;
+  int e = plan(S, false, &use_shared, &dyn);
+  if (e != 0) return e;
+  auto kernel = use_shared ? assign_batch_kernel<true, false>
+                           : assign_batch_kernel<false, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return (int)err;
   Params p{pref_thresh_q, bonus_q, infeasible_q};
+  team::Args none{};
   kernel<<<1, kThreads, dyn, (cudaStream_t)stream>>>(
       (const uint8_t*)alive, (const int32_t*)capacity,
       (const int32_t*)running_in, (const uint8_t*)dedicated,
@@ -373,8 +499,70 @@ int yadcc_assign_batch(const void* alive, const void* capacity,
       (const int32_t*)t_env, (const int32_t*)t_minv, (const int32_t*)t_req,
       (const uint8_t*)t_valid, S, T, p, avoid_self, (int32_t*)picks_out,
       (int32_t*)running_out, (uint8_t*)global_scratch, slot_bytes(S),
-      (long long*)work_out);
+      block_scratch_bytes(S, env_words), (long long*)work_out, none);
   return (int)cudaGetLastError();
 }
+
+// Launches K2's team mode on `stream`: n_blocks slices of S slots each,
+// laid one after another in every per-slot array (this card's part), block
+// b the team's slice ids[b] of n_slices; `exchange` the team's buffer,
+// `epoch` this launch's number, `spin_limit` the bound of every wait in
+// clock cycles.  The picks (int32[T], global slots) are written by block 0.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a team the kernel cannot take; the caller
+// raises on anything but 0.
+int yadcc_assign_batch_team(
+    const void* alive, const void* capacity, const void* running_in,
+    const void* dedicated, const void* version, const void* env_bitmap,
+    int env_words, const void* t_env, const void* t_minv, const void* t_req,
+    const void* t_valid, int S, int T, long long pref_thresh_q,
+    long long bonus_q, long long infeasible_q, int avoid_self,
+    void* picks_out, void* running_out, void* global_scratch, int n_blocks,
+    const int* ids, int n_slices, void* exchange, long long epoch,
+    long long spin_limit, void* stream) {
+  if (n_blocks < 1 || n_blocks > n_slices || n_slices > team::kMaxSlices ||
+      (long long)n_blocks * S > 0x7fffffffLL || epoch < 1)
+    return (int)cudaErrorInvalidValue;
+  bool use_shared = false;
+  int dyn = 0;
+  int e = plan(S, true, &use_shared, &dyn);
+  if (e != 0) return e;
+  auto kernel = use_shared ? assign_batch_kernel<true, true>
+                           : assign_batch_kernel<false, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  Params p{pref_thresh_q, bonus_q, infeasible_q};
+  team::Args t = team_args(n_blocks, ids, n_slices, exchange, epoch,
+                           spin_limit);
+  return launch_team(
+      kernel, n_blocks, dyn, stream, (const uint8_t*)alive,
+      (const int32_t*)capacity, (const int32_t*)running_in,
+      (const uint8_t*)dedicated, (const int32_t*)version,
+      (const int32_t*)env_bitmap, env_words, (const int32_t*)t_env,
+      (const int32_t*)t_minv, (const int32_t*)t_req, (const uint8_t*)t_valid,
+      S, T, p, avoid_self, (int32_t*)picks_out, (int32_t*)running_out,
+      (uint8_t*)global_scratch, slot_bytes(S),
+      block_scratch_bytes(S, env_words), (long long*)nullptr, t);
+}
+
+// Launches `rounds` exchanges alone on n_blocks blocks (slices ids[b] of
+// n_slices), writing each block's last word to out[b] (int64); returns as
+// yadcc_assign_batch_team does.
+int yadcc_team_rounds(int rounds, void* out, int n_blocks, const int* ids,
+                      int n_slices, void* exchange, long long epoch,
+                      long long spin_limit, void* stream) {
+  if (n_blocks < 1 || n_blocks > n_slices || n_slices > team::kMaxSlices ||
+      rounds < 0 || epoch < 1)
+    return (int)cudaErrorInvalidValue;
+  team::Args t = team_args(n_blocks, ids, n_slices, exchange, epoch,
+                           spin_limit);
+  return launch_team(team_rounds_kernel, n_blocks, 0, stream, rounds, t,
+                     (long long*)out);
+}
+
+void* yadcc_team_alloc(long long bytes) { return team::alloc(bytes); }
+
+void yadcc_team_free(void* p) { cudaFreeHost(p); }
 
 }  // extern "C"

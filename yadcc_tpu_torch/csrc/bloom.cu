@@ -12,6 +12,11 @@
 //   yadcc_bloom_scatter_or  <- yadcc_tpu/ops/bloom_probe.py:bloom_scatter_add
 //   yadcc_placement_call    <- yadcc_tpu/parallel/mesh.py:placement_score_fn,
 //                              the cells x tasks spill-placement score
+//   yadcc_bloom_membership_range  <- yadcc_tpu/parallel/mesh.py:
+//   yadcc_bloom_cascade_pair         sharded_bloom_membership_fn and
+//                                    sharded_bloom_cascade_fn: the
+//                              FILTER-sharded forms over a team, one
+//                              launch a slice (see "Filter-sharded" below)
 // What each computes is its plain version's result (ops/bloom_pipeline.py:
 // membership_plain, cascade_plain and placement_score_plain,
 // ops/bloom_probe.py:probe_body and scatter_add_plain); chip_smoke.py holds
@@ -118,6 +123,23 @@
 // pinned memory, one wait.  The cells' filters are whatever resident
 // copies the caller points the table at (scheduler/placement.py uploads
 // each snapshot once).
+//
+// Filter-sharded (a team, parallel/mesh.py; plain versions
+// ops/bloom_pipeline.py:membership_range_plain and cascade_pair_plain):
+// slice k of a team holds words [k*per, (k+1)*per) of each filter (the
+// partitioned_shard_bounds split), and each key's K probes are tested
+// against the slice's words only: a probe whose word lies outside the
+// slice counts as set (mesh.py:455-466), so ANDing the slices' verdicts
+// gives the filter's.  They are the membership and cascade kernels with
+// kRange set (the one-card kernels are kRange false, and a one-slice team
+// calls them).  The membership writes one bool a key; the cascade writes
+// a code a key, bit 0 the region's verdict and bit 1 the fleet's, both
+// digests and both probe walks for every key: the per-filter AND across
+// slices must complete before the OR (a key the region admits on one
+// slice may be rejected on another), so a slice cannot skip the fleet
+// digest for keys its own region slice admits.  The wrapper ANDs the
+// slices' codes (a torch elementwise AND) and then ORs the two bits.  No
+// collective, no wait: each slice's launch stands alone.
 //
 // Integer traps: words and keys arrive as the int32 bit pattern of uint32
 // arrays and are read as uint32_t; num_bits need not be a multiple of 32
@@ -357,6 +379,30 @@ __device__ __forceinline__ bool member(const Filter& f, const Row& row,
   return probe_digest(f, xxh64_row(row, length, f.seed), keep);
 }
 
+// A team slice's share of a filter: words [lo, lo + nw).
+struct Slice {
+  uint32_t lo, nw;
+};
+
+// member() on one slice of the filter: `f.words` holds the slice's words;
+// a probe outside them counts as set.
+template <class Row>
+__device__ __forceinline__ bool member_in(const Filter& f, Slice slice,
+                                          const Row& row, int length,
+                                          uint64_t keep) {
+  const uint64_t d = xxh64_row(row, length, f.seed);
+  const uint32_t h2 = (uint32_t)(d >> 32) | 1u;
+  uint32_t x = (uint32_t)d;
+  for (int i = 0; i < f.num_hashes; ++i, x += h2) {
+    const uint32_t idx = mod_bits(x, f.magic, f.num_bits);
+    const uint32_t w = (idx >> 5) - slice.lo;
+    if (w < slice.nw &&
+        !((load_word(f.words + w, keep) >> (idx & 31u)) & 1u))
+      return false;
+  }
+  return true;
+}
+
 // Fingerprint k of an [N, 2] uint32 array: one 8-byte load when the array
 // is 8-byte aligned (`pairs`), else two 4-byte loads.
 __device__ __forceinline__ uint2 load_fingerprint(const uint32_t* fps,
@@ -415,9 +461,11 @@ __device__ __forceinline__ void stage_tile(const uint32_t* packed,
 
 // __launch_bounds__'s second argument: 8 blocks an SM (at most 32
 // registers) for rows read from global memory, none asked for staged ones.
-template <bool kStaged>
+// kRange: the filter-sharded form, one team slice's verdicts (`f.words`
+// holds the words of `slice`).
+template <bool kStaged, bool kRange>
 __global__ void __launch_bounds__(kThreads, kStaged ? 1 : 8)
-membership_kernel(Filter f, const uint32_t* __restrict__ packed,
+membership_kernel(Filter f, Slice slice, const uint32_t* __restrict__ packed,
                   int row_words, int length, int n, bool* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t stage[];
   const uint64_t keep = policy_evict_last(), stream = policy_evict_first();
@@ -426,15 +474,22 @@ membership_kernel(Filter f, const uint32_t* __restrict__ packed,
   if (first + t < n) {
     const auto row = row_of<kStaged>(stage, packed, row_words, first, t,
                                      stream);
+    if constexpr (kRange) {
+      out[first + t] = member_in(f, slice, row, length, keep);
+      return;
+    }
     out[first + t] = member(f, row, length, keep);
   }
 }
 
-template <bool kStaged>
+// kRange: the filter-sharded form, one slice's pair of verdicts a key, bit
+// 0 the region's and bit 1 the fleet's (both filters' words of `slice`):
+// no early exit, since the AND across slices must precede the OR.
+template <bool kStaged, bool kRange>
 __global__ void __launch_bounds__(kThreads, kStaged ? 1 : 8)
-cascade_kernel(Filter region, Filter fleet,
+cascade_kernel(Filter region, Filter fleet, Slice slice,
                const uint32_t* __restrict__ packed, int row_words,
-               int length, int n, bool* __restrict__ out) {
+               int length, int n, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t stage[];
   __shared__ uint16_t rejected[kTile];
   __shared__ int n_rejected;
@@ -445,6 +500,16 @@ cascade_kernel(Filter region, Filter fleet,
     stage_tile(packed, row_words, n, stage, stream);
   else
     __syncthreads();
+  if constexpr (kRange) {
+    if (first + t < n) {
+      const auto row = row_of<kStaged>(stage, packed, row_words, first, t,
+                                       stream);
+      out[first + t] =
+          (uint8_t)(member_in(region, slice, row, length, keep) |
+                    member_in(fleet, slice, row, length, keep) << 1);
+    }
+    return;
+  }
   // The region's AND over its probes completes before the OR; a key the
   // region admits needs no fleet digest.
   if (first + t < n) {
@@ -823,24 +888,50 @@ bool staged(int row_words) {
 
 int tiles_for(int n) { return (n + kTile - 1) / kTile; }
 
-template <bool kStaged>
-int launch_membership(const Filter& f, const void* packed, int row_words,
-                      int length, int n, void* out, cudaStream_t stream) {
+template <bool kStaged, bool kRange>
+int launch_membership(const Filter& f, Slice slice, const void* packed,
+                      int row_words, int length, int n, void* out,
+                      cudaStream_t stream) {
   const size_t smem = kStaged ? (size_t)kTile * row_words * 4 : 0;
-  membership_kernel<kStaged><<<tiles_for(n), kThreads, smem, stream>>>(
-      f, (const uint32_t*)packed, row_words, length, n, (bool*)out);
+  membership_kernel<kStaged, kRange>
+      <<<tiles_for(n), kThreads, smem, stream>>>(
+          f, slice, (const uint32_t*)packed, row_words, length, n,
+          (bool*)out);
   return (int)cudaGetLastError();
 }
 
-template <bool kStaged>
-int launch_cascade(const Filter& region, const Filter& fleet,
+template <bool kRange>
+int membership(const Filter& f, Slice slice, const void* packed,
+               int row_words, int length, int n, void* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return staged(row_words)
+             ? launch_membership<true, kRange>(f, slice, packed, row_words,
+                                               length, n, out, s)
+             : launch_membership<false, kRange>(f, slice, packed, row_words,
+                                                length, n, out, s);
+}
+
+template <bool kStaged, bool kRange>
+int launch_cascade(const Filter& region, const Filter& fleet, Slice slice,
                    const void* packed, int row_words, int length, int n,
                    void* out, cudaStream_t stream) {
   const size_t smem = kStaged ? (size_t)kTile * row_words * 4 : 0;
-  cascade_kernel<kStaged><<<tiles_for(n), kThreads, smem, stream>>>(
-      region, fleet, (const uint32_t*)packed, row_words, length, n,
-      (bool*)out);
+  cascade_kernel<kStaged, kRange><<<tiles_for(n), kThreads, smem, stream>>>(
+      region, fleet, slice, (const uint32_t*)packed, row_words, length, n,
+      (uint8_t*)out);
   return (int)cudaGetLastError();
+}
+
+template <bool kRange>
+int cascade(const Filter& region, const Filter& fleet, Slice slice,
+            const void* packed, int row_words, int length, int n, void* out,
+            void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return staged(row_words)
+             ? launch_cascade<true, kRange>(region, fleet, slice, packed,
+                                            row_words, length, n, out, s)
+             : launch_cascade<false, kRange>(region, fleet, slice, packed,
+                                             row_words, length, n, out, s);
 }
 
 bool eight_byte_aligned(const void* p) {
@@ -991,12 +1082,9 @@ extern "C" int yadcc_bloom_membership(const void* words,
                                       const void* packed, int row_words,
                                       int length, int n, void* out,
                                       void* stream) {
-  const Filter f = filter(words, num_bits, num_hashes, seed);
-  const cudaStream_t s = (cudaStream_t)stream;
-  return staged(row_words)
-             ? launch_membership<true>(f, packed, row_words, length, n, out, s)
-             : launch_membership<false>(f, packed, row_words, length, n, out,
-                                        s);
+  return membership<false>(filter(words, num_bits, num_hashes, seed),
+                           Slice{}, packed, row_words, length, n, out,
+                           stream);
 }
 
 extern "C" int yadcc_bloom_cascade(const void* region_words,
@@ -1011,12 +1099,35 @@ extern "C" int yadcc_bloom_cascade(const void* region_words,
                                region_seed);
   const Filter fleet = filter(fleet_words, num_bits, fleet_hashes,
                               fleet_seed);
-  const cudaStream_t s = (cudaStream_t)stream;
-  return staged(row_words) ? launch_cascade<true>(region, fleet, packed,
-                                                  row_words, length, n, out, s)
-                           : launch_cascade<false>(region, fleet, packed,
-                                                   row_words, length, n, out,
-                                                   s);
+  return cascade<false>(region, fleet, Slice{}, packed, row_words, length,
+                        n, out, stream);
+}
+
+// The filter-sharded forms: `words` holds one slice of the filter, words
+// [word_lo, word_lo + word_n), and `out` the slice's verdicts (bool[n]) or
+// codes (uint8[n]: bit 0 region, bit 1 fleet).
+extern "C" int yadcc_bloom_membership_range(
+    const void* words, unsigned int num_bits, int num_hashes,
+    unsigned long long seed, unsigned int word_lo, unsigned int word_n,
+    const void* packed, int row_words, int length, int n, void* out,
+    void* stream) {
+  return membership<true>(filter(words, num_bits, num_hashes, seed),
+                          Slice{word_lo, word_n}, packed, row_words, length,
+                          n, out, stream);
+}
+
+extern "C" int yadcc_bloom_cascade_pair(
+    const void* region_words, int region_hashes,
+    unsigned long long region_seed, const void* fleet_words,
+    int fleet_hashes, unsigned long long fleet_seed, unsigned int num_bits,
+    unsigned int word_lo, unsigned int word_n, const void* packed,
+    int row_words, int length, int n, void* out, void* stream) {
+  const Filter region = filter(region_words, num_bits, region_hashes,
+                               region_seed);
+  const Filter fleet = filter(fleet_words, num_bits, fleet_hashes,
+                              fleet_seed);
+  return cascade<true>(region, fleet, Slice{word_lo, word_n}, packed,
+                       row_words, length, n, out, stream);
 }
 
 // The staged kernels' tile, in keys (chip_smoke.py sizes its edge batches

@@ -55,6 +55,33 @@
 // global scratch from k*scratch_bytes(S).  A single pool is the grid of
 // one.
 //
+// Team mode (the counterpart of yadcc_tpu/parallel/mesh.py:
+// _make_sharded_group_step, as sharded_assign_grouped_fn and the stream's
+// sharded_assign_grouped_picks_stream_fn run it; plain versions
+// ops/assignment_grouped.py:assign_grouped_team and
+// assign_grouped_picks_stream_team): ONE pool split into equal slices over
+// a team (parallel/mesh.py), one launch a card, one block a slice, the
+// blocks of a card launched together as a cooperative launch.  Block b owns
+// slice ids[b] (its slots from b*S in this card's part, global slots from
+// ids[b]*S); every block reads the same groups.  Each cross-slice step is
+// an exchange (csrc/team_exchange.cuh) after the block's own reduction:
+//   * once a launch, whether every slice's `running` is >= 0 (the m <= 0
+//     skip must be decided from the whole pool, not one block's
+//     __syncthreads_and);
+//   * each bisect step's count: the slices' sums are added, and every
+//     block moves lo and hi, and decides the early stop, from that total;
+//   * the tie split: each slice posts its (count below tau, count at tau);
+//     the tau-ties go to the slices in linear order, slice k's share
+//     starting after the ties of slices 0..k-1, so the lowest global slots
+//     win as in the single pool.  From the same words each block also
+//     writes, a group, the grants on the slices before it and the team's
+//     total (`info`), which the stream's per-slice expansion reads.
+// A group with no active slot in one slice still takes every step there
+// (the single pool's `n == 0` shortcut would leave the others waiting).
+// About 20 exchanges a group, each a PCIe round trip, against a block
+// reduction over S/N slots instead of S.  Where trouble lies (deadlock,
+// bounded waits, reuse, one path): team_exchange.cuh.
+//
 // Integer traps, all mirrored from the plain version:
 //   * floor, not truncation: ((x+1)*cap-1) // UTIL_SCALE has a negative
 //     numerator whenever tau < 0, and so can (lo+hi) // 2; an arithmetic
@@ -68,6 +95,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "team_exchange.cuh"
 
 namespace {
 
@@ -151,10 +180,11 @@ __device__ __forceinline__ long long block_sum(long long v, long long* buf) {
 }
 
 // Exclusive prefix sum of `a` over the block in thread order, and the
-// block's total of `b`; one barrier, `buf` holds 2 x kWarps words.
+// block's totals of `a` and `b`; one barrier, `buf` holds 2 x kWarps words.
 __device__ __forceinline__ long long block_scan_and_sum(long long a,
                                                         long long b,
                                                         long long* buf,
+                                                        long long* a_total,
                                                         long long* b_total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long incl = warp_inclusive_scan(a, lane);
@@ -164,10 +194,12 @@ __device__ __forceinline__ long long block_scan_and_sum(long long a,
   __syncthreads();
   const long long w = buf[lane];
   const long long w_incl = warp_inclusive_scan(w, lane);
+  *a_total = __shfl_sync(kFull, w_incl, 31);
   *b_total = warp_sum(buf[kWarps + lane]);
   return __shfl_sync(kFull, w_incl - w, warp) + incl - a;
 }
 
+template <bool kTeam>
 __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
     const uint8_t* __restrict__ alive, const int32_t* __restrict__ capacity,
     const int32_t* __restrict__ running_in, const uint8_t* __restrict__ dedicated,
@@ -176,15 +208,26 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
     const int32_t* __restrict__ g_minv, const int32_t* __restrict__ g_req,
     const int32_t* __restrict__ g_count, int S, int G, Params p, int avoid_self,
     int32_t* __restrict__ counts_out, int32_t* __restrict__ running_out,
-    uint8_t* global_scratch, int use_shared) {
+    uint8_t* global_scratch, int use_shared, int32_t* __restrict__ info_out,
+    team::Args team_args) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ long long red_buf[2][2 * kWarps];
+  __shared__ long long team_got[kTeam ? 2 * team::kMaxSlices *
+                                          team::kMaxPayload : 1];
+  __shared__ int team_fail;
 
-  // This block's shard: its slots start at `so` and its groups at `go` in
-  // every array.  The offsets enter each index, not the pointers, so the
-  // pointers stay kernel parameters (no registers held across the loops).
+  // This block's shard: its slots start at `so` in every per-slot array,
+  // its groups at `gi` (a team's blocks share theirs) and its rows of
+  // counts at `go`.  The offsets enter each index, not the pointers, so
+  // the pointers stay kernel parameters (no registers held across the
+  // loops).  A team slice's slots are global slots from `gbase`.
   const int so = blockIdx.x * S;
   const int go = blockIdx.x * G;
+  const int gi = kTeam ? 0 : go;
+  const int slice = kTeam ? team_args.ids[blockIdx.x] : 0;
+  const long long gbase = (long long)slice * S;
+  team::Block tb{0u, &team_fail, team_got};
+  if (kTeam && threadIdx.x == 0) team_fail = 0;  // read after a barrier
 
   uint8_t* base = use_shared
       ? smem : global_scratch + blockIdx.x * scratch_bytes(S);
@@ -211,7 +254,15 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
     st.run[s] = r;
     nonneg = nonneg && r >= 0;
   }
-  const bool all_nonneg = __syncthreads_and(nonneg) != 0;
+  bool all_nonneg = __syncthreads_and(nonneg) != 0;
+  if constexpr (kTeam) {
+    bool ok;
+    const long long mine = all_nonneg ? 1 : 0;
+    const long long* got = team::exchange(team_args, tb, slice, &mine, 1, &ok);
+    if (!ok) return;
+    for (int k = 0; k < team_args.n_slices; ++k)
+      all_nonneg = all_nonneg && got[k] != 0;
+  }
 
   const long long lo0 = -p.bonus_q - 1;
   const long long hi0 = kUtilScale + 1;
@@ -222,19 +273,23 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
   int half = 0;  // which half of red_buf the next reduction uses
 
   for (int g = 0; g < G; ++g) {
-    const long long m = g_count[go + g];
+    const long long m = g_count[gi + g];
     int32_t* row = counts_out + (long long)(go + g) * S;
     if (m <= 0 && skip_empty) {
       for (int s = tid; s < S; s += kThreads) row[s] = 0;
+      if (kTeam && tid == 0) {
+        info_out[(go + g) * 2] = 0;
+        info_out[(go + g) * 2 + 1] = 0;
+      }
       continue;
     }
-    const int env = g_env[go + g];
+    const int env = g_env[gi + g];
     const int word = env >> 5;
     const int bit = env & 31;
     const bool word_inside = word >= -env_words && word < env_words;
     const int word_col = word < 0 ? word + env_words : word;
-    const int minv = g_minv[go + g];
-    const int req = g_req[go + g];
+    const int minv = g_minv[gi + g];
+    const long long req = g_req[gi + g];
 
     // Compaction, pass 1: which slots are active; inactive ones count 0.
     int w_active = 0;
@@ -247,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
             ? env_bitmap[(long long)(so + s) * env_words + word_col] : -1;
         const bool eligible = alive[so + s] && ((w >> bit) & 1) != 0 &&
                               version[so + s] >= minv &&
-                              !(avoid_self && s == req);
+                              !(avoid_self && gbase + s == req);
         active = eligible && (long long)capacity[so + s] - st.run[s] > 0;
         if (!active) row[s] = 0;
       }
@@ -262,7 +317,9 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
     const long long wc_incl = warp_inclusive_scan(wc, lane);
     half ^= 1;
     const int n = (int)__shfl_sync(kFull, wc_incl, 31);
-    if (n == 0) continue;  // nothing to grant: the row is already zero
+    // Nothing to grant: the row is already zero.  A team slice takes every
+    // step all the same: the others wait for its words.
+    if (!kTeam && n == 0) continue;
     int pos = (int)__shfl_sync(kFull, wc_incl - wc, warp);
 
     // Pass 2: write the compact entries in slot order.
@@ -295,8 +352,16 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
       for (int i = tid; i < n; i += kThreads)
         part += count_leq(mid, st.c_cap1[i], st.c_run[i], st.c_avail[i],
                           st.c_pref[i], p);
-      const long long total = block_sum(part, red_buf[half]);
+      long long total = block_sum(part, red_buf[half]);
       half ^= 1;
+      if constexpr (kTeam) {
+        bool ok;
+        const long long* got =
+            team::exchange(team_args, tb, slice, &total, 1, &ok);
+        if (!ok) return;
+        total = 0;
+        for (int k = 0; k < team_args.n_slices; ++k) total += got[k];
+      }
       if (total >= m) {
         hi = mid;
       } else {
@@ -318,10 +383,40 @@ __global__ void __launch_bounds__(kThreads, 1) grouped_assign_kernel(
       sum_at += count_leq(tau, st.c_cap1[i], st.c_run[i], st.c_avail[i],
                           st.c_pref[i], p) - below;
     }
-    long long total_below;
+    long long total_at, total_below;
     long long before = block_scan_and_sum(sum_at, sum_below, red_buf[half],
-                                          &total_below);
+                                          &total_at, &total_below);
     half ^= 1;
+    if constexpr (kTeam) {
+      // Every slice's (below, at); the ties go in linear slice order.
+      bool ok;
+      const long long mine[2] = {total_below, total_at};
+      const long long* got = team::exchange(team_args, tb, slice, mine, 2, &ok);
+      if (!ok) return;
+      long long below_all = 0, at_before = 0;
+      for (int k = 0; k < team_args.n_slices; ++k) {
+        below_all += got[2 * k];
+        if (k < slice) at_before += got[2 * k + 1];
+      }
+      before += at_before;
+      if (tid == 0) {
+        // Each slice's grants: its below, and its share of the ties.
+        long long need = m - below_all, at_run = 0, grants_before = 0,
+                  grants_all = 0;
+        for (int k = 0; k < team_args.n_slices; ++k) {
+          long long take = need - at_run;
+          take = take < 0 ? 0 : take;
+          take = take < got[2 * k + 1] ? take : got[2 * k + 1];
+          at_run += got[2 * k + 1];
+          const long long grants = got[2 * k] + take;
+          if (k < slice) grants_before += grants;
+          grants_all += grants;
+        }
+        info_out[(go + g) * 2] = (int32_t)grants_before;
+        info_out[(go + g) * 2 + 1] = (int32_t)grants_all;
+      }
+      total_below = below_all;
+    }
     const long long need_at = m - total_below;
     for (int i = i0; i < i1; ++i) {
       const long long c1 = st.c_cap1[i], r = st.c_run[i], a = st.c_avail[i],
@@ -354,6 +449,32 @@ long long yadcc_grouped_assign_scratch_bytes(int S) {
   return scratch_bytes(S);
 }
 
+}  // extern "C"
+
+namespace {
+
+// Shared-memory plan of one block (the exchange's arrays in a team).
+int plan(int S, bool team_mode, int* use_shared, int* dyn) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = scratch_bytes(S);
+  // Leave room for the kernel's static shared memory (the reduction words).
+  const long long stat = 2 * 2 * kWarps * (long long)sizeof(long long) +
+                         (team_mode ? team::kSharedBytes : 0) + 16;
+  *use_shared = need <= (long long)optin - stat ? 1 : 0;
+  *dyn = *use_shared ? (int)need : 0;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
 // Launches K1 on `stream` over n_shards pools of S slots and G groups each,
 // laid out shard after shard (one block a shard).  Returns
 // cudaGetLastError() after the launch (0 = launched), or
@@ -371,30 +492,88 @@ int yadcc_grouped_assign(const void* alive, const void* capacity,
   if (n_shards < 1 || (long long)n_shards * S > 0x7fffffffLL ||
       (long long)n_shards * G > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long need = scratch_bytes(S);
-  // Leave room for the kernel's static shared memory (the reduction words).
-  const long long stat = 2 * 2 * kWarps * (long long)sizeof(long long);
-  const int use_shared = need <= (long long)optin - stat ? 1 : 0;
-  const int dyn = use_shared ? (int)need : 0;
-  err = cudaFuncSetAttribute(grouped_assign_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  int use_shared = 0, dyn = 0;
+  int e = plan(S, false, &use_shared, &dyn);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_assign_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return (int)err;
   Params p{pref_thresh_q, bonus_q};
-  grouped_assign_kernel<<<n_shards, kThreads, dyn, (cudaStream_t)stream>>>(
-      (const uint8_t*)alive, (const int32_t*)capacity,
-      (const int32_t*)running_in, (const uint8_t*)dedicated,
-      (const int32_t*)version, (const int32_t*)env_bitmap, env_words,
-      (const int32_t*)g_env, (const int32_t*)g_minv, (const int32_t*)g_req,
-      (const int32_t*)g_count, S, G, p, avoid_self, (int32_t*)counts_out,
-      (int32_t*)running_out, (uint8_t*)global_scratch, use_shared);
+  team::Args none{};
+  grouped_assign_kernel<false>
+      <<<n_shards, kThreads, dyn, (cudaStream_t)stream>>>(
+          (const uint8_t*)alive, (const int32_t*)capacity,
+          (const int32_t*)running_in, (const uint8_t*)dedicated,
+          (const int32_t*)version, (const int32_t*)env_bitmap, env_words,
+          (const int32_t*)g_env, (const int32_t*)g_minv,
+          (const int32_t*)g_req, (const int32_t*)g_count, S, G, p,
+          avoid_self, (int32_t*)counts_out, (int32_t*)running_out,
+          (uint8_t*)global_scratch, use_shared, (int32_t*)nullptr, none);
   return (int)cudaGetLastError();
 }
+
+// Launches K1's team mode on `stream`: n_blocks slices of S slots each,
+// laid one after another in every per-slot array (this card's part), block
+// b the team's slice ids[b] of n_slices; every block reads the same G
+// groups and writes its own rows of counts (int32[n_blocks, G, S]) and
+// `info` (int32[n_blocks, G, 2]: grants on the slices before it, the
+// team's grants, a group).  `exchange` the team's buffer, `epoch` this
+// launch's number, `spin_limit` the bound of every wait in clock cycles.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a team the kernel cannot take.
+int yadcc_grouped_assign_team(
+    const void* alive, const void* capacity, const void* running_in,
+    const void* dedicated, const void* version, const void* env_bitmap,
+    int env_words, const void* g_env, const void* g_minv, const void* g_req,
+    const void* g_count, int S, int G, long long pref_thresh_q,
+    long long bonus_q, int avoid_self, void* counts_out, void* running_out,
+    void* global_scratch, void* info_out, int n_blocks, const int* ids,
+    int n_slices, void* exchange, long long epoch, long long spin_limit,
+    void* stream) {
+  if (n_blocks < 1 || n_blocks > n_slices || n_slices > team::kMaxSlices ||
+      (long long)n_blocks * S > 0x7fffffffLL ||
+      (long long)n_blocks * G * 2 > 0x7fffffffLL || epoch < 1)
+    return (int)cudaErrorInvalidValue;
+  int use_shared = 0, dyn = 0;
+  int e = plan(S, true, &use_shared, &dyn);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_assign_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  Params p{pref_thresh_q, bonus_q};
+  team::Args t{};
+  t.buf = (unsigned long long*)exchange;
+  t.epoch = epoch;
+  t.spin_limit = spin_limit;
+  t.n_slices = n_slices;
+  for (int b = 0; b < n_blocks; ++b) t.ids[b] = ids[b];
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, grouped_assign_kernel<true>, (const uint8_t*)alive,
+      (const int32_t*)capacity, (const int32_t*)running_in,
+      (const uint8_t*)dedicated, (const int32_t*)version,
+      (const int32_t*)env_bitmap, env_words, (const int32_t*)g_env,
+      (const int32_t*)g_minv, (const int32_t*)g_req,
+      (const int32_t*)g_count, S, G, p, avoid_self, (int32_t*)counts_out,
+      (int32_t*)running_out, (uint8_t*)global_scratch, use_shared,
+      (int32_t*)info_out, t);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+void* yadcc_team_alloc(long long bytes) { return team::alloc(bytes); }
+
+void yadcc_team_free(void* p) { cudaFreeHost(p); }
 
 }  // extern "C"

@@ -58,10 +58,15 @@ _SYNC_INTERVAL_S = 10.0
 
 class DistributedCacheReader:
     def __init__(self, cache_server_uri: str, token: str,
-                 use_device_cascade: bool = True, device: str = "cuda"):
+                 use_device_cascade: bool = True, device: str = "cuda",
+                 team=None):
         self._uri = cache_server_uri
-        # Resolved at the first batch (_card), with the cascade.
+        # Resolved at the first batch (_card), with the cascade; a team
+        # (parallel/mesh.py) splits the cascade's filters over its
+        # slices, as the JAX reader's DeviceBloomCascade() does over the
+        # mesh.
         self._device_name = device
+        self._team = team
         self._device = None  # guarded by: self._lock
         self._cascade = None  # guarded by: self._lock
         self._token = token
@@ -192,7 +197,8 @@ class DistributedCacheReader:
                 from ...device import resolve_device
 
                 device = resolve_device(self._device_name)
-                self._cascade = DeviceBloomCascade(device=device)
+                self._cascade = DeviceBloomCascade(device=device,
+                                                   team=self._team)
                 self._device = device
             return self._device, self._cascade
 

@@ -3,7 +3,8 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``yadcc_tpu_torch/_build/`` (listed in .gitignore).  The library's file
-name carries a hash of its source, so an edited source rebuilds, and two
+name carries a hash of its source and of the headers beside it, so an
+edited source or header rebuilds, and two
 processes compiling at once (the smoke script and the scheduler it starts)
 never load a half-written file: each writes a private temporary name and
 renames into place.  A failed build raises.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,28 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC_DIR / source).read_bytes()
+    # The headers under csrc/ are hashed with every source, so an edited
+    # header rebuilds whatever may include it.
+    src = (CSRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{Path(source).stem}_{digest[:12]}.so"
+
+
+def source_bytes(source: str) -> bytes:
+    """``csrc/<source>`` with each ``#include "x.cuh"`` of a header beside
+    it replaced by the header's text: one self-contained translation unit,
+    for a compiler that sees only the bytes it is sent (the jit compile
+    farm).  The local build compiles the same text from the file."""
+    out = []
+    for line in (CSRC_DIR / source).read_bytes().splitlines(keepends=True):
+        m = re.match(rb'\s*#include\s+"([A-Za-z0-9_.]+\.cuh)"', line)
+        if m and (CSRC_DIR / m.group(1).decode()).exists():
+            out.append(source_bytes(m.group(1).decode()).replace(
+                b"#pragma once\n", b""))
+        else:
+            out.append(line)
+    return b"".join(out)
 
 
 def build(source: str) -> Path:

@@ -170,3 +170,46 @@ def make_batch(env_ids, min_versions, requestors, pad_to: int,
         requestor=pad(requestors, -1),
         valid=torch.from_numpy(valid).to(device),
     )
+
+
+def assign_batch_team(
+    pool: PoolArrays,
+    n: int,
+    batch: TaskBatch,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential scan over a team of ``n`` slices: the plain version
+    of K2's team mode (csrc/assign_batch.cu), the counterpart of
+    yadcc_tpu/parallel/mesh.py:sharded_assign_fn.
+
+    ``pool`` holds the team's slices one after another in linear order
+    (slice k: global slots [k*per, (k+1)*per)).  For each task each slice
+    takes its least key score*S + global slot over its own slots (S the
+    whole pool), the slices agree on the least of those keys (the
+    exchange: a min over the slices'), and only the slice owning the
+    winning slot adds the grant to its `running`.  The key orders by
+    (score, global slot), so the winner is the lowest global slot at the
+    minimum score: picks and running equal assign_batch over the whole
+    pool.  Returns (picks int32[T], running int32[S])."""
+    cm = cost_model
+    s = pool.alive.shape[0]
+    if n < 1 or s % n:
+        raise ValueError(f"{s} slots do not split into {n} slices")
+    dev = pool.alive.device
+    slots = torch.arange(s, dtype=torch.int64, device=dev)
+    running = pool.running.to(torch.int32)
+    picks = []
+    for t in range(batch.env_id.shape[0]):
+        score = _scores(pool, running, batch.env_id[t],
+                        batch.min_version[t], batch.requestor[t], cm)
+        slice_keys = (score * s + slots).view(n, -1).min(1).values
+        key = slice_keys.min()
+        score = torch.div(key, s, rounding_mode="floor")
+        slot = key - score * s
+        granted = (score < cm.infeasible_score_q) & batch.valid[t]
+        running = running.index_add(0, slot.reshape(1),
+                                    granted.reshape(1).to(torch.int32))
+        picks.append(torch.where(granted, slot, NO_PICK))
+    if not picks:
+        return torch.zeros(0, dtype=torch.int32, device=dev), running
+    return torch.stack(picks).to(torch.int32), running

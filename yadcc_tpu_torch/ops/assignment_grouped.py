@@ -505,3 +505,154 @@ def resident_control_plane_step(
         parts.append(shard)
     return torch.stack(outs), PoolArrays(
         *(torch.cat(fields) for fields in zip(*parts)))
+
+
+# ----------------------------------------------------------------------
+# The grouped search over a team (parallel/mesh.py): the pool split into
+# equal slices in linear order, slice k holding global slots
+# [k*per, (k+1)*per).  The plain versions of K1's team mode
+# (csrc/grouped_assign.cu), the counterparts of yadcc_tpu/parallel/
+# mesh.py:_make_sharded_group_step, sharded_assign_grouped_fn and
+# sharded_assign_grouped_picks_stream_fn.  Each cross-slice step is a
+# plain sum over the slices here, where the kernel exchanges it.
+# ----------------------------------------------------------------------
+
+# A pick candidate no slice owns (the JAX body's `big`).
+TEAM_NO_CANDIDATE = 2 ** 30
+
+
+def _team_group_counts(pool: PoolArrays, n: int, running, env_id,
+                       min_version, requestor, m: torch.Tensor,
+                       cm: DispatchCostModel) -> torch.Tensor:
+    """One group of m identical requests over a team of ``n`` slices
+    laid one after another in ``pool``: the int32[S] grant counts.  Every
+    bisect step sums each slice's count and then the slices' sums (the
+    JAX body's psum), so every slice walks the same tau; the tau-ties go
+    to the slices in linear order, each slice's share starting after the
+    ties of the slices before it (the exclusive prefix of the slices'
+    tie counts), then to its own slots in order."""
+    count_leq = make_count_leq(pool, running, env_id, min_version,
+                               requestor, cm)
+    dev = pool.alive.device
+    lo0, hi0 = search_bounds(cm)
+    lo = torch.tensor(lo0, dtype=torch.int64, device=dev)
+    hi = torch.tensor(hi0, dtype=torch.int64, device=dev)
+    m = m.long()
+    for _ in range(_SEARCH_ITERS):
+        mid = _floor_div(lo + hi, 2)
+        enough = count_leq(mid).view(n, -1).sum(1).sum() >= m
+        lo = torch.where(enough, lo, mid)
+        hi = torch.where(enough, mid, hi)
+    tau = hi
+    below = count_leq(tau - 1).view(n, -1)
+    at = count_leq(tau).view(n, -1) - below
+    need_at = m - below.sum(1).sum()
+    slice_at = at.sum(1)
+    slices_before = torch.cumsum(slice_at, 0) - slice_at
+    cum_before = slices_before[:, None] + torch.cumsum(at, 1) - at
+    take = torch.minimum(torch.clamp(need_at - cum_before, min=0), at)
+    return (below + take).view(-1).to(torch.int32)
+
+
+def assign_grouped_team(
+    pool: PoolArrays,
+    n: int,
+    batch: GroupedBatch,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grant counts int32[G, S], running int32[S]): the grouped search
+    over a team of ``n`` slices laid one after another in ``pool``,
+    groups in order with `running` carried.  Equal to assign_grouped
+    over the whole pool."""
+    s = pool.alive.shape[0]
+    if n < 1 or s % n:
+        raise ValueError(f"{s} slots do not split into {n} slices")
+    running = pool.running
+    rows = []
+    for g in range(batch.env_id.shape[0]):
+        counts = _team_group_counts(pool, n, running, batch.env_id[g],
+                                    batch.min_version[g],
+                                    batch.requestor[g], batch.count[g],
+                                    cost_model)
+        running = running + counts
+        rows.append(counts)
+    if rows:
+        counts = torch.stack(rows)
+    else:
+        counts = torch.zeros((0, s), dtype=torch.int32,
+                             device=pool.alive.device)
+    return counts, running.to(torch.int32)
+
+
+def team_group_totals(counts: torch.Tensor, n: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int64[n, G] grants on the slices before each slice, int64[G] the
+    team's grants) from the team's int32[G, S] counts: what K1's team
+    mode writes beside its counts, from the tie split it exchanged."""
+    local = counts.long().view(counts.shape[0], n, -1).sum(2).T
+    return torch.cumsum(local, 0) - local, local.sum(0)
+
+
+def expand_counts_slice(counts: torch.Tensor, prefix: torch.Tensor,
+                        total: torch.Tensor, sizes: torch.Tensor,
+                        t_max: int, base: int) -> torch.Tensor:
+    """One slice's share of the grant expansion (the local twin of
+    expand_counts, as the JAX stream body computes it): flat position t
+    is the q-th grant of its group g; the slice whose grants of g cover
+    rank q (after ``prefix[g]`` grants on the slices before it) answers
+    base + its local slot, every other slice TEAM_NO_CANDIDATE.  A min
+    over the slices merges the picks (merge_team_picks)."""
+    g_n = counts.shape[0]
+    dev = counts.device
+    c_local = torch.cumsum(counts.long(), dim=1)       # [G, per]
+    local_tot = c_local[:, -1]
+    sizes = sizes.to(dev).long()
+    offs_incl = torch.cumsum(sizes, 0)
+    offs_excl = offs_incl - sizes
+    t_idx = torch.arange(t_max, dtype=torch.int64, device=dev)
+    g_t = (offs_incl[None, :] <= t_idx[:, None]).sum(1)
+    in_batch = g_t < g_n
+    g_tc = torch.clamp(g_t, 0, g_n - 1)
+    q = t_idx - offs_excl[g_tc]
+    q_local = q - prefix.to(dev).long()[g_tc]
+    local_pick = (c_local[g_tc] <= q_local[:, None]).sum(1)
+    mine = (q_local >= 0) & (q_local < local_tot[g_tc])
+    granted = in_batch & (q < total.to(dev).long()[g_tc])
+    return torch.where(granted & mine, base + local_pick,
+                       torch.full_like(local_pick, TEAM_NO_CANDIDATE))
+
+
+def merge_team_picks(candidates, device) -> torch.Tensor:
+    """int32[t_max] picks from the slices' candidates: the min over the
+    slices (the JAX body's pmin), NO_PICK where no slice answered."""
+    cand = torch.stack([c.to(device) for c in candidates]).min(0).values
+    return torch.where(cand == TEAM_NO_CANDIDATE,
+                       torch.full_like(cand, NO_PICK), cand).to(torch.int32)
+
+
+def assign_grouped_picks_stream_team(
+    pool: PoolArrays,
+    n: int,
+    packed: torch.Tensor,
+    adj: torch.Tensor,
+    reset_mask: torch.Tensor,
+    reset_val: torch.Tensor,
+    t_max: int,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pipelined stream step over a team of ``n`` slices laid one
+    after another in ``pool``: the host delta folded (elementwise, each
+    slice its own share), the grouped search over the team, each slice's
+    share of the expansion, and a min over the slices merging the picks.
+    Returns (picks int32[t_max], running int32[S]), equal to
+    assign_grouped_picks_stream over the whole pool."""
+    running = fold_stream_delta(pool.running, adj, reset_mask, reset_val)
+    batch = unpack_grouped(packed)
+    counts, running = assign_grouped_team(pool._replace(running=running), n,
+                                          batch, cost_model)
+    prefix, total = team_group_totals(counts, n)
+    per = pool.alive.shape[0] // n
+    cands = [expand_counts_slice(counts[:, k * per:(k + 1) * per],
+                                 prefix[k], total, batch.count, t_max,
+                                 k * per) for k in range(n)]
+    return merge_team_picks(cands, pool.alive.device), running

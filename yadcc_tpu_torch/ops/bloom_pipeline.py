@@ -63,6 +63,46 @@ def cascade_plain(region_words, fleet_words, packed_keys, length,
                                num_bits, num_hashes_fleet))
 
 
+def probe_range_plain(words_slice, fingerprints, num_bits, num_hashes,
+                      word_lo: int) -> torch.Tensor:
+    """bool[N]: probe_body over one slice of the filter, words
+    [word_lo, word_lo + len(words_slice)); a probe outside the slice
+    counts as set (yadcc_tpu/parallel/mesh.py:455-466), so the AND over
+    the slices' verdicts is the filter's."""
+    from .bloom_probe import probe_indices
+
+    idx = probe_indices(fingerprints, num_bits, num_hashes)
+    local = (idx >> 5) - word_lo
+    nw = words_slice.shape[0]
+    mine = (local >= 0) & (local < nw)
+    word = words_slice[local.clamp(0, max(nw - 1, 0))].to(torch.int64)
+    bit = (word >> (idx & 31)) & 1
+    return torch.all((bit == 1) | ~mine, dim=1)
+
+
+def membership_range_plain(words_slice, packed_keys, length, seed,
+                           num_bits, num_hashes, word_lo) -> torch.Tensor:
+    """The plain version of the filter-sharded membership of one slice
+    (csrc/bloom.cu: membership_range_kernel)."""
+    hi, lo = xxh64_device(packed_keys, length, seed)
+    return probe_range_plain(words_slice, split_fingerprints(hi, lo),
+                             num_bits, num_hashes, word_lo)
+
+
+def cascade_pair_plain(region_slice, fleet_slice, packed_keys, length,
+                       region_seed, fleet_seed, num_bits,
+                       num_hashes_region, num_hashes_fleet,
+                       word_lo) -> torch.Tensor:
+    """uint8[N] codes of one slice, bit 0 the region's verdict and bit 1
+    the fleet's (csrc/bloom.cu: cascade_pair_kernel)."""
+    r = membership_range_plain(region_slice, packed_keys, length,
+                               region_seed, num_bits, num_hashes_region,
+                               word_lo)
+    f = membership_range_plain(fleet_slice, packed_keys, length, fleet_seed,
+                               num_bits, num_hashes_fleet, word_lo)
+    return r.to(torch.uint8) | (f.to(torch.uint8) << 1)
+
+
 def placement_score_plain(words, seeds, terms, packed, task_of_key, counts,
                           *, length, num_bits, num_hashes, warm_scale,
                           w_warm, w_load, w_topo, device):

@@ -46,7 +46,7 @@ from . import bloom_probe as bpr
 
 SOURCE = "bloom.cu"
 KERNELS = ("membership", "cascade", "probe", "scatter_or",
-           "placement_score")
+           "placement_score", "membership_range", "cascade_pair")
 # Bound on the hash count: far above any filter's (the reference uses
 # 10), low enough that one pass of the scatter holds every probe of a key.
 MAX_HASHES = 1 << 16
@@ -86,6 +86,11 @@ def _kernels():
             "cascade": (lib.yadcc_bloom_cascade,
                         [p, i, ull, p, i, ull, u, p, i, i, i, p, p]),
             "probe": (lib.yadcc_bloom_probe, [p, u, i, p, i, p, p]),
+            "membership_range": (lib.yadcc_bloom_membership_range,
+                                 [p, u, i, ull, u, u, p, i, i, i, p, p]),
+            "cascade_pair": (lib.yadcc_bloom_cascade_pair,
+                             [p, i, ull, p, i, ull, u, u, u, p, i, i, i, p,
+                              p]),
             "scatter_or": (lib.yadcc_bloom_scatter_or,
                            [p, p, u, i, p, i, p, p, i, i, i, i, p]),
             "placement_call": (lib.yadcc_placement_call,
@@ -291,6 +296,80 @@ def bloom_cascade(region_words: torch.Tensor, fleet_words: torch.Tensor,
                  packed_keys.data_ptr(), packed_keys.shape[1], length, n,
                  out.data_ptr(), _stream(dev))
     _launched("cascade", err)
+    return out
+
+
+def _check_slice(name: str, words: torch.Tensor, word_lo: int,
+                 num_bits: int, dev: torch.device) -> None:
+    _check(name, words, (words.shape[0],), dev)
+    if not 0 <= word_lo <= (num_bits + 31) // 32 or words.shape[0] < 1:
+        raise ValueError(f"{name}: a slice of {words.shape[0]} words at "
+                         f"{word_lo} of a {num_bits}-bit filter")
+
+
+def bloom_membership_range(words: torch.Tensor, packed_keys: torch.Tensor,
+                           length: int, seed, *, num_bits: int,
+                           num_hashes: int, word_lo: int) -> torch.Tensor:
+    """bool[N]: one slice's verdicts in the filter-sharded membership
+    (``words`` = filter words [word_lo, word_lo + len(words)); a probe
+    outside them counts as set); the drop-in counterpart of
+    bloom_pipeline.membership_range_plain, one launch on the card."""
+    dev = _device(words, "membership")
+    _check_geometry(num_bits, num_hashes)
+    _check_slice("words", words, word_lo, num_bits, dev)
+    n = _check_packed(packed_keys, length, dev)
+    if dev.type == "cpu":
+        return bpl.membership_range_plain(words, packed_keys, length, seed,
+                                          num_bits, num_hashes, word_lo)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    fn = _kernels()["membership_range"]
+    with torch.cuda.device(dev):
+        err = fn(words.data_ptr(), num_bits, num_hashes, _seed64(seed),
+                 word_lo, words.shape[0], packed_keys.data_ptr(),
+                 packed_keys.shape[1], length, n, out.data_ptr(),
+                 _stream(dev))
+    _launched("membership_range", err)
+    return out
+
+
+def bloom_cascade_pair(region_words: torch.Tensor,
+                       fleet_words: torch.Tensor, packed_keys: torch.Tensor,
+                       length: int, region_seed, fleet_seed, *,
+                       num_bits: int, num_hashes_region: int,
+                       num_hashes_fleet: int,
+                       word_lo: int) -> torch.Tensor:
+    """uint8[N]: one slice's codes in the filter-sharded cascade (bit 0
+    the region's verdict on its slice, bit 1 the fleet's; both slices
+    cover the same words); the drop-in counterpart of
+    bloom_pipeline.cascade_pair_plain, one launch on the card."""
+    dev = _device(region_words, "cascade")
+    _check_geometry(num_bits, num_hashes_region)
+    _check_geometry(num_bits, num_hashes_fleet)
+    _check_slice("region_words", region_words, word_lo, num_bits, dev)
+    _check_slice("fleet_words", fleet_words, word_lo, num_bits, dev)
+    if fleet_words.shape != region_words.shape:
+        raise ValueError("the cascade's slices must cover the same words")
+    n = _check_packed(packed_keys, length, dev)
+    if dev.type == "cpu":
+        return bpl.cascade_pair_plain(region_words, fleet_words,
+                                      packed_keys, length, region_seed,
+                                      fleet_seed, num_bits,
+                                      num_hashes_region, num_hashes_fleet,
+                                      word_lo)
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    fn = _kernels()["cascade_pair"]
+    with torch.cuda.device(dev):
+        err = fn(region_words.data_ptr(), num_hashes_region,
+                 _seed64(region_seed), fleet_words.data_ptr(),
+                 num_hashes_fleet, _seed64(fleet_seed), num_bits, word_lo,
+                 region_words.shape[0], packed_keys.data_ptr(),
+                 packed_keys.shape[1], length, n, out.data_ptr(),
+                 _stream(dev))
+    _launched("cascade_pair", err)
     return out
 
 

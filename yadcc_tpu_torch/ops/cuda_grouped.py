@@ -12,7 +12,10 @@ the stream fold and the resident delta scatter stay plain torch ops on
 the card around the launch.
 
 `launches` counts kernel launches (one per launch on the card, whatever
-its grid), so a run can show that its main path went through the kernel.
+its grid), so a run can show that its main path went through the kernel;
+`team_launches` counts the team mode's launches (one a card a team call:
+yadcc_tpu/parallel/mesh.py's sharded grouped search and its stream, over
+a parallel/mesh.py team).
 ``cuda_assign_grouped`` can launch through another loaded copy of the
 library (``lib``: e.g. one the compile farm built from the same source,
 jit/frontend.py:build_library); the checks on the tensors are the same.
@@ -28,6 +31,7 @@ import torch
 
 from ..models.cost import DEFAULT_COST_MODEL, UTIL_SCALE, DispatchCostModel
 from . import assignment_grouped as asg
+from . import team_exchange as tx
 from .assignment import PoolArrays
 
 SOURCE = "grouped_assign.cu"
@@ -38,8 +42,10 @@ _KERNEL_SEARCH_ITERS = 22
 GROUP_FIELDS = asg.GroupedBatch._fields
 
 launches = 0
+team_launches = 0
 _count_lock = threading.Lock()
 _fn = None
+_team_fn = None
 
 
 def _bind(lib: ctypes.CDLL):
@@ -295,3 +301,173 @@ def cuda_resident_control_plane_step(
         getattr(pool, name).copy_(
             running if name == "running" else getattr(new, name))
     return out, pool
+
+
+# ----------------------------------------------------------------------
+# The team mode (one launch a card, one block a slice; csrc/
+# grouped_assign.cu and csrc/team_exchange.cuh).
+# ----------------------------------------------------------------------
+
+
+def _ids(ids) -> ctypes.Array:
+    """A team launch's slice ids, as the int array its entry reads."""
+    return (ctypes.c_int * len(ids))(*ids)
+
+
+def _team_kernel():
+    global _team_fn
+    if _team_fn is None:
+        from ._build import load
+
+        lib = load(SOURCE)
+        fn = lib.yadcc_grouped_assign_team
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, p, i, i, ll, ll, i,
+                       p, p, p, p, i, p, i, p, ll, ll, p]
+        fn.restype = ctypes.c_int
+        lib.yadcc_grouped_assign_scratch_bytes.argtypes = [i]
+        lib.yadcc_grouped_assign_scratch_bytes.restype = ll
+        _team_fn = (fn, lib.yadcc_grouped_assign_scratch_bytes, lib)
+    return _team_fn
+
+
+def _cpu_team(parts) -> bool:
+    if all(dev.type == "cpu" for dev, _ in parts):
+        return True
+    if any(dev.type != "cuda" for dev, _ in parts):
+        raise ValueError(f"no team kernel for the devices "
+                         f"{[str(d) for d, _ in parts]}")
+    return False
+
+
+def _launch_team(tpool, groups, exchange: tx.TeamExchange,
+                 cm: DispatchCostModel):
+    """One K1 team call: a launch on each card of the TeamPool, every
+    one issued before any result is read.  ``groups`` are the four
+    descriptor vectors [G] (any device; copied to each card).  Returns
+    per part (counts int32[n_b, G, per], running int32[n_b*per], info
+    int32[n_b, G, 2])."""
+    from ..parallel.mesh import team_parts
+
+    if exchange is None:
+        raise ValueError("a team launch on the card needs its exchange")
+    if UTIL_SCALE != _KERNEL_UTIL_SCALE or \
+            asg._SEARCH_ITERS != _KERNEL_SEARCH_ITERS:
+        raise ValueError("cost model constants differ from the kernel's")
+    exchange.check(tpool.team)
+    fn, scratch_bytes, lib = _team_kernel()
+    buf = exchange.buffer(lib)
+    epoch = exchange.next_epoch()
+    per = tpool.per
+    n = len(tpool.team)
+    g = groups[0].shape[0]
+    out = []
+    for (dev, ids), pool in zip(team_parts(tpool.team), tpool.parts):
+        nb = len(ids)
+        s = nb * per
+        e = pool.env_bitmap.shape[1] if pool.env_bitmap.dim() == 2 else -1
+        _check("alive", pool.alive, torch.bool, (s,), dev)
+        _check("capacity", pool.capacity, torch.int32, (s,), dev)
+        _check("running", pool.running, torch.int32, (s,), dev)
+        _check("dedicated", pool.dedicated, torch.bool, (s,), dev)
+        _check("version", pool.version, torch.int32, (s,), dev)
+        _check("env_bitmap", pool.env_bitmap, torch.int32, (s, e), dev)
+        gs = [a.to(dev).contiguous() for a in groups]
+        for name, a in zip(GROUP_FIELDS, gs):
+            _check(name, a, torch.int32, (g,), dev)
+        counts = torch.empty((nb, g, per), dtype=torch.int32, device=dev)
+        running = torch.empty(s, dtype=torch.int32, device=dev)
+        info = torch.empty((nb, g, 2), dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(1, nb * scratch_bytes(per)),
+                              dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(pool.alive.data_ptr(), pool.capacity.data_ptr(),
+                     pool.running.data_ptr(), pool.dedicated.data_ptr(),
+                     pool.version.data_ptr(), pool.env_bitmap.data_ptr(), e,
+                     *(a.data_ptr() for a in gs), per, g,
+                     int(cm.dedicated_preference_utilization_q),
+                     int(cm.preference_bonus_q), int(bool(cm.avoid_self)),
+                     counts.data_ptr(), running.data_ptr(),
+                     scratch.data_ptr(), info.data_ptr(), nb, _ids(ids), n,
+                     buf, epoch, tx.SPIN_LIMIT_CYCLES, stream)
+        if err != 0:
+            raise RuntimeError(f"grouped_assign team launch failed: CUDA "
+                               f"error {err}")
+        global team_launches
+        with _count_lock:
+            team_launches += 1
+        out.append((counts, running, info))
+    return out
+
+
+def cuda_assign_grouped_team(
+    tpool,
+    batch: asg.GroupedBatch,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+    exchange: "tx.TeamExchange | None" = None,
+) -> Tuple[tuple, tuple]:
+    """K1's team mode over a parallel/mesh.py TeamPool, the counterpart
+    of yadcc_tpu/parallel/mesh.py:sharded_assign_grouped_fn: per part of
+    the team, (counts int32[n_b, G, per]) and (running int32[n_b*per]).
+    A CPU team takes the plain version, assignment_grouped.
+    assign_grouped_team."""
+    from ..parallel.mesh import team_parts
+
+    parts = team_parts(tpool.team)
+    n = len(tpool.team)
+    if _cpu_team(parts):
+        # One part: the slices in linear order.
+        counts, running = asg.assign_grouped_team(tpool.parts[0], n, batch,
+                                                  cost_model)
+        return ((counts.view(counts.shape[0], n, -1).transpose(0, 1)
+                 .contiguous(),), (running,))
+    got = _launch_team(tpool, [getattr(batch, f) for f in GROUP_FIELDS],
+                       exchange, cost_model)
+    return (tuple(c for c, _, _ in got), tuple(r for _, r, _ in got))
+
+
+def cuda_assign_grouped_picks_stream_team(
+    tpool,
+    packed: torch.Tensor,
+    adj,
+    reset_mask,
+    reset_val,
+    t_max: int,
+    cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+    exchange: "tx.TeamExchange | None" = None,
+) -> Tuple[torch.Tensor, tuple]:
+    """One pipelined stream step over the team, the counterpart of
+    yadcc_tpu/parallel/mesh.py:sharded_assign_grouped_picks_stream_fn:
+    each part folds its share of the host delta (``adj``,
+    ``reset_mask``, ``reset_val``: one tensor a part, as parallel/
+    mesh.py:shard_vector lays them), K1's team mode runs the search,
+    each slice expands its own grants from the counts and the `info`
+    the kernel wrote, and a min over the slices merges the picks on
+    slice 0's device.  Returns (picks int32[t_max], the parts' running
+    vectors, which stay on their cards for the next launch).  A CPU
+    team takes the plain version, assignment_grouped.
+    assign_grouped_picks_stream_team."""
+    from ..parallel.mesh import team_parts
+
+    parts = team_parts(tpool.team)
+    per = tpool.per
+    if _cpu_team(parts):
+        picks, running = asg.assign_grouped_picks_stream_team(
+            tpool.parts[0], len(tpool.team), packed, adj[0], reset_mask[0],
+            reset_val[0], t_max, cost_model)
+        return picks, (running,)
+    folded = tpool._replace(parts=tuple(
+        pool._replace(running=asg.fold_stream_delta(pool.running, a, m, v))
+        for pool, a, m, v in zip(tpool.parts, adj, reset_mask, reset_val)))
+    batch = asg.unpack_grouped(packed)
+    got = _launch_team(folded, list(batch), exchange, cost_model)
+    cands = []
+    for (dev, ids), (counts, _, info) in zip(parts, got):
+        sizes = batch.count.to(dev)
+        for j, k in enumerate(ids):
+            cands.append(asg.expand_counts_slice(
+                counts[j], info[j, :, 0], info[j, :, 1], sizes, t_max,
+                k * per))
+    picks = asg.merge_team_picks(cands, tpool.team[0])
+    return picks, tuple(r for _, r, _ in got)

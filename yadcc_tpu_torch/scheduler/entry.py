@@ -195,7 +195,8 @@ def build_dispatcher(args):
              else args.max_servants)
     policies = [make_policy(args.dispatch_policy,
                             avoid_self=not args.allow_self_dispatch,
-                            device=device) for _ in range(n)]
+                            device=device, max_servants=width)
+                for _ in range(n)]
     depth = resolve_pipeline_depth(args.dispatch_pipeline_depth,
                                    policies[0], device)
     for policy in policies:

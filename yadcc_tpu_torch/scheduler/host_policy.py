@@ -143,15 +143,22 @@ class GreedyCpuPolicy(DispatchPolicy):
 # policies of the same semantics: torch_grouped for jax_grouped and
 # jax_pallas_grouped, torch_batched for jax_batched and jax_pallas,
 # torch_resident_grouped for jax_resident_grouped and
-# jax_resident_pallas_grouped (the kernel follows the device, not a name).
+# jax_resident_pallas_grouped (the kernel follows the device, not a name),
+# torch_sharded for jax_sharded and torch_sharded_grouped for
+# jax_sharded_grouped (the pool split over a team, parallel/mesh.py).
 POLICY_NAMES = ("auto", "greedy_cpu", "torch_grouped", "torch_batched",
-                "torch_resident_grouped")
+                "torch_resident_grouped", "torch_sharded",
+                "torch_sharded_grouped")
 
 
-def make_policy(name: str, avoid_self: bool = True,
-                device="cuda") -> DispatchPolicy:
+def make_policy(name: str, avoid_self: bool = True, device="cuda",
+                team=None, max_servants: "int | None" = None
+                ) -> DispatchPolicy:
     """Policy by its --dispatch-policy name; device policies run on
-    ``device`` (a torch device or its name) and take any pool width."""
+    ``device`` (a torch device or its name) and take any pool width.
+    The team policies run over ``team`` (default: every card, or one
+    CPU slice on device="cpu"); torch_sharded checks ``max_servants``
+    against it, as jax_sharded does."""
     from dataclasses import replace
 
     cm = replace(DEFAULT_COST_MODEL, avoid_self=avoid_self)
@@ -161,7 +168,8 @@ def make_policy(name: str, avoid_self: bool = True,
         raise ValueError(f"unknown dispatch policy {name!r}")
     # The device policies load torch; the host path above does not.
     from .policy import (AutoPolicy, TorchBatchedPolicy,
-                         TorchGroupedPolicy, TorchResidentGroupedPolicy)
+                         TorchGroupedPolicy, TorchResidentGroupedPolicy,
+                         TorchShardedGroupedPolicy, TorchShardedPolicy)
 
     if name == "torch_grouped":
         return TorchGroupedPolicy(device, cost_model=cm)
@@ -169,4 +177,10 @@ def make_policy(name: str, avoid_self: bool = True,
         return TorchBatchedPolicy(device, cost_model=cm)
     if name == "torch_resident_grouped":
         return TorchResidentGroupedPolicy(device, cost_model=cm)
+    if name == "torch_sharded":
+        return TorchShardedPolicy(max_servants, team=team, cost_model=cm,
+                                  device=device)
+    if name == "torch_sharded_grouped":
+        return TorchShardedGroupedPolicy(team=team, cost_model=cm,
+                                         device=device)
     return AutoPolicy(device, cost_model=cm)

@@ -49,6 +49,8 @@ class StreamTicket:
     launch_id: int
     picks: torch.Tensor
     ready: Optional[torch.cuda.Event] = None  # None: already on the host
+    # A team policy's launch epoch on its exchange (ops/team_exchange.py).
+    team_epoch: Optional[int] = None
 
 
 class _DevicePoolCache:
@@ -107,15 +109,27 @@ def _own_stream(device: torch.device) -> "torch.cuda.Stream | None":
 
 def _on_own_stream(method):
     """Run a policy method with the policy's own stream current, so every
-    launch, upload and event inside it goes there."""
+    launch, upload and event inside it goes there (a team policy: its
+    stream on each of the team's cards)."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
-        ctx = (torch.cuda.stream(self._cuda_stream)
-               if self._cuda_stream is not None
-               else contextlib.nullcontext())
-        with ctx:
+        streams = getattr(self, "_team_streams", ())
+        with contextlib.ExitStack() as ctx:
+            for stream in streams + (self._cuda_stream,):
+                if stream is not None:
+                    ctx.enter_context(torch.cuda.stream(stream))
             return method(self, *args, **kwargs)
     return run
+
+
+def _team_streams(team, device: torch.device) -> tuple:
+    """A stream of the policy's own on each card of ``team`` but
+    ``device`` (whose stream is the policy's ``_cuda_stream``), so no
+    slice's launch waits behind other work on a card's current
+    stream."""
+    cards = {torch.device(d) for d in team}
+    return tuple(torch.cuda.Stream(d) for d in sorted(cards, key=str)
+                 if d.type == "cuda" and d != device)
 
 
 def _zero_snapshot(pool_size: int, env_words: int) -> PoolSnapshot:
@@ -326,6 +340,13 @@ class TorchGroupedPolicy(DispatchPolicy):
         return kgrouped.cuda_assign_grouped_picks_stream(
             pool, packed, adj, rmask, rval, t_max, self._cm)
 
+    def _run_picks_kernel(self, pool, packed, t_max: int):
+        return kgrouped.cuda_assign_grouped_picks_packed(
+            pool, packed, t_max, self._cm)
+
+    def _run_grouped_kernel(self, pool, batch):
+        return kgrouped.cuda_assign_grouped(pool, batch, self._cm)
+
     @_on_own_stream
     def stream_launch(self, snap, descr, adj, reset_slots,
                       dirty=None) -> StreamTicket:
@@ -416,13 +437,11 @@ class TorchGroupedPolicy(DispatchPolicy):
         pool = self._zero_pool(pool_size, env_words)
         if self._decide_expand():
             for pad, t_pad in self._ladder():
-                kgrouped.cuda_assign_grouped_picks_packed(
-                    pool, self._packed([], pad), t_pad, self._cm)
+                self._run_picks_kernel(pool, self._packed([], pad), t_pad)
         else:
             for pad in sorted({pad for pad, _ in self._ladder()}):
-                kgrouped.cuda_assign_grouped(
-                    pool, asg.unpack_grouped(self._packed([], pad)),
-                    self._cm)
+                self._run_grouped_kernel(
+                    pool, asg.unpack_grouped(self._packed([], pad)))
         self._sync()
         self._warmed_pool_shapes.add((pool_size, env_words))
 
@@ -449,9 +468,8 @@ class TorchGroupedPolicy(DispatchPolicy):
                 # O(T) bytes down instead of the O(G*S) counts matrix.
                 sizes = [len(m) for _, m in chunk]
                 t_pad = asg.task_pad(sum(sizes))
-                flat, new_running = \
-                    kgrouped.cuda_assign_grouped_picks_packed(
-                        pool, packed, t_pad, self._cm)
+                flat, new_running = self._run_picks_kernel(
+                    pool, packed, t_pad)
                 flat = flat.cpu().numpy()  # ytpu: allow(device-sync)  # pick readback: the cycle's one device-to-host copy
                 running = new_running.cpu().numpy()  # ytpu: allow(device-sync)  # sync collect: the running vector rides the pick readback
                 off = 0
@@ -460,8 +478,8 @@ class TorchGroupedPolicy(DispatchPolicy):
                         picks[req_idx] = int(s)
                     off += size
                 continue
-            counts, new_running = kgrouped.cuda_assign_grouped(
-                pool, asg.unpack_grouped(packed), self._cm)
+            counts, new_running = self._run_grouped_kernel(
+                pool, asg.unpack_grouped(packed))
             counts = counts.cpu().numpy()  # ytpu: allow(device-sync)  # sync collect: counts readback of the cycle
             running = new_running.cpu().numpy()  # ytpu: allow(device-sync)  # sync collect
             # Expand (group, slot)->count into per-request picks with
@@ -540,6 +558,229 @@ class TorchResidentGroupedPolicy(TorchGroupedPolicy):
         stats = super().stream_stats()
         stats.update(self.resident_pool.inspect())
         return stats
+
+
+def _team_of(team, device) -> tuple:
+    """The policy's team: the one given, or every card (the JAX
+    policies' make_mesh()), or one CPU slice for device="cpu"."""
+    from ..parallel import mesh
+
+    return (mesh.make_team(device=device) if team is None
+            else mesh.as_team(team))
+
+
+def _upload_team_pool(snap: PoolSnapshot, running, team,
+                      cache: _DevicePoolCache):
+    """Host snapshot -> a TeamPool over ``team`` (parallel/mesh.py), the
+    statics cached for the snapshot's epoch, each part on its card (the
+    JAX sharded policy's epoch cache: no re-upload of the bitmap to every
+    card between heartbeats).  ``running`` is a numpy array or the
+    stream's resident parts."""
+    from ..parallel import mesh
+
+    per = mesh.slice_size(snap.alive.shape[0], team)
+    home = team[0]
+
+    def shard(a, dtype):
+        return mesh.shard_vector(_upload(a, dtype, home), team, per)
+
+    entry = cache.entry
+    if entry is not None and snap.epoch >= 0 and entry[0] == snap.epoch:
+        statics = entry[1]
+    else:
+        statics = (
+            shard(snap.alive, np.bool_), shard(snap.dedicated, np.bool_),
+            shard(snap.version, np.int32),
+            shard(np.ascontiguousarray(snap.env_bitmap,
+                                       np.uint32).view(np.int32),
+                  np.int32))
+        if snap.epoch >= 0:
+            cache.entry = (snap.epoch, statics)
+    alive, dedicated, version, env_bitmap = statics
+    capacity = shard(snap.capacity, np.int32)
+    if not isinstance(running, tuple):
+        running = shard(running, np.int32)
+    return mesh.TeamPool(team, per, tuple(
+        asn.PoolArrays(alive=a, capacity=c, running=r, dedicated=d,
+                       version=v, env_bitmap=e)
+        for a, c, r, d, v, e in zip(alive, capacity, running, dedicated,
+                                    version, env_bitmap)))
+
+
+class TorchShardedPolicy(TorchBatchedPolicy):
+    """The sequential scan with the servant axis split over a team
+    (parallel/mesh.py): K2's team mode, each task's least key agreed
+    through the team's exchange (the counterpart of the JAX package's
+    jax_sharded, JaxShardedPolicy).  ``team`` defaults to every card
+    (on device="cpu", one CPU slice).  The outcomes are the scan's,
+    slot for slot."""
+
+    name = "torch_sharded"
+
+    def __init__(self, max_servants: "int | None" = None, team=None,
+                 max_batch: int = 256,
+                 cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+                 device="cuda"):
+        from ..ops.team_exchange import TeamExchange
+
+        self._team = _team_of(team, device)
+        super().__init__(self._team[0], max_batch, cost_model)
+        self._team_streams = _team_streams(self._team, self._device)
+        self._exchange = TeamExchange()
+        n = len(self._team)
+        if max_servants is not None and max_servants % n:
+            raise ValueError(
+                f"max_servants ({max_servants}) must divide evenly over "
+                f"{n} devices")
+
+    @_on_own_stream
+    def assign(self, snap, requests):
+        from ..parallel import mesh
+
+        n = len(requests)
+        if n == 0:
+            return []
+        tpool = _upload_team_pool(snap, snap.running, self._team,
+                                  self._pool_cache)
+        batch = asn.make_batch(
+            [r.env_id for r in requests],
+            [r.min_version for r in requests],
+            [r.requestor_slot for r in requests],
+            pad_to=n, device=self._device)
+        chunks = []
+        for start in range(0, n, self._max_batch):
+            cut = slice(start, start + self._max_batch)
+            got, running = mesh.sharded_assign(
+                tpool, asn.TaskBatch(*(x[cut] for x in batch)), self._cm,
+                self._exchange)
+            tpool = tpool._replace(parts=tuple(
+                p._replace(running=r) for p, r in zip(tpool.parts,
+                                                      running)))
+            chunks.append(got)
+        picks = torch.cat(chunks).tolist()  # ytpu: allow(device-sync)  # pick readback: the cycle's one .tolist()
+        self._exchange.check(self._team)
+        return picks
+
+
+class TorchShardedGroupedPolicy(TorchGroupedPolicy):
+    """The grouped threshold search with the servant axis split over a
+    team (parallel/mesh.py): K1's team mode, each bisect step's total
+    and each group's tie split agreed through the team's exchange (the
+    counterpart of jax_sharded_grouped, JaxShardedGroupedPolicy).  The
+    sync path expands the counts on the host, as the JAX policy does;
+    the stream path runs the team's search with the sharded expansion,
+    `running` resident on each slice's card.  ``team`` defaults to every
+    card (on device="cpu", one CPU slice)."""
+
+    name = "torch_sharded_grouped"
+
+    def __init__(self, team=None, max_groups: int = 64,
+                 cost_model: DispatchCostModel = DEFAULT_COST_MODEL,
+                 device="cuda"):
+        from ..ops.team_exchange import TeamExchange
+
+        self._team = _team_of(team, device)
+        super().__init__(self._team[0], max_groups, cost_model)
+        self._team_streams = _team_streams(self._team, self._device)
+        self._ndev = len(self._team)
+        self._exchange = TeamExchange()
+
+    def _decide_expand(self) -> bool:
+        # The team's counts live over its cards: the sync path expands
+        # on the host (the stream path has its own sharded expansion).
+        return False
+
+    def _prepare_grouped_pool(self, snap, running):
+        return _upload_team_pool(snap, running, self._team,
+                                 self._pool_cache)
+
+    def _zero_pool(self, pool_size: int, env_words: int):
+        from ..parallel import mesh
+
+        return mesh.shard_pool(super()._zero_pool(pool_size, env_words),
+                               self._team)
+
+    def _run_grouped_kernel(self, tpool, batch):
+        from ..parallel import mesh
+
+        counts, running = mesh.sharded_assign_grouped(
+            tpool, batch, self._cm, self._exchange)
+        # Read back here, and check the exchange before anyone expands
+        # the counts: a faulted launch leaves them unwritten.
+        counts = mesh.unshard_counts(counts, tpool)
+        running = mesh.unshard_vector(running, tpool.team, tpool.per)
+        counts = counts.cpu()  # ytpu: allow(device-sync)  # sync collect: counts readback of the cycle, moved before the expansion
+        running = running.cpu()  # ytpu: allow(device-sync)  # sync collect
+        self._exchange.check(self._team)
+        return counts, running
+
+    def _run_stream_kernel(self, tpool, packed, adj, rmask, rval,
+                           t_max: int):
+        from ..parallel import mesh
+
+        def shard(v):
+            return mesh.shard_vector(v, tpool.team, tpool.per)
+
+        return mesh.sharded_assign_grouped_picks_stream(
+            tpool, packed, shard(adj), shard(rmask), shard(rval), t_max,
+            self._cm, self._exchange)
+
+    @_on_own_stream
+    def assign(self, snap, requests):
+        picks = super().assign(snap, requests)
+        self._exchange.check(self._team)
+        return picks
+
+    @_on_own_stream
+    def stream_begin(self, snap) -> None:
+        from ..parallel import mesh
+
+        self._stream_running = mesh.shard_vector(
+            _upload(snap.running, np.int32, self._device), self._team)
+        self._stream_next_id = 0
+        self._stream_epoch = snap.epoch
+
+    def _ticket(self, picks: torch.Tensor) -> StreamTicket:
+        ticket = super()._ticket(picks)
+        ticket.team_epoch = self._exchange.epoch
+        return ticket
+
+    def _stream_seeded(self, snap) -> bool:
+        running = getattr(self, "_stream_running", None)
+        return (running is not None
+                and sum(r.shape[0] for r in running)
+                == snap.running.shape[0])
+
+    @_on_own_stream
+    def stream_warmup(self, pool_size: int, env_words: int = 8) -> None:
+        tpool = self._zero_pool(pool_size, env_words)
+        zeros = torch.zeros(pool_size, dtype=torch.int32,
+                            device=self._device)
+        falses = torch.zeros(pool_size, dtype=torch.bool,
+                             device=self._device)
+        for pad, t_pad in self._ladder():
+            self._run_stream_kernel(tpool, self._packed([], pad), zeros,
+                                    falses, zeros, t_pad)
+        self._sync()
+        self._exchange.check(self._team)
+
+    def stream_collect(self, ticket: StreamTicket) -> np.ndarray:
+        picks = super().stream_collect(ticket)
+        try:
+            self._exchange.check(self._team, ticket.team_epoch)
+        except RuntimeError:
+            # The chain's running vectors are void too: the next launch
+            # reseeds from the snapshot (a resync).
+            self._stream_running = None
+            raise
+        return picks
+
+    def _sync(self) -> None:
+        from ..parallel import mesh
+
+        for dev, _ in mesh.team_parts(self._team):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)  # ytpu: allow(device-sync)  # warmup fence: runs before the first cycle, not in it
 
 
 class AutoPolicy(DispatchPolicy):

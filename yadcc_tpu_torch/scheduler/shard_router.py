@@ -114,11 +114,16 @@ class ShardRouter:
         clock: Clock = REAL_CLOCK,
         steal: Optional[StealConfig] = None,
         device=None,
+        team=None,
         vnodes_per_weight: int = SCHEDULER_VNODES_PER_WEIGHT,
     ):
         if not shards:
             raise ValueError("need at least one shard")
         n = len(shards)
+        if team is not None and len(team) != n:
+            raise ValueError(
+                f"mesh has {len(team)} devices for {n} shards; the "
+                "control-plane layout is one shard slice per device")
         for k, d in enumerate(shards):
             # Any positive multiple of N as the stride preserves the
             # routing invariant shard_of_grant relies on: ids ≡ k+1
@@ -164,7 +169,15 @@ class ShardRouter:
         # Device load summary: one reduction over the concatenated pool
         # on ``device``, refreshed from the expiration sweep; read by
         # inspect().  None: no device view (the host load cache only).
+        # With a ``team`` (parallel/mesh.py, one device a shard, as the
+        # JAX router's mesh), each shard's slice is reduced on its own
+        # team device instead.
         self._device = None
+        self._team = None
+        if team is not None:
+            from ..parallel import mesh
+
+            self._team = mesh.as_team(team)
         if device is not None:
             import torch
 
@@ -181,6 +194,7 @@ class ShardRouter:
               clock: Clock = REAL_CLOCK,
               steal: Optional[StealConfig] = None,
               device=None,
+              team=None,
               grant_namespace: Tuple[int, int] = (0, 1),
               **dispatcher_kwargs) -> "ShardRouter":
         """Construct the N shard dispatchers with the grant-id
@@ -209,7 +223,8 @@ class ShardRouter:
             )
             for k in range(n_shards)
         ]
-        return cls(shards, clock=clock, steal=steal, device=device)
+        return cls(shards, clock=clock, steal=steal, device=device,
+                   team=team)
 
     # -- routing ------------------------------------------------------------
 
@@ -557,7 +572,7 @@ class ShardRouter:
     def on_expiration_timer(self) -> None:
         for d in self._shards:
             d.on_expiration_timer()
-        if self._device is None:
+        if self._device is None and self._team is None:
             return
         now = self._clock.now()
         with self._lock:
@@ -739,10 +754,11 @@ class ShardRouter:
     def refresh_load_summary(self) -> np.ndarray:
         """Gather each shard's (alive, capacity, running) slice, pad to
         the common slice width, reduce per shard on the router's device
-        (parallel/mesh.py:shard_load_summary); returns and keeps the
-        [n_shards, 3] (alive, free, running) rows."""
+        (parallel/mesh.py:shard_load_summary), or each shard's slice on
+        its own team device when the router has a team; returns and
+        keeps the [n_shards, 3] (alive, free, running) rows."""
         dev = self._device
-        if dev is None:
+        if dev is None and self._team is None:
             raise RuntimeError("the router has no device for its load "
                                "summary (ShardRouter(device=...))")
         import torch
@@ -755,10 +771,20 @@ class ShardRouter:
         def cat(i):
             return torch.from_numpy(np.concatenate([
                 np.pad(s[i], (0, per - s[i].shape[0])) for s in slices
-            ])).to(dev)
+            ]))
 
-        rows = mesh.shard_load_summary(cat(0), cat(1), cat(2),  # ytpu: allow(device-sync)  # rebalance tick: the load summary is read once a tick, off the grant path
-                                       len(self._shards)).cpu().numpy()
+        if self._team is not None:
+            loads = mesh.shard_pool_loads(self._team, cat(0), cat(1),
+                                          cat(2))
+            rows = np.zeros((len(self._shards), 3), np.int32)
+            for (_, ids), a, c, r in zip(mesh.team_parts(self._team),
+                                         *loads):
+                rows[list(ids)] = mesh.shard_load_summary(  # ytpu: allow(device-sync)  # rebalance tick: the load summary is read once a tick, off the grant path
+                    a, c, r, len(ids)).cpu().numpy()
+        else:
+            rows = mesh.shard_load_summary(cat(0).to(dev), cat(1).to(dev),  # ytpu: allow(device-sync)  # rebalance tick: the load summary is read once a tick, off the grant path
+                                           cat(2).to(dev),
+                                           len(self._shards)).cpu().numpy()
         with self._lock:
             self._summary_rows = rows
         return rows

@@ -314,6 +314,72 @@ class FederatedCluster:
     def wait_promoted(self, timeout_s: float = 10.0) -> bool:
         return self.promoted.wait(timeout_s)
 
+    def drive_promoted(self, want: int = 1, timeout_s: float = 20.0,
+                       pace_s: float = 0.05) -> dict:
+        """Demand for the replicated cell's own servants through the
+        promoted standby, after a takeover: WaitForStartingTask calls,
+        one at a time, over the cell's dial list (the dead active
+        first, the standby next) until the promoted dispatcher has
+        granted ``want`` of them or ``timeout_s`` has passed; every
+        grant is freed at once.
+
+        The takeover restores the dead active's admission rung, so a
+        scheduler killed mid-storm comes back at SPILLOVER and forwards
+        each request to a peer cell until its ladder steps down.  The
+        ladder moves only when a request or a sweep reaches it, so a
+        storm that ends inside that window leaves the promoted
+        scheduler with no grant of its own.  These calls are that
+        demand: each one reaches the promoted ladder, and a spilled
+        grant is counted and freed like a local one.
+
+        Returns {"calls", "granted_here", "spilled", "granted_before",
+        "granted_after"}; the last two are the promoted dispatcher's
+        ``granted`` counter around the drive."""
+        dispatcher = self.standby.dispatcher
+        if dispatcher is None:
+            raise RuntimeError("drive_promoted: the standby was never "
+                               "promoted")
+        cell = self.replicate_cell
+        env = self.servants[0]._envs[0]
+        before = dispatcher.inspect()["stats"]["granted"]
+        out = {"calls": 0, "granted_here": 0, "spilled": 0}
+        chan = Channel(self.cell_dial_uri(cell))
+        deadline = time.monotonic() + timeout_s
+        try:
+            while (out["granted_here"] < want
+                   and time.monotonic() < deadline):
+                req = api.scheduler.WaitForStartingTaskRequest(
+                    token="", milliseconds_to_wait=250, immediate_reqs=1,
+                    next_keep_alive_in_ms=3000)
+                req.env_desc.compiler_digest = env
+                out["calls"] += 1
+                try:
+                    resp, _ = chan.call(
+                        "ytpu.SchedulerService", "WaitForStartingTask",
+                        req, api.scheduler.WaitForStartingTaskResponse,
+                        timeout=2.5)
+                except RpcError:
+                    time.sleep(pace_s)
+                    continue
+                here = out["granted_here"]
+                for g in resp.grants:
+                    if g.spilled or g.cell_id != cell:
+                        out["spilled"] += 1
+                    else:
+                        out["granted_here"] += 1
+                    chan.call("ytpu.SchedulerService", "FreeTask",
+                              api.scheduler.FreeTaskRequest(
+                                  token="",
+                                  task_grant_ids=[g.task_grant_id]),
+                              api.scheduler.FreeTaskResponse, timeout=2.5)
+                if out["granted_here"] == here:
+                    time.sleep(pace_s)
+        finally:
+            chan.close()
+        out["granted_before"] = before
+        out["granted_after"] = dispatcher.inspect()["stats"]["granted"]
+        return out
+
     # -- teardown ------------------------------------------------------------
 
     def stop(self) -> None:

@@ -63,7 +63,10 @@ home shards so the cross-shard steal path actually runs.  The JSON
 gains `steal_rate`, per-shard `latency_breakdown`s, a
 `demand_balance` section (max-shard demand vs mean, sampled ~20Hz) and
 the router's `load_summary` (parallel/mesh.py:shard_load_summary on the
-device; `--mesh-loads off` keeps it off).
+device; `--mesh-loads off` keeps it off).  `PodSim(team=...)` takes a
+parallel/mesh.py team where the JAX tool builds a mesh: sharded, one
+device a shard for the load summary; unsharded, the team of a
+torch_sharded or torch_sharded_grouped policy.
 `--smoke` is the CI gate (small fleet, hotspot skew, assertions on
 steal engagement, unique grant ids, and aggregate==Σ per-shard).
 `--ab` runs the sharded-vs-single + steal-on/off A/B; its single-
@@ -153,7 +156,7 @@ class PodSim:
                  mesh_loads: str = "auto", check_unique: bool = False,
                  arrival_rate: float = 0.0, pump_batch: int = 128,
                  steal_batch: int = 64, frontend: str = "mock",
-                 device="cuda"):
+                 device="cuda", team=None):
         from ..cache.cache_engine import NullCacheEngine
         from ..device import resolve_device
         from ..cache.in_memory_cache import InMemoryCache
@@ -208,7 +211,8 @@ class PodSim:
             # pass still scans.
             pool = max(512, (servants * 9 // 8 + 64 + 255) // 256 * 256)
             pol = make_policy(policy, avoid_self=False,
-                              device=self.device)
+                              device=self.device, team=team,
+                              max_servants=pool)
             # Like scheduler/entry.py: device kernels compile before
             # serving, never inside a live grant cycle.
             if pipeline_depth > 0:
@@ -229,22 +233,26 @@ class PodSim:
             per = servants // self.shards
             pool = max(256, (per * 10 // 8 + 64 + 255) // 256 * 256)
             policies = [make_policy(policy, avoid_self=False,
-                                    device=self.device)
+                                    device=self.device,
+                                    max_servants=pool)
                         for _ in range(self.shards)]
             for pol in policies:
                 if pipeline_depth > 0:
                     pol.stream_warmup(pool)
                 else:
                     pol.warmup(pool)
-            # The cross-shard load summary runs on the device ('auto')
-            # or not at all ('off'); on one card every shard slice lives
-            # on that card, so no mesh is needed.
+            # The cross-shard load summary runs on the device ('auto'),
+            # each shard's slice on its own device of ``team`` when one
+            # is given (the JAX tool's mesh, one device a shard), or not
+            # at all ('off').
+            on = mesh_loads != "off"
             self.router = ShardRouter.build(
                 lambda k: policies[k], self.shards,
                 max_servants_per_shard=pool,
                 steal=StealConfig(enabled=steal,
                                   max_batch=max(1, steal_batch)),
-                device=self.device if mesh_loads != "off" else None,
+                device=self.device if on and team is None else None,
+                team=team if on else None,
                 batch_window_s=0.001,
                 min_memory_for_new_task=1,
                 pipeline_depth=pipeline_depth)
